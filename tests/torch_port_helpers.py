@@ -1,0 +1,65 @@
+"""Shared fixtures of the PyTorch port's parity tests (tests/test_torch_*.py).
+
+Inputs are made once with numpy and handed to both packages; trees cross
+from JAX to the port as numpy arrays (fp8 codes through their uint8 view,
+since numpy has no e4m3 type of its own).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# The JAX kernel tests' tiny model (tests/test_kernels.py), and a
+# two-encoder-block variant whose second pool runs on an odd grid when fed
+# a 20 x 28 input (stem 10 x 14, pool 5 x 7, pool 3 x 4).
+TINY_KW = dict(img_size=32, stem_features=4, encoder_features=(8,), decoder_features=(8, 4))
+TWO_BLOCK_KW = dict(
+    img_size=32, stem_features=4, encoder_features=(8, 8), decoder_features=(8, 8, 4)
+)
+SWEEP_SHAPES = [(4, 7, 5), (8, 128, 128), (33, 130, 129), (1, 256, 3), (16, 9, 17)]
+
+
+def jax_variables(kw: dict, seed: int = 0) -> dict:
+    """The JAX package's ``init_variables`` as a plain dict of numpy arrays."""
+    import jax
+
+    from fedcrack_tpu.configs import ModelConfig
+    from fedcrack_tpu.models.resunet import init_variables
+
+    return to_numpy_tree(init_variables(jax.random.key(seed), ModelConfig(**kw)))
+
+
+def to_numpy_tree(node):
+    if hasattr(node, "items"):
+        return {k: to_numpy_tree(v) for k, v in node.items()}
+    return np.asarray(node)
+
+
+def to_torch_tree(node):
+    """numpy (incl. ml_dtypes fp8) tree -> tensor tree."""
+    if isinstance(node, dict):
+        return {k: to_torch_tree(v) for k, v in node.items()}
+    arr = np.asarray(node)
+    if arr.dtype.itemsize == 1 and arr.dtype.kind in ("V", "f"):
+        return torch.from_numpy(arr.view(np.uint8).copy()).view(torch.float8_e4m3fn)
+    return torch.from_numpy(arr.copy())
+
+
+def code_bytes(node) -> np.ndarray:
+    """The raw bytes of a 1-byte code array or tensor, as uint8."""
+    if isinstance(node, torch.Tensor):
+        return node.view(torch.uint8).numpy()
+    return np.asarray(node).view(np.uint8)
+
+
+def port_config(kw: dict):
+    from fedcrack_tpu_torch.configs import ModelConfig
+
+    return ModelConfig(**kw)
+
+
+def jax_config(kw: dict):
+    from fedcrack_tpu.configs import ModelConfig
+
+    return ModelConfig(**kw)
