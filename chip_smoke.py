@@ -8,7 +8,8 @@ Runs from the root of a checkout on a machine with one NVIDIA H100 and
 on failure, so any failure exits non-zero and prints no result):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-2. build: compiles ``fedcrack_tpu_torch/kernels/csrc/dequant.cu`` (sm_90a);
+2. build: compiles ``fedcrack_tpu_torch/kernels/csrc/dequant.cu`` and
+   ``bce_sums.cu`` (sm_90a), one nvcc each, started together;
 3. kernels vs plain: ``dequant_matmul`` (int8 and e4m3 codes) at every GEMM
    shape the fused forward launches at bucket 256 x batch 8 with
    ``ModelConfig()``, plus a ragged sweep: per entry within the per-channel
@@ -22,7 +23,18 @@ on failure, so any failure exits non-zero and prints no result):
    8 at 128^2, 2 padded) and one tiled 512 x 384 image through
    ``predict_image``, twice. Launch counts are reset right before and read
    right after; fused vs reference plane on the probe batch; throughput;
-5. the fp8 plane: the same with ``kernel_plane="fp8"``, one batch served.
+5. the fp8 plane: the same with ``kernel_plane="fp8"``, one batch served;
+6. ``bce_sums`` vs plain at the train step's logits (16 x 128 x 128), at
+   8 x 256 x 256, and over a ragged sweep: count lanes equal, BCE lanes
+   within rtol 1e-5 / atol 1e-3, bitwise equal run to run; kernel, plain,
+   library and bound times;
+7. train at full width (the training path's main path): ``ModelConfig()``
+   at 128 px, batch 16, two clients of 64 seeded synthetic samples and 32
+   held out; two rounds of ``make_train_fn`` per client (one local epoch),
+   ``fold(FedAvg())`` over the sorted triples and ``evaluate`` of each new
+   global. ``bce_sums`` launches must equal train steps plus eval batches.
+   Then one train step on the card against the same step on the CPU, two
+   local fits bitwise equal, step throughput and a profile of one step.
 
 The last three lines: the card's name and power limit, the per-kernel JSON
 object, and ``{"ok": true, "device": {...}}``.
@@ -45,6 +57,12 @@ FP32_FLOPS_PER_S = 67e12
 
 SWEEP_SHAPES = [(4, 7, 5), (8, 128, 128), (33, 130, 129), (1, 256, 3), (16, 9, 17)]
 BUCKET, BATCH = 256, 8
+# The training path: the reference's client shape, and the JAX kernel
+# test's ragged sizes for bce_sums.
+TRAIN_SIZE, TRAIN_BATCH = 128, 16
+BCE_SWEEP = [1, 100, 128, 32768, 32769, 100_000]
+# bce_sums reads x and y (8 bytes) and does ~20 operations per element.
+BCE_OPS_PER_ELEMENT = 20
 
 
 def log(msg: str) -> None:
@@ -368,6 +386,278 @@ def profile_batches(torch, engine, weights, batch, card: str, n: int = 5) -> Non
             f"{e.count // n:4d} calls/batch  {e.key[:110]}")
 
 
+def bce_phase(torch, card: str) -> dict:
+    """Phase 6: ``bce_sums`` against its plain version on the card."""
+    import torch.nn.functional as F
+
+    from fedcrack_tpu_torch.ops import bce
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    cases = [("train_step", (TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 1)), ("256px", (8, 256, 256, 1))]
+    cases += [(f"n={n}", (n,)) for n in BCE_SWEEP]
+    row = {"max_abs_err": 0.0}
+    for label, shape in cases:
+        x = torch.randn(shape, generator=gen, device=dev) * 2.0
+        y = (torch.rand(shape, generator=gen, device=dev) > 0.7).to(torch.float32)
+        got = bce.bce_sums(x, y)
+        again = bce.bce_sums(x, y)
+        plain = bce._bce_sums_plain(x, y)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"bce_sums {label}: not bitwise equal run to run")
+        if not torch.equal(got[1:4], plain[1:4]):
+            raise AssertionError(f"bce_sums {label}: count lanes {got[1:4].tolist()} != {plain[1:4].tolist()}")
+        err = (got - plain).abs()
+        if not bool((err <= 1e-3 + 1e-5 * plain.abs()).all()):
+            raise AssertionError(f"bce_sums {label}: BCE lanes {got.tolist()} vs plain {plain.tolist()}")
+        row["max_abs_err"] = max(row["max_abs_err"], float(err.max()))
+        if len(shape) == 1:
+            continue
+        n = x.numel()
+        t_k = cuda_ms(torch, lambda: bce.bce_sums(x, y), iters=50)
+        t_p = cuda_ms(torch, lambda: bce._bce_sums_plain(x, y), iters=50)
+        t_l = cuda_ms(torch, lambda: F.binary_cross_entropy_with_logits(x, y, reduction="sum"), iters=50)
+        b_ms, b_by = bound_ms(8 * n + 4 * 5, BCE_OPS_PER_ELEMENT * n)
+        log(f"bce_sums {label} {tuple(shape)} (n={n}): kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+            f"F.binary_cross_entropy_with_logits (lane 0 only) {t_l:.4f} ms, bound {b_ms:.6f} ms "
+            f"({b_by}), max_abs_err {float(err.max()):.3g} [{card}]")
+        if label == "train_step":
+            row.update(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
+            dev_us = kernel_device_us(torch, lambda: bce.bce_sums(x, y), ("bce_partials", "bce_final"))
+            log(f"bce_sums {label}: device time per call (torch.profiler) "
+                f"{json.dumps({k: round(v, 3) for k, v in dev_us.items()})} us; the CUDA-event time above "
+                f"includes the host's per-call work between back-to-back launches [{card}]")
+    return row
+
+
+def kernel_device_us(torch, fn, names: tuple[str, ...], n: int = 20) -> dict[str, float]:
+    """Device time per call of each named kernel, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {name: 0.0 for name in names}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for name in names:
+                if name in e.key:
+                    out[name] += e.self_device_time_total / n
+    return out
+
+
+def _flat_tree(tree, path=()):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _flat_tree(tree[k], path + (k,))
+        else:
+            yield path + (k,), tree[k]
+
+
+def _bn_fed_bias(name: str) -> bool:
+    """Biases of the convs that feed a train-mode BatchNorm: the batch mean
+    subtracts them again, so their true gradient is exactly 0."""
+    return name.endswith(".bias") and (
+        name.startswith("stem_conv.") or ".pointwise." in name
+        or "_convT1." in name or "_convT2." in name)
+
+
+def check_one_step(torch, start_tree, one_step, lr: float) -> None:
+    """One train step from the same weights and batch on the card (cuDNN)
+    and on the CPU (oneDNN, the plain BCE version). Tolerances and why:
+
+    - loss: one float32 reduction over 262,144 pixels after two conv
+      stacks that sum in other orders: 1e-4 relative;
+    - gradients: per leaf within 5e-3 of the leaf's largest gradient (the
+      conv algorithms' other summation orders, then the BatchNorm backward
+      subtracts two means of 65,536 terms); a bias feeding a train-mode
+      BatchNorm has a true gradient of 0, so there both sides stay at
+      noise, below 1e-4 of the largest gradient of the net;
+    - parameters: Adam's first step is lr*g/(|g| + 1e-7), so where the two
+      gradients agree in sign and both exceed 2e-5 the steps differ by at
+      most lr*1e-7/2e-5 = 5e-3*lr; held to 1e-2*lr there. Elsewhere (sign
+      flips of noise-level gradients, the BatchNorm-fed biases) each side
+      moves at most lr (plus float32 rounding of the sum, 1e-3*lr), so the
+      two stay within 2*lr;
+    - running statistics: 0.99 * carried + 0.01 * batch moments, within
+      1e-5 + 0.01*lr."""
+    from fedcrack_tpu_torch.models.convert import flax_to_state_dict
+
+    (loss_card, card), (loss_cpu, cpu) = one_step["cuda"], one_step["cpu"]
+    start = flax_to_state_dict(start_tree)
+    cpu_params = dict(cpu.named_parameters())
+    grads = {k: (p.grad.detach().cpu(), cpu_params[k].grad) for k, p in card.named_parameters()}
+    g_max = max(float(g.abs().max()) for _, g in grads.values())
+    worst = {"loss_rel": abs(loss_card - loss_cpu) / abs(loss_cpu), "grad_rel": 0.0,
+             "bn_fed_bias_grad_rel": 0.0, "params_signed": 0.0, "params_flipped": 0.0,
+             "flipped_elements": 0, "elements": 0, "batch_stats": 0.0}
+    for name, p in card.named_parameters():
+        g_card, g_cpu = grads[name]
+        got, want = p.detach().cpu(), cpu_params[name].detach()
+        if _bn_fed_bias(name):
+            worst["bn_fed_bias_grad_rel"] = max(worst["bn_fed_bias_grad_rel"],
+                                                float(torch.maximum(g_card.abs(), g_cpu.abs()).max()) / g_max)
+        else:
+            worst["grad_rel"] = max(worst["grad_rel"],
+                                    float((g_card - g_cpu).abs().max()) / float(g_cpu.abs().max()))
+        signed = (torch.sign(g_card) == torch.sign(g_cpu)) & (g_card.abs() > 2e-5) & (g_cpu.abs() > 2e-5)
+        diff = (got - want).abs()
+        worst["elements"] += diff.numel()
+        if signed.any():
+            worst["params_signed"] = max(worst["params_signed"], float(diff[signed].max()))
+        if (~signed).any():
+            flipped = float(diff[~signed].max())
+            if flipped > worst["params_flipped"]:
+                i = int(torch.where(~signed, diff, -1.0).argmax())
+                worst["worst_flip"] = {"param": name, "g_card": float(g_card.flatten()[i]),
+                                       "g_cpu": float(g_cpu.flatten()[i]),
+                                       "leaf_max_g": float(g_cpu.abs().max())}
+            worst["params_flipped"] = max(worst["params_flipped"], flipped)
+            worst["flipped_elements"] += int((diff[~signed] > 1e-2 * lr).sum())
+        for side in (got, want):
+            if float((side - start[name]).abs().max()) > lr * (1 + 1e-3):
+                raise AssertionError(f"{name}: moved more than Adam's one-step bound lr")
+    cpu_buffers = dict(cpu.named_buffers())
+    for name, buf in card.named_buffers():
+        worst["batch_stats"] = max(worst["batch_stats"], float((buf.cpu() - cpu_buffers[name]).abs().max()))
+    log(f"[train] card vs CPU, one step: loss {loss_card:.7f} vs {loss_cpu:.7f}; {json.dumps(worst)}")
+    if worst["loss_rel"] > 1e-4 or worst["grad_rel"] > 5e-3 or worst["bn_fed_bias_grad_rel"] > 1e-4 \
+            or worst["params_signed"] > 1e-2 * lr or worst["params_flipped"] > 2 * lr * (1 + 1e-3) \
+            or worst["batch_stats"] > 1e-5 + 0.01 * lr:
+        raise AssertionError(f"card and CPU disagree on one train step: {worst}")
+
+
+def train_phase(torch, card: str) -> dict:
+    """Phase 7: one client's round at full width, twice, on the card."""
+    import numpy as np
+
+    from fedcrack_tpu_torch.configs import DataConfig, FedConfig, ModelConfig
+    from fedcrack_tpu_torch.data.pipeline import ArrayDataset
+    from fedcrack_tpu_torch.data.synthetic import synth_crack_batch
+    from fedcrack_tpu_torch.fed.aggregation import FedAvg, fold
+    from fedcrack_tpu_torch.models.resunet import init_variables
+    from fedcrack_tpu_torch.ops import bce
+    from fedcrack_tpu_torch.train import local
+    from fedcrack_tpu_torch.train.federated import make_train_fn
+
+    cfg = FedConfig(model=ModelConfig(), data=DataConfig(img_size=TRAIN_SIZE, batch_size=TRAIN_BATCH))
+    lr = cfg.learning_rate
+    imgs, msks = synth_crack_batch(160, TRAIN_SIZE, seed=0)
+    shards = {"client_0": slice(0, 64), "client_1": slice(64, 128)}
+    held = ArrayDataset(imgs[128:], msks[128:], batch_size=TRAIN_BATCH, shuffle=False)
+    global0 = init_variables(torch.Generator().manual_seed(0), cfg.model)
+
+    def client_fn(i, name):
+        data = ArrayDataset(imgs[shards[name]], msks[shards[name]], batch_size=TRAIN_BATCH, seed=i)
+        return make_train_fn(cfg, data, TRAIN_BATCH, seed=i)[0]
+
+    clients = {name: client_fn(i, name) for i, name in enumerate(sorted(shards))}
+    evaluator = local.create_train_state(torch.Generator().manual_seed(0), cfg.model, lr)
+
+    # ---- the main path, counted ----
+    bce.reset_launch_counts()
+    t0 = time.monotonic()
+    tree, steps, eval_batches, history = global0, 0, 0, []
+    for rnd in range(2):
+        triples = []
+        for name in sorted(clients):
+            new, n_samples, metrics = clients[name](tree, rnd, {"local_epochs": 1})
+            steps += n_samples // TRAIN_BATCH
+            if not all(np.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f"round {rnd} {name}: non-finite train metrics {metrics}")
+            triples.append((name, n_samples, new))
+        new_global = fold(FedAvg(), triples)
+        if all(np.array_equal(a, b) for (_, a), (_, b) in zip(_flat_tree(new_global), _flat_tree(tree))):
+            raise AssertionError(f"round {rnd}: the global did not change")
+        ev = local.evaluate(evaluator.replace_variables(new_global), held)
+        eval_batches += ev["num_batches"]
+        if not all(np.isfinite(v) for v in ev.values()):
+            raise AssertionError(f"round {rnd}: non-finite eval metrics {ev}")
+        for _, leaf in _flat_tree(new_global):
+            if not np.isfinite(leaf).all():
+                raise AssertionError(f"round {rnd}: non-finite global weights")
+        history.append({"round": rnd, "train": metrics, "eval": ev})
+        log(f"[train] round {rnd}: last client's train {json.dumps(metrics)}; global eval {json.dumps(ev)}")
+        tree = new_global
+    torch.cuda.synchronize()
+    launches = bce.bce_sums.launches
+    log(f"[train] main path: 2 rounds x 2 clients, {steps} train steps + {eval_batches} eval batches "
+        f"in {time.monotonic() - t0:.2f} s, bce_sums launches {launches}")
+    if launches != steps + eval_batches or steps != 16:
+        raise AssertionError(f"bce_sums launches {launches} != {steps} steps + {eval_batches} eval batches")
+
+    # ---- card vs CPU, one step from the same tree and batch ----
+    batch = (imgs[:TRAIN_BATCH], msks[:TRAIN_BATCH])
+    one_step = {}
+    for device in ("cuda", "cpu"):
+        st = local.create_train_state(torch.Generator().manual_seed(0), cfg.model, lr, device=device)
+        st.replace_variables(global0)
+        st, m = local.train_step(st, batch, local.snapshot_params(st), 0.0, 1.0)
+        one_step[device] = (float(m["loss"]), st.model)
+    check_one_step(torch, global0, one_step, lr)
+
+    # ---- determinism: two local fits from the same start ----
+    fits = [client_fn(0, "client_0")(global0, 0, {"local_epochs": 1})[0] for _ in range(2)]
+    for (path, a), (_, b) in zip(_flat_tree(fits[0]), _flat_tree(fits[1])):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"two local fits from one start differ at {'/'.join(path)}")
+    log("[train] two local fits from the same start: bitwise equal")
+
+    # ---- throughput and where the time goes ----
+    st = local.create_train_state(torch.Generator().manual_seed(0), cfg.model, lr)
+    st.replace_variables(global0)
+    dev_batch = tuple(torch.from_numpy(a).cuda() for a in batch)
+    anchor = local.snapshot_params(st)
+    for _ in range(3):
+        local.train_step(st, dev_batch, anchor)
+    torch.cuda.synchronize()
+    lat = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        local.train_step(st, dev_batch, anchor)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    p50, p95 = np.percentile(lat, [50, 95])
+    perf = {"img_per_s": TRAIN_BATCH * 1e3 / float(np.mean(lat)), "p50_ms": float(p50), "p95_ms": float(p95)}
+    log(f"[train] train_step ModelConfig() {TRAIN_SIZE} px batch {TRAIN_BATCH}: {perf['img_per_s']:.1f} img/s, "
+        f"step p50 {p50:.3f} ms p95 {p95:.3f} ms over 20 steps [{card}]")
+    profile_steps(torch, lambda: local.train_step(st, dev_batch, anchor), card)
+    return {"launches": launches, "steps": steps, "eval_batches": eval_batches, "perf": perf,
+            "history": history}
+
+
+def profile_steps(torch, step, card: str, n: int = 3) -> None:
+    """Where one train step's time goes: CUDA kernel time by name and the
+    device's idle share of the host-clock window (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        log("profile: the profiler saw no CUDA kernels; device time not measured")
+        return
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    log(f"profile: {n} train steps in {wall_us / n / 1e3:.3f} ms each on the host clock, device busy "
+        f"{busy_us / n / 1e3:.3f} ms each, idle share {1 - busy_us / wall_us:.3f}, "
+        f"{sum(e.count for e in kernels) // n} kernel launches per step [{card}]")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"profile: {e.self_device_time_total / n / 1e3:8.4f} ms/step "
+            f"{e.count // n:4d} calls/step  {e.key[:110]}")
+
+
 def main() -> int:
     import torch
 
@@ -375,7 +665,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this smoke runs on the GPU only", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from fedcrack_tpu_torch.kernels import dequant
+    from fedcrack_tpu_torch.kernels import build, dequant
+    from fedcrack_tpu_torch.ops import bce
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -385,10 +676,12 @@ def main() -> int:
     log(f"phase 1 device: {kind}, torch {torch.__version__}, cuda {torch.version.cuda}, card: {card}")
 
     t0 = time.monotonic()
-    lib = dequant.build_library()
-    log(f"phase 2 build: {time.monotonic() - t0:.2f} s ({os.path.relpath(lib, HERE)})")
-    with open(f"{lib}.log", encoding="utf-8") as f:
-        log(f.read())
+    libs = build.build_all([dequant.LIBRARY, bce.LIBRARY])
+    log(f"phase 2 build: {time.monotonic() - t0:.2f} s "
+        f"({', '.join(os.path.relpath(lib, HERE) for lib in libs)})")
+    for lib in libs:
+        with open(f"{lib}.log", encoding="utf-8") as f:
+            log(f.read())
 
     rows = kernel_phase(torch, card)
     log("phase 3 kernels vs plain: ok")
@@ -396,6 +689,10 @@ def main() -> int:
     log("phase 4 serve fused_int8: ok")
     fp8 = serve_phase(torch, card, "fp8", requests=False)
     log("phase 5 serve fp8: ok")
+    bce_row = bce_phase(torch, card)
+    log("phase 6 bce_sums vs plain: ok")
+    train = train_phase(torch, card)
+    log("phase 7 train at full width: ok")
 
     kernels = []
     for name, launches_from in (("dequant_matmul", int8), ("dequant_codes", int8),
@@ -416,6 +713,14 @@ def main() -> int:
             "bound_by": "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations",
             "library_ms": row["library_ms"],
         })
+    kernels.append({
+        "name": "bce_sums",
+        "route": "cuda",
+        "source": "fedcrack_tpu_torch/kernels/csrc/bce_sums.cu",
+        "replaces": "fedcrack_tpu/ops/pallas_bce.py:57",
+        "launches": train["launches"],
+        **bce_row,
+    })
     log(f"total {time.monotonic() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

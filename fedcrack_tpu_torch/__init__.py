@@ -2,6 +2,6 @@
 
 The JAX package ``fedcrack_tpu`` stays the reference; this package mirrors
 its layout (``configs``, ``data``, ``ops``, ``models``, ``kernels``,
-``serve``) and imports neither JAX nor anything of ``fedcrack_tpu``.
+``serve``, ``train``, ``fed``) and imports neither JAX nor anything of ``fedcrack_tpu``.
 Entry points run on ``torch.device("cuda")`` unless given another device.
 """

@@ -1,10 +1,11 @@
-"""Model and serving configuration for the PyTorch port.
+"""Model, data, federation and serving configuration for the PyTorch port.
 
-The port keeps its own copy of the two dataclasses the serving path needs,
-with the same fields, defaults and validation as ``fedcrack_tpu.configs``,
-so that a JSON config written for one package describes the same model and
-serving plane in the other. ``FedConfig``/``DataConfig`` belong to the
-training slice and are not copied yet.
+The port keeps its own copy of the dataclasses its slices need, with the
+same fields, defaults and validation as ``fedcrack_tpu.configs``, so that a
+JSON config written for one package describes the same model, data and
+serving plane in the other. ``FedConfig`` carries the fields one client's
+training round reads; the wire, the server's round machine and the other
+planes add theirs with the slices that port them.
 """
 
 from __future__ import annotations
@@ -55,6 +56,53 @@ class ModelConfig:
     @property
     def input_shape(self) -> tuple[int, int, int]:
         return (self.img_size, self.img_size, self.in_channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Dataset layout + split semantics (reference: client_fit_model.py:54-90)."""
+
+    image_dir: str = ""
+    mask_dir: str = ""
+    img_size: int = 128
+    batch_size: int = 16          # reference: client_fit_model.py:55
+    split_seed: int = 1337        # reference: client_fit_model.py:77-78
+    train_samples: int = 6213     # reference: client_fit_model.py:76
+    # "iid" or "skew" (per-client crack-density skew)
+    partition: str = "iid"
+    skew_alpha: float = 0.3       # Dirichlet concentration for non-IID shards
+    prefetch: int = 2
+    num_workers: int = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class FedConfig:
+    """Federation configuration: the fields one client's training round
+    reads, with the JAX package's defaults.
+
+    Reference values: MAX_NUM_ROUND=5 (fl_server.py:18), local epochs
+    hardcoded to 10 (client_fit_model.py:166), Keras Adam at 1e-3.
+    """
+
+    max_rounds: int = 5
+    cohort_size: int = 2
+    local_epochs: int = 10
+    learning_rate: float = 1e-3
+    # FedProx proximal term (mu/2)||params - anchor||^2; 0 disables (plain
+    # FedAvg local SGD).
+    fedprox_mu: float = 0.0
+    # Crack-pixel loss weight (1 + (pos_weight-1)*mask scales each pixel's
+    # BCE); 1.0 is the reference's unweighted BCE (client_fit_model.py:157).
+    pos_weight: float = 1.0
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+
+    def __post_init__(self) -> None:
+        if self.data.img_size != self.model.img_size:
+            raise ValueError(
+                "data.img_size and model.img_size must match; got "
+                f"{self.data.img_size} vs {self.model.img_size}"
+            )
 
 
 @dataclasses.dataclass(frozen=True)

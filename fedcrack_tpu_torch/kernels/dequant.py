@@ -18,89 +18,30 @@ launches in a plain integer attribute (``dequant_matmul.launches``), so a
 run can show that its main path went through the kernels.
 
 The kernels build at first use from the package's own sources with
-``nvcc`` into ``fedcrack_tpu_torch/_build/`` (a shared library with a plain
-C interface, loaded with ``ctypes``), keyed by a hash of source and flags.
+``nvcc`` into ``fedcrack_tpu_torch/_build/`` (``kernels/build.py``: a
+shared library with a plain C interface, loaded with ``ctypes``), keyed by
+a hash of source and flags.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 
 import torch
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_SOURCE = os.path.join(_HERE, "csrc", "dequant.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+from fedcrack_tpu_torch.kernels.build import I32, I64, PTR, KernelLibrary
 
 CODE_DTYPES = (torch.int8, torch.float8_e4m3fn)
 
-_lib: ctypes.CDLL | None = None
-_lib_lock = threading.Lock()
+# Every entry point: operand pointers, sizes, then the CUDA stream.
+LIBRARY = KernelLibrary("dequant", {
+    "fc_dequant_matmul_i8": [PTR, PTR, PTR, PTR, I32, I32, I32, PTR],
+    "fc_dequant_matmul_e4m3": [PTR, PTR, PTR, PTR, I32, I32, I32, PTR],
+    "fc_dequant_codes_i8": [PTR, PTR, PTR, I64, I32, PTR],
+    "fc_dequant_codes_e4m3": [PTR, PTR, PTR, I64, I32, PTR],
+})
+
 _count_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        found = "/usr/local/cuda/bin/nvcc"
-    if found is None:
-        raise RuntimeError(
-            "nvcc not found: the dequant kernels build from "
-            "kernels/csrc/dequant.cu at first use on a CUDA host"
-        )
-    return found
-
-
-def build_library() -> str:
-    """Compile ``csrc/dequant.cu`` for sm_90a unless a library built from
-    the same source and flags exists; returns its path. The compiler's
-    report (registers, spills) is kept beside it as ``<library>.log``."""
-    with open(_SOURCE, "rb") as f:
-        source = f.read()
-    digest = hashlib.sha256(source + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = os.path.join(_BUILD_DIR, f"libfedcrack_dequant_{digest}.so")
-    if os.path.exists(path):
-        return path
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, _SOURCE],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {_SOURCE}:\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    with open(f"{path}.log", "w", encoding="utf-8") as f:
-        f.write(proc.stdout + proc.stderr)
-    os.replace(tmp, path)  # atomic: a concurrent builder never sees half a file
-    return path
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build_library())
-            ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            for name in ("fc_dequant_matmul_i8", "fc_dequant_matmul_e4m3"):
-                fn = getattr(lib, name)
-                fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
-                fn.restype = i32
-            for name in ("fc_dequant_codes_i8", "fc_dequant_codes_e4m3"):
-                fn = getattr(lib, name)
-                fn.argtypes = [ptr, ptr, ptr, i64, i32, ptr]
-                fn.restype = i32
-            _lib = lib
-        return _lib
 
 
 def _count(wrapper) -> None:
@@ -132,14 +73,6 @@ def _check_operands(*tensors: torch.Tensor) -> None:
         raise ValueError(f"dequant kernels run on cuda (or plain on cpu), got {device}")
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
-    fn = getattr(_load(), name)
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-
-
 # ---- fused dequant-matmul ----
 
 
@@ -168,7 +101,7 @@ def dequant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> tor
     if m == 0 or n == 0:
         return y
     name = "fc_dequant_matmul_i8" if q.dtype == torch.int8 else "fc_dequant_matmul_e4m3"
-    _launch(name, x.device, x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(), m, k, n)
+    LIBRARY.launch(name, x.device, x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(), m, k, n)
     _count(dequant_matmul)
     return y
 
@@ -200,7 +133,7 @@ def dequant_codes(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     if total == 0:
         return out
     name = "fc_dequant_codes_i8" if q.dtype == torch.int8 else "fc_dequant_codes_e4m3"
-    _launch(name, q.device, q.data_ptr(), scale.data_ptr(), out.data_ptr(), total, q.shape[-1])
+    LIBRARY.launch(name, q.device, q.data_ptr(), scale.data_ptr(), out.data_ptr(), total, q.shape[-1])
     _count(dequant_codes)
     return out
 

@@ -1,14 +1,13 @@
-"""The crack-segmentation residual U-Net, eval mode, as a PyTorch module.
+"""The crack-segmentation residual U-Net as a PyTorch module.
 
 The counterpart of ``fedcrack_tpu.models.resunet.ResUNet`` for the
 ``"reference"`` stem and residual layouts, with the flax module names
 (``stem_conv``, ``enc{i}_sep1.depthwise``, ``dec{i}_convT1``, ``head``...),
 so ``models/convert.py`` maps a flax variables tree onto it name for name.
-It is the reference program that the quant gate holds the quantized
-programs against. Its convs are ``F.conv2d``, as the JAX package leaves
-its convs to XLA.
+Its convs are ``F.conv2d``, as the JAX package leaves its convs to XLA.
 
-Parity points with flax, each pinned by tests/test_torch_model.py:
+Parity points with flax, each pinned by tests/test_torch_model.py and
+tests/test_torch_train.py:
 
 - ``"SAME"`` padding follows XLA: at stride 2 on an even grid it pads 0
   before and 1 after, so the stem pads explicitly (``nn.Conv2d(padding=1)``
@@ -17,14 +16,18 @@ Parity points with flax, each pinned by tests/test_torch_model.py:
   the same, unflipped kernel, so the decoder uses ``nn.Conv2d`` with that
   kernel; ``nn.ConvTranspose2d`` would flip it.
 - The encoder residual 1x1 stride-2 SAME conv reads ``x[:, ::2, ::2]``.
-- Eval BatchNorm is ``(x - mean) * (scale * rsqrt(var + 1e-3)) + bias``,
-  flax's order of operations (Keras epsilon 1e-3).
+- BatchNorm normalizes as ``(x - mean) * (scale * rsqrt(var + 1e-3)) +
+  bias``, flax's order of operations (Keras epsilon 1e-3). In train mode
+  (``model.train()``) the moments are the batch's, in float32 over
+  (N, H, W) with ``var = mean(x^2) - mean(x)^2`` clipped at 0 (flax's fast
+  variance, not torch's Welford), gradients flow through both, and the
+  running statistics update as ``m * running + (1 - m) * batch`` with the
+  BIASED batch variance (``F.batch_norm`` would store the unbiased one).
+- The encoder pool's gradient is the JAX package's (``ops/pooling.py``).
 - The decoder residual conv and the head run at the low resolution, before
   the upsample they commute with; the head computes in float32.
 
 Inputs and outputs are NHWC, the JAX layout; inside, the module runs NCHW.
-Training mode (batch statistics, their running update) belongs to the
-training slice.
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ from torch import nn
 from fedcrack_tpu_torch.configs import ModelConfig
 from fedcrack_tpu_torch.ops.pooling import max_pool_auto, same_pads
 
-# Keras BatchNormalization epsilon (the reference relies on it).
+# Keras BatchNormalization defaults (the reference relies on them).
+BN_MOMENTUM = 0.99
 BN_EPSILON = 1e-3
 
 
@@ -65,19 +69,29 @@ def _conv(cin: int, cout: int, k: int, *, stride: int = 1, groups: int = 1, bias
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm holding flax's names: ``scale``/``bias``
-    parameters, ``mean``/``var`` running statistics."""
+    """BatchNorm holding flax's names: ``scale``/``bias`` parameters,
+    ``mean``/``var`` running statistics; flax's semantics in both modes."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, momentum: float = BN_MOMENTUM):
         super().__init__()
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # NCHW
-        mul = torch.rsqrt(self.var + BN_EPSILON) * self.scale
-        return (x - self.mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        if self.training:
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+                self.var.copy_(m * self.var + (1.0 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + BN_EPSILON) * self.scale
+        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
 
 
 class SeparableConv(nn.Module):
@@ -101,7 +115,10 @@ class ResUNet(nn.Module):
     with ``models.convert.from_flax_variables``. The module is placed on
     ``device``, CUDA unless the caller names another (``"cpu"``, or
     ``"meta"`` for a parameterless template); it raises where CUDA is
-    asked for and absent."""
+    asked for and absent. It starts in eval mode; ``model.train()`` runs
+    BatchNorm on batch moments with running-statistics momentum
+    ``bn_momentum`` (Keras's 0.99; 0 makes a train-mode forward store each
+    batch's exact moments)."""
 
     def __init__(
         self,
@@ -109,6 +126,7 @@ class ResUNet(nn.Module):
         *,
         generator: torch.Generator | None = None,
         device: torch.device | str | None = None,
+        bn_momentum: float = BN_MOMENTUM,
     ):
         super().__init__()
         cfg = config or ModelConfig()
@@ -129,6 +147,7 @@ class ResUNet(nn.Module):
                 "available; pass device='cpu' explicitly to run on the CPU"
             )
         self.config = cfg
+        self.bn_momentum = bn_momentum
         with torch.device("meta"):
             self._build(cfg)
         self.to_empty(device=device)
@@ -138,21 +157,21 @@ class ResUNet(nn.Module):
 
     def _build(self, cfg: ModelConfig) -> None:
         self.stem_conv = _conv(cfg.in_channels, cfg.stem_features, 3, stride=2)
-        self.stem_bn = BatchNorm(cfg.stem_features)
+        self.stem_bn = BatchNorm(cfg.stem_features, self.bn_momentum)
         cin = cfg.stem_features
         for i, f in enumerate(cfg.encoder_features):
             self.add_module(f"enc{i}_sep1", SeparableConv(cin, f))
-            self.add_module(f"enc{i}_bn1", BatchNorm(f))
+            self.add_module(f"enc{i}_bn1", BatchNorm(f, self.bn_momentum))
             self.add_module(f"enc{i}_sep2", SeparableConv(f, f))
-            self.add_module(f"enc{i}_bn2", BatchNorm(f))
+            self.add_module(f"enc{i}_bn2", BatchNorm(f, self.bn_momentum))
             self.add_module(f"enc{i}_res", _conv(cin, f, 1, stride=2))
             cin = f
         prev = cin
         for i, f in enumerate(cfg.decoder_features):
             self.add_module(f"dec{i}_convT1", _conv(cin, f, 3))
-            self.add_module(f"dec{i}_bn1", BatchNorm(f))
+            self.add_module(f"dec{i}_bn1", BatchNorm(f, self.bn_momentum))
             self.add_module(f"dec{i}_convT2", _conv(f, f, 3))
-            self.add_module(f"dec{i}_bn2", BatchNorm(f))
+            self.add_module(f"dec{i}_bn2", BatchNorm(f, self.bn_momentum))
             self.add_module(f"dec{i}_res", _conv(prev, f, 1))
             cin = prev = f
         self.head = _conv(cin, cfg.num_classes, 1)
@@ -180,6 +199,11 @@ class ResUNet(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.config
         x = x.to(torch.float32).permute(0, 3, 1, 2)
+        if self.training:
+            # Train mode runs NCHW-contiguous: torch's CPU backward of the
+            # 1x1 stride-2 residual conv on channels-last tensors crashes
+            # (oneDNN, batch 2 and 3). Eval mode keeps the layout it serves.
+            x = x.contiguous()
         x = self.stem_conv(_pad_same(x, 3, 2))
         x = torch.relu(self.stem_bn(x))
         previous = x

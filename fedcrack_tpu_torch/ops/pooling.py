@@ -1,12 +1,18 @@
-"""3x3 / stride-2 SAME max pooling, forward only.
+"""3x3 / stride-2 SAME max pooling, with the JAX package's gradient rule.
 
 The encoder pool (Keras ``MaxPooling2D(3, strides=2, "same")``) pads the
 way XLA's ``"SAME"`` does: ``total = max((out - 1) * 2 + 3 - size, 0)``
 split ``lo = total // 2`` and ``hi = total - lo``, so an even grid pads
 0 before and 1 after, never 1 and 1 as ``nn.MaxPool2d(padding=1)`` would.
-The pad value is ``-inf``, so a pad cell never wins a window. The
-scatter-free backward of ``fedcrack_tpu.ops.pooling`` belongs to the
-training slice.
+The pad value is ``-inf``, so a pad cell never wins a window.
+
+The backward is the counterpart of ``fedcrack_tpu.ops.pooling._bwd``: for
+each output, the FIRST window offset in row-major order whose candidate is
+not below the output (``~(cand < out)``) and is not a pad cell takes the
+whole cotangent. Ties therefore go to the first maximum, as in XLA's
+SelectAndScatter, and a NaN maximum still routes its gradient, to the first
+valid offset. ``F.max_pool2d``'s own backward follows the indices its
+forward recorded, where a NaN takes the window; it is not this rule.
 """
 
 from __future__ import annotations
@@ -26,9 +32,7 @@ def same_pads(size: int, window: int, stride: int) -> tuple[int, int, int]:
     return out, lo, total - lo
 
 
-def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
-    """NHWC max pool, window 3x3, stride 2, SAME; the same values as
-    ``flax.linen.max_pool(x, (3, 3), (2, 2), "SAME")``."""
+def _pool_forward(x: torch.Tensor) -> torch.Tensor:
     _, h, w, _ = x.shape
     _, lo_h, hi_h = same_pads(h, _WINDOW, _STRIDE)
     _, lo_w, hi_w = same_pads(w, _WINDOW, _STRIDE)
@@ -38,6 +42,53 @@ def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
 
 
+class _MaxPool3x3S2(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        out = _pool_forward(x)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        x, out = ctx.saved_tensors
+        n, h, w, c = x.shape
+        ho, lo_h, hi_h = same_pads(h, _WINDOW, _STRIDE)
+        wo, lo_w, hi_w = same_pads(w, _WINDOW, _STRIDE)
+        xp = F.pad(x.permute(0, 3, 1, 2), (lo_w, hi_w, lo_h, hi_h),
+                   value=float("-inf")).permute(0, 2, 3, 1)
+        # Contributions land on the padded input grid, each offset's in its
+        # strided slice; per input cell they add in offset order, as the
+        # JAX backward adds them.
+        dxp = torch.zeros(xp.shape, dtype=g.dtype, device=g.device)
+        claimed = torch.zeros(out.shape, dtype=torch.bool, device=out.device)
+        rows = torch.arange(ho, device=x.device) * _STRIDE
+        cols = torch.arange(wo, device=x.device) * _STRIDE
+        for dy in range(_WINDOW):
+            ys = rows + dy
+            lim_y = dy + _STRIDE * (ho - 1) + 1
+            for dx in range(_WINDOW):
+                xs = cols + dx
+                lim_x = dx + _STRIDE * (wo - 1) + 1
+                cand = xp[:, dy:lim_y:_STRIDE, dx:lim_x:_STRIDE, :]
+                # Pad cells never claim: under a NaN maximum every compare
+                # is False and a pad at the first offset would take it.
+                valid = (((ys >= lo_h) & (ys < lo_h + h))[:, None]
+                         & ((xs >= lo_w) & (xs < lo_w + w))[None, :])
+                m = ~(cand < out) & ~claimed & valid[None, :, :, None]
+                claimed |= m
+                dxp[:, dy:lim_y:_STRIDE, dx:lim_x:_STRIDE, :] += torch.where(m, g, 0.0)
+        return dxp[:, lo_h:lo_h + h, lo_w:lo_w + w, :].to(x.dtype)
+
+
+def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
+    """NHWC max pool, window 3x3, stride 2, SAME; the same values as
+    ``flax.linen.max_pool(x, (3, 3), (2, 2), "SAME")`` and the JAX
+    package's gradient (first row-major maximum takes the cotangent)."""
+    return _MaxPool3x3S2.apply(x)
+
+
 # The JAX package's max_pool_auto picks between two backward lowerings by
-# grid size; the forward values are identical, so here it is one function.
+# grid size (its scatter-free VJP up to 64, XLA's SelectAndScatter above);
+# values and gradients agree on both, so here it is one function.
 max_pool_auto = max_pool_3x3_s2

@@ -114,3 +114,23 @@ def test_chip_smoke_refuses_to_run_without_cuda():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_training_entry_points_default_to_cuda_and_raise_without_it():
+    import torch
+
+    from fedcrack_tpu_torch.configs import DataConfig, FedConfig, ModelConfig
+    from fedcrack_tpu_torch.train.federated import make_train_fn
+    from fedcrack_tpu_torch.train.local import create_train_state
+
+    cfg = ModelConfig(img_size=32, stem_features=4, encoder_features=(8,), decoder_features=(8, 4))
+    fed = FedConfig(model=cfg, data=DataConfig(img_size=32))
+    if torch.cuda.is_available():
+        assert create_train_state(torch.Generator(), cfg).device.type == "cuda"
+        assert make_train_fn(fed, [], 2)[1]["state"].device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="cuda"):
+        create_train_state(torch.Generator(), cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_train_fn(fed, [], 2)
+    assert create_train_state(torch.Generator(), cfg, device="cpu").device.type == "cpu"

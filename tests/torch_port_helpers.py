@@ -63,3 +63,45 @@ def jax_config(kw: dict):
     from fedcrack_tpu.configs import ModelConfig
 
     return ModelConfig(**kw)
+
+
+# ---- trained trees (tests/test_torch_train.py, tests/test_torch_fed.py) ----
+
+LR = 1e-3
+
+
+def bn_fed_bias(path: tuple) -> bool:
+    """A flax path to the bias of a conv that feeds a train-mode BatchNorm
+    (``stem_conv``, every ``pointwise``, every ``convT1``/``convT2``): the
+    batch mean subtracts it again, so its true gradient is exactly 0."""
+    if path[-1] != "bias" or path[0] != "params":
+        return False
+    module = path[1:-1]
+    return (module[0] == "stem_conv" or module[-1] == "pointwise"
+            or module[0].endswith("_convT1") or module[0].endswith("_convT2"))
+
+
+def flat_tree(tree, path=()):
+    """(path, numpy leaf) pairs of a nested dict, in sorted key order."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from flat_tree(tree[k], path + (k,))
+        else:
+            yield path + (k,), np.asarray(tree[k])
+
+
+def assert_trained_trees_close(got, want, start, steps, atol=1e-5):
+    """Two packages' trees after ``steps`` Adam steps from ``start``, held
+    by the rules stated in tests/test_torch_train.py."""
+    g, w, s = dict(flat_tree(got)), dict(flat_tree(want)), dict(flat_tree(start))
+    assert set(g) == set(w) == set(s)
+    for path in w:
+        name = "/".join(path)
+        if bn_fed_bias(path):
+            bound = steps * LR * (1 + 1e-5)
+            assert np.abs(g[path] - s[path]).max() <= bound, name
+            assert np.abs(w[path] - s[path]).max() <= bound, name
+        elif path[0] == "batch_stats" and path[-1] == "mean":
+            np.testing.assert_allclose(g[path], w[path], rtol=0, atol=1e-5 + 0.02 * steps * LR, err_msg=name)
+        else:
+            np.testing.assert_allclose(g[path], w[path], rtol=0, atol=atol, err_msg=name)
