@@ -10,19 +10,27 @@ on failure, so any failure exits non-zero and prints no result):
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compiles ``fedcrack_tpu_torch/kernels/csrc/dequant.cu`` and
    ``bce_sums.cu`` (sm_90a), one nvcc each, started together;
-3. kernels vs plain: ``dequant_matmul`` (int8 and e4m3 codes) at every GEMM
-   shape the fused forward launches at bucket 256 x batch 8 with
-   ``ModelConfig()``, plus a ragged sweep: per entry within the per-channel
-   scale + 1e-6 of the plain version, bitwise equal run to run;
-   ``dequant_codes`` bitwise equal to its plain version. Kernel, plain and
-   library times (CUDA events) beside the bound;
+3. kernels vs plain, int8 and e4m3 codes: ``dequant_matmul`` at the 15
+   GEMMs and ``dequant_conv3x3`` at the 8 decoder convs the fused forward
+   launches at bucket 256 x batch 8 with ``ModelConfig()``, each plus a
+   ragged sweep: per entry within the per-channel scale + 1e-6 of the
+   plain version (the largest |kernel - plain| / scale is logged), bitwise
+   equal run to run and over a launch of fewer rows; ``dequant_codes``
+   bitwise equal to its plain version. Per forward: device time (profiler)
+   of kernel, plain version and library call (``torch.matmul`` /
+   ``F.conv2d`` on channels-last input, weights expanded once; TF32 off),
+   CUDA-event times beside them, and the bound (bytes at 3.35 TB/s with A
+   read once, or three bf16 passes at 989 TFLOP/s; the f32-FMA bound
+   logged beside it);
 4. serve at full width (the main path): ``ModelConfig()`` with
    ``ServeConfig(quant="int8", kernel_plane="fused_int8")``, install through
    ``ModelVersionManager.install`` (the quant gate must pass at both
    buckets), then requests through ``MicroBatcher.submit`` (16 at 256^2,
    8 at 128^2, 2 padded) and one tiled 512 x 384 image through
    ``predict_image``, twice. Launch counts are reset right before and read
-   right after; fused vs reference plane on the probe batch; throughput;
+   right after (15 ``dequant_matmul``, 8 ``dequant_conv3x3`` and 6
+   ``dequant_codes`` per forward); fused vs reference plane on the probe
+   batch; throughput; a profile of one bucket-256 batch;
 5. the fp8 plane: the same with ``kernel_plane="fp8"``, one batch served;
 6. ``bce_sums`` vs plain at the train step's logits (16 x 128 x 128), at
    8 x 256 x 256, and over a ragged sweep: count lanes equal, BCE lanes
@@ -50,12 +58,23 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): device memory
-# bandwidth, and the f32 rate outside the tensor cores (the kernels' FMA).
+# H100 SXM peaks (NVIDIA data sheet, dense rates, at the 700 W limit): device
+# memory bandwidth; the f32 rate outside the tensor cores (bce_sums and
+# dequant_codes, and the f32-FMA bound of the dequant GEMMs, kept in the
+# log for comparison); the bf16 tensor-core rate, which the dequant GEMMs use
+# three times per product (hi, mid and lo terms of the f32 activation).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_TC_FLOPS_PER_S = 989e12
+BF16_PASSES = 3
 
 SWEEP_SHAPES = [(4, 7, 5), (8, 128, 128), (33, 130, 129), (1, 256, 3), (16, 9, 17)]
+# Ragged GEMMs beside the JAX tests' sweep: the stem's K = 27 and the head's
+# N = 1, and M, K, N that are multiples of no tile.
+MATMUL_SWEEP = SWEEP_SHAPES + [(1000, 27, 1), (129, 36, 33), (70, 2304, 257), (300, 20, 8)]
+# Ragged convs (N, H, W, C, F): odd grids, a 1x1 image, C and F off every tile.
+CONV_SWEEP = [(1, 5, 7, 8, 12), (2, 6, 6, 4, 9), (1, 1, 1, 4, 3), (3, 9, 11, 36, 17),
+              (2, 17, 13, 132, 40), (1, 33, 31, 64, 129)]
 BUCKET, BATCH = 256, 8
 # The training path: the reference's client shape, and the JAX kernel
 # test's ragged sizes for bce_sums.
@@ -77,9 +96,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def gemm_shapes(cfg, size: int, batch: int) -> list[tuple[str, int, int, int]]:
+def matmul_shapes(cfg, size: int, batch: int) -> list[tuple[str, int, int, int]]:
     """(layer, M, K, N) of every dequant_matmul of the fused forward, in
-    launch order: 1 stem + 3 per encoder block + 3 per decoder block + head."""
+    launch order: the stem, 3 per encoder block, each decoder block's
+    residual, the head."""
     shapes = []
     g = -(-size // 2)
     shapes.append(("stem_conv", batch * g * g, 9 * cfg.in_channels, cfg.stem_features))
@@ -90,15 +110,28 @@ def gemm_shapes(cfg, size: int, batch: int) -> list[tuple[str, int, int, int]]:
         g = -(-g // 2)
         shapes.append((f"enc{i}_res", batch * g * g, cin, f))
         cin = f
-    prev = cin
     for i, f in enumerate(cfg.decoder_features):
-        shapes.append((f"dec{i}_convT1", batch * g * g, 9 * cin, f))
-        shapes.append((f"dec{i}_convT2", batch * g * g, 9 * f, f))
-        shapes.append((f"dec{i}_res", batch * g * g, prev, f))
-        cin = prev = f
+        shapes.append((f"dec{i}_res", batch * g * g, cin, f))
+        cin = f
         if i + 1 < len(cfg.decoder_features):
             g *= 2
     shapes.append(("head", batch * g * g, cin, cfg.num_classes))
+    return shapes
+
+
+def conv_shapes(cfg, size: int, batch: int) -> list[tuple[str, int, int, int, int, int]]:
+    """(layer, N, H, W, C, F) of every dequant_conv3x3 of the fused forward:
+    each decoder block's convT1 and convT2."""
+    g = -(-size // 2)
+    for _ in cfg.encoder_features:
+        g = -(-g // 2)
+    shapes, cin = [], cfg.encoder_features[-1]
+    for i, f in enumerate(cfg.decoder_features):
+        shapes.append((f"dec{i}_convT1", batch, g, g, cin, f))
+        shapes.append((f"dec{i}_convT2", batch, g, g, f, f))
+        cin = f
+        if i + 1 < len(cfg.decoder_features):
+            g *= 2
     return shapes
 
 
@@ -124,94 +157,207 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def device_ms(torch, fns, n: int = 5, launches: int | None = None) -> float:
+    """Device time of one pass over ``fns``: every CUDA kernel they launch,
+    summed, from torch.profiler (n passes after one warm pass).
+
+    A profile that lost kernel records would read short, so the count of
+    kernels seen is checked: against ``launches`` per pass where the caller
+    knows it (one per wrapper call), else against a second profile."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    counts = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                for fn in fns:
+                    fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        count = sum(e.count for e in kernels)
+        if count and (count == n * launches if launches is not None else count in counts):
+            return sum(e.self_device_time_total for e in kernels) / n / 1e3
+        counts.append(count)
+    raise AssertionError(f"the profiler's kernel counts disagree: {counts} (want {launches} x {n})")
+
+
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_FLOPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def check_against_plain(torch, label: str, kernel, plain, args, scale, part=None) -> tuple[float, float]:
+    """The kernel within one per-channel scale + 1e-6 of its plain version
+    per entry, bitwise equal run to run and, given ``part`` = (args of a
+    launch over the leading rows, those rows), bitwise equal on them.
+    Returns the largest |kernel - plain| and |kernel - plain| / scale."""
+    y = kernel(*args)
+    again = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    err = (y - want).abs()
+    if not bool((err <= scale + 1e-6).all()):
+        raise AssertionError(f"{label} exceeds the per-channel bound: "
+                             f"max |kernel - plain| / scale {float((err / scale).max()):.3g}")
+    if not torch.equal(y, again):
+        raise AssertionError(f"{label} not deterministic run to run")
+    if part is not None:
+        part_args, rows = part
+        if not torch.equal(kernel(*part_args), y[:rows]):
+            raise AssertionError(f"{label}: the leading rows change with the launch's M")
+    if not err.numel():
+        return 0.0, 0.0
+    return float(err.max()), float((err / scale).max())
+
+
+def time_cases(torch, card: str, name: str, kernel, plain, library: str, cases) -> dict:
+    """Times of one forward's launches of a dequant kernel. Per shape, CUDA
+    events over back-to-back calls (host-inclusive: at tens of microseconds
+    they time the wrapper as much as the kernel); per forward, device time
+    from the profiler for the kernel, its plain version and the library
+    call. Each case: (layer, shape text, args, library closure, bytes,
+    operations)."""
+    row = {"event_ms": 0.0, "plain_event_ms": 0.0, "library_event_ms": 0.0, "bound_ms": 0.0,
+           "bytes_ms": 0.0, "ops_ms": 0.0, "fp32_bound_ms": 0.0}
+    for layer, shape, args, lib, n_bytes, n_flops in cases:
+        t_k = cuda_ms(torch, lambda: kernel(*args))
+        t_p = cuda_ms(torch, lambda: plain(*args))
+        t_l = cuda_ms(torch, lib)
+        b_ms, b_by = bound_ms(n_bytes, BF16_PASSES * n_flops, BF16_TC_FLOPS_PER_S)
+        f_ms, _ = bound_ms(n_bytes, n_flops)
+        row["event_ms"] += t_k
+        row["plain_event_ms"] += t_p
+        row["library_event_ms"] += t_l
+        row["bound_ms"] += b_ms
+        row["fp32_bound_ms"] += f_ms
+        row["bytes_ms"] += n_bytes / HBM_BYTES_PER_S * 1e3
+        row["ops_ms"] += BF16_PASSES * n_flops / BF16_TC_FLOPS_PER_S * 1e3
+        log(f"{name} {layer} {shape}: events kernel {t_k:.4f} ms, plain {t_p:.4f} ms, {library} {t_l:.4f} ms; "
+            f"bound {b_ms:.4f} ms ({b_by}), f32-FMA bound {f_ms:.4f} ms [{card}]")
+    row["ms"] = device_ms(torch, [lambda a=args: kernel(*a) for _, _, args, _, _, _ in cases],
+                          launches=len(cases))
+    row["plain_ms"] = device_ms(torch, [lambda a=args: plain(*a) for _, _, args, _, _, _ in cases])
+    row["library_ms"] = device_ms(torch, [lib for _, _, _, lib, _, _ in cases])
+    row["bound_by"] = "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations"
+    log(f"{name} one forward ({len(cases)} launches), device time: kernel {row['ms']:.4f} ms, "
+        f"plain {row['plain_ms']:.4f} ms, {library} {row['library_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}; bytes {row['bytes_ms']:.4f}, bf16 x{BF16_PASSES} {row['ops_ms']:.4f}), "
+        f"f32-FMA bound {row['fp32_bound_ms']:.4f} ms; CUDA events: kernel {row['event_ms']:.4f} ms, "
+        f"plain {row['plain_event_ms']:.4f} ms, {library} {row['library_event_ms']:.4f} ms [{card}]")
+    return row
+
+
 def kernel_phase(torch, card: str) -> dict:
-    """Phase 3: each kernel against its plain version on the card."""
+    """Phase 3: each dequant kernel against its plain version on the card,
+    at the fused forward's shapes (bucket 256 x batch 8) and ragged sweeps."""
+    import torch.nn.functional as F
+
     from fedcrack_tpu_torch.configs import ModelConfig
     from fedcrack_tpu_torch.kernels import dequant
     from fedcrack_tpu_torch.serve.quant import QKEY, QKEY_FP8, SKEY, quantize_leaf, quantize_leaf_fp8
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    main_shapes = gemm_shapes(ModelConfig(), BUCKET, BATCH)
-    sweep = [(f"sweep{s}", *s) for s in SWEEP_SHAPES]
+    cfg = ModelConfig()
     rows = {}
     for flavor, leaf_fn, key in (("int8", quantize_leaf, QKEY), ("e4m3", quantize_leaf_fp8, QKEY_FP8)):
-        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-               "bytes_ms": 0.0, "ops_ms": 0.0, "max_abs_err": 0.0}
-        for layer, m, k, n in main_shapes + sweep:
-            x = torch.randn((m, k), generator=gen, device=dev)
-            w = torch.randn((k, n), generator=gen, device=dev) * 0.1
-            leaf = leaf_fn(w.cpu().numpy())
-            q, s = leaf[key].to(dev), leaf[SKEY].to(dev)
-            y = dequant.dequant_matmul(x, q, s)
-            y2 = dequant.dequant_matmul(x, q, s)
-            plain = dequant._dequant_matmul_plain(x, q, s)
-            torch.cuda.synchronize()
-            err = (y - plain).abs()
-            if not bool((err <= s[None, :] + 1e-6).all()):
-                raise AssertionError(f"dequant_matmul[{flavor}] {layer} exceeds the per-channel bound")
-            if not torch.equal(y, y2):
-                raise AssertionError(f"dequant_matmul[{flavor}] {layer} not deterministic run to run")
-            max_err = float(err.max()) if err.numel() else 0.0
-            if layer.startswith("sweep"):
-                tot["max_abs_err"] = max(tot["max_abs_err"], max_err)
-                continue
-            wd = q.float() * s
-            t_k = cuda_ms(torch, lambda: dequant.dequant_matmul(x, q, s))
-            t_p = cuda_ms(torch, lambda: dequant._dequant_matmul_plain(x, q, s))
-            t_l = cuda_ms(torch, lambda: torch.matmul(x, wd))
-            n_bytes = 4 * m * k + k * n + 4 * n + 4 * m * n
-            b_ms, b_by = bound_ms(n_bytes, 2 * m * k * n)
-            tot["ms"] += t_k
-            tot["plain_ms"] += t_p
-            tot["library_ms"] += t_l
-            tot["bound_ms"] += b_ms
-            tot["bytes_ms"] += n_bytes / HBM_BYTES_PER_S * 1e3
-            tot["ops_ms"] += 2 * m * k * n / FP32_FLOPS_PER_S * 1e3
-            tot["max_abs_err"] = max(tot["max_abs_err"], max_err)
-            log(f"dequant_matmul[{flavor}] {layer} M={m} K={k} N={n}: kernel {t_k:.4f} ms, "
-                f"plain {t_p:.4f} ms, torch.matmul {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-                f"max_abs_err {max_err:.3g} [{card}]")
-        rows[f"dequant_matmul[{flavor}]"] = tot
-        log(f"dequant_matmul[{flavor}] one forward ({len(main_shapes)} GEMMs): "
-            f"kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, "
-            f"torch.matmul {tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms [{card}]")
+        def codes(shape):
+            leaf = leaf_fn((torch.randn(shape, generator=gen, device=dev) * 0.1).cpu().numpy())
+            return leaf[key].to(dev), leaf[SKEY].to(dev)
 
-        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0 if flavor == "int8" else None,
-               "bytes_ms": 0.0, "ops_ms": 0.0, "max_abs_err": 0.0}
-        for c in depthwise_channels(ModelConfig()) + [17, 1000, 4099]:
-            shape = (3, 3, 1, c) if c in depthwise_channels(ModelConfig()) else (c, 37)
-            w = torch.randn(shape, generator=gen, device=dev) * 0.1
-            leaf = leaf_fn(w.cpu().numpy())
-            q, s = leaf[key].to(dev), leaf[SKEY].to(dev)
+        # dequant_matmul: the 15 GEMMs of a forward, then the ragged sweep.
+        name = f"dequant_matmul[{flavor}]"
+        cases, errs = [], [0.0, 0.0]
+        main = matmul_shapes(cfg, BUCKET, BATCH)
+        for layer, m, k, n in main + [(f"sweep{s}", *s) for s in MATMUL_SWEEP]:
+            x = torch.randn((m, k), generator=gen, device=dev)
+            q, s = codes((k, n))
+            rows_part = m // 3 + 1
+            err = check_against_plain(torch, f"{name} {layer}", dequant.dequant_matmul,
+                                      dequant._dequant_matmul_plain, (x, q, s), s,
+                                      ((x[:rows_part].contiguous(), q, s), rows_part))
+            errs = [max(a, b) for a, b in zip(errs, err)]
+            if not layer.startswith("sweep"):
+                wd = q.float() * s
+                cases.append((layer, f"M={m} K={k} N={n}", (x, q, s), lambda x=x, wd=wd: torch.matmul(x, wd),
+                              4 * m * k + k * n + 4 * n + 4 * m * n, 2 * m * k * n))
+        log(f"{name}: {len(main)} main-path GEMMs and {len(MATMUL_SWEEP)} ragged within the per-channel bound, "
+            f"bitwise repeatable; max |kernel - plain| {errs[0]:.3g}, max |kernel - plain| / scale {errs[1]:.3g}")
+        rows[name] = time_cases(torch, card, name, dequant.dequant_matmul, dequant._dequant_matmul_plain,
+                                "torch.matmul", cases)
+        rows[name].update(max_abs_err=errs[0], max_err_over_scale=errs[1])
+
+        # dequant_conv3x3: the 8 decoder convs of a forward, then the ragged sweep.
+        name = f"dequant_conv3x3[{flavor}]"
+        cases, errs = [], [0.0, 0.0]
+        main = conv_shapes(cfg, BUCKET, BATCH)
+        for layer, n_img, h, w, c, f in main + [(f"sweep{s}", *s) for s in CONV_SWEEP]:
+            x = torch.randn((n_img, h, w, c), generator=gen, device=dev)
+            q, s = codes((3, 3, c, f))
+            part = ((x[:1].contiguous(), q, s), 1) if n_img > 1 else None
+            err = check_against_plain(torch, f"{name} {layer}", dequant.dequant_conv3x3,
+                                      dequant._dequant_conv3x3_plain, (x, q, s), s, part)
+            errs = [max(a, b) for a, b in zip(errs, err)]
+            if not layer.startswith("sweep"):
+                # cuDNN on the channels-last view of the same NHWC tensor, f32 weights expanded once.
+                w_oihw = (q.float() * s).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                x_nchw = x.permute(0, 3, 1, 2)
+                pixels = n_img * h * w
+                cases.append((layer, f"N={n_img} H={h} W={w} C={c} F={f}", (x, q, s),
+                              lambda x_nchw=x_nchw, w_oihw=w_oihw: F.conv2d(x_nchw, w_oihw, padding=1),
+                              4 * pixels * c + 9 * c * f + 4 * f + 4 * pixels * f, 2 * pixels * 9 * c * f))
+        log(f"{name}: {len(main)} main-path convs and {len(CONV_SWEEP)} ragged within the per-channel bound, "
+            f"bitwise repeatable; max |kernel - plain| {errs[0]:.3g}, max |kernel - plain| / scale {errs[1]:.3g}")
+        rows[name] = time_cases(torch, card, name, dequant.dequant_conv3x3, dequant._dequant_conv3x3_plain,
+                                "F.conv2d(channels_last)", cases)
+        rows[name].update(max_abs_err=errs[0], max_err_over_scale=errs[1])
+
+        # dequant_codes: bitwise, at the 6 depthwise leaves and a ragged sweep.
+        name = f"dequant_codes[{flavor}]"
+        leaves = []
+        for c in depthwise_channels(cfg) + [17, 1000, 4099]:
+            shape = (3, 3, 1, c) if c in depthwise_channels(cfg) else (c, 37)
+            q, s = codes(shape)
             out = dequant.dequant_codes(q, s)
-            plain = dequant._dequant_codes_plain(q, s)
             torch.cuda.synchronize()
-            if not torch.equal(out, plain):
-                raise AssertionError(f"dequant_codes[{flavor}] {shape} differs from its plain version")
-            if len(shape) != 4:
-                continue  # ragged check only
+            if not torch.equal(out, dequant._dequant_codes_plain(q, s)):
+                raise AssertionError(f"{name} {shape} differs from its plain version")
+            if len(shape) == 4:
+                leaves.append((q, s))
+        row = {"event_ms": 0.0, "plain_event_ms": 0.0, "library_event_ms": 0.0, "bound_ms": 0.0,
+               "bytes_ms": 0.0, "ops_ms": 0.0, "max_abs_err": 0.0}
+        for q, s in leaves:
+            numel = q.numel()
+            n_bytes = numel + 4 * s.numel() + 4 * numel
+            b_ms, _ = bound_ms(n_bytes, numel)
             t_k = cuda_ms(torch, lambda: dequant.dequant_codes(q, s))
             t_p = cuda_ms(torch, lambda: dequant._dequant_codes_plain(q, s))
-            numel = q.numel()
-            n_bytes = numel + 4 * shape[-1] + 4 * numel
-            b_ms, b_by = bound_ms(n_bytes, numel)
-            tot["ms"] += t_k
-            tot["plain_ms"] += t_p
-            tot["bound_ms"] += b_ms
-            tot["bytes_ms"] += n_bytes / HBM_BYTES_PER_S * 1e3
-            tot["ops_ms"] += numel / FP32_FLOPS_PER_S * 1e3
-            if flavor == "int8":
-                tot["library_ms"] += cuda_ms(torch, lambda: torch.mul(q, s))
-            log(f"dequant_codes[{flavor}] {shape}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-                f"bound {b_ms:.6f} ms ({b_by}) [{card}]")
-        rows[f"dequant_codes[{flavor}]"] = tot
+            t_l = cuda_ms(torch, lambda: torch.mul(q, s)) if flavor == "int8" else None
+            row["event_ms"] += t_k
+            row["plain_event_ms"] += t_p
+            row["library_event_ms"] = None if t_l is None else row["library_event_ms"] + t_l
+            row["bound_ms"] += b_ms
+            row["bytes_ms"] += n_bytes / HBM_BYTES_PER_S * 1e3
+            row["ops_ms"] += numel / FP32_FLOPS_PER_S * 1e3
+            log(f"{name} {tuple(q.shape)}: events kernel {t_k:.4f} ms, plain {t_p:.4f} ms"
+                f"{'' if t_l is None else f', torch.mul {t_l:.4f} ms'}, bound {b_ms:.6f} ms [{card}]")
+        row["ms"] = device_ms(torch, [lambda q=q, s=s: dequant.dequant_codes(q, s) for q, s in leaves],
+                              launches=len(leaves))
+        row["plain_ms"] = device_ms(torch, [lambda q=q, s=s: dequant._dequant_codes_plain(q, s) for q, s in leaves])
+        # torch.mul has no fp8 kernel, so the e4m3 row has no library call.
+        row["library_ms"] = (device_ms(torch, [lambda q=q, s=s: torch.mul(q, s) for q, s in leaves])
+                             if flavor == "int8" else None)
+        row["bound_by"] = "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations"
+        log(f"{name} one forward ({len(leaves)} launches), device time: kernel {row['ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.4f} ms, torch.mul {row['library_ms']}; bound {row['bound_ms']:.6f} ms; "
+            f"CUDA events: kernel {row['event_ms']:.4f} ms, plain {row['plain_event_ms']:.4f} ms, "
+            f"torch.mul {row['library_event_ms']} [{card}]")
+        rows[name] = row
     return rows
 
 
@@ -243,8 +389,9 @@ def serve_phase(torch, card: str, kernel_plane: str, requests: bool) -> dict:
     host = quant_mod.dequantize_variables(quant_mod.quantize_for_plane(raw, kernel_plane).tree)
     manager = ModelVersionManager(engine, host)
     rng = np.random.default_rng(1)
-    n_matmul = len(gemm_shapes(cfg, BUCKET, BATCH))
-    n_codes = len(depthwise_channels(cfg))
+    per_forward = {"dequant_matmul": len(matmul_shapes(cfg, BUCKET, BATCH)),
+                   "dequant_conv3x3": len(conv_shapes(cfg, BUCKET, BATCH)),
+                   "dequant_codes": len(depthwise_channels(cfg))}
 
     # ---- the main path, counted ----
     dequant.reset_launch_counts()
@@ -297,14 +444,11 @@ def serve_phase(torch, card: str, kernel_plane: str, requests: bool) -> dict:
         outputs += tiled
     torch.cuda.synchronize()
     forwards = engine.quantized_forwards - fwd0
-    launches = {"dequant_matmul": dequant.dequant_matmul.launches,
-                "dequant_codes": dequant.dequant_codes.launches}
+    launches = {name: getattr(dequant, name).launches for name in per_forward}
     log(f"[{kernel_plane}] main path: {forwards} quantized forwards, launches {launches}, "
         f"batcher {json.dumps(stats)}")
-    if forwards == 0 or launches["dequant_matmul"] != n_matmul * forwards \
-            or launches["dequant_codes"] != n_codes * forwards:
-        raise AssertionError(
-            f"launch counts {launches} != {n_matmul}/{n_codes} per forward x {forwards}")
+    if forwards == 0 or any(launches[name] != n * forwards for name, n in per_forward.items()):
+        raise AssertionError(f"launch counts {launches} != {per_forward} per forward x {forwards}")
     for out in outputs:
         if not (np.isfinite(out).all() and out.min() >= 0.0 and out.max() <= 1.0):
             raise AssertionError("served probabilities not finite in [0, 1]")
@@ -695,24 +839,27 @@ def main() -> int:
     log("phase 7 train at full width: ok")
 
     kernels = []
-    for name, launches_from in (("dequant_matmul", int8), ("dequant_codes", int8),
-                                ("dequant_matmul", fp8), ("dequant_codes", fp8)):
-        flavor = "int8" if launches_from is int8 else "e4m3"
-        row = rows[f"{name}[{flavor}]"]
-        kernels.append({
-            "name": f"{name}[{flavor}]",
-            "route": "cuda",
-            "source": "fedcrack_tpu_torch/kernels/csrc/dequant.cu",
-            "replaces": ("fedcrack_tpu/kernels/dequant.py:88" if name == "dequant_matmul"
-                         else "fedcrack_tpu/kernels/dequant.py:175"),
-            "launches": launches_from["launches"][name],
-            "max_abs_err": row["max_abs_err"],
-            "ms": row["ms"],
-            "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"],
-            "bound_by": "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations",
-            "library_ms": row["library_ms"],
-        })
+    replaces = {"dequant_matmul": "fedcrack_tpu/kernels/dequant.py:88",
+                "dequant_conv3x3": ("fedcrack_tpu/kernels/dequant.py:88 "
+                                    "(with fedcrack_tpu/kernels/forward.py:76, the JAX _conv3x3)"),
+                "dequant_codes": "fedcrack_tpu/kernels/dequant.py:175"}
+    for flavor, served in (("int8", int8), ("e4m3", fp8)):
+        for name in ("dequant_matmul", "dequant_conv3x3", "dequant_codes"):
+            row = rows[f"{name}[{flavor}]"]
+            kernels.append({
+                "name": f"{name}[{flavor}]",
+                "route": "cuda",
+                "source": "fedcrack_tpu_torch/kernels/csrc/dequant.cu",
+                "replaces": replaces[name],
+                "launches": served["launches"][name],
+                "max_abs_err": row["max_abs_err"],
+                "ms": row["ms"],
+                "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"],
+                "event_ms": row["event_ms"],
+            })
     kernels.append({
         "name": "bce_sums",
         "route": "cuda",

@@ -59,6 +59,7 @@ class KernelLibrary:
         self.source = os.path.join(_HERE, "csrc", f"{name}.cu")
         self.symbols = symbols
         self._lib: ctypes.CDLL | None = None
+        self._fns: dict[str, ctypes._CFuncPtr] = {}
         self._lock = threading.Lock()
 
     def build(self) -> str:
@@ -92,15 +93,27 @@ class KernelLibrary:
                     fn = getattr(lib, symbol)
                     fn.argtypes = argtypes
                     fn.restype = I32
+                    self._fns[symbol] = fn
                 self._lib = lib
             return self._lib
 
     def launch(self, symbol: str, device: torch.device, *args) -> None:
         """Launch ``symbol`` on ``device``'s current stream; raises on a
-        launch error. Does not synchronise."""
-        fn = getattr(self.load(), symbol)
-        with torch.cuda.device(device):
-            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        launch error. Does not synchronise.
+
+        The hot path of every wrapper: the entry point is resolved once,
+        and the device is switched only when it is not the current one."""
+        fn = self._fns.get(symbol)
+        if fn is None:
+            self.load()
+            fn = self._fns[symbol]
+        current = torch.cuda.current_device()
+        index = current if device.index is None else device.index
+        if index == current:
+            err = fn(*args, torch.cuda.current_stream(index).cuda_stream)
+        else:
+            with torch.cuda.device(index):
+                err = fn(*args, torch.cuda.current_stream(index).cuda_stream)
         if err != 0:
             raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
 

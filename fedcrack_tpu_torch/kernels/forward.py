@@ -7,22 +7,26 @@ e4m3 codes reach the contraction directly. Activations stay NHWC (the JAX
 layout) and the tree stays in the JAX layout (HWIO codes, per-last-axis
 scales):
 
-- 3x3 convs (stem, decoder ConvTranspose): im2col through ``F.unfold``,
-  whose patch channels are ``(C, kh, kw)``-major like
-  ``lax.conv_general_dilated_patches``, so the HWIO codes reshape as
-  ``permute(2, 0, 1, 3).reshape(C * 9, F)``. Flax ``"SAME"`` padding is
-  asymmetric at stride 2 (0 before, 1 after on an even grid), so the input
-  is padded explicitly before the unfold. A 3x3 stride-1 SAME flax
-  ``ConvTranspose`` equals the plain SAME conv of the same, unflipped
-  kernel, so the decoder needs no transposed conv.
+- decoder 3x3 stride-1 convs (``convT1``/``convT2``): a 3x3 stride-1 SAME
+  flax ``ConvTranspose`` equals the plain SAME conv of the same, unflipped
+  kernel, so they run through
+  :func:`~fedcrack_tpu_torch.kernels.dequant.dequant_conv3x3`, which
+  gathers its patches from the NHWC activation inside the kernel.
+- the stride-2 stem (C = 3): im2col through ``F.unfold``
+  (:func:`~fedcrack_tpu_torch.kernels.dequant.im2col3x3`, ``(C, kh, kw)``
+  patch order like ``lax.conv_general_dilated_patches``, flax's asymmetric
+  SAME padding made explicit), the HWIO codes permuted to match, then
+  ``dequant_matmul``.
 - 1x1 convs (pointwise, decoder residuals, head): reshape and matmul.
 - encoder residual 1x1 stride 2 SAME: it reads exactly ``x[:, ::2, ::2]``.
 - depthwise 3x3: O(9 C) weights, expanded by
   :func:`~fedcrack_tpu_torch.kernels.dequant.dequant_codes` and run as a
   grouped conv.
 
-Per forward at ``ModelConfig()`` that is 23 ``dequant_matmul`` launches and
-6 ``dequant_codes`` launches. Everything accumulates in float32.
+Per forward at ``ModelConfig()`` that is 15 ``dequant_matmul`` launches
+(stem, 9 encoder, 4 decoder residuals, head), 8 ``dequant_conv3x3``
+launches and 6 ``dequant_codes`` launches. Everything accumulates in
+float32.
 """
 
 from __future__ import annotations
@@ -31,9 +35,9 @@ import torch
 import torch.nn.functional as F
 
 from fedcrack_tpu_torch.configs import ModelConfig
-from fedcrack_tpu_torch.kernels.dequant import dequant_codes, dequant_matmul
+from fedcrack_tpu_torch.kernels.dequant import dequant_codes, dequant_conv3x3, dequant_matmul, im2col3x3
 from fedcrack_tpu_torch.models.resunet import BN_EPSILON, upsample2x
-from fedcrack_tpu_torch.ops.pooling import max_pool_auto, same_pads
+from fedcrack_tpu_torch.ops.pooling import max_pool_auto
 
 
 def _codes(leaf) -> tuple[torch.Tensor, torch.Tensor]:
@@ -60,16 +64,13 @@ def _conv1x1(x: torch.Tensor, mod: dict) -> torch.Tensor:
 
 def _conv3x3(x: torch.Tensor, mod: dict, *, stride: int) -> torch.Tensor:
     q, s = _codes(mod["kernel"])  # (3, 3, C, F)
+    if stride == 1:
+        return dequant_conv3x3(x.contiguous(), q, s) + mod["bias"]
     c, f = q.shape[2], q.shape[3]
-    n, h, w, _ = x.shape
-    ho, lo_h, hi_h = same_pads(h, 3, stride)
-    wo, lo_w, hi_w = same_pads(w, 3, stride)
-    xc = F.pad(x.permute(0, 3, 1, 2), (lo_w, hi_w, lo_h, hi_h))
-    patches = F.unfold(xc, kernel_size=3, stride=stride)  # [N, C*9, Ho*Wo]
-    rows = patches.transpose(1, 2).reshape(n * ho * wo, c * 9).contiguous()
+    rows, ho, wo = im2col3x3(x, stride)
     q2 = q.permute(2, 0, 1, 3).reshape(c * 9, f).contiguous()
     y = dequant_matmul(rows, q2, s)
-    return y.reshape(n, ho, wo, f) + mod["bias"]
+    return y.reshape(x.shape[0], ho, wo, f) + mod["bias"]
 
 
 def _sepconv(x: torch.Tensor, mod: dict) -> torch.Tensor:

@@ -16,26 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import SWEEP_SHAPES, code_bytes, to_torch_tree
+from torch_port_helpers import SWEEP_SHAPES, code_bytes, jax_leaf, skip_without_fp8, to_torch_tree
 
 pytestmark = pytest.mark.torch_port
-
-
-def _leaf(flavor: str, w: np.ndarray):
-    from fedcrack_tpu.serve import quant as jq
-
-    if flavor == "int8":
-        leaf = jq.quantize_leaf(w)
-        return leaf[jq.QKEY], leaf[jq.SKEY]
-    leaf = jq.quantize_leaf_fp8(w)
-    return leaf[jq.QKEY_FP8], leaf[jq.SKEY]
-
-
-def _skip_without_fp8(flavor: str):
-    from fedcrack_tpu import jaxcompat
-
-    if flavor == "e4m3" and not jaxcompat.fp8_supported():
-        pytest.skip("this jax build has no fp8 dtypes")
 
 
 @pytest.mark.parametrize("flavor", ["int8", "e4m3"])
@@ -44,12 +27,12 @@ def test_dequant_matmul_matches_jax_interpret(shape, flavor):
     from fedcrack_tpu.kernels.dequant import dequant_matmul as jax_dequant_matmul
     from fedcrack_tpu_torch.kernels.dequant import dequant_matmul
 
-    _skip_without_fp8(flavor)
+    skip_without_fp8(flavor)
     m, k, n = shape
     rng = np.random.default_rng(sum(shape) * 7 + len(flavor))
     x = rng.normal(0, 1.0, (m, k)).astype(np.float32)
     w = rng.normal(0, 0.1, (k, n)).astype(np.float32)
-    q, scale = _leaf(flavor, w)
+    q, scale = jax_leaf(flavor, w)
     want = np.asarray(jax_dequant_matmul(x, q, scale, impl="interpret"))
     got = dequant_matmul(torch.from_numpy(x), to_torch_tree(q), torch.from_numpy(scale))
     assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
@@ -61,10 +44,10 @@ def test_dequant_codes_matches_jax_interpret(flavor):
     from fedcrack_tpu.kernels.dequant import dequant_codes as jax_dequant_codes
     from fedcrack_tpu_torch.kernels.dequant import dequant_codes
 
-    _skip_without_fp8(flavor)
+    skip_without_fp8(flavor)
     rng = np.random.default_rng(11)
     w = rng.normal(0, 0.1, (3, 3, 1, 130)).astype(np.float32)
-    q, scale = _leaf(flavor, w)
+    q, scale = jax_leaf(flavor, w)
     want = np.asarray(jax_dequant_codes(q, scale, impl="interpret"))
     got = dequant_codes(to_torch_tree(q), torch.from_numpy(scale)).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-7)
@@ -78,7 +61,7 @@ def test_fp8_codes_cross_as_the_same_bytes():
     if not jaxcompat.fp8_supported():
         pytest.skip("this jax build has no fp8 dtypes")
     w = np.linspace(-0.3, 0.3, 64, dtype=np.float32).reshape(8, 8)
-    q, _ = _leaf("e4m3", w)
+    q, _ = jax_leaf("e4m3", w)
     t = to_torch_tree(q)
     assert t.dtype == torch.float8_e4m3fn
     np.testing.assert_array_equal(code_bytes(t), code_bytes(q))

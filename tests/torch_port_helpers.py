@@ -20,6 +20,26 @@ TWO_BLOCK_KW = dict(
 SWEEP_SHAPES = [(4, 7, 5), (8, 128, 128), (33, 130, 129), (1, 256, 3), (16, 9, 17)]
 
 
+def jax_leaf(flavor: str, w: np.ndarray):
+    """(codes, scales) of ``w`` from the JAX package's int8 or e4m3 quantizer."""
+    from fedcrack_tpu.serve import quant as jq
+
+    if flavor == "int8":
+        leaf = jq.quantize_leaf(w)
+        return leaf[jq.QKEY], leaf[jq.SKEY]
+    leaf = jq.quantize_leaf_fp8(w)
+    return leaf[jq.QKEY_FP8], leaf[jq.SKEY]
+
+
+def skip_without_fp8(flavor: str) -> None:
+    import pytest
+
+    from fedcrack_tpu import jaxcompat
+
+    if flavor == "e4m3" and not jaxcompat.fp8_supported():
+        pytest.skip("this jax build has no fp8 dtypes")
+
+
 def jax_variables(kw: dict, seed: int = 0) -> dict:
     """The JAX package's ``init_variables`` as a plain dict of numpy arrays."""
     import jax
