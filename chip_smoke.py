@@ -15,27 +15,32 @@ on failure, so any failure exits non-zero and prints no result):
    launches at bucket 256 x batch 8 with ``ModelConfig()``, each plus a
    ragged sweep: per entry within the per-channel scale + 1e-6 of the
    plain version (the largest |kernel - plain| / scale is logged), bitwise
-   equal run to run and over a launch of fewer rows; ``dequant_codes``
-   bitwise equal to its plain version. Per forward: device time (profiler)
-   of kernel, plain version and library call (``torch.matmul`` /
-   ``F.conv2d`` on channels-last input, weights expanded once; TF32 off),
-   CUDA-event times beside them, and the bound (bytes at 3.35 TB/s with A
-   read once, or three bf16 passes at 989 TFLOP/s; the f32-FMA bound
-   logged beside it);
+   equal run to run and over a launch of fewer rows; ``dequant_codes_group``
+   bitwise equal to its plain version at every leaf of the forward's six
+   depthwise kernels in one call, of a ragged group, of a group with a
+   misaligned leaf, and of one-leaf calls. Per forward: device time
+   (profiler) of kernel, plain version and library call (``torch.matmul``
+   / ``F.conv2d`` on channels-last input, weights expanded once, TF32 off;
+   6 x ``torch.mul(q, s)``), CUDA-event times beside them, and the bound
+   (bytes at 3.35 TB/s with A read once, or three bf16 passes at 989
+   TFLOP/s; the f32-FMA bound logged beside it);
 4. serve at full width (the main path): ``ModelConfig()`` with
    ``ServeConfig(quant="int8", kernel_plane="fused_int8")``, install through
    ``ModelVersionManager.install`` (the quant gate must pass at both
    buckets), then requests through ``MicroBatcher.submit`` (16 at 256^2,
    8 at 128^2, 2 padded) and one tiled 512 x 384 image through
    ``predict_image``, twice. Launch counts are reset right before and read
-   right after (15 ``dequant_matmul``, 8 ``dequant_conv3x3`` and 6
+   right after (15 ``dequant_matmul``, 8 ``dequant_conv3x3`` and 1
    ``dequant_codes`` per forward); fused vs reference plane on the probe
    batch; throughput; a profile of one bucket-256 batch;
 5. the fp8 plane: the same with ``kernel_plane="fp8"``, one batch served;
 6. ``bce_sums`` vs plain at the train step's logits (16 x 128 x 128), at
    8 x 256 x 256, and over a ragged sweep: count lanes equal, BCE lanes
-   within rtol 1e-5 / atol 1e-3, bitwise equal run to run; kernel, plain,
-   library and bound times;
+   within rtol 1e-5 / atol 1e-3, bitwise equal run to run, back to back at
+   alternating sizes and on two streams at once; one kernel per call by
+   the profiler; device time (``ms``) and CUDA-event time (``event_ms``)
+   of kernel, plain version and ``F.binary_cross_entropy_with_logits``
+   (``library_ms``, ``library_event_ms``), and the bound;
 7. train at full width (the training path's main path): ``ModelConfig()``
    at 128 px, batch 16, two clients of 64 seeded synthetic samples and 32
    held out; two rounds of ``make_train_fn`` per client (one local epoch),
@@ -80,6 +85,9 @@ BUCKET, BATCH = 256, 8
 # test's ragged sizes for bce_sums.
 TRAIN_SIZE, TRAIN_BATCH = 128, 16
 BCE_SWEEP = [1, 100, 128, 32768, 32769, 100_000]
+# Ragged code groups: 1 and 17 codes, 1000 x 37, 4099, and 45 (a
+# depthwise kernel of 5 channels): numels on and off the kernel's 4-code units.
+CODES_RAGGED = [(1,), (17,), (1000, 37), (4099,), (3, 3, 1, 5)]
 # bce_sums reads x and y (8 bytes) and does ~20 operations per element.
 BCE_OPS_PER_ELEMENT = 20
 
@@ -135,11 +143,12 @@ def conv_shapes(cfg, size: int, batch: int) -> list[tuple[str, int, int, int, in
     return shapes
 
 
-def depthwise_channels(cfg) -> list[int]:
-    """Channel count of every dequant_codes launch (two per encoder block)."""
+def depthwise_shapes(cfg) -> list[tuple[int, int, int, int]]:
+    """Shape of every depthwise kernel the fused forward expands (two per
+    encoder block), in forward order."""
     out, cin = [], cfg.stem_features
     for f in cfg.encoder_features:
-        out += [cin, f]
+        out += [(3, 3, 1, cin), (3, 3, 1, f)]
         cin = f
     return out
 
@@ -317,48 +326,77 @@ def kernel_phase(torch, card: str) -> dict:
                                 "F.conv2d(channels_last)", cases)
         rows[name].update(max_abs_err=errs[0], max_err_over_scale=errs[1])
 
-        # dequant_codes: bitwise, at the 6 depthwise leaves and a ragged sweep.
+        # dequant_codes: bitwise, grouped as the forward calls it.
         name = f"dequant_codes[{flavor}]"
-        leaves = []
-        for c in depthwise_channels(cfg) + [17, 1000, 4099]:
-            shape = (3, 3, 1, c) if c in depthwise_channels(cfg) else (c, 37)
-            q, s = codes(shape)
-            out = dequant.dequant_codes(q, s)
-            torch.cuda.synchronize()
-            if not torch.equal(out, dequant._dequant_codes_plain(q, s)):
-                raise AssertionError(f"{name} {shape} differs from its plain version")
-            if len(shape) == 4:
-                leaves.append((q, s))
-        row = {"event_ms": 0.0, "plain_event_ms": 0.0, "library_event_ms": 0.0, "bound_ms": 0.0,
-               "bytes_ms": 0.0, "ops_ms": 0.0, "max_abs_err": 0.0}
-        for q, s in leaves:
-            numel = q.numel()
-            n_bytes = numel + 4 * s.numel() + 4 * numel
-            b_ms, _ = bound_ms(n_bytes, numel)
-            t_k = cuda_ms(torch, lambda: dequant.dequant_codes(q, s))
-            t_p = cuda_ms(torch, lambda: dequant._dequant_codes_plain(q, s))
-            t_l = cuda_ms(torch, lambda: torch.mul(q, s)) if flavor == "int8" else None
-            row["event_ms"] += t_k
-            row["plain_event_ms"] += t_p
-            row["library_event_ms"] = None if t_l is None else row["library_event_ms"] + t_l
-            row["bound_ms"] += b_ms
-            row["bytes_ms"] += n_bytes / HBM_BYTES_PER_S * 1e3
-            row["ops_ms"] += numel / FP32_FLOPS_PER_S * 1e3
-            log(f"{name} {tuple(q.shape)}: events kernel {t_k:.4f} ms, plain {t_p:.4f} ms"
-                f"{'' if t_l is None else f', torch.mul {t_l:.4f} ms'}, bound {b_ms:.6f} ms [{card}]")
-        row["ms"] = device_ms(torch, [lambda q=q, s=s: dequant.dequant_codes(q, s) for q, s in leaves],
-                              launches=len(leaves))
-        row["plain_ms"] = device_ms(torch, [lambda q=q, s=s: dequant._dequant_codes_plain(q, s) for q, s in leaves])
-        # torch.mul has no fp8 kernel, so the e4m3 row has no library call.
-        row["library_ms"] = (device_ms(torch, [lambda q=q, s=s: torch.mul(q, s) for q, s in leaves])
-                             if flavor == "int8" else None)
-        row["bound_by"] = "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations"
-        log(f"{name} one forward ({len(leaves)} launches), device time: kernel {row['ms']:.4f} ms, "
-            f"plain {row['plain_ms']:.4f} ms, torch.mul {row['library_ms']}; bound {row['bound_ms']:.6f} ms; "
-            f"CUDA events: kernel {row['event_ms']:.4f} ms, plain {row['plain_event_ms']:.4f} ms, "
-            f"torch.mul {row['library_event_ms']} [{card}]")
-        rows[name] = row
+        rows[name] = codes_case(torch, card, name, flavor, codes, cfg)
     return rows
+
+
+def codes_case(torch, card: str, name: str, flavor: str, codes, cfg) -> dict:
+    """``dequant_codes_group`` bitwise against its plain version: the six
+    depthwise leaves of ``cfg`` in one call (from a prepared ``CodeGroup``,
+    as the served forward calls it), a ragged group, a group with a
+    misaligned leaf, and one leaf at a time; every call twice. Times per
+    forward: the kernel's one launch (profiler, launch count checked) and
+    CUDA events, beside the plain version's and 6 x ``torch.mul``'s on both
+    clocks; the same leaves as 6 one-leaf calls and as a group validated
+    per call, on CUDA events."""
+    from fedcrack_tpu_torch.kernels import dequant
+
+    leaves = [codes(shape) for shape in depthwise_shapes(cfg)]
+    ragged = [codes(shape) for shape in CODES_RAGGED]
+    # A leaf that starts one byte into its storage: its 32-bit code loads
+    # would be misaligned, so every unit of it takes the scalar path.
+    q, s = codes((1000, 37))
+    buf = torch.zeros(q.numel() + 1, dtype=torch.uint8, device=q.device)
+    buf[1:] = q.view(torch.uint8).flatten()
+    misaligned = [ragged[0], (buf[1:].view(q.dtype).view(q.shape), s), ragged[-1]]
+    group = dequant.CodeGroup(leaves)
+    calls = [("depthwise (prepared)", lambda: dequant.dequant_codes_group(group), leaves)]
+    calls += [(label, lambda pairs=pairs: dequant.dequant_codes_group(pairs), pairs)
+              for label, pairs in (("depthwise", leaves), ("ragged", ragged), ("misaligned", misaligned))]
+    calls += [(f"one leaf {tuple(q.shape)}", lambda q=q, s=s: [dequant.dequant_codes(q, s)], [(q, s)])
+              for q, s in leaves + ragged]
+    for label, call, pairs in calls:
+        got = call()
+        again = call()
+        torch.cuda.synchronize()
+        for (q, s), out, out2 in zip(pairs, got, again):
+            if out.data_ptr() % 16:
+                raise AssertionError(f"{name} {label}: slice of {tuple(q.shape)} not 16-byte aligned")
+            if not (torch.equal(out, dequant._dequant_codes_plain(q, s)) and torch.equal(out, out2)):
+                raise AssertionError(f"{name} {label}: {tuple(q.shape)} differs from its plain version")
+    log(f"{name}: {len(calls)} groups (6 depthwise leaves, ragged numels {[q.numel() for q, _ in ragged]}, a "
+        f"misaligned leaf, one-leaf calls) bitwise equal to the plain version, twice")
+
+    numel = sum(q.numel() for q, _ in leaves)
+    n_bytes = numel + sum(4 * s.numel() for _, s in leaves) + 4 * numel
+    row = {"max_abs_err": 0.0, "bytes_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+           "ops_ms": numel / FP32_FLOPS_PER_S * 1e3}
+    row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, numel)
+
+    def plain():
+        return [dequant._dequant_codes_plain(q, s) for q, s in leaves]
+
+    def library():
+        return [torch.mul(q, s) for q, s in leaves]
+
+    row["ms"] = device_ms(torch, [lambda: dequant.dequant_codes_group(group)], launches=1)
+    row["plain_ms"] = device_ms(torch, [plain])
+    row["event_ms"] = cuda_ms(torch, lambda: dequant.dequant_codes_group(group))
+    row["plain_event_ms"] = cuda_ms(torch, plain)
+    row["six_calls_event_ms"] = cuda_ms(torch, lambda: [dequant.dequant_codes(q, s) for q, s in leaves])
+    row["unprepared_event_ms"] = cuda_ms(torch, lambda: dequant.dequant_codes_group(leaves))
+    # torch.mul has no fp8 kernel, so the e4m3 row has no library call.
+    row["library_ms"] = device_ms(torch, [library]) if flavor == "int8" else None
+    row["library_event_ms"] = cuda_ms(torch, library) if flavor == "int8" else None
+    log(f"{name} one forward (1 launch, {len(leaves)} leaves, {numel} codes), device time: kernel "
+        f"{row['ms']:.6f} ms, plain {row['plain_ms']:.6f} ms, 6 x torch.mul {row['library_ms']}; "
+        f"bound {row['bound_ms']:.7f} ms ({row['bound_by']}); CUDA events: kernel {row['event_ms']:.6f} ms, "
+        f"plain {row['plain_event_ms']:.6f} ms, 6 x torch.mul {row['library_event_ms']}, "
+        f"6 one-leaf calls {row['six_calls_event_ms']:.6f} ms, group validated per call "
+        f"{row['unprepared_event_ms']:.6f} ms [{card}]")
+    return row
 
 
 def serve_phase(torch, card: str, kernel_plane: str, requests: bool) -> dict:
@@ -391,7 +429,7 @@ def serve_phase(torch, card: str, kernel_plane: str, requests: bool) -> dict:
     rng = np.random.default_rng(1)
     per_forward = {"dequant_matmul": len(matmul_shapes(cfg, BUCKET, BATCH)),
                    "dequant_conv3x3": len(conv_shapes(cfg, BUCKET, BATCH)),
-                   "dequant_codes": len(depthwise_channels(cfg))}
+                   "dequant_codes": 1}  # the forward's depthwise leaves, grouped
 
     # ---- the main path, counted ----
     dequant.reset_launch_counts()
@@ -531,7 +569,10 @@ def profile_batches(torch, engine, weights, batch, card: str, n: int = 5) -> Non
 
 
 def bce_phase(torch, card: str) -> dict:
-    """Phase 6: ``bce_sums`` against its plain version on the card."""
+    """Phase 6: ``bce_sums`` against its plain version on the card: at the
+    train step's logits, at 8 x 256 x 256 and over a ragged sweep; calls at
+    alternating sizes back to back (the ticket's reset), and on two streams
+    at once (one workspace each); one kernel per call by the profiler."""
     import torch.nn.functional as F
 
     from fedcrack_tpu_torch.ops import bce
@@ -540,11 +581,13 @@ def bce_phase(torch, card: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(6)
     cases = [("train_step", (TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 1)), ("256px", (8, 256, 256, 1))]
     cases += [(f"n={n}", (n,)) for n in BCE_SWEEP]
-    row = {"max_abs_err": 0.0}
+    row, inputs, single = {"max_abs_err": 0.0}, {}, {}
     for label, shape in cases:
         x = torch.randn(shape, generator=gen, device=dev) * 2.0
         y = (torch.rand(shape, generator=gen, device=dev) > 0.7).to(torch.float32)
-        got = bce.bce_sums(x, y)
+        inputs[label] = (x, y)
+        got = single[label] = bce.bce_sums(x, y)
+        torch.cuda.synchronize()
         again = bce.bce_sums(x, y)
         plain = bce._bce_sums_plain(x, y)
         torch.cuda.synchronize()
@@ -556,43 +599,84 @@ def bce_phase(torch, card: str) -> dict:
         if not bool((err <= 1e-3 + 1e-5 * plain.abs()).all()):
             raise AssertionError(f"bce_sums {label}: BCE lanes {got.tolist()} vs plain {plain.tolist()}")
         row["max_abs_err"] = max(row["max_abs_err"], float(err.max()))
-        if len(shape) == 1:
-            continue
+
+    # Back to back at alternating sizes (grids of 1 to 256 blocks), no
+    # synchronisation between calls: each must equal the same call made alone.
+    order = [label for _ in range(3) for label, _ in cases]
+    outs = [bce.bce_sums(*inputs[label]) for label in order]
+    torch.cuda.synchronize()
+    for label, out in zip(order, outs):
+        if not torch.equal(out, single[label]):
+            raise AssertionError(f"bce_sums {label}: back-to-back call differs from the single call")
+    # Two streams at once, each with its own workspace.
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    pairs = [("train_step", "256px"), ("n=100000", "n=32769")]
+    results = []
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(10):
+        for s, labels in zip(streams, pairs):
+            with torch.cuda.stream(s):
+                results += [(label, bce.bce_sums(*inputs[label])) for label in labels]
+    torch.cuda.synchronize()
+    for label, out in results:
+        if not torch.equal(out, single[label]):
+            raise AssertionError(f"bce_sums {label}: a call on a second stream differs from the single call")
+    log(f"bce_sums: {len(cases)} shapes within rtol 1e-5 / atol 1e-3 of plain (count lanes equal), bitwise "
+        f"repeatable, {len(order)} back-to-back calls at alternating sizes and {len(results)} calls on two "
+        f"streams bitwise equal to single calls; max |kernel - plain| {row['max_abs_err']:.3g}")
+
+    for label in ("train_step", "256px"):
+        x, y = inputs[label]
         n = x.numel()
-        t_k = cuda_ms(torch, lambda: bce.bce_sums(x, y), iters=50)
-        t_p = cuda_ms(torch, lambda: bce._bce_sums_plain(x, y), iters=50)
-        t_l = cuda_ms(torch, lambda: F.binary_cross_entropy_with_logits(x, y, reduction="sum"), iters=50)
-        b_ms, b_by = bound_ms(8 * n + 4 * 5, BCE_OPS_PER_ELEMENT * n)
-        log(f"bce_sums {label} {tuple(shape)} (n={n}): kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-            f"F.binary_cross_entropy_with_logits (lane 0 only) {t_l:.4f} ms, bound {b_ms:.6f} ms "
-            f"({b_by}), max_abs_err {float(err.max()):.3g} [{card}]")
+        kernels = kernel_device_us(torch, lambda: bce.bce_sums(x, y))
+        names = list(kernels)
+        if len(names) != 1 or "bce_sums_kernel" not in names[0] or kernels[names[0]][1] != 1:
+            raise AssertionError(f"bce_sums {label}: want one bce_sums_kernel per call, the profiler saw {kernels}")
+        us = kernels[names[0]][0]
+
+        def library():
+            return F.binary_cross_entropy_with_logits(x, y, reduction="sum")
+
+        case = {"ms": us / 1e3,
+                "plain_ms": device_ms(torch, [lambda: bce._bce_sums_plain(x, y)]),
+                "library_ms": device_ms(torch, [library]),
+                "event_ms": cuda_ms(torch, lambda: bce.bce_sums(x, y), iters=50),
+                "plain_event_ms": cuda_ms(torch, lambda: bce._bce_sums_plain(x, y), iters=50),
+                "library_event_ms": cuda_ms(torch, library, iters=50)}
+        case["bound_ms"], case["bound_by"] = bound_ms(8 * n + 4 * 5, BCE_OPS_PER_ELEMENT * n)
+        log(f"bce_sums {label} {tuple(x.shape)} (n={n}), one kernel per call: device time kernel "
+            f"{case['ms']:.6f} ms, plain {case['plain_ms']:.6f} ms, F.binary_cross_entropy_with_logits "
+            f"(lane 0 only) {case['library_ms']:.6f} ms; CUDA events kernel {case['event_ms']:.6f} ms, plain "
+            f"{case['plain_event_ms']:.6f} ms, library {case['library_event_ms']:.6f} ms; bound "
+            f"{case['bound_ms']:.6f} ms ({case['bound_by']}) [{card}]")
         if label == "train_step":
-            row.update(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
-            dev_us = kernel_device_us(torch, lambda: bce.bce_sums(x, y), ("bce_partials", "bce_final"))
-            log(f"bce_sums {label}: device time per call (torch.profiler) "
-                f"{json.dumps({k: round(v, 3) for k, v in dev_us.items()})} us; the CUDA-event time above "
-                f"includes the host's per-call work between back-to-back launches [{card}]")
+            row.update(case)
     return row
 
 
-def kernel_device_us(torch, fn, names: tuple[str, ...], n: int = 20) -> dict[str, float]:
-    """Device time per call of each named kernel, from torch.profiler."""
+def kernel_device_us(torch, fn, n: int = 20) -> dict[str, tuple[float, float]]:
+    """Per CUDA kernel that ``fn`` launches: device time per call (us) and
+    launches per call, from torch.profiler. A profile that lost kernel
+    records would read short, so a profile whose launch counts are not
+    whole multiples of ``n`` is taken again (up to three times)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    out = {name: 0.0 for name in names}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            for name in names:
-                if name in e.key:
-                    out[name] += e.self_device_time_total / n
-    return out
+    seen = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        out = {e.key: (e.self_device_time_total / n, e.count / n) for e in kernels}
+        if out and all(e.count % n == 0 for e in kernels):
+            return out
+        seen.append(out)
+    raise AssertionError(f"the profiler's kernel counts are not whole per call: {seen}")
 
 
 def _flat_tree(tree, path=()):
@@ -859,6 +943,7 @@ def main() -> int:
                 "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"],
                 "event_ms": row["event_ms"],
+                "library_event_ms": row["library_event_ms"],
             })
     kernels.append({
         "name": "bce_sums",

@@ -13,41 +13,55 @@
 //
 // Design. The TPU kernel walks row blocks in order on one core and carries
 // the sums in one VMEM output block. Here blocks run in parallel and in no
-// order, so the reduction has two passes and no atomics:
+// order, so one launch reduces in two stages, with no float atomics:
 //
-// * Pass 1 (bce_partials_kernel): a grid whose size depends on n alone
-//   (fc_bce_sums_blocks), so one n always reduces in the same order. Each
-//   thread walks its share with 16-byte float4 loads (neighbouring threads
-//   on neighbouring addresses) and keeps five f32 accumulators; the ragged
-//   tail (n % 4, or every element when a base pointer is not 16-byte
-//   aligned) is masked by global index. The block reduces with warp
-//   shuffles, then across its warps in shared memory, and writes one row of
-//   partials[blocks][5].
-// * Pass 2 (bce_final_kernel): one block sums the partial rows in a fixed
-//   order into out[5].
+// * Every block: a grid whose size depends on n alone (blocks_for), so one
+//   n always reduces in the same order. Each thread walks its share with
+//   16-byte float4 loads (neighbouring threads on neighbouring addresses)
+//   and keeps five f32 accumulators; the ragged tail (n % 4, or every
+//   element when a base pointer is not 16-byte aligned) is masked by global
+//   index. The block reduces with warp shuffles, then across its warps in
+//   shared memory, and writes one row of partials[blocks][5].
+// * The last block: each block draws a ticket from an unsigned-int
+//   fetch_add with acquire-release order at device scope (the fence that
+//   publishes its row, and for the last block the one that makes every
+//   row visible; cheaper than __threadfence's sequentially consistent
+//   fence followed by a plain atomicAdd). The block that draws the last
+//   ticket reads every row through L2 (__ldcg: its L1 may hold rows of an
+//   earlier call), folds them in fixed block order with the same loop and
+//   tree as every block's own reduction, writes out[5] and resets the
+//   ticket to 0 for the next call. Which block finishes last does not
+//   change the order, so the result is bitwise repeatable. The only
+//   atomic is that integer ticket: no float atomics.
 //
-// The result is bitwise repeatable run to run; the count lanes (1-3) are
-// exact integers while n < 2^24. expf and log1pf are the accurate library
-// functions (no --use_fast_math).
+// The partials and the ticket are a persistent workspace that the caller
+// keeps per (device, stream): launches on one stream run in order, so no
+// two calls share it at once. The count lanes (1-3) are exact integers
+// while n < 2^24. expf and log1pf are the accurate library functions (no
+// --use_fast_math).
 //
 // What bounds it on an H100: device memory. It reads 8 bytes per element
 // (x and y once each) and does ~20 operations per element, so at the
 // training path's 16 x 128 x 128 logits (262,144 elements, 2.1 MB) the
 // bound is 0.63 us of bytes at 3.35 TB/s against 0.08 us of f32 arithmetic
-// at 67 TFLOP/s. At that size the two launches dominate; a larger grid or
-// one fused launch is later work.
+// at 67 TFLOP/s. At that size the launch, the first loads' latency and the
+// last block's fold (two L2 round trips and a block reduction after the
+// slowest block) are most of the time. 512-thread blocks halve the rows
+// the fold reads against 256-thread ones.
 
+#include <cuda/atomic>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
 constexpr int LANES = 5;
-// One float4 of x and of y per thread per pass-1 grid sweep; the grid
-// grows with n up to MAX_BLOCKS, beyond which threads stride.
+// One float4 of x and of y per thread per grid sweep; the grid grows with n
+// up to MAX_BLOCKS (ops/bce.py sizes the workspace to it), beyond which
+// threads stride.
 constexpr long long ELEMS_PER_BLOCK = THREADS * 4;
 constexpr long long MAX_BLOCKS = 1024;
 
@@ -97,8 +111,9 @@ __device__ __forceinline__ void block_reduce(Sums& s) {
 }
 
 __global__ void __launch_bounds__(THREADS)
-bce_partials_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                    float* __restrict__ partials, long long n) {
+bce_sums_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                float* partials, unsigned int* ticket, float* __restrict__ out,
+                long long n) {
   Sums s;
 #pragma unroll
   for (int k = 0; k < LANES; ++k) s.v[k] = 0.0f;
@@ -125,26 +140,30 @@ bce_partials_kernel(const float* __restrict__ x, const float* __restrict__ y,
   }
 
   block_reduce(s);
+  __shared__ bool last;
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int k = 0; k < LANES; ++k) partials[blockIdx.x * LANES + k] = s.v[k];
+    // Release: the row is visible device-wide before the ticket is drawn.
+    // Acquire: the last block sees every row drawn before its ticket.
+    cuda::atomic_ref<unsigned int, cuda::thread_scope_device> tickets(*ticket);
+    last = tickets.fetch_add(1u, cuda::memory_order_acq_rel) == gridDim.x - 1;
   }
-}
+  __syncthreads();  // also: warp 0 is done reading block_reduce's shared sums
+  if (!last) return;
 
-__global__ void __launch_bounds__(THREADS)
-bce_final_kernel(const float* __restrict__ partials, float* __restrict__ out,
-                 int blocks) {
-  Sums s;
+  // The last block: every row has landed. Fold them in block order.
 #pragma unroll
   for (int k = 0; k < LANES; ++k) s.v[k] = 0.0f;
-  for (int b = threadIdx.x; b < blocks; b += THREADS) {
+  for (int b = threadIdx.x; b < static_cast<int>(gridDim.x); b += THREADS) {
 #pragma unroll
-    for (int k = 0; k < LANES; ++k) s.v[k] += partials[b * LANES + k];
+    for (int k = 0; k < LANES; ++k) s.v[k] += __ldcg(&partials[b * LANES + k]);
   }
   block_reduce(s);
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int k = 0; k < LANES; ++k) out[k] = s.v[k];
+    *ticket = 0u;  // the next launch on this stream starts after this one ends
   }
 }
 
@@ -160,23 +179,18 @@ int blocks_for(long long n) {
 // Plain C interface, loaded with ctypes.
 extern "C" {
 
-// Rows of the partials buffer fc_bce_sums needs for n elements (the
-// pass-1 grid); the caller allocates partials[blocks * 5] floats.
-int fc_bce_sums_blocks(long long n) { return blocks_for(n); }
-
-// Launches both passes on the given stream, does not synchronise,
-// allocates nothing, and returns the first launch error (0 = launched).
-int fc_bce_sums(const void* x, const void* y, void* partials, void* out,
-                long long n, int blocks, void* stream) {
-  if (blocks != blocks_for(n)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  bce_partials_kernel<<<blocks, THREADS, 0, s>>>(
+// Launches the kernel on the given stream, does not synchronise, allocates
+// nothing, and returns the launch error (0 = launched). partials holds
+// capacity rows of 5 floats and ticket one unsigned int that is 0 between
+// calls: the caller's workspace for this stream.
+int fc_bce_sums(const void* x, const void* y, void* partials, void* ticket, void* out,
+                long long n, int capacity, void* stream) {
+  const int blocks = blocks_for(n);
+  if (blocks > capacity) return static_cast<int>(cudaErrorInvalidValue);
+  bce_sums_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(y),
-      static_cast<float*>(partials), n);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  bce_final_kernel<<<1, THREADS, 0, s>>>(static_cast<const float*>(partials),
-                                         static_cast<float*>(out), blocks);
+      static_cast<float*>(partials), static_cast<unsigned int*>(ticket),
+      static_cast<float*>(out), n);
   return static_cast<int>(cudaGetLastError());
 }
 

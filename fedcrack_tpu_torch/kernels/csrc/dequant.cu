@@ -15,7 +15,8 @@
 //   one tap), border taps zero-filled by the copy. No padded or im2col
 //   buffer exists; the codes enter as q.reshape(9C, F).
 // * dequant_codes_kernel <- _dequant_kernel (via _dequant_codes_pallas):
-//   out[i] = float(q[i]) * scale[i % N], the depthwise-kernel expansion.
+//   out[i] = float(q[i]) * scale[i % N], the depthwise-kernel expansion,
+//   for up to 16 leaves in one launch (see its section below).
 //
 // Contract (held against the plain PyTorch versions in dequant.py):
 //
@@ -455,55 +456,98 @@ int launch_conv3x3(const void* x, const void* q, const void* scale, void* y,
                             stream);
 }
 
-constexpr int CODES_PER_THREAD = 16;  // one 16-byte load of 1-byte codes
+// ---- grouped code expansion ----
+//
+// One launch expands every leaf of a group (the six depthwise kernels of a
+// forward): out[offset_s + i] = float(q_s[i]) * scale_s[i % n_s]. The
+// segment table travels by value as a kernel parameter (no host-to-device
+// copy, no table in device memory). Work is cut into units of 4 codes; the
+// grid covers the units of all segments end to end, and a thread finds its
+// segment by scanning the <= 16 prefix offsets. A unit moves as one 32-bit
+// load of codes and one float4 store where its codes are 4-byte aligned and
+// its output slice 16-byte aligned (the host starts each slice at a
+// multiple of 4 floats); a segment's ragged last unit, or every unit of a
+// misaligned view, takes the scalar path. Each element is one f32 multiply
+// of its exactly converted code, so the result is bitwise the plain
+// version's whatever path it took.
+//
+// What bounds it on an H100: nothing on the device. A forward's six leaves
+// hold 6,048 codes, ~33 KB of traffic (0.01 us at 3.35 TB/s); one launch
+// and the wrapper's host work are the whole cost, which is why the six
+// expansions share one launch.
+
+constexpr int MAX_SEGMENTS = 16;
+constexpr int CODES_PER_UNIT = 4;  // one 32-bit load of 1-byte codes
 constexpr int CODES_THREADS = 256;
+
+// Mirrored field for field by dequant.py's _CodeSegments (ctypes).
+struct CodeSegments {
+  const void* q[MAX_SEGMENTS];             // each leaf's codes, contiguous
+  const float* scale[MAX_SEGMENTS];        // each leaf's [n] scales
+  long long out_offset[MAX_SEGMENTS];      // first float of the leaf's slice, a multiple of 4
+  long long numel[MAX_SEGMENTS];           // codes in the leaf
+  long long unit_start[MAX_SEGMENTS + 1];  // prefix sums of ceil(numel / 4)
+  int n[MAX_SEGMENTS];                     // the leaf's last-axis size
+  int count;                               // segments in use, 1..MAX_SEGMENTS
+};
 
 template <typename CodeT>
 __global__ void __launch_bounds__(CODES_THREADS)
-dequant_codes_kernel(const CodeT* __restrict__ q, const float* __restrict__ scale,
-                     float* __restrict__ out, long long total, int N) {
-  const long long base =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) *
-      CODES_PER_THREAD;
-  if (base >= total) return;
-  // The alignment test is the same for every thread (base is a multiple of
-  // 16), so a misaligned view takes the scalar path everywhere.
-  const bool aligned = (reinterpret_cast<uintptr_t>(q) % 16) == 0 &&
-                       (reinterpret_cast<uintptr_t>(out) % 16) == 0;
-  if (aligned && base + CODES_PER_THREAD <= total) {
-    const uint4 packed = *reinterpret_cast<const uint4*>(q + base);
-    const CodeT* codes = reinterpret_cast<const CodeT*>(&packed);
-    int col = static_cast<int>(base % N);
-    float v[CODES_PER_THREAD];
+dequant_codes_kernel(const CodeSegments table, float* __restrict__ out) {
+  const long long unit = static_cast<long long>(blockIdx.x) * CODES_THREADS + threadIdx.x;
+  if (unit >= table.unit_start[table.count]) return;
+  int s = 0;
+  while (unit >= table.unit_start[s + 1]) ++s;
+  const CodeT* q = static_cast<const CodeT*>(table.q[s]);
+  const float* scale = table.scale[s];
+  const long long numel = table.numel[s];
+  const int n = table.n[s];
+  float* o = out + table.out_offset[s];
+  const long long e = CODES_PER_UNIT * (unit - table.unit_start[s]);
+  int col = static_cast<int>(e % n);
+  // The same for every unit of a segment.
+  const bool aligned = (reinterpret_cast<uintptr_t>(q) % 4) == 0 &&
+                       (reinterpret_cast<uintptr_t>(o) % 16) == 0;
+  if (aligned && e + CODES_PER_UNIT <= numel) {
+    const uint32_t packed = *reinterpret_cast<const uint32_t*>(q + e);
+    CodeT codes[CODES_PER_UNIT];
+    memcpy(codes, &packed, sizeof(packed));
+    float v[CODES_PER_UNIT];
 #pragma unroll
-    for (int j = 0; j < CODES_PER_THREAD; ++j) {
+    for (int j = 0; j < CODES_PER_UNIT; ++j) {
       v[j] = code_to_float(codes[j]) * scale[col];
-      if (++col == N) col = 0;
+      if (++col == n) col = 0;
     }
-    float4* o = reinterpret_cast<float4*>(out + base);
-#pragma unroll
-    for (int j = 0; j < CODES_PER_THREAD / 4; ++j) {
-      o[j] = make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
-    }
+    *reinterpret_cast<float4*>(o + e) = make_float4(v[0], v[1], v[2], v[3]);
   } else {
-    const long long end =
-        base + CODES_PER_THREAD < total ? base + CODES_PER_THREAD : total;
-    for (long long i = base; i < end; ++i) {
-      out[i] = code_to_float(q[i]) * scale[i % N];
+    const long long end = e + CODES_PER_UNIT < numel ? e + CODES_PER_UNIT : numel;
+    for (long long i = e; i < end; ++i) {
+      o[i] = code_to_float(q[i]) * scale[col];
+      if (++col == n) col = 0;
     }
   }
 }
 
+// Checks the table's invariants (the host builds them; a table that breaks
+// one would address outside its slices), then launches over all units.
 template <typename CodeT>
-int launch_codes(const void* q, const void* scale, void* out, long long total,
-                 int N, void* stream) {
-  const long long groups = (total + CODES_PER_THREAD - 1) / CODES_PER_THREAD;
-  const long long blocks = (groups + CODES_THREADS - 1) / CODES_THREADS;
-  dequant_codes_kernel<CodeT><<<static_cast<unsigned int>(blocks),
-                                CODES_THREADS, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const CodeT*>(q), static_cast<const float*>(scale),
-      static_cast<float*>(out), total, N);
+int launch_codes(const void* table_ptr, void* out, void* stream) {
+  const CodeSegments& t = *static_cast<const CodeSegments*>(table_ptr);
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (t.count < 1 || t.count > MAX_SEGMENTS || t.unit_start[0] != 0) return bad;
+  long long end = 0;  // end of the previous slice
+  for (int i = 0; i < t.count; ++i) {
+    if (t.n[i] < 1 || t.numel[i] < 0 || t.numel[i] % t.n[i] != 0) return bad;
+    if (t.out_offset[i] % CODES_PER_UNIT != 0 || t.out_offset[i] < end) return bad;
+    const long long units = (t.numel[i] + CODES_PER_UNIT - 1) / CODES_PER_UNIT;
+    if (t.unit_start[i + 1] != t.unit_start[i] + units) return bad;
+    end = t.out_offset[i] + t.numel[i];
+  }
+  const long long units = t.unit_start[t.count];
+  if (units == 0) return static_cast<int>(cudaSuccess);
+  const long long blocks = (units + CODES_THREADS - 1) / CODES_THREADS;
+  dequant_codes_kernel<CodeT><<<static_cast<unsigned int>(blocks), CODES_THREADS, 0,
+                                static_cast<cudaStream_t>(stream)>>>(t, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -534,14 +578,14 @@ int fc_dequant_conv3x3_e4m3(const void* x, const void* q, const void* scale, voi
   return launch_conv3x3<__nv_fp8_e4m3>(x, q, scale, y, n_img, H, W, C, F, stream);
 }
 
-int fc_dequant_codes_i8(const void* q, const void* scale, void* out,
-                        long long total, int N, void* stream) {
-  return launch_codes<int8_t>(q, scale, out, total, N, stream);
+// table: a CodeSegments in host memory, read before the launch returns;
+// out: the arena that holds every segment's slice.
+int fc_dequant_codes_i8(const void* table, void* out, void* stream) {
+  return launch_codes<int8_t>(table, out, stream);
 }
 
-int fc_dequant_codes_e4m3(const void* q, const void* scale, void* out,
-                          long long total, int N, void* stream) {
-  return launch_codes<__nv_fp8_e4m3>(q, scale, out, total, N, stream);
+int fc_dequant_codes_e4m3(const void* table, void* out, void* stream) {
+  return launch_codes<__nv_fp8_e4m3>(table, out, stream);
 }
 
 }  // extern "C"

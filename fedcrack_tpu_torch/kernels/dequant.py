@@ -10,8 +10,12 @@ of the Pallas kernels of ``fedcrack_tpu.kernels.dequant``:
   (``_matmul_kernel`` behind the JAX ``_conv3x3``, whose patches XLA
   materialises). It reads the activation once: no padded copy and no
   9x-wide patch matrix in device memory.
-- :func:`dequant_codes`: ``float(q) * scale`` with per-last-axis scales,
-  bitwise equal to its plain version (``_dequant_kernel``).
+- :func:`dequant_codes_group`: ``float(q) * scale`` with per-last-axis
+  scales for up to 16 leaves in one launch, each leaf's result a view of
+  one arena, bitwise equal to its plain version (``_dequant_kernel``);
+  :func:`dequant_codes` is its one-leaf case. The fused forward expands its
+  six depthwise kernels in one call, from a :class:`CodeGroup` validated
+  once when the tree is placed.
 
 The two GEMMs run on the tensor cores (``mma.sync`` bf16, f32
 accumulators). Codes are exact in bf16; the f32 activation is split into
@@ -44,12 +48,14 @@ a hash of source and flags.
 
 from __future__ import annotations
 
+import ctypes
 import threading
+from collections.abc import Sequence
 
 import torch
 import torch.nn.functional as F
 
-from fedcrack_tpu_torch.kernels.build import I32, I64, PTR, KernelLibrary
+from fedcrack_tpu_torch.kernels.build import I32, PTR, KernelLibrary
 from fedcrack_tpu_torch.ops.pooling import same_pads
 
 CODE_DTYPES = (torch.int8, torch.float8_e4m3fn)
@@ -60,8 +66,8 @@ LIBRARY = KernelLibrary("dequant", {
     "fc_dequant_matmul_e4m3": [PTR, PTR, PTR, PTR, I32, I32, I32, PTR],
     "fc_dequant_conv3x3_i8": [PTR, PTR, PTR, PTR, I32, I32, I32, I32, I32, PTR],
     "fc_dequant_conv3x3_e4m3": [PTR, PTR, PTR, PTR, I32, I32, I32, I32, I32, PTR],
-    "fc_dequant_codes_i8": [PTR, PTR, PTR, I64, I32, PTR],
-    "fc_dequant_codes_e4m3": [PTR, PTR, PTR, I64, I32, PTR],
+    "fc_dequant_codes_i8": [PTR, PTR, PTR],
+    "fc_dequant_codes_e4m3": [PTR, PTR, PTR],
 })
 
 _count_lock = threading.Lock()
@@ -208,8 +214,40 @@ def _dequant_codes_plain(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
-def dequant_codes(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """Expand ``[..., N]`` codes with per-last-axis scales to float32."""
+MAX_SEGMENTS = 16  # leaves per grouped launch (csrc/dequant.cu)
+SLICE_ALIGN = 4  # floats: every leaf's slice of the arena starts 16-byte aligned
+
+
+class _CodeSegments(ctypes.Structure):
+    """``CodeSegments`` of ``csrc/dequant.cu``, field for field."""
+
+    _fields_ = [
+        ("q", ctypes.c_void_p * MAX_SEGMENTS),
+        ("scale", ctypes.c_void_p * MAX_SEGMENTS),
+        ("out_offset", ctypes.c_longlong * MAX_SEGMENTS),
+        ("numel", ctypes.c_longlong * MAX_SEGMENTS),
+        ("unit_start", ctypes.c_longlong * (MAX_SEGMENTS + 1)),
+        ("n", ctypes.c_int * MAX_SEGMENTS),
+        ("count", ctypes.c_int),
+    ]
+
+
+def segment_layout(numels: Sequence[int]) -> tuple[list[int], int]:
+    """``(offsets, total)``: where each leaf's slice starts in the arena (a
+    multiple of :data:`SLICE_ALIGN` floats, in leaf order, disjoint) and the
+    arena's size in floats."""
+    if not numels:
+        raise ValueError("a code group needs at least one leaf")
+    if len(numels) > MAX_SEGMENTS:
+        raise ValueError(f"a code group takes at most {MAX_SEGMENTS} leaves, got {len(numels)}")
+    offsets, end = [], 0
+    for numel in numels:
+        offsets.append(end)
+        end += -(-numel // SLICE_ALIGN) * SLICE_ALIGN
+    return offsets, end
+
+
+def _check_leaf(q: torch.Tensor, scale: torch.Tensor) -> None:
     if q.ndim < 1 or tuple(scale.shape) != (q.shape[-1],):
         raise ValueError(
             f"scale {tuple(scale.shape)} != per-channel ({q.shape[-1] if q.ndim else None},)"
@@ -217,17 +255,78 @@ def dequant_codes(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     _check_codes(q)
     if scale.dtype != torch.float32:
         raise TypeError(f"scale must be float32, got {scale.dtype}")
-    _check_operands(q, scale)
-    if q.device.type == "cpu":
-        return _dequant_codes_plain(q, scale)
-    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    total = q.numel()
-    if total == 0:
-        return out
-    name = "fc_dequant_codes_i8" if q.dtype == torch.int8 else "fc_dequant_codes_e4m3"
-    LIBRARY.launch(name, q.device, q.data_ptr(), scale.data_ptr(), out.data_ptr(), total, q.shape[-1])
-    _count(dequant_codes)
-    return out
+
+
+class CodeGroup:
+    """Leaves of one grouped expansion, ``(q [..., N_i] codes, scale [N_i]
+    f32)`` pairs on one device with one code dtype, validated once. On CUDA
+    it holds the kernel's segment table (read-only pointers into the
+    leaves, which it keeps alive), so a call of :func:`dequant_codes_group`
+    on it is one ``torch.empty``, one launch and one count. Each call
+    writes a fresh arena: concurrent calls share no output memory."""
+
+    def __init__(self, leaves: Sequence[tuple[torch.Tensor, torch.Tensor]]):
+        self.leaves = [(q, scale) for q, scale in leaves]
+        numels = [q.numel() for q, _ in self.leaves]
+        self.offsets, self.total = segment_layout(numels)
+        for q, scale in self.leaves:
+            _check_leaf(q, scale)
+        dtypes = {q.dtype for q, _ in self.leaves}
+        if len(dtypes) > 1:
+            raise TypeError(f"a code group takes one code dtype, got {sorted(map(str, dtypes))}")
+        _check_operands(*(t for leaf in self.leaves for t in leaf))
+        self.device = self.leaves[0][0].device
+        # Each leaf's view of the arena: its shape, its (contiguous) strides, its offset.
+        self.views = [(q.shape, q.stride(), offset) for (q, _), offset in zip(self.leaves, self.offsets)]
+        self.units = sum(-(-numel // SLICE_ALIGN) for numel in numels)
+        self.table = None
+        if self.device.type == "cuda":
+            int8 = self.leaves[0][0].dtype == torch.int8
+            self.symbol = "fc_dequant_codes_i8" if int8 else "fc_dequant_codes_e4m3"
+            self.table = segment_table(self.leaves, self.offsets)
+            self.table_address = ctypes.addressof(self.table)
+
+
+def segment_table(leaves: Sequence[tuple[torch.Tensor, torch.Tensor]], offsets: Sequence[int]) -> _CodeSegments:
+    """The kernel's segment table for validated ``leaves`` whose slices
+    start at ``offsets``: their pointers, sizes and the prefix sums of
+    their 4-code units."""
+    table = _CodeSegments(count=len(leaves))
+    start = 0
+    for i, ((q, scale), offset) in enumerate(zip(leaves, offsets)):
+        table.q[i] = q.data_ptr()
+        table.scale[i] = scale.data_ptr()
+        table.out_offset[i] = offset
+        table.numel[i] = q.numel()
+        table.n[i] = max(q.shape[-1], 1)
+        table.unit_start[i] = start
+        start += -(-q.numel() // SLICE_ALIGN)
+    table.unit_start[len(leaves)] = start
+    return table
+
+
+def dequant_codes_group(
+    leaves: CodeGroup | Sequence[tuple[torch.Tensor, torch.Tensor]],
+) -> list[torch.Tensor]:
+    """Expand each ``(q [..., N_i] codes, scale [N_i])`` leaf to float32,
+    ``float(q) * scale[i % N_i]``, all in one launch on CUDA: the results
+    are views of one arena, each starting 16-byte aligned. ``leaves`` is a
+    prepared :class:`CodeGroup` or the pairs themselves (validated per
+    call)."""
+    group = leaves if isinstance(leaves, CodeGroup) else CodeGroup(leaves)
+    if group.device.type == "cpu":
+        return [_dequant_codes_plain(q, scale) for q, scale in group.leaves]
+    arena = torch.empty(group.total, dtype=torch.float32, device=group.device)
+    if group.units:
+        LIBRARY.launch(group.symbol, group.device, group.table_address, arena.data_ptr())
+        _count(dequant_codes)
+    return [arena.as_strided(shape, stride, offset) for shape, stride, offset in group.views]
+
+
+def dequant_codes(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Expand ``[..., N]`` codes with per-last-axis scales to float32: the
+    one-leaf case of :func:`dequant_codes_group`."""
+    return dequant_codes_group([(q, scale)])[0]
 
 
 dequant_codes.launches = 0

@@ -19,14 +19,16 @@ scales):
   ``dequant_matmul``.
 - 1x1 convs (pointwise, decoder residuals, head): reshape and matmul.
 - encoder residual 1x1 stride 2 SAME: it reads exactly ``x[:, ::2, ::2]``.
-- depthwise 3x3: O(9 C) weights, expanded by
-  :func:`~fedcrack_tpu_torch.kernels.dequant.dequant_codes` and run as a
-  grouped conv.
+- depthwise 3x3: O(9 C) weights, all of a forward's expanded up front by
+  one :func:`~fedcrack_tpu_torch.kernels.dequant.dequant_codes_group`
+  call (from the :class:`~fedcrack_tpu_torch.kernels.dequant.CodeGroup`
+  that :func:`depthwise_group` builds once when the tree is placed) and
+  each run as a grouped conv.
 
 Per forward at ``ModelConfig()`` that is 15 ``dequant_matmul`` launches
 (stem, 9 encoder, 4 decoder residuals, head), 8 ``dequant_conv3x3``
-launches and 6 ``dequant_codes`` launches. Everything accumulates in
-float32.
+launches and 1 ``dequant_codes`` launch for the 6 depthwise kernels.
+Everything accumulates in float32.
 """
 
 from __future__ import annotations
@@ -35,7 +37,13 @@ import torch
 import torch.nn.functional as F
 
 from fedcrack_tpu_torch.configs import ModelConfig
-from fedcrack_tpu_torch.kernels.dequant import dequant_codes, dequant_conv3x3, dequant_matmul, im2col3x3
+from fedcrack_tpu_torch.kernels.dequant import (
+    CodeGroup,
+    dequant_codes_group,
+    dequant_conv3x3,
+    dequant_matmul,
+    im2col3x3,
+)
 from fedcrack_tpu_torch.models.resunet import BN_EPSILON, upsample2x
 from fedcrack_tpu_torch.ops.pooling import max_pool_auto
 
@@ -73,27 +81,55 @@ def _conv3x3(x: torch.Tensor, mod: dict, *, stride: int) -> torch.Tensor:
     return y.reshape(x.shape[0], ho, wo, f) + mod["bias"]
 
 
-def _sepconv(x: torch.Tensor, mod: dict) -> torch.Tensor:
-    dq, ds = _codes(mod["depthwise"]["kernel"])  # (3, 3, 1, C)
-    kern = dequant_codes(dq, ds).permute(3, 2, 0, 1)  # (C, 1, 3, 3)
+def _sepconv(x: torch.Tensor, kernel: torch.Tensor, mod: dict) -> torch.Tensor:
+    """``kernel``: the expanded (3, 3, 1, C) depthwise kernel of ``mod``."""
+    kern = kernel.permute(3, 2, 0, 1)  # (C, 1, 3, 3)
     xc = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1))
     xc = F.conv2d(xc, kern, groups=xc.shape[1])
     return _conv1x1(xc.permute(0, 2, 3, 1), mod["pointwise"])
 
 
-def fused_predict_logits(qtree: dict, x: torch.Tensor, config: ModelConfig) -> torch.Tensor:
+def _depthwise_codes(qtree: dict, config: ModelConfig) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    p = qtree["params"]
+    return [_codes(p[f"enc{i}_{sep}"]["depthwise"]["kernel"])
+            for i in range(len(config.encoder_features)) for sep in ("sep1", "sep2")]
+
+
+def depthwise_group(qtree: dict, config: ModelConfig) -> CodeGroup:
+    """The depthwise kernels' codes of ``qtree`` (two per encoder block, in
+    forward order) as one validated group, for ``fused_predict_logits``."""
+    return CodeGroup(_depthwise_codes(qtree, config))
+
+
+def fused_predict_logits(
+    qtree: dict, x: torch.Tensor, config: ModelConfig, depthwise: CodeGroup
+) -> torch.Tensor:
     """Per-pixel NHWC logits from the quantized tree: the fused counterpart
     of the reference ``ResUNet`` over ``dequantize_variables(qtree)``.
 
     ``qtree``: the ``{'params', 'batch_stats'}`` tree of tensors from
     ``quantize_variables`` / ``quantize_variables_fp8`` (the bare tree),
-    on the device of ``x``."""
+    on the device of ``x``. ``depthwise``: ``depthwise_group(qtree,
+    config)``, built once beside the placed tree
+    (``InferenceEngine.prepare_quantized``); it must hold ``qtree``'s own
+    code and scale tensors, which is checked by identity per call."""
     if config.stem_layout != "reference" or config.res_layout != "reference":
         raise ValueError(
             "fused kernel planes support only the reference parameter layouts; "
             f"got stem_layout={config.stem_layout!r} res_layout={config.res_layout!r}"
         )
+    if not isinstance(depthwise, CodeGroup):
+        raise TypeError(
+            "depthwise must be depthwise_group(qtree, config) (InferenceEngine.prepare_quantized "
+            f"builds it), got {type(depthwise).__name__}"
+        )
+    leaves = _depthwise_codes(qtree, config)
+    if len(leaves) != len(depthwise.leaves) or any(
+        q is not gq or s is not gs for (q, s), (gq, gs) in zip(leaves, depthwise.leaves)
+    ):
+        raise ValueError("depthwise group was not built from this tree's depthwise codes")
     p, st = qtree["params"], qtree["batch_stats"]
+    kernels = dequant_codes_group(depthwise)
     x = x.to(torch.float32)
 
     x = _conv3x3(x, p["stem_conv"], stride=2)
@@ -102,10 +138,10 @@ def fused_predict_logits(qtree: dict, x: torch.Tensor, config: ModelConfig) -> t
 
     for i in range(len(config.encoder_features)):
         x = torch.relu(x)
-        x = _sepconv(x, p[f"enc{i}_sep1"])
+        x = _sepconv(x, kernels[2 * i], p[f"enc{i}_sep1"])
         x = _bn(x, p[f"enc{i}_bn1"], st[f"enc{i}_bn1"])
         x = torch.relu(x)
-        x = _sepconv(x, p[f"enc{i}_sep2"])
+        x = _sepconv(x, kernels[2 * i + 1], p[f"enc{i}_sep2"])
         x = _bn(x, p[f"enc{i}_bn2"], st[f"enc{i}_bn2"])
         x = max_pool_auto(x)
         x = x + _conv1x1(prev[:, ::2, ::2, :], p[f"enc{i}_res"])

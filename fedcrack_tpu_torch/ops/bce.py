@@ -4,7 +4,8 @@ The counterpart of ``fedcrack_tpu.ops.pallas_bce``. Every train step and
 every eval batch reduces the same logits and mask to the BCE sum, the
 correct-pixel count, the IoU intersection and union, and the crack-pixel
 BCE sum; one hand-written CUDA kernel (``kernels/csrc/bce_sums.cu``) reads
-the two tensors once and produces all five.
+the two tensors once and produces all five in one launch, its cross-block
+fold done by the last block to finish, in a per-stream workspace.
 
 Routing is by device, never by fallback: a CPU tensor takes the plain
 PyTorch version :func:`_bce_sums_plain` (the counterpart of the JAX
@@ -27,13 +28,19 @@ from fedcrack_tpu_torch.kernels.build import I32, I64, PTR, KernelLibrary
 from fedcrack_tpu_torch.ops.losses import iou_from_counts, pos_weight_minus_one, sigmoid_bce_per_pixel
 
 LANES = 5
+MAX_BLOCKS = 1024  # the kernel's largest grid (csrc/bce_sums.cu)
 
 LIBRARY = KernelLibrary("bce_sums", {
-    "fc_bce_sums_blocks": [I64],
-    "fc_bce_sums": [PTR, PTR, PTR, PTR, I64, I32, PTR],
+    "fc_bce_sums": [PTR, PTR, PTR, PTR, PTR, I64, I32, PTR],
 })
 
 _count_lock = threading.Lock()
+# (device index, stream) -> (partials [MAX_BLOCKS, LANES] f32, ticket [1]
+# int32): the kernel's scratch, allocated once per stream with the ticket
+# zeroed on that stream. Calls on one stream run in order, so they take
+# turns with it; the kernel leaves the ticket at 0 for the next call.
+_workspaces: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+_workspace_lock = threading.Lock()
 
 
 def _check_operands(x: torch.Tensor, y: torch.Tensor) -> None:
@@ -66,14 +73,25 @@ def _bce_sums_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     ])
 
 
+def _workspace(device: torch.device, stream: int) -> tuple[torch.Tensor, torch.Tensor]:
+    key = (device.index, stream)
+    ws = _workspaces.get(key)
+    if ws is None:
+        with _workspace_lock:
+            ws = _workspaces.get(key)
+            if ws is None:
+                ws = (torch.empty((MAX_BLOCKS, LANES), dtype=torch.float32, device=device),
+                      torch.zeros((1,), dtype=torch.int32, device=device))
+                _workspaces[key] = ws
+    return ws
+
+
 def _bce_sums_kernel(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """The CUDA kernel on contiguous float32 tensors of one CUDA device."""
-    n = x.numel()
-    blocks = LIBRARY.load().fc_bce_sums_blocks(n)
-    partials = torch.empty((blocks, LANES), dtype=torch.float32, device=x.device)
+    partials, ticket = _workspace(x.device, torch.cuda.current_stream(x.device).cuda_stream)
     out = torch.empty((LANES,), dtype=torch.float32, device=x.device)
-    LIBRARY.launch("fc_bce_sums", x.device, x.data_ptr(), y.data_ptr(),
-                   partials.data_ptr(), out.data_ptr(), n, blocks)
+    LIBRARY.launch("fc_bce_sums", x.device, x.data_ptr(), y.data_ptr(), partials.data_ptr(),
+                   ticket.data_ptr(), out.data_ptr(), x.numel(), MAX_BLOCKS)
     with _count_lock:
         bce_sums.launches += 1
     return out

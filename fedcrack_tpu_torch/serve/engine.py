@@ -142,7 +142,9 @@ class InferenceEngine:
         return from_flax_variables(variables, model)
 
     def prepare_quantized(self, quantized: Any) -> QuantizedVariables:
-        """Place a quantized tree's codes and scales on the device as is."""
+        """Place a quantized tree's codes and scales on the device as is.
+        For a fused plane, the depthwise codes' expansion group is built
+        and validated here, once per placed tree, and travels with it."""
         if not isinstance(quantized, QuantizedVariables):
             raise TypeError(
                 f"prepare_quantized wants QuantizedVariables, got "
@@ -153,7 +155,12 @@ class InferenceEngine:
                 "engine was built with quant='none'; rebuild with "
                 "ServeConfig.quant='int8' to serve quantized weights"
             )
-        return QuantizedVariables(_tree_to(quantized.tree, self.device))
+        tree = _tree_to(quantized.tree, self.device)
+        if self.kernel_plane == "reference":
+            return QuantizedVariables(tree)
+        from fedcrack_tpu_torch.kernels.forward import depthwise_group
+
+        return QuantizedVariables(tree, depthwise_group(tree, self.bucket_model_config))
 
     # ---- bucket routing ----
 
@@ -177,15 +184,15 @@ class InferenceEngine:
         for size in self.serve_config.bucket_sizes:
             self.predict_bucket(variables, np.zeros((self._max_batch, size, size, 3), np.uint8))
 
-    def _quantized_logits(self, qtree: dict, x: torch.Tensor) -> torch.Tensor:
+    def _quantized_logits(self, variables: QuantizedVariables, x: torch.Tensor) -> torch.Tensor:
         from fedcrack_tpu_torch.serve.quant import dequantize_variables
 
         if self.kernel_plane == "reference":
-            state = flax_to_state_dict(dequantize_variables(qtree))
+            state = flax_to_state_dict(dequantize_variables(variables.tree))
             return torch.func.functional_call(self._template, state, (x,))
         from fedcrack_tpu_torch.kernels.forward import fused_predict_logits
 
-        return fused_predict_logits(qtree, x, self.bucket_model_config)
+        return fused_predict_logits(variables.tree, x, self.bucket_model_config, variables.depthwise)
 
     @torch.inference_mode()
     def _run(self, variables: Any, images_u8: np.ndarray) -> np.ndarray:
@@ -195,7 +202,7 @@ class InferenceEngine:
                 raise ValueError(
                     "quantized weights handed to an engine built with quant='none'"
                 )
-            logits = self._quantized_logits(variables.tree, x)
+            logits = self._quantized_logits(variables, x)
             if self.serve_config.quant_act_fakequant:
                 from fedcrack_tpu_torch.serve.quant import fake_quant_activations
 

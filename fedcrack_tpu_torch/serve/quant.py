@@ -35,10 +35,15 @@ FP8_E4M3_MAX = 448.0
 
 class QuantizedVariables:
     """Marker wrapper around a quantized variables tree: the engine routes a
-    weights snapshot on its type (quantized program vs reference program)."""
+    weights snapshot on its type (quantized program vs reference program).
+    ``depthwise``: the fused forward's depthwise codes as a prepared
+    ``kernels.dequant.CodeGroup`` (``InferenceEngine.prepare_quantized``
+    builds it beside the placed tree of a fused plane; the forward checks
+    that it holds this tree's own code tensors), else None."""
 
-    def __init__(self, tree: Any):
+    def __init__(self, tree: Any, depthwise: Any = None):
         self.tree = tree
+        self.depthwise = depthwise
 
 
 def _is_qleaf(node: Any) -> bool:

@@ -186,3 +186,41 @@ def test_wrapper_validates():
     # Masks of another dtype are cast, as the JAX wrapper casts them.
     y = (torch.arange(32).reshape(4, 8) % 3 == 0)
     np.testing.assert_array_equal(bce_sums(x, y.to(torch.uint8)).numpy(), bce_sums(x, y.float()).numpy())
+
+
+def test_workspace_is_one_per_stream_under_threads():
+    """Threads that ask at once for a stream's workspace all get the same
+    one (the check-then-create runs under a lock), sized to the kernel's
+    largest grid, with its ticket at 0."""
+    import re
+    import sys
+    import threading
+    from pathlib import Path
+
+    from fedcrack_tpu_torch.ops import bce
+
+    source = Path(bce.LIBRARY.source).read_text()
+    assert int(re.search(r"MAX_BLOCKS = (\d+);", source).group(1)) == bce.MAX_BLOCKS
+    # The only atomic is the unsigned-int ticket: no float atomics in the sums.
+    assert re.findall(r"atomic_ref<([\w ]+),", source) == ["unsigned int"]
+    assert not re.findall(r"\batomic(Add|Sub|Exch|Min|Max|CAS)\w*\(", source)
+
+    device, stream = torch.device("cpu"), 0x5EED
+    got, interval = [], sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: got.append(bce._workspace(device, stream)))
+                   for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+    finally:
+        sys.setswitchinterval(interval)
+        workspace = bce._workspaces.pop((device.index, stream), None)
+    assert not any(t.is_alive() for t in threads) and len(got) == 16
+    assert all(ws is workspace for ws in got)
+    partials, ticket = workspace
+    assert partials.shape == (bce.MAX_BLOCKS, bce.LANES) and partials.dtype == torch.float32
+    assert ticket.dtype == torch.int32 and ticket.tolist() == [0]
+

@@ -31,21 +31,22 @@ def _quantized(kw, plane):
 def test_fused_forward_matches_jax_interpret(kw, shape, plane):
     from fedcrack_tpu import jaxcompat
     from fedcrack_tpu.kernels.forward import fused_predict_logits as jax_fused
-    from fedcrack_tpu_torch.kernels.forward import fused_predict_logits
+    from fedcrack_tpu_torch.kernels.forward import depthwise_group, fused_predict_logits
 
     if plane == "fp8" and not jaxcompat.fp8_supported():
         pytest.skip("this jax build has no fp8 dtypes")
     qtree = _quantized(kw, plane)
     x = np.random.default_rng(12).uniform(0, 1, shape).astype(np.float32)
     want = np.asarray(jax_fused(qtree, x, jax_config(kw), impl="interpret"))
-    got = fused_predict_logits(to_torch_tree(qtree), torch.from_numpy(x), port_config(kw)).numpy()
+    tree, cfg = to_torch_tree(qtree), port_config(kw)
+    got = fused_predict_logits(tree, torch.from_numpy(x), cfg, depthwise_group(tree, cfg)).numpy()
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize("kw,shape", CASES, ids=IDS)
 def test_fused_forward_matches_port_reference_program(kw, shape):
-    from fedcrack_tpu_torch.kernels.forward import fused_predict_logits
+    from fedcrack_tpu_torch.kernels.forward import depthwise_group, fused_predict_logits
     from fedcrack_tpu_torch.models.convert import from_flax_variables
     from fedcrack_tpu_torch.models.resunet import ResUNet
     from fedcrack_tpu_torch.serve import quant as tq
@@ -55,8 +56,30 @@ def test_fused_forward_matches_port_reference_program(kw, shape):
     model = from_flax_variables(tq.dequantize_variables(qtree), ResUNet(port_config(kw), device="cpu"))
     with torch.no_grad():
         want = model(x).numpy()
-    got = fused_predict_logits(qtree, x, port_config(kw)).numpy()
+    cfg = port_config(kw)
+    got = fused_predict_logits(qtree, x, cfg, depthwise_group(qtree, cfg)).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("plane", ["fused_int8", "fp8"])
+@pytest.mark.parametrize("kw,shape", CASES, ids=IDS)
+def test_grouped_expansion_matches_leaf_by_leaf_bitwise(kw, shape, plane, monkeypatch):
+    """The forward over its depthwise kernels expanded in one group equals,
+    bitwise, the same forward with each kernel expanded on its own by the
+    plain version."""
+    from fedcrack_tpu import jaxcompat
+    from fedcrack_tpu_torch.kernels import dequant, forward
+
+    if plane == "fp8" and not jaxcompat.fp8_supported():
+        pytest.skip("this jax build has no fp8 dtypes")
+    qtree, cfg = to_torch_tree(_quantized(kw, plane)), port_config(kw)
+    x = torch.from_numpy(np.random.default_rng(16).uniform(0, 1, shape).astype(np.float32))
+    group = forward.depthwise_group(qtree, cfg)
+    grouped = forward.fused_predict_logits(qtree, x, cfg, group)
+    monkeypatch.setattr(forward, "dequant_codes_group",
+                        lambda group: [dequant._dequant_codes_plain(q, s) for q, s in group.leaves])
+    leaf_by_leaf = forward.fused_predict_logits(qtree, x, cfg, group)
+    assert torch.equal(grouped, leaf_by_leaf)
 
 
 def test_im2col_patch_order_matches_jax_on_a_non_square_kernel():
@@ -92,16 +115,38 @@ def test_conv3x3_stride2_matches_jax_on_odd_grid():
 def test_fused_forward_counts_no_launch_on_cpu_and_refuses_layouts():
     from fedcrack_tpu_torch.configs import ModelConfig
     from fedcrack_tpu_torch.kernels import dequant
-    from fedcrack_tpu_torch.kernels.forward import fused_predict_logits
+    from fedcrack_tpu_torch.kernels.forward import depthwise_group, fused_predict_logits
     from fedcrack_tpu_torch.serve import quant as tq
 
-    qtree = tq.quantize_variables(jax_variables(TINY_KW)).tree
+    qtree, cfg = tq.quantize_variables(jax_variables(TINY_KW)).tree, port_config(TINY_KW)
+    group = depthwise_group(qtree, cfg)
     dequant.reset_launch_counts()
-    fused_predict_logits(qtree, torch.zeros(1, 32, 32, 3), port_config(TINY_KW))
+    fused_predict_logits(qtree, torch.zeros(1, 32, 32, 3), cfg, group)
     assert dequant.dequant_matmul.launches == 0 and dequant.dequant_codes.launches == 0
     with pytest.raises(ValueError):
         fused_predict_logits(qtree, torch.zeros(1, 32, 32, 3),
-                             ModelConfig(**TINY_KW, res_layout="packed"))
+                             ModelConfig(**TINY_KW, res_layout="packed"), group)
     with pytest.raises(TypeError):
-        fused_predict_logits(tq.dequantize_variables(qtree), torch.zeros(1, 32, 32, 3),
-                             port_config(TINY_KW))
+        fused_predict_logits(tq.dequantize_variables(qtree), torch.zeros(1, 32, 32, 3), cfg, group)
+
+
+def test_fused_forward_refuses_a_depthwise_group_of_another_tree():
+    """The prepared group must hold the tree's own depthwise code tensors:
+    a missing group, another tree's group, or a tree whose depthwise leaf
+    was replaced after the group was built is refused before any launch."""
+    from fedcrack_tpu_torch.kernels.forward import depthwise_group, fused_predict_logits
+    from fedcrack_tpu_torch.serve import quant as tq
+
+    cfg, x = port_config(TINY_KW), torch.zeros(1, 32, 32, 3)
+    qtree = tq.quantize_variables(jax_variables(TINY_KW, seed=2)).tree
+    other = tq.quantize_variables(jax_variables(TINY_KW, seed=3)).tree
+    with pytest.raises(TypeError):
+        fused_predict_logits(qtree, x, cfg, None)
+    with pytest.raises(ValueError):
+        fused_predict_logits(qtree, x, cfg, depthwise_group(other, cfg))
+    group = depthwise_group(qtree, cfg)
+    leaf = qtree["params"]["enc0_sep2"]["depthwise"]["kernel"]
+    leaf[tq.QKEY] = leaf[tq.QKEY].clone()
+    with pytest.raises(ValueError):
+        fused_predict_logits(qtree, x, cfg, group)
+    assert fused_predict_logits(qtree, x, cfg, depthwise_group(qtree, cfg)).shape == (1, 32, 32, 1)
