@@ -41,13 +41,35 @@ on failure, so any failure exits non-zero and prints no result):
    the profiler; device time (``ms``) and CUDA-event time (``event_ms``)
    of kernel, plain version and ``F.binary_cross_entropy_with_logits``
    (``library_ms``, ``library_event_ms``), and the bound;
-7. train at full width (the training path's main path): ``ModelConfig()``
-   at 128 px, batch 16, two clients of 64 seeded synthetic samples and 32
-   held out; two rounds of ``make_train_fn`` per client (one local epoch),
-   ``fold(FedAvg())`` over the sorted triples and ``evaluate`` of each new
-   global. ``bce_sums`` launches must equal train steps plus eval batches.
-   Then one train step on the card against the same step on the CPU, two
-   local fits bitwise equal, step throughput and a profile of one step.
+7. the federation at full width (the training path's main path):
+   ``ModelConfig()`` at 128 px, batch 16, two clients of 64 seeded
+   synthetic samples and 32 held out. The server is
+   ``fed.rounds.initial_state(FedConfig(max_rounds=2, cohort_size=2,
+   local_epochs=1))``; each client runs Ready, PullWeights,
+   TrainingNotice, ``train_fn(blob, round, reply.config)`` (the blob form
+   of ``make_train_fn``), TrainDone and VersionPoll under a synthetic
+   clock until FIN, and each new global is evaluated. Checked: the status
+   sequence, the two history entries, ``bce_sums`` launches equal to
+   train steps plus eval batches, and each round's broadcast blob bitwise
+   equal to the global of a tree-level loop (``fold(FedAvg())`` over a
+   second set of the same clients). Logged: blob bytes, host ms of
+   ``tree_to_bytes`` / ``tree_from_bytes``, of the transition that closes
+   each round, and each round's wall. Then one train step on the card
+   against the same step on the CPU, two local fits bitwise equal, step
+   throughput and a profile of one step;
+8. a robust round at full width through the protocol: three clients of
+   32 samples, a bfloat16 wire, ``aggregation="trimmed_mean"``
+   (``trim_fraction=0.34``), ``server_optimizer="fedadam"``
+   (``server_lr=0.01``) and a 30 s round deadline. The third client
+   uploads a NaN leaf and is REJECTED; the deadline's Tick closes the
+   round on the other two; the history records the rejection; FedAdam
+   moves no parameter by more than its learning rate; the closing
+   transition's parts are timed alone (``server_breakdown``).
+
+Before phase 2, ``main`` logs which of jax, flax, optax, msgpack,
+ml_dtypes, grpc and ``fedcrack_tpu`` the machine has and blocks them all
+in ``sys.modules``: the codec, gate, ledger, robust folds and FedOpt run
+without them.
 
 The last three lines: the card's name and power limit, the per-kernel JSON
 object, and ``{"ok": true, "device": {...}}``.
@@ -55,6 +77,7 @@ object, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import subprocess
@@ -90,6 +113,9 @@ BCE_SWEEP = [1, 100, 128, 32768, 32769, 100_000]
 CODES_RAGGED = [(1,), (17,), (1000, 37), (4099,), (3, 3, 1, 5)]
 # bce_sums reads x and y (8 bytes) and does ~20 operations per element.
 BCE_OPS_PER_ELEMENT = 20
+# The JAX package, its stack and the wire packages it encodes with.
+REFERENCE_STACK = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "ml_dtypes", "grpc",
+                   "fedcrack_tpu")
 
 
 def log(msg: str) -> None:
@@ -760,13 +786,91 @@ def check_one_step(torch, start_tree, one_step, lr: float) -> None:
         raise AssertionError(f"card and CPU disagree on one train step: {worst}")
 
 
+def _first_leaf_nan(ser, blob: bytes, template, wire_dtype: str) -> bytes:
+    """``blob`` with a NaN in its first leaf (sorted key order), re-encoded
+    with the round's wire cast: a poisoned client's upload."""
+    tree = ser.tree_from_bytes(blob, template=template)
+    _, leaf = next(_flat_tree(tree))
+    leaf.flat[0] = float("nan")
+    return ser.tree_to_bytes(tree, cast_dtype="bfloat16" if wire_dtype == "bfloat16" else None)
+
+
+def drive_federation(R, ser, config, global_vars, fit, names, poison=(), on_round=None) -> dict:
+    """One sync federation through ``R.transition``, as a transport feeds
+    it: the clients ``names`` enroll, then each round every client pulls
+    the global, notifies, fits (``fit(name, blob, round, config_map) ->
+    (blob, n_samples)``), uploads and polls, under a synthetic clock, until
+    FIN. A client in ``poison`` uploads its fit with a NaN in its first
+    leaf. A round still short of its quorum after every upload is closed
+    by a ``Tick`` at its deadline. ``R``/``ser`` are a rounds module and its
+    serialization (the port's here; the CPU tests pass the JAX package's
+    too). ``on_round(round, broadcast_blob)`` runs after each close.
+
+    Returns the statuses ``(client, event, status)``, the final state, and
+    per round: its base and broadcast blobs, the uploads, the host ms of
+    the transition that closed it (decode, ledger, fold, FedOpt and
+    encode) and of all its transitions, and its wall seconds."""
+    state = R.initial_state(config, global_vars)
+    now = 0.0
+    statuses = []
+    server_ms = [0.0]
+
+    def send(name, event):
+        nonlocal state
+        t0 = time.perf_counter()
+        state, reply = R.transition(state, event)
+        ms = (time.perf_counter() - t0) * 1e3
+        server_ms[0] += ms
+        statuses.append((name, type(event).__name__, reply.status))
+        return reply, ms
+
+    for name in names:
+        send(name, R.Ready(name, now=now))
+        now += 1.0
+    rounds = []
+    while state.phase != R.PHASE_FINISHED:
+        rnd, version = state.current_round, state.model_version
+        base = state.broadcast_blob
+        t_round = time.perf_counter()
+        server_ms[0] = 0.0
+        closed, uploads = None, {}
+        for name in names:
+            pull, _ = send(name, R.PullWeights(name, now=now))
+            send(name, R.TrainingNotice(name, now=now))
+            blob, n_samples = fit(name, pull.blob, rnd, dict(pull.config))
+            if name in poison:
+                blob = _first_leaf_nan(ser, blob, state.template, pull.config["wire_dtype"])
+            uploads[name] = (blob, n_samples)
+            reply, ms = send(name, R.TrainDone(name, round=rnd, blob=blob, num_samples=n_samples, now=now))
+            now += 1.0
+            if reply.status in (R.RESP_ARY, R.FIN):
+                closed = ms
+        if closed is None:
+            if config.round_deadline_s <= 0 or state.phase != R.PHASE_RUNNING:
+                raise AssertionError(f"round {rnd} did not close: {statuses[-3:]}")
+            now = state.round_started_at + config.round_deadline_s
+            _, closed = send("server", R.Tick(now=now))
+            if state.model_version != version + 1:
+                raise AssertionError(f"round {rnd}: the deadline did not close it")
+        wall = time.perf_counter() - t_round
+        if on_round is not None:
+            on_round(rnd, state.broadcast_blob)
+        rounds.append({"round": rnd, "blob": state.broadcast_blob, "base": base, "uploads": uploads,
+                       "close_ms": closed, "server_ms": server_ms[0], "wall_s": wall})
+        for name in names:
+            send(name, R.VersionPoll(name, model_version=version, round=rnd, now=now))
+    return {"statuses": statuses, "state": state, "rounds": rounds}
+
+
 def train_phase(torch, card: str) -> dict:
-    """Phase 7: one client's round at full width, twice, on the card."""
+    """Phase 7: the federation at full width through the round protocol,
+    held bitwise against a tree-level loop over the same clients."""
     import numpy as np
 
     from fedcrack_tpu_torch.configs import DataConfig, FedConfig, ModelConfig
     from fedcrack_tpu_torch.data.pipeline import ArrayDataset
     from fedcrack_tpu_torch.data.synthetic import synth_crack_batch
+    from fedcrack_tpu_torch.fed import rounds, serialization
     from fedcrack_tpu_torch.fed.aggregation import FedAvg, fold
     from fedcrack_tpu_torch.models.resunet import init_variables
     from fedcrack_tpu_torch.ops import bce
@@ -774,50 +878,96 @@ def train_phase(torch, card: str) -> dict:
     from fedcrack_tpu_torch.train.federated import make_train_fn
 
     cfg = FedConfig(model=ModelConfig(), data=DataConfig(img_size=TRAIN_SIZE, batch_size=TRAIN_BATCH))
+    server_cfg = FedConfig(max_rounds=2, cohort_size=2, local_epochs=1)
     lr = cfg.learning_rate
     imgs, msks = synth_crack_batch(160, TRAIN_SIZE, seed=0)
     shards = {"client_0": slice(0, 64), "client_1": slice(64, 128)}
     held = ArrayDataset(imgs[128:], msks[128:], batch_size=TRAIN_BATCH, shuffle=False)
     global0 = init_variables(torch.Generator().manual_seed(0), cfg.model)
+    names = sorted(shards)
 
     def client_fn(i, name):
         data = ArrayDataset(imgs[shards[name]], msks[shards[name]], batch_size=TRAIN_BATCH, seed=i)
         return make_train_fn(cfg, data, TRAIN_BATCH, seed=i)[0]
 
-    clients = {name: client_fn(i, name) for i, name in enumerate(sorted(shards))}
     evaluator = local.create_train_state(torch.Generator().manual_seed(0), cfg.model, lr)
 
-    # ---- the main path, counted ----
-    bce.reset_launch_counts()
-    t0 = time.monotonic()
-    tree, steps, eval_batches, history = global0, 0, 0, []
-    for rnd in range(2):
+    # ---- the reference: the tree-level loop over a second set of clients ----
+    ref_clients = {name: client_fn(i, name) for i, name in enumerate(names)}
+    tree, ref_globals = global0, []
+    for rnd in (1, 2):
         triples = []
-        for name in sorted(clients):
-            new, n_samples, metrics = clients[name](tree, rnd, {"local_epochs": 1})
-            steps += n_samples // TRAIN_BATCH
-            if not all(np.isfinite(v) for v in metrics.values()):
-                raise AssertionError(f"round {rnd} {name}: non-finite train metrics {metrics}")
-            triples.append((name, n_samples, new))
-        new_global = fold(FedAvg(), triples)
-        if all(np.array_equal(a, b) for (_, a), (_, b) in zip(_flat_tree(new_global), _flat_tree(tree))):
+        for name in names:
+            blob, n_samples, _ = ref_clients[name](serialization.tree_to_bytes(tree), rnd, {"local_epochs": 1})
+            triples.append((name, n_samples, serialization.tree_from_bytes(blob, template=global0)))
+        tree = fold(FedAvg(), triples)
+        ref_globals.append(tree)
+
+    # ---- the main path, counted: the federation through the protocol ----
+    clients = {name: client_fn(i, name) for i, name in enumerate(names)}
+    counts = {"steps": 0, "eval_batches": 0}
+    history = []
+    previous = [serialization.tree_to_bytes(global0)]
+
+    def fit(name, blob, rnd, hparams):
+        out, n_samples, metrics = clients[name](blob, rnd, hparams)
+        counts["steps"] += n_samples // TRAIN_BATCH
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"round {rnd} {name}: non-finite train metrics {metrics}")
+        history.append({"round": rnd, "client": name, "train": metrics})
+        return out, n_samples
+
+    def on_round(rnd, blob):
+        if blob == previous[-1]:
             raise AssertionError(f"round {rnd}: the global did not change")
-        ev = local.evaluate(evaluator.replace_variables(new_global), held)
-        eval_batches += ev["num_batches"]
-        if not all(np.isfinite(v) for v in ev.values()):
-            raise AssertionError(f"round {rnd}: non-finite eval metrics {ev}")
+        previous.append(blob)
+        new_global = serialization.tree_from_bytes(blob, template=global0)
         for _, leaf in _flat_tree(new_global):
             if not np.isfinite(leaf).all():
                 raise AssertionError(f"round {rnd}: non-finite global weights")
-        history.append({"round": rnd, "train": metrics, "eval": ev})
-        log(f"[train] round {rnd}: last client's train {json.dumps(metrics)}; global eval {json.dumps(ev)}")
-        tree = new_global
+        ev = local.evaluate(evaluator.replace_variables(new_global), held)
+        counts["eval_batches"] += ev["num_batches"]
+        if not all(np.isfinite(v) for v in ev.values()):
+            raise AssertionError(f"round {rnd}: non-finite eval metrics {ev}")
+        history.append({"round": rnd, "eval": ev})
+        log(f"[train] round {rnd}: last client's train {json.dumps(history[-2]['train'])}; "
+            f"global eval {json.dumps(ev)}")
+
+    bce.reset_launch_counts()
+    t0 = time.monotonic()
+    run = drive_federation(rounds, serialization, server_cfg, global0, fit, names, on_round=on_round)
     torch.cuda.synchronize()
     launches = bce.bce_sums.launches
-    log(f"[train] main path: 2 rounds x 2 clients, {steps} train steps + {eval_batches} eval batches "
-        f"in {time.monotonic() - t0:.2f} s, bce_sums launches {launches}")
+    steps, eval_batches = counts["steps"], counts["eval_batches"]
+    log(f"[train] main path: 2 rounds x 2 clients through fed.rounds.transition, {steps} train steps + "
+        f"{eval_batches} eval batches in {time.monotonic() - t0:.2f} s, bce_sums launches {launches}")
     if launches != steps + eval_batches or steps != 16:
         raise AssertionError(f"bce_sums launches {launches} != {steps} steps + {eval_batches} eval batches")
+    want = [(n, "Ready", rounds.SW) for n in names]
+    for last in (rounds.RESP_ARY, rounds.FIN):
+        for n, status in zip(names, (rounds.RESP_ACY, last)):
+            want += [(n, "PullWeights", "OK"), (n, "TrainingNotice", "OK"), (n, "TrainDone", status)]
+        want += [(n, "VersionPoll", rounds.NOT_WAIT if last == rounds.RESP_ARY else rounds.FIN) for n in names]
+    if run["statuses"] != want:
+        raise AssertionError(f"protocol statuses {run['statuses']} != {want}")
+    state = run["state"]
+    if [(h["round"], h["clients"], h["samples"], h["rejected"], h["quarantined"]) for h in state.history] \
+            != [(r, names, [64, 64], {}, {}) for r in (1, 2)]:
+        raise AssertionError(f"history {state.history}")
+    for r, ref in zip(run["rounds"], ref_globals):
+        if r["blob"] != serialization.tree_to_bytes(ref):
+            raise AssertionError(f"round {r['round']}: the broadcast blob differs from the tree-level loop's global")
+        if state.history[r["round"] - 1]["bytes_broadcast"] != len(r["blob"]):
+            raise AssertionError(f"round {r['round']}: bytes_broadcast {state.history[r['round'] - 1]}")
+    log("[train] each round's broadcast blob is bitwise the tree-level loop's global; statuses and history as expected")
+    blob_stats = blob_timings(serialization, ref_globals[-1], global0)
+    fed = {"blob_bytes": len(run["rounds"][-1]["blob"]), **blob_stats,
+           "close_transition_ms": [r["close_ms"] for r in run["rounds"]],
+           "server_ms": [r["server_ms"] for r in run["rounds"]],
+           "round_wall_s": [r["wall_s"] for r in run["rounds"]]}
+    log(f"[train] federation {json.dumps(fed)} [{card}]")
+    log(f"[train] server breakdown, round 2 {json.dumps(server_breakdown(server_cfg, global0, run['rounds'][-1]))} "
+        f"[{card}]")
 
     # ---- card vs CPU, one step from the same tree and batch ----
     batch = (imgs[:TRAIN_BATCH], msks[:TRAIN_BATCH])
@@ -830,11 +980,11 @@ def train_phase(torch, card: str) -> dict:
     check_one_step(torch, global0, one_step, lr)
 
     # ---- determinism: two local fits from the same start ----
-    fits = [client_fn(0, "client_0")(global0, 0, {"local_epochs": 1})[0] for _ in range(2)]
-    for (path, a), (_, b) in zip(_flat_tree(fits[0]), _flat_tree(fits[1])):
-        if not np.array_equal(a, b):
-            raise AssertionError(f"two local fits from one start differ at {'/'.join(path)}")
-    log("[train] two local fits from the same start: bitwise equal")
+    start = serialization.tree_to_bytes(global0)
+    fits = [client_fn(0, "client_0")(start, 1, {"local_epochs": 1})[0] for _ in range(2)]
+    if fits[0] != fits[1]:
+        raise AssertionError("two local fits from one start differ")
+    log("[train] two local fits from the same start: bitwise equal blobs")
 
     # ---- throughput and where the time goes ----
     st = local.create_train_state(torch.Generator().manual_seed(0), cfg.model, lr)
@@ -856,7 +1006,155 @@ def train_phase(torch, card: str) -> dict:
         f"step p50 {p50:.3f} ms p95 {p95:.3f} ms over 20 steps [{card}]")
     profile_steps(torch, lambda: local.train_step(st, dev_batch, anchor), card)
     return {"launches": launches, "steps": steps, "eval_batches": eval_batches, "perf": perf,
-            "history": history}
+            "history": history, "fed": fed}
+
+
+def blob_timings(ser, tree, template, n: int = 5) -> dict:
+    """Host ms (median of ``n``) of ``tree_to_bytes`` and of
+    ``tree_from_bytes`` with a template, at float32 and on a bfloat16 wire."""
+    import numpy as np
+
+    out = {}
+    for wire, cast in (("f32", None), ("bf16", "bfloat16")):
+        enc, dec = [], []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            blob = ser.tree_to_bytes(tree, cast_dtype=cast)
+            t1 = time.perf_counter()
+            ser.tree_from_bytes(blob, template=template)
+            dec.append((time.perf_counter() - t1) * 1e3)
+            enc.append((t1 - t0) * 1e3)
+        out[f"{wire}_bytes"] = len(blob)
+        out[f"{wire}_encode_ms"] = float(np.median(enc))
+        out[f"{wire}_decode_ms"] = float(np.median(dec))
+    return out
+
+
+def robust_round_phase(torch, card: str) -> dict:
+    """Phase 8: one round at full width through the protocol with a
+    bfloat16 wire, the trimmed mean, FedAdam and a round deadline; the
+    third of three clients uploads a NaN leaf, is rejected, and the
+    deadline closes the round on the other two."""
+    import numpy as np
+
+    from fedcrack_tpu_torch.configs import DataConfig, FedConfig, ModelConfig
+    from fedcrack_tpu_torch.data.pipeline import ArrayDataset
+    from fedcrack_tpu_torch.data.synthetic import synth_crack_batch
+    from fedcrack_tpu_torch.fed import rounds, serialization
+    from fedcrack_tpu_torch.models.resunet import init_variables
+    from fedcrack_tpu_torch.ops import bce
+    from fedcrack_tpu_torch.train.federated import make_train_fn
+
+    cfg = FedConfig(model=ModelConfig(), data=DataConfig(img_size=TRAIN_SIZE, batch_size=TRAIN_BATCH))
+    server_cfg = robust_round_config()
+    imgs, msks = synth_crack_batch(96, TRAIN_SIZE, seed=1)
+    names = [f"client_{i}" for i in range(3)]
+    global0 = init_variables(torch.Generator().manual_seed(1), cfg.model)
+    clients = {name: make_train_fn(cfg, ArrayDataset(imgs[32 * i:32 * (i + 1)], msks[32 * i:32 * (i + 1)],
+                                                     batch_size=TRAIN_BATCH, seed=i), TRAIN_BATCH, seed=i)[0]
+               for i, name in enumerate(names)}
+    steps = [0]
+
+    def fit(name, blob, rnd, hparams):
+        out, n_samples, _ = clients[name](blob, rnd, hparams)
+        steps[0] += n_samples // TRAIN_BATCH
+        return out, n_samples
+
+    bce.reset_launch_counts()
+    run = drive_federation(rounds, serialization, server_cfg, global0, fit, names, poison=(names[2],))
+    torch.cuda.synchronize()
+    launches = bce.bce_sums.launches
+    check_robust_round(rounds, run, names)
+    state = run["state"]
+    final = serialization.tree_from_bytes(state.global_blob, template=global0)
+    moved = max(float(np.abs(a - b).max()) for (_, a), (_, b) in zip(_flat_tree(final["params"]),
+                                                                     _flat_tree(global0["params"])))
+    # FedAdam's first step is lr * 0.1 g / (0.1 |g| + eps) per element: at most lr.
+    if not 0 < moved <= server_cfg.server_lr * (1 + 1e-6):
+        raise AssertionError(f"FedAdam moved a parameter by {moved}, outside (0, lr]")
+    if launches != steps[0] or steps[0] != 6:
+        raise AssertionError(f"bce_sums launches {launches} != {steps[0]} train steps")
+    r = run["rounds"][0]
+    out = {"launches": launches, "steps": steps[0], "blob_bytes": len(state.broadcast_blob),
+           "close_ms": r["close_ms"], "server_ms": r["server_ms"], "round_wall_s": r["wall_s"],
+           "largest_param_move": moved}
+    log(f"[robust] {json.dumps(out)}; history {json.dumps(state.history[0])} [{card}]")
+    log(f"[robust] server breakdown {json.dumps(server_breakdown(server_cfg, global0, r))} [{card}]")
+    return out
+
+
+def server_breakdown(config, template, rnd: dict, n: int = 3) -> dict:
+    """Host ms (median of ``n``) of each step the round machine takes on
+    one round's accepted uploads: the gate per upload (validate, decode,
+    update norm), the flush (decode, ``observe_flush``), the fold, FedOpt
+    and the two encodes. The parts of the closing transition, timed alone."""
+    import numpy as np
+
+    from fedcrack_tpu_torch.fed import aggregation, algorithms, serialization as ser
+    from fedcrack_tpu_torch.health import ledger
+
+    base = ser.tree_from_bytes(rnd["base"], template=template)
+    uploads = {k: v for k, v in sorted(rnd["uploads"].items()) if ser.validate_update(v[0], template) is None}
+
+    def timed(fn):
+        out, ms = None, []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            out = fn()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return out, float(np.median(ms))
+
+    parts = {}
+    blob0 = next(iter(uploads.values()))[0]
+    _, parts["gate_validate"] = timed(lambda: ser.validate_update(blob0, template))
+    tree0, parts["gate_decode"] = timed(lambda: ser.tree_from_bytes(blob0, template=template))
+    _, parts["gate_norm"] = timed(lambda: ledger.update_norm(tree0, base))
+    trees, parts["flush_decode_all"] = timed(
+        lambda: [ser.tree_from_bytes(b, template=template) for b, _ in uploads.values()])
+    items = list(zip(uploads, trees))
+    _, parts["observe_flush"] = timed(lambda: ledger.observe_flush({}, items, base))
+    triples = [(k, c, t) for (k, (_, c)), t in zip(uploads.items(), trees)]
+    avg, parts["fold_" + config.aggregation] = timed(
+        lambda: aggregation.fold(aggregation.from_config(config), triples))
+    tx = algorithms.make_server_optimizer(config.server_optimizer, config.server_lr, config.server_momentum)
+    if tx is not None:
+        _, parts["fedopt_" + config.server_optimizer] = timed(
+            lambda: algorithms.apply_server_opt(base["params"], avg["params"], tx, tx.init(base["params"])))
+    _, parts["encode_f32"] = timed(lambda: ser.tree_to_bytes(avg))
+    if config.wire_dtype == "bfloat16":
+        _, parts["encode_bf16"] = timed(lambda: ser.tree_to_bytes(avg, cast_dtype="bfloat16"))
+    return parts
+
+
+def robust_round_config():
+    """Phase 8's server: one round, three clients, a bfloat16 wire, the
+    trimmed mean (floor(0.34 * 2) = 0 trimmed of the two that pass),
+    FedAdam and a round deadline that closes the round the rejected client
+    leaves short of its quorum."""
+    from fedcrack_tpu_torch.configs import FedConfig
+
+    return FedConfig(max_rounds=1, cohort_size=3, local_epochs=1, wire_dtype="bfloat16",
+                     aggregation="trimmed_mean", trim_fraction=0.34, server_optimizer="fedadam",
+                     server_lr=0.01, round_deadline_s=30.0)
+
+
+def check_robust_round(R, run: dict, names) -> None:
+    """Phase 8's protocol contract: the poisoned third client is REJECTED
+    for its non-finite leaf, the deadline closes the round on the other
+    two, the history records the rejection, and every poll sees FIN."""
+    bad = names[2]
+    want = [(n, "Ready", R.SW) for n in names]
+    for n, status in zip(names, (R.RESP_ACY, R.RESP_ACY, R.REJECTED)):
+        want += [(n, "PullWeights", "OK"), (n, "TrainingNotice", "OK"), (n, "TrainDone", status)]
+    want += [("server", "Tick", R.PHASE_FINISHED)] + [(n, "VersionPoll", R.FIN) for n in names]
+    if run["statuses"] != want:
+        raise AssertionError(f"protocol statuses {run['statuses']} != {want}")
+    state = run["state"]
+    (entry,) = state.history
+    if entry["clients"] != names[:2] or entry["cohort_size"] != 2 \
+            or set(entry["rejected"]) != {bad} or "non-finite" not in entry["rejected"][bad] \
+            or state.departed != frozenset({bad}) or state.server_opt_state is None:
+        raise AssertionError(f"robust round history {entry}, departed {state.departed}")
 
 
 def profile_steps(torch, step, card: str, n: int = 3) -> None:
@@ -892,6 +1190,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs on the GPU only", file=sys.stderr)
         return 2
+    # The port needs none of these: block them for this run, so an import
+    # of one fails the smoke on a machine that has it installed.
+    installed = [m for m in REFERENCE_STACK if importlib.util.find_spec(m) is not None]
+    for m in REFERENCE_STACK:
+        sys.modules.setdefault(m, None)
     sys.path.insert(0, HERE)
     from fedcrack_tpu_torch.kernels import build, dequant
     from fedcrack_tpu_torch.ops import bce
@@ -902,6 +1205,8 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     log(f"phase 1 device: {kind}, torch {torch.__version__}, cuda {torch.version.cuda}, card: {card}")
+    log(f"installed on this machine: {installed}; blocked for this run: "
+        f"{[m for m in REFERENCE_STACK if sys.modules[m] is None]}")
 
     t0 = time.monotonic()
     libs = build.build_all([dequant.LIBRARY, bce.LIBRARY])
@@ -920,7 +1225,9 @@ def main() -> int:
     bce_row = bce_phase(torch, card)
     log("phase 6 bce_sums vs plain: ok")
     train = train_phase(torch, card)
-    log("phase 7 train at full width: ok")
+    log("phase 7 federation at full width through the round protocol: ok")
+    robust = robust_round_phase(torch, card)
+    log("phase 8 robust round (bf16 wire, trimmed mean, FedAdam, deadline) at full width: ok")
 
     kernels = []
     replaces = {"dequant_matmul": "fedcrack_tpu/kernels/dequant.py:88",
@@ -951,6 +1258,7 @@ def main() -> int:
         "source": "fedcrack_tpu_torch/kernels/csrc/bce_sums.cu",
         "replaces": "fedcrack_tpu/ops/pallas_bce.py:57",
         "launches": train["launches"],
+        "launches_phase8": robust["launches"],
         **bce_row,
     })
     log(f"total {time.monotonic() - t_start:.1f} s")

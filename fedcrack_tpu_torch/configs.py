@@ -3,14 +3,14 @@
 The port keeps its own copy of the dataclasses its slices need, with the
 same fields, defaults and validation as ``fedcrack_tpu.configs``, so that a
 JSON config written for one package describes the same model, data and
-serving plane in the other. ``FedConfig`` carries the fields one client's
-training round reads; the wire, the server's round machine and the other
-planes add theirs with the slices that port them.
+serving plane in the other.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+from typing import Any, Mapping
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,36 +73,6 @@ class DataConfig:
     skew_alpha: float = 0.3       # Dirichlet concentration for non-IID shards
     prefetch: int = 2
     num_workers: int = 4
-
-
-@dataclasses.dataclass(frozen=True)
-class FedConfig:
-    """Federation configuration: the fields one client's training round
-    reads, with the JAX package's defaults.
-
-    Reference values: MAX_NUM_ROUND=5 (fl_server.py:18), local epochs
-    hardcoded to 10 (client_fit_model.py:166), Keras Adam at 1e-3.
-    """
-
-    max_rounds: int = 5
-    cohort_size: int = 2
-    local_epochs: int = 10
-    learning_rate: float = 1e-3
-    # FedProx proximal term (mu/2)||params - anchor||^2; 0 disables (plain
-    # FedAvg local SGD).
-    fedprox_mu: float = 0.0
-    # Crack-pixel loss weight (1 + (pos_weight-1)*mask scales each pixel's
-    # BCE); 1.0 is the reference's unweighted BCE (client_fit_model.py:157).
-    pos_weight: float = 1.0
-    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
-    data: DataConfig = dataclasses.field(default_factory=DataConfig)
-
-    def __post_init__(self) -> None:
-        if self.data.img_size != self.model.img_size:
-            raise ValueError(
-                "data.img_size and model.img_size must match; got "
-                f"{self.data.img_size} vs {self.model.img_size}"
-            )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -313,3 +283,307 @@ class ServeConfig:
                 f"shadow_latency_factor must be >= 1, got "
                 f"{self.shadow_latency_factor}"
             )
+
+
+@dataclasses.dataclass(frozen=True)
+class FedConfig:
+    """Federation round/protocol configuration: every field of the JAX
+    package's ``FedConfig``, with its defaults and its validation, so the
+    port accepts exactly the configurations the JAX package accepts and
+    its round machine sends the same handshake map.
+
+    The port acts on the sync round machine's fields (rounds, cohort,
+    windows, deadline, quorum, sanitation, aggregation and quarantine,
+    FedOpt, the wire dtype, log caps) and on the client's training fields.
+    The rest (buffered mode, the update codec, DP and secure aggregation,
+    transport, TLS, checkpoints, metrics sinks, the mesh plane) are kept
+    as data; ``fed.rounds.initial_state`` refuses the modes it cannot run.
+
+    Reference values: MAX_NUM_ROUND=5 (fl_server.py:18), 10 s registration
+    window (fl_server.py:42), 20 s version poll (fl_client.py:141), local
+    epochs hardcoded to 10 (client_fit_model.py:166).
+    """
+
+    max_rounds: int = 5
+    cohort_size: int = 2
+    # "sync" (the round barrier) or "buffered" (FedBuff; not ported).
+    mode: str = "sync"
+    buffer_k: int = 2
+    staleness_alpha: float = 0.5
+    max_staleness: int = 4
+    # Seed of fed.algorithms.sample_cohort.
+    cohort_seed: int = 0
+    local_epochs: int = 10
+    learning_rate: float = 1e-3
+    registration_window_s: float = 10.0
+    poll_period_s: float = 20.0
+    # Per-round deadline; on expiry the cohort shrinks to the clients that
+    # reported. 0 = no deadline.
+    round_deadline_s: float = 0.0
+    # The round closes at ceil(quorum_fraction * |cohort|) updates.
+    quorum_fraction: float = 1.0
+    # Every upload is checked against the global template before the fold.
+    sanitize_updates: bool = True
+    # The server's combine: fedavg, trimmed_mean, (coordinate_)median,
+    # krum, multi_krum (fed/aggregation.py).
+    aggregation: str = "fedavg"
+    trim_fraction: float = 0.1
+    byzantine_f: int = 1
+    # A client whose flush-time robust z reaches this is left out of the
+    # fold. 0 disables.
+    quarantine_z: float = 0.0
+    # DP-SGD and its accountant (not ported).
+    dp_clip_norm: float = 0.0
+    dp_noise_multiplier: float = 0.0
+    dp_sample_rate: float = 0.01
+    dp_delta: float = 1e-5
+    dp_steps_per_round: int = 0
+    dp_seed: int = 0
+    dp_epsilon_budget: float = 0.0
+    # Pairwise-mask secure aggregation (not ported).
+    secagg: bool = False
+    secagg_bits: int = 24
+    # Mid-round durable server state (not ported).
+    state_path: str = ""
+    # FedProx proximal term; 0 disables.
+    fedprox_mu: float = 0.0
+    # Crack-pixel loss weight; 1.0 is the reference's unweighted BCE.
+    pos_weight: float = 1.0
+    # FedOpt on the round pseudo-gradient: avg, momentum/fedavgm,
+    # adam/fedadam, yogi/fedyogi (params only; BN stats plain-averaged).
+    server_optimizer: str = "avg"
+    server_lr: float = 1.0
+    server_momentum: float = 0.9
+    model_type: str = "resunet"
+    # "bfloat16" halves broadcast and upload bytes; server math stays f32.
+    wire_dtype: str = "float32"
+    # Compressed update transport: "null" is the raw blob (the only codec
+    # the port runs).
+    update_codec: str = "null"
+    topk_fraction: float = 0.01
+    host: str = "127.0.0.1"
+    port: int = 8889              # reference: fl_server.py:218
+    ckpt_dir: str = ""
+    seed: int = 0
+    metrics_path: str = ""
+    tb_dir: str = ""
+    logs_dir: str = ""
+    # In-memory log sink caps, in MiB; 0 = uncapped.
+    log_max_mb_per_upload: int = 64
+    log_max_mb_total: int = 256
+    profile_dir: str = ""
+    init_weights: str = ""
+    best_path: str = ""
+    auth_token: str = ""
+    allow_insecure_token: bool = False
+    tls_cert: str = ""
+    tls_key: str = ""
+    tls_ca: str = ""
+    max_message_mb: int = 512     # reference: fl_server.py:215
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
+    mesh_clients: int = 8
+    mesh_batch: int = 1
+    segments: int = 0
+    segment_overlap: bool = True
+    data_placement: str = "streamed"
+
+    def __post_init__(self) -> None:
+        if self.data.img_size != self.model.img_size:
+            raise ValueError(
+                "data.img_size and model.img_size must match; got "
+                f"{self.data.img_size} vs {self.model.img_size}"
+            )
+        if self.segments < 0:
+            raise ValueError(f"segments must be >= 0, got {self.segments}")
+        if self.segments > 0 and self.local_epochs % self.segments != 0:
+            raise ValueError(
+                f"segments={self.segments} must divide "
+                f"local_epochs={self.local_epochs} (epoch-grain segmentation)"
+            )
+        if self.data_placement not in ("streamed", "resident"):
+            raise ValueError(
+                "data_placement must be 'streamed' or 'resident', got "
+                f"{self.data_placement!r}"
+            )
+        if self.mode not in ("sync", "buffered"):
+            raise ValueError(
+                f"mode must be 'sync' or 'buffered', got {self.mode!r}"
+            )
+        if self.buffer_k < 1:
+            raise ValueError(f"buffer_k must be >= 1, got {self.buffer_k}")
+        if self.staleness_alpha < 0.0:
+            raise ValueError(
+                f"staleness_alpha must be >= 0, got {self.staleness_alpha}"
+            )
+        if self.max_staleness < 0:
+            raise ValueError(
+                f"max_staleness must be >= 0, got {self.max_staleness}"
+            )
+        if self.cohort_seed < 0:
+            raise ValueError(
+                f"cohort_seed must be >= 0, got {self.cohort_seed}"
+            )
+        if not 0.0 < self.quorum_fraction <= 1.0:
+            raise ValueError(
+                f"quorum_fraction must be in (0, 1], got {self.quorum_fraction}"
+            )
+        if self.aggregation not in (
+            "fedavg", "trimmed_mean", "median", "coordinate_median",
+            "krum", "multi_krum",
+        ):
+            raise ValueError(
+                "aggregation must be one of 'fedavg', 'trimmed_mean', "
+                "'median', 'coordinate_median', 'krum', 'multi_krum', got "
+                f"{self.aggregation!r}"
+            )
+        if not 0.0 <= self.trim_fraction < 0.5:
+            raise ValueError(
+                f"trim_fraction must be in [0, 0.5), got {self.trim_fraction}"
+            )
+        if self.byzantine_f < 0:
+            raise ValueError(
+                f"byzantine_f must be >= 0, got {self.byzantine_f}"
+            )
+        if self.quarantine_z < 0.0:
+            raise ValueError(
+                f"quarantine_z must be >= 0 (0 disables), got "
+                f"{self.quarantine_z}"
+            )
+        if self.dp_clip_norm < 0.0:
+            raise ValueError(
+                f"dp_clip_norm must be >= 0 (0 disables DP), got "
+                f"{self.dp_clip_norm}"
+            )
+        if self.dp_noise_multiplier < 0.0:
+            raise ValueError(
+                f"dp_noise_multiplier must be >= 0, got "
+                f"{self.dp_noise_multiplier}"
+            )
+        if self.dp_noise_multiplier > 0.0 and self.dp_clip_norm <= 0.0:
+            raise ValueError(
+                "dp_noise_multiplier > 0 requires dp_clip_norm > 0: noise "
+                "is calibrated to the clip norm (stddev = multiplier * "
+                "clip), and unclipped gradients have no sensitivity bound "
+                "for the accountant to certify."
+            )
+        if not 0.0 < self.dp_sample_rate <= 1.0:
+            raise ValueError(
+                f"dp_sample_rate must be in (0, 1], got {self.dp_sample_rate}"
+            )
+        if not 0.0 < self.dp_delta < 1.0:
+            raise ValueError(
+                f"dp_delta must be in (0, 1), got {self.dp_delta}"
+            )
+        if self.dp_steps_per_round < 0:
+            raise ValueError(
+                f"dp_steps_per_round must be >= 0 (0 derives local_epochs), "
+                f"got {self.dp_steps_per_round}"
+            )
+        if self.dp_epsilon_budget < 0.0:
+            raise ValueError(
+                f"dp_epsilon_budget must be >= 0 (0 = unlimited), got "
+                f"{self.dp_epsilon_budget}"
+            )
+        if not 8 <= self.secagg_bits <= 52:
+            raise ValueError(
+                f"secagg_bits must be in [8, 52] (float64-exact fixed "
+                f"point), got {self.secagg_bits}"
+            )
+        if self.secagg:
+            if self.aggregation != "fedavg":
+                raise ValueError(
+                    "secagg composes only with the null combine: masked "
+                    "updates are opaque to robust aggregation, so "
+                    "aggregation must be 'fedavg', got "
+                    f"{self.aggregation!r}. This is the privacy/robustness "
+                    "trade-off — pick one per federation."
+                )
+            if self.quarantine_z != 0.0:
+                raise ValueError(
+                    "secagg requires quarantine_z=0: the health ledger cannot "
+                    "window norms/cosines of masked uploads, so quarantine "
+                    "would act on noise. Got quarantine_z="
+                    f"{self.quarantine_z}."
+                )
+            if self.update_codec != "null":
+                raise ValueError(
+                    "secagg requires update_codec='null': the masked "
+                    "fixed-point wire format replaces the codec stack, got "
+                    f"{self.update_codec!r}"
+                )
+            if self.mode != "sync":
+                raise ValueError(
+                    "secagg requires mode='sync': the masking roster is a "
+                    "closed cohort, and the buffered plane folds across "
+                    f"cohort boundaries. Got mode={self.mode!r}."
+                )
+        if self.wire_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"wire_dtype must be float32 or bfloat16, got {self.wire_dtype!r}"
+            )
+        if self.update_codec not in ("null", "int8", "topk_delta"):
+            raise ValueError(
+                "update_codec must be 'null', 'int8' or 'topk_delta', got "
+                f"{self.update_codec!r}"
+            )
+        if not 0.0 < self.topk_fraction <= 1.0:
+            raise ValueError(
+                f"topk_fraction must be in (0, 1], got {self.topk_fraction}"
+            )
+        if self.max_message_mb < 1:
+            raise ValueError(
+                f"max_message_mb must be >= 1, got {self.max_message_mb}"
+            )
+        if bool(self.tls_cert) != bool(self.tls_key):
+            raise ValueError(
+                "tls_cert and tls_key must be set together; got "
+                f"tls_cert={self.tls_cert!r}, tls_key={self.tls_key!r}"
+            )
+        if (
+            self.auth_token
+            and not (self.tls_cert or self.tls_ca)
+            and not self.allow_insecure_token
+        ):
+            raise ValueError(
+                "auth_token is set but the channel is plaintext (no TLS "
+                "config): the secret would travel in cleartext on every "
+                "message. Configure tls_cert/tls_key (server) or tls_ca "
+                "(client), or set allow_insecure_token=true to accept this "
+                "for loopback/testing."
+            )
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), sort_keys=True)
+
+    @classmethod
+    def from_json(cls, blob: str | bytes) -> "FedConfig":
+        raw = json.loads(blob)
+        return cls.from_dict(raw)
+
+    @classmethod
+    def from_dict(cls, raw: Mapping[str, Any]) -> "FedConfig":
+        raw = dict(raw)
+        model = raw.pop("model", {})
+        data = raw.pop("data", {})
+        serve = raw.pop("serve", {})
+        known = {f.name for f in dataclasses.fields(cls)}
+        raw = {k: v for k, v in raw.items() if k in known}
+        mknown = {f.name for f in dataclasses.fields(ModelConfig)}
+        dknown = {f.name for f in dataclasses.fields(DataConfig)}
+        sknown = {f.name for f in dataclasses.fields(ServeConfig)}
+        mc = ModelConfig(**{k: _detuple(k, v) for k, v in model.items() if k in mknown})
+        dc = DataConfig(**{k: v for k, v in data.items() if k in dknown})
+        sc = ServeConfig(
+            **{k: _detuple(k, v) for k, v in serve.items() if k in sknown}
+        )
+        return cls(model=mc, data=dc, serve=sc, **raw)
+
+
+def _detuple(key: str, value: Any) -> Any:
+    if key in ("encoder_features", "decoder_features", "bucket_sizes") and isinstance(
+        value, list
+    ):
+        return tuple(value)
+    return value

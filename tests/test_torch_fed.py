@@ -7,7 +7,9 @@ final scale is one multiply on both sides). The whole round: two clients
 train from the same global tree through each package's ``make_train_fn``
 (JAX fed by ``tree_to_bytes`` blobs), the server folds the sorted triples
 through ``fold(FedAvg())``, and the new global is evaluated; the trees are
-held by the rules of tests/test_torch_train.py.
+held by the rules of tests/test_torch_train.py. Both packages' clients take
+and return msgpack blobs; a bfloat16 upload follows the in-band
+``wire_dtype``.
 """
 
 import numpy as np
@@ -136,7 +138,8 @@ def test_fedprox_penalty_matches_jax():
 
 def test_one_sync_round_two_clients_matches_jax():
     """The slice's entry points end to end: two clients x one round
-    (2 epochs x 2 steps each, FedProx on, crack pixels up-weighted), the
+    (2 epochs x 2 steps each, FedProx on, crack pixels up-weighted), each
+    fed the round's global as a msgpack blob and answering with one, the
     ordered FedAvg fold over sorted client names, then evaluate."""
     import jax
 
@@ -151,6 +154,7 @@ def test_one_sync_round_two_clients_matches_jax():
     from fedcrack_tpu_torch.configs import DataConfig, FedConfig
     from fedcrack_tpu_torch.data.pipeline import ArrayDataset
     from fedcrack_tpu_torch.data.synthetic import synth_crack_batch
+    from fedcrack_tpu_torch.fed import serialization as tser
     from fedcrack_tpu_torch.fed.aggregation import FedAvg, fold
     from fedcrack_tpu_torch.train import federated as tfed
     from fedcrack_tpu_torch.train import local as tl
@@ -170,9 +174,11 @@ def test_one_sync_round_two_clients_matches_jax():
         blob, jn, jmetrics = jfn(tree_to_bytes(global0), 0, hparams)
         trained = tree_from_bytes(blob, jholder["state"].variables)
         jax_triples.append((name, jn, jax.tree_util.tree_map(np.asarray, trained)))
-        tfn, _ = tfed.make_train_fn(port_cfg, ArrayDataset(imgs[sl], msks[sl], batch_size=2, seed=i),
-                                    batch_size=2, seed=i, device="cpu")
-        tree, tn, tmetrics = tfn(global0, 0, hparams)
+        tfn, tholder = tfed.make_train_fn(port_cfg, ArrayDataset(imgs[sl], msks[sl], batch_size=2, seed=i),
+                                          batch_size=2, seed=i, device="cpu")
+        tblob, tn, tmetrics = tfn(tser.tree_to_bytes(global0), 0, hparams)
+        assert isinstance(tblob, bytes)
+        tree = tser.tree_from_bytes(tblob, template=tholder["state"].variables)
         assert tn == jn == 4  # two steps of the last epoch x batch 2
         for k in ("loss", "pixel_acc", "iou"):
             np.testing.assert_allclose(tmetrics[k], jmetrics[k], rtol=1e-4, err_msg=f"{name} {k}")
@@ -193,3 +199,35 @@ def test_one_sync_round_two_clients_matches_jax():
     # biases' noise (see above): 1e-3 relative on the loss.
     np.testing.assert_allclose(teval["loss"], jeval["loss"], rtol=1e-3)
     np.testing.assert_allclose(teval["pixel_acc"], jeval["pixel_acc"], rtol=1e-3)
+
+
+@pytest.mark.parametrize("wire_dtype", ["float32", "bfloat16"])
+def test_train_fn_speaks_blobs_and_follows_the_wire_dtype(wire_dtype):
+    """The blob form of ``train_fn``: the JAX package's blob in, an upload
+    whose bytes decode against the port's template, bfloat16-cast when
+    the server's in-band config asks for it (the JAX client's rule), and
+    the same leaves the holder's state carries."""
+    from fedcrack_tpu.fed import serialization as jser
+    from fedcrack_tpu_torch.configs import DataConfig, FedConfig
+    from fedcrack_tpu_torch.data.pipeline import ArrayDataset
+    from fedcrack_tpu_torch.data.synthetic import synth_crack_batch
+    from fedcrack_tpu_torch.fed import serialization as tser
+    from fedcrack_tpu_torch.train import federated as tfed
+
+    imgs, msks = synth_crack_batch(4, 32, seed=9)
+    cfg = FedConfig(model=port_config(TINY_KW), data=DataConfig(img_size=32))
+    fn, holder = tfed.make_train_fn(cfg, ArrayDataset(imgs, msks, batch_size=2, seed=0), batch_size=2,
+                                    device="cpu")
+    global0 = jax_variables(TINY_KW, seed=10)
+    blob, n, metrics = fn(jser.tree_to_bytes(global0), 1, {"local_epochs": 1, "wire_dtype": wire_dtype})
+    assert n == 4 and np.isfinite(metrics["loss"])
+    trained = holder["state"].variables
+    cast = "bfloat16" if wire_dtype == "bfloat16" else None
+    assert blob == tser.tree_to_bytes(trained, cast_dtype=cast) == jser.tree_to_bytes(trained, cast_dtype=cast)
+    restored = tser.tree_from_bytes(blob, template=trained)
+    for (path, got), (_, want) in zip(flat_tree(restored), flat_tree(trained)):
+        assert got.dtype == np.float32
+        if cast is None:
+            np.testing.assert_array_equal(got, want, err_msg="/".join(path))
+        else:
+            np.testing.assert_allclose(got, want, rtol=2.0**-8, atol=1e-30, err_msg="/".join(path))

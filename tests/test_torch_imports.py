@@ -1,6 +1,9 @@
 """The port stands alone: ``fedcrack_tpu_torch/`` and ``chip_smoke.py``
-import neither JAX (nor flax/optax) nor anything of ``fedcrack_tpu``, and
-the port's entry points run on CUDA unless told otherwise.
+import neither JAX (nor flax/optax) nor anything of ``fedcrack_tpu``, nor
+the packages the card's machine lacks (msgpack, ml_dtypes, grpc and
+protobuf's ``google``), which a machine that has them installed would
+otherwise hide; and the
+port's entry points run on CUDA unless told otherwise.
 """
 
 import ast
@@ -14,7 +17,8 @@ pytestmark = pytest.mark.torch_port
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(ROOT, "fedcrack_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "fedcrack_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "fedcrack_tpu", "msgpack", "ml_dtypes", "grpc",
+             "google")
 
 
 def _port_sources():
