@@ -64,12 +64,27 @@ on failure, so any failure exits non-zero and prints no result):
    uploads a NaN leaf and is REJECTED; the deadline's Tick closes the
    round on the other two; the history records the rejection; FedAdam
    moves no parameter by more than its learning rate; the closing
-   transition's parts are timed alone (``server_breakdown``).
+   transition's parts are timed alone (``server_breakdown``);
+9. FedAvg over gRPC at full width: a ``transport.FedServer`` in a
+   ``ServerThread`` on 127.0.0.1 (port 0) and two ``transport.FedClient``
+   threads, each running ``make_train_fn`` on the card with phase 7's
+   data, names, seeds and ``FedConfig`` (f32 wire, ``update_codec="null"``,
+   poll period 0.05 s), the server's ``eval_fn`` over phase 7's 32
+   held-out samples. Checked: both sessions complete 2 rounds, each
+   round's global is byte-equal to phase 7's, and ``bce_sums`` launches
+   equal train steps plus eval batches. Logged: each round's wall and
+   server ms, the wire bytes up and down, and the wall against phase 7's;
+10. a compressed federation over gRPC: the same with
+    ``update_codec="int8"``. Checked: every upload is an int8 frame, and
+    each round's global is byte-equal to ``fed.rounds.transition`` fed the
+    same frames in process (a client subclass records what it sends).
+    Logged: frame bytes against dense bytes, encode and decode ms, and
+    the compiled CRC32C's MiB/s.
 
 Before phase 2, ``main`` logs which of jax, flax, optax, msgpack,
-ml_dtypes, grpc and ``fedcrack_tpu`` the machine has and blocks them all
-in ``sys.modules``: the codec, gate, ledger, robust folds and FedOpt run
-without them.
+ml_dtypes, grpc, google (protobuf) and ``fedcrack_tpu`` the machine has,
+and blocks all but grpc in ``sys.modules``: the codec, gate, ledger,
+robust folds, FedOpt and the transport's wire codec run without them.
 
 The last three lines: the card's name and power limit, the per-kernel JSON
 object, and ``{"ok": true, "device": {...}}``.
@@ -113,9 +128,12 @@ BCE_SWEEP = [1, 100, 128, 32768, 32769, 100_000]
 CODES_RAGGED = [(1,), (17,), (1000, 37), (4099,), (3, 3, 1, 5)]
 # bce_sums reads x and y (8 bytes) and does ~20 operations per element.
 BCE_OPS_PER_ELEMENT = 20
-# The JAX package, its stack and the wire packages it encodes with.
+# The JAX package, its stack and the wire packages it encodes with; the
+# port uses grpc alone of them (its transport), so every other one is
+# blocked for the run.
 REFERENCE_STACK = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "ml_dtypes", "grpc",
-                   "fedcrack_tpu")
+                   "google", "fedcrack_tpu")
+PORT_NEEDS = ("grpc",)
 
 
 def log(msg: str) -> None:
@@ -862,35 +880,52 @@ def drive_federation(R, ser, config, global_vars, fit, names, poison=(), on_roun
     return {"statuses": statuses, "state": state, "rounds": rounds}
 
 
-def train_phase(torch, card: str) -> dict:
-    """Phase 7: the federation at full width through the round protocol,
-    held bitwise against a tree-level loop over the same clients."""
-    import numpy as np
-
+def federation_setup(torch) -> dict:
+    """Phase 7's federation, shared by phases 9 and 10: ``ModelConfig()``
+    at 128 px, batch 16, two clients of 64 seeded synthetic samples and 32
+    held out, the seeded global, ``FedConfig(max_rounds=2, cohort_size=2,
+    local_epochs=1)``, ``client_fn(i, name)`` (a fresh ``make_train_fn``
+    on the card, seed ``i``) and an evaluator state."""
     from fedcrack_tpu_torch.configs import DataConfig, FedConfig, ModelConfig
     from fedcrack_tpu_torch.data.pipeline import ArrayDataset
     from fedcrack_tpu_torch.data.synthetic import synth_crack_batch
-    from fedcrack_tpu_torch.fed import rounds, serialization
-    from fedcrack_tpu_torch.fed.aggregation import FedAvg, fold
     from fedcrack_tpu_torch.models.resunet import init_variables
-    from fedcrack_tpu_torch.ops import bce
     from fedcrack_tpu_torch.train import local
     from fedcrack_tpu_torch.train.federated import make_train_fn
 
     cfg = FedConfig(model=ModelConfig(), data=DataConfig(img_size=TRAIN_SIZE, batch_size=TRAIN_BATCH))
-    server_cfg = FedConfig(max_rounds=2, cohort_size=2, local_epochs=1)
-    lr = cfg.learning_rate
     imgs, msks = synth_crack_batch(160, TRAIN_SIZE, seed=0)
     shards = {"client_0": slice(0, 64), "client_1": slice(64, 128)}
-    held = ArrayDataset(imgs[128:], msks[128:], batch_size=TRAIN_BATCH, shuffle=False)
-    global0 = init_variables(torch.Generator().manual_seed(0), cfg.model)
-    names = sorted(shards)
 
     def client_fn(i, name):
         data = ArrayDataset(imgs[shards[name]], msks[shards[name]], batch_size=TRAIN_BATCH, seed=i)
         return make_train_fn(cfg, data, TRAIN_BATCH, seed=i)[0]
 
-    evaluator = local.create_train_state(torch.Generator().manual_seed(0), cfg.model, lr)
+    return {
+        "cfg": cfg, "server_cfg": FedConfig(max_rounds=2, cohort_size=2, local_epochs=1),
+        "imgs": imgs, "msks": msks,
+        "held": ArrayDataset(imgs[128:], msks[128:], batch_size=TRAIN_BATCH, shuffle=False),
+        "global0": init_variables(torch.Generator().manual_seed(0), cfg.model),
+        "names": sorted(shards), "client_fn": client_fn,
+        "evaluator": local.create_train_state(torch.Generator().manual_seed(0), cfg.model, cfg.learning_rate),
+    }
+
+
+def train_phase(torch, card: str) -> dict:
+    """Phase 7: the federation at full width through the round protocol,
+    held bitwise against a tree-level loop over the same clients."""
+    import numpy as np
+
+    from fedcrack_tpu_torch.fed import rounds, serialization
+    from fedcrack_tpu_torch.fed.aggregation import FedAvg, fold
+    from fedcrack_tpu_torch.ops import bce
+    from fedcrack_tpu_torch.train import local
+
+    fs = federation_setup(torch)
+    cfg, server_cfg, imgs, msks, held, global0, names, client_fn, evaluator = (
+        fs[k] for k in ("cfg", "server_cfg", "imgs", "msks", "held", "global0", "names", "client_fn",
+                        "evaluator"))
+    lr = cfg.learning_rate
 
     # ---- the reference: the tree-level loop over a second set of clients ----
     ref_clients = {name: client_fn(i, name) for i, name in enumerate(names)}
@@ -1006,7 +1041,7 @@ def train_phase(torch, card: str) -> dict:
         f"step p50 {p50:.3f} ms p95 {p95:.3f} ms over 20 steps [{card}]")
     profile_steps(torch, lambda: local.train_step(st, dev_batch, anchor), card)
     return {"launches": launches, "steps": steps, "eval_batches": eval_batches, "perf": perf,
-            "history": history, "fed": fed}
+            "history": history, "fed": fed, "globals": [r["blob"] for r in run["rounds"]]}
 
 
 def blob_timings(ser, tree, template, n: int = 5) -> dict:
@@ -1080,6 +1115,282 @@ def robust_round_phase(torch, card: str) -> dict:
            "largest_param_move": moved}
     log(f"[robust] {json.dumps(out)}; history {json.dumps(state.history[0])} [{card}]")
     log(f"[robust] server breakdown {json.dumps(server_breakdown(server_cfg, global0, r))} [{card}]")
+    return out
+
+
+def grpc_federation(torch, fs: dict, server_cfg, eval_fn=None) -> dict:
+    """One federation over loopback gRPC: a ``FedServer`` in a
+    ``ServerThread`` (port 0) and one ``FedClient`` thread per client of
+    ``fs`` (phase 7's setup), each fitting with ``make_train_fn`` on the
+    card. Returns the final state, the sessions, per client the blobs it
+    trained on and the uploads it sent (a client subclass records each
+    ``TrainDone``), per round the weight bytes the clients received (the
+    pulls count to the first round, a reply to a ``TrainDone`` or a poll to
+    the round it names), the steps, the server's transition seconds per round,
+    and the clients' host seconds summed by kind: each RPC kind (a call
+    waits for its reply, so ``done`` holds the server's gate and the
+    closing transition) and ``fit``, the local fits."""
+    import threading
+
+    from fedcrack_tpu_torch.transport import FedClient, FedServer
+    from fedcrack_tpu_torch.transport.service import ServerThread
+
+    trained_on, uploads, steps, client_s, down = {}, [], [0], {}, {}
+    lock = threading.Lock()
+
+    def spent(kind, seconds):
+        with lock:
+            client_s[kind] = client_s.get(kind, 0.0) + seconds
+
+    class RecordingClient(FedClient):
+        def _call(self, method, msg):
+            if msg.kind == "done":
+                with lock:
+                    uploads.append((self.cname, msg.msg.round, msg.msg.weights, msg.msg.sample_count))
+            t0 = time.perf_counter()
+            try:
+                rep = super()._call(method, msg)
+            finally:
+                spent(msg.kind, time.perf_counter() - t0)
+            if rep.weights:
+                rnd = msg.msg.round if msg.kind in ("done", "poll") else 1
+                with lock:
+                    down[rnd] = down.get(rnd, 0) + len(rep.weights)
+            return rep
+
+    def fit_fn(i, name):
+        fit = fs["client_fn"](i, name)
+
+        def train_fn(blob, rnd, hparams):
+            t0 = time.perf_counter()
+            out, n_samples, metrics = fit(blob, rnd, hparams)
+            spent("fit", time.perf_counter() - t0)
+            with lock:
+                trained_on[(name, rnd)] = blob
+                steps[0] += n_samples // TRAIN_BATCH
+            return out, n_samples, metrics
+
+        return train_fn
+
+    server = FedServer(server_cfg, fs["global0"], tick_period_s=0.05, eval_fn=eval_fn)
+    results, errors = {}, []
+    with ServerThread(server) as st:
+        clients = [RecordingClient(server_cfg, fit_fn(i, name), cname=name, port=st.port)
+                   for i, name in enumerate(fs["names"])]
+
+        def run(c):
+            try:
+                results[c.cname] = c.run_session()
+            except Exception as e:  # re-raised below, on the main thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=run, args=(c,), daemon=True) for c in clients]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"a gRPC client failed or hung: {errors}")
+        state = st.state
+    torch.cuda.synchronize()
+    return {"state": state, "results": results, "trained_on": trained_on, "uploads": uploads,
+            "bytes_down": [down.get(r, 0) for r in range(1, server_cfg.max_rounds + 1)], "steps": steps[0], "server_s": dict(server.transition_s), "wall_s": wall, "server": server,
+            "client_ms": {k: 1e3 * v for k, v in sorted(client_s.items())}}
+
+
+def _round_globals(run: dict, names, rounds: int) -> list[bytes]:
+    """Each round's global as the clients received it: the blob every
+    client trained on in the next round, and the final weights."""
+    out = []
+    for rnd in range(1, rounds + 1):
+        got = {run["trained_on"][(n, rnd + 1)] if rnd < rounds else run["results"][n].final_weights
+               for n in names}
+        if len(got) != 1:
+            raise AssertionError(f"round {rnd}: the clients received different globals")
+        out.append(got.pop())
+    return out
+
+
+def grpc_phase(torch, card: str, train: dict) -> dict:
+    """Phase 9: phase 7's federation over loopback gRPC, each round's
+    global held byte-equal to phase 7's."""
+    import dataclasses
+
+    import numpy as np
+
+    from fedcrack_tpu_torch.fed import serialization
+    from fedcrack_tpu_torch.ops import bce
+    from fedcrack_tpu_torch.train import local
+
+    fs = federation_setup(torch)
+    server_cfg = dataclasses.replace(fs["server_cfg"], host="127.0.0.1", port=0, poll_period_s=0.05)
+    eval_batches = [0]
+
+    def eval_fn(blob):
+        ev = local.evaluate(fs["evaluator"].replace_variables(
+            serialization.tree_from_bytes(blob, template=fs["global0"])), fs["held"])
+        eval_batches[0] += ev["num_batches"]
+        if not all(np.isfinite(v) for v in ev.values()):
+            raise AssertionError(f"non-finite eval metrics {ev}")
+        return ev
+
+    bce.reset_launch_counts()
+    run = grpc_federation(torch, fs, server_cfg, eval_fn=eval_fn)
+    launches = bce.bce_sums.launches
+    state, names = run["state"], fs["names"]
+    if any(run["results"][n].rounds_completed != 2 for n in names) or state.model_version != 2:
+        raise AssertionError(f"sessions {run['results']}, state at version {state.model_version}")
+    got = _round_globals(run, names, 2)
+    for rnd, (blob, want) in enumerate(zip(got, train["globals"]), start=1):
+        if blob != want:
+            raise AssertionError(f"round {rnd}: the gRPC global differs from phase 7's")
+    evals = run["server"].eval_history
+    if sorted(e["round"] for e in evals) != [1, 2]:
+        raise AssertionError(f"server evals {evals}")
+    if launches != run["steps"] + eval_batches[0] or run["steps"] != 16:
+        raise AssertionError(f"bce_sums launches {launches} != {run['steps']} steps + {eval_batches[0]} eval batches")
+    walls = [h["wall_clock_s"] for h in state.history]
+    out = {
+        "launches": launches, "steps": run["steps"], "eval_batches": eval_batches[0],
+        "round_wall_s": walls,
+        "server_ms": [1e3 * run["server_s"].get(r, 0.0) for r in (1, 2)],
+        "bytes_up": [h["bytes_received"] for h in state.history],
+        "bytes_down": run["bytes_down"],
+        "session_wall_s": run["wall_s"],
+        "client_ms_by_kind": run["client_ms"],
+        "wall_ratio_grpc_over_in_process": float(np.mean(walls) / np.mean(train["fed"]["round_wall_s"])),
+    }
+    log(f"[grpc] each round's global is byte-equal to phase 7's; {json.dumps(out)} "
+        f"(bytes_down: the weight bytes in the replies the clients received, the pulls in round 1) [{card}]")
+    return out
+
+
+def int8_round_error(frames, serialization, template, uploads, base: bytes, got: bytes, exact: bytes) -> dict:
+    """How far an int8 round's global ``got`` sits from ``exact``, the
+    same round with the same fits uploaded raw, as a multiple of its
+    limit. Per entry the limit is the sample-weighted mean of the uploads'
+    quantization steps (a QSGD code is off by less than one step, its
+    bucket's scale; 1e-5 of it covers the f32 rounding of ``x / scale``)
+    plus 8 ulps of the weight for the reconstruction and the fold. Raises
+    unless ``got`` is within the limit and the limit rejects the round
+    base (every frame dropped) and the base averaged with the first
+    upload alone (the second frame dropped)."""
+    import numpy as np
+
+    from fedcrack_tpu_torch.fed.pytree import tree_leaves
+
+    def leaves(tree):
+        return [np.asarray(leaf, np.float32).ravel() for leaf in tree_leaves(tree)]
+
+    total = sum(u[3] for u in uploads)
+    steps = [0.0] * len(tree_leaves(template))
+    for _, _, frame, n_samples in uploads:
+        for i, m in enumerate(frames.decode_frame(frame).leaves):
+            scale = np.frombuffer(m["scales"], np.float32)
+            steps[i] = steps[i] + n_samples / total * frames.expand_scales(scale, m["bucket"],
+                                                                            int(np.prod(m["shape"])))
+    want = leaves(serialization.tree_from_bytes(exact, template=template))
+
+    def worst(candidate):
+        return max(float(np.max(np.abs(c - w) / ((1 + 1e-5) * s + 8 * np.spacing(np.maximum(abs(c), abs(w))))))
+                   for c, w, s in zip(candidate, want, steps))
+
+    base_tree = serialization.tree_from_bytes(base, template=template)
+    first = leaves(frames.decode_update(uploads[0][2], template, base_tree)[0])
+    ratios = {
+        "global": worst(leaves(serialization.tree_from_bytes(got, template=template))),
+        "frames_dropped": worst(leaves(base_tree)),
+        "second_frame_dropped": worst([0.5 * (a + b) for a, b in zip(first, leaves(base_tree))]),
+    }
+    if not ratios["global"] <= 1.0 < min(ratios["frames_dropped"], ratios["second_frame_dropped"]):
+        raise AssertionError(f"int8 round error over its limit (or a limit that cannot tell): {ratios}")
+    return ratios
+
+
+def framed_grpc_phase(torch, card: str, train: dict) -> dict:
+    """Phase 10: phase 7's federation over gRPC with int8 frames, each
+    round's global held byte-equal to the in-process round machine fed
+    the same frames, and round 1's global (both phases start from the
+    seeded global) held to phase 7's within the int8 step."""
+    import dataclasses
+
+    import numpy as np
+
+    from fedcrack_tpu_torch.compress import frames
+    from fedcrack_tpu_torch.compress.codecs import get_codec
+    from fedcrack_tpu_torch.fed import rounds, serialization
+    from fedcrack_tpu_torch.native import crc32c
+    from fedcrack_tpu_torch.ops import bce
+
+    fs = federation_setup(torch)
+    server_cfg = dataclasses.replace(fs["server_cfg"], host="127.0.0.1", port=0, poll_period_s=0.05,
+                                     update_codec="int8")
+    bce.reset_launch_counts()
+    run = grpc_federation(torch, fs, server_cfg)
+    launches = bce.bce_sums.launches
+    state, names = run["state"], fs["names"]
+    if launches != run["steps"] or run["steps"] != 16:
+        raise AssertionError(f"bce_sums launches {launches} != {run['steps']} train steps")
+    if any(h["codecs"] != {n: "int8" for n in names} for h in state.history) \
+            or len(run["uploads"]) != 4 or not all(frames.is_frame(u[2]) for u in run["uploads"]):
+        raise AssertionError(f"not every upload is an int8 frame: {[h['codecs'] for h in state.history]}")
+    # The same frames through the round machine in process.
+    ref = rounds.initial_state(server_cfg, fs["global0"])
+    for name in names:
+        ref, _ = rounds.transition(ref, rounds.Ready(name, now=0.0))
+    want = []
+    for rnd in (1, 2):
+        for name, r, frame, n_samples in sorted(u for u in run["uploads"] if u[1] == rnd):
+            ref, reply = rounds.transition(ref, rounds.TrainDone(name, round=r, blob=frame, num_samples=n_samples,
+                                                                 now=float(rnd)))
+        want.append(ref.global_blob)
+    got = _round_globals(run, names, 2)
+    if got != want or state.history[-1]["codecs"] != ref.history[-1]["codecs"]:
+        raise AssertionError("the gRPC globals differ from the in-process round machine's on the same frames")
+    # Round 1 starts from the seeded global in phases 7 and 10 alike, with the
+    # same fits: the int8 global is phase 7's up to the quantization step.
+    int8_err = int8_round_error(frames, serialization, ref.template, sorted(u for u in run["uploads"] if u[1] == 1),
+                                run["trained_on"][(names[0], 1)], got[0], train["globals"][0])
+    # Codec costs on round 2's first upload, timed alone (median of 3).
+    name = names[0]
+    base = run["trained_on"][(name, 2)]
+    frame = next(u[2] for u in run["uploads"] if u[:2] == (name, 2))
+    base_tree = serialization.tree_from_bytes(base, template=ref.template)
+    trained = serialization.tree_to_bytes(frames.decode_update(frame, ref.template, base_tree)[0])
+
+    def median_ms(fn, n=3):
+        ms = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ms))
+
+    buf = np.random.default_rng(0).integers(0, 256, 64 << 20, dtype=np.uint8).tobytes()
+    crc_ms = median_ms(lambda: crc32c(buf))
+    out = {
+        "launches": launches, "steps": run["steps"],
+        "frame_bytes": [len(u[2]) for u in sorted(run["uploads"])],
+        "dense_bytes": len(state.global_blob),
+        "frame_ratio": float(len(state.global_blob) / np.mean([len(u[2]) for u in run["uploads"]])),
+        "encode_ms": median_ms(lambda: get_codec("int8", client_tag=name).encode_update(trained, base, round=2,
+                                                                                        base_version=1)),
+        "decode_ms": median_ms(lambda: frames.decode_update(frame, ref.template, base_tree,
+                                                            expected_base_version=1)),
+        "crc32c_mib_per_s": 64 * 1e3 / crc_ms,
+        "round_wall_s": [h["wall_clock_s"] for h in state.history],
+        "server_ms": [1e3 * run["server_s"].get(r, 0.0) for r in (1, 2)],
+        "bytes_up": [h["bytes_received"] for h in state.history],
+        "bytes_down": run["bytes_down"],
+        "round1_err_over_int8_step": int8_err,
+        "session_wall_s": run["wall_s"],
+        "client_ms_by_kind": run["client_ms"],
+    }
+    log(f"[framed] every upload is an int8 frame, each round's global is byte-equal to the in-process "
+        f"round machine's on the same frames, and round 1's is phase 7's within the int8 step; "
+        f"{json.dumps(out)} [{card}]")
     return out
 
 
@@ -1194,7 +1505,8 @@ def main() -> int:
     # of one fails the smoke on a machine that has it installed.
     installed = [m for m in REFERENCE_STACK if importlib.util.find_spec(m) is not None]
     for m in REFERENCE_STACK:
-        sys.modules.setdefault(m, None)
+        if m not in PORT_NEEDS:
+            sys.modules.setdefault(m, None)
     sys.path.insert(0, HERE)
     from fedcrack_tpu_torch.kernels import build, dequant
     from fedcrack_tpu_torch.ops import bce
@@ -1206,7 +1518,7 @@ def main() -> int:
     card = card_line()
     log(f"phase 1 device: {kind}, torch {torch.__version__}, cuda {torch.version.cuda}, card: {card}")
     log(f"installed on this machine: {installed}; blocked for this run: "
-        f"{[m for m in REFERENCE_STACK if sys.modules[m] is None]}")
+        f"{[m for m in REFERENCE_STACK if m in sys.modules and sys.modules[m] is None]}")
 
     t0 = time.monotonic()
     libs = build.build_all([dequant.LIBRARY, bce.LIBRARY])
@@ -1228,6 +1540,10 @@ def main() -> int:
     log("phase 7 federation at full width through the round protocol: ok")
     robust = robust_round_phase(torch, card)
     log("phase 8 robust round (bf16 wire, trimmed mean, FedAdam, deadline) at full width: ok")
+    grpc_run = grpc_phase(torch, card, train)
+    log("phase 9 FedAvg over gRPC at full width: ok")
+    framed = framed_grpc_phase(torch, card, train)
+    log("phase 10 int8-framed FedAvg over gRPC at full width: ok")
 
     kernels = []
     replaces = {"dequant_matmul": "fedcrack_tpu/kernels/dequant.py:88",
@@ -1259,6 +1575,8 @@ def main() -> int:
         "replaces": "fedcrack_tpu/ops/pallas_bce.py:57",
         "launches": train["launches"],
         "launches_phase8": robust["launches"],
+        "launches_phase9": grpc_run["launches"],
+        "launches_phase10": framed["launches"],
         **bce_row,
     })
     log(f"total {time.monotonic() - t_start:.1f} s")

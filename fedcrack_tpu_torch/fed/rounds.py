@@ -19,14 +19,16 @@ re-enrolls; the log sink is capped per upload and in total and open to
 cohort members only; the round closes at a K-of-N quorum; every upload
 passes the sanitation gate (decodes, leaf count, shapes, finite) before
 the fold; the health ledger scores each flush, and its scores can
-quarantine a client out of the fold.
+quarantine a client out of the fold. A compressed update frame
+(``compress/frames.py``) is CRC-checked, pinned to the current model
+version, reconstructed against the broadcast weights and validated like a
+raw blob, whatever ``sanitize_updates`` says; the round's history counts
+its wire bytes and codec.
 
 The server's arithmetic (decode, ledger, fold, FedOpt, encode) runs on the
 host in float32 numpy, as the JAX package's does; the server holds no
-device state. What this machine does not run raises at
-:func:`initial_state`: buffered mode, secure aggregation, DP noise and the
-compressed update codecs. A compressed frame upload (magic ``b"FCWF"``)
-is rejected with its reason, never averaged.
+device state. What the port does not run yet raises at
+:func:`initial_state`: buffered mode, secure aggregation and DP noise.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from fedcrack_tpu_torch.compress import frames as wire_frames
 from fedcrack_tpu_torch.configs import FedConfig
 from fedcrack_tpu_torch.fed import aggregation as _aggregation
 from fedcrack_tpu_torch.fed.algorithms import apply_server_opt, make_server_optimizer
@@ -64,21 +67,16 @@ PHASE_ENROLL = "enroll"
 PHASE_RUNNING = "running"
 PHASE_FINISHED = "finished"
 
-# The JAX package's compressed update frame (compress/frames.py): magic
-# and the shortest header that can carry it.
-FRAME_MAGIC = b"FCWF"
-FRAME_REJECTED = (
-    "compressed frame rejected: the frame codec (fedcrack_tpu/compress/) "
-    "is not ported; upload the raw blob"
-)
-
 
 # ---- events (client requests + time) ----
 @dataclass(frozen=True)
 class Ready:
-    """Registration request (reference 'R', fl_server.py:152-157)."""
+    """Registration request (reference 'R', fl_server.py:152-157).
+    ``secagg_seed`` is the client's masking seed, sent in band at enroll;
+    the server keeps it only under ``config.secagg``."""
     cname: str
     now: float
+    secagg_seed: int | None = None
 
 
 @dataclass(frozen=True)
@@ -109,12 +107,15 @@ class LogChunk:
 
 @dataclass(frozen=True)
 class TrainDone:
-    """Local weights for ``round`` (reference 'D', fl_server.py:176-196)."""
+    """Local weights for ``round`` (reference 'D', fl_server.py:176-196).
+    ``trace_ctx`` is the sender's wire span context; the transition never
+    reads it, the transport links it to the flush span."""
     cname: str
     round: int
     blob: bytes
     num_samples: int
     now: float
+    trace_ctx: str = ""
 
 
 @dataclass(frozen=True)
@@ -182,6 +183,8 @@ class ServerState:
     # Per-client health ledger (health/ledger.py), changed only through
     # its pure helpers.
     ledger: Mapping[str, dict] = dataclasses.field(default_factory=dict)
+    # Masking seeds received at enroll under config.secagg.
+    secagg_seeds: Mapping[str, int] = dataclasses.field(default_factory=dict)
 
     @property
     def broadcast_blob(self) -> bytes:
@@ -214,10 +217,6 @@ def _decoded_round_base(state: ServerState):
     return tree
 
 
-def _is_frame(blob: bytes) -> bool:
-    return len(blob) >= 8 and blob[:4] == FRAME_MAGIC
-
-
 def decode_and_validate_update(
     blob: bytes,
     num_samples: int,
@@ -229,20 +228,43 @@ def decode_and_validate_update(
 ) -> tuple[bytes, int, str, str | None, float | None]:
     """The upload acceptance gate. Returns ``(blob, wire_len, codec_name,
     problem, norm)``: ``problem`` is the reason to reject (never
-    aggregate) or None; ``norm`` is the accepted update's L2 distance to
-    ``base_fn()`` (the decoded broadcast tree; a callable so callers keep
-    their memo), or None where nothing was decoded or on rejection.
+    aggregate) or None; on acceptance ``blob`` is the full tree's msgpack
+    bytes (re-encoded for a frame) and ``norm`` the update's L2 distance
+    to ``base_fn()`` (the decoded broadcast tree; a callable so callers
+    keep their memo), None where nothing was decoded.
 
-    A raw blob is validated when ``sanitize`` is on. A compressed frame is
-    always rejected: the frame codec is not ported, and the JAX package
-    would decode it against ``base_version``'s broadcast.
+    A compressed frame is CRC-checked, pinned to ``base_version``,
+    reconstructed against ``base_fn()`` and validated, whatever
+    ``sanitize`` says: a CRC-valid frame can still carry a poisoned
+    trainer's NaNs. A raw blob is validated when ``sanitize`` is on.
     """
-    del base_version  # pins a frame's delta base; frames are refused here
     wire_len = len(blob)
+    codec_name = "null"
     problem = None
     norm = None
-    if _is_frame(blob):
-        problem = FRAME_REJECTED
+    if wire_frames.is_frame(blob):
+        if template is None:
+            problem = "compressed frame rejected: server has no decode template"
+        else:
+            try:
+                tree, frame = wire_frames.decode_update(
+                    blob,
+                    template=template,
+                    base=base_fn(),
+                    expected_base_version=base_version,
+                )
+            except ValueError as e:
+                problem = f"compressed frame rejected: {e}"
+            else:
+                codec_name = frame.codec
+                # The reconstruction is validated as a tree and encoded
+                # once, for storage, only when it passes.
+                problem = validate_update(tree, template)
+                if problem is None:
+                    blob = tree_to_bytes(tree)
+                    norm = _health_ledger.update_norm(tree, base_fn())
+        if problem is None and num_samples < 0:
+            problem = f"negative sample count {num_samples}"
     elif sanitize:
         if num_samples < 0:
             problem = f"negative sample count {num_samples}"
@@ -254,7 +276,7 @@ def decode_and_validate_update(
                 )
     if problem is not None:
         norm = None
-    return blob, wire_len, "null", problem, norm
+    return blob, wire_len, codec_name, problem, norm
 
 
 def drop_log(state: ServerState, cname: str, title: str) -> ServerState:
@@ -275,21 +297,16 @@ def _wire_cast(config: FedConfig) -> str | None:
 def _refuse_unported(config: FedConfig) -> None:
     if config.mode == "buffered":
         raise NotImplementedError(
-            "mode='buffered' (FedBuff) is not ported yet: fed/buffered.py, ROADMAP Queue 1 item 9"
+            "mode='buffered' (FedBuff) is not ported yet: fed/buffered.py, ROADMAP Queue 1 item 2"
         )
     if config.secagg:
         raise NotImplementedError(
-            "secagg=True is not ported yet: privacy/secagg.py, ROADMAP Queue 1 item 9"
+            "secagg=True is not ported yet: privacy/secagg.py, ROADMAP Queue 1 item 5"
         )
     if config.dp_noise_multiplier > 0.0:
         raise NotImplementedError(
             "dp_noise_multiplier > 0 is not ported yet: the privacy accountant "
-            "(privacy/accountant.py), ROADMAP Queue 1 item 9"
-        )
-    if config.update_codec != "null":
-        raise NotImplementedError(
-            f"update_codec={config.update_codec!r} is not ported yet: compress/, "
-            "ROADMAP Queue 1 item 9"
+            "(privacy/accountant.py), ROADMAP Queue 1 item 5"
         )
 
 
@@ -518,6 +535,13 @@ def transition(state: ServerState, event: Event) -> tuple[ServerState, Reply]:
             return state, Reply(status=state.phase)
 
         case Ready(cname=cname, now=now):
+            if state.config.secagg and event.secagg_seed is not None:
+                # Idempotent across re-enrolls.
+                state = state._replace(
+                    secagg_seeds={
+                        **state.secagg_seeds, cname: int(event.secagg_seed)
+                    }
+                )
             if state.phase == PHASE_FINISHED:
                 return state, Reply(status=FIN, config=_ready_config(state, FIN))
             if state.phase == PHASE_RUNNING:

@@ -14,6 +14,11 @@ uses, and reproduces it:
   for scalars is decoded), and ext headers take the smallest form that
   holds the payload (fixext 1/2/4/8/16, ext 8/16/32);
 - Python floats are float64, strings are str (str8 allowed), bytes are bin;
+- a leaf over ``MAX_CHUNK_SIZE`` bytes that is a dict value (or the whole
+  tree) is written as flax's chunked form, the map
+  ``{"__msgpack_chunked_array__": True, "shape": {"0": ...},
+  "chunks": {"0": ...}}`` in that insertion order, its chunks flat
+  slices of at most ``MAX_CHUNK_SIZE`` bytes; decoding joins them again;
 - ``cast_dtype="bfloat16"`` writes the dtype name ``"bfloat16"`` and
   round-to-nearest-even bytes, made by torch's ``.to(torch.bfloat16)``
   (numpy has no bfloat16 without ``ml_dtypes``).
@@ -39,9 +44,10 @@ import torch
 
 from fedcrack_tpu_torch.fed.pytree import tree_flatten, tree_leaves, tree_unflatten
 
-# flax.serialization.MAX_CHUNK_SIZE: flax splits a leaf above this many
-# bytes into chunks; the port refuses such a leaf instead.
+# flax.serialization.MAX_CHUNK_SIZE: a leaf above this many bytes is
+# written as flat chunks of at most this many bytes. Read at call time.
 MAX_CHUNK_SIZE = 2**30
+CHUNKED = "__msgpack_chunked_array__"
 EXT_NDARRAY = 1
 EXT_NPSCALAR = 3
 BFLOAT16 = "bfloat16"
@@ -149,11 +155,6 @@ def _array_parts(x: Any) -> tuple[tuple[int, ...], str, bytes]:
 
 def _ndarray_payload(x: Any) -> bytes:
     shape, name, raw = _array_parts(x)
-    if len(raw) > MAX_CHUNK_SIZE:
-        raise ValueError(
-            f"array leaf of {len(raw)} bytes is over flax's chunk limit of {MAX_CHUNK_SIZE} "
-            "bytes; chunked leaves are not supported"
-        )
     out: list = [b"\x93"]
     _pack_len(len(shape), 0x90, 16, (None, 0xDC, 0xDD), out)
     for d in shape:
@@ -163,7 +164,71 @@ def _ndarray_payload(x: Any) -> bytes:
     return b"".join(out)
 
 
-def _pack(obj: Any, out: list) -> None:
+class _Chunked:
+    """An array leaf to be written in flax's chunked form."""
+
+    def __init__(self, arr: Any):
+        self.arr = arr
+
+
+def _nbytes(x: Any) -> int:
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    return x.size * x.dtype.itemsize
+
+
+def _pack_chunked(arr: Any, out: list) -> None:
+    """flax's ``_chunk``: shape and chunks as maps keyed "0", "1", ... in
+    index order, inside a map in insertion order."""
+    itemsize = arr.element_size() if isinstance(arr, torch.Tensor) else arr.dtype.itemsize
+    chunksize = max(1, int(MAX_CHUNK_SIZE / itemsize))
+    flat = arr.reshape(-1)
+    n = flat.numel() if isinstance(flat, torch.Tensor) else flat.size
+    chunks = [flat[i:i + chunksize] for i in range(0, n, chunksize)]
+    out.append(b"\x83")
+    _pack_str(CHUNKED, out)
+    out.append(b"\xc3")
+    for key, values in (("shape", [int(d) for d in arr.shape]), ("chunks", chunks)):
+        _pack_str(key, out)
+        _pack_len(len(values), 0x80, 16, (None, 0xDE, 0xDF), out)
+        for i, v in enumerate(values):
+            _pack_str(str(i), out)
+            _pack(v, out)
+
+
+def _chunk_oversized(tree: Any) -> Any:
+    """flax's ``_chunk_array_leaves_in_place``: an array over the limit
+    that is a dict value (through nested dicts only) or the whole tree."""
+    if isinstance(tree, dict):
+        return {
+            k: _chunk_oversized(v) if isinstance(v, dict)
+            else _Chunked(v) if isinstance(v, (np.ndarray, torch.Tensor)) and _nbytes(v) > MAX_CHUNK_SIZE
+            else v
+            for k, v in tree.items()
+        }
+    if isinstance(tree, (np.ndarray, torch.Tensor)) and _nbytes(tree) > MAX_CHUNK_SIZE:
+        return _Chunked(tree)
+    return tree
+
+
+def _unchunk(node: dict) -> Any:
+    shape = tuple(node["shape"][str(i)] for i in range(len(node["shape"])))
+    chunks = [node["chunks"][str(i)] for i in range(len(node["chunks"]))]
+    if isinstance(chunks[0], torch.Tensor):
+        return torch.cat(chunks).reshape(shape)
+    return np.concatenate(chunks).reshape(shape)
+
+
+def _unchunk_leaves(tree: Any) -> Any:
+    """flax's ``_unchunk_array_leaves_in_place``, as a copy."""
+    if isinstance(tree, dict):
+        if CHUNKED in tree:
+            return _unchunk(tree)
+        return {k: _unchunk_leaves(v) if isinstance(v, dict) else v for k, v in tree.items()}
+    return tree
+
+
+def _pack(obj: Any, out: list, sort_keys: bool = True) -> None:
     # Exact types only, as msgpack's strict_types packing in flax: a tuple
     # or a subclass of a builtin is not written as its base type.
     t = type(obj)
@@ -183,24 +248,29 @@ def _pack(obj: Any, out: list) -> None:
         _pack_bin(obj, out)
     elif t is dict:
         # The tree_map rebuild in flax sorts every dict's keys.
-        keys = sorted(obj)
+        keys = sorted(obj) if sort_keys else list(obj)
         _pack_len(len(keys), 0x80, 16, (None, 0xDE, 0xDF), out)
         for k in keys:
-            _pack(k, out)
-            _pack(obj[k], out)
+            _pack(k, out, sort_keys)
+            _pack(obj[k], out, sort_keys)
     elif t is list:
         _pack_len(len(obj), 0x90, 16, (None, 0xDC, 0xDD), out)
         for v in obj:
-            _pack(v, out)
+            _pack(v, out, sort_keys)
     elif isinstance(obj, (np.ndarray, torch.Tensor)):
         _pack_ext(EXT_NDARRAY, _ndarray_payload(obj), out)
+    elif t is _Chunked:
+        _pack_chunked(obj.arr, out)
     else:
         raise TypeError(f"can not serialize {t.__name__!r} object")
 
 
-def packb(obj: Any) -> bytes:
+def packb(obj: Any, *, sort_keys: bool = True) -> bytes:
+    """msgpack bytes of ``obj``. ``sort_keys`` writes every map with its
+    keys sorted (flax's blob); without it maps keep insertion order, as
+    ``msgpack.packb(obj, use_bin_type=True)`` writes them."""
     out: list = []
-    _pack(obj, out)
+    _pack(obj, out, sort_keys)
     return b"".join(out)
 
 
@@ -315,10 +385,9 @@ def _ext_hook(code: int, data: memoryview) -> Any:
 
 
 def msgpack_restore(blob: bytes) -> Any:
-    """``flax.serialization.msgpack_restore``'s nested-dict decoding. A
-    leaf flax wrote in chunks (over ``MAX_CHUNK_SIZE``) stays in its
-    chunked dict form, which a template restore refuses by its leaf count."""
-    return unpackb(blob, ext_hook=_ext_hook)
+    """``flax.serialization.msgpack_restore``'s nested-dict decoding; a
+    leaf written in chunks comes back whole."""
+    return _unchunk_leaves(unpackb(blob, ext_hook=_ext_hook))
 
 
 # ---- the wire API ----
@@ -347,14 +416,14 @@ def tree_to_bytes(tree: Any, cast_dtype: str | None = None) -> bytes:
 
     ``cast_dtype="bfloat16"`` halves the wire size for weight broadcast
     and upload; the receiver restores float32 through its template in
-    :func:`tree_from_bytes`. A leaf over ``MAX_CHUNK_SIZE`` bytes raises
-    ``ValueError``.
+    :func:`tree_from_bytes`. A leaf over ``MAX_CHUNK_SIZE`` bytes is
+    written in chunks, as flax writes it.
     """
     leaves, treedef = tree_flatten(tree)
     host = [_host(leaf) for leaf in leaves]
     if cast_dtype is not None:
         host = [_cast(leaf, cast_dtype) for leaf in host]
-    return packb(tree_unflatten(treedef, host))
+    return packb(_chunk_oversized(tree_unflatten(treedef, host)))
 
 
 def _shape(leaf: Any) -> tuple:

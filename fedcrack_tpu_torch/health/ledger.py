@@ -14,7 +14,8 @@ the two, capped at :data:`SCORE_CAP`; ``eps`` scales with the median so
 honest float jitter never flags. Every helper is a pure function over
 plain dicts (copy-on-write, like the round machine), and trees are
 flattened in the JAX package's leaf order, so both packages score the
-same trees alike. The wire, JSONL and metrics exports of the JAX module
+same trees alike. :func:`export_anomaly_metrics` publishes the scores as
+bounded-cardinality gauges; the wire and JSONL exports of the JAX module
 are not ported yet.
 """
 
@@ -35,6 +36,10 @@ ANOMALY_ALERT = 3.5
 # Scores are capped so a zero-MAD cohort cannot mint astronomically large
 # (but still finite) exposition values.
 SCORE_CAP = 1e6
+# Per-client metric children: clients past this many (in sorted order)
+# share the '_overflow' label, so a large cohort cannot mint unbounded
+# time series.
+MAX_CLIENT_LABELS = 32
 
 _REJECT_KEYS = ("not_in_cohort", "stale", "sanitation", "other")
 _OUTCOMES = ("accepted", "rejected", "resync")
@@ -203,3 +208,37 @@ def observe_flush(
             rec["flags"] += 1
         out[name] = rec
     return out, scores
+
+
+def client_label(cname: str, rank: int) -> str:
+    """The bounded label of the client at ``rank`` in the sorted ledger:
+    its own name under :data:`MAX_CLIENT_LABELS`, '_overflow' past it."""
+    return str(cname) if rank < MAX_CLIENT_LABELS else "_overflow"
+
+
+def export_anomaly_metrics(ledger: Mapping[str, dict], registry=None) -> None:
+    """Set the anomaly gauges from the ledger: one child per client
+    (bounded by :func:`client_label`, the overflow child taking the max)
+    and the unlabeled maximum."""
+    from fedcrack_tpu_torch.obs.registry import REGISTRY
+
+    reg = registry if registry is not None else REGISTRY
+    per_client = reg.gauge(
+        "fed_client_anomaly_score_ratio",
+        "robust z-score (median/MAD over the flush cohort's update norm and "
+        "cosine-to-mean) of each client's latest flushed update; >= 3.5 "
+        "flags an outlier sanitation cannot see",
+        labels=("client",),
+    )
+    values: dict[str, float] = {}
+    for rank, name in enumerate(sorted(ledger)):
+        label = client_label(name, rank)
+        score = float(ledger[name].get("anomaly", 0.0))
+        values[label] = max(score, values.get(label, 0.0))
+    for label in sorted(values):
+        per_client.labels(client=label).set(values[label])
+    reg.gauge(
+        "fed_client_anomaly_max_ratio",
+        "max per-client anomaly score at the latest flush (unlabeled "
+        "ceiling series)",
+    ).set(max(values.values()) if values else 0.0)

@@ -26,6 +26,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from fedcrack_tpu_torch.fed.pytree import tree_leaves
+
 QKEY, SKEY = "int8_code", "scale"
 QKEY_FP8 = "fp8_code"
 
@@ -129,21 +131,15 @@ def dequantize_variables(qtree: Any) -> Any:
 
 
 def quantized_bytes(qtree: Any) -> tuple[int, int]:
-    """(quantized_bytes, float32_reference_bytes) over a quantized tree:
-    each code leaf counts 1 byte per weight against 4 in the reference."""
+    """(quantized_bytes, reference_bytes) over every leaf of the tree, as
+    the JAX package counts them: an int8 leaf stands for 4 reference
+    bytes per value, any other leaf (fp8 codes included) for its own
+    itemsize."""
     q_bytes = ref_bytes = 0
-
-    def walk(node, is_code: bool):
-        nonlocal q_bytes, ref_bytes
-        if isinstance(node, dict):
-            for k, v in node.items():
-                walk(v, k in (QKEY, QKEY_FP8))
-            return
-        t = node if isinstance(node, torch.Tensor) else torch.as_tensor(np.asarray(node))
+    for leaf in tree_leaves(qtree):
+        t = leaf if isinstance(leaf, torch.Tensor) else torch.as_tensor(np.asarray(leaf))
         q_bytes += t.numel() * t.element_size()
-        ref_bytes += t.numel() * (4 if is_code else t.element_size())
-
-    walk(qtree, False)
+        ref_bytes += t.numel() * (4 if t.dtype == torch.int8 else t.element_size())
     return q_bytes, ref_bytes
 
 

@@ -1,9 +1,12 @@
 """The port stands alone: ``fedcrack_tpu_torch/`` and ``chip_smoke.py``
 import neither JAX (nor flax/optax) nor anything of ``fedcrack_tpu``, nor
-the packages the card's machine lacks (msgpack, ml_dtypes, grpc and
-protobuf's ``google``), which a machine that has them installed would
-otherwise hide; and the
-port's entry points run on CUDA unless told otherwise.
+msgpack, ml_dtypes or protobuf's ``google``: the port brings its own
+msgpack codec, bfloat16 cast and protobuf wire codec. The card's machine
+has msgpack, ml_dtypes and grpc installed, which would hide such an
+import there, so the check is made here. ``grpc`` is allowed in the
+transport (``fedcrack_tpu_torch/transport/``) and in ``chip_smoke.py``
+only, so the rest of the port imports without it. The port's entry
+points run on CUDA unless told otherwise.
 """
 
 import ast
@@ -19,6 +22,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(ROOT, "fedcrack_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "fedcrack_tpu", "msgpack", "ml_dtypes", "grpc",
              "google")
+# grpc is allowed in these files only.
+TRANSPORT = os.path.join(PACKAGE, "transport")
+GRPC_ALLOWED = ("grpc",)
 
 
 def _port_sources():
@@ -27,6 +33,10 @@ def _port_sources():
             if name.endswith(".py"):
                 yield os.path.join(dirpath, name)
     yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def _grpc_allowed(path):
+    return path.startswith(TRANSPORT + os.sep) or os.path.basename(path) == "chip_smoke.py"
 
 
 def _imported_roots(path):
@@ -43,24 +53,26 @@ def test_no_jax_or_reference_package_imports():
     sources = list(_port_sources())
     assert len(sources) > 10
     for path in sources:
-        bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+        forbidden = set(FORBIDDEN) - (set(GRPC_ALLOWED) if _grpc_allowed(path) else set())
+        bad = sorted(set(_imported_roots(path)) & forbidden)
         assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+    assert any("grpc" in _imported_roots(p) for p in sources if p.startswith(TRANSPORT))
 
 
-def test_package_imports_with_jax_blocked():
-    """Every module of the port imports in a fresh interpreter where
-    ``import jax`` (and the JAX package) would raise."""
-    modules = []
-    for path in _port_sources():
-        rel = os.path.relpath(path, ROOT)
-        if rel == "chip_smoke.py":
-            modules.append("chip_smoke")
-            continue
-        mod = rel[:-3].replace(os.sep, ".")
-        modules.append(mod[: -len(".__init__")] if mod.endswith(".__init__") else mod)
+def _module(path):
+    rel = os.path.relpath(path, ROOT)
+    if rel == "chip_smoke.py":
+        return "chip_smoke"
+    mod = rel[:-3].replace(os.sep, ".")
+    return mod[: -len(".__init__")] if mod.endswith(".__init__") else mod
+
+
+def _import_blocked(modules, blocked):
+    """Import ``modules`` in a fresh interpreter where each of ``blocked``
+    would raise on import; returns the completed process."""
     code = (
         "import sys\n"
-        f"for name in {FORBIDDEN!r}:\n"
+        f"for name in {blocked!r}:\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for mod in {modules!r}:\n"
@@ -70,10 +82,23 @@ def test_package_imports_with_jax_blocked():
         "print('ok', len(" + repr(modules) + "))\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.startswith("ok")
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_package_imports_with_jax_blocked():
+    """Every module of the port imports in a fresh interpreter where
+    ``import jax`` (and the JAX package) would raise: all but the
+    transport and the smoke with grpc blocked too, and those in a second
+    interpreter where only grpc is allowed."""
+    sources = list(_port_sources())
+    rest = [_module(p) for p in sources if not _grpc_allowed(p)]
+    with_grpc = [_module(p) for p in sources if _grpc_allowed(p)]
+    assert "fedcrack_tpu_torch.transport.service" in with_grpc and "fedcrack_tpu_torch" in rest
+    for modules, blocked in ((rest, FORBIDDEN), (with_grpc, tuple(m for m in FORBIDDEN if m not in GRPC_ALLOWED))):
+        out = _import_blocked(modules, blocked)
+        assert out.returncode == 0, out.stderr
+        assert out.stdout.startswith("ok")
 
 
 def test_engine_defaults_to_cuda_and_raises_without_it():

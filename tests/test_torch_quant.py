@@ -101,14 +101,18 @@ def test_quantize_for_plane_and_dequantize_match_jax():
 
 
 def test_quantized_bytes_matches_jax_on_int8():
+    """Both packages count the same totals, on int8 trees and on fp8 trees
+    (where the int8-only 4-byte reference rule gives fp8 codes their own
+    itemsize)."""
     from fedcrack_tpu.serve import quant as jq
     from fedcrack_tpu_torch.serve import quant as tq
 
     variables = jax_variables(TINY_KW)
     want = jq.quantized_bytes(jq.quantize_variables(variables).tree)
     assert tq.quantized_bytes(tq.quantize_variables(variables).tree) == want
-    q_bytes, ref_bytes = tq.quantized_bytes(tq.quantize_variables_fp8(variables).tree)
-    assert (q_bytes, ref_bytes) == want  # fp8 codes are one byte per weight too
+    want_fp8 = jq.quantized_bytes(jq.quantize_variables_fp8(variables).tree)
+    assert tq.quantized_bytes(tq.quantize_variables_fp8(variables).tree) == want_fp8
+    assert want_fp8[0] == want[0]  # fp8 codes are one byte per weight too
 
 
 @pytest.mark.parametrize("size,n,seed", [(32, 4, 0), (48, 3, 7)])

@@ -663,23 +663,133 @@ def chip_smoke_phase8_robust_round_small_width():
         _assert_close(a, b, 1, "broadcast")
 
 
+def _codecs(name, cname, **kw):
+    """The JAX package's codec and the port's, for one client."""
+    from fedcrack_tpu.compress.codecs import get_codec as jax_codec
+    from fedcrack_tpu_torch.compress.codecs import get_codec as port_codec
+
+    return jax_codec(name, client_tag=cname, **kw), port_codec(name, client_tag=cname, **kw)
+
+
+def _framed(p, codecs, cname, rnd, seed, now, ns=8, cast=None, base_version=None):
+    """Each package's codec encodes the client's fit against the round
+    base its own server broadcasts; the frames must be byte-equal, and the
+    one frame goes to both servers."""
+    up = jser.tree_to_bytes(_tree(seed), cast_dtype=cast)
+    version = p.j.model_version if base_version is None else base_version
+    frame = codecs[0].encode_update(up, p.j.broadcast_blob, round=rnd, base_version=version)
+    assert codecs[1].encode_update(up, p.t.broadcast_blob, round=rnd, base_version=version) == frame
+    return p.send("TrainDone", cname, round=rnd, blob=frame, num_samples=ns, now=now)
+
+
+def _framed_session(codec_a, codec_b, maxulp=0, **cfg):
+    p = Pair(_tree(42), maxulp=maxulp, max_rounds=3, **cfg)
+    p.enroll_two()
+    ca, cb = _codecs(codec_a, "a", topk_fraction=0.25), _codecs(codec_b, "b", topk_fraction=0.25)
+    for rnd in (1, 2, 3):
+        assert _framed(p, ca, "a", rnd, seed=10 + rnd, now=2.0 * rnd).status == JR.RESP_ACY
+        _framed(p, cb, "b", rnd, seed=20 + rnd, now=2.0 * rnd + 1, ns=24)
+    assert [h["codecs"] for h in p.t.history] == [{"a": codec_a, "b": codec_b}] * 3
+    assert p.t.phase == TR.PHASE_FINISHED
+    return p
+
+
+for _a, _b in (("int8", "int8"), ("topk_delta", "topk_delta"), ("null", "int8"), ("int8", "topk_delta")):
+    SCRIPTS[f"framed_rounds_{_a}_{_b}"] = (lambda a, b: lambda: _framed_session(a, b))(_a, _b)
+
+
+@script
+def framed_rounds_on_a_bf16_wire():
+    _framed_session("int8", "topk_delta", maxulp=1, wire_dtype="bfloat16")
+
+
+@script
+def framed_upload_under_null_codec_and_sanitation_off():
+    # The server decodes a frame whatever it advertises, and validates it
+    # with sanitation off.
+    p = Pair(_tree(42), sanitize_updates=False)
+    p.enroll_two()
+    _framed(p, _codecs("int8", "a"), "a", 1, seed=1, now=2.0)
+    p.done("b", 1, seed=2, now=3.0)
+    assert p.t.history[0]["codecs"] == {"a": "int8", "b": "null"}
+
+
+@script
+def framed_rejections_give_jax_reasons():
+    import zlib
+
+    from fedcrack_tpu.compress import frames as jframes
+
+    p = Pair(_tree(42))
+    p.enroll_two()
+    codecs = _codecs("int8", "a")
+    up = jser.tree_to_bytes(_tree(1))
+    good = codecs[0].encode_update(up, p.j.broadcast_blob, round=1, base_version=0)
+    flipped = bytearray(good)
+    flipped[len(good) // 2] ^= 0x10
+    stale = codecs[0].encode_update(up, p.j.broadcast_blob, round=1, base_version=7)
+    lying = jframes.encode_frame("int8", 1, 0, [{"shape": [3, 3], "enc": "int8", "scales": b"\0" * 4,
+                                                  "bucket": 16384}, {"shape": [4], "enc": "int8"}], b"")
+    bomb = jframes.encode_frame("topk", 1, 0, [{"shape": [4], "enc": "topk", "k": 0},
+                                              {"shape": [3, 4], "enc": "topk", "k": 0}],
+                                zlib.compress(b"\0" * 10**6), compress=False)
+    nan = jframes.encode_frame("int8", 1, 0, [{"shape": [4], "enc": "int8", "bucket": 4,
+                                               "scales": np.float32([np.nan]).tobytes()},
+                                              {"shape": [3, 4], "enc": "int8", "bucket": 16384,
+                                               "scales": np.float32([1.0]).tobytes()}], bytes(16))
+    for i, frame in enumerate((bytes(flipped), stale, lying, bomb, nan)):
+        reply = p.send("TrainDone", "a", round=1, blob=frame, num_samples=8, now=2.0 + i)
+        assert reply.status == JR.REJECTED
+    assert p.t.ledger["a"]["rejected"] == {"sanitation": 5}
+    assert p.send("TrainDone", "a", round=1, blob=good, num_samples=-1, now=8.0).status == JR.REJECTED
+    assert "negative sample count" in p.t.rejected["a"]
+    _framed(p, codecs, "a", 1, seed=1, now=9.0)
+    assert p.done("b", 1, seed=2, now=10.0).status == JR.RESP_ARY
+
+
+@script
+def event_fields_secagg_seed_and_trace_ctx_are_carried():
+    p = Pair(_tree(42))
+    p.send("Ready", "a", now=0.0, secagg_seed=123)
+    assert p.t.secagg_seeds == p.j.secagg_seeds == {}  # kept only under config.secagg
+    p.send("Ready", "b", now=1.0, secagg_seed=None)
+    # Under secagg (which the port refuses at boot) the seed is stored as
+    # the JAX package stores it, re-enrolls included.
+    p.j = p.j._replace(config=JaxFedConfig(**CFG, secagg=True))
+    p.t = p.t._replace(config=FedConfig(**CFG, secagg=True))
+    p.send("Ready", "a", now=1.5, secagg_seed=7)
+    p.send("Ready", "b", now=1.6)
+    assert p.t.secagg_seeds == p.j.secagg_seeds == {"a": 7}
+    p.j = p.j._replace(config=JaxFedConfig(**CFG))
+    p.t = p.t._replace(config=FedConfig(**CFG))
+    blob = jser.tree_to_bytes(_tree(1))
+    p.send("TrainDone", "a", round=1, blob=blob, num_samples=8, now=2.0, trace_ctx="fedtr-v0#push:a:r1")
+
+
 @pytest.mark.parametrize("name", sorted(SCRIPTS))
 def test_event_script_matches_jax(name):
     SCRIPTS[name]()
 
 
 @pytest.mark.parametrize(
-    "kw,needle",
-    [(dict(mode="buffered"), "buffered"), (dict(secagg=True), "secagg"),
-     (dict(dp_noise_multiplier=1.0, dp_clip_norm=1.0), "dp_noise_multiplier"),
-     (dict(update_codec="int8"), "update_codec"), (dict(update_codec="topk_delta"), "update_codec")],
+    "kw,needle,item",
+    [(dict(mode="buffered"), "buffered", 2), (dict(secagg=True), "secagg", 5),
+     (dict(dp_noise_multiplier=1.0, dp_clip_norm=1.0), "dp_noise_multiplier", 5)],
 )
-def test_unported_configurations_raise_not_implemented(kw, needle):
+def test_unported_configurations_raise_not_implemented(kw, needle, item):
     cfg = FedConfig(**kw)
     JaxFedConfig(**kw)  # a configuration both packages accept
     with pytest.raises(NotImplementedError, match=needle) as info:
         TR.initial_state(cfg, _tree(42))
-    assert "ROADMAP" in str(info.value)
+    assert str(info.value).endswith(f"ROADMAP Queue 1 item {item}")
+
+
+@pytest.mark.parametrize("codec", ["int8", "topk_delta"])
+def test_update_codec_configurations_boot_and_advertise_the_codec(codec):
+    kw = dict(CFG, update_codec=codec, topk_fraction=0.05)
+    p = Pair(_tree(42), **{k: v for k, v in kw.items() if k not in CFG})
+    reply = p.send("Ready", "a", now=0.0)
+    assert (reply.config["update_codec"], reply.config["topk_fraction"]) == (codec, 0.05)
 
 
 @pytest.mark.parametrize("kw", [dict(secagg=True, aggregation="krum"), dict(quorum_fraction=0.0),
@@ -691,34 +801,29 @@ def test_configurations_refused_by_both_packages(kw):
         FedConfig(**kw)
 
 
-def test_frame_upload_is_rejected_with_its_reason_never_averaged():
-    """A compressed update frame (which the JAX package would decode and
-    average) is refused by the port: REJECTED, the reason in the reply and
-    the round's history, the round still open until a raw blob comes."""
+def test_frame_upload_is_decoded_validated_and_averaged_as_in_jax():
+    """A compressed frame is decoded against the broadcast, validated and
+    averaged: the stored blob is the JAX package's reconstruction byte for
+    byte, and the history counts the frame's wire bytes and codec."""
     from fedcrack_tpu.compress.codecs import get_codec
 
-    state = TR.initial_state(FedConfig(**CFG), _tree(42))
-    for name, now in (("a", 0.0), ("b", 1.0)):
-        state, _ = TR.transition(state, TR.Ready(name, now=now))
-    frame = get_codec("int8").encode_update(jser.tree_to_bytes(_tree(1)), state.broadcast_blob,
-                                            round=1, base_version=0)
+    p = Pair(_tree(42), maxulp=0)
+    p.enroll_two()
+    up = jser.tree_to_bytes(_tree(1))
+    frame = get_codec("int8").encode_update(up, p.j.broadcast_blob, round=1, base_version=0)
     assert frame[:4] == b"FCWF"
-    state, reply = TR.transition(state, TR.TrainDone("a", round=1, blob=frame, num_samples=8, now=2.0))
-    assert reply.status == TR.REJECTED
-    assert reply.config["reason"] == f"update rejected: {TR.FRAME_REJECTED}"
-    assert "not ported" in reply.config["reason"]
-    assert "a" not in state.received and state.rejected["a"] == TR.FRAME_REJECTED
-    assert state.ledger["a"]["rejected"] == {"sanitation": 1}
-    state, _ = TR.transition(state, TR.TrainDone("a", round=1, blob=tser.tree_to_bytes(_tree(1)),
-                                                 num_samples=8, now=3.0))
-    state, reply = TR.transition(state, TR.TrainDone("b", round=1, blob=tser.tree_to_bytes(_tree(2)),
-                                                     num_samples=8, now=4.0))
-    assert reply.status == TR.RESP_ARY
-    assert state.history[0]["rejected"] == {"a": TR.FRAME_REJECTED}
-    # the gate refuses a frame even with sanitation off
+    assert p.send("TrainDone", "a", round=1, blob=frame, num_samples=8, now=2.0).status == JR.RESP_ACY
+    stored = p.t.received["a"][0]
+    assert stored != frame and stored[:4] != b"FCWF"
+    p.done("b", 1, seed=2, now=3.0)
+    (entry,) = p.t.history
+    assert entry["codecs"] == {"a": "int8", "b": "null"}
+    assert entry["bytes_received"] == len(frame) + len(jser.tree_to_bytes(_tree(2)))
+    assert entry["decoded_bytes_received"] == len(stored) + len(jser.tree_to_bytes(_tree(2)))
     off = TR.initial_state(FedConfig(**CFG, sanitize_updates=False), _tree(42))
-    assert TR.decode_and_validate_update(frame, 8, template=off.template, base_fn=None, base_version=0,
-                                         sanitize=False)[3] == TR.FRAME_REJECTED
+    got = TR.decode_and_validate_update(frame, 8, template=off.template, base_fn=lambda: _tree(42),
+                                        base_version=0, sanitize=False)
+    assert got[1:4] == (len(frame), "int8", None) and got[0] == stored
 
 
 def test_initial_state_takes_tensor_trees_and_quorum_target_matches():
@@ -737,5 +842,7 @@ def test_server_state_fields_are_the_sync_subset_of_jax():
     port = {f.name for f in dataclasses.fields(TR.ServerState)}
     jax_fields = {f.name for f in dataclasses.fields(JR.ServerState)}
     assert port <= jax_fields
-    assert jax_fields - port == {"pulled", "buffer", "base_blobs", "secagg_seeds", "secagg_roster",
-                                 "privacy_steps"}
+    assert jax_fields - port == {"pulled", "buffer", "base_blobs", "secagg_roster", "privacy_steps"}
+    for event in ("Ready", "PullWeights", "TrainingNotice", "LogChunk", "TrainDone", "VersionPoll", "Tick"):
+        fields = [(f.name, f.default) for f in dataclasses.fields(getattr(TR, event))]
+        assert fields == [(f.name, f.default) for f in dataclasses.fields(getattr(JR, event))], event

@@ -230,12 +230,59 @@ def test_every_truncation_is_undecodable_as_in_jax(cut):
 
 
 def test_leaf_over_the_chunk_limit_is_refused(monkeypatch):
+    """A leaf over the chunk limit is not refused but written in flax's
+    chunked form; one at the limit stays a single ext."""
+    import flax.serialization
+
+    from fedcrack_tpu.fed import serialization as jser
     from fedcrack_tpu_torch.fed import serialization as tser
 
     monkeypatch.setattr(tser, "MAX_CHUNK_SIZE", 64)
-    assert tser.tree_to_bytes({"w": np.zeros(16, np.float32)})  # 64 bytes: at the limit
-    with pytest.raises(ValueError, match="chunk limit"):
-        tser.tree_to_bytes({"w": np.zeros(17, np.float32)})
+    monkeypatch.setattr(flax.serialization, "MAX_CHUNK_SIZE", 64)
+    at = {"w": np.arange(16, dtype=np.float32)}   # 64 bytes: at the limit
+    over = {"w": np.arange(17, dtype=np.float32)}
+    assert b"__msgpack_chunked_array__" not in tser.tree_to_bytes(at)
+    assert tser.tree_to_bytes(at) == jser.tree_to_bytes(at)
+    blob = tser.tree_to_bytes(over)
+    assert b"__msgpack_chunked_array__" in blob and blob == jser.tree_to_bytes(over)
+    assert tser.tree_from_bytes(blob)["w"].tobytes() == over["w"].tobytes()
+
+
+def _chunk_tree():
+    rng = np.random.default_rng(5)
+    return {
+        "params": {"conv": {"kernel": rng.normal(size=(3, 3, 2, 5)).astype(np.float32),
+                            "bias": rng.normal(size=(5,)).astype(np.float32)},
+                   "big": {"w": rng.normal(size=(37, 11)).astype(np.float32)}},
+        "batch_stats": {"mean": rng.normal(size=(40,)).astype(np.float32)},
+        "step": np.arange(24, dtype=np.int32).reshape(2, 3, 4),
+    }
+
+
+@pytest.mark.parametrize("limit", [2, 40, 100, 4096])
+@pytest.mark.parametrize("cast", [None, "bfloat16"])
+def test_chunked_leaves_byte_equal_and_restore_across_packages(monkeypatch, limit, cast):
+    """With both packages' MAX_CHUNK_SIZE patched down, the blobs are
+    byte-equal, and each package's blob restores through the other on the
+    raw and on the template path, bitwise."""
+    import flax.serialization
+
+    from fedcrack_tpu.fed import serialization as jser
+    from fedcrack_tpu_torch.fed import serialization as tser
+
+    monkeypatch.setattr(tser, "MAX_CHUNK_SIZE", limit)
+    monkeypatch.setattr(flax.serialization, "MAX_CHUNK_SIZE", limit)
+    tree = _chunk_tree()
+    want = jser.tree_to_bytes(tree, cast_dtype=cast)
+    got = tser.tree_to_bytes(tree, cast_dtype=cast)
+    assert got == want
+    leaves = jax.tree_util.tree_leaves
+    for a, b in zip(leaves(tser.tree_from_bytes(want)), leaves(jser.tree_from_bytes(got))):
+        assert _bits(a) == np.asarray(b).tobytes()
+    for a, b in zip(leaves(tser.tree_from_bytes(want, template=tree)),
+                    leaves(jser.tree_from_bytes(got, template=tree))):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    assert tser.validate_update(want, tree) is None
 
 
 def test_unserializable_leaves_raise_like_flax():
