@@ -79,7 +79,35 @@ on failure, so any failure exits non-zero and prints no result):
     each round's global is byte-equal to ``fed.rounds.transition`` fed the
     same frames in process (a client subclass records what it sends).
     Logged: frame bytes against dense bytes, encode and decode ms, and
-    the compiled CRC32C's MiB/s.
+    the compiled CRC32C's MiB/s;
+11. FedBuff over gRPC at full width: phase 9's setup with
+    ``FedConfig(mode="buffered", buffer_k=2, staleness_alpha=0.5,
+    max_staleness=4, max_rounds=3)``, a ``state_path`` in a temp dir and
+    the server's ``eval_fn``; the two clients run the buffered
+    pull -> train -> push loop until FIN. The server records every event
+    in the order it applied them, and the record is replayed through
+    ``fed.rounds.transition`` in process. Checked: each flushed global
+    byte-equal to the replay's, the replay's replies, history and
+    accepted uploads (client, ``seq``, pulled-at version) the server's;
+    every history entry buffered with its staleness list and
+    ``updates_per_sec``; the statefile on disk decoding with
+    ``server_state_from_bytes`` and re-encoding to its bytes at version 3;
+    ``bce_sums`` launches equal train steps plus eval batches. Logged:
+    flush walls, statefile bytes, snapshot encode and write ms,
+    ``async_summary``;
+12. a mid-buffer stop, resume and hot swap at full width: a buffered
+    server (K = 2) takes one card fit into its buffer and is stopped once
+    the snapshot is on disk; a fresh ``FedServer`` boots from the same
+    ``state_path`` with the buffer intact and flushes on the second fit,
+    bit-identical to an uninterrupted in-process replay of the two
+    uploads. A ``ModelVersionManager`` on a ``fused_int8`` engine watches
+    that statefile: ``poll_once`` installs the flushed version, its gate
+    deciding as a CPU engine's does on the same weights (IoU logged), then
+    the flushed weights snapped to the code grid, published with
+    ``publish_statefile`` at version 2, pass the gate and are installed;
+    one bucket-256 batch on them launches 15 ``dequant_matmul``, 8
+    ``dequant_conv3x3`` and 1 ``dequant_codes`` kernel (wrapper counts
+    and profiler). Logged: install ms (gate included).
 
 Before phase 2, ``main`` logs which of jax, flax, optax, msgpack,
 ml_dtypes, grpc, google (protobuf) and ``fedcrack_tpu`` the machine has,
@@ -119,6 +147,9 @@ MATMUL_SWEEP = SWEEP_SHAPES + [(1000, 27, 1), (129, 36, 33), (70, 2304, 257), (3
 CONV_SWEEP = [(1, 5, 7, 8, 12), (2, 6, 6, 4, 9), (1, 1, 1, 4, 3), (3, 9, 11, 36, 17),
               (2, 17, 13, 132, 40), (1, 33, 31, 64, 129)]
 BUCKET, BATCH = 256, 8
+# The largest probability difference allowed between a served batch and
+# the same weights through another plane or on the CPU (phases 4, 5, 12).
+SERVE_PROB_TOL = 1e-3
 # The training path: the reference's client shape, and the JAX kernel
 # test's ragged sizes for bce_sums.
 TRAIN_SIZE, TRAIN_BATCH = 128, 16
@@ -548,7 +579,7 @@ def serve_phase(torch, card: str, kernel_plane: str, requests: bool) -> dict:
     iou = quant_mod.mask_iou(fused, want)
     log(f"[{kernel_plane}] fused vs reference plane (dequantize + ResUNet) on the probe batch: "
         f"max prob diff {diff:.3g}, mask IoU {iou:.6f}")
-    if diff >= 1e-3 or iou < 0.99:
+    if diff >= SERVE_PROB_TOL or iou < 0.99:
         raise AssertionError(f"[{kernel_plane}] fused plane disagrees with the reference plane")
 
     # The raw random weights through the same install: whatever the gate
@@ -1118,7 +1149,7 @@ def robust_round_phase(torch, card: str) -> dict:
     return out
 
 
-def grpc_federation(torch, fs: dict, server_cfg, eval_fn=None) -> dict:
+def grpc_federation(torch, fs: dict, server_cfg, eval_fn=None, server_cls=None) -> dict:
     """One federation over loopback gRPC: a ``FedServer`` in a
     ``ServerThread`` (port 0) and one ``FedClient`` thread per client of
     ``fs`` (phase 7's setup), each fitting with ``make_train_fn`` on the
@@ -1129,7 +1160,8 @@ def grpc_federation(torch, fs: dict, server_cfg, eval_fn=None) -> dict:
     the round it names), the steps, the server's transition seconds per round,
     and the clients' host seconds summed by kind: each RPC kind (a call
     waits for its reply, so ``done`` holds the server's gate and the
-    closing transition) and ``fit``, the local fits."""
+    closing transition) and ``fit``, the local fits. ``server_cls`` replaces
+    ``FedServer``."""
     import threading
 
     from fedcrack_tpu_torch.transport import FedClient, FedServer
@@ -1172,7 +1204,7 @@ def grpc_federation(torch, fs: dict, server_cfg, eval_fn=None) -> dict:
 
         return train_fn
 
-    server = FedServer(server_cfg, fs["global0"], tick_period_s=0.05, eval_fn=eval_fn)
+    server = (server_cls or FedServer)(server_cfg, fs["global0"], tick_period_s=0.05, eval_fn=eval_fn)
     results, errors = {}, []
     with ServerThread(server) as st:
         clients = [RecordingClient(server_cfg, fit_fn(i, name), cname=name, port=st.port)
@@ -1220,24 +1252,13 @@ def grpc_phase(torch, card: str, train: dict) -> dict:
 
     import numpy as np
 
-    from fedcrack_tpu_torch.fed import serialization
     from fedcrack_tpu_torch.ops import bce
-    from fedcrack_tpu_torch.train import local
 
     fs = federation_setup(torch)
     server_cfg = dataclasses.replace(fs["server_cfg"], host="127.0.0.1", port=0, poll_period_s=0.05)
     eval_batches = [0]
-
-    def eval_fn(blob):
-        ev = local.evaluate(fs["evaluator"].replace_variables(
-            serialization.tree_from_bytes(blob, template=fs["global0"])), fs["held"])
-        eval_batches[0] += ev["num_batches"]
-        if not all(np.isfinite(v) for v in ev.values()):
-            raise AssertionError(f"non-finite eval metrics {ev}")
-        return ev
-
     bce.reset_launch_counts()
-    run = grpc_federation(torch, fs, server_cfg, eval_fn=eval_fn)
+    run = grpc_federation(torch, fs, server_cfg, eval_fn=held_out_eval(fs, eval_batches))
     launches = bce.bce_sums.launches
     state, names = run["state"], fs["names"]
     if any(run["results"][n].rounds_completed != 2 for n in names) or state.model_version != 2:
@@ -1246,9 +1267,7 @@ def grpc_phase(torch, card: str, train: dict) -> dict:
     for rnd, (blob, want) in enumerate(zip(got, train["globals"]), start=1):
         if blob != want:
             raise AssertionError(f"round {rnd}: the gRPC global differs from phase 7's")
-    evals = run["server"].eval_history
-    if sorted(e["round"] for e in evals) != [1, 2]:
-        raise AssertionError(f"server evals {evals}")
+    check_server_evals(run["server"], [1, 2])
     if launches != run["steps"] + eval_batches[0] or run["steps"] != 16:
         raise AssertionError(f"bce_sums launches {launches} != {run['steps']} steps + {eval_batches[0]} eval batches")
     walls = [h["wall_clock_s"] for h in state.history]
@@ -1391,6 +1410,380 @@ def framed_grpc_phase(torch, card: str, train: dict) -> dict:
     log(f"[framed] every upload is an int8 frame, each round's global is byte-equal to the in-process "
         f"round machine's on the same frames, and round 1's is phase 7's within the int8 step; "
         f"{json.dumps(out)} [{card}]")
+    return out
+
+
+def buffered_config(fs: dict, **over):
+    """Phases 11-12's FedBuff server: phase 7's, buffered (K = 2, alpha
+    0.5, max staleness 4, three versions), on 127.0.0.1."""
+    import dataclasses
+
+    kw = dict(host="127.0.0.1", port=0, poll_period_s=0.05, mode="buffered", buffer_k=2, staleness_alpha=0.5,
+              max_staleness=4, max_rounds=3)
+    return dataclasses.replace(fs["server_cfg"], **{**kw, **over})
+
+
+def held_out_eval(fs: dict, counter: list):
+    """The server's ``eval_fn`` over phase 7's 32 held-out samples; adds
+    the eval batches to ``counter[0]``. The server logs and drops what an
+    ``eval_fn`` raises, so a phase holds ``server.eval_history`` to
+    :func:`check_server_evals` as well."""
+    from fedcrack_tpu_torch.fed import serialization
+    from fedcrack_tpu_torch.train import local
+
+    def eval_fn(blob):
+        ev = local.evaluate(fs["evaluator"].replace_variables(
+            serialization.tree_from_bytes(blob, template=fs["global0"])), fs["held"])
+        counter[0] += ev["num_batches"]
+        return ev
+
+    return eval_fn
+
+
+def check_server_evals(server, versions) -> None:
+    """Raises unless the server evaluated each of ``versions`` once (a
+    failed eval leaves no entry) and every metric is finite."""
+    import numpy as np
+
+    evals = server.eval_history
+    if sorted(e["model_version"] for e in evals) != list(versions):
+        raise AssertionError(f"server evals {evals}, want one for each version of {list(versions)}")
+    for e in evals:
+        if not all(np.isfinite(v) for v in e.values()):
+            raise AssertionError(f"non-finite server eval {e}")
+
+
+def recording_server_class():
+    """A ``FedServer`` that records every event with its reply status in
+    the order the round machine applied them (an event is appended just
+    before ``_apply`` takes the server's lock, which wakes its waiters
+    first in, first out), and the global it published at each version."""
+    from fedcrack_tpu_torch.transport import FedServer
+
+    class RecordingServer(FedServer):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.applied, self.published = [], {}
+
+        async def _apply(self, event):
+            record = [event, None]
+            self.applied.append(record)
+            reply = await super()._apply(event)
+            record[1] = reply.status
+            self.published.setdefault(self.state.model_version, self.state.global_blob)
+            return reply
+
+    return RecordingServer
+
+
+def replay_events(rounds, config, global0, applied) -> dict:
+    """A recording server's events through ``rounds.transition`` in
+    process, each reply status held to the server's. Returns the final
+    state, the global at each version, and the uploads accepted into the
+    buffer, each with its client, ``seq``, the version it was pulled at and
+    the version it was accepted at, its blob and its sample count."""
+    state = rounds.initial_state(config, global0)
+    globals_, accepted = {}, []
+    for event, status in applied:
+        prev = state
+        state, reply = rounds.transition(state, event)
+        if reply.status != status:
+            raise AssertionError(f"replay of {type(event).__name__} gave {reply.status}, the server {status}")
+        if isinstance(event, rounds.TrainDone) and (
+                reply.status in (rounds.RESP_ACY, rounds.RESP_ARY)
+                or (reply.status == rounds.FIN and state.model_version != prev.model_version)):
+            accepted.append({"client": event.cname, "seq": sum(e["cname"] == event.cname for e in prev.buffer),
+                             "pulled_at": prev.pulled[event.cname], "version_at": prev.model_version,
+                             "blob": event.blob, "ns": event.num_samples})
+        if state.model_version != prev.model_version:
+            globals_[state.model_version] = state.global_blob
+    return {"state": state, "globals": globals_, "accepted": accepted}
+
+
+def check_flushes(config, global0, accepted, history, published) -> dict:
+    """Each flushed global against the uploads it folded, computed apart
+    from the round machine: version ``v`` folds the uploads accepted at
+    version ``v - 1``. A flush of fresh uploads only is byte-equal to the
+    tree-level FedAvg of those uploads (phase 7's loop); every flush is
+    within 8 f32 ulps, per entry, of the float64 closed form, the mean
+    weighted by ``ns * (1 + staleness)^-alpha`` anchored on the previous
+    global by the mean staleness weight. Returns the largest error of each
+    version in those ulps."""
+    import numpy as np
+
+    from fedcrack_tpu_torch.fed import serialization
+    from fedcrack_tpu_torch.fed.aggregation import FedAvg, fold
+
+    if config.aggregation != "fedavg" or config.server_optimizer != "avg":
+        raise AssertionError("the closed form covers plain FedAvg only")
+
+    def tree(blob):
+        return serialization.tree_from_bytes(blob, template=global0)
+
+    prev, err = serialization.tree_to_bytes(global0), {}
+    for v, h in enumerate(history, start=1):
+        buffered = [a for a in accepted if a["version_at"] == v - 1]
+        if sorted(a["version_at"] - a["pulled_at"] for a in buffered) != sorted(h["staleness"]):
+            raise AssertionError(f"version {v}: buffered uploads {buffered} against history {h}")
+        group = sorted((a for a in buffered if a["client"] not in h["quarantined"]),
+                       key=lambda a: (a["client"], a["seq"]))
+        staleness = [a["version_at"] - a["pulled_at"] for a in group]
+        if not group:
+            raise AssertionError(f"version {v}: every upload quarantined {h}")
+        got = tree(published[v])
+        if not any(staleness):
+            want = fold(FedAvg(), [(a["client"], a["ns"], tree(a["blob"])) for a in group])
+            if serialization.tree_to_bytes(want) != published[v]:
+                raise AssertionError(f"version {v}: the flush differs from the tree-level FedAvg of its uploads")
+        eff = [a["ns"] * (1.0 + s) ** -config.staleness_alpha for a, s in zip(group, staleness)]
+        mix = sum(eff) / sum(a["ns"] for a in group)
+        flat = [dict(_flat_tree(tree(a["blob"]))) for a in group]
+        base = dict(_flat_tree(tree(prev)))
+        worst = 0.0
+        for key, leaf in _flat_tree(got):
+            ups = [np.asarray(f[key], np.float64) for f in flat]
+            mean = sum(w * u for w, u in zip(eff, ups)) / sum(eff)
+            old = np.asarray(base[key], np.float64)
+            want = mean if mix == 1.0 else (1.0 - mix) * old + mix * mean
+            scale = np.maximum.reduce([np.abs(old)] + [np.abs(u) for u in ups])
+            ulps = np.abs(np.asarray(leaf, np.float64) - want) / np.spacing(scale.astype(np.float32))
+            worst = max(worst, float(np.max(ulps, initial=0.0)))
+        if worst > 8.0:
+            raise AssertionError(f"version {v}: the flush is {worst} ulps from the closed-form staleness mean")
+        err[v], prev = worst, published[v]
+    return err
+
+
+def buffered_grpc_phase(torch, card: str) -> dict:
+    """Phase 11: FedBuff over loopback gRPC at full width, each flushed
+    global byte-equal to the in-process replay of the server's events."""
+    import tempfile
+
+    from fedcrack_tpu_torch.ckpt import server_state_from_bytes, server_state_to_bytes
+    from fedcrack_tpu_torch.fed import rounds
+    from fedcrack_tpu_torch.fed.buffered import async_summary
+    from fedcrack_tpu_torch.ops import bce
+
+    fs = federation_setup(torch)
+    eval_batches = [0]
+    with tempfile.TemporaryDirectory() as tmp:
+        server_cfg = buffered_config(fs, state_path=os.path.join(tmp, "state.msgpack"))
+        bce.reset_launch_counts()
+        run = grpc_federation(torch, fs, server_cfg, eval_fn=held_out_eval(fs, eval_batches),
+                              server_cls=recording_server_class())
+        launches = bce.bce_sums.launches
+        with open(server_cfg.state_path, "rb") as f:
+            statefile = f.read()
+    state, server = run["state"], run["server"]
+    if state.phase != rounds.PHASE_FINISHED or state.model_version != 3 or len(state.history) != 3:
+        raise AssertionError(f"buffered federation ended at {state.phase}, version {state.model_version}")
+    for h in state.history:
+        if h.get("mode") != "buffered" or not isinstance(h.get("staleness"), list) or "updates_per_sec" not in h:
+            raise AssertionError(f"buffered history entry {h}")
+    replay = replay_events(rounds, server_cfg, fs["global0"], server.applied)
+    for version in (1, 2, 3):
+        if server.published.get(version) != replay["globals"].get(version):
+            raise AssertionError(f"version {version}: the flushed global differs from the replay's")
+    if replay["state"].history != state.history or replay["state"].global_blob != state.global_blob:
+        raise AssertionError("the replay's history or final global differs from the server's")
+    accepted = replay["accepted"]
+    if len(accepted) != sum(h["buffer_fill"] for h in state.history):
+        raise AssertionError(f"accepted uploads {accepted} against history {state.history}")
+    flush_ulps = check_flushes(server_cfg, fs["global0"], accepted, state.history, server.published)
+    check_server_evals(server, [1, 2, 3])
+    restored = server_state_from_bytes(statefile, server_cfg)
+    if server_state_to_bytes(restored) != statefile or restored.model_version != state.model_version:
+        raise AssertionError("the statefile on disk does not re-encode to its bytes at the final version")
+    if launches != run["steps"] + eval_batches[0] or run["steps"] == 0:
+        raise AssertionError(f"bce_sums launches {launches} != {run['steps']} steps + {eval_batches[0]} eval batches")
+    snaps = server.snapshots
+    snap_ms = sorted(s["ms"] for s in snaps)
+    out = {
+        "launches": launches, "steps": run["steps"], "eval_batches": eval_batches[0],
+        "accepted": [{k: v for k, v in a.items() if k != "blob"} for a in accepted],
+        "flush_err_ulps": flush_ulps,
+        "flush_wall_s": [h["wall_clock_s"] for h in state.history],
+        "updates_per_sec": [h["updates_per_sec"] for h in state.history],
+        "staleness": [h["staleness"] for h in state.history],
+        "server_ms": {r: 1e3 * v for r, v in sorted(run["server_s"].items())},
+        "statefile_bytes": len(statefile), "snapshots": len(snaps),
+        "snapshot_bytes_max": max(s["bytes"] for s in snaps),
+        "snapshot_ms_median": snap_ms[len(snaps) // 2], "snapshot_ms_max": snap_ms[-1],
+        "session_wall_s": run["wall_s"], "client_ms_by_kind": run["client_ms"],
+        "async_summary": async_summary(state.history),
+    }
+    log(f"[buffered] 3 flushes over gRPC, each byte-equal to the in-process replay of the server's events "
+        f"and within 8 ulps of the closed-form staleness mean of its uploads; one finite server eval per version; "
+        f"the statefile re-encodes to its {len(statefile)} bytes; {json.dumps(out)} [{card}]")
+    return out
+
+
+def resume_and_swap_phase(torch, card: str) -> dict:
+    """Phase 12: a FedBuff server stopped with one card fit in its buffer
+    resumes from its statefile and flushes the global an uninterrupted
+    replay flushes; a ``ModelVersionManager`` on the fused_int8 engine
+    watches the statefile and installs the flushed version (the gate
+    decides as on the CPU), then the code-grid-snapped weights published
+    at the next version, and serves a bucket-256 batch on them through
+    the dequant kernels."""
+    import tempfile
+
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fedcrack_tpu_torch.ckpt import load_state_file
+    from fedcrack_tpu_torch.configs import ServeConfig
+    from fedcrack_tpu_torch.fed import rounds, serialization
+    from fedcrack_tpu_torch.kernels import dequant
+    from fedcrack_tpu_torch.ops import bce
+    from fedcrack_tpu_torch.serve import quant as quant_mod
+    from fedcrack_tpu_torch.serve.engine import InferenceEngine
+    from fedcrack_tpu_torch.serve.fleet import prepare_gated_payload
+    from fedcrack_tpu_torch.serve.hot_swap import ModelVersionManager, publish_statefile
+    from fedcrack_tpu_torch.transport import FedClient, FedServer, wire
+    from fedcrack_tpu_torch.transport.service import ServerThread
+
+    fs = federation_setup(torch)
+    names = fs["names"]
+    fits = {name: fs["client_fn"](i, name) for i, name in enumerate(names)}
+    steps, uploads = [0], {}
+
+    def fit(name, pull):
+        rnd = int(pull.config["current_round"])
+        blob, n_samples, _ = fits[name](pull.weights, rnd, dict(pull.config))
+        steps[0] += n_samples // TRAIN_BATCH
+        uploads[name] = (blob, n_samples)
+        return wire.TrainDone(round=rnd, weights=blob, sample_count=n_samples)
+
+    def callers(port):
+        """Per client, its channel and a one-message call on it."""
+        out = {}
+        for name in names:
+            client = FedClient(cfg, fits[name], cname=name, port=port)
+            channel, method = client._connect()
+            out[name] = (channel, lambda body, c=client, m=method: c._call(m, c._msg(body)))
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.msgpack")
+        cfg = buffered_config(fs, max_rounds=2, state_path=path)
+        bce.reset_launch_counts()
+        with ServerThread(FedServer(cfg, fs["global0"], tick_period_s=0.05)) as st:
+            calls = callers(st.port)
+            for name in names:
+                calls[name][1](wire.ReadyReq(config={"current_round": 0}))
+            pulls = {name: calls[name][1](wire.PullReq()) for name in names}
+            if calls[names[0]][1](fit(names[0], pulls[names[0]])).status != rounds.RESP_ACY:
+                raise AssertionError("the first fit was not buffered")
+            deadline = time.monotonic() + 60
+            while (snap := load_state_file(path, cfg)) is None or len(snap.buffer) != 1:
+                if time.monotonic() > deadline:
+                    raise AssertionError("the mid-buffer snapshot never reached the disk")
+                time.sleep(0.02)
+            for channel, _ in calls.values():
+                channel.close()
+        resumed_server = FedServer(cfg, fs["global0"], tick_period_s=0.05)
+        if [(e["cname"], e["seq"]) for e in resumed_server.state.buffer] != [(names[0], 0)]:
+            raise AssertionError(f"the resumed server's buffer {resumed_server.state.buffer}")
+        with ServerThread(resumed_server) as st:
+            calls = callers(st.port)
+            reply = calls[names[1]][1](fit(names[1], pulls[names[1]]))
+            for channel, _ in calls.values():
+                channel.close()
+            resumed = st.state
+        torch.cuda.synchronize()
+        launches = bce.bce_sums.launches
+        if reply.status != rounds.RESP_ARY or resumed.model_version != 1:
+            raise AssertionError(f"the resumed server answered {reply.status} at version {resumed.model_version}")
+        replay = rounds.initial_state(cfg, fs["global0"])
+        events = [rounds.Ready(n, now=0.0) for n in names] + [rounds.PullWeights(n, now=0.0) for n in names]
+        events += [rounds.TrainDone(n, round=1, blob=uploads[n][0], num_samples=uploads[n][1], now=1.0 + i)
+                   for i, n in enumerate(names)]
+        for event in events:
+            replay, _ = rounds.transition(replay, event)
+        if replay.model_version != 1 or replay.global_blob != resumed.global_blob:
+            raise AssertionError("the resumed flush differs from the uninterrupted replay's global")
+        if launches != steps[0] or steps[0] != 8:
+            raise AssertionError(f"bce_sums launches {launches} != {steps[0]} train steps")
+        log(f"[resume] stopped with 1 buffered update, resumed from the statefile, flushed version 1 "
+            f"bit-identical to the uninterrupted replay; bce_sums launches {launches} = {steps[0]} steps")
+
+        # ---- the serving plane watches the same statefile ----
+        model_cfg = fs["cfg"].model
+        sc = ServeConfig(quant="int8", kernel_plane="fused_int8")
+        engine = InferenceEngine(model_cfg, sc)
+        manager = ModelVersionManager(engine, fs["global0"], state_path=path, template=fs["global0"])
+        if not manager.poll_once() or manager.version != 1:
+            raise AssertionError(f"poll_once did not install the flushed version (at {manager.version})")
+        gate_fed = manager.last_quant_gate
+        flushed = serialization.tree_from_bytes(resumed.global_blob, template=fs["global0"])
+        _, gate_cpu = prepare_gated_payload(InferenceEngine(model_cfg, sc, device="cpu"), flushed, sc)
+        # The gate's IoU compares crack masks: the share of probe pixels the
+        # reference program calls crack says what it had to compare.
+        probe = quant_mod.probe_images(BUCKET, sc.quant_probe_batch, sc.quant_probe_seed)
+        positive = float(np.mean(engine.predict_bucket(engine.prepare(flushed), probe) > 0.5))
+        log(f"[swap] flushed version 1 installed in {manager.last_swap['load_ms']:.1f} ms (gate included); "
+            f"gate on the card {json.dumps(gate_fed)}, on the CPU {json.dumps(gate_cpu.to_json())}; "
+            f"crack share of the bucket-{BUCKET} probe under the reference program {positive} [{card}]")
+        if gate_fed["passed"] != gate_cpu.passed:
+            raise AssertionError("the card's quant gate decides otherwise than the CPU's on the flushed weights")
+        if isinstance(manager.snapshot()[1], quant_mod.QuantizedVariables) != gate_fed["passed"]:
+            raise AssertionError("the served program does not follow the gate's verdict")
+        batch = np.random.default_rng(5).integers(0, 256, (BATCH, BUCKET, BUCKET, 3), dtype=np.uint8)
+        probs_v1 = engine.predict_bucket(manager.snapshot()[1], batch)
+        # Version 2: the seeded global snapped to the code grid, the weights
+        # phases 4-5 serve (the flushed global snapped would quantize to
+        # version 1's codes, and the checks below could not tell them apart).
+        snapped = quant_mod.dequantize_variables(quant_mod.quantize_for_plane(fs["global0"], "fused_int8").tree)
+        publish_statefile(path, snapped, model_version=2)
+        if not manager.poll_once() or manager.version != 2 or not manager.last_quant_gate["passed"]:
+            raise AssertionError(f"the snapped weights were not installed quantized: {manager.last_quant_gate}")
+    version, payload = manager.snapshot()
+    if version != 2 or not isinstance(payload, quant_mod.QuantizedVariables):
+        raise AssertionError("the served payload is not version 2's quantized program")
+    # The installed codes and scales are those of the published weights.
+    want_q = quant_mod.quantize_for_plane(snapped, "fused_int8")
+    placed, wanted = list(_flat_tree(payload.tree)), list(_flat_tree(want_q.tree))
+    def host(leaf):
+        return leaf.cpu().numpy() if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
+
+    if [k for k, _ in placed] != [k for k, _ in wanted] or not all(
+            np.array_equal(host(a), host(b)) for (_, a), (_, b) in zip(placed, wanted)):
+        raise AssertionError("the installed payload is not the published weights' codes and scales")
+    engine.predict_bucket(payload, batch)
+    torch.cuda.synchronize()
+    dequant.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        probs = engine.predict_bucket(payload, batch)
+        torch.cuda.synchronize()
+    counted = {name: getattr(dequant, name).launches for name in ("dequant_matmul", "dequant_conv3x3", "dequant_codes")}
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    profiled = {name: sum(e.count for e in kernels if f"{name}_kernel" in e.key) for name in counted}
+    want = {"dequant_matmul": 15, "dequant_conv3x3": 8, "dequant_codes": 1}
+    if counted != want or profiled != want:
+        raise AssertionError(f"served batch launches: wrappers {counted}, profiler {profiled}, want {want}")
+    if not (np.isfinite(probs).all() and probs.shape == (BATCH, BUCKET, BUCKET, 1)):
+        raise AssertionError("served probabilities not finite of the bucket's shape")
+    # The served batch against the CPU engine (plain kernels) on the
+    # published weights, within phase 4's limit of the fused plane against
+    # the reference plane; version 1's output must lie outside it.
+    cpu = InferenceEngine(model_cfg, sc, device="cpu")
+    want = cpu.predict_bucket(cpu.prepare(want_q), batch)
+    err = float(np.max(np.abs(probs.astype(np.float64) - want)))
+    err_v1 = float(np.max(np.abs(probs_v1.astype(np.float64) - want)))
+    if not err < SERVE_PROB_TOL <= err_v1:
+        raise AssertionError(f"served batch {err} from the CPU engine on version 2's weights, version 1's "
+                             f"{err_v1}: want < {SERVE_PROB_TOL} and >= it")
+    install_ms = [s["load_ms"] for s in manager.swaps]
+    out = {"launches": launches, "steps": steps[0], "resumed_version": resumed.model_version,
+           "gate_flushed_card": gate_fed, "gate_flushed_cpu": gate_cpu.to_json(), "probe_crack_share": positive,
+           "install_ms": install_ms, "served_launches": counted, "served_max_abs_err_vs_cpu": err,
+           "version1_max_abs_diff": err_v1}
+    log(f"[swap] snapped weights installed as version 2 in {install_ms[-1]:.1f} ms (gate included, passed), codes "
+        f"and scales equal to the published weights'; one bucket-{BUCKET} batch of {BATCH} on it launched "
+        f"{json.dumps(profiled)} (profiler), max prob diff {err} from the CPU engine on the same weights "
+        f"(version 1's output: {err_v1}) [{card}]")
     return out
 
 
@@ -1544,6 +1937,10 @@ def main() -> int:
     log("phase 9 FedAvg over gRPC at full width: ok")
     framed = framed_grpc_phase(torch, card, train)
     log("phase 10 int8-framed FedAvg over gRPC at full width: ok")
+    buffered = buffered_grpc_phase(torch, card)
+    log("phase 11 FedBuff over gRPC at full width: ok")
+    swap = resume_and_swap_phase(torch, card)
+    log("phase 12 mid-buffer kill, resume and statefile hot swap at full width: ok")
 
     kernels = []
     replaces = {"dequant_matmul": "fedcrack_tpu/kernels/dequant.py:88",
@@ -1559,6 +1956,7 @@ def main() -> int:
                 "source": "fedcrack_tpu_torch/kernels/csrc/dequant.cu",
                 "replaces": replaces[name],
                 "launches": served["launches"][name],
+                **({"launches_phase12": swap["served_launches"][name]} if flavor == "int8" else {}),
                 "max_abs_err": row["max_abs_err"],
                 "ms": row["ms"],
                 "plain_ms": row["plain_ms"],
@@ -1577,6 +1975,8 @@ def main() -> int:
         "launches_phase8": robust["launches"],
         "launches_phase9": grpc_run["launches"],
         "launches_phase10": framed["launches"],
+        "launches_phase11": buffered["launches"],
+        "launches_phase12": swap["launches"],
         **bce_row,
     })
     log(f"total {time.monotonic() - t_start:.1f} s")

@@ -166,5 +166,5 @@ def dataset_from_source(
         raise ValueError("need an image/mask directory pair or synthetic=N")
     raise NotImplementedError(
         "image-directory datasets (CrackDataset: decode, resize, prefetch "
-        "workers) belong to a later slice of the port; use synthetic=N"
+        "workers) are not ported yet; use synthetic=N: data/pipeline.py, ROADMAP Queue 1 item 1"
     )

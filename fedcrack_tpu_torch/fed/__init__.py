@@ -1,5 +1,6 @@
-"""Federation: the msgpack weight blob, the aggregation algebra, FedOpt
-and the sync round state machine (the counterpart of ``fedcrack_tpu.fed``)."""
+"""Federation: the msgpack weight blob, the aggregation algebra, FedOpt,
+the round state machine and FedBuff's buffered aggregation (the
+counterpart of ``fedcrack_tpu.fed``)."""
 
 from fedcrack_tpu_torch.fed.algorithms import (  # noqa: F401
     fedavg,

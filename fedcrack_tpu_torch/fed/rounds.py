@@ -1,6 +1,6 @@
 """The federation round state machine, as a pure transition function.
 
-The counterpart of ``fedcrack_tpu.fed.rounds`` in sync mode: the reference
+The counterpart of ``fedcrack_tpu.fed.rounds``: the reference
 server's protocol (fl_server.py:45-207) as ``transition(state, event) ->
 (new_state, reply)`` over an immutable :class:`ServerState`. Time is a
 field of every event (no clock, no threads), so a transport only feeds it.
@@ -23,12 +23,14 @@ quarantine a client out of the fold. A compressed update frame
 (``compress/frames.py``) is CRC-checked, pinned to the current model
 version, reconstructed against the broadcast weights and validated like a
 raw blob, whatever ``sanitize_updates`` says; the round's history counts
-its wire bytes and codec.
+its wire bytes and codec. Under ``FedConfig.mode == "buffered"`` the
+pulls, the uploads and the passage of time go to FedBuff's handlers
+(``fed/buffered.py``) instead of the round barrier.
 
 The server's arithmetic (decode, ledger, fold, FedOpt, encode) runs on the
 host in float32 numpy, as the JAX package's does; the server holds no
 device state. What the port does not run yet raises at
-:func:`initial_state`: buffered mode, secure aggregation and DP noise.
+:func:`initial_state`: secure aggregation and DP noise.
 """
 
 from __future__ import annotations
@@ -180,6 +182,14 @@ class ServerState:
     # Per client this round: the bytes that crossed the wire and the codec.
     wire_bytes: Mapping[str, int] = dataclasses.field(default_factory=dict)
     codecs: Mapping[str, str] = dataclasses.field(default_factory=dict)
+    # Buffered mode only (fed/buffered.py), empty in sync mode: the version
+    # each client last pulled (its next upload's base), the accepted but
+    # unflushed updates, and the broadcast blobs of the last max_staleness
+    # versions (stale framed deltas decode against them). The statefile
+    # keeps all three, so a server killed mid-buffer resumes bit-exactly.
+    pulled: Mapping[str, int] = dataclasses.field(default_factory=dict)
+    buffer: tuple = ()
+    base_blobs: Mapping[int, bytes] = dataclasses.field(default_factory=dict)
     # Per-client health ledger (health/ledger.py), changed only through
     # its pure helpers.
     ledger: Mapping[str, dict] = dataclasses.field(default_factory=dict)
@@ -295,18 +305,14 @@ def _wire_cast(config: FedConfig) -> str | None:
 
 
 def _refuse_unported(config: FedConfig) -> None:
-    if config.mode == "buffered":
-        raise NotImplementedError(
-            "mode='buffered' (FedBuff) is not ported yet: fed/buffered.py, ROADMAP Queue 1 item 2"
-        )
     if config.secagg:
         raise NotImplementedError(
-            "secagg=True is not ported yet: privacy/secagg.py, ROADMAP Queue 1 item 5"
+            "secagg=True is not ported yet: privacy/secagg.py, ROADMAP Queue 1 item 3"
         )
     if config.dp_noise_multiplier > 0.0:
         raise NotImplementedError(
             "dp_noise_multiplier > 0 is not ported yet: the privacy accountant "
-            "(privacy/accountant.py), ROADMAP Queue 1 item 5"
+            "(privacy/accountant.py), ROADMAP Queue 1 item 3"
         )
 
 
@@ -331,6 +337,9 @@ def initial_state(config: FedConfig, global_variables: Any) -> ServerState:
         global_blob=blob,
         template=tree_map(_host_numpy, global_variables),
         wire_blob=wire_blob,
+        # Buffered mode decodes stale deltas against retained broadcasts;
+        # version 0's is the boot blob.
+        base_blobs={0: wire_blob or blob} if config.mode == "buffered" else {},
     )
 
 
@@ -402,6 +411,12 @@ def _advance_time(state: ServerState, now: float) -> ServerState:
         # fast clients may have reported while enrollment was still open
         if _barrier_met(state):
             state = _aggregate(state, now)
+    if state.config.mode == "buffered":
+        # The buffer is the quorum: the deadline becomes FedBuff's flush
+        # backstop, and there is no cohort to shrink.
+        from fedcrack_tpu_torch.fed.buffered import BufferedAggregator
+
+        return BufferedAggregator.advance_time(state, now)
     if (
         state.phase == PHASE_RUNNING
         and state.config.round_deadline_s > 0
@@ -584,8 +599,14 @@ def transition(state: ServerState, event: Event) -> tuple[ServerState, Reply]:
                 state = _start_running(state, now)
             return state, Reply(status=SW, config=_ready_config(state, SW))
 
-        case PullWeights():
-            # The current global: after round R, the round-R average.
+        case PullWeights(cname=cname):
+            # The current global: after round R, the round-R average. The
+            # config map names its version, the base a buffered client's
+            # upload is pinned to.
+            if state.config.mode == "buffered":
+                from fedcrack_tpu_torch.fed.buffered import BufferedAggregator
+
+                state = BufferedAggregator.record_pull(state, cname)
             return state, Reply(
                 status="OK",
                 blob=state.broadcast_blob,
@@ -642,6 +663,12 @@ def transition(state: ServerState, event: Event) -> tuple[ServerState, Reply]:
                     blob=state.broadcast_blob,
                     config=_ready_config(state, FIN),
                 )
+            if state.config.mode == "buffered":
+                # No round matching: the version the client pulled gates
+                # and weighs its update.
+                from fedcrack_tpu_torch.fed.buffered import BufferedAggregator
+
+                return BufferedAggregator.offer(state, event)
             if cname not in state.cohort:
                 # Ledger-feed only for names already seen (an unknown-name
                 # flood must not grow the ledger).

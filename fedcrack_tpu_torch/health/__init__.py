@@ -6,6 +6,8 @@ from fedcrack_tpu_torch.health.ledger import (  # noqa: F401
     ANOMALY_ALERT,
     LEDGER_WINDOW,
     cohort_geometry,
+    ledger_from_wire,
+    ledger_to_wire,
     new_record,
     observe_flush,
     record_offer,

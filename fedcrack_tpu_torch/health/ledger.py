@@ -15,8 +15,9 @@ honest float jitter never flags. Every helper is a pure function over
 plain dicts (copy-on-write, like the round machine), and trees are
 flattened in the JAX package's leaf order, so both packages score the
 same trees alike. :func:`export_anomaly_metrics` publishes the scores as
-bounded-cardinality gauges; the wire and JSONL exports of the JAX module
-are not ported yet.
+bounded-cardinality gauges, and :func:`ledger_to_wire` /
+:func:`ledger_from_wire` give the statefile's canonical rows; the JSONL
+export of the JAX module is not ported yet.
 """
 
 from __future__ import annotations
@@ -208,6 +209,57 @@ def observe_flush(
             rec["flags"] += 1
         out[name] = rec
     return out, scores
+
+
+# ---- persistence: the statefile's canonical rows ----
+
+def ledger_to_wire(ledger: Mapping[str, dict]) -> list:
+    """Canonical wire rows, sorted by client name, with the JAX package's
+    fixed positional field order: the statefile bytes stay a pure function
+    of the state."""
+    rows = []
+    for name in sorted(ledger):
+        rec = ledger[name]
+        rows.append([
+            str(name),
+            int(rec["offers"]),
+            int(rec["accepted"]),
+            int(rec["resyncs"]),
+            int(rec["samples"]),
+            int(rec["wire_bytes"]),
+            int(rec["last_round"]),
+            int(rec["last_staleness"]),
+            float(rec["anomaly"]),
+            int(rec["flags"]),
+            [[k, int(rec["rejected"][k])] for k in sorted(rec["rejected"])],
+            [float(x) for x in rec["norms"]],
+            [float(x) for x in rec["cosines"]],
+            # The 14th field; rows of 13 fields (written before the
+            # quarantine counter existed) are read too.
+            int(rec.get("quarantined", 0)),
+        ])
+    return rows
+
+
+def ledger_from_wire(rows: Iterable) -> dict:
+    """The ledger of :func:`ledger_to_wire`'s rows."""
+    out: dict[str, dict] = {}
+    for row in rows or []:
+        rec = new_record()
+        (
+            name, rec["offers"], rec["accepted"], rec["resyncs"],
+            rec["samples"], rec["wire_bytes"], rec["last_round"],
+            rec["last_staleness"], rec["anomaly"], rec["flags"],
+            rejected, norms, cosines,
+        ) = row[:13]
+        if len(row) > 13:
+            rec["quarantined"] = int(row[13])
+        rec["rejected"] = {str(k): int(v) for k, v in rejected}
+        rec["norms"] = [float(x) for x in norms]
+        rec["cosines"] = [float(x) for x in cosines]
+        rec["anomaly"] = float(rec["anomaly"])
+        out[str(name)] = rec
+    return out
 
 
 def client_label(cname: str, rank: int) -> str:

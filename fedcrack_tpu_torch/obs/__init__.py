@@ -1,3 +1,3 @@
 """Observability the transport uses (the counterpart of part of
-``fedcrack_tpu.obs``): the metric registry, trace spans and the flight
-recorder."""
+``fedcrack_tpu.obs``): the metric registry, trace spans, the flight
+recorder and the streaming percentiles of FedBuff's summary."""

@@ -1,10 +1,12 @@
 """The federated client.
 
-The counterpart of ``fedcrack_tpu.transport.client`` in sync mode: enroll
--> pull -> announce -> local fit -> encode and upload -> poll until the
-round closes, a small loop around an injected ``train_fn(blob, round,
-hparams) -> (blob, n_samples, metrics)``. ``train.federated.make_train_fn``
-plugs in unchanged, and its fit runs on the card.
+The counterpart of ``fedcrack_tpu.transport.client``: enroll -> pull ->
+announce -> local fit -> encode and upload -> poll until the round
+closes, a small loop around an injected ``train_fn(blob, round, hparams)
+-> (blob, n_samples, metrics)``; against a FedBuff server
+(``mode="buffered"``) the continuous pull -> train -> push loop instead.
+``train.federated.make_train_fn`` plugs in unchanged, and its fit runs on
+the card.
 
 Each control message is one short call on the shared bidi method. A
 transient channel error retries with jittered exponential backoff within
@@ -12,8 +14,8 @@ a per-call time budget; a code no retry can fix (``NON_RETRYABLE_CODES``)
 surfaces at once. The upload codec is the one the server advertises at
 enroll (``update_codec``), one instance per session, and a top-k residual
 is rolled back when the server resyncs an upload it never averaged.
-FedBuff's buffered session, secure aggregation and the chaos hooks are
-not ported yet and raise ``NotImplementedError``.
+Secure aggregation and the chaos hooks are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -92,7 +94,7 @@ class FedClient:
     ):
         if chaos is not None:
             raise NotImplementedError(
-                "FedClient(chaos=...) is not ported yet: the chaos/ hooks, ROADMAP Queue 1 item 7"
+                "FedClient(chaos=...) is not ported yet: the chaos/ hooks, ROADMAP Queue 1 item 5"
             )
         self.config = config
         self.train_fn = train_fn
@@ -238,7 +240,7 @@ class FedClient:
             if bool(cfg.get("secagg", False)):
                 raise NotImplementedError(
                     "the server runs secure aggregation, which is not ported yet: "
-                    "privacy/secagg.py, ROADMAP Queue 1 item 5"
+                    "privacy/secagg.py, ROADMAP Queue 1 item 3"
                 )
             if str(cfg.get("mode", "sync") or "sync") == "buffered":
                 return self._run_buffered(method, result, max_rounds=max_rounds)
@@ -265,21 +267,8 @@ class FedClient:
                     weights, round_base, round=current_round, base_version=model_version
                 )
                 result.history.append({"round": current_round, "upload_bytes": len(upload), **metrics})
-                done = wire.TrainDone(
-                    round=current_round,
-                    weights=upload,
-                    sample_count=n_samples,
-                    metrics={k: float(v) for k, v in metrics.items()},
-                )
-                push_ctx = tracing.TraceContext(trace, f"push:{self.cname}:r{current_round}")
-                if tracing.current() is not None:
-                    done.metrics["__trace"] = push_ctx.to_wire()
-                self._count_wire("up", len(upload), self.codec.name)
-                with tracing.span("client.push", trace=trace, parent=train_span.span_id if train_span else None,
-                                  cname=self.cname, upload_bytes=len(upload), codec=self.codec.name,
-                                  ctx=push_ctx.to_wire()):
-                    rep = self._call(method, self._msg(done))
-
+                rep = self._push(method, upload, current_round, n_samples, metrics, trace, train_span,
+                                 f"r{current_round}")
                 if rep.status == R.NOT_WAIT:
                     # NOT_WAIT on the upload's own reply: the round closed
                     # without it, so the codec gets its cross-round mass back.
@@ -305,10 +294,77 @@ class FedClient:
             channel.close()
 
     def _run_buffered(self, method, result: SessionResult, max_rounds: int) -> SessionResult:
-        raise NotImplementedError(
-            "the server runs mode='buffered' (FedBuff), whose client session is not "
-            "ported yet: fed/buffered.py, ROADMAP Queue 1 item 2"
+        """FedBuff's client loop: pull the current global (the reply's
+        config names its version, the base the upload is pinned to),
+        train, push, repeat, never waiting for a round to close. A
+        ``NOT_WAIT`` reply to a push is a resync (too stale, never
+        averaged: the codec rolls back); ``REJECTED`` fails loudly; ``FIN``
+        carries the final global."""
+        push_seq = 0
+        while True:
+            with tracing.span("client.pull", trace="buffered", cname=self.cname):
+                rep = self._call(method, self._msg(wire.PullReq()))
+            weights = rep.weights
+            self._count_wire("down", len(weights))
+            pcfg = dict(rep.config)
+            base_version = int(pcfg.get("model_version", 0))
+            current_round = int(pcfg.get("current_round", 1))
+            # Many pushes per client: the trace keys on the pulled version,
+            # the push sequence keeps each upload's context unique.
+            trace = tracing.version_trace(base_version)
+            if current_round > max_rounds:
+                # The federation finished since the last push: the blob is
+                # the final global.
+                result.final_weights = weights
+                self._upload_all(method)
+                return result
+            push_seq += 1
+            train_ctx = tracing.TraceContext(trace, f"train:{self.cname}:n{push_seq}")
+            with tracing.span("client.train", trace=trace, cname=self.cname, round=current_round,
+                              ctx=train_ctx.to_wire()) as train_span:
+                trained, n_samples, metrics = self._train(weights, current_round)
+            upload = self.codec.encode_update(
+                trained, weights, round=current_round, base_version=base_version
+            )
+            rep = self._push(method, upload, current_round, n_samples, metrics, trace, train_span,
+                             f"n{push_seq}")
+            result.history.append({
+                "round": current_round,
+                "base_version": base_version,
+                "upload_bytes": len(upload),
+                "status": rep.status,
+                **metrics,
+            })
+            if rep.status == R.NOT_WAIT:
+                self.codec.rollback_last()
+                self._count_resync()
+            elif rep.status == R.REJECTED:
+                raise RuntimeError(f"server rejected update: {dict(rep.config)}")
+            elif rep.status in (R.RESP_ACY, R.RESP_ARY):
+                result.rounds_completed += 1
+            if rep.status == R.FIN:
+                result.final_weights = rep.weights or weights
+                self._upload_all(method)
+                return result
+
+    def _push(self, method, upload: bytes, rnd: int, n_samples: int, metrics: dict, trace: str,
+              train_span, tag: str) -> wire.ServerMessage:
+        """Send one encoded update in the ``client.push`` span, a child of
+        the fit's span; ``tag`` makes its wire context unique."""
+        done = wire.TrainDone(
+            round=rnd,
+            weights=upload,
+            sample_count=n_samples,
+            metrics={k: float(v) for k, v in metrics.items()},
         )
+        push_ctx = tracing.TraceContext(trace, f"push:{self.cname}:{tag}")
+        if tracing.current() is not None:
+            done.metrics["__trace"] = push_ctx.to_wire()
+        self._count_wire("up", len(upload), self.codec.name)
+        with tracing.span("client.push", trace=trace, parent=train_span.span_id if train_span else None,
+                          cname=self.cname, upload_bytes=len(upload), codec=self.codec.name,
+                          ctx=push_ctx.to_wire()):
+            return self._call(method, self._msg(done))
 
     # -- chunked file upload --
 

@@ -14,13 +14,16 @@ auth token (constant-time compare, checked before any protocol work),
 TLS and mTLS, the per-round ``eval_fn`` with best-model retention, the log
 sink's flush to ``logs_dir``, the ``metrics`` hook, the metric registry,
 and a ``fed.flush`` span per aggregation linked to the trace contexts of
-the uploads it averaged. The checkpointer and the mid-round statefile are
-not ported yet.
+the uploads it averaged. With ``FedConfig.state_path`` it resumes from the
+mid-round statefile at boot and snapshots the state off the serving path
+whenever membership, the held updates, FedBuff's buffer or the pulled
+versions change. The orbax checkpointer is not ported yet.
 """
 
 from __future__ import annotations
 
 import asyncio
+import collections
 import hashlib
 import hmac
 import json
@@ -34,6 +37,7 @@ from typing import Any, AsyncIterator, Callable
 
 import grpc
 
+from fedcrack_tpu_torch.ckpt import load_state_file, save_state_file
 from fedcrack_tpu_torch.compress import FRAME_OVERHEAD_BYTES, encoded_bytes_model
 from fedcrack_tpu_torch.configs import FedConfig
 from fedcrack_tpu_torch.fed import rounds as R
@@ -42,7 +46,7 @@ from fedcrack_tpu_torch.health import ledger as _health_ledger
 from fedcrack_tpu_torch.ioutils import atomic_write_bytes
 from fedcrack_tpu_torch.obs import flight
 from fedcrack_tpu_torch.obs import spans as tracing
-from fedcrack_tpu_torch.obs.registry import REGISTRY
+from fedcrack_tpu_torch.obs.registry import DEFAULT_VERSIONS_BUCKETS, REGISTRY
 from fedcrack_tpu_torch.transport import wire
 from fedcrack_tpu_torch.transport.codec import event_from_message, message_from_reply
 
@@ -110,14 +114,23 @@ def observe_transition(
             updates.labels(result="resync").inc()
             REGISTRY.counter(
                 "fed_resyncs_total",
-                "NOT_WAIT resyncs: uploads refused past quorum close, "
-                "sender handed the current global",
+                "NOT_WAIT resyncs: uploads refused past quorum close or "
+                "past max_staleness, sender handed the current global",
             ).inc()
         elif reply.status == R.REJECTED:
             reason = _reason_class(str(reply.config.get("reason", "")))
             updates.labels(result=f"rejected_{reason}").inc()
     elif isinstance(event, R.PullWeights) and reply.blob:
         _wire_bytes_counter().labels(direction="down").inc(len(reply.blob))
+    REGISTRY.gauge(
+        "fed_buffer_fill_total",
+        "accepted-but-unflushed updates in the FedBuff buffer (0 in sync mode)",
+    ).set(len(state.buffer))
+    if state.config.mode == "buffered" and state.config.buffer_k > 0:
+        REGISTRY.gauge(
+            "fed_buffer_fill_ratio",
+            "buffer fill as a fraction of buffer_k (1.0 = flush imminent)",
+        ).set(len(state.buffer) / state.config.buffer_k)
     if state.model_version != prev.model_version:
         flight.note(
             "fed.flush",
@@ -127,7 +140,8 @@ def observe_transition(
         )
         REGISTRY.counter(
             "fed_global_versions_total",
-            "global model version publishes",
+            "global model version publishes (sync aggregations + buffered "
+            "flushes)",
         ).inc(state.model_version - prev.model_version)
         REGISTRY.counter(
             "fed_rounds_total",
@@ -138,6 +152,17 @@ def observe_transition(
             "wall clock of the version-publishing transition (the sorted "
             "fold + FedOpt step + re-serialization)",
         ).observe(wall_s)
+        entry = state.history[-1] if state.history else {}
+        staleness = entry.get("staleness")
+        if isinstance(staleness, (list, tuple)):
+            hist = REGISTRY.histogram(
+                "fed_update_staleness_versions",
+                "staleness (model versions behind the global) of each "
+                "update at the flush that averaged it",
+                buckets=DEFAULT_VERSIONS_BUCKETS,
+            )
+            for v in staleness:
+                hist.observe(float(v))
         try:
             _health_ledger.export_anomaly_metrics(state.ledger)
         except Exception:  # telemetry never breaks the protocol
@@ -222,15 +247,22 @@ class FedServer:
     ):
         if checkpointer is not None:
             raise NotImplementedError(
-                "FedServer(checkpointer=...) is not ported yet: ckpt/, ROADMAP Queue 1 item 1"
-            )
-        if config.state_path:
-            raise NotImplementedError(
-                "FedConfig.state_path (the mid-round statefile) is not ported yet: "
-                "ckpt/statefile.py, ROADMAP Queue 1 item 1"
+                "FedServer(checkpointer=...) is not ported yet: ckpt/manager.py, ROADMAP Queue 1 item 5"
             )
         self.config = config
         self.state = R.initial_state(config, global_variables)
+        self._state_path = config.state_path or None
+        if self._state_path is not None:
+            # Resume from the statefile unless it is older than the boot
+            # state; it carries the round's received updates and the buffer.
+            mid = load_state_file(self._state_path, config)
+            if mid is not None and mid.model_version >= self.state.model_version:
+                log.info(
+                    "resuming mid-round state: round %d, phase %s, %d update(s) "
+                    "received, %d buffered",
+                    mid.current_round, mid.phase, len(mid.received), len(mid.buffer),
+                )
+                self.state = mid
         # The largest message either way (the broadcast down, the worst-case
         # upload up) must fit the gRPC cap, or the federation would boot and
         # die on its first weight transfer: fail here instead.
@@ -257,6 +289,15 @@ class FedServer:
         self._clock = clock
         self._tick_period_s = tick_period_s
         self._lock = asyncio.Lock()
+        # Statefile snapshots coalesce, latest wins: _apply parks the newest
+        # state in _state_pending and each queued save writes whatever is
+        # newest when it runs (or nothing). The lock serializes the writes;
+        # only the event loop touches _state_pending.
+        self._state_lock = asyncio.Lock()
+        self._state_pending: R.ServerState | None = None
+        # The latest snapshots written: version, buffered updates, bytes and
+        # ms to encode and write them (read by the chip smoke).
+        self.snapshots: collections.deque[dict] = collections.deque(maxlen=1024)
         self._bg_tasks: set[asyncio.Task] = set()
         # The wire trace context of each client's latest accepted upload,
         # linked from the flush span that averages it.
@@ -268,6 +309,30 @@ class FedServer:
         # Host seconds spent in transitions, per round: the server's share
         # of a round's wall (read by the chip smoke).
         self.transition_s: dict[int, float] = {}
+        if self.state.phase == R.PHASE_FINISHED:
+            # A restore can land on FINISHED: nothing is left to wait for.
+            self.finished.set()
+
+    @staticmethod
+    def _persist_sig(state: R.ServerState) -> tuple:
+        """What a snapshot must not miss: membership, phase, round and
+        version, which updates are held, and in buffered mode which are
+        buffered and what each client pulled. Log chunks are left out (a
+        snapshot per chunk would amplify disk writes); they ride along
+        with the next change."""
+        return (
+            state.phase,
+            state.current_round,
+            state.model_version,
+            tuple(sorted(state.received)),
+            state.cohort,
+            state.departed,
+            state.failed_rounds,
+            tuple(sorted(state.rejected)),
+            tuple(sorted((e["cname"], e["seq"]) for e in state.buffer)),
+            tuple(sorted(state.pulled.items())),
+            tuple(sorted(state.secagg_seeds.items())),
+        )
 
     # -- state advancement (the only writer, under the lock) --
 
@@ -279,6 +344,7 @@ class FedServer:
     async def _apply(self, event: R.Event) -> R.Reply:
         async with self._lock:
             prev_state = self.state
+            prev_sig = self._persist_sig(prev_state) if self._state_path else None
             t_apply = time.perf_counter()
             self.state, reply = R.transition(self.state, event)
             apply_s = time.perf_counter() - t_apply
@@ -298,6 +364,11 @@ class FedServer:
             observe_transition(prev_state, state, event, reply, apply_s)
         except Exception:  # telemetry never breaks the protocol
             log.exception("metric observation failed; protocol unaffected")
+        if self._state_path and self._persist_sig(state) != prev_sig:
+            # Off the serving path: a stalled disk must not freeze the
+            # protocol, and a failed save must not swallow the reply.
+            self._state_pending = state
+            self._spawn(self._save_state_file())
         if state.model_version != prev_state.model_version:
             # A zero-length marker on the version-lineage trace with the
             # deterministic context flush:vV, linked to the wire contexts
@@ -327,6 +398,23 @@ class FedServer:
             if self._eval_fn is not None:
                 self._spawn(self._run_eval(state))
         return reply
+
+    async def _save_state_file(self) -> None:
+        async with self._state_lock:
+            state = self._state_pending
+            if state is None:
+                return  # an earlier task already wrote a newer snapshot
+            self._state_pending = None
+            try:
+                t0 = time.perf_counter()
+                n_bytes = await asyncio.to_thread(save_state_file, self._state_path, state)
+                ms = 1e3 * (time.perf_counter() - t0)
+            except Exception:
+                log.exception("statefile save failed for round %d", state.current_round)
+                return
+            self.snapshots.append({
+                "model_version": state.model_version, "buffered": len(state.buffer), "bytes": n_bytes, "ms": ms,
+            })
 
     async def _run_eval(self, state: R.ServerState) -> None:
         """Evaluate the round's new global off the serving path; keep the

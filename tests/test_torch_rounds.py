@@ -773,8 +773,8 @@ def test_event_script_matches_jax(name):
 
 @pytest.mark.parametrize(
     "kw,needle,item",
-    [(dict(mode="buffered"), "buffered", 2), (dict(secagg=True), "secagg", 5),
-     (dict(dp_noise_multiplier=1.0, dp_clip_norm=1.0), "dp_noise_multiplier", 5)],
+    [(dict(secagg=True), "secagg", 3),
+     (dict(dp_noise_multiplier=1.0, dp_clip_norm=1.0), "dp_noise_multiplier", 3)],
 )
 def test_unported_configurations_raise_not_implemented(kw, needle, item):
     cfg = FedConfig(**kw)
@@ -842,7 +842,7 @@ def test_server_state_fields_are_the_sync_subset_of_jax():
     port = {f.name for f in dataclasses.fields(TR.ServerState)}
     jax_fields = {f.name for f in dataclasses.fields(JR.ServerState)}
     assert port <= jax_fields
-    assert jax_fields - port == {"pulled", "buffer", "base_blobs", "secagg_roster", "privacy_steps"}
+    assert jax_fields - port == {"secagg_roster", "privacy_steps"}
     for event in ("Ready", "PullWeights", "TrainingNotice", "LogChunk", "TrainDone", "VersionPoll", "Tick"):
         fields = [(f.name, f.default) for f in dataclasses.fields(getattr(TR, event))]
         assert fields == [(f.name, f.default) for f in dataclasses.fields(getattr(JR, event))], event

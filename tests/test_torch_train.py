@@ -353,7 +353,7 @@ def test_array_dataset_and_synthetic_source_match_jax():
         ArrayDataset(imgs, msks, batch_size=8)  # zero batches with drop_last
     with pytest.raises(ValueError):
         dataset_from_source(0, None, None, img_size=16, batch_size=4)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1$"):
         dataset_from_source(0, "images", "masks", img_size=16, batch_size=4)
 
 

@@ -5,7 +5,9 @@ A session of port clients against the port server ends on the same global
 bytes as the same session on the JAX package; a JAX client completes a
 session against the port server and a port client against the JAX server;
 the auth token, a late client, a dead client, a chunked log upload with a
-corrupt chunk, codec negotiation, the flush span's trace links and the
+corrupt chunk, codec negotiation, FedBuff sessions (peers of either
+package, a deliberately stale client), a server resuming mid-buffer from
+either package's statefile, the flush span's trace links and the
 eval and metrics hooks work as the JAX package's do; and a session of
 ``make_train_fn`` clients at a few-layer width gives the globals that
 driving ``fed.rounds.transition`` in process gives. Every server binds
@@ -295,15 +297,159 @@ def test_startup_frame_budget_refuses_a_cap_that_cannot_carry_the_model():
 def test_unported_paths_raise_not_implemented_naming_their_roadmap_item(tmp_path):
     from fedcrack_tpu_torch.transport import FedClient, FedServer
 
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1$"):
+    with pytest.raises(NotImplementedError, match="ckpt/manager.py, ROADMAP Queue 1 item 5$"):
         FedServer(FedConfig(), _vars(0.0), checkpointer=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1$"):
-        FedServer(FedConfig(state_path=str(tmp_path / "state.bin")), _vars(0.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7$"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5$"):
         FedClient(FedConfig(), _fake_train(tser, 1.0, 1), chaos=object())
-    client = FedClient(FedConfig(), _fake_train(tser, 1.0, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2$"):
-        client._run_buffered(None, None, max_rounds=1)
+
+
+BUFFERED = dict(max_rounds=3, cohort_size=2, mode="buffered", buffer_k=2, staleness_alpha=0.5, max_staleness=4)
+
+
+@pytest.mark.parametrize("codec", ["null", "int8"])
+@pytest.mark.parametrize("server_pkg,client_pkgs", [("torch", ["torch", "torch"]), ("torch", ["jax", "torch"]),
+                                                    ("jax", ["torch", "torch"])])
+def test_buffered_sessions_between_peers_of_either_package(server_pkg, client_pkgs, codec):
+    """tests/test_buffered.py's two-client FedBuff session over a real
+    socket, raw uploads or int8 frames: both clients run the continuous
+    pull -> train -> push loop until FIN, the server flushes three
+    versions, and every flush entry carries the async fields."""
+    from fedcrack_tpu.fed.buffered import async_summary as jax_summary
+    from fedcrack_tpu_torch.fed.buffered import async_summary
+    from fedcrack_tpu_torch.obs.registry import REGISTRY
+
+    before = REGISTRY.values()
+    state, results, _ = _session(server_pkg, client_pkgs, cfg_kw={**BUFFERED, "update_codec": codec})
+    for r in results:
+        assert not isinstance(r, Exception), r
+        assert r.enrolled and r.final_weights and r.rounds_completed >= 1
+        assert all(h["status"] in ("RESP_ACY", "RESP_ARY", "FIN", "NOT_WAIT") for h in r.history)
+    assert (state.phase, state.model_version, len(state.history)) == ("finished", 3, 3)
+    for entry in state.history:
+        assert entry["mode"] == "buffered" and entry["buffer_fill"] == 2
+        assert "staleness" in entry and "updates_per_sec" in entry and entry["codecs"] == [codec, codec]
+    assert async_summary(state.history) == jax_summary(state.history)
+    assert async_summary(state.history)["accepted_updates"] == 6
+    if server_pkg == "torch":
+        after = REGISTRY.values()
+        grew = after["fed_update_staleness_versions"][()] - before.get("fed_update_staleness_versions", {}).get((), 0)
+        assert grew == 6 and after["fed_buffer_fill_total"][()] == 0.0
+
+
+def _raw_caller(port, cname):
+    """One port client's channel and a call of a single message on it."""
+    from fedcrack_tpu_torch.transport import FedClient
+
+    client = FedClient(FedConfig(**SESSION), _fake_train(tser, 0.0, 0), cname=cname, port=port)
+    channel, method = client._connect()
+    return channel, lambda body: client._call(method, client._msg(body))
+
+
+def _done(rnd, value, ns):
+    from fedcrack_tpu_torch.transport import wire
+
+    return wire.TrainDone(round=rnd, weights=tser.tree_to_bytes(_vars(value)), sample_count=ns)
+
+
+@pytest.mark.parametrize("server_pkg", ["torch", "jax"])
+def test_buffered_deliberately_stale_client(server_pkg):
+    """a advances the global alone (K=1) while b sits on the v0 broadcast;
+    b's late push is accepted with staleness 1 and weight 0.5."""
+    from fedcrack_tpu_torch.transport import wire
+
+    FedServer, ServerThread, Config = _packages(server_pkg)
+    cfg = {**SESSION, **BUFFERED, "buffer_k": 1, "staleness_alpha": 1.0, "max_rounds": 4}
+    with ServerThread(FedServer(Config(**cfg), _vars(0.0), tick_period_s=0.02)) as st:
+        channels, calls = zip(*(_raw_caller(st.port, c) for c in "ab"))
+        for call in calls:
+            assert call(wire.ReadyReq(config={"current_round": 0})).status == TR.SW
+        for call in calls:
+            assert call(wire.PullReq()).status == "OK"
+        assert calls[0](_done(1, 2.0, 10)).status == TR.RESP_ARY  # v1
+        assert calls[1](_done(1, 4.0, 10)).status == TR.RESP_ARY  # trained on v0
+        for channel in channels:
+            channel.close()
+        state = st.state
+    assert (state.history[-1]["staleness"], state.history[-1]["weights"]) == ([1], [0.5])
+    np.testing.assert_array_equal(jser.tree_from_bytes(state.global_blob)["params"]["w"], np.full((4, 4), 3.0))
+
+
+def _wait_for(predicate, what, timeout_s=30.0):
+    import time
+
+    deadline = time.monotonic() + timeout_s
+    while not predicate():
+        assert time.monotonic() < deadline, f"timed out waiting for {what}"
+        time.sleep(0.02)
+
+
+def test_server_stop_writes_the_pending_snapshot(tmp_path):
+    """The snapshot of the last event before a ``ServerThread`` stops is
+    on disk after the stop, with no wait in between."""
+    from fedcrack_tpu_torch.ckpt import load_state_file
+    from fedcrack_tpu_torch.transport import wire
+
+    path = str(tmp_path / "state.msgpack")
+    cfg = FedConfig(**{**SESSION, **BUFFERED, "state_path": path})
+    FedServer, ServerThread, _ = _packages("torch")
+    server = FedServer(cfg, _vars(0.0), tick_period_s=0.02)
+    with ServerThread(server) as st:
+        channel, call = _raw_caller(st.port, "a")
+        call(wire.ReadyReq(config={"current_round": 0}))
+        call(wire.PullReq())
+        assert call(_done(1, 1.0, 10)).status == TR.RESP_ACY
+        channel.close()
+    state = load_state_file(path, cfg)
+    assert [(e["cname"], e["seq"]) for e in state.buffer] == [("a", 0)] and state.pulled == {"a": 0}
+    assert server.snapshots[-1]["buffered"] == 1 and server.snapshots[-1]["bytes"] == len(open(path, "rb").read())
+
+
+@pytest.mark.parametrize("writer,reader", [("jax", "torch"), ("torch", "jax"), ("torch", "torch")])
+def test_server_resumes_mid_buffer_from_either_packages_statefile(tmp_path, writer, reader):
+    """A buffered server is stopped with one update in its buffer, after
+    its snapshot is on disk; a server of the other package boots from the
+    same state_path with the buffer intact and flushes the global an
+    uninterrupted in-process run of the same uploads flushes, byte for
+    byte."""
+    from fedcrack_tpu.ckpt import load_state_file as jax_load
+    from fedcrack_tpu_torch.ckpt import load_state_file
+    from fedcrack_tpu_torch.transport import wire
+
+    path = str(tmp_path / "state.msgpack")
+    cfg = dict(SESSION, **BUFFERED, state_path=path)
+
+    def serve(pkg):
+        FedServer, ServerThread, Config = _packages(pkg)
+        return ServerThread(FedServer(Config(**cfg), _vars(0.0), tick_period_s=0.02)), Config
+
+    st, config = serve(writer)
+    with st:
+        channels, calls = zip(*(_raw_caller(st.port, c) for c in "ab"))
+        for call in calls:
+            call(wire.ReadyReq(config={"current_round": 0}))
+            call(wire.PullReq())
+        assert calls[0](_done(1, 1.0, 10)).status == TR.RESP_ACY
+        _wait_for(lambda: (s := load_state_file(path, FedConfig(**cfg))) is not None and len(s.buffer) == 1,
+                  "the mid-buffer snapshot")
+        for channel in channels:
+            channel.close()
+    load = load_state_file if reader == "torch" else jax_load
+    assert len(load(path, _packages(reader)[2](**cfg)).buffer) == 1
+    st, config = serve(reader)
+    with st:
+        assert len(st.state.buffer) == 1 and st.state.pulled == {"a": 0, "b": 0}
+        channel, call = _raw_caller(st.port, "b")
+        assert call(_done(1, 3.0, 30)).status == TR.RESP_ARY
+        channel.close()
+        resumed = st.state
+    replay = TR.initial_state(FedConfig(**cfg), _vars(0.0))
+    for event in (TR.Ready("a", now=0.0), TR.Ready("b", now=0.0), TR.PullWeights("a", now=0.0),
+                  TR.PullWeights("b", now=0.0),
+                  TR.TrainDone("a", round=1, blob=tser.tree_to_bytes(_vars(1.0)), num_samples=10, now=1.0),
+                  TR.TrainDone("b", round=1, blob=tser.tree_to_bytes(_vars(3.0)), num_samples=30, now=2.0)):
+        replay, _ = TR.transition(replay, event)
+    assert resumed.model_version == replay.model_version == 1
+    assert resumed.global_blob == replay.global_blob
 
 
 def test_make_train_fn_session_matches_in_process_transition():
