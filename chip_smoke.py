@@ -107,7 +107,28 @@ on failure, so any failure exits non-zero and prints no result):
     ``publish_statefile`` at version 2, pass the gate and are installed;
     one bucket-256 batch on them launches 15 ``dequant_matmul``, 8
     ``dequant_conv3x3`` and 1 ``dequant_codes`` kernel (wrapper counts
-    and profiler). Logged: install ms (gate included).
+    and profiler). Logged: install ms (gate included);
+13. the command lines at full width, one process per client: 129 train
+    and 32 eval PNG pairs at 448 px from ``synth_crack_batch`` in a temp
+    directory (OpenCV decodes them to 128 px; the reference split leaves
+    128, two iid shards of 64), the seeded global as a flax msgpack file;
+    ``python -m fedcrack_tpu_torch.server`` (2 rounds, cohort 2,
+    ``--init-weights``, ``--state-path``, ``--metrics``, ``--tb-dir``,
+    ``--spans-path``, ``--best-path``, ``--eval-*`` over the 32 pairs) and
+    two ``python -m fedcrack_tpu_torch.client`` (``--num-clients 2
+    --client-index i --transport-dtype uint8``), each through a shim that
+    blocks the reference stack and reports its ``bce_sums`` launches at
+    exit. Checked: all exit 0; the statefile decodes with two history
+    entries and its global is byte-equal to ``cli_in_process_drive`` of
+    the same shards, seeds and init; the metrics, TensorBoard (CRCs),
+    flush spans and ``best.msgpack``; each process's launches equal its
+    train steps plus eval batches. Then ``python -m
+    fedcrack_tpu_torch.train.centralized --epochs 1`` on the 129 pairs:
+    ``final.msgpack`` and ``best.msgpack`` byte-equal to an in-process
+    ``train_centralized``, the val loss finite. Logged: each process's
+    wall and start-up (to its first launch), the round walls beside phases
+    7 and 9, each fit's ms, the decode rate (1, 4 and 8 threads) against
+    the step's.
 
 Before phase 2, ``main`` logs which of jax, flax, optax, msgpack,
 ml_dtypes, grpc, google (protobuf) and ``fedcrack_tpu`` the machine has,
@@ -1787,6 +1808,313 @@ def resume_and_swap_phase(torch, card: str) -> dict:
     return out
 
 
+# Phase 13's image directory: 128 train pairs after the reference split
+# (two shards of 64: four steps of 16 per epoch) and 32 eval pairs, decoded
+# from 448 px sources to the model's 128.
+CLI_PAIRS, CLI_EVAL_PAIRS, CLI_SOURCE_SIZE = 129, 32, 448
+CLI_NAMES = ("client_0", "client_1")
+CLI_TIMEOUT_S = 420.0
+# Runs an entry point as ``python -m`` would, after blocking the reference
+# stack as main() does (a child process does not inherit that block), and
+# prints one line at exit: its bce_sums launches and the wall time of the
+# first one.
+CLI_SHIM = """
+import atexit, json, runpy, sys, time
+for name in {blocked!r}:
+    sys.modules.setdefault(name, None)
+sys.path.insert(0, {root!r})
+from fedcrack_tpu_torch.ops import bce
+first = []
+kernel = bce._bce_sums_kernel
+def counted(x, y):
+    if not first:
+        first.append(time.time())
+    return kernel(x, y)
+bce._bce_sums_kernel = counted
+atexit.register(lambda: print("CLI_SHIM " + json.dumps({{"bce_sums_launches": bce.bce_sums.launches,
+                                                     "first_launch_unix": first[0] if first else None}}),
+                              flush=True))
+sys.argv = [{module!r}] + sys.argv[1:]
+runpy.run_module({module!r}, run_name="__main__", alter_sys=True)
+"""
+
+
+def write_pairs(root: str, n: int, size: int, seed: int) -> tuple[str, str]:
+    """``n`` pairs from ``synth_crack_batch(n, size, seed)`` as PNG images
+    and masks with equal stems under ``root/images`` and ``root/masks``
+    (the reference dataset's layout); returns the two directories."""
+    import cv2
+
+    from fedcrack_tpu_torch.data.pipeline import to_uint8_transport
+    from fedcrack_tpu_torch.data.synthetic import synth_crack_batch
+
+    dirs = os.path.join(root, "images"), os.path.join(root, "masks")
+    for d in dirs:
+        os.makedirs(d, exist_ok=True)
+    images, masks = to_uint8_transport(*synth_crack_batch(n, size, seed=seed))
+    for i in range(n):
+        if not (cv2.imwrite(os.path.join(dirs[0], f"crack_{i:04d}.png"), cv2.cvtColor(images[i], cv2.COLOR_RGB2BGR))
+                and cv2.imwrite(os.path.join(dirs[1], f"crack_{i:04d}.png"), masks[i, :, :, 0] * 255)):
+            raise OSError(f"could not write pair {i} under {root}")
+    return dirs
+
+
+def cli_in_process_drive(server_cfg, client_cfg, image_dir: str, mask_dir: str, global0, seed: int = 0,
+                         transport_dtype: str = "uint8", device=None) -> dict:
+    """The command-line federation of ``CLI_NAMES`` in one process: each
+    client's ``make_train_fn`` (seed ``seed``) over ``dataset_from_source``
+    with the client command line's shard filter and data seed (``seed`` +
+    its index), driven through ``fed.rounds.transition`` by
+    :func:`drive_federation` from ``global0``."""
+    from fedcrack_tpu_torch import client as client_cli
+    from fedcrack_tpu_torch.data.pipeline import dataset_from_source
+    from fedcrack_tpu_torch.fed import rounds, serialization
+    from fedcrack_tpu_torch.train.federated import make_train_fn
+
+    fits = {}
+    for i, name in enumerate(CLI_NAMES):
+        data = dataset_from_source(
+            0, image_dir, mask_dir, img_size=client_cfg.model.img_size, batch_size=client_cfg.data.batch_size,
+            seed=seed + i, num_workers=client_cfg.data.num_workers, prefetch=client_cfg.data.prefetch,
+            pair_filter=client_cli.local_shard(client_cfg, len(CLI_NAMES), i), transport_dtype=transport_dtype)
+        fits[name] = make_train_fn(client_cfg, data, client_cfg.data.batch_size, seed=seed, device=device)[0]
+
+    def fit(name, blob, rnd, hparams):
+        return fits[name](blob, rnd, hparams)[:2]
+
+    return drive_federation(rounds, serialization, server_cfg, global0, fit, list(CLI_NAMES))
+
+
+class CliProcess:
+    """One entry point in its own interpreter through ``CLI_SHIM``, its
+    output in ``<log_dir>/<label>.log``."""
+
+    def __init__(self, label: str, module: str, args: list[str], log_dir: str):
+        blocked = tuple(m for m in REFERENCE_STACK if m not in PORT_NEEDS)
+        code = CLI_SHIM.format(blocked=blocked, root=HERE, module=module)
+        self.label, self.path = label, os.path.join(log_dir, f"{label}.log")
+        self._out = open(self.path, "w", encoding="utf-8")
+        self.started = time.time()
+        self.proc = subprocess.Popen([sys.executable, "-c", code, *args], cwd=HERE, stdout=self._out,
+                                     stderr=subprocess.STDOUT, env=dict(os.environ, PYTHONUNBUFFERED="1"))
+        self.wall_s = None
+
+    def text(self) -> str:
+        with open(self.path, encoding="utf-8") as f:
+            return f.read()
+
+    def wait(self, deadline: float) -> int:
+        rc = self.proc.wait(timeout=max(0.0, deadline - time.monotonic()))
+        self.wall_s = time.time() - self.started
+        self._out.close()
+        return rc
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+        self._out.close()
+
+    def report(self) -> dict:
+        """The shim's exit line: launches, and the CUDA start-up (process
+        start to the first bce_sums launch)."""
+        lines = [ln for ln in self.text().splitlines() if ln.startswith("CLI_SHIM ")]
+        if len(lines) != 1:
+            raise AssertionError(f"{self.label}: no exit line from the shim:\n{self.text()[-4000:]}")
+        out = json.loads(lines[0][len("CLI_SHIM "):])
+        first = out.pop("first_launch_unix")
+        out["start_to_first_launch_s"] = None if first is None else first - self.started
+        out["wall_s"] = self.wall_s
+        return out
+
+
+def run_processes(procs: list, deadline: float) -> None:
+    """Wait for every process; on a timeout or a non-zero exit, kill the
+    rest and raise with the failing log's tail."""
+    try:
+        for p in procs:
+            rc = p.wait(deadline)
+            if rc != 0:
+                raise AssertionError(f"{p.label} exited {rc}:\n{p.text()[-6000:]}")
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"phase 13 timed out after {CLI_TIMEOUT_S} s: "
+                             + "; ".join(f"{p.label}: {p.text()[-1500:]}" for p in procs)) from None
+    finally:
+        for p in procs:
+            p.kill()
+
+
+def wait_for_port(server, deadline: float) -> int:
+    """The bound port from the server's ``serving on host:port`` line."""
+    import re
+
+    while time.monotonic() < deadline:
+        found = re.search(r"serving on [^:\s]+:(\d+)", server.text())
+        if found:
+            return int(found.group(1))
+        if server.proc.poll() is not None:
+            raise AssertionError(f"the server exited {server.proc.returncode} before serving:\n{server.text()[-6000:]}")
+        time.sleep(0.1)
+    raise AssertionError("the server did not report its port in time")
+
+
+def cli_phase(torch, card: str, train: dict, grpc_run: dict) -> dict:
+    """Phase 13: the command lines at full width, one process per client,
+    and the centralized trainer, each held byte-equal to an in-process run
+    of the same data and seeds."""
+    import argparse
+    import tempfile
+
+    import numpy as np
+
+    from fedcrack_tpu_torch import server as server_cli
+    from fedcrack_tpu_torch.ckpt.statefile import server_state_from_bytes
+    from fedcrack_tpu_torch.configs import FedConfig, ModelConfig
+    from fedcrack_tpu_torch.data.pipeline import CrackDataset, _cv2, list_pairs, reference_split
+    from fedcrack_tpu_torch.fed import serialization
+    from fedcrack_tpu_torch.models.resunet import init_variables
+    from fedcrack_tpu_torch.obs import read_metrics, read_scalars, read_spans
+    from fedcrack_tpu_torch.train import centralized
+
+    if _cv2() is None:
+        raise AssertionError("phase 13 decodes with OpenCV, which this machine lacks")
+    out: dict = {"decode_backend": "cv2"}
+    with tempfile.TemporaryDirectory(prefix="fedcrack_cli_") as tmp:
+        t0 = time.monotonic()
+        image_dir, mask_dir = write_pairs(os.path.join(tmp, "train"), CLI_PAIRS, CLI_SOURCE_SIZE, seed=13)
+        eval_dirs = write_pairs(os.path.join(tmp, "eval"), CLI_EVAL_PAIRS, CLI_SOURCE_SIZE, seed=14)
+        global0 = init_variables(torch.Generator().manual_seed(0), ModelConfig())
+        init_path = os.path.join(tmp, "init.msgpack")
+        with open(init_path, "wb") as f:
+            f.write(serialization.tree_to_bytes(global0))
+        config_path = os.path.join(tmp, "fed.json")
+        with open(config_path, "w", encoding="utf-8") as f:
+            json.dump({"data": {"img_size": TRAIN_SIZE, "batch_size": TRAIN_BATCH, "num_workers": 4, "prefetch": 2},
+                       "local_epochs": 1, "poll_period_s": 0.05}, f)
+        log(f"[cli] wrote {CLI_PAIRS} + {CLI_EVAL_PAIRS} PNG pairs at {CLI_SOURCE_SIZE} px and the seeded "
+            f"global in {time.monotonic() - t0:.2f} s; decode backend cv2 {_cv2().__version__}")
+        p = {k: os.path.join(tmp, v) for k, v in (
+            ("state", "state.bin"), ("metrics", "server.jsonl"), ("tb", "tb"), ("spans", "spans.jsonl"),
+            ("best", "best.msgpack"), ("cent", "centralized"), ("cent_metrics", "centralized.jsonl"))}
+        server_args = ["--config", config_path, "--host", "127.0.0.1", "--port", "0", "--rounds", "2",
+                       "--cohort", "2", "--registration-window", "120", "--init-weights", init_path,
+                       "--state-path", p["state"], "--metrics", p["metrics"], "--tb-dir", p["tb"],
+                       "--spans-path", p["spans"], "--best-path", p["best"],
+                       "--eval-image-dir", eval_dirs[0], "--eval-mask-dir", eval_dirs[1]]
+
+        # ---- the main path, counted in each process: server and two clients ----
+        deadline = time.monotonic() + CLI_TIMEOUT_S
+        procs = [CliProcess("server", "fedcrack_tpu_torch.server", server_args, tmp)]
+        try:
+            port = wait_for_port(procs[0], deadline)
+            for i, name in enumerate(CLI_NAMES):
+                procs.append(CliProcess(name, "fedcrack_tpu_torch.client", [
+                    "--config", config_path, "--host", "127.0.0.1", "--port", str(port), "--name", name,
+                    "--image-dir", image_dir, "--mask-dir", mask_dir, "--num-clients", "2",
+                    "--client-index", str(i), "--transport-dtype", "uint8",
+                    "--metrics", os.path.join(tmp, f"{name}.jsonl")], tmp))
+        except BaseException:
+            for pr in procs:
+                pr.kill()
+            raise
+        run_processes(procs, deadline)
+        reports = {pr.label: pr.report() for pr in procs}
+
+        # ---- what the processes left ----
+        server_cfg, _ = server_cli.build_config(server_args)
+        with open(p["state"], "rb") as f:
+            state = server_state_from_bytes(f.read(), server_cfg)
+        if len(state.history) != 2 or state.model_version != 2:
+            raise AssertionError(f"statefile at version {state.model_version}, history {state.history}")
+        rounds_rec, evals = read_metrics(p["metrics"], "round"), read_metrics(p["metrics"], "server_eval")
+        if len(rounds_rec) != 2 or len(evals) != 2:
+            raise AssertionError(f"server metrics: {len(rounds_rec)} round and {len(evals)} server_eval records")
+        if not all(np.isfinite(e[k]) for e in evals for k in ("loss", "pixel_acc", "iou")):
+            raise AssertionError(f"non-finite server eval {evals}")
+        fits = {}
+        for i, name in enumerate(CLI_NAMES):
+            fits[name] = read_metrics(os.path.join(tmp, f"{name}.jsonl"), "local_fit")
+            sessions = read_metrics(os.path.join(tmp, f"{name}.jsonl"), "session")
+            if len(fits[name]) != 2 or len(sessions) != 1 or sessions[0]["rounds_completed"] != 2:
+                raise AssertionError(f"{name}: {len(fits[name])} local_fit records, sessions {sessions}")
+        (tb_file,) = os.listdir(p["tb"])
+        scalars = read_scalars(os.path.join(p["tb"], tb_file))  # raises on a bad CRC
+        if not any(tag.startswith("round/") for tag, _, _ in scalars):
+            raise AssertionError(f"no round/ scalars among {sorted({t for t, _, _ in scalars})}")
+        flushes = read_spans(p["spans"], "fed.flush")
+        if [s["version"] for s in flushes] != [1, 2]:
+            raise AssertionError(f"flush spans {flushes}")
+        with open(p["best"], "rb") as f:
+            serialization.tree_from_bytes(f.read(), template=global0)
+        steps = {name: sum(r["num_samples"] for r in fits[name]) // TRAIN_BATCH for name in CLI_NAMES}
+        eval_batches = sum(e["num_batches"] for e in evals)
+        want = {"server": eval_batches, **steps}
+        got = {label: r["bce_sums_launches"] for label, r in reports.items()}
+        if got != want or steps != {name: 8 for name in CLI_NAMES} or eval_batches != 4:
+            raise AssertionError(f"bce_sums launches per process {got} != steps + eval batches {want}")
+
+        # ---- the same federation in process: the global byte for byte ----
+        with open(config_path, encoding="utf-8") as f:
+            client_cfg = FedConfig.from_json(f.read())
+        drive = cli_in_process_drive(server_cfg, client_cfg, image_dir, mask_dir, global0)
+        if drive["state"].global_blob != state.global_blob:
+            raise AssertionError("the statefile's global differs from the in-process drive of the same shards")
+        log("[cli] three processes exited 0; the statefile's final global is byte-equal to the in-process "
+            "drive; metrics, TensorBoard (CRCs), spans and best.msgpack as expected")
+
+        # ---- the centralized trainer: a process against the same run in process ----
+        cent_args = ["--image-dir", image_dir, "--mask-dir", mask_dir, "--epochs", "1", "--seed", "0",
+                     "--out-dir", p["cent"], "--metrics", p["cent_metrics"]]
+        cent = CliProcess("centralized", "fedcrack_tpu_torch.train.centralized", cent_args, tmp)
+        run_processes([cent], time.monotonic() + CLI_TIMEOUT_S)
+        reports["centralized"] = cent.report()
+        (epoch,) = read_metrics(p["cent_metrics"], "epoch")
+        if not np.isfinite(epoch["val_loss"]):
+            raise AssertionError(f"centralized val loss {epoch['val_loss']}")
+        cent_want = epoch["train_num_steps"] + epoch["val_num_batches"]
+        if reports["centralized"]["bce_sums_launches"] != cent_want:
+            raise AssertionError(f"centralized bce_sums launches {reports['centralized']} != {cent_want}")
+        args = argparse.Namespace(synthetic=0, image_dir=image_dir, mask_dir=mask_dir, batch=TRAIN_BATCH,
+                                  seed=0, train_samples=6213, split_seed=1337, transport_dtype="uint8")
+        model_config = ModelConfig(img_size=TRAIN_SIZE)
+        in_process = os.path.join(tmp, "centralized_in_process")
+        centralized.train_centralized(*centralized._build_datasets(args, model_config), model_config=model_config,
+                                      epochs=1, out_dir=in_process, seed=0, log_fn=lambda _: None)
+        for name in ("final.msgpack", "best.msgpack"):
+            with open(os.path.join(p["cent"], name), "rb") as f, open(os.path.join(in_process, name), "rb") as g:
+                if f.read() != g.read():
+                    raise AssertionError(f"centralized {name} differs from the in-process run")
+        log(f"[cli] centralized: final.msgpack and best.msgpack byte-equal to the in-process run; "
+            f"val loss {epoch['val_loss']:.6f}")
+
+        # ---- the host decode against the step: 4 threads as the clients ran, and 1 and 8 ----
+        train_pairs, _ = reference_split(list_pairs(image_dir, mask_dir))
+        decode_img_per_s = {}
+        for workers in (4, 1, 8):
+            ds = CrackDataset(train_pairs, img_size=TRAIN_SIZE, batch_size=TRAIN_BATCH, num_workers=workers,
+                              transport_dtype="uint8")
+            t0 = time.perf_counter()
+            n_images = sum(len(b[0]) for b in ds)
+            decode_img_per_s[workers] = n_images / (time.perf_counter() - t0)
+
+    walls = [h["wall_clock_s"] for h in state.history]
+    out.update({
+        "launches": sum(got.values()) + reports["centralized"]["bce_sums_launches"],
+        "processes": reports,
+        "round_wall_s": walls,
+        "round_wall_s_phase9_threads": grpc_run["round_wall_s"],
+        "round_wall_s_phase7_in_process": train["fed"]["round_wall_s"],
+        "fit_ms": {name: [1e3 * r["wall_clock_s"] for r in fits[name]] for name in CLI_NAMES},
+        "decode_img_per_s": decode_img_per_s[4],
+        "decode_img_per_s_by_threads": decode_img_per_s,
+        "train_step_img_per_s": train["perf"]["img_per_s"],
+        "server_eval": evals,
+    })
+    log(f"[cli] {json.dumps(out)} (decode: {CLI_SOURCE_SIZE} -> {TRAIN_SIZE} px, uint8, one dataset alone, "
+        f"{os.cpu_count()} host cores) [{card}]")
+    return out
+
+
 def server_breakdown(config, template, rnd: dict, n: int = 3) -> dict:
     """Host ms (median of ``n``) of each step the round machine takes on
     one round's accepted uploads: the gate per upload (validate, decode,
@@ -1941,6 +2269,8 @@ def main() -> int:
     log("phase 11 FedBuff over gRPC at full width: ok")
     swap = resume_and_swap_phase(torch, card)
     log("phase 12 mid-buffer kill, resume and statefile hot swap at full width: ok")
+    cli = cli_phase(torch, card, train, grpc_run)
+    log("phase 13 the command lines at full width, one process per client, and the centralized trainer: ok")
 
     kernels = []
     replaces = {"dequant_matmul": "fedcrack_tpu/kernels/dequant.py:88",
@@ -1977,6 +2307,7 @@ def main() -> int:
         "launches_phase10": framed["launches"],
         "launches_phase11": buffered["launches"],
         "launches_phase12": swap["launches"],
+        "launches_phase13": cli["launches"],
         **bce_row,
     })
     log(f"total {time.monotonic() - t_start:.1f} s")

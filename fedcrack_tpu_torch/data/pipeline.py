@@ -1,4 +1,14 @@
-"""Input pipeline: transport encoding, in-memory batching, prefetch.
+"""Input pipeline: pairing and decoding image files, transport encoding,
+batching, prefetch.
+
+The counterpart of ``fedcrack_tpu.data.pipeline``. An image directory and
+a mask directory pair their files by stem (:func:`list_pairs`); the
+reference's seeded split takes the train side (:func:`reference_split`);
+:func:`load_example` decodes one pair to the model's contract (RGB,
+resized, /255; the mask resized, then ``> 0``) with OpenCV where it
+imports, else PIL and the port's compiled resize (``native/resize.cpp``),
+the JAX package's choice of backend. :class:`CrackDataset` decodes batches
+on a thread pool ahead of the consumer.
 
 Images travel as uint8 bytes and become the model's float32-in-[0, 1]
 contract on the device. The JAX package multiplies by the float32
@@ -13,6 +23,12 @@ packages draw the same batches in the same order from the same arrays.
 from __future__ import annotations
 
 import collections
+import os
+import queue
+import random
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator, Sequence
 
 import numpy as np
 import torch
@@ -20,6 +36,101 @@ import torch
 from fedcrack_tpu_torch.data.synthetic import synth_crack_batch
 
 _INV255 = np.float32(1.0 / 255.0)
+
+_CV2 = None
+_CV2_PROBED = False
+
+
+def _cv2():
+    """OpenCV, or None where it does not import; probed once per process
+    (a failed import is not cached by Python, and the probe sits on the
+    per-sample decode path)."""
+    global _CV2, _CV2_PROBED
+    if not _CV2_PROBED:
+        try:
+            import cv2 as _mod
+
+            _CV2 = _mod
+        except ImportError:
+            _CV2 = None
+        _CV2_PROBED = True
+    return _CV2
+
+
+def list_pairs(image_dir: str, mask_dir: str) -> list[tuple[str, str]]:
+    """(image_path, mask_path) pairs matched by filename stem, sorted by
+    stem; hidden files and other extensions are skipped."""
+
+    def stems(d: str) -> dict[str, str]:
+        out = {}
+        for fname in sorted(os.listdir(d)):
+            if fname.startswith(".") or not fname.lower().endswith((".jpg", ".jpeg", ".png", ".bmp")):
+                continue
+            out[os.path.splitext(fname)[0]] = os.path.join(d, fname)
+        return out
+
+    imgs, masks = stems(image_dir), stems(mask_dir)
+    common = sorted(imgs.keys() & masks.keys())
+    if not common:
+        raise FileNotFoundError(f"no paired images/masks between {image_dir!r} and {mask_dir!r}")
+    return [(imgs[s], masks[s]) for s in common]
+
+
+def reference_split(
+    pairs: Sequence[tuple[str, str]],
+    train_samples: int = 6213,
+    seed: int = 1337,
+) -> tuple[list[tuple[str, str]], list[tuple[str, str]]]:
+    """The reference's seeded split: shuffle with ``random.Random(seed)``
+    and take the first ``train_samples`` as train (at most all but one),
+    the rest as validation. Pairs shuffle together."""
+    shuffled = list(pairs)
+    random.Random(seed).shuffle(shuffled)
+    train_samples = min(train_samples, max(1, len(shuffled) - 1))
+    return shuffled[:train_samples], shuffled[train_samples:]
+
+
+def load_example(
+    image_path: str,
+    mask_path: str,
+    img_size: int,
+    transport_dtype: str = "float32",
+) -> tuple[np.ndarray, np.ndarray]:
+    """Decode one pair: images ``[S, S, 3]`` RGB, masks ``[S, S, 1]`` in
+    {0, 1}; float32 (images in [0, 1]) or, for ``transport_dtype="uint8"``,
+    the resized uint8 bytes that :func:`normalize_images` turns into the
+    float32 contract on the device.
+
+    On the OpenCV path the float32 images are the uint8 bytes times the
+    float32 1/255, so the two transport dtypes are bit-identical after
+    normalisation. On the PIL path the float32 images interpolate in float,
+    within 1/510 of the uint8 ones. Masks are bit-identical on both."""
+    cv2 = _cv2()
+    want_u8 = transport_dtype == "uint8"
+    if cv2 is not None:
+        img = cv2.imread(image_path, cv2.IMREAD_COLOR)
+        if img is None:
+            raise FileNotFoundError(image_path)
+        img = cv2.resize(cv2.cvtColor(img, cv2.COLOR_BGR2RGB), (img_size, img_size))
+        m = cv2.imread(mask_path, cv2.IMREAD_GRAYSCALE)
+        if m is None:
+            raise FileNotFoundError(mask_path)
+        m = cv2.resize(m, (img_size, img_size))
+        if want_u8:
+            return img, (m > 0).astype(np.uint8)[..., None]
+        return img.astype(np.float32) * _INV255, (m > 0).astype(np.float32)[..., None]
+
+    from PIL import Image
+
+    from fedcrack_tpu_torch import native
+
+    with Image.open(image_path) as im:
+        rgb = np.asarray(im.convert("RGB"), np.uint8)
+    with Image.open(mask_path) as im:
+        gray = np.asarray(im.convert("L"), np.uint8)
+    if want_u8:
+        return native.resize_u8(rgb, img_size), native.resize_binarize_u8(gray, img_size)
+    return native.resize_normalize(rgb, img_size), native.resize_binarize(gray, img_size)
 
 
 def normalize_images(images: torch.Tensor) -> torch.Tensor:
@@ -139,6 +250,124 @@ def device_prefetch(iterator, device: torch.device | str, size: int = 2):
         yield nxt
 
 
+class CrackDataset:
+    """Batched, shuffled iterator over paired image files, decoding ahead
+    of the consumer on ``num_workers`` threads. Yields numpy ``(images
+    [B, S, S, 3], masks [B, S, S, 1])`` in ``transport_dtype``; every
+    iteration is one epoch, shuffled as :class:`ArrayDataset` shuffles."""
+
+    def __init__(
+        self,
+        pairs: Sequence[tuple[str, str]],
+        img_size: int = 128,
+        batch_size: int = 16,
+        shuffle: bool = True,
+        seed: int = 0,
+        num_workers: int = 4,
+        prefetch: int = 2,
+        drop_last: bool = True,
+        transport_dtype: str = "float32",
+    ):
+        if not pairs:
+            raise ValueError("empty dataset")
+        if transport_dtype not in ("float32", "uint8"):
+            raise ValueError(f"transport_dtype must be float32 or uint8, got {transport_dtype!r}")
+        _check_yields_batches(len(pairs), batch_size, drop_last)
+        self.pairs = list(pairs)
+        self.img_size = img_size
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.num_workers = num_workers
+        self.prefetch = prefetch
+        self.drop_last = drop_last
+        self.transport_dtype = transport_dtype
+        self._epoch = 0
+
+    def __len__(self) -> int:
+        return _num_batches(len(self.pairs), self.batch_size, self.drop_last)
+
+    def _batch_indices(self) -> list[np.ndarray]:
+        order = _epoch_order(len(self.pairs), self.shuffle, self.seed, self._epoch)
+        return [order[i * self.batch_size : (i + 1) * self.batch_size] for i in range(len(self))]
+
+    def _load_batch(self, idx: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        dt = np.uint8 if self.transport_dtype == "uint8" else np.float32
+        images = np.empty((len(idx), self.img_size, self.img_size, 3), dt)
+        masks = np.empty((len(idx), self.img_size, self.img_size, 1), dt)
+        for j, i in enumerate(idx):
+            images[j], masks[j] = load_example(*self.pairs[i], self.img_size, transport_dtype=self.transport_dtype)
+        return images, masks
+
+    def __iter__(self) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        batches = self._batch_indices()
+        self._epoch += 1
+        if self.num_workers <= 0:
+            for idx in batches:
+                yield self._load_batch(idx)
+            return
+
+        # Bounded producer/consumer: at most num_workers + prefetch batches
+        # are decoding or queued (submission is lazy, so a slow consumer
+        # bounds memory), and every put watches `stop`, so a consumer that
+        # leaves early never strands the producer thread.
+        q: queue.Queue = queue.Queue(maxsize=max(1, self.prefetch))
+        stop = threading.Event()
+
+        def put_or_abort(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce():
+            max_outstanding = self.num_workers + max(1, self.prefetch)
+            batch_iter = iter(batches)
+            pending: collections.deque = collections.deque()
+            with ThreadPoolExecutor(self.num_workers) as pool:
+                while not stop.is_set():
+                    while len(pending) < max_outstanding:
+                        idx = next(batch_iter, None)
+                        if idx is None:
+                            break
+                        pending.append(pool.submit(self._load_batch, idx))
+                    if not pending:
+                        break
+                    fut = pending.popleft()
+                    try:
+                        item = ("ok", fut.result())
+                    except Exception as e:  # raised again in the consumer
+                        item = ("err", e)
+                    if not put_or_abort(item) or item[0] == "err":
+                        break
+                for fut in pending:
+                    fut.cancel()
+            put_or_abort(("end", None))
+
+        t = threading.Thread(target=produce, daemon=True)
+        t.start()
+        try:
+            while True:
+                kind, payload = q.get()
+                if kind == "end":
+                    return
+                if kind == "err":
+                    raise payload
+                yield payload
+        finally:
+            stop.set()
+            # Unblock a producer mid-put; it leaves through the stop check.
+            while not q.empty():
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+            t.join(timeout=5.0)
+
+
 def dataset_from_source(
     synthetic: int,
     image_dir: str | None,
@@ -148,11 +377,16 @@ def dataset_from_source(
     batch_size: int,
     seed: int = 0,
     drop_last: bool = True,
+    num_workers: int | None = None,
+    prefetch: int | None = None,
+    pair_filter=None,
+    transport_dtype: str = "float32",
 ):
     """One dataset from either source the entry points accept:
-    ``synthetic=N`` generated fixtures (-> :class:`ArrayDataset`, the batch
-    clamped to the dataset size), or an image/mask directory pair, whose
-    decode (``CrackDataset``) is not ported yet."""
+    ``synthetic=N`` generated fixtures (-> :class:`ArrayDataset`), or an
+    image/mask directory pair (-> :class:`CrackDataset`), of which
+    ``pair_filter`` selects a subset (one side of :func:`reference_split`,
+    a client's shard). The batch is clamped to the dataset size."""
     if synthetic:
         images, masks = synth_crack_batch(synthetic, img_size, seed=seed)
         return ArrayDataset(
@@ -163,8 +397,23 @@ def dataset_from_source(
             drop_last=drop_last,
         )
     if not (image_dir and mask_dir):
-        raise ValueError("need an image/mask directory pair or synthetic=N")
-    raise NotImplementedError(
-        "image-directory datasets (CrackDataset: decode, resize, prefetch "
-        "workers) are not ported yet; use synthetic=N: data/pipeline.py, ROADMAP Queue 1 item 1"
+        raise ValueError("need --image-dir/--mask-dir or --synthetic N")
+    pairs = list_pairs(image_dir, mask_dir)
+    if pair_filter is not None:
+        pairs = pair_filter(pairs)
+    if not pairs:
+        raise ValueError(f"no image/mask pairs selected from {image_dir!r}/{mask_dir!r}")
+    kw = {}
+    if num_workers is not None:
+        kw["num_workers"] = num_workers
+    if prefetch is not None:
+        kw["prefetch"] = prefetch
+    return CrackDataset(
+        pairs,
+        img_size=img_size,
+        batch_size=max(1, min(batch_size, len(pairs))),
+        seed=seed,
+        drop_last=drop_last,
+        transport_dtype=transport_dtype,
+        **kw,
     )

@@ -1,4 +1,5 @@
-"""Synthetic crack-image fixtures (numpy, deterministic per seed).
+"""Synthetic crack-image fixtures (numpy, deterministic per seed), in
+memory or written to disk in the reference dataset's layout.
 
 A copy of ``fedcrack_tpu.data.synthetic.synth_crack_batch``: a noisy
 concrete-like texture with a dark random-walk crack polyline, the mask
@@ -8,6 +9,8 @@ tests/test_torch_quant.py).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -55,3 +58,29 @@ def synth_crack_batch(
             masks[i, crack, 0] = 1.0
         images[i] = np.clip(img, 0.0, 1.0)
     return images, masks
+
+
+def write_synthetic_dataset(
+    root: str,
+    n: int = 32,
+    img_size: int = 128,
+    seed: int = 0,
+    crack_prob: float = 0.8,
+    min_thickness: int | None = None,
+) -> tuple[str, str]:
+    """Write :func:`synth_crack_batch`'s pairs under ``root/images`` (JPEG)
+    and ``root/masks`` (PNG, lossless, so no ringing crosses the ``> 0``
+    binarisation) with equal stems, the reference dataset's layout; returns
+    ``(image_dir, mask_dir)``. Needs OpenCV."""
+    import cv2
+
+    image_dir = os.path.join(root, "images")
+    mask_dir = os.path.join(root, "masks")
+    os.makedirs(image_dir, exist_ok=True)
+    os.makedirs(mask_dir, exist_ok=True)
+    images, masks = synth_crack_batch(n, img_size, seed, crack_prob, min_thickness)
+    for i in range(n):
+        bgr = cv2.cvtColor((images[i] * 255).astype(np.uint8), cv2.COLOR_RGB2BGR)
+        cv2.imwrite(os.path.join(image_dir, f"img_{i:05d}.jpg"), bgr)
+        cv2.imwrite(os.path.join(mask_dir, f"img_{i:05d}.png"), (masks[i, :, :, 0] * 255).astype(np.uint8))
+    return image_dir, mask_dir

@@ -1,3 +1,21 @@
-"""Observability the transport uses (the counterpart of part of
-``fedcrack_tpu.obs``): the metric registry, trace spans, the flight
-recorder and the streaming percentiles of FedBuff's summary."""
+"""Observability (the counterpart of ``fedcrack_tpu.obs``): the JSONL
+metrics sink with its TensorBoard tee, timing and profiler helpers, the
+metric registry and its Prometheus endpoint, trace spans, and the flight
+recorder. ``flops``, ``sentries`` and ``watchdog`` are not ported yet
+(ROADMAP Queue 1 item 5)."""
+
+from fedcrack_tpu_torch.obs.metrics import (  # noqa: F401
+    MetricsLogger,
+    profiler_trace,
+    read_metrics,
+    stopwatch,
+)
+from fedcrack_tpu_torch.obs.promexp import (  # noqa: F401
+    MetricsExporter,
+    parse_prometheus_text,
+    scrape,
+    start_exporter,
+)
+from fedcrack_tpu_torch.obs.registry import REGISTRY, MetricsRegistry  # noqa: F401
+from fedcrack_tpu_torch.obs.spans import SpanRecorder, read_spans, span  # noqa: F401
+from fedcrack_tpu_torch.obs.tb import SummaryWriter, read_histograms, read_scalars  # noqa: F401

@@ -1,12 +1,186 @@
-"""Streaming percentiles (the counterpart of
-``fedcrack_tpu.obs.metrics.StreamingPercentiles``; the JSONL metrics
-logger and the profiler helpers of that module are not ported yet)."""
+"""The JSONL metrics sink, timing and profiling helpers, and streaming
+percentiles (the counterpart of ``fedcrack_tpu.obs.metrics``).
+
+One record per line, one file per process; each record carries a
+monotonic ``t`` (seconds since the logger was made) and a wall-clock
+``ts``. The sink is thread-safe: the gRPC service, its tick loop and
+background tasks log concurrently.
+"""
 
 from __future__ import annotations
 
+import contextlib
+import io
+import itertools
+import json
 import math
+import numbers
+import os
 import random
 import threading
+import time
+from typing import Any, Iterator
+
+
+class MetricsLogger:
+    """Append-only JSONL metrics writer, optionally teed into a TensorBoard
+    event file.
+
+    ``kind`` names the record type (``round``, ``local_fit``, ``session``,
+    ...); the other fields are free-form and made JSON-safe (numpy and
+    torch scalars through ``int``/``float``).
+    With ``tb_dir``, every numeric field of a record that carries an int
+    ``round`` or ``epoch`` becomes the scalar ``kind/field`` at that step.
+    """
+
+    def __init__(
+        self,
+        path: str | os.PathLike | io.TextIOBase,
+        echo=None,
+        tb_dir: str | os.PathLike | None = None,
+    ):
+        if isinstance(path, io.TextIOBase):
+            self._f = path
+            self._owns = False
+        else:
+            p = os.fspath(path)
+            os.makedirs(os.path.dirname(os.path.abspath(p)), exist_ok=True)
+            self._f = open(p, "a", encoding="utf-8")
+            self._owns = True
+        self._echo = echo
+        self._lock = threading.Lock()
+        self._t0 = time.monotonic()
+        self._tb = None
+        if tb_dir:
+            from fedcrack_tpu_torch.obs.tb import SummaryWriter
+
+            self._tb = SummaryWriter(tb_dir)
+
+    def log(self, kind: str, **fields: Any) -> dict:
+        record = {"kind": kind, "t": round(time.monotonic() - self._t0, 6), "ts": time.time()}
+        for k, v in fields.items():
+            record[k] = _coerce(v)
+        line = json.dumps(record, sort_keys=True)
+        with self._lock:
+            self._f.write(line + "\n")
+            self._f.flush()
+        if self._tb is not None:
+            step = record.get("round", record.get("epoch"))
+            if isinstance(step, int) and not isinstance(step, bool):
+                for k, v in record.items():
+                    if k in ("kind", "t", "ts", "round", "epoch"):
+                        continue
+                    if isinstance(v, (int, float)) and not isinstance(v, bool):
+                        self._tb.add_scalar(f"{kind}/{k}", float(v), step)
+        if self._echo is not None:
+            self._echo(line)
+        return record
+
+    @property
+    def tb_enabled(self) -> bool:
+        """Whether a TensorBoard tee is attached (callers skip building
+        histogram inputs when nothing reads them)."""
+        return self._tb is not None
+
+    def log_histograms(self, step: int, tree: Any, prefix: str = "weights") -> None:
+        """One TensorBoard histogram per leaf of a nested-dict tree (numpy
+        or CPU tensor leaves), tagged ``prefix/<key>/.../<key>``, leaves in
+        sorted key order: the tags and order of the JAX package's pytree
+        walk over the same flax-layout tree. A no-op without ``tb_dir``."""
+        if self._tb is None:
+            return
+        for path, leaf in _flat_items(tree):
+            self._tb.add_histogram(f"{prefix}/{'/'.join(path)}", leaf, step)
+
+    def close(self) -> None:
+        if self._owns:
+            with self._lock:
+                self._f.close()
+        if self._tb is not None:
+            self._tb.close()
+
+    def __enter__(self) -> "MetricsLogger":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def _flat_items(tree: Any, path: tuple[str, ...] = ()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat_items(tree[k], path + (str(k),))
+    else:
+        yield path, tree
+
+
+def _coerce(value: Any) -> Any:
+    """A JSON-safe value, as the JAX package makes it: Python scalars pass
+    through, containers recurse, other integers become ``int``, other
+    numbers (numpy and torch scalars) ``float``, their non-finite values
+    the string (RFC 8259 has no NaN), anything else its ``repr``."""
+    if isinstance(value, (str, bool, int, float)) or value is None:
+        return value
+    if isinstance(value, dict):
+        return {str(k): _coerce(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [_coerce(v) for v in value]
+    if isinstance(value, numbers.Integral):
+        return int(value)
+    try:
+        as_float = float(value)
+    except (TypeError, ValueError):
+        return repr(value)
+    return as_float if math.isfinite(as_float) else str(as_float)
+
+
+def read_metrics(path: str | os.PathLike, kind: str | None = None) -> list[dict]:
+    """Load a JSONL metrics file, optionally filtered by record kind."""
+    records = []
+    with open(os.fspath(path), encoding="utf-8") as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            rec = json.loads(line)
+            if kind is None or rec.get("kind") == kind:
+                records.append(rec)
+    return records
+
+
+@contextlib.contextmanager
+def stopwatch() -> Iterator[dict]:
+    """``with stopwatch() as w: ...; w['seconds']``: the span's wall clock."""
+    out = {"seconds": 0.0}
+    t0 = time.perf_counter()
+    try:
+        yield out
+    finally:
+        out["seconds"] = time.perf_counter() - t0
+
+
+_TRACE_COUNTER = itertools.count()
+
+
+@contextlib.contextmanager
+def profiler_trace(logdir: str | None) -> Iterator[None]:
+    """Wrap a span in ``torch.profiler`` (CPU, and CUDA where a card is
+    present) and write its trace into ``logdir`` in TensorBoard's profiler
+    layout (``<worker>.<n>.pt.trace.json``); ``None`` or ``""`` traces
+    nothing at no cost."""
+    if not logdir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    os.makedirs(logdir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    worker = f"{os.getpid()}_{next(_TRACE_COUNTER)}"
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir, worker_name=worker)):
+        yield
 
 
 class StreamingPercentiles:

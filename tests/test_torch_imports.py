@@ -25,6 +25,12 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "fedcrack_tpu", "msgpack
 # grpc is allowed in these files only.
 TRANSPORT = os.path.join(PACKAGE, "transport")
 GRPC_ALLOWED = ("grpc",)
+COMMAND_LINE_MODULES = (
+    "fedcrack_tpu_torch.server", "fedcrack_tpu_torch.client", "fedcrack_tpu_torch.train.centralized",
+    "fedcrack_tpu_torch.data", "fedcrack_tpu_torch.data.sharding", "fedcrack_tpu_torch.native",
+    "fedcrack_tpu_torch.obs", "fedcrack_tpu_torch.obs.tb", "fedcrack_tpu_torch.obs.promexp",
+    "fedcrack_tpu_torch.obs.metrics",
+)
 
 
 def _port_sources():
@@ -95,6 +101,9 @@ def test_package_imports_with_jax_blocked():
     rest = [_module(p) for p in sources if not _grpc_allowed(p)]
     with_grpc = [_module(p) for p in sources if _grpc_allowed(p)]
     assert "fedcrack_tpu_torch.transport.service" in with_grpc and "fedcrack_tpu_torch" in rest
+    # The command lines and their data and telemetry import without grpc:
+    # only their sessions reach the transport.
+    assert set(COMMAND_LINE_MODULES) <= set(rest)
     for modules, blocked in ((rest, FORBIDDEN), (with_grpc, tuple(m for m in FORBIDDEN if m not in GRPC_ALLOWED))):
         out = _import_blocked(modules, blocked)
         assert out.returncode == 0, out.stderr
@@ -163,3 +172,20 @@ def test_training_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="cuda"):
         make_train_fn(fed, [], 2)
     assert create_train_state(torch.Generator(), cfg, device="cpu").device.type == "cpu"
+
+
+def test_command_lines_default_to_cuda_and_raise_without_it(tmp_path):
+    """Each ``main`` trains or evaluates on CUDA unless given ``device``."""
+    import torch
+
+    from fedcrack_tpu_torch import client, server
+    from fedcrack_tpu_torch.train import centralized
+
+    if torch.cuda.is_available():
+        return  # decided at run time; chip_smoke.py runs them on the card
+    with pytest.raises(RuntimeError, match="cuda"):
+        centralized.main(["--synthetic", "4", "--epochs", "1", "--out-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="cuda"):
+        client.main(["--synthetic", "4"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        server.main(["--eval-synthetic", "4", "--port", "0"])

@@ -353,8 +353,11 @@ def test_array_dataset_and_synthetic_source_match_jax():
         ArrayDataset(imgs, msks, batch_size=8)  # zero batches with drop_last
     with pytest.raises(ValueError):
         dataset_from_source(0, None, None, img_size=16, batch_size=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1$"):
-        dataset_from_source(0, "images", "masks", img_size=16, batch_size=4)
+    # Image directories decode now (tests/test_torch_data.py); missing ones
+    # raise as in the JAX package.
+    for source in (dataset_from_source, jax_source):
+        with pytest.raises(FileNotFoundError):
+            source(0, "no_such_images", "no_such_masks", img_size=16, batch_size=4)
 
 
 def test_device_prefetch_and_model_batch():
