@@ -2,6 +2,7 @@
 """Chip smoke of the PyTorch/CUDA port (``fedcrack_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --serve-ticks 0.05,1.0   # phase 14 alone, per tick
 
 Runs from the root of a checkout on a machine with one NVIDIA H100 and
 ``nvcc``; it imports neither JAX nor ``fedcrack_tpu``. Phases (each raises
@@ -129,6 +130,38 @@ on failure, so any failure exits non-zero and prints no result):
     wall and start-up (to its first launch), the round walls beside phases
     7 and 9, each fit's ms, the decode rate (1, 4 and 8 threads) against
     the step's.
+14. the serve command line at full width: ``python -m
+    fedcrack_tpu_torch.serve`` through the same shim (it also reports the
+    dequant launches and the engines' quantized forwards), with
+    ``ModelConfig()``, ``quant="int8"``, ``kernel_plane="fused_int8"``
+    (from a ``--config`` file), buckets 128 and 256, 8 lanes, phase 4's
+    snapped weights as ``--weights``, ``--replicas 1 --min-replicas 1
+    --max-replicas 2``, a ``--state-path`` and ``--port 0``. A client on the
+    port's wire codec sends on one Predict stream a 128^2, a 256^2, a
+    padded 200 x 180 and two tiled images (200 x 300, 600 x 400) in CRC32C
+    chunks and one with a wrong CRC (REJECTED with the JAX title); each OK
+    mask byte-equal to an in-process engine on the card, and away from the
+    threshold to a CPU engine. Then per-bucket latency, bursts on 16
+    streams until the autoscaler scales up (read from ``--metrics-port``),
+    and a 512 x 768 StreamPredict session: a first frame (full re-run),
+    the same frame (0 tiles), a moved band (some tiles), three repeats (0
+    tiles); version 2 (seed 1, snapped) published to the statefile, served
+    on the first frame after (a full re-run), the band and three repeats;
+    every frame byte-equal to Predict of the same image at its version,
+    versions never going back. The autoscaler ticks every 0.05 s. Before
+    the stream, one tile's probabilities must be bitwise the same in lane
+    0 and lane 5 of a batch on the card and beside zero lanes (the
+    sessions pack their misses on this), and the same frames are timed
+    through a StreamSession in this process. At
+    SIGTERM: exit 0, both gates passed, at least one scale-up, no failed
+    or shed request, every live replica at version 2, dequant launches 15
+    / 8 / 1 per quantized forward. Logged: the latencies, the frames, the
+    swap's pause, start-up and wall.
+
+``python3 chip_smoke.py --serve-ticks 0.05,1.0,1.0,0.05`` builds
+``dequant.cu`` and runs only phase 14, once per autoscaler tick given, and
+prints one ``TICK`` JSON line per run (the frames served and in process,
+the autoscaler's audit, the phase's seconds).
 
 Before phase 2, ``main`` logs which of jax, flax, optax, msgpack,
 ml_dtypes, grpc, google (protobuf) and ``fedcrack_tpu`` the machine has,
@@ -141,9 +174,11 @@ object, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -168,6 +203,11 @@ MATMUL_SWEEP = SWEEP_SHAPES + [(1000, 27, 1), (129, 36, 33), (70, 2304, 257), (3
 CONV_SWEEP = [(1, 5, 7, 8, 12), (2, 6, 6, 4, 9), (1, 1, 1, 4, 3), (3, 9, 11, 36, 17),
               (2, 17, 13, 132, 40), (1, 33, 31, 64, 129)]
 BUCKET, BATCH = 256, 8
+# The throwaway kernels that open every profile window (card_profile): a
+# spin of LEAD_CYCLES clocks each; and how often a window that lost kernel
+# records is taken again before a count check fails.
+PROFILE_LEAD, LEAD_CYCLES, LEAD_KERNEL = 128, 20_000, "spin_kernel"
+PROFILE_TRIES = 3
 # The largest probability difference allowed between a served batch and
 # the same weights through another plane or on the CPU (phases 4, 5, 12).
 SERVE_PROB_TOL = 1e-3
@@ -262,6 +302,43 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+@contextlib.contextmanager
+def card_profile(torch, cpu: bool = True):
+    """torch.profiler over the body, after ``PROFILE_LEAD`` throwaway spin
+    kernels and a synchronize. On the H100 the profiler drops the first
+    kernel records of a window, more of them the older the process, and now
+    and then a whole window's; the lead takes the first kind of loss
+    (``lead_kept`` shows how much of it there was), ``card_kernels`` leaves
+    it out, and every count check retakes a window that lost records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        for _ in range(PROFILE_LEAD):
+            torch.cuda._sleep(LEAD_CYCLES)
+        torch.cuda.synchronize()
+        yield prof
+        torch.cuda.synchronize()
+
+
+def card_kernels(prof) -> list:
+    """The CUDA kernels of a ``card_profile`` window by name, without its lead."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and LEAD_KERNEL not in e.key]
+
+
+def lead_kept(torch) -> str:
+    """How many of an empty window's lead kernels the profiler kept."""
+    from torch.autograd import DeviceType
+
+    with card_profile(torch) as prof:
+        pass
+    kept = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA and LEAD_KERNEL in e.key)
+    return f"{kept} of {PROFILE_LEAD} lead kernels kept"
+
+
 def device_ms(torch, fns, n: int = 5, launches: int | None = None) -> float:
     """Device time of one pass over ``fns``: every CUDA kernel they launch,
     summed, from torch.profiler (n passes after one warm pass).
@@ -269,25 +346,24 @@ def device_ms(torch, fns, n: int = 5, launches: int | None = None) -> float:
     A profile that lost kernel records would read short, so the count of
     kernels seen is checked: against ``launches`` per pass where the caller
     knows it (one per wrapper call), else against a second profile."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     for fn in fns:
         fn()
     torch.cuda.synchronize()
     counts = []
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    for _ in range(PROFILE_TRIES):
+        with card_profile(torch) as prof:
             for _ in range(n):
                 for fn in fns:
                     fn()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        kernels = card_kernels(prof)
         count = sum(e.count for e in kernels)
         if count and (count == n * launches if launches is not None else count in counts):
             return sum(e.self_device_time_total for e in kernels) / n / 1e3
         counts.append(count)
-    raise AssertionError(f"the profiler's kernel counts disagree: {counts} (want {launches} x {n})")
+        if launches is not None or len(counts) > 1:  # an unknown count needs two windows anyway
+            log(f"profile retaken: {count} kernel records (want {launches} x {n})")
+    raise AssertionError(f"the profiler's kernel counts disagree: {counts} (want {launches} x {n}); "
+                         f"{lead_kept(torch)}")
 
 
 def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
@@ -642,16 +718,13 @@ def serve_phase(torch, card: str, kernel_plane: str, requests: bool) -> dict:
 def profile_batches(torch, engine, weights, batch, card: str, n: int = 5) -> None:
     """Where one bucket-256 batch's time goes: CUDA kernel time by name and
     the device's idle share of the host-clock window (torch.profiler)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     engine.predict_bucket(weights, batch)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with card_profile(torch) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             engine.predict_bucket(weights, batch)
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = card_kernels(prof)
     busy_us = sum(e.self_device_time_total for e in kernels)
     if not kernels:
         log("profile: the profiler saw no CUDA kernels; device time not measured")
@@ -756,23 +829,21 @@ def kernel_device_us(torch, fn, n: int = 20) -> dict[str, tuple[float, float]]:
     launches per call, from torch.profiler. A profile that lost kernel
     records would read short, so a profile whose launch counts are not
     whole multiples of ``n`` is taken again (up to three times)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     torch.cuda.synchronize()
     seen = []
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    for _ in range(PROFILE_TRIES):
+        with card_profile(torch) as prof:
             for _ in range(n):
                 fn()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        kernels = card_kernels(prof)
         out = {e.key: (e.self_device_time_total / n, e.count / n) for e in kernels}
         if out and all(e.count % n == 0 for e in kernels):
             return out
         seen.append(out)
-    raise AssertionError(f"the profiler's kernel counts are not whole per call: {seen}")
+        log(f"profile retaken: kernel records not whole per call over {n} calls")
+    raise AssertionError(f"the profiler's kernel counts are not whole per call: {seen}; "
+                         f"{lead_kept(torch)}")
 
 
 def _flat_tree(tree, path=()):
@@ -1650,8 +1721,6 @@ def resume_and_swap_phase(torch, card: str) -> dict:
     import tempfile
 
     import numpy as np
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from fedcrack_tpu_torch.ckpt import load_state_file
     from fedcrack_tpu_torch.configs import ServeConfig
@@ -1774,16 +1843,25 @@ def resume_and_swap_phase(torch, card: str) -> dict:
         raise AssertionError("the installed payload is not the published weights' codes and scales")
     engine.predict_bucket(payload, batch)
     torch.cuda.synchronize()
-    dequant.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        probs = engine.predict_bucket(payload, batch)
-        torch.cuda.synchronize()
-    counted = {name: getattr(dequant, name).launches for name in ("dequant_matmul", "dequant_conv3x3", "dequant_codes")}
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    profiled = {name: sum(e.count for e in kernels if f"{name}_kernel" in e.key) for name in counted}
+    # One served batch, on the wrappers' counts and on the profiler's; a
+    # window that lost records is taken again with a new batch.
     want = {"dequant_matmul": 15, "dequant_conv3x3": 8, "dequant_codes": 1}
-    if counted != want or profiled != want:
-        raise AssertionError(f"served batch launches: wrappers {counted}, profiler {profiled}, want {want}")
+    seen = []
+    for _ in range(PROFILE_TRIES):
+        dequant.reset_launch_counts()
+        with card_profile(torch, cpu=False) as prof:
+            probs = engine.predict_bucket(payload, batch)
+        counted = {name: getattr(dequant, name).launches for name in want}
+        kernels = card_kernels(prof)
+        profiled = {name: sum(e.count for e in kernels if f"{name}_kernel" in e.key) for name in want}
+        if counted != want:
+            raise AssertionError(f"served batch launches: wrappers {counted}, want {want}")
+        if profiled == want:
+            break
+        seen.append(profiled)
+        log(f"profile retaken: {profiled} kernel records (want {want})")
+    else:
+        raise AssertionError(f"served batch launches: profiler {seen}, want {want}; {lead_kept(torch)}")
     if not (np.isfinite(probs).all() and probs.shape == (BATCH, BUCKET, BUCKET, 1)):
         raise AssertionError("served probabilities not finite of the bucket's shape")
     # The served batch against the CPU engine (plain kernels) on the
@@ -1816,24 +1894,41 @@ CLI_NAMES = ("client_0", "client_1")
 CLI_TIMEOUT_S = 420.0
 # Runs an entry point as ``python -m`` would, after blocking the reference
 # stack as main() does (a child process does not inherit that block), and
-# prints one line at exit: its bce_sums launches and the wall time of the
-# first one.
+# prints one line at exit: its bce_sums and dequant launches, the quantized
+# forwards of its engines, and the wall time of the first bce_sums and the
+# first dequant launch.
 CLI_SHIM = """
 import atexit, json, runpy, sys, time
 for name in {blocked!r}:
     sys.modules.setdefault(name, None)
 sys.path.insert(0, {root!r})
+from fedcrack_tpu_torch.kernels import dequant
 from fedcrack_tpu_torch.ops import bce
-first = []
+from fedcrack_tpu_torch.serve import engine as serve_engine
+first = {{}}
 kernel = bce._bce_sums_kernel
 def counted(x, y):
-    if not first:
-        first.append(time.time())
+    first.setdefault("bce", time.time())
     return kernel(x, y)
 bce._bce_sums_kernel = counted
-atexit.register(lambda: print("CLI_SHIM " + json.dumps({{"bce_sums_launches": bce.bce_sums.launches,
-                                                     "first_launch_unix": first[0] if first else None}}),
-                              flush=True))
+launch = dequant.LIBRARY.launch
+def dequant_launch(*args):
+    first.setdefault("dequant", time.time())
+    return launch(*args)
+dequant.LIBRARY.launch = dequant_launch
+engines = []
+engine_init = serve_engine.InferenceEngine.__init__
+def tracked(self, *args, **kwargs):
+    engine_init(self, *args, **kwargs)
+    engines.append(self)
+serve_engine.InferenceEngine.__init__ = tracked
+atexit.register(lambda: print("CLI_SHIM " + json.dumps({{
+    "bce_sums_launches": bce.bce_sums.launches,
+    "dequant_launches": {{name: getattr(dequant, name).launches
+                         for name in ("dequant_matmul", "dequant_conv3x3", "dequant_codes")}},
+    "quantized_forwards": sum(e.quantized_forwards for e in engines),
+    "first_launch_unix": first.get("bce"),
+    "first_dequant_launch_unix": first.get("dequant")}}), flush=True))
 sys.argv = [{module!r}] + sys.argv[1:]
 runpy.run_module({module!r}, run_name="__main__", alter_sys=True)
 """
@@ -1916,14 +2011,16 @@ class CliProcess:
         self._out.close()
 
     def report(self) -> dict:
-        """The shim's exit line: launches, and the CUDA start-up (process
-        start to the first bce_sums launch)."""
+        """The shim's exit line: launches, quantized forwards, and the CUDA
+        start-up (process start to the first bce_sums and the first dequant
+        launch)."""
         lines = [ln for ln in self.text().splitlines() if ln.startswith("CLI_SHIM ")]
         if len(lines) != 1:
             raise AssertionError(f"{self.label}: no exit line from the shim:\n{self.text()[-4000:]}")
         out = json.loads(lines[0][len("CLI_SHIM "):])
-        first = out.pop("first_launch_unix")
-        out["start_to_first_launch_s"] = None if first is None else first - self.started
+        for key in ("first_launch", "first_dequant_launch"):
+            first = out.pop(f"{key}_unix")
+            out[f"start_to_{key}_s"] = None if first is None else first - self.started
         out["wall_s"] = self.wall_s
         return out
 
@@ -2115,6 +2212,401 @@ def cli_phase(torch, card: str, train: dict, grpc_run: dict) -> dict:
     return out
 
 
+# Phase 14: the serve command line. Buckets and batch are ServeConfig's
+# defaults (128 and 256, 8 lanes).
+SERVE_TIMEOUT_S = 240.0
+SERVE_CHUNKS = 3
+# The Predict mix: two exact buckets, a padded image (phase 4's) and two
+# tiled ones (200 x 300 exceeds the 256 bucket in one dimension).
+SERVE_MIX = {1: (128, 128), 2: (256, 256), 3: (200, 180), 4: (200, 300), 5: (600, 400)}
+SERVE_PROBES = 20
+SERVE_BURST_STREAMS, SERVE_BURST_REQUESTS = 16, 12
+SERVE_MAX_BURSTS = 12  # until a tick of the autoscaler lands in one
+# A short tick, so that a burst trips a scale-up and the calm after it a
+# scale-down within the phase (--serve-ticks: stream frames are no slower
+# than at ServeConfig's default 1.0 s).
+SERVE_SCALE_INTERVAL_S = 0.05
+SERVE_REPEATS = 3  # 0-tile frames timed before and after the swap
+STREAM_H, STREAM_W = 512, 768
+STREAM_BAND = slice(100, 140)  # rows of the moved band: one row of tiles
+
+
+class ServeClient:
+    """The port's wire codec over one gRPC channel to the serve process."""
+
+    def __init__(self, port: int):
+        import grpc
+
+        from fedcrack_tpu_torch.transport import wire
+
+        self.wire = wire
+        self.channel = grpc.insecure_channel(f"127.0.0.1:{port}")
+        grpc.channel_ready_future(self.channel).result(timeout=60)
+        self._predict = self.channel.stream_stream(
+            "/fedcrack.ServePlane/Predict", request_serializer=wire.PredictRequest.encode,
+            response_deserializer=wire.PredictResponse.decode)
+        self._stream = self.channel.stream_stream(
+            "/fedcrack.ServePlane/StreamPredict", request_serializer=wire.StreamRequest.encode,
+            response_deserializer=wire.StreamResponse.decode)
+
+    def chunks(self, rid: int, image, n: int = SERVE_CHUNKS, bad_crc: bool = False) -> list:
+        """``image`` as ``n`` Predict chunks, each with its CRC32C (the
+        first one's wrong with ``bad_crc``)."""
+        from fedcrack_tpu_torch.native import crc32c
+
+        blob = image.tobytes()
+        step = -(-len(blob) // n)
+        return [self.wire.PredictRequest(
+            request_id=rid, height=image.shape[0], width=image.shape[1], channels=3, image=blob[o:o + step],
+            offset=o, last=o + step >= len(blob), crc32c=(crc32c(blob[o:o + step]) ^ int(bad_crc and o == 0)))
+            for o in range(0, len(blob), step)]
+
+    def predict(self, requests: list) -> list:
+        return list(self._predict(iter(requests), timeout=SERVE_TIMEOUT_S))
+
+    def open_stream(self):
+        """A StreamPredict call fed one exchange at a time: ``send(reqs)``
+        returns the one response to the last of ``reqs``."""
+        import queue
+
+        q: queue.Queue = queue.Queue()
+        responses = self._stream(iter(q.get, None), timeout=SERVE_TIMEOUT_S)
+
+        class Call:
+            def send(self, reqs):
+                for r in reqs:
+                    q.put(r)
+                return next(responses)
+
+            def close(self):
+                q.put(None)
+
+        return Call()
+
+    def close(self) -> None:
+        self.channel.close()
+
+
+def _mask(probs, threshold: float = 0.5) -> bytes:
+    return ((probs[..., 0] > threshold).astype("uint8") * 255).tobytes()
+
+
+def check_lane_invariance(torch, engine, payload) -> dict:
+    """One tile's probabilities must be bitwise the same in lane 0 and in
+    lane 5 of a bucket-256 batch with other tiles beside it, and alone
+    beside zero lanes: the stream sessions pack their misses on this."""
+    import numpy as np
+
+    rng = np.random.default_rng(14)
+    batch = rng.integers(0, 256, (BATCH, BUCKET, BUCKET, 3), dtype=np.uint8)
+    moved = batch.copy()
+    moved[[0, 5]] = moved[[5, 0]]
+    a, b = engine.predict_bucket(payload, batch), engine.predict_bucket(payload, moved)
+    alone = engine.predict_bucket(payload, batch[:1])
+    out = {"lane0_vs_lane5_bitwise": bool(np.array_equal(a[0], b[5])),
+           "lane0_vs_lane5_max_abs": float(np.abs(a[0].astype(np.float64) - b[5]).max()),
+           "with_neighbours_vs_zero_lanes_bitwise": bool(np.array_equal(a[0], alone[0]))}
+    if not (out["lane0_vs_lane5_bitwise"] and out["with_neighbours_vs_zero_lanes_bitwise"]):
+        raise AssertionError(f"a tile's probabilities depend on its lane or its neighbours: {out}")
+    return out
+
+
+def session_frame_ms(engine, payload, frames) -> list:
+    """Server-side ``latency_ms`` of each frame through a StreamSession in
+    this process (tracking on, the card engine, no gRPC and no autoscaler
+    beside it): the session's own cost, against which the served frames
+    are read."""
+    from fedcrack_tpu_torch.serve.batcher import StaticWeights
+    from fedcrack_tpu_torch.serve.stream import StreamSession
+
+    session = StreamSession(engine, StaticWeights(payload), height=STREAM_H, width=STREAM_W, track=True)
+    out = []
+    for image in frames:
+        r = session.process_frame(image)
+        out.append({"tiles_computed": r.tiles_computed, "ms": r.latency_ms})
+    return out
+
+
+def serve_cli_phase(torch, card: str, scale_interval_s: float = SERVE_SCALE_INTERVAL_S) -> dict:
+    """Phase 14: ``python -m fedcrack_tpu_torch.serve`` at full width as a
+    process through CLI_SHIM, driven over gRPC with the port's codec:
+    Predict (exact, padded and tiled, CRC32C chunks, a wrong CRC), bursts
+    until the autoscaler (ticking every ``scale_interval_s``) scales up, a
+    StreamPredict session across a statefile hot swap, and SIGTERM."""
+    import re
+    import statistics
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from fedcrack_tpu_torch.configs import ModelConfig, ServeConfig
+    from fedcrack_tpu_torch.fed import serialization
+    from fedcrack_tpu_torch.kernels import dequant
+    from fedcrack_tpu_torch.models.resunet import init_variables
+    from fedcrack_tpu_torch.obs.promexp import sample_value, scrape
+    from fedcrack_tpu_torch.serve import quant as quant_mod
+    from fedcrack_tpu_torch.serve.engine import InferenceEngine
+    from fedcrack_tpu_torch.serve.hot_swap import publish_statefile
+
+    cfg, sc = ModelConfig(), ServeConfig(quant="int8", kernel_plane="fused_int8")
+    # Phase 4's stand-in for a trained model: seeded weights snapped to the
+    # code grid, which pass the gate (version 0 from --weights; version 2
+    # from seed 1 through the statefile).
+    weights = {v: quant_mod.dequantize_variables(quant_mod.quantize_for_plane(
+        init_variables(torch.Generator().manual_seed(seed), cfg), sc.kernel_plane).tree)
+        for v, seed in ((0, 0), (2, 1))}
+    rng = np.random.default_rng(14)
+    mix = {rid: rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for rid, (h, w) in SERVE_MIX.items()}
+    frame0 = rng.integers(0, 256, (STREAM_H, STREAM_W, 3), dtype=np.uint8)
+    frame_moved = frame0.copy()
+    frame_moved[STREAM_BAND] = rng.integers(0, 256, frame_moved[STREAM_BAND].shape, dtype=np.uint8)
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="fedcrack_serve_") as tmp:
+        p = {k: os.path.join(tmp, v) for k, v in (
+            ("weights", "v0.msgpack"), ("config", "serve.json"), ("state", "state.bin"), ("metrics", "serve.jsonl"))}
+        with open(p["weights"], "wb") as f:
+            f.write(serialization.tree_to_bytes(weights[0]))
+        with open(p["config"], "w", encoding="utf-8") as f:
+            json.dump({"serve": {"quant": sc.quant, "kernel_plane": sc.kernel_plane}}, f)
+        args = ["--config", p["config"], "--weights", p["weights"], "--state-path", p["state"],
+                "--host", "127.0.0.1", "--port", "0", "--replicas", "1", "--min-replicas", "1",
+                "--max-replicas", "2", "--scale-interval-s", str(scale_interval_s), "--scale-cooldown-s", "1.0",
+                "--swap-poll-s", "0.2", "--metrics-path", p["metrics"], "--metrics-port", "-1"]
+        deadline = time.monotonic() + SERVE_TIMEOUT_S
+        server = CliProcess("serve", "fedcrack_tpu_torch.serve", args, tmp)
+        client = None
+        try:
+            # ---- meanwhile, the same programs in this process ----
+            engine = InferenceEngine(cfg, sc)
+            payloads = {v: engine.prepare_quantized(quant_mod.quantize_for_plane(w, sc.kernel_plane))
+                        for v, w in weights.items()}
+            lanes = check_lane_invariance(torch, engine, payloads[0])
+            log(f"[serve] one tile in lane 0 vs lane 5 of a bucket-{BUCKET} batch of {BATCH} on the card: "
+                f"{json.dumps(lanes)} [{card}]")
+            in_process = session_frame_ms(engine, payloads[0], [frame0, frame0, frame_moved]
+                                          + [frame_moved] * SERVE_REPEATS)
+            log(f"[serve] stream frames through a StreamSession in this process (no gRPC, no autoscaler): "
+                f"{json.dumps(in_process)} [{card}]")
+            found = None
+            while time.monotonic() < deadline:
+                found = re.search(r"^SERVING \S+:(\d+) .* metrics_port=(\d+)", server.text(), re.M)
+                if found or server.proc.poll() is not None:
+                    break
+                time.sleep(0.1)
+            if not found:
+                raise AssertionError(f"the serve process did not report SERVING:\n{server.text()[-6000:]}")
+            t_serving = time.time() - server.started
+            port, metrics_url = int(found.group(1)), f"http://127.0.0.1:{found.group(2)}/metrics"
+            client = ServeClient(port)
+
+            # ---- Predict: the mix on one stream, chunked with CRC32C, and a wrong CRC ----
+            responses = client.predict([r for rid, img in mix.items() for r in client.chunks(rid, img)]
+                                       + client.chunks(9, mix[1], bad_crc=True))
+            by_id = {r.request_id: r for r in responses}
+            if sorted(by_id) != sorted([*mix, 9]) or len(responses) != len(mix) + 1:
+                raise AssertionError(f"Predict answered {[r.request_id for r in responses]}")
+            bad = by_id[9]
+            if bad.status != "REJECTED" or not bad.title.startswith("image chunk checksum mismatch at offset 0: "):
+                raise AssertionError(f"the wrong CRC was answered {bad.status} {bad.title!r}")
+            for rid, img in mix.items():
+                r = by_id[rid]
+                if r.status != "OK" or r.model_version != 0 or (r.height, r.width) != img.shape[:2]:
+                    raise AssertionError(f"request {rid}: {r.status} {r.title!r} v{r.model_version}")
+                if r.mask != _mask(engine.predict_image(payloads[0], img)):
+                    raise AssertionError(f"request {rid} {img.shape[:2]}: the mask differs from the card engine's")
+            log(f"[serve] Predict mix {SERVE_MIX}: every mask byte-equal to the card engine in process; "
+                f"the wrong CRC REJECTED: {bad.title!r}")
+
+            # ---- per-bucket latency, one request per call ----
+            latency = {}
+            for size in sc.bucket_sizes:
+                img = rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
+                wall, served, queued = [], [], []
+                for i in range(SERVE_PROBES):
+                    t0 = time.perf_counter()
+                    (r,) = client.predict(client.chunks(100 + i, img, n=1))
+                    wall.append((time.perf_counter() - t0) * 1e3)
+                    served.append(r.latency_ms)
+                    queued.append(r.queue_ms)
+                latency[size] = {"client_p50_ms": float(np.percentile(wall, 50)),
+                                 "client_p95_ms": float(np.percentile(wall, 95)),
+                                 "server_latency_p50_ms": float(np.percentile(served, 50)),
+                                 "server_queue_p50_ms": float(np.percentile(queued, 50))}
+            log(f"[serve] Predict latency per bucket, {SERVE_PROBES} sequential single-request calls: "
+                f"{json.dumps(latency)} [{card}]")
+
+            # ---- a burst on concurrent streams until the autoscaler scales up ----
+            def burst(version: int, streams: int, per_stream: int) -> list:
+                got, errors = [], []
+                img = rng.integers(0, 256, (BUCKET, BUCKET, 3), dtype=np.uint8)
+
+                def one(k):
+                    try:
+                        reqs = [c for i in range(per_stream) for c in client.chunks(1000 * k + i, img, n=1)]
+                        got.extend(client.predict(reqs))
+                    except Exception as e:  # re-raised below
+                        errors.append(e)
+
+                threads = [threading.Thread(target=one, args=(k,)) for k in range(streams)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=max(1.0, deadline - time.monotonic()))
+                if errors or len(got) != streams * per_stream:
+                    raise AssertionError(f"burst: {len(got)} answers, errors {errors[:3]}")
+                wrong = [(r.status, r.model_version) for r in got if r.status != "OK" or r.model_version != version]
+                if wrong:
+                    raise AssertionError(f"burst answers off version {version} or not OK: {wrong[:5]}")
+                return got
+
+            scale_ups, bursts = 0.0, 0
+            while scale_ups < 1 and bursts < SERVE_MAX_BURSTS and time.monotonic() < deadline:
+                burst(0, SERVE_BURST_STREAMS, SERVE_BURST_REQUESTS)
+                bursts += 1
+                scale_ups = sample_value(scrape(metrics_url), "serve_scale_events_total", {"direction": "up"}) or 0
+            if scale_ups < 1:
+                raise AssertionError(f"no scale-up after {bursts} bursts of {SERVE_BURST_STREAMS} streams")
+            log(f"[serve] {bursts} burst(s) of {SERVE_BURST_STREAMS} streams x {SERVE_BURST_REQUESTS} "
+                f"bucket-{BUCKET} requests, all OK at version 0; the autoscaler scaled up")
+
+            # ---- StreamPredict across a hot swap ----
+            w = client.wire
+            call = client.open_stream()
+            frames, seen = [], 0
+
+            def frame(fid, image):
+                nonlocal seen
+                t0 = time.perf_counter()
+                r = call.send([w.StreamRequest("cam", w.StreamFrame(fid, image.tobytes(), 0, True))])
+                wall = (time.perf_counter() - t0) * 1e3
+                if r.status != "OK" or r.model_version < seen:
+                    raise AssertionError(f"frame {fid}: {r.status} {r.title!r} v{r.model_version} after v{seen}")
+                seen = r.model_version
+                (pred,) = client.predict(client.chunks(10_000 + fid, image))
+                if pred.model_version != r.model_version or pred.mask != r.mask:
+                    raise AssertionError(f"frame {fid} (v{r.model_version}) differs from Predict of the same "
+                                         f"image (v{pred.model_version})")
+                frames.append({"frame": fid, "version": r.model_version, "tiles_total": r.tiles_total,
+                               "tiles_computed": r.tiles_computed, "cache_hits": r.cache_hits,
+                               "full_rerun": r.full_rerun, "tracks": len(json.loads(r.tracks_json)),
+                               "server_ms": r.latency_ms, "client_ms": wall})
+                return r
+
+            def repeat_frames(first_id):
+                for k in range(SERVE_REPEATS):
+                    r = frame(first_id + k, frame_moved)
+                    if r.tiles_computed != 0:
+                        raise AssertionError(f"a repeated frame computed {r.tiles_computed} tiles")
+
+            opened = call.send([w.StreamRequest("cam", w.StreamOpen(STREAM_H, STREAM_W, 3, 0.0, True))])
+            if opened.status != "OK" or opened.title != "OPENED":
+                raise AssertionError(f"StreamOpen answered {opened.status} {opened.title!r}")
+            first, same, moved = frame(1, frame0), frame(2, frame0), frame(3, frame_moved)
+            if not first.full_rerun or first.tiles_computed != first.tiles_total:
+                raise AssertionError(f"the first frame computed {first.tiles_computed}/{first.tiles_total} tiles")
+            if same.tiles_computed != 0:
+                raise AssertionError(f"the repeated frame computed {same.tiles_computed} tiles")
+            if not 0 < moved.tiles_computed < moved.tiles_total:
+                raise AssertionError(f"the moved band computed {moved.tiles_computed}/{moved.tiles_total} tiles")
+            repeat_frames(10)
+
+            publish_statefile(p["state"], weights[2], model_version=2)
+            t_publish, polls = time.monotonic(), 0
+            while True:
+                (r,) = client.predict(client.chunks(20_000 + polls, mix[1], n=1))
+                polls += 1
+                if r.model_version < seen:
+                    raise AssertionError(f"Predict went back from v{seen} to v{r.model_version}")
+                seen = r.model_version
+                if seen == 2:
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError("version 2 was never served")
+                time.sleep(0.05)
+            swap_seen_s = time.monotonic() - t_publish
+            after = frame(4, frame0)
+            if after.model_version != 2 or not after.full_rerun:
+                raise AssertionError(f"the first frame on v2: v{after.model_version}, full_rerun {after.full_rerun}")
+            frame(5, frame_moved)
+            repeat_frames(20)
+            if call.send([w.StreamRequest("cam", w.StreamClose())]).title != "CLOSED":
+                raise AssertionError("StreamClose was not answered CLOSED")
+            call.close()
+            burst(2, SERVE_BURST_STREAMS // 2, 4)
+            log(f"[serve] stream frames: {json.dumps(frames)}; version 2 served {swap_seen_s:.3f} s after the "
+                f"publish; every frame byte-equal to Predict of the same image at its version [{card}]")
+            client.close()
+            client = None
+            server.proc.send_signal(signal.SIGTERM)
+            rc = server.wait(deadline)
+        finally:
+            if client is not None:
+                client.close()
+            server.kill()
+        text = server.text()
+        if rc != 0:
+            raise AssertionError(f"the serve process exited {rc}:\n{text[-6000:]}")
+        report = server.report()
+        stats_lines = [ln for ln in text.splitlines() if ln.startswith('{"serve_stats"')]
+        if len(stats_lines) != 1:
+            raise AssertionError(f"{len(stats_lines)} serve_stats lines:\n{text[-4000:]}")
+        stats = json.loads(stats_lines[0])["serve_stats"]
+
+    # ---- what the process reported ----
+    forwards = report["quantized_forwards"]
+    per_forward = {"dequant_matmul": len(matmul_shapes(cfg, BUCKET, BATCH)),
+                   "dequant_conv3x3": len(conv_shapes(cfg, BUCKET, BATCH)), "dequant_codes": 1}
+    launches = report["dequant_launches"]
+    if forwards == 0 or launches != {name: n * forwards for name, n in per_forward.items()}:
+        raise AssertionError(f"dequant launches {launches} != {per_forward} per forward x {forwards}")
+    gates = [s["quant_gate"] for s in stats["swaps"]] + [stats["quant_gate"]]
+    if not all(g is not None and g["passed"] for g in gates) or [s["to_version"] for s in stats["swaps"]] != [2]:
+        raise AssertionError(f"swaps {stats['swaps']}, gate {stats['quant_gate']}")
+    audit, replicas = stats["autoscaler"], stats["router"]["per_replica"]
+    live = [int(i) for i, r in replicas.items() if r["alive"]]
+    failed = sum(r["failed"] for r in replicas.values())
+    if audit["scale_ups"] < 1 or failed or stats["router"]["shed"]:
+        raise AssertionError(f"autoscaler {audit}, failed {failed}, shed {stats['router']['shed']}")
+    if any(stats["replica_versions"][i] != 2 for i in live):
+        raise AssertionError(f"live replicas {live} hold versions {stats['replica_versions']}")
+
+    # ---- the same requests on a CPU engine: probabilities within SERVE_PROB_TOL ----
+    cpu = InferenceEngine(cfg, sc, device="cpu")
+    cpu_payload = cpu.prepare_quantized(quant_mod.quantize_for_plane(weights[0], sc.kernel_plane))
+    cpu_diff = {}
+    for rid in (1, 3, 5):
+        probs = cpu.predict_image(cpu_payload, mix[rid])[..., 0]
+        got = np.frombuffer(by_id[rid].mask, np.uint8).reshape(probs.shape)
+        far = np.abs(probs - 0.5) > SERVE_PROB_TOL
+        if not np.array_equal(got[far], ((probs > 0.5).astype(np.uint8) * 255)[far]):
+            raise AssertionError(f"request {rid}: the served mask disagrees with a CPU engine away from the threshold")
+        cpu_diff[rid] = int((~far).sum())
+    out.update({
+        "launches": launches,
+        "quantized_forwards": forwards,
+        "latency_ms": latency,
+        "stream_frames": frames,
+        "stream": stats["stream"],
+        "swaps": stats["swaps"],
+        "autoscaler": {k: audit[k] for k in ("evaluations", "scale_ups", "scale_downs", "replica_seconds", "live")},
+        "lanes": lanes,
+        "in_process_frames": in_process,
+        "scale_interval_s": scale_interval_s,
+        "start_to_serving_s": t_serving,
+        "start_to_first_dequant_launch_s": report["start_to_first_dequant_launch_s"],
+        "wall_s": report["wall_s"],
+        "cpu_pixels_within_tol_of_threshold": cpu_diff,
+    })
+    log(f"[serve] exit 0; {forwards} quantized forwards, dequant launches {launches}; gate passed at both "
+        f"installs; autoscaler {out['autoscaler']}; fleet swap {stats['swaps'][0]['pause_ms']} ms pause, "
+        f"{stats['swaps'][0]['load_ms']} ms prepare; start-up to the first dequant launch "
+        f"{report['start_to_first_dequant_launch_s']:.2f} s, to SERVING {t_serving:.2f} s, process wall "
+        f"{report['wall_s']:.2f} s; masks agree with a CPU engine away from the threshold "
+        f"(pixels within {SERVE_PROB_TOL} of it: {cpu_diff}) [{card}]")
+    return out
+
+
 def server_breakdown(config, template, rnd: dict, n: int = 3) -> dict:
     """Host ms (median of ``n``) of each step the round machine takes on
     one round's accepted uploads: the gate per upload (validate, decode,
@@ -2192,18 +2684,15 @@ def check_robust_round(R, run: dict, names) -> None:
 def profile_steps(torch, step, card: str, n: int = 3) -> None:
     """Where one train step's time goes: CUDA kernel time by name and the
     device's idle share of the host-clock window (torch.profiler)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with card_profile(torch) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = card_kernels(prof)
     if not kernels:
         log("profile: the profiler saw no CUDA kernels; device time not measured")
         return
@@ -2249,6 +2738,7 @@ def main() -> int:
         with open(f"{lib}.log", encoding="utf-8") as f:
             log(f.read())
 
+    log(f"profiler: {lead_kept(torch)} at {time.monotonic() - t_start:.1f} s [{card}]")
     rows = kernel_phase(torch, card)
     log("phase 3 kernels vs plain: ok")
     int8 = serve_phase(torch, card, "fused_int8", requests=True)
@@ -2271,6 +2761,8 @@ def main() -> int:
     log("phase 12 mid-buffer kill, resume and statefile hot swap at full width: ok")
     cli = cli_phase(torch, card, train, grpc_run)
     log("phase 13 the command lines at full width, one process per client, and the centralized trainer: ok")
+    serve_cli = serve_cli_phase(torch, card)
+    log("phase 14 the serve command line at full width: Predict, StreamPredict, hot swap and autoscaler: ok")
 
     kernels = []
     replaces = {"dequant_matmul": "fedcrack_tpu/kernels/dequant.py:88",
@@ -2286,7 +2778,8 @@ def main() -> int:
                 "source": "fedcrack_tpu_torch/kernels/csrc/dequant.cu",
                 "replaces": replaces[name],
                 "launches": served["launches"][name],
-                **({"launches_phase12": swap["served_launches"][name]} if flavor == "int8" else {}),
+                **({"launches_phase12": swap["served_launches"][name],
+                    "launches_phase14": serve_cli["launches"][name]} if flavor == "int8" else {}),
                 "max_abs_err": row["max_abs_err"],
                 "ms": row["ms"],
                 "plain_ms": row["plain_ms"],
@@ -2310,6 +2803,7 @@ def main() -> int:
         "launches_phase13": cli["launches"],
         **bce_row,
     })
+    log(f"profiler: {lead_kept(torch)} at {time.monotonic() - t_start:.1f} s [{card}]")
     log(f"total {time.monotonic() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -2318,5 +2812,40 @@ def main() -> int:
     return 0
 
 
+def serve_tick_sweep(ticks: list) -> int:
+    """Phase 14 alone, once per autoscaler tick in ``ticks``, in one
+    process and on one card, so the ticks compare within one call."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke runs on the GPU only", file=sys.stderr)
+        return 2
+    for m in REFERENCE_STACK:
+        if m not in PORT_NEEDS:
+            sys.modules.setdefault(m, None)
+    sys.path.insert(0, HERE)
+    from fedcrack_tpu_torch.kernels import build, dequant
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    build.build_all([dequant.LIBRARY])
+    for tick in ticks:
+        t0 = time.monotonic()
+        out = serve_cli_phase(torch, card, scale_interval_s=tick)
+        print("TICK " + json.dumps({
+            "scale_interval_s": tick, "phase_s": time.monotonic() - t0,
+            "in_process": [(f["tiles_computed"], f["ms"]) for f in out["in_process_frames"]],
+            "served": [(f["frame"], f["version"], f["tiles_computed"], f["server_ms"], f["client_ms"])
+                       for f in out["stream_frames"]],
+            "autoscaler": out["autoscaler"], "latency_ms": out["latency_ms"]}), flush=True)
+    print(card, flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--serve-ticks"] and len(sys.argv) == 3:
+        sys.exit(serve_tick_sweep([float(t) for t in sys.argv[2].split(",")]))
+    if sys.argv[1:]:
+        sys.exit(f"usage: {sys.argv[0]} [--serve-ticks T1,T2,...]")
     sys.exit(main())

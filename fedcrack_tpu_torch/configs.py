@@ -79,10 +79,10 @@ class DataConfig:
 class ServeConfig:
     """Serving-plane configuration.
 
-    Fields the port does not act on yet (gRPC host/port, replicas, the
-    router's admission control, stream serving, the autoscaler and shadow
-    delivery) are kept so that one config validates the same way in both
-    packages.
+    The shadow-delivery fields (``shadow_*``) are kept, though the port
+    does not act on them yet (the serve command refuses
+    ``shadow_fraction > 0``), so that one config validates the same way in
+    both packages.
     """
 
     # Square input buckets; a request lands in the smallest bucket that

@@ -1,8 +1,8 @@
 """Observability (the counterpart of ``fedcrack_tpu.obs``): the JSONL
 metrics sink with its TensorBoard tee, timing and profiler helpers, the
 metric registry and its Prometheus endpoint, trace spans, and the flight
-recorder. ``flops``, ``sentries`` and ``watchdog`` are not ported yet
-(ROADMAP Queue 1 item 5)."""
+recorder, and ``flops.export_kernel_plane``. The rest of ``flops``,
+``sentries`` and ``watchdog`` are not ported yet (ROADMAP Queue 1 item 5)."""
 
 from fedcrack_tpu_torch.obs.metrics import (  # noqa: F401
     MetricsLogger,

@@ -225,6 +225,45 @@ class StreamingPercentiles:
     def count(self) -> int:
         return self._count
 
+    def merge(self, other: "StreamingPercentiles") -> "StreamingPercentiles":
+        """Fold ``other``'s reservoir into this one, as the JAX package does:
+        count, sum, min and max merge exactly; while the combined sample
+        fits ``capacity`` the reservoir is the concatenation (self's values,
+        then other's), so the percentiles stay exact; past it, a weighted
+        sample without replacement (Efraimidis-Spirakis keys ``u ** (1/w)``
+        from self's rng, each value weighted by the stream items it stands
+        for). ``other`` is read under its own lock first, then self is
+        updated under its lock. Returns ``self``."""
+        if other is self:
+            raise ValueError("merge(self) would double-count the reservoir")
+        with other._lock:
+            o_values = list(other._values)
+            o_count, o_sum = other._count, other._sum
+            o_min, o_max = other._min, other._max
+        if o_count == 0:
+            return self
+        with self._lock:
+            s_len = len(self._values)
+            if self._count + o_count <= self._capacity:
+                self._values.extend(o_values)
+            else:
+                weighted = []
+                if s_len:
+                    w_self = self._count / s_len
+                    weighted += [(v, w_self) for v in self._values]
+                w_other = o_count / len(o_values)
+                weighted += [(v, w_other) for v in o_values]
+                keyed = [(self._rng.random() ** (1.0 / w), v) for v, w in weighted]
+                keyed.sort(key=lambda kv: (-kv[0], kv[1]))
+                self._values = [v for _, v in keyed[: self._capacity]]
+            self._count += o_count
+            self._sum += o_sum
+            if o_min is not None:
+                self._min = o_min if self._min is None else min(self._min, o_min)
+            if o_max is not None:
+                self._max = o_max if self._max is None else max(self._max, o_max)
+        return self
+
     def percentile(self, q: float) -> float | None:
         """``numpy.percentile(..., method='linear')`` over the reservoir;
         None while empty."""

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import math
 import re
-from typing import Any, Sequence
+from typing import Any, Callable, Sequence
 
 from fedcrack_tpu_torch.analysis.sanitizers import make_lock
 
@@ -113,24 +113,40 @@ class Counter(_Child):
 
 
 class Gauge(_Child):
-    __slots__ = ("_value",)
+    __slots__ = ("_value", "_fn")
 
     def __init__(self, family: "MetricFamily"):
         super().__init__(family)
         self._value = 0.0
+        self._fn: Callable[[], float] | None = None
 
     def set(self, value: float) -> None:
         with self._family._lock:
+            self._fn = None
             self._value = float(value)
 
     def inc(self, amount: float = 1.0) -> None:
         with self._family._lock:
+            self._fn = None
             self._value += float(amount)
+
+    def set_function(self, fn: Callable[[], float]) -> None:
+        """Collect-time callback: the gauge reads ``fn()`` at every read
+        (outside the family lock); a raising callback reads as NaN rather
+        than failing the whole exposition."""
+        with self._family._lock:
+            self._fn = fn
 
     @property
     def value(self) -> float:
         with self._family._lock:
-            return self._value
+            fn = self._fn
+            if fn is None:
+                return self._value
+        try:
+            return float(fn())
+        except Exception:
+            return float("nan")
 
 
 class Histogram(_Child):
@@ -241,6 +257,9 @@ class MetricFamily:
 
     def set(self, value: float) -> None:
         self._solo().set(value)
+
+    def set_function(self, fn: Callable[[], float]) -> None:
+        self._solo().set_function(fn)
 
     def observe(self, value: float) -> None:
         self._solo().observe(value)

@@ -135,7 +135,7 @@ class ModelVersionManager:
         if canary is not None:
             raise NotImplementedError(
                 "ModelVersionManager(canary=...) is not ported yet: health/canary.py, "
-                "ROADMAP Queue 1 item 5"
+                "the shadow slice, ROADMAP Queue 1 item 2"
             )
         self.engine = engine
         self._watcher = WeightSourceWatcher(ckpt_dir=ckpt_dir, state_path=state_path, template=template)

@@ -206,7 +206,7 @@ def test_gate_refuses_exactly_where_the_jax_fleet_gate_refuses(tmp_path, weights
 def test_unported_sources_raise_naming_their_roadmap_item(weights):
     with pytest.raises(NotImplementedError, match="ckpt/manager.py, ROADMAP Queue 1 item 5$"):
         TH.ModelVersionManager(_engine(), weights[0], ckpt_dir="/nonexistent")
-    with pytest.raises(NotImplementedError, match="health/canary.py, ROADMAP Queue 1 item 5$"):
+    with pytest.raises(NotImplementedError, match="health/canary.py, the shadow slice, ROADMAP Queue 1 item 2$"):
         TH.ModelVersionManager(_engine(), weights[0], canary=object())
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5$"):
         TH.WeightSourceWatcher(ckpt_dir="/nonexistent")

@@ -4,8 +4,10 @@ msgpack, ml_dtypes or protobuf's ``google``: the port brings its own
 msgpack codec, bfloat16 cast and protobuf wire codec. The card's machine
 has msgpack, ml_dtypes and grpc installed, which would hide such an
 import there, so the check is made here. ``grpc`` is allowed in the
-transport (``fedcrack_tpu_torch/transport/``) and in ``chip_smoke.py``
-only, so the rest of the port imports without it. The port's entry
+transport (``fedcrack_tpu_torch/transport/``), in the serving front door
+(``fedcrack_tpu_torch/serve/service.py``) and in ``chip_smoke.py`` only,
+so the rest of the port imports without it: the fleet, router, stream
+sessions, autoscaler and the serve command's module level included. The port's entry
 points run on CUDA unless told otherwise.
 """
 
@@ -24,12 +26,14 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "fedcrack_tpu", "msgpack
              "google")
 # grpc is allowed in these files only.
 TRANSPORT = os.path.join(PACKAGE, "transport")
+SERVE_FRONT_DOOR = os.path.join(PACKAGE, "serve", "service.py")
 GRPC_ALLOWED = ("grpc",)
 COMMAND_LINE_MODULES = (
     "fedcrack_tpu_torch.server", "fedcrack_tpu_torch.client", "fedcrack_tpu_torch.train.centralized",
     "fedcrack_tpu_torch.data", "fedcrack_tpu_torch.data.sharding", "fedcrack_tpu_torch.native",
     "fedcrack_tpu_torch.obs", "fedcrack_tpu_torch.obs.tb", "fedcrack_tpu_torch.obs.promexp",
-    "fedcrack_tpu_torch.obs.metrics",
+    "fedcrack_tpu_torch.obs.metrics", "fedcrack_tpu_torch.serve.__main__", "fedcrack_tpu_torch.serve.fleet",
+    "fedcrack_tpu_torch.serve.router", "fedcrack_tpu_torch.serve.stream", "fedcrack_tpu_torch.serve.autoscaler",
 )
 
 
@@ -42,7 +46,8 @@ def _port_sources():
 
 
 def _grpc_allowed(path):
-    return path.startswith(TRANSPORT + os.sep) or os.path.basename(path) == "chip_smoke.py"
+    return (path.startswith(TRANSPORT + os.sep) or path == SERVE_FRONT_DOOR
+            or os.path.basename(path) == "chip_smoke.py")
 
 
 def _imported_roots(path):
@@ -101,8 +106,10 @@ def test_package_imports_with_jax_blocked():
     rest = [_module(p) for p in sources if not _grpc_allowed(p)]
     with_grpc = [_module(p) for p in sources if _grpc_allowed(p)]
     assert "fedcrack_tpu_torch.transport.service" in with_grpc and "fedcrack_tpu_torch" in rest
-    # The command lines and their data and telemetry import without grpc:
-    # only their sessions reach the transport.
+    assert "fedcrack_tpu_torch.serve.service" in with_grpc
+    # The command lines and their data and telemetry, and the serving
+    # fleet, import without grpc: only their sessions and the serving front
+    # door reach it.
     assert set(COMMAND_LINE_MODULES) <= set(rest)
     for modules, blocked in ((rest, FORBIDDEN), (with_grpc, tuple(m for m in FORBIDDEN if m not in GRPC_ALLOWED))):
         out = _import_blocked(modules, blocked)

@@ -1,0 +1,156 @@
+"""``python -m fedcrack_tpu_torch.serve`` (``serve/__main__.py``) on the
+CPU, held against ``python -m fedcrack_tpu.serve``.
+
+- ``build_parser``: the same option strings, destinations, types,
+  choices and defaults as the JAX package's.
+- ``resolve_config``: the same ``ServeConfig`` and ``ModelConfig`` for the
+  same argv and config file.
+- ``main(argv, device="cpu")`` in a subprocess (JAX, flax and the JAX
+  package blocked there) serves from a ``--weights`` file through the
+  fleet with the quant gate: it prints its ``SERVING`` line, answers one
+  Predict with the mask of the port engine in process, and on SIGTERM
+  prints ``serve_stats`` and exits 0.
+- The refusals name their ROADMAP items.
+"""
+
+import json
+import os
+import signal
+import subprocess
+import sys
+import time
+
+import grpc
+import numpy as np
+import pytest
+
+from fedcrack_tpu_torch.native import crc32c
+from fedcrack_tpu_torch.transport import wire as W
+from torch_port_helpers import TINY_KW, jax_variables, port_config
+
+pytestmark = pytest.mark.torch_port
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY_CONFIG = {
+    "model": {**TINY_KW, "encoder_features": list(TINY_KW["encoder_features"]),
+              "decoder_features": list(TINY_KW["decoder_features"])},
+    "data": {"img_size": TINY_KW["img_size"]},
+    "serve": {"bucket_sizes": [16, 32], "max_batch": 4, "tile_overlap": 4, "quant": "int8",
+              "kernel_plane": "fused_int8", "max_delay_ms": 2.0},
+}
+
+
+def _describe(parser):
+    return [(a.option_strings, a.dest, a.type, a.choices, a.default, a.nargs) for a in parser._actions]
+
+
+def test_build_parser_matches_jax():
+    from fedcrack_tpu.serve.__main__ import build_parser as jax_parser
+    from fedcrack_tpu_torch.serve.__main__ import build_parser
+
+    assert _describe(build_parser()) == _describe(jax_parser())
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--buckets", "64, 128,", "--max-batch", "2", "--max-delay-ms", "1.5", "--tile-overlap", "8",
+     "--swap-poll-s", "0.3", "--host", "0.0.0.0", "--port", "0", "--replicas", "2", "--quant", "int8",
+     "--quant-iou-floor", "0.9", "--slo-p95-ms", "250", "--queue-bound", "64", "--stream-cache-tiles", "0",
+     "--stream-max-sessions", "3", "--min-replicas", "1", "--max-replicas", "4", "--scale-interval-s", "0.2",
+     "--scale-cooldown-s", "1"],
+    ["--compute-dtype", "bfloat16", "--shadow-fraction", "0.25", "--replicas", "1", "--min-replicas", "1",
+     "--max-replicas", "1"],
+], ids=["defaults", "every_override", "refused_values"])
+@pytest.mark.parametrize("with_file", [False, True], ids=["flags", "config_file"])
+def test_resolve_config_matches_jax(argv, with_file, tmp_path):
+    import dataclasses
+
+    from fedcrack_tpu.serve import __main__ as jax_main
+    from fedcrack_tpu_torch.serve import __main__ as port_main
+
+    if with_file:
+        path = tmp_path / "serve.json"
+        path.write_text(json.dumps(TINY_CONFIG))
+        argv = ["--config", str(path)] + argv
+    model, serve = port_main.resolve_config(port_main.build_parser().parse_args(argv))
+    jmodel, jserve = jax_main.resolve_config(jax_main.build_parser().parse_args(argv))
+    assert dataclasses.asdict(serve) == dataclasses.asdict(jserve)
+    assert dataclasses.asdict(model) == dataclasses.asdict(jmodel)
+
+
+@pytest.mark.parametrize("argv, item", [
+    (["--ckpt-dir", "ckpt"], "ckpt/manager.py), ROADMAP Queue 1 item 5"),
+    (["--shadow-fraction", "0.5"], "the next slice of ROADMAP Queue 1 item 2"),
+    (["--compute-dtype", "bfloat16"], "bf16 serving beside bf16 training, ROADMAP Queue 1 item 5"),
+], ids=["ckpt_dir", "shadow", "bf16"])
+def test_refusals_name_their_items(argv, item):
+    from fedcrack_tpu_torch.serve.__main__ import main
+
+    with pytest.raises(NotImplementedError, match=item.replace("(", r"\(").replace(")", r"\)") + "$"):
+        main(argv, device="cpu")
+
+
+CHILD = """
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "fedcrack_tpu", "msgpack", "ml_dtypes", "google"):
+    sys.modules[name] = None
+sys.path.insert(0, {root!r})
+from fedcrack_tpu_torch.serve.__main__ import main
+sys.exit(main(sys.argv[1:], device="cpu"))
+"""
+
+
+def test_main_serves_a_request_and_stops_on_sigterm(tmp_path):
+    from fedcrack_tpu_torch.configs import ServeConfig
+    from fedcrack_tpu_torch.fed.serialization import tree_to_bytes
+    from fedcrack_tpu_torch.serve import quant as tq
+    from fedcrack_tpu_torch.serve.engine import InferenceEngine
+
+    variables = jax_variables(TINY_KW, seed=0)
+    weights = tmp_path / "w.msgpack"
+    weights.write_bytes(tree_to_bytes(variables))
+    config = tmp_path / "serve.json"
+    config.write_text(json.dumps(TINY_CONFIG))
+    log_path = tmp_path / "serve.log"
+    log = open(log_path, "w", encoding="utf-8")  # the child's; the test reads its own handle
+    proc = subprocess.Popen(
+        [sys.executable, "-c", CHILD.format(root=ROOT), "--config", str(config), "--weights", str(weights),
+         "--port", "0", "--metrics-path", str(tmp_path / "m.jsonl"), "--state-path", str(tmp_path / "s.bin"),
+         "--compile-cache-dir", str(tmp_path / "unused")],
+        cwd=ROOT, stdout=log, stderr=subprocess.STDOUT, env=dict(os.environ, PYTHONUNBUFFERED="1"))
+    try:
+        deadline = time.monotonic() + 120
+        line = None
+        while line is None and time.monotonic() < deadline and proc.poll() is None:
+            line = next((ln for ln in log_path.read_text().splitlines() if ln.startswith("SERVING ")), None)
+            time.sleep(0.1)
+        assert line is not None, log_path.read_text()[-4000:]
+        assert " quant=int8" in line and " version=0" in line and "buckets=16,32" in line
+        port = int(line.split()[1].rsplit(":", 1)[1])
+        image = np.random.default_rng(7).integers(0, 256, (20, 24, 3), dtype=np.uint8)
+        request = W.PredictRequest(request_id=5, height=20, width=24, channels=3, image=image.tobytes(), last=True,
+                                   crc32c=crc32c(image.tobytes()))
+        with grpc.insecure_channel(f"127.0.0.1:{port}") as channel:
+            grpc.channel_ready_future(channel).result(timeout=60)
+            stub = channel.stream_stream("/fedcrack.ServePlane/Predict", request_serializer=W.PredictRequest.encode,
+                                         response_deserializer=W.PredictResponse.decode)
+            (response,) = list(stub(iter([request]), timeout=60))
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    log.close()
+    text = log_path.read_text()
+    assert "compile-cache-dir" in text and "unused" in text
+    engine = InferenceEngine(port_config(TINY_KW), ServeConfig(**TINY_CONFIG["serve"]), device="cpu")
+    payload = engine.prepare_quantized(tq.quantize_for_plane(variables, "fused_int8"))
+    want = (engine.predict_image(payload, image)[..., 0] > 0.5).astype(np.uint8) * 255
+    assert response.status == "OK" and response.model_version == 0 and response.request_id == 5
+    assert response.mask == want.tobytes()
+    stats_lines = [ln for ln in text.splitlines() if ln.startswith('{"serve_stats"')]
+    assert len(stats_lines) == 1, text[-4000:]
+    stats = json.loads(stats_lines[0])["serve_stats"]
+    assert stats["quant_gate"]["passed"] and stats["replica_versions"] == [0]
+    assert stats["router"]["per_replica"]["0"]["completed"] == 1
