@@ -117,13 +117,16 @@ on failure, so any failure exits non-zero and prints no result):
     ``--init-weights``, ``--state-path``, ``--metrics``, ``--tb-dir``,
     ``--spans-path``, ``--best-path``, ``--eval-*`` over the 32 pairs) and
     two ``python -m fedcrack_tpu_torch.client`` (``--num-clients 2
-    --client-index i --transport-dtype uint8``), each through a shim that
+    --client-index i --transport-dtype uint8``, the second with
+    ``--predict-dir``), each through a shim that
     blocks the reference stack and reports its ``bce_sums`` launches at
     exit. Checked: all exit 0; the statefile decodes with two history
     entries and its global is byte-equal to ``cli_in_process_drive`` of
     the same shards, seeds and init; the metrics, TensorBoard (CRCs),
     flush spans and ``best.msgpack``; each process's launches equal its
-    train steps plus eval batches. Then ``python -m
+    train steps plus eval batches; the second client's ``pred_*.png`` and
+    ``overlay_*.png`` at 128 px, its logged report equal to
+    ``quantify_mask`` over the written masks. Then ``python -m
     fedcrack_tpu_torch.train.centralized --epochs 1`` on the 129 pairs:
     ``final.msgpack`` and ``best.msgpack`` byte-equal to an in-process
     ``train_centralized``, the val loss finite. Logged: each process's
@@ -157,6 +160,28 @@ on failure, so any failure exits non-zero and prints no result):
     or shed request, every live replica at version 2, dequant launches 15
     / 8 / 1 per quantized forward. Logged: the latencies, the frames, the
     swap's pause, start-up and wall.
+15. progressive delivery under load: ``python -m fedcrack_tpu_torch.serve``
+    through the shim at phase 14's config, weights and buckets, one
+    replica, a ``--state-path`` and ``--shadow-fraction 0.5`` (the shadow
+    controller runs the statefile poll every 0.1 s), and
+    ``python -m fedcrack_tpu_torch.tools.load_gen`` against it: a closed
+    loop of 4 streams, 1,600 requests at 128^2 and 256^2, ``--out-dir``,
+    ``--metrics-url`` and ``--swap-statefile`` publishing its seeded init
+    as version 3 after 400 answers. Once traffic flows the smoke publishes
+    version 2, production with one BatchNorm bias moved by 1e-3. Checked:
+    version 2 promoted (IoU >= 0.98, PSI <= 0.25, shadow p95 <= 3x
+    production's) and version 3 rolled back on the canary IoU and never
+    staged again; both verdicts' PSI carry ``crack_fraction``; no response
+    stamped 3, sampled masks byte-equal to the card engine in process at
+    their stamped version; ``serve_stats["shadow"]`` staged 2, promoted 1,
+    rolled back 1, mirrored requests and no shadow failure; each verdict's
+    IoU and PSI equal to the same probes on the card in process, and within
+    the flip bound of a CPU engine's (``check_flip_bound``) with the same
+    verdict; 15 / 8 / 1 dequant launches per quantized forward, probe
+    forwards included; ``python -m fedcrack_tpu_torch.tools.quantify
+    --pred-dir`` over the served masks equal to ``quantify_mask``. Logged:
+    the probe's crack share, publish to served and to each verdict, the
+    verdicts, load_gen's summary, start-up and wall.
 
 ``python3 chip_smoke.py --serve-ticks 0.05,1.0,1.0,0.05`` builds
 ``dequant.cu`` and runs only phase 14, once per autoscaler tick given, and
@@ -2041,6 +2066,34 @@ def run_processes(procs: list, deadline: float) -> None:
             p.kill()
 
 
+def check_predict_dir(pred_dir: str, client_log: str, size: int) -> list:
+    """The client's ``--predict-dir`` output: ``pred_NNN.png`` and
+    ``overlay_NNN.png`` at ``size`` px for every image of the report it
+    logged, the report equal to ``quantify_mask`` over the written masks."""
+    import re
+
+    import cv2
+
+    from fedcrack_tpu_torch.tools.quantify import quantify_mask
+
+    found = re.findall(r"crack quantification: (\[.*\])$", client_log, re.M)
+    if len(found) != 1:
+        raise AssertionError(f"{len(found)} crack quantification reports in the client's log")
+    report = json.loads(found[0])
+    names = sorted(os.listdir(pred_dir))
+    if not report or names != sorted(f"{k}_{r['image']:03d}.png" for r in report for k in ("overlay", "pred")):
+        raise AssertionError(f"--predict-dir wrote {names} for {len(report)} reports")
+    for rec in report:
+        mask = cv2.imread(os.path.join(pred_dir, f"pred_{rec['image']:03d}.png"), cv2.IMREAD_GRAYSCALE)
+        overlay = cv2.imread(os.path.join(pred_dir, f"overlay_{rec['image']:03d}.png"))
+        st = quantify_mask(mask)
+        want = {"image": rec["image"], "contours": st.contour_count, "area_px": st.total_area_px,
+                "perimeter_px": st.total_perimeter_px, "crack_fraction": st.crack_fraction}
+        if mask.shape != (size, size) or overlay.shape != (size, size, 3) or rec != want:
+            raise AssertionError(f"--predict-dir image {rec['image']}: {mask.shape}, {overlay.shape}, {rec} != {want}")
+    return report
+
+
 def wait_for_port(server, deadline: float) -> int:
     """The bound port from the server's ``serving on host:port`` line."""
     import re
@@ -2109,7 +2162,8 @@ def cli_phase(torch, card: str, train: dict, grpc_run: dict) -> dict:
                     "--config", config_path, "--host", "127.0.0.1", "--port", str(port), "--name", name,
                     "--image-dir", image_dir, "--mask-dir", mask_dir, "--num-clients", "2",
                     "--client-index", str(i), "--transport-dtype", "uint8",
-                    "--metrics", os.path.join(tmp, f"{name}.jsonl")], tmp))
+                    "--metrics", os.path.join(tmp, f"{name}.jsonl"),
+                    *(["--predict-dir", os.path.join(tmp, "pred")] if i == 1 else [])], tmp))
         except BaseException:
             for pr in procs:
                 pr.kill()
@@ -2149,6 +2203,9 @@ def cli_phase(torch, card: str, train: dict, grpc_run: dict) -> dict:
         got = {label: r["bce_sums_launches"] for label, r in reports.items()}
         if got != want or steps != {name: 8 for name in CLI_NAMES} or eval_batches != 4:
             raise AssertionError(f"bce_sums launches per process {got} != steps + eval batches {want}")
+        predicted = check_predict_dir(os.path.join(tmp, "pred"), procs[2].text(), TRAIN_SIZE)
+        log(f"[cli] {CLI_NAMES[1]} --predict-dir: {len(predicted)} pred/overlay pairs at {TRAIN_SIZE} px, the "
+            f"logged report equal to quantify_mask over the written masks: {json.dumps(predicted)}")
 
         # ---- the same federation in process: the global byte for byte ----
         with open(config_path, encoding="utf-8") as f:
@@ -2607,6 +2664,378 @@ def serve_cli_phase(torch, card: str, scale_interval_s: float = SERVE_SCALE_INTE
     return out
 
 
+# ---- phase 15's verdict numbers and their CPU-card bound ----
+
+
+def probe_probs(engine, payloads: dict) -> dict:
+    """``{bucket: (probe batch, {name: probabilities})}``: the shadow's
+    seeded probe batch at each of ``engine``'s buckets through each placed
+    payload, as the canary and PSI probes run it."""
+    from fedcrack_tpu_torch.serve.quant import probe_images
+
+    cfg = engine.serve_config
+    out = {}
+    for size in engine.bucket_sizes:
+        batch = probe_images(size, min(cfg.quant_probe_batch, engine.max_batch), cfg.quant_probe_seed)
+        out[size] = (batch, {name: engine.predict_bucket(w, batch) for name, w in payloads.items()})
+    return out
+
+
+def verdict_numbers(probes: dict, prod: str, cand: str) -> dict:
+    """The canary IoU (per bucket and its minimum, rounded as the canary
+    rounds) and the PSI of candidate ``cand`` against production ``prod``,
+    computed from ``probe_probs`` as ``ShadowController.stage`` computes
+    them on the engine."""
+    from fedcrack_tpu_torch.health.drift import DriftMonitor
+    from fedcrack_tpu_torch.serve.quant import mask_iou
+
+    per_bucket = {size: mask_iou(probs[prod], probs[cand]) for size, (_, probs) in probes.items()}
+    ref, cur = DriftMonitor(), DriftMonitor()
+    for batch, probs in probes.values():
+        ref.observe(batch, probs[prod])
+        cur.observe(batch, probs[cand])
+    return {"iou": round(min(per_bucket.values()), 6), "per_bucket": per_bucket,
+            "psi": cur.compare(ref.profile())}
+
+
+def check_flip_bound(label: str, probes_a: dict, probes_b: dict, got_a: dict, got_b: dict,
+                     prod: str, cand: str) -> dict:
+    """Hold two sides' verdict numbers (``got_a``, ``got_b``: ``iou``,
+    ``per_bucket`` and ``psi``, e.g. a CPU engine's and the card's) to
+    their probe probabilities (``probes_a``, ``probes_b``): they may differ
+    only by what the values within the two sides' distance of a threshold
+    can move. Per bucket, with ``d`` the largest probability distance, the
+    k probe pixels within ``d`` of 0.5 bound the IoU to [(I - k) / (U + k),
+    (I + k) / (U - k)] of side a's intersection and union; per (bucket,
+    signal), the histogram counts may differ by at most twice the values
+    of side a within that signal's distance of an interior bin edge, and
+    a PSI whose counts agree must be equal. Raises on a violation;
+    returns the distances and counts."""
+    import numpy as np
+
+    from fedcrack_tpu_torch.health.drift import _EDGES, _hist, signal_values
+
+    d = max(float(np.abs(pa[k].astype(np.float64) - probes_b[size][1][k]).max())
+            for size, (_, pa) in probes_a.items() for k in (prod, cand))
+    out = {"max_prob_distance": d, "pixels_near_threshold": {}, "values_near_edge": 0}
+    bad = []
+    for size, (batch, pa) in probes_a.items():
+        ma, ca = pa[prod] > 0.5, pa[cand] > 0.5
+        k = int(sum(int((np.abs(pa[n] - 0.5) <= d).sum()) for n in (prod, cand)))
+        inter, union = int((ma & ca).sum()), int((ma | ca).sum())
+        want, got = got_a["per_bucket"][size], got_b["per_bucket"][size]
+        out["pixels_near_threshold"][size] = k
+        if k == 0:
+            ok = round(got, 6) == round(want, 6)
+        elif union == 0:
+            ok = 0.0 <= got <= 1.0
+        else:
+            lo = max(0, inter - k) / (union + k)
+            hi = 1.0 if union - k <= 0 else min(1.0, (inter + k) / (union - k))
+            ok = lo - 5e-7 <= got <= hi + 5e-7
+        if not ok:
+            bad.append(f"bucket {size} iou {got} vs {want} with {k} pixels within {d:.3g} of 0.5")
+        moved = set()
+        for role in (prod, cand):
+            va, vb = signal_values(batch, pa[role]), signal_values(batch, probes_b[size][1][role])
+            if set(va) != set(vb):
+                bad.append(f"bucket {size} signals {sorted(va)} vs {sorted(vb)}")
+                continue
+            for sig in va:
+                a, b = np.asarray(va[sig], np.float64).ravel(), np.asarray(vb[sig], np.float64).ravel()
+                delta = float(np.abs(a - b).max()) if a.size else 0.0
+                near = int((np.abs(a[:, None] - _EDGES[None, 1:-1]) <= delta).any(axis=1).sum()) if delta else 0
+                l1 = int(np.abs(np.asarray(_hist(a)) - np.asarray(_hist(b))).sum())
+                out["values_near_edge"] += near
+                if l1 > 2 * near:
+                    bad.append(f"{size}/{sig} ({role}): counts differ by {l1} with {near} values near an edge")
+                if l1:
+                    moved.add(f"{size}/{sig}")
+        for key in sorted(set(got_a["psi"]) | set(got_b["psi"])):
+            if key.startswith(f"{size}/") and key not in moved and got_a["psi"].get(key) != got_b["psi"].get(key):
+                bad.append(f"psi {key}: {got_b['psi'].get(key)} vs {got_a['psi'].get(key)} with equal counts")
+    if bad:
+        raise AssertionError(f"{label}: outside the flip bound: {bad}")
+    return out
+
+
+# Phase 15: progressive delivery under load. load_gen's closed loop runs
+# SHADOW_REQUESTS requests at 128^2 and 256^2 and publishes version 3 (its
+# seeded init) after SHADOW_SWAP_AFTER completions; version 2 is published
+# by the smoke as soon as traffic flows, so the controller (polling every
+# SHADOW_POLL_S) reads it long before version 3 replaces it in the file.
+SHADOW_FRACTION = 0.5
+SHADOW_REQUESTS, SHADOW_SWAP_AFTER, SHADOW_CONCURRENCY = 900, 400, 4
+SHADOW_POLL_S = 0.1
+SHADOW_TIMEOUT_S = 240.0
+SHADOW_MASK_SAMPLE = 8
+# Version 2: production with the last decoder BatchNorm's bias moved (the
+# quantizer keeps BN biases in f32, so the codes and the gate are
+# production's). The seeded net is chaotic: on the H100 a move of 1e-3
+# flipped enough pixels near 0.5 for an IoU of 0.947 and a PSI of 0.27, a
+# rollback (PERF.md).
+SHADOW_MOVED_BY = 1e-5
+
+
+def _counter_sum(parsed: dict, name: str, labels: dict | None = None) -> float:
+    """The sum of a scraped family's samples whose labels include ``labels``."""
+    fam = parsed.get(name) or {"samples": {}}
+    want = set((labels or {}).items())
+    return sum(v for k, v in fam["samples"].items() if want <= set(k))
+
+
+def shadow_cli_phase(torch, card: str) -> dict:
+    """Phase 15: ``python -m fedcrack_tpu_torch.serve --shadow-fraction 0.5``
+    at full width through CLI_SHIM, ``python -m fedcrack_tpu_torch.tools.load_gen``
+    driving it, a promoted and a rolled-back candidate, and
+    ``python -m fedcrack_tpu_torch.tools.quantify --pred-dir`` over the served
+    masks; each verdict's numbers held to the card in process and to a CPU
+    engine within the flip bound."""
+    import copy
+    import re
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import cv2
+    import numpy as np
+
+    from fedcrack_tpu_torch.configs import ModelConfig, ServeConfig
+    from fedcrack_tpu_torch.fed import serialization
+    from fedcrack_tpu_torch.models.resunet import init_variables
+    from fedcrack_tpu_torch.obs.promexp import scrape
+    from fedcrack_tpu_torch.serve import quant as quant_mod
+    from fedcrack_tpu_torch.serve.engine import InferenceEngine
+    from fedcrack_tpu_torch.serve.hot_swap import publish_statefile
+    from fedcrack_tpu_torch.tools.load_gen import make_images
+    from fedcrack_tpu_torch.tools.quantify import quantify_mask
+
+    t_phase = time.monotonic()
+    cfg, sc = ModelConfig(), ServeConfig(quant="int8", kernel_plane="fused_int8")
+    prod = quant_mod.dequantize_variables(quant_mod.quantize_for_plane(
+        init_variables(torch.Generator().manual_seed(0), cfg), sc.kernel_plane).tree)
+    cand = copy.deepcopy(prod)
+    moved = cand["params"][f"dec{len(cfg.decoder_features) - 1}_bn2"]
+    moved["bias"] = moved["bias"] + np.float32(SHADOW_MOVED_BY)
+    # load_gen's --swap-seed 1 init, as it publishes it.
+    seeded = init_variables(torch.Generator().manual_seed(1), ModelConfig(img_size=128))
+    sizes = tuple(sc.bucket_sizes)
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="fedcrack_shadow_") as tmp:
+        p = {k: os.path.join(tmp, v) for k, v in (
+            ("weights", "v0.msgpack"), ("config", "serve.json"), ("state", "state.bin"),
+            ("metrics", "serve.jsonl"), ("masks", "masks"), ("quantify", "quantify.json"))}
+        with open(p["weights"], "wb") as f:
+            f.write(serialization.tree_to_bytes(prod))
+        with open(p["config"], "w", encoding="utf-8") as f:
+            json.dump({"serve": {"quant": sc.quant, "kernel_plane": sc.kernel_plane}}, f)
+        args = ["--config", p["config"], "--weights", p["weights"], "--state-path", p["state"],
+                "--host", "127.0.0.1", "--port", "0", "--replicas", "1", "--shadow-fraction", str(SHADOW_FRACTION),
+                "--swap-poll-s", str(SHADOW_POLL_S), "--metrics-path", p["metrics"], "--metrics-port", "-1"]
+        deadline = time.monotonic() + SHADOW_TIMEOUT_S
+        server = CliProcess("shadow_serve", "fedcrack_tpu_torch.serve", args, tmp)
+        procs = [server]
+        client = None
+        try:
+            # ---- meanwhile, the probes in this process: the card and a CPU engine ----
+            t0 = time.monotonic()
+            engine = InferenceEngine(cfg, sc)
+            # Production's payload at versions 0 and 2 (after the promote),
+            # and the candidates as the shadow lane places them.
+            def place(eng):
+                return {0: eng.prepare_quantized(quant_mod.quantize_for_plane(prod, sc.kernel_plane)),
+                        2: eng.prepare_quantized(quant_mod.quantize_for_plane(cand, sc.kernel_plane)),
+                        "cand": eng.prepare(cand), "seeded": eng.prepare(seeded)}
+
+            served = place(engine)
+            card_probes = probe_probs(engine, served)
+            cpu = InferenceEngine(cfg, sc, device="cpu")
+            cpu_probes = probe_probs(cpu, place(cpu))
+            crack_share = {f"v{v}/{size}": float((probs[v] > 0.5).mean())
+                           for size, (_, probs) in card_probes.items() for v in (0, 2)}
+            if min(crack_share.values()) <= 0:
+                raise AssertionError(f"production's probe masks hold no crack pixel: {crack_share}")
+            log(f"[shadow] probes on the card and a CPU engine in {time.monotonic() - t0:.2f} s; production's "
+                f"probe crack share per version and bucket {crack_share} [{card}]")
+
+            found = None
+            while time.monotonic() < deadline:
+                found = re.search(r"^SERVING \S+:(\d+) .* metrics_port=(\d+)", server.text(), re.M)
+                if found or server.proc.poll() is not None:
+                    break
+                time.sleep(0.1)
+            if not found:
+                raise AssertionError(f"the serve process did not report SERVING:\n{server.text()[-6000:]}")
+            t_serving = time.time() - server.started
+            port, metrics_url = int(found.group(1)), f"http://127.0.0.1:{found.group(2)}/metrics"
+            gen = CliProcess("load_gen", "fedcrack_tpu_torch.tools.load_gen", [
+                "--target", f"127.0.0.1:{port}", "--requests", str(SHADOW_REQUESTS), "--concurrency",
+                str(SHADOW_CONCURRENCY), "--sizes", ",".join(str(s) for s in sizes), "--out-dir", p["masks"],
+                "--metrics-url", metrics_url, "--swap-statefile", p["state"], "--swap-after", str(SHADOW_SWAP_AFTER),
+                "--swap-version", "3", "--timeout-s", str(SHADOW_TIMEOUT_S)], tmp)
+            procs.append(gen)
+
+            # ---- version 2 once traffic flows; then both verdicts ----
+            while _counter_sum(scrape(metrics_url), "serve_requests_total") == 0:
+                if gen.proc.poll() is not None or time.monotonic() > deadline:
+                    raise AssertionError(f"no traffic reached the server:\n{gen.text()[-4000:]}")
+                time.sleep(0.02)
+            publish_statefile(p["state"], cand, model_version=2)
+            t_publish = time.monotonic()
+            client = ServeClient(port)
+            probe_image = np.random.default_rng(15).integers(0, 256, (sizes[0], sizes[0], 3), dtype=np.uint8)
+            seen, polls, served_s = [], 0, None
+            while served_s is None and time.monotonic() < deadline:
+                if _counter_sum(scrape(metrics_url), "serve_shadow_verdicts_total", {"verdict": "rollback"}):
+                    server.proc.send_signal(signal.SIGTERM)
+                    server.wait(deadline)
+                    raise AssertionError(f"version 2 was rolled back:\n{server.text()[-6000:]}")
+                (r,) = client.predict(client.chunks(50_000 + polls, probe_image, n=1))
+                polls += 1
+                seen.append(r.model_version)
+                if r.model_version == 2:
+                    served_s = time.monotonic() - t_publish
+                time.sleep(0.02)
+            if served_s is None:
+                raise AssertionError(f"version 2 was never served:\n{server.text()[-4000:]}")
+            verdict_s = {}
+            while len(verdict_s) < 2 and time.monotonic() < deadline:
+                parsed = scrape(metrics_url)
+                for v in ("promote", "rollback"):
+                    if v not in verdict_s and _counter_sum(parsed, "serve_shadow_verdicts_total", {"verdict": v}):
+                        verdict_s[v] = time.monotonic() - t_publish
+                time.sleep(0.02)
+            rc_gen = gen.wait(deadline)
+            time.sleep(5 * SHADOW_POLL_S)  # later polls: version 3 must not stage again
+            parsed = scrape(metrics_url)
+            mirrored = _counter_sum(parsed, "serve_shadow_mirrored_total")
+            failures = _counter_sum(parsed, "serve_shadow_failures_total")
+            client.close()
+            client = None
+            server.proc.send_signal(signal.SIGTERM)
+            rc = server.wait(deadline)
+        finally:
+            if client is not None:
+                client.close()
+            for pr in procs:
+                pr.kill()
+        text = server.text()
+        if rc != 0 or rc_gen != 0:
+            raise AssertionError(f"serve exited {rc}, load_gen {rc_gen}:\n{text[-4000:]}\n{gen.text()[-4000:]}")
+        report = server.report()
+        (stats_line,) = [ln for ln in text.splitlines() if ln.startswith('{"serve_stats"')]
+        stats = json.loads(stats_line)["serve_stats"]
+        (gen_line,) = [ln for ln in gen.text().splitlines() if ln.startswith('{"mode"')]
+        summary = json.loads(gen_line)
+
+        # ---- what the client saw ----
+        if summary["dropped"] or summary["rejected"] or summary["shed"] or not summary["swap_published"]:
+            raise AssertionError(f"load_gen: {gen_line[:2000]}")
+        versions = {int(v) for v in summary["versions_observed"]} | set(seen)
+        if not versions <= {0, 1, 2} or 2 not in versions:
+            raise AssertionError(f"responses stamped {sorted(versions)}; 0 or 1 and 2 expected, never 3")
+        images = make_images(SHADOW_REQUESTS, sizes, 0)
+        stamped = {int(k): v for k, v in summary["mask_versions"].items()}
+        sample = []
+        for v in (0, 2):
+            rids = sorted(r for r in stamped if stamped[r] == v)
+            sample += rids[:: max(1, len(rids) // (SHADOW_MASK_SAMPLE // 2))][: SHADOW_MASK_SAMPLE // 2]
+        for rid in sample:
+            got = cv2.imread(os.path.join(p["masks"], f"mask_{rid:05d}.png"), cv2.IMREAD_GRAYSCALE)
+            if got.tobytes() != _mask(engine.predict_image(served[stamped[rid]], images[rid])):
+                raise AssertionError(f"mask {rid} differs from the card engine at version {stamped[rid]}")
+        log(f"[shadow] load_gen: {summary['completed']} answered in {summary['wall_s']} s "
+            f"({summary['throughput_rps']} req/s), versions {summary['versions_observed']}, client p50/p95 "
+            f"{summary['latency_ms']['p50']:.2f}/{summary['latency_ms']['p95']:.2f} ms, server p50/p95 "
+            f"{summary['server_latency_ms']['p50']:.2f}/{summary['server_latency_ms']['p95']:.2f} ms, replicas "
+            f"{summary['fleet']['replicas_min']}-{summary['fleet']['replicas_max']}; {len(sample)} sampled "
+            f"masks byte-equal to the card engine at their stamped version [{card}]")
+
+        # ---- the verdicts ----
+        shadow = stats["shadow"]
+        if (shadow["staged"], shadow["promoted"], shadow["rolled_back"]) != (2, 1, 1):
+            raise AssertionError(f"shadow audit {json.dumps(shadow)[:3000]}")
+        promoted, rolled = shadow["verdicts"]
+        checks = {
+            "promote": promoted["version"] == 2 and promoted["verdict"] == "promote" and promoted["installed"]
+            and promoted["iou"] >= 0.98 and promoted["psi_max"] <= 0.25 and promoted["latency_factor"] is not None
+            and promoted["latency_factor"] <= 3.0 and promoted["completed"] >= sc.shadow_min_samples,
+            "rollback": rolled["version"] == 3 and rolled["verdict"] == "rollback" and not rolled["installed"]
+            and any(r.startswith("canary iou") for r in rolled["reasons"]),
+            "crack_fraction": all(f"{s}/crack_fraction" in v["psi"] for v in (promoted, rolled) for s in sizes),
+            "mirrored": mirrored > 0 and failures == 0 and promoted["shadow_failures"] == rolled["shadow_failures"] == 0,
+            "swaps": [w["to_version"] for w in stats["swaps"]] == [2] and stats["replica_versions"] == [2]
+            and all(w["quant_gate"]["passed"] for w in stats["swaps"]),
+        }
+        if not all(checks.values()):
+            raise AssertionError(f"phase 15 checks {checks}: {json.dumps(shadow)[:4000]}")
+        bounds = {}
+        if (promoted["baseline_version"], rolled["baseline_version"]) != (0, 2):
+            raise AssertionError(f"baselines {promoted['baseline_version']}, {rolled['baseline_version']} != 0, 2")
+        for record, name in ((promoted, "cand"), (rolled, "seeded")):
+            base = record["baseline_version"]
+            card_n = verdict_numbers(card_probes, base, name)
+            if card_n["iou"] != record["iou"] or card_n["psi"] != record["psi"]:
+                raise AssertionError(f"v{record['version']}: the server's iou {record['iou']} / psi {record['psi']} "
+                                     f"!= the card in process {card_n['iou']} / {card_n['psi']}")
+            cpu_n = verdict_numbers(cpu_probes, base, name)
+            bounds[record["version"]] = check_flip_bound(f"v{record['version']}", cpu_probes, card_probes, cpu_n,
+                                                         card_n, base, name)
+            cpu_axes = (cpu_n["iou"] >= sc.shadow_iou_floor, max(cpu_n["psi"].values()) <= sc.shadow_psi_ceiling)
+            card_axes = (record["iou"] >= sc.shadow_iou_floor, record["psi_max"] <= sc.shadow_psi_ceiling)
+            if cpu_axes != card_axes:
+                raise AssertionError(f"v{record['version']}: the CPU engine decides {cpu_axes}, the card {card_axes}")
+            bounds[record["version"]].update(cpu_iou=cpu_n["iou"], cpu_psi_max=max(cpu_n["psi"].values()))
+        per_forward = {"dequant_matmul": len(matmul_shapes(cfg, BUCKET, BATCH)),
+                       "dequant_conv3x3": len(conv_shapes(cfg, BUCKET, BATCH)), "dequant_codes": 1}
+        forwards, launches = report["quantized_forwards"], report["dequant_launches"]
+        if forwards == 0 or launches != {name: n * forwards for name, n in per_forward.items()}:
+            raise AssertionError(f"dequant launches {launches} != {per_forward} per forward x {forwards}")
+
+        # ---- the served masks through the quantify command line ----
+        def stats(name):
+            st = quantify_mask(cv2.imread(os.path.join(p["masks"], name), cv2.IMREAD_GRAYSCALE))
+            return {"image": name, "contours": st.contour_count, "area_px": st.total_area_px,
+                    "perimeter_px": st.total_perimeter_px, "crack_fraction": st.crack_fraction}
+
+        quant = CliProcess("quantify", "fedcrack_tpu_torch.tools.quantify",
+                           ["--pred-dir", p["masks"], "--out-json", p["quantify"]], tmp)
+        with ThreadPoolExecutor(os.cpu_count()) as pool:  # cv2 releases the GIL
+            want = list(pool.map(stats, sorted(os.listdir(p["masks"]))))
+        run_processes([quant], time.monotonic() + SHADOW_TIMEOUT_S)
+        quantify_s = quant.wall_s
+        with open(p["quantify"], encoding="utf-8") as f:
+            quantified = json.load(f)
+        if quantified["images"] != want or quantified["totals"]["images"] != SHADOW_REQUESTS \
+                or quantified["totals"]["contours"] != sum(r["contours"] for r in want):
+            raise AssertionError("quantify --pred-dir disagrees with quantify_mask over the same PNGs")
+    out.update({
+        "launches": launches,
+        "quantized_forwards": forwards,
+        "verdicts": [{k: v[k] for k in ("version", "verdict", "reasons", "iou", "psi_max", "latency_factor",
+                                         "shadow_p95_ms", "production_p95_ms", "mirrored", "completed")}
+                     for v in (promoted, rolled)],
+        "flip_bounds": bounds,
+        "probe_crack_share": crack_share,
+        "publish_to_served_s": served_s,
+        "publish_to_verdict_s": verdict_s,
+        "mirrored_total": mirrored,
+        "load_gen": {k: summary[k] for k in ("completed", "wall_s", "throughput_rps", "versions_observed",
+                                             "latency_ms", "server_latency_ms", "fleet")},
+        "quantify": {"images": quantified["totals"]["images"], "contours": quantified["totals"]["contours"],
+                     "seconds": quantify_s},
+        "start_to_serving_s": t_serving,
+        "start_to_first_dequant_launch_s": report["start_to_first_dequant_launch_s"],
+        "wall_s": report["wall_s"],
+        "phase_s": time.monotonic() - t_phase,
+    })
+    log(f"[shadow] verdicts {json.dumps(out['verdicts'])}; version 2 served {served_s:.3f} s after its publish, "
+        f"verdicts at {json.dumps(verdict_s)} s; flip bounds {json.dumps(bounds)}; {forwards} quantized forwards, "
+        f"dequant launches {launches}; mirrored {mirrored:.0f}, 0 shadow failures; quantify --pred-dir over "
+        f"{quantified['totals']['images']} masks in {quantify_s:.2f} s equal to quantify_mask; start-up to SERVING "
+        f"{t_serving:.2f} s, serve wall {report['wall_s']:.2f} s, phase {out['phase_s']:.2f} s [{card}]")
+    return out
+
+
 def server_breakdown(config, template, rnd: dict, n: int = 3) -> dict:
     """Host ms (median of ``n``) of each step the round machine takes on
     one round's accepted uploads: the gate per upload (validate, decode,
@@ -2763,6 +3192,8 @@ def main() -> int:
     log("phase 13 the command lines at full width, one process per client, and the centralized trainer: ok")
     serve_cli = serve_cli_phase(torch, card)
     log("phase 14 the serve command line at full width: Predict, StreamPredict, hot swap and autoscaler: ok")
+    shadow = shadow_cli_phase(torch, card)
+    log("phase 15 progressive delivery under load_gen: a promote, a rollback and quantify --pred-dir: ok")
 
     kernels = []
     replaces = {"dequant_matmul": "fedcrack_tpu/kernels/dequant.py:88",
@@ -2779,7 +3210,8 @@ def main() -> int:
                 "replaces": replaces[name],
                 "launches": served["launches"][name],
                 **({"launches_phase12": swap["served_launches"][name],
-                    "launches_phase14": serve_cli["launches"][name]} if flavor == "int8" else {}),
+                    "launches_phase14": serve_cli["launches"][name],
+                    "launches_phase15": shadow["launches"][name]} if flavor == "int8" else {}),
                 "max_abs_err": row["max_abs_err"],
                 "ms": row["ms"],
                 "plain_ms": row["plain_ms"],

@@ -5,10 +5,12 @@ flags: one federated session against a server of either package. The
 local dataset is ``--image-dir/--mask-dir`` (paired crack images, matched
 by stem; the train side of the reference's seeded split, then this
 client's shard) or ``--synthetic N``. Every local fit runs on the card
-unless ``main`` is given another ``device``. ``--predict-dir`` (crack
-quantification) and the DP flags raise ``NotImplementedError``: their
-modules are not ported yet. The exit code is 0 when the client enrolled,
-else 1.
+unless ``main`` is given another ``device``. With ``--predict-dir``
+the client predicts masks for its data with the last fit's model after
+the session and quantifies them (``tools/quantify.predict_and_quantify``:
+``pred_*.png``, ``overlay_*.png`` and a logged JSON report). The DP flags
+raise ``NotImplementedError``: their module is not ported yet. The exit
+code is 0 when the client enrolled, else 1.
 """
 
 from __future__ import annotations
@@ -81,7 +83,7 @@ def main(argv: list[str] | None = None, *, device: torch.device | str | None = N
         "--client-index", type=int, default=None, help="this client's shard row"
     )
     p.add_argument(
-        "--predict-dir", help="write final-round mask predictions here (not ported yet: refused)"
+        "--predict-dir", help="write final-round mask predictions here"
     )
     p.add_argument("--metrics", dest="metrics_path", help="JSONL metrics file")
     p.add_argument(
@@ -149,11 +151,6 @@ def main(argv: list[str] | None = None, *, device: torch.device | str | None = N
         help="root seed of the per-(client, round) DP noise derivation",
     )
     args = p.parse_args(argv)
-    if args.predict_dir:
-        raise NotImplementedError(
-            "--predict-dir is not ported yet: crack quantification (tools/quantify.py), ROADMAP Queue 1 item 5"
-        )
-
     # Flags merge into the raw config dict before FedConfig is built, so its
     # validation sees the merged config (a --tls-ca or
     # --allow-insecure-token flag can rescue a config file).
@@ -249,7 +246,7 @@ def main(argv: list[str] | None = None, *, device: torch.device | str | None = N
 
         metrics_logger = MetricsLogger(cfg.metrics_path or os.devnull, tb_dir=cfg.tb_dir or None)
     try:
-        train_fn, _ = make_train_fn(
+        train_fn, holder = make_train_fn(
             cfg, dataset, batch, seed=args.seed, device=device, metrics_logger=metrics_logger
         )
         client = FedClient(cfg, train_fn, cname=cname)
@@ -270,6 +267,13 @@ def main(argv: list[str] | None = None, *, device: torch.device | str | None = N
     logging.info("session done: enrolled=%s rounds=%d", result.enrolled, result.rounds_completed)
     for entry in result.history:
         logging.info("round metrics: %s", entry)
+    if args.predict_dir and result.final_weights is not None:
+        import json
+
+        from fedcrack_tpu_torch.tools.quantify import predict_and_quantify
+
+        report = predict_and_quantify(holder["state"], dataset, out_dir=args.predict_dir)
+        logging.info("crack quantification: %s", json.dumps(report))
     return 0 if result.enrolled else 1
 
 

@@ -16,12 +16,15 @@ plain dicts (copy-on-write, like the round machine), and trees are
 flattened in the JAX package's leaf order, so both packages score the
 same trees alike. :func:`export_anomaly_metrics` publishes the scores as
 bounded-cardinality gauges, and :func:`ledger_to_wire` /
-:func:`ledger_from_wire` give the statefile's canonical rows; the JSONL
-export of the JAX module is not ported yet.
+:func:`ledger_from_wire` give the statefile's canonical rows, and
+:func:`write_ledger_jsonl` the deterministic JSONL export (byte for byte
+the JAX package's) that ``tools/health_report.py`` reads back.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Any, Iterable, Mapping
 
 import numpy as np
@@ -294,3 +297,54 @@ def export_anomaly_metrics(ledger: Mapping[str, dict], registry=None) -> None:
         "max per-client anomaly score at the latest flush (unlabeled "
         "ceiling series)",
     ).set(max(values.values()) if values else 0.0)
+
+
+def write_ledger_jsonl(ledger: Mapping[str, dict], path: str) -> int:
+    """Deterministic JSONL dump: one line per client in sorted order,
+    sorted keys, no timestamps, so equal ledgers give equal bytes. Returns
+    the number of rows written."""
+    parent = os.path.dirname(os.path.abspath(path))
+    os.makedirs(parent, exist_ok=True)
+    rows = 0
+    with open(path, "w", encoding="utf-8") as f:
+        for name in sorted(ledger):
+            rec = ledger[name]
+            line = {"client": str(name)}
+            for key in sorted(rec):
+                value = rec[key]
+                if key == "rejected":
+                    value = {k: int(value[k]) for k in sorted(value)}
+                line[key] = value
+            f.write(json.dumps(line, sort_keys=True) + "\n")
+            rows += 1
+    return rows
+
+
+def read_ledger_jsonl(path: str) -> dict:
+    """The ledger :func:`write_ledger_jsonl` wrote: each row over a fresh
+    :func:`new_record`, keyed by its client."""
+    out: dict[str, dict] = {}
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            row = json.loads(line)
+            name = row.pop("client")
+            rec = new_record()
+            rec.update(row)
+            out[name] = rec
+    return out
+
+
+def conservation(ledger: Mapping[str, dict]) -> dict:
+    """Per client, offers == accepted + rejected + resyncs (every gate
+    verdict counted exactly once). Returns ``{'clients': n, 'violations':
+    [names]}``."""
+    violations = []
+    for name in sorted(ledger):
+        rec = ledger[name]
+        rejected = sum(int(v) for v in rec["rejected"].values())
+        if rec["offers"] != rec["accepted"] + rejected + rec["resyncs"]:
+            violations.append(name)
+    return {"clients": len(ledger), "violations": violations}

@@ -6,21 +6,23 @@ statefile, then a seeded init, in that order), builds the engine on the
 card (``main`` takes another ``device``), starts the statefile hot-swap
 poller, and serves ``fedcrack.ServePlane`` ``Predict`` and
 ``StreamPredict`` until SIGTERM or SIGINT. With ``quant != "none"``,
-``replicas > 1`` or ``min_replicas > 0`` it serves through the
-``ServeFleet`` (the fleet's manager owns the quant gate; the autoscaler
-runs only on the fleet); otherwise through one ``MicroBatcher`` and a
-``ModelVersionManager``.
+``replicas > 1``, ``min_replicas > 0`` or ``shadow_fraction > 0`` it
+serves through the ``ServeFleet`` (the fleet's manager owns the quant
+gate; the autoscaler and shadow delivery run only on the fleet);
+otherwise through one ``MicroBatcher`` and a ``ModelVersionManager``.
+With ``shadow_fraction > 0`` the ``ShadowController`` runs the statefile
+poll in place of the manager's: each publish stages through the shadow
+lane and is promoted or rolled back on its verdict.
 
 It prints exactly one ``SERVING <host>:<port> ...`` line to stdout once
 ready (with ``--port 0``, the bound port); at shutdown with
 ``--metrics-path`` it prints one ``{"serve_stats": ...}`` line, the
-autoscaler's audit included. It exits non-zero when a phase of its
-start-up fails.
+autoscaler's and the shadow controller's audits included. It exits
+non-zero when a phase of its start-up fails.
 
 Not ported yet, refused with ``NotImplementedError``: ``--ckpt-dir`` (the
-orbax checkpoint source, ROADMAP Queue 1 item 5), ``--shadow-fraction >
-0`` (the shadow controller, the next slice of Queue 1 item 2) and
-``--compute-dtype bfloat16`` (bf16 serving, Queue 1 item 5).
+orbax checkpoint source, ROADMAP Queue 1 item 5) and ``--compute-dtype
+bfloat16`` (bf16 serving, Queue 1 item 5).
 ``--compile-cache-dir`` configures an XLA cache, which the port has no
 use for: its kernels build once into ``fedcrack_tpu_torch/_build/``, and
 the flag is accepted and logged. The JAX command's recompile sentry has no
@@ -72,7 +74,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--scale-cooldown-s", type=float,
                    help="dead time after any scaling action (anti-flap)")
     p.add_argument("--shadow-fraction", type=float,
-                   help="progressive delivery through a shadow lane (not ported yet; > 0 refused)")
+                   help="traffic mirrored to a shadow candidate lane (> 0: publishes stage through "
+                   "the shadow and are promoted or rolled back instead of installed at once)")
     p.add_argument("--slo-p95-ms", type=float,
                    help="shed (RESOURCE_EXHAUSTED) when rolling p95 breaches this; 0 off")
     p.add_argument("--queue-bound", type=int,
@@ -132,11 +135,6 @@ def refuse_unported(args, serve_config) -> None:
             "--ckpt-dir is not ported yet: the orbax checkpoint source (ckpt/manager.py), "
             "ROADMAP Queue 1 item 5"
         )
-    if serve_config.shadow_fraction > 0:
-        raise NotImplementedError(
-            "--shadow-fraction > 0 is not ported yet: serve/shadow.py with health/canary.py, "
-            "health/drift.py and tools/quantify.py, the next slice of ROADMAP Queue 1 item 2"
-        )
     if serve_config.compute_dtype != "float32":
         raise NotImplementedError(
             "--compute-dtype bfloat16 is not ported yet: bf16 serving beside bf16 training, "
@@ -191,7 +189,8 @@ async def _serve(args, device) -> int:
         metrics = MetricsLogger(args.metrics_path)
 
     fleet = None
-    if serve_config.replicas > 1 or serve_config.quant != "none" or serve_config.min_replicas > 0:
+    if (serve_config.replicas > 1 or serve_config.quant != "none" or serve_config.min_replicas > 0
+            or serve_config.shadow_fraction > 0):
         from fedcrack_tpu_torch.serve.fleet import ServeFleet
 
         fleet = ServeFleet(
@@ -241,7 +240,16 @@ async def _serve(args, device) -> int:
 
         autoscaler = FleetAutoscaler(fleet)
         autoscaler.start()
-    manager.start()
+    shadow_ctrl = None
+    if fleet is not None and serve_config.shadow_fraction > 0:
+        from fedcrack_tpu_torch.serve.shadow import ShadowController
+
+        # The controller runs the delivery poll; the manager's own
+        # auto-install loop stays off, or a publish would install unjudged.
+        shadow_ctrl = ShadowController(fleet, metrics=metrics)
+        shadow_ctrl.start()
+    else:
+        manager.start()
     port = await server.start()
     metrics_note = f" metrics_port={exporter.bound_port}" if exporter is not None else ""
     print(
@@ -264,6 +272,8 @@ async def _serve(args, device) -> int:
     await server.stop()
     if autoscaler is not None:
         autoscaler.stop()
+    if shadow_ctrl is not None:
+        shadow_ctrl.stop()
     if fleet is not None:
         fleet.close()
     else:
@@ -275,6 +285,8 @@ async def _serve(args, device) -> int:
         stats = fleet.stats() if fleet is not None else batcher_like.stats()
         if autoscaler is not None:
             stats["autoscaler"] = autoscaler.audit()
+        if shadow_ctrl is not None:
+            stats["shadow"] = shadow_ctrl.audit()
         stats["stream"] = stream_manager.stats()
         print(json.dumps({"serve_stats": stats}), flush=True)
         metrics.close()

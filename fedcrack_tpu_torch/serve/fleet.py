@@ -30,8 +30,10 @@ lock acquisition that appends its slot: a scale-up racing a swap never
 labels an old payload with the new version. The JAX ``ServeFleet``'s
 ``share_engine=`` (an engine per replica, for a device mesh) and
 ``router_window_s=`` are deliberately absent: the port's engine serves
-one device. The canary evaluator (``canary=``) and the orbax checkpoint
-source (``ckpt_dir=``) are not ported yet (ROADMAP Queue 1 items 2 and 5).
+one device. With ``canary=`` the committed payload is probed once after
+each commit (every replica serves the same version), wrapped so that a
+raising canary never fails or blocks a swap. The orbax checkpoint source
+(``ckpt_dir=``) is not ported yet (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -51,11 +53,6 @@ from fedcrack_tpu_torch.serve.engine import InferenceEngine
 from fedcrack_tpu_torch.serve.router import FleetRouter
 
 log = logging.getLogger("fedcrack_torch.serve.fleet")
-
-CANARY_REFUSAL = (
-    "FleetVersionManager(canary=...) is not ported yet: health/canary.py, "
-    "the shadow slice, ROADMAP Queue 1 item 2"
-)
 
 
 def prepare_gated_payload(
@@ -161,8 +158,6 @@ class FleetVersionManager:
         metrics: Any | None = None,
         canary: Any | None = None,
     ):
-        if canary is not None:
-            raise NotImplementedError(CANARY_REFUSAL)
         # hot_swap imports prepare_gated_payload from this module.
         from fedcrack_tpu_torch.serve.hot_swap import WeightSourceWatcher
 
@@ -170,6 +165,7 @@ class FleetVersionManager:
         self._watcher = WeightSourceWatcher(ckpt_dir=ckpt_dir, state_path=state_path, template=template)
         self._poll_s = poll_s if poll_s is not None else serve_config.swap_poll_s
         self._metrics = metrics
+        self.canary = canary
         self._lock = make_lock("serve.fleet.snapshot")
         self._replicas: list[Replica] = []
         self._slots: list[tuple[int, Any]] = []
@@ -343,6 +339,13 @@ class FleetVersionManager:
         )
         if self._metrics is not None:
             self._metrics.log("serve_fleet_swap", **record)
+        if self.canary is not None:
+            # One probe pass is the fleet's verdict: every replica serves
+            # the committed payload.
+            try:
+                self.canary.evaluate(version, payload)
+            except Exception:
+                log.exception("canary eval failed for v%d (swap unaffected)", version)
         return True
 
     # ---- polling lifecycle ----

@@ -11,8 +11,10 @@ swap never tears a batch across versions and never stalls one in flight.
 With ``quant == "int8"`` every install goes through
 ``serve.fleet.prepare_gated_payload``: the quantized program is served
 only when its probe-batch IoU against the reference program clears the
-floor. The orbax checkpoint source (``ckpt_dir=``) and the canary
-evaluator (``canary=``) are not ported yet.
+floor. With ``canary=`` (a ``health.canary.CanaryEvaluator``) each
+installed version is probed after the flip, in the poll thread; a raising
+canary is logged and never fails or blocks the swap. The orbax checkpoint
+source (``ckpt_dir=``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -132,12 +134,8 @@ class ModelVersionManager:
         template: Any | None = None,
         canary: Any | None = None,
     ):
-        if canary is not None:
-            raise NotImplementedError(
-                "ModelVersionManager(canary=...) is not ported yet: health/canary.py, "
-                "the shadow slice, ROADMAP Queue 1 item 2"
-            )
         self.engine = engine
+        self.canary = canary
         self._watcher = WeightSourceWatcher(ckpt_dir=ckpt_dir, state_path=state_path, template=template)
         self._poll_s = poll_s
         self._lock = threading.Lock()
@@ -218,6 +216,12 @@ class ModelVersionManager:
         self.swaps.append(record)
         self.last_swap = record
         log.info("hot-swapped served model: v%d -> v%d (%.1f ms load)", current_version, version, load_ms)
+        if self.canary is not None:
+            # After the flip, in the poll thread: serving has moved on.
+            try:
+                self.canary.evaluate(version, payload)
+            except Exception:
+                log.exception("canary eval failed for v%d (swap unaffected)", version)
         return True
 
     def start(self) -> None:

@@ -196,10 +196,18 @@ class FleetRouter:
         """Install the shadow mirror hook, an object with
         ``observe(image_u8)``, called AFTER a request is admitted and
         dispatched; its answer never reaches the client. One mirror at a
-        time; attach replaces. (Its controller, ``serve/shadow.py``, is
-        the next slice of the port.)"""
+        time; attach replaces. ``serve/shadow.py``'s controller attaches
+        one per staged candidate."""
         with self._lock:
             self._shadow = mirror
+
+    def detach_shadow(self, mirror: Any | None = None) -> None:
+        """Remove the shadow hook. With ``mirror`` given, only while it is
+        still the attached one: a finished evaluation never tears down its
+        successor's mirror."""
+        with self._lock:
+            if mirror is None or self._shadow is mirror:
+                self._shadow = None
 
     # ---- dispatch ----
 

@@ -13,6 +13,9 @@ port's own in-process federation.
 - ``train_centralized`` of both packages for one epoch from the same
   initial tree (each package's ``create_train_state`` patched to load it):
   history within the rtol 1e-4 of ``test_local_fit_matches_jax``.
+- A client ``main`` with ``--predict-dir`` after a one-round session
+  writes ``pred_*.png`` and ``overlay_*.png`` at the model's size and logs
+  a report equal to ``quantify_mask`` over the written masks.
 - The flags whose modules are not ported raise ``NotImplementedError``
   naming their ROADMAP item.
 """
@@ -259,17 +262,64 @@ def test_centralized_main_writes_checkpoints_and_metrics(tmp_path):
     ("server", ["--dp-seed", "3"], "item 3"),
     ("server", ["--secagg"], "item 3"),
     ("server", ["--privacy-summary", "p.json"], "item 3"),
-    ("client", ["--predict-dir", "pred", "--synthetic", "4"], "item 5"),
     ("client", ["--dp-clip-norm", "1.0", "--synthetic", "4"], "item 3"),
     ("client", ["--dp-seed", "2", "--synthetic", "4"], "item 3"),
-], ids=["ckpt_dir", "server_dp_clip", "server_dp_seed", "secagg", "privacy_summary", "predict_dir",
-        "client_dp_clip", "client_dp_seed"])
+], ids=["ckpt_dir", "server_dp_clip", "server_dp_seed", "secagg", "privacy_summary", "client_dp_clip",
+        "client_dp_seed"])
 def test_unported_flags_refuse_naming_their_item(entry, argv, item, tmp_path):
     import importlib
 
     main = importlib.import_module(f"fedcrack_tpu_torch.{entry}").main
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         main(argv, device="cpu")
+
+
+def test_client_predict_dir_writes_masks_and_report(image_dirs, tmp_path):
+    import cv2
+
+    from fedcrack_tpu_torch import client, server
+    from fedcrack_tpu_torch.tools.quantify import quantify_mask
+
+    (image_dir, mask_dir), _, config = image_dirs
+    server_argv = ["--config", config, "--host", "127.0.0.1", "--port", "0", "--rounds", "1", "--cohort", "1",
+                   "--registration-window", "60"]
+    pred = tmp_path / "pred"
+    codes, errors = {}, []
+
+    def run(label, fn, argv):
+        try:
+            codes[label] = fn(argv, device="cpu")
+        except BaseException as e:  # re-raised below, on the test's thread
+            errors.append((label, e))
+
+    capture = _Capture()
+    loggers = [logging.getLogger("fedcrack.server"), logging.getLogger()]
+    levels = [lg.level for lg in loggers]
+    for lg in loggers:
+        lg.addHandler(capture)
+        lg.setLevel(logging.INFO)
+    threads = [threading.Thread(target=run, args=("server", server.main, server_argv), daemon=True)]
+    try:
+        threads[0].start()
+        port = _serving_port(capture.messages)
+        argv = ["--config", config, "--host", "127.0.0.1", "--port", str(port), "--image-dir", image_dir,
+                "--mask-dir", mask_dir, "--transport-dtype", "uint8", "--predict-dir", str(pred)]
+        threads.append(threading.Thread(target=run, args=("client", client.main, argv), daemon=True))
+        threads[-1].start()
+        for t in threads:
+            t.join(timeout=240)
+    finally:
+        for lg, level in zip(loggers, levels):
+            lg.removeHandler(capture)
+            lg.setLevel(level)
+    assert not errors and codes == {"server": 0, "client": 0}, errors
+    # chip_smoke.py phase 13's check of the second client's output.
+    report = chip_smoke.check_predict_dir(str(pred), "\n".join(capture.messages), 32)
+    assert [r["image"] for r in report] == list(range(8))
+    mask = cv2.imread(str(pred / "pred_003.png"), cv2.IMREAD_GRAYSCALE)
+    assert report[3]["contours"] == quantify_mask(mask).contour_count
+    with pytest.raises(AssertionError, match="--predict-dir image 0"):
+        chip_smoke.check_predict_dir(str(pred), "\n".join(capture.messages), 64)
 
 
 def test_client_sharding_rules(image_dirs):

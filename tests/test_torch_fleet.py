@@ -325,13 +325,38 @@ def test_unported_fleet_options_raise_naming_their_item(stack):
     from fedcrack_tpu_torch.configs import ServeConfig
     from fedcrack_tpu_torch.serve.fleet import FleetVersionManager, ServeFleet
 
-    with pytest.raises(NotImplementedError, match="health/canary.py, the shadow slice, ROADMAP Queue 1 item 2$"):
-        FleetVersionManager(ServeConfig(**_serve_kw()), canary=object())
     with pytest.raises(NotImplementedError, match="ckpt/manager.py, ROADMAP Queue 1 item 5$"):
         FleetVersionManager(ServeConfig(**_serve_kw()), ckpt_dir="/nonexistent")
     with pytest.raises(NotImplementedError, match="chaos/, ROADMAP Queue 1 item 5$"):
         ServeFleet(port_config(TINY_KW), ServeConfig(**_serve_kw()), stack["var0"],
                    shared_engine=stack["engine"], chaos=object(), warmup=False)
+
+
+def test_fleet_manager_probes_each_commit_with_the_canary(stack):
+    """``FleetVersionManager(canary=)``: one probe pass per committed
+    version, on the payload every replica serves; the records equal a
+    canary run by hand on the same payloads."""
+    from fedcrack_tpu_torch.configs import ServeConfig
+    from fedcrack_tpu_torch.health.canary import CanaryEvaluator
+    from fedcrack_tpu_torch.obs.registry import MetricsRegistry
+    from fedcrack_tpu_torch.serve.fleet import FleetVersionManager, Replica
+
+    engine = stack["engine"]
+    canary = CanaryEvaluator(engine, registry=MetricsRegistry())
+    manager = FleetVersionManager(ServeConfig(**_serve_kw(replicas=2)), canary=canary)
+    replicas = [Replica(i, engine, manager) for i in range(2)]
+    manager.attach_replicas(replicas, stack["var0"])
+    try:
+        assert manager.install(1, stack["var0"]) and manager.install(3, stack["var1"])
+        assert not manager.install(2, stack["var1"])
+        assert manager.slot_versions() == [3, 3]
+    finally:
+        for r in replicas:
+            r.batcher.close()
+    by_hand = CanaryEvaluator(engine, registry=MetricsRegistry())
+    for version, var in ((1, stack["var0"]), (3, stack["var1"])):
+        by_hand.evaluate(version, engine.prepare(var))
+    assert canary.history == by_hand.history and [h["version"] for h in canary.history] == [1, 3]
 
 
 class _FakeEngine:

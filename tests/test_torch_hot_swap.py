@@ -206,7 +206,26 @@ def test_gate_refuses_exactly_where_the_jax_fleet_gate_refuses(tmp_path, weights
 def test_unported_sources_raise_naming_their_roadmap_item(weights):
     with pytest.raises(NotImplementedError, match="ckpt/manager.py, ROADMAP Queue 1 item 5$"):
         TH.ModelVersionManager(_engine(), weights[0], ckpt_dir="/nonexistent")
-    with pytest.raises(NotImplementedError, match="health/canary.py, the shadow slice, ROADMAP Queue 1 item 2$"):
-        TH.ModelVersionManager(_engine(), weights[0], canary=object())
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5$"):
         TH.WeightSourceWatcher(ckpt_dir="/nonexistent")
+
+
+def test_manager_probes_each_installed_version_with_the_canary(weights):
+    """``canary=``: after each flip the poll thread's install probes the
+    installed payload (quantized here); the records equal a canary run
+    by hand on the same payloads, and a stale install never reaches it."""
+    from fedcrack_tpu_torch.health.canary import CanaryEvaluator
+    from fedcrack_tpu_torch.obs.registry import MetricsRegistry
+    from fedcrack_tpu_torch.serve import quant as tq
+
+    engine = _engine()
+    canary = CanaryEvaluator(engine, registry=MetricsRegistry())
+    mgr = TH.ModelVersionManager(engine, weights[0], canary=canary)
+    assert mgr.install(1, weights[0]) and mgr.install(2, weights[1])
+    assert not mgr.install(2, weights[0])
+    by_hand = CanaryEvaluator(engine, registry=MetricsRegistry())
+    for version, var in ((1, weights[0]), (2, weights[1])):
+        by_hand.evaluate(version, engine.prepare_quantized(tq.quantize_for_plane(var, engine.kernel_plane)))
+    assert canary.history == by_hand.history
+    assert [h["version"] for h in canary.history] == [1, 2] and canary.reference_version == 1
+    assert canary.history[0]["iou"] == 1.0 and canary.history[1]["iou"] < 1.0

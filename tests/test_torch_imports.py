@@ -7,7 +7,9 @@ import there, so the check is made here. ``grpc`` is allowed in the
 transport (``fedcrack_tpu_torch/transport/``), in the serving front door
 (``fedcrack_tpu_torch/serve/service.py``) and in ``chip_smoke.py`` only,
 so the rest of the port imports without it: the fleet, router, stream
-sessions, autoscaler and the serve command's module level included. The port's entry
+sessions, autoscaler, shadow controller, canary and drift monitors, the
+serve command's module level and the tools (``load_gen`` reaches the
+front door through ``transport/serve_client.py``) included. The port's entry
 points run on CUDA unless told otherwise.
 """
 
@@ -34,6 +36,9 @@ COMMAND_LINE_MODULES = (
     "fedcrack_tpu_torch.obs", "fedcrack_tpu_torch.obs.tb", "fedcrack_tpu_torch.obs.promexp",
     "fedcrack_tpu_torch.obs.metrics", "fedcrack_tpu_torch.serve.__main__", "fedcrack_tpu_torch.serve.fleet",
     "fedcrack_tpu_torch.serve.router", "fedcrack_tpu_torch.serve.stream", "fedcrack_tpu_torch.serve.autoscaler",
+    "fedcrack_tpu_torch.serve.shadow", "fedcrack_tpu_torch.health.canary", "fedcrack_tpu_torch.health.drift",
+    "fedcrack_tpu_torch.tools", "fedcrack_tpu_torch.tools.quantify", "fedcrack_tpu_torch.tools.load_gen",
+    "fedcrack_tpu_torch.tools.health_report",
 )
 
 
@@ -107,6 +112,7 @@ def test_package_imports_with_jax_blocked():
     with_grpc = [_module(p) for p in sources if _grpc_allowed(p)]
     assert "fedcrack_tpu_torch.transport.service" in with_grpc and "fedcrack_tpu_torch" in rest
     assert "fedcrack_tpu_torch.serve.service" in with_grpc
+    assert "fedcrack_tpu_torch.transport.serve_client" in with_grpc
     # The command lines and their data and telemetry, and the serving
     # fleet, import without grpc: only their sessions and the serving front
     # door reach it.
@@ -196,3 +202,18 @@ def test_command_lines_default_to_cuda_and_raise_without_it(tmp_path):
         client.main(["--synthetic", "4"])
     with pytest.raises(RuntimeError, match="cuda"):
         server.main(["--eval-synthetic", "4", "--port", "0"])
+
+
+def test_quantify_tool_defaults_to_cuda_and_raises_without_it(tmp_path):
+    """``tools.quantify.main --weights`` predicts on CUDA unless given
+    ``device``; ``--pred-dir`` needs no model and no device."""
+    import torch
+
+    from fedcrack_tpu_torch.tools import quantify
+
+    if torch.cuda.is_available():
+        return  # decided at run time; chip_smoke.py runs the tools on the card
+    weights = tmp_path / "w.msgpack"
+    weights.write_bytes(b"")
+    with pytest.raises(RuntimeError, match="cuda"):
+        quantify.main(["--weights", str(weights), "--synthetic", "2", "--img-size", "32"])

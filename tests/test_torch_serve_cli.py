@@ -10,6 +10,11 @@ CPU, held against ``python -m fedcrack_tpu.serve``.
   fleet with the quant gate: it prints its ``SERVING`` line, answers one
   Predict with the mask of the port engine in process, and on SIGTERM
   prints ``serve_stats`` and exits 0.
+- With ``--shadow-fraction 0.5`` the same command stages each statefile
+  publish through the shadow lane under live Predict traffic: a re-publish
+  of the served weights is promoted, zeroed weights are rolled back and
+  never staged again, no answer carries the rolled-back version, and
+  ``serve_stats["shadow"]`` counts both verdicts.
 - The refusals name their ROADMAP items.
 """
 
@@ -18,6 +23,7 @@ import os
 import signal
 import subprocess
 import sys
+import threading
 import time
 
 import grpc
@@ -80,9 +86,8 @@ def test_resolve_config_matches_jax(argv, with_file, tmp_path):
 
 @pytest.mark.parametrize("argv, item", [
     (["--ckpt-dir", "ckpt"], "ckpt/manager.py), ROADMAP Queue 1 item 5"),
-    (["--shadow-fraction", "0.5"], "the next slice of ROADMAP Queue 1 item 2"),
     (["--compute-dtype", "bfloat16"], "bf16 serving beside bf16 training, ROADMAP Queue 1 item 5"),
-], ids=["ckpt_dir", "shadow", "bf16"])
+], ids=["ckpt_dir", "bf16"])
 def test_refusals_name_their_items(argv, item):
     from fedcrack_tpu_torch.serve.__main__ import main
 
@@ -154,3 +159,96 @@ def test_main_serves_a_request_and_stops_on_sigterm(tmp_path):
     stats = json.loads(stats_lines[0])["serve_stats"]
     assert stats["quant_gate"]["passed"] and stats["replica_versions"] == [0]
     assert stats["router"]["per_replica"]["0"]["completed"] == 1
+
+
+def _start_child(tmp_path, *args):
+    log_path = tmp_path / "serve.log"
+    log = open(log_path, "w", encoding="utf-8")
+    proc = subprocess.Popen([sys.executable, "-c", CHILD.format(root=ROOT), *args], cwd=ROOT, stdout=log,
+                            stderr=subprocess.STDOUT, env=dict(os.environ, PYTHONUNBUFFERED="1"))
+    deadline = time.monotonic() + 120
+    line = None
+    while line is None and time.monotonic() < deadline and proc.poll() is None:
+        line = next((ln for ln in log_path.read_text().splitlines() if ln.startswith("SERVING ")), None)
+        time.sleep(0.1)
+    return proc, log, log_path, line
+
+
+def test_main_with_shadow_fraction_stages_each_publish(tmp_path):
+    from fedcrack_tpu_torch.fed.serialization import tree_to_bytes
+    from fedcrack_tpu_torch.serve.hot_swap import publish_statefile
+
+    variables = jax_variables(TINY_KW, seed=0)
+    def zero(tree):
+        return {k: zero(v) if isinstance(v, dict) else np.zeros_like(v) for k, v in tree.items()}
+
+    zeros = zero(variables)
+    weights, config, state = tmp_path / "w.msgpack", tmp_path / "serve.json", str(tmp_path / "s.bin")
+    weights.write_bytes(tree_to_bytes(variables))
+    config.write_text(json.dumps(TINY_CONFIG))
+    proc, log, log_path, line = _start_child(
+        tmp_path, "--config", str(config), "--weights", str(weights), "--state-path", state, "--port", "0",
+        "--shadow-fraction", "0.5", "--swap-poll-s", "0.1", "--metrics-path", str(tmp_path / "m.jsonl"))
+    versions, errors, stop = [], [], threading.Event()
+    try:
+        assert line is not None, log_path.read_text()[-4000:]
+        assert " replicas=1 quant=int8" in line
+        port = int(line.split()[1].rsplit(":", 1)[1])
+
+        def pump():
+            with grpc.insecure_channel(f"127.0.0.1:{port}") as channel:
+                grpc.channel_ready_future(channel).result(timeout=60)
+                stub = channel.stream_stream("/fedcrack.ServePlane/Predict",
+                                             request_serializer=W.PredictRequest.encode,
+                                             response_deserializer=W.PredictResponse.decode)
+                rid = 0
+                while not stop.is_set():
+                    image = np.random.default_rng(rid).integers(0, 256, (16, 16, 3), dtype=np.uint8)
+                    request = W.PredictRequest(request_id=rid, height=16, width=16, channels=3,
+                                               image=image.tobytes(), last=True)
+                    try:
+                        (r,) = list(stub(iter([request]), timeout=60))
+                        versions.append((r.status, r.model_version))
+                    except Exception as e:  # surfaced by the asserts below
+                        errors.append(e)
+                    rid += 1
+
+        thread = threading.Thread(target=pump, daemon=True)
+        thread.start()
+
+        def wait_for(pred, what):
+            deadline = time.monotonic() + 90
+            while not pred():
+                assert time.monotonic() < deadline and proc.poll() is None, (what, log_path.read_text()[-4000:])
+                time.sleep(0.05)
+
+        publish_statefile(state, variables, model_version=2)
+        wait_for(lambda: any(v == 2 for _, v in versions), "version 2 served")
+        publish_statefile(state, zeros, model_version=3)
+        wait_for(lambda: "shadow verdict v3: rollback" in log_path.read_text(), "version 3 rolled back")
+        n = len(versions)
+        wait_for(lambda: len(versions) > n + 8, "traffic after the rollback")
+        stop.set()
+        thread.join(timeout=60)
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        stop.set()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        log.close()
+    text = log_path.read_text()
+    assert not errors and {s for s, _ in versions} == {"OK"}
+    assert {v for _, v in versions} == {0, 2}
+    stats = json.loads(next(ln for ln in text.splitlines() if ln.startswith('{"serve_stats"')))["serve_stats"]
+    shadow = stats["shadow"]
+    assert (shadow["staged"], shadow["promoted"], shadow["rolled_back"]) == (2, 1, 1)
+    promoted, rolled = shadow["verdicts"]
+    assert (promoted["version"], promoted["verdict"], promoted["installed"]) == (2, "promote", True)
+    # The candidate runs the reference program against quantized
+    # production: its canary IoU is the quant gate's on the same weights.
+    assert promoted["iou"] == stats["quant_gate"]["iou"] >= 0.98 and promoted["completed"] >= 16
+    assert (rolled["version"], rolled["verdict"], rolled["installed"]) == (3, "rollback", False)
+    assert any(r.startswith("canary iou") for r in rolled["reasons"])
+    assert [s["to_version"] for s in stats["swaps"]] == [2] and stats["replica_versions"] == [2]
