@@ -183,6 +183,30 @@ on failure, so any failure exits non-zero and prints no result):
     the probe's crack share, publish to served and to each verdict, the
     verdicts, load_gen's summary, start-up and wall.
 
+16. the privacy plane and the round checkpointer at phase 7's width,
+    over loopback gRPC with port peers only. (a) Phase 9's federation with
+    update-level DP on both clients (the client command line's
+    ``private_train_fn``: clip 0.01, noise multiplier 0.5, seed 11) and
+    the server's accountant (4 steps a round, q = 16 / 64), the server
+    evaluating each global: every upload byte-equal to ``dp_update_host``
+    of the (trained, base) pair its client fitted, each round's epsilon
+    equal to ``compute_epsilon``, the privacy summary clean under
+    ``tools/health_report``, ``bce_sums`` launches equal to train steps
+    plus eval batches. (b) Secure aggregation: three clients enroll with
+    their seeds, two fit and upload masked trees, the third announces,
+    uploads its plaintext (REJECTED) and stops; the 10 s deadline closes
+    the round on the two, the dropped masks recovered from the seeds; the
+    global bit-equal to the survivors' fixed-point mean computed from
+    their plaintext fits and to the unmask of their uploads, and within
+    the fixed-point step of their float FedAvg. (c) A ``FedServer`` with
+    a ``FedCheckpointer`` runs round 1 and is stopped; a new one resumes
+    at round 2 with round 1's global and runs round 2; a fused_int8
+    ``ModelVersionManager(ckpt_dir=)`` installs version 2 (the gate must
+    pass) and serves one bucket-256 batch with 15 / 8 / 1 dequant launches
+    (wrappers and profiler), within phase 4's limit of a CPU engine.
+    Logged: walls, epsilons, host DP, masking and unmasking ms, the
+    masked-to-plain wire ratio, checkpoint save and restore ms.
+
 ``python3 chip_smoke.py --serve-ticks 0.05,1.0,1.0,0.05`` builds
 ``dequant.cu`` and runs only phase 14, once per autoscaler tick given, and
 prints one ``TICK`` JSON line per run (the frames served and in process,
@@ -1735,6 +1759,52 @@ def buffered_grpc_phase(torch, card: str) -> dict:
     return out
 
 
+def one_message_callers(cfg, names, port) -> dict:
+    """Per client name, its channel and a call of one message on it."""
+    from fedcrack_tpu_torch.transport import FedClient
+
+    out = {}
+    for name in names:
+        client = FedClient(cfg, lambda blob, rnd: None, cname=name, port=port)
+        channel, method = client._connect()
+        out[name] = (channel, lambda body, c=client, m=method: c._call(m, c._msg(body)))
+    return out
+
+
+def served_batch_launches(torch, engine, payload, batch) -> tuple[dict, dict, object]:
+    """One bucket batch on a quantized payload after a warm one: its
+    dequant launches on the wrappers' counts and on the profiler's (15 /
+    8 / 1 per forward), a window that lost records taken again with a new
+    batch. Returns both counts and the batch's probabilities, finite and of
+    the bucket's shape."""
+    import numpy as np
+
+    from fedcrack_tpu_torch.kernels import dequant
+
+    engine.predict_bucket(payload, batch)
+    torch.cuda.synchronize()
+    want = {"dequant_matmul": 15, "dequant_conv3x3": 8, "dequant_codes": 1}
+    seen = []
+    for _ in range(PROFILE_TRIES):
+        dequant.reset_launch_counts()
+        with card_profile(torch, cpu=False) as prof:
+            probs = engine.predict_bucket(payload, batch)
+        counted = {name: getattr(dequant, name).launches for name in want}
+        kernels = card_kernels(prof)
+        profiled = {name: sum(e.count for e in kernels if f"{name}_kernel" in e.key) for name in want}
+        if counted != want:
+            raise AssertionError(f"served batch launches: wrappers {counted}, want {want}")
+        if profiled == want:
+            break
+        seen.append(profiled)
+        log(f"profile retaken: {profiled} kernel records (want {want})")
+    else:
+        raise AssertionError(f"served batch launches: profiler {seen}, want {want}; {lead_kept(torch)}")
+    if not (np.isfinite(probs).all() and probs.shape == (len(batch), batch.shape[1], batch.shape[2], 1)):
+        raise AssertionError("served probabilities not finite of the bucket's shape")
+    return counted, profiled, probs
+
+
 def resume_and_swap_phase(torch, card: str) -> dict:
     """Phase 12: a FedBuff server stopped with one card fit in its buffer
     resumes from its statefile and flushes the global an uninterrupted
@@ -1750,13 +1820,12 @@ def resume_and_swap_phase(torch, card: str) -> dict:
     from fedcrack_tpu_torch.ckpt import load_state_file
     from fedcrack_tpu_torch.configs import ServeConfig
     from fedcrack_tpu_torch.fed import rounds, serialization
-    from fedcrack_tpu_torch.kernels import dequant
     from fedcrack_tpu_torch.ops import bce
     from fedcrack_tpu_torch.serve import quant as quant_mod
     from fedcrack_tpu_torch.serve.engine import InferenceEngine
     from fedcrack_tpu_torch.serve.fleet import prepare_gated_payload
     from fedcrack_tpu_torch.serve.hot_swap import ModelVersionManager, publish_statefile
-    from fedcrack_tpu_torch.transport import FedClient, FedServer, wire
+    from fedcrack_tpu_torch.transport import FedServer, wire
     from fedcrack_tpu_torch.transport.service import ServerThread
 
     fs = federation_setup(torch)
@@ -1771,21 +1840,12 @@ def resume_and_swap_phase(torch, card: str) -> dict:
         uploads[name] = (blob, n_samples)
         return wire.TrainDone(round=rnd, weights=blob, sample_count=n_samples)
 
-    def callers(port):
-        """Per client, its channel and a one-message call on it."""
-        out = {}
-        for name in names:
-            client = FedClient(cfg, fits[name], cname=name, port=port)
-            channel, method = client._connect()
-            out[name] = (channel, lambda body, c=client, m=method: c._call(m, c._msg(body)))
-        return out
-
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "state.msgpack")
         cfg = buffered_config(fs, max_rounds=2, state_path=path)
         bce.reset_launch_counts()
         with ServerThread(FedServer(cfg, fs["global0"], tick_period_s=0.05)) as st:
-            calls = callers(st.port)
+            calls = one_message_callers(cfg, names, st.port)
             for name in names:
                 calls[name][1](wire.ReadyReq(config={"current_round": 0}))
             pulls = {name: calls[name][1](wire.PullReq()) for name in names}
@@ -1802,7 +1862,7 @@ def resume_and_swap_phase(torch, card: str) -> dict:
         if [(e["cname"], e["seq"]) for e in resumed_server.state.buffer] != [(names[0], 0)]:
             raise AssertionError(f"the resumed server's buffer {resumed_server.state.buffer}")
         with ServerThread(resumed_server) as st:
-            calls = callers(st.port)
+            calls = one_message_callers(cfg, names, st.port)
             reply = calls[names[1]][1](fit(names[1], pulls[names[1]]))
             for channel, _ in calls.values():
                 channel.close()
@@ -1866,29 +1926,7 @@ def resume_and_swap_phase(torch, card: str) -> dict:
     if [k for k, _ in placed] != [k for k, _ in wanted] or not all(
             np.array_equal(host(a), host(b)) for (_, a), (_, b) in zip(placed, wanted)):
         raise AssertionError("the installed payload is not the published weights' codes and scales")
-    engine.predict_bucket(payload, batch)
-    torch.cuda.synchronize()
-    # One served batch, on the wrappers' counts and on the profiler's; a
-    # window that lost records is taken again with a new batch.
-    want = {"dequant_matmul": 15, "dequant_conv3x3": 8, "dequant_codes": 1}
-    seen = []
-    for _ in range(PROFILE_TRIES):
-        dequant.reset_launch_counts()
-        with card_profile(torch, cpu=False) as prof:
-            probs = engine.predict_bucket(payload, batch)
-        counted = {name: getattr(dequant, name).launches for name in want}
-        kernels = card_kernels(prof)
-        profiled = {name: sum(e.count for e in kernels if f"{name}_kernel" in e.key) for name in want}
-        if counted != want:
-            raise AssertionError(f"served batch launches: wrappers {counted}, want {want}")
-        if profiled == want:
-            break
-        seen.append(profiled)
-        log(f"profile retaken: {profiled} kernel records (want {want})")
-    else:
-        raise AssertionError(f"served batch launches: profiler {seen}, want {want}; {lead_kept(torch)}")
-    if not (np.isfinite(probs).all() and probs.shape == (BATCH, BUCKET, BUCKET, 1)):
-        raise AssertionError("served probabilities not finite of the bucket's shape")
+    counted, profiled, probs = served_batch_launches(torch, engine, payload, batch)
     # The served batch against the CPU engine (plain kernels) on the
     # published weights, within phase 4's limit of the fused plane against
     # the reference plane; version 1's output must lie outside it.
@@ -3036,6 +3074,339 @@ def shadow_cli_phase(torch, card: str) -> dict:
     return out
 
 
+# Phase 16's update-level DP: each client's clip norm, noise multiplier
+# (noise of standard deviation 0.005 per parameter) and seed, and the
+# accountant's noise steps per round (one epoch of 64 samples at batch 16)
+# and sampling rate (a batch of a shard). The secagg round's deadline, long
+# enough for two full-width fits, their masking and uploads.
+DP_CLIP, DP_SIGMA, DP_SEED, DP_STEPS = 0.01, 0.5, 11, 4
+SECAGG_DEADLINE_S = 10.0
+
+
+def dp_grpc_run(torch, fs: dict, card: str) -> dict:
+    """Phase 16 (a): phase 9's federation over gRPC with update-level DP on
+    both clients (the client command line's ``private_train_fn``) and the
+    server charging the accountant and evaluating each global. Each upload
+    is held to ``dp_update_host`` of the (trained, base) pair its client
+    fitted, each round's epsilon to ``compute_epsilon``, and the privacy
+    summary to ``tools/health_report``."""
+    import dataclasses
+    import tempfile
+
+    from fedcrack_tpu_torch.client import private_train_fn
+    from fedcrack_tpu_torch.fed import rounds, serialization
+    from fedcrack_tpu_torch.health.ledger import write_ledger_jsonl
+    from fedcrack_tpu_torch.ioutils import atomic_write_bytes
+    from fedcrack_tpu_torch.ops import bce
+    from fedcrack_tpu_torch.privacy.accountant import compute_epsilon
+    from fedcrack_tpu_torch.privacy.dpsgd import dp_update_host
+    from fedcrack_tpu_torch.tools.health_report import build_report, validate_report
+
+    q = TRAIN_BATCH / 64
+    server_cfg = dataclasses.replace(fs["server_cfg"], host="127.0.0.1", port=0, poll_period_s=0.05,
+                                     dp_clip_norm=DP_CLIP, dp_noise_multiplier=DP_SIGMA, dp_sample_rate=q,
+                                     dp_steps_per_round=DP_STEPS)
+    client_cfg = dataclasses.replace(fs["cfg"], dp_clip_norm=DP_CLIP, dp_noise_multiplier=DP_SIGMA, dp_seed=DP_SEED)
+    pairs = {}
+
+    def dp_client_fn(i, name):
+        fit = fs["client_fn"](i, name)
+
+        def recording(blob, rnd, hparams):
+            out, n_samples, metrics = fit(blob, rnd, hparams)
+            pairs[(name, rnd)] = (blob, out)
+            return out, n_samples, metrics
+
+        return private_train_fn(recording, client_cfg, name)
+
+    eval_batches = [0]
+    bce.reset_launch_counts()
+    run = grpc_federation(torch, dict(fs, client_fn=dp_client_fn), server_cfg, eval_fn=held_out_eval(fs, eval_batches))
+    launches = bce.bce_sums.launches
+    state, names = run["state"], fs["names"]
+    if any(run["results"][n].rounds_completed != 2 for n in names) or state.model_version != 2:
+        raise AssertionError(f"DP sessions {run['results']}, state at version {state.model_version}")
+    if sorted((u[0], u[1]) for u in run["uploads"]) != sorted(pairs):
+        raise AssertionError(f"DP uploads {[(u[0], u[1]) for u in run['uploads']]}, fits {sorted(pairs)}")
+    dp_ms = []
+    for name, rnd, upload, _ in run["uploads"]:
+        base_blob, trained_blob = pairs[(name, rnd)]
+        t0 = time.perf_counter()
+        base = serialization.tree_from_bytes(base_blob)
+        private = dp_update_host(serialization.tree_from_bytes(trained_blob, template=base), base,
+                                 clip_norm=DP_CLIP, noise_multiplier=DP_SIGMA, dp_seed=DP_SEED, cname=name,
+                                 round_idx=rnd)
+        want = serialization.tree_to_bytes(private)
+        dp_ms.append(1e3 * (time.perf_counter() - t0))
+        if upload != want or upload == trained_blob:
+            raise AssertionError(f"{name} round {rnd}: the upload is not dp_update_host of its fit")
+    for h in state.history:
+        want = {n: round(compute_epsilon(q, DP_SIGMA, DP_STEPS * h["round"], server_cfg.dp_delta), 6) for n in names}
+        if h["epsilon"] != want:
+            raise AssertionError(f"round {h['round']}: epsilon {h['epsilon']}, the accountant gives {want}")
+    check_server_evals(run["server"], [1, 2])
+    if launches != run["steps"] + eval_batches[0] or run["steps"] != 16:
+        raise AssertionError(f"bce_sums launches {launches} != {run['steps']} steps + {eval_batches[0]} eval batches")
+    summary = rounds.privacy_summary(state)
+    with tempfile.TemporaryDirectory() as tmp:
+        ledger_path, privacy_path = os.path.join(tmp, "ledger.jsonl"), os.path.join(tmp, "privacy.json")
+        write_ledger_jsonl(state.ledger, ledger_path)
+        atomic_write_bytes(privacy_path, json.dumps(summary, sort_keys=True, indent=2).encode("utf-8"))
+        problems = validate_report(build_report(ledger_path, privacy_path=privacy_path))
+    if problems:
+        raise AssertionError(f"health_report on the privacy summary: {problems}")
+    out = {"launches": launches, "steps": run["steps"], "eval_batches": eval_batches[0],
+           "epsilon": [h["epsilon"] for h in state.history], "max_epsilon": summary["dp"]["max_epsilon"],
+           "round_wall_s": [h["wall_clock_s"] for h in state.history], "session_wall_s": run["wall_s"],
+           "host_dp_ms": dp_ms, "eval_loss": [e["loss"] for e in run["server"].eval_history]}
+    log(f"[privacy] DP over gRPC: every upload byte-equal to dp_update_host of its kept (trained, base) pair, "
+        f"each round's epsilon equal to compute_epsilon, health_report clean; {json.dumps(out)} [{card}]")
+    return out
+
+
+def secagg_dropout_run(torch, fs: dict, card: str) -> dict:
+    """Phase 16 (b): secure aggregation over gRPC. Three clients enroll
+    with their seeds; client_0 and client_1 fit on the card and upload
+    masked trees (port ``FedClient`` sessions), client_2 announces, uploads
+    its plaintext (REJECTED) and stops, and the deadline closes the round
+    on the two survivors. The global must be bit for bit the survivors'
+    fixed-point mean computed here from their plaintext fits, within the
+    fixed-point step of their float FedAvg."""
+    import dataclasses
+    import threading
+
+    import numpy as np
+
+    from fedcrack_tpu_torch.fed import rounds, serialization
+    from fedcrack_tpu_torch.fed.algorithms import fedavg
+    from fedcrack_tpu_torch.fed.pytree import tree_leaves
+    from fedcrack_tpu_torch.ops import bce
+    from fedcrack_tpu_torch.privacy import secagg
+    from fedcrack_tpu_torch.transport import FedClient, FedServer, wire
+    from fedcrack_tpu_torch.transport.service import ServerThread
+
+    names, dropped = fs["names"], "client_2"
+    cfg = dataclasses.replace(fs["server_cfg"], host="127.0.0.1", port=0, poll_period_s=0.05, max_rounds=1,
+                              cohort_size=3, secagg=True, round_deadline_s=SECAGG_DEADLINE_S)
+    fits, uploads, plain = {}, {}, {}
+
+    class RecordingClient(FedClient):
+        def _call(self, method, msg):
+            if msg.kind == "done":
+                uploads[self.cname] = (msg.msg.weights, msg.msg.sample_count)
+            return super()._call(method, msg)
+
+    def train_fn(i, name):
+        fit = fs["client_fn"](i, name)
+
+        def recording(blob, rnd, hparams):
+            out, n_samples, metrics = fit(blob, rnd, hparams)
+            plain[name] = (out, n_samples)
+            return out, n_samples, metrics
+
+        return recording
+
+    bce.reset_launch_counts()
+    server = FedServer(cfg, fs["global0"], tick_period_s=0.05)
+    results, errors = {}, []
+    with ServerThread(server) as st:
+        clients = [RecordingClient(cfg, train_fn(i, n), cname=n, port=st.port) for i, n in enumerate(names)]
+
+        def run(c):
+            try:
+                results[c.cname] = c.run_session()
+            except Exception as e:  # re-raised below, on the main thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=run, args=(c,), daemon=True) for c in clients]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        calls = one_message_callers(cfg, [dropped], st.port)
+        channel, call = calls[dropped]
+        call(wire.ReadyReq(config={"current_round": 0, "__secagg_seed": secagg.client_seed(dropped)}))
+        deadline = time.monotonic() + 60
+        while "__secagg_roster" not in (notice := call(wire.TrainingNotice(round=1))).config:
+            if time.monotonic() > deadline:
+                raise AssertionError("the secagg roster never reached the third client")
+            time.sleep(0.05)
+        plaintext = call(wire.TrainDone(round=1, weights=serialization.tree_to_bytes(fs["global0"]), sample_count=64))
+        channel.close()  # the third client stops here
+        for t in threads:
+            t.join(timeout=120)
+        wall = time.perf_counter() - t0
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"a secagg client failed or hung: {errors}")
+        state = st.state
+    torch.cuda.synchronize()
+    launches = bce.bce_sums.launches
+    roster = json.loads(notice.config["__secagg_roster"])
+    if plaintext.status != rounds.REJECTED or "bad magic" not in plaintext.config["reason"]:
+        raise AssertionError(f"the plaintext upload was answered {plaintext.status} {dict(plaintext.config)}")
+    entry = state.history[-1] if state.history else {}
+    if state.model_version != 1 or entry.get("secagg") != {"maskers": names, "recovered": [dropped], "bits": 24}:
+        raise AssertionError(f"secagg round: version {state.model_version}, history {entry}")
+    if sorted(roster) != [*names, dropped] or entry["rejected"].get(dropped) != "not a secagg masked blob (bad magic)":
+        raise AssertionError(f"roster {sorted(roster)}, rejected {entry['rejected']}")
+    if any(results[n].rounds_completed != 1 or results[n].final_weights != state.global_blob for n in names):
+        raise AssertionError(f"survivor sessions {results}")
+    trees = [serialization.tree_from_bytes(plain[n][0], template=fs["global0"]) for n in names]
+    counts = [plain[n][1] for n in names]
+    t0 = time.perf_counter()
+    mixed = secagg.round_roster(roster, 1)
+    masked = [secagg.mask_update(t, cname=n, n_samples=c, roster=mixed) for n, t, c in zip(names, trees, counts)]
+    mask_ms = 1e3 * (time.perf_counter() - t0) / len(names)
+    if masked != [uploads[n][0] for n in names]:
+        raise AssertionError("a survivor's upload is not mask_update of its fit against the roster")
+    t0 = time.perf_counter()
+    total, n_total, recovered = secagg.unmask_sum({n: secagg.decode_masked(uploads[n][0]) for n in names}, mixed)
+    unmasked = secagg.unmasked_mean(total, n_total, serialization.tree_from_bytes(state.global_blob))
+    unmask_ms = 1e3 * (time.perf_counter() - t0)
+    exact = secagg.fixed_point_decode(secagg.weighted_fixed_sum(trees, counts), sum(counts), 24, fs["global0"])
+    if serialization.tree_to_bytes(exact) != state.global_blob or recovered != [dropped]:
+        raise AssertionError("the secagg global is not the survivors' fixed-point mean")
+    if serialization.tree_to_bytes(unmasked) != state.global_blob:
+        raise AssertionError("the uploads do not unmask to the server's global")
+    step = 2.0 ** -24
+    steps_off = 0.0
+    for g, f in zip(tree_leaves(exact), tree_leaves(fedavg(trees, counts))):
+        g32, f32 = np.asarray(g, np.float32), np.asarray(f, np.float32)
+        g64, f64 = g32.astype(np.float64), f32.astype(np.float64)
+        # The fixed-point step, and an ulp of each float32 rounding.
+        bound = step + 2 * np.spacing(np.maximum(np.abs(g32), np.abs(f32))).astype(np.float64)
+        if not (np.abs(g64 - f64) <= bound).all():
+            raise AssertionError("the secagg global is not within the fixed-point step of the float FedAvg")
+        steps_off = max(steps_off, float(np.max(np.abs(g64 - f64))) / step)
+    if launches != 8:  # two survivors, one epoch of 4 steps each
+        raise AssertionError(f"bce_sums launches {launches} != 8 survivor steps")
+    out = {"launches": launches, "steps": 8, "round_wall_s": entry["wall_clock_s"], "session_wall_s": wall,
+           "mask_ms": mask_ms, "unmask_ms": unmask_ms, "close_transition_ms": 1e3 * server.transition_s.get(1, 0.0),
+           "masked_bytes": len(uploads[names[0]][0]), "plain_bytes": len(plain[names[0]][0]),
+           "wire_ratio_masked_over_plain": len(uploads[names[0]][0]) / len(plain[names[0]][0]),
+           "max_diff_vs_float_fedavg_in_fixed_point_steps": steps_off}
+    log(f"[privacy] secagg over gRPC with a dropout: {dropped}'s plaintext REJECTED, the deadline closed the round "
+        f"on {names}, the global bit-equal to their fixed-point mean and to the unmask of their uploads; "
+        f"{json.dumps(out)} [{card}]")
+    return out
+
+
+def ckpt_resume_serve_run(torch, fs: dict, card: str) -> dict:
+    """Phase 16 (c): a ``FedServer(checkpointer=)`` runs round 1 with card
+    fits and is stopped; a new one on the same directory resumes at round 2
+    with round 1's global and runs round 2; then a fused_int8
+    ``ModelVersionManager(ckpt_dir=)`` installs the checkpointed version 2
+    and serves one bucket batch through the dequant kernels (15 / 8 / 1),
+    within phase 4's limit of a CPU engine on the same weights."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from fedcrack_tpu_torch.ckpt import FedCheckpointer, restore_server_state
+    from fedcrack_tpu_torch.configs import ServeConfig
+    from fedcrack_tpu_torch.fed import rounds, serialization
+    from fedcrack_tpu_torch.ops import bce
+    from fedcrack_tpu_torch.serve import quant as quant_mod
+    from fedcrack_tpu_torch.serve.engine import InferenceEngine
+    from fedcrack_tpu_torch.serve.hot_swap import ModelVersionManager
+    from fedcrack_tpu_torch.transport import FedServer, wire
+    from fedcrack_tpu_torch.transport.service import ServerThread
+
+    names = fs["names"]
+    cfg = dataclasses.replace(fs["server_cfg"], host="127.0.0.1", port=0, poll_period_s=0.05)
+    fits = {name: fs["client_fn"](i, name) for i, name in enumerate(names)}
+
+    def one_round(server):
+        """Every client enrolls, pulls, fits on the card and uploads, one
+        message a call; returns the pulled blob and the last reply."""
+        with ServerThread(server) as st:
+            calls = one_message_callers(cfg, names, st.port)
+            for name in names:
+                calls[name][1](wire.ReadyReq(config={"current_round": 0}))
+            for name in names:
+                pull = calls[name][1](wire.PullReq())
+                rnd = int(pull.config["current_round"])
+                calls[name][1](wire.TrainingNotice(round=rnd))
+                blob, n_samples, _ = fits[name](pull.weights, rnd, dict(pull.config))
+                reply = calls[name][1](wire.TrainDone(round=rnd, weights=blob, sample_count=n_samples))
+            for channel, _ in calls.values():
+                channel.close()
+        return pull.weights, reply
+
+    bce.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        first = FedServer(cfg, fs["global0"], tick_period_s=0.05, checkpointer=FedCheckpointer(ckpt_dir))
+        _, reply = one_round(first)  # the stop drains the checkpoint save
+        if reply.status != rounds.RESP_ARY or [c["model_version"] for c in first.checkpoints] != [1]:
+            raise AssertionError(f"round 1 answered {reply.status}, checkpoints {list(first.checkpoints)}")
+        t0 = time.perf_counter()
+        restored = restore_server_state(FedCheckpointer(ckpt_dir), cfg, fs["global0"])
+        restore_ms = 1e3 * (time.perf_counter() - t0)
+        second = FedServer(cfg, fs["global0"], tick_period_s=0.05, checkpointer=FedCheckpointer(ckpt_dir))
+        resumed = second.state
+        if (resumed.current_round, resumed.model_version, resumed.phase) != (2, 1, rounds.PHASE_ENROLL) or \
+                resumed.global_blob != first.state.global_blob or restored.global_blob != resumed.global_blob:
+            raise AssertionError(f"resumed at round {resumed.current_round}, version {resumed.model_version}, "
+                                 f"phase {resumed.phase}, same global {resumed.global_blob == first.state.global_blob}")
+        pulled, reply = one_round(second)
+        if pulled != first.state.global_blob or reply.status != rounds.FIN or second.state.model_version != 2:
+            raise AssertionError(f"round 2 after the resume: {reply.status} at version {second.state.model_version}")
+        if [c["model_version"] for c in second.checkpoints] != [2] or len(second.state.history) != 2:
+            raise AssertionError(f"checkpoints {list(second.checkpoints)}, history {len(second.state.history)}")
+        launches = bce.bce_sums.launches
+        if launches != 16:
+            raise AssertionError(f"bce_sums launches {launches} != 16 train steps")
+        sc = ServeConfig(quant="int8", kernel_plane="fused_int8")
+        engine = InferenceEngine(fs["cfg"].model, sc)
+        manager = ModelVersionManager(engine, fs["global0"], ckpt_dir=ckpt_dir, template=fs["global0"])
+        if not manager.poll_once() or manager.version != 2:
+            raise AssertionError(f"poll_once did not install checkpoint version 2 (at {manager.version})")
+    gate = manager.last_quant_gate
+    _, payload = manager.snapshot()
+    weights = serialization.tree_from_bytes(second.state.global_blob, template=fs["global0"])
+    # What the gate's IoU compared: the probe's crack share under the
+    # reference program.
+    probe = quant_mod.probe_images(BUCKET, sc.quant_probe_batch, sc.quant_probe_seed)
+    positive = float(np.mean(engine.predict_bucket(engine.prepare(weights), probe) > 0.5))
+    if not gate["passed"] or not isinstance(payload, quant_mod.QuantizedVariables):
+        raise AssertionError(f"the checkpointed version is not served quantized: gate {gate}, crack share {positive}")
+    batch = np.random.default_rng(6).integers(0, 256, (BATCH, BUCKET, BUCKET, 3), dtype=np.uint8)
+    counted, profiled, probs = served_batch_launches(torch, engine, payload, batch)
+    cpu = InferenceEngine(fs["cfg"].model, sc, device="cpu")
+    want = cpu.predict_bucket(cpu.prepare(quant_mod.quantize_for_plane(weights, "fused_int8")), batch)
+    err = float(np.max(np.abs(probs.astype(np.float64) - want)))
+    if not err < SERVE_PROB_TOL:
+        raise AssertionError(f"served batch {err} from the CPU engine on the checkpointed weights")
+    saves = [c["ms"] for c in first.checkpoints] + [c["ms"] for c in second.checkpoints]
+    out = {"launches": launches, "steps": 16, "checkpoint_save_ms": saves, "checkpoint_restore_ms": restore_ms,
+           "install_ms": manager.last_swap["load_ms"], "gate": gate, "probe_crack_share": positive,
+           "served_launches": counted,
+           "served_max_abs_err_vs_cpu": err}
+    log(f"[ckpt] a FedServer stopped after round 1 resumed from its checkpoint at round 2 with round 1's global, "
+        f"ran round 2, and ModelVersionManager(ckpt_dir=) served version 2 quantized; one bucket-{BUCKET} batch "
+        f"of {BATCH} launched {json.dumps(profiled)} (profiler); {json.dumps(out)} [{card}]")
+    return out
+
+
+def privacy_ckpt_phase(torch, card: str) -> dict:
+    """Phase 16: the privacy plane and the round checkpointer at phase 7's
+    full width over loopback gRPC, port peers only: (a) DP, (b) secagg with
+    a dropout, (c) a checkpoint resume served through the dequant
+    kernels. Returns the ``bce_sums`` launches of all three and the served
+    batch's dequant launches."""
+    t0 = time.monotonic()
+    fs = federation_setup(torch)
+    dp = dp_grpc_run(torch, fs, card)
+    sa = secagg_dropout_run(torch, fs, card)
+    ck = ckpt_resume_serve_run(torch, fs, card)
+    out = {"launches": dp["launches"] + sa["launches"] + ck["launches"], "served_launches": ck["served_launches"],
+           "phase_s": time.monotonic() - t0}
+    log(f"[privacy] phase 16 wall {out['phase_s']:.2f} s; bce_sums launches {out['launches']} = "
+        f"{dp['steps'] + sa['steps'] + ck['steps']} train steps + {dp['eval_batches']} eval batches [{card}]")
+    return out
+
+
 def server_breakdown(config, template, rnd: dict, n: int = 3) -> dict:
     """Host ms (median of ``n``) of each step the round machine takes on
     one round's accepted uploads: the gate per upload (validate, decode,
@@ -3194,6 +3565,8 @@ def main() -> int:
     log("phase 14 the serve command line at full width: Predict, StreamPredict, hot swap and autoscaler: ok")
     shadow = shadow_cli_phase(torch, card)
     log("phase 15 progressive delivery under load_gen: a promote, a rollback and quantify --pred-dir: ok")
+    privacy = privacy_ckpt_phase(torch, card)
+    log("phase 16 the privacy plane (DP, secagg with a dropout) and a checkpoint resume served quantized: ok")
 
     kernels = []
     replaces = {"dequant_matmul": "fedcrack_tpu/kernels/dequant.py:88",
@@ -3211,7 +3584,8 @@ def main() -> int:
                 "launches": served["launches"][name],
                 **({"launches_phase12": swap["served_launches"][name],
                     "launches_phase14": serve_cli["launches"][name],
-                    "launches_phase15": shadow["launches"][name]} if flavor == "int8" else {}),
+                    "launches_phase15": shadow["launches"][name],
+                    "launches_phase16": privacy["served_launches"][name]} if flavor == "int8" else {}),
                 "max_abs_err": row["max_abs_err"],
                 "ms": row["ms"],
                 "plain_ms": row["plain_ms"],
@@ -3233,6 +3607,7 @@ def main() -> int:
         "launches_phase11": buffered["launches"],
         "launches_phase12": swap["launches"],
         "launches_phase13": cli["launches"],
+        "launches_phase16": privacy["launches"],
         **bce_row,
     })
     log(f"profiler: {lead_kept(torch)} at {time.monotonic() - t_start:.1f} s [{card}]")

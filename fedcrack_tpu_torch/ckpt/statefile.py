@@ -20,9 +20,9 @@ package loads in the other and re-encodes to the same bytes:
   ``{'0': m, '1': v}`` for FedAdam and FedYogi. The port's state is the
   tuple ``(m,)`` or ``(m, v)``; moments that do not fit the configured
   optimizer are logged and restart from zero;
-- ``secagg_roster`` and ``privacy_steps`` (secure aggregation and the DP
-  accountant, not ported) are written as the empty maps the JAX package
-  writes for a run without them, and dropped on read.
+- the privacy plane's maps close it: the enroll-time masking seeds, the
+  frozen masking roster and the DP accountant's per-client step counts
+  (epsilon is recomputed from the steps, never stored).
 
 Not persisted: the monotonic timestamps (the restored state re-arms them
 at its first event) and the config (the booting server's wins; the
@@ -142,8 +142,8 @@ def server_state_to_bytes(state: Any) -> bytes:
         "base_blobs": {str(int(v)): b for v, b in sorted(state.base_blobs.items())},
         "ledger": _health_ledger.ledger_to_wire(state.ledger),
         "secagg_seeds": {name: int(s) for name, s in sorted(state.secagg_seeds.items())},
-        "secagg_roster": {},
-        "privacy_steps": {},
+        "secagg_roster": {name: int(s) for name, s in sorted(state.secagg_roster.items())},
+        "privacy_steps": {name: int(t) for name, t in sorted(state.privacy_steps.items())},
     }
     return packb(_plain(payload), sort_keys=False)
 
@@ -210,6 +210,8 @@ def server_state_from_bytes(blob: bytes, config: Any) -> Any:
         ),
         ledger=_health_ledger.ledger_from_wire(payload.get("ledger", [])),
         secagg_seeds={k: int(v) for k, v in payload.get("secagg_seeds", {}).items()},
+        secagg_roster={k: int(v) for k, v in payload.get("secagg_roster", {}).items()},
+        privacy_steps={k: int(v) for k, v in payload.get("privacy_steps", {}).items()},
         server_opt_state=opt_state,
         enroll_opened_at=None,
         round_started_at=None,

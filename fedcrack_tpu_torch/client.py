@@ -8,9 +8,12 @@ client's shard) or ``--synthetic N``. Every local fit runs on the card
 unless ``main`` is given another ``device``. With ``--predict-dir``
 the client predicts masks for its data with the last fit's model after
 the session and quantifies them (``tools/quantify.predict_and_quantify``:
-``pred_*.png``, ``overlay_*.png`` and a logged JSON report). The DP flags
-raise ``NotImplementedError``: their module is not ported yet. The exit
-code is 0 when the client enrolled, else 1.
+``pred_*.png``, ``overlay_*.png`` and a logged JSON report). With
+``--dp-clip-norm`` each round's trained tree is privatized on the host
+before upload (``privacy/dpsgd.dp_update_host``: the delta to the round's
+base clipped, one Gaussian draw of ``--dp-noise-multiplier`` times the
+clip added, seeded from ``(--dp-seed, name, round)``). The exit code is 0
+when the client enrolled, else 1.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import os
 import sys
 import zlib
 
+import numpy as np
 import torch
 
 from fedcrack_tpu_torch.configs import FedConfig
@@ -46,6 +50,44 @@ def local_shard(cfg: FedConfig, num_clients: int, client_index: int):
         )
 
     return pick
+
+
+def _cast_like(leaf, ref):
+    """``leaf`` in the leaf type and dtype of ``ref`` (a numpy array, or a
+    CPU tensor where the wire carried bfloat16)."""
+    if isinstance(ref, torch.Tensor):
+        t = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(np.array(leaf))
+        return t.to(ref.dtype)
+    arr = leaf.to(torch.float32).numpy() if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
+    return arr.astype(np.asarray(ref).dtype)
+
+
+def private_train_fn(train_fn, cfg: FedConfig, cname: str):
+    """``train_fn`` with update-level DP on its output: the round's blob
+    (the base) and the trained blob decode on the host, the trained tree
+    in the base's dtypes, and ``dp_update_host`` privatizes it before it is
+    encoded again. Its noise is keyed on ``(cfg.dp_seed, cname, round)``,
+    so a retried upload of a round is the same bytes."""
+    from fedcrack_tpu_torch.fed.pytree import tree_map
+    from fedcrack_tpu_torch.fed.serialization import tree_from_bytes, tree_to_bytes
+    from fedcrack_tpu_torch.privacy.dpsgd import dp_update_host
+
+    def private(blob, rnd, *rest):
+        out_blob, n_samples, metrics = train_fn(blob, rnd, *rest)
+        base = tree_from_bytes(blob)
+        trained = tree_map(_cast_like, tree_from_bytes(out_blob), base)
+        privatized = dp_update_host(
+            trained,
+            base,
+            clip_norm=cfg.dp_clip_norm,
+            noise_multiplier=cfg.dp_noise_multiplier,
+            dp_seed=cfg.dp_seed,
+            cname=cname,
+            round_idx=rnd,
+        )
+        return tree_to_bytes(privatized), n_samples, metrics
+
+    return private
 
 
 def main(argv: list[str] | None = None, *, device: torch.device | str | None = None) -> int:
@@ -125,13 +167,11 @@ def main(argv: list[str] | None = None, *, device: torch.device | str | None = N
         help="gRPC send/receive cap in MiB (must cover the server's dense "
         "weight broadcast regardless of the negotiated upload codec)",
     )
-    # The privacy flags parse as the JAX package's do, and main refuses
-    # them: update-level DP is not ported yet.
     p.add_argument(
         "--dp-clip-norm",
         type=float,
         dest="dp_clip_norm",
-        help="update-level local DP (McMahan et al. 2018; not ported yet: refused): clip this "
+        help="update-level local DP (McMahan et al. 2018): clip this "
         "round's (trained - base) delta to this L2 norm before upload "
         "(0 disables)",
     )
@@ -182,12 +222,6 @@ def main(argv: list[str] | None = None, *, device: torch.device | str | None = N
         if v is not None
     }
     raw.update(overrides)
-    dp_given = [f for f in ("dp_clip_norm", "dp_noise_multiplier", "dp_seed") if getattr(args, f) is not None]
-    if dp_given or float(raw.get("dp_clip_norm", 0.0) or 0.0) > 0:
-        raise NotImplementedError(
-            f"update-level DP ({', '.join(dp_given) or 'dp_clip_norm in the config'}) is not ported yet: "
-            "privacy/dpsgd.py, ROADMAP Queue 1 item 3"
-        )
     cfg = FedConfig.from_dict(raw)
 
     batch = cfg.data.batch_size
@@ -249,6 +283,8 @@ def main(argv: list[str] | None = None, *, device: torch.device | str | None = N
         train_fn, holder = make_train_fn(
             cfg, dataset, batch, seed=args.seed, device=device, metrics_logger=metrics_logger
         )
+        if cfg.dp_clip_norm > 0:
+            train_fn = private_train_fn(train_fn, cfg, cname)
         client = FedClient(cfg, train_fn, cname=cname)
         result = client.run_session()
         if metrics_logger is not None:

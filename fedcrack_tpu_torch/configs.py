@@ -292,12 +292,9 @@ class FedConfig:
     port accepts exactly the configurations the JAX package accepts and
     its round machine sends the same handshake map.
 
-    The port acts on the sync round machine's fields (rounds, cohort,
-    windows, deadline, quorum, sanitation, aggregation and quarantine,
-    FedOpt, the wire dtype, log caps) and on the client's training fields.
-    The rest (buffered mode, the update codec, DP and secure aggregation,
-    transport, TLS, checkpoints, metrics sinks, the mesh plane) are kept
-    as data; ``fed.rounds.initial_state`` refuses the modes it cannot run.
+    The mesh plane's fields (``mesh_clients``, ``mesh_batch``,
+    ``segments``, ``segment_overlap``, ``data_placement``) are kept as data:
+    the mesh plane is not ported yet.
 
     Reference values: MAX_NUM_ROUND=5 (fl_server.py:18), 10 s registration
     window (fl_server.py:42), 20 s version poll (fl_client.py:141), local
@@ -306,7 +303,7 @@ class FedConfig:
 
     max_rounds: int = 5
     cohort_size: int = 2
-    # "sync" (the round barrier) or "buffered" (FedBuff; not ported).
+    # "sync" (the round barrier) or "buffered" (FedBuff, fed/buffered.py).
     mode: str = "sync"
     buffer_k: int = 2
     staleness_alpha: float = 0.5
@@ -332,7 +329,9 @@ class FedConfig:
     # A client whose flush-time robust z reaches this is left out of the
     # fold. 0 disables.
     quarantine_z: float = 0.0
-    # DP-SGD and its accountant (not ported).
+    # Update-level DP (privacy/dpsgd.py, applied by the client command
+    # line) and the RDP accountant (privacy/accountant.py) that charges
+    # each round's contributors.
     dp_clip_norm: float = 0.0
     dp_noise_multiplier: float = 0.0
     dp_sample_rate: float = 0.01
@@ -340,10 +339,10 @@ class FedConfig:
     dp_steps_per_round: int = 0
     dp_seed: int = 0
     dp_epsilon_budget: float = 0.0
-    # Pairwise-mask secure aggregation (not ported).
+    # Pairwise-mask secure aggregation (privacy/secagg.py).
     secagg: bool = False
     secagg_bits: int = 24
-    # Mid-round durable server state (not ported).
+    # Mid-round durable server state (ckpt/statefile.py).
     state_path: str = ""
     # FedProx proximal term; 0 disables.
     fedprox_mu: float = 0.0
@@ -357,8 +356,7 @@ class FedConfig:
     model_type: str = "resunet"
     # "bfloat16" halves broadcast and upload bytes; server math stays f32.
     wire_dtype: str = "float32"
-    # Compressed update transport: "null" is the raw blob (the only codec
-    # the port runs).
+    # Compressed update transport (compress/): "null" is the raw blob.
     update_codec: str = "null"
     topk_fraction: float = 0.01
     host: str = "127.0.0.1"

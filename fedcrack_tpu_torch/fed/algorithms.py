@@ -7,14 +7,21 @@ reference's ``get_weights()`` lists include them). A tree is a nested dict
 whose leaves are numpy arrays (decoded client payloads) or torch tensors
 on any device.
 
-The mean is the expression of the JAX package's host path (the native
-``weighted_accumulate`` / ``scale_inplace`` kernels): from a float32 zero,
-``acc += float32(w) * x`` per client in order, then
-``acc *= float32(1 / total)`` with the total summed in float64. The native
-kernels are compiled with FMA contraction, so ``acc + w * x`` rounds once
-to float32; the port rounds it once too (the product of two float32 values
-is exact in float64), which keeps the two packages within an ulp of each
-other even where client values cancel.
+The mean takes the JAX package's two paths, chosen for the whole tree as
+it chooses them:
+
+- every leaf of every tree a float32 numpy array (the server's decoded
+  uploads): the native ``weighted_accumulate`` / ``scale_inplace``
+  expression, from a float32 zero ``acc += float32(w) * x`` per client in
+  order, then ``acc *= float32(1 / total)`` with the total summed in
+  float64. The native kernels are compiled with FMA contraction, so
+  ``acc + w * x`` rounds once to float32; the port rounds it once too (the
+  product of two float32 values is exact in float64), which keeps the two
+  packages within an ulp of each other even where client values cancel;
+- anything else (torch tensors, bfloat16, float64): the ``jnp`` path,
+  bit for bit. The weights are normalized in float32 first, then each
+  leaf is ``acc = acc + w_i * float32(x)`` from a float32 zero, the product
+  and the sum each rounded to float32, and cast back to the leaf's dtype.
 """
 
 from __future__ import annotations
@@ -27,21 +34,28 @@ import torch
 from fedcrack_tpu_torch.fed.pytree import tree_flatten, tree_map, tree_unflatten
 
 
-def _weighted_mean_leaf(leaves: Sequence[Any], weights: Sequence[float], total: float) -> Any:
-    first = leaves[0]
-    scale = np.float32(1.0 / total)
-    if isinstance(first, torch.Tensor):
-        acc = torch.zeros(first.shape, dtype=torch.float32, device=first.device)
-        for w, x in zip(weights, leaves):
-            w32 = float(np.float32(w))
-            acc = (acc.double() + w32 * x.to(acc.device, torch.float64)).to(torch.float32)
-        return (acc * float(scale)).to(first.dtype)
-    acc = np.zeros(np.shape(first), np.float32)
+def _native_mean_leaf(leaves: Sequence[np.ndarray], weights: Sequence[float], total: float) -> np.ndarray:
+    """The native kernels' expression on float32 numpy leaves."""
+    acc = np.zeros(np.shape(leaves[0]), np.float32)
     for w, x in zip(weights, leaves):
         w64 = np.float64(np.float32(w))
         acc = (acc.astype(np.float64) + w64 * np.asarray(x, np.float64)).astype(np.float32)
-    acc *= scale
-    return acc.astype(np.asarray(first).dtype, copy=False)
+    acc *= np.float32(1.0 / total)
+    return acc
+
+
+def _normalized_mean_leaf(leaves: Sequence[Any], w: np.ndarray) -> Any:
+    """The ``jnp`` path's expression: ``w`` already normalized in float32."""
+    first = leaves[0]
+    if isinstance(first, torch.Tensor):
+        acc = torch.zeros(first.shape, dtype=torch.float32, device=first.device)
+        for wi, x in zip(w, leaves):
+            acc = acc + torch.tensor(wi) * x.to(acc.device, torch.float32)
+        return acc.to(first.dtype)
+    acc = np.zeros(np.shape(first), np.float32)
+    for wi, x in zip(w, leaves):
+        acc = acc + wi * np.asarray(x).astype(np.float32)
+    return acc.astype(np.asarray(first).dtype)
 
 
 def fedavg(updates: Sequence[Any], weights: Sequence[float] | None = None) -> Any:
@@ -61,13 +75,17 @@ def fedavg(updates: Sequence[Any], weights: Sequence[float] | None = None) -> An
         raw_w = [float(x) for x in weights]
         if sum(raw_w) <= 0:
             raise ValueError("non-positive total weight")
-    total = float(np.sum(np.asarray(raw_w, np.float64)))
     flat = [tree_flatten(u) for u in updates]
     treedef = flat[0][1]
     if any(td != treedef for _, td in flat[1:]):
         raise ValueError("client trees differ in structure")
-    columns = zip(*(leaves for leaves, _ in flat))
-    return tree_unflatten(treedef, [_weighted_mean_leaf(col, raw_w, total) for col in columns])
+    columns = list(zip(*(leaves for leaves, _ in flat)))
+    if all(isinstance(x, np.ndarray) and x.dtype == np.float32 for col in columns for x in col):
+        total = float(np.sum(np.asarray(raw_w, np.float64)))
+        return tree_unflatten(treedef, [_native_mean_leaf(col, raw_w, total) for col in columns])
+    w = np.asarray(raw_w, np.float32)
+    w = w / np.sum(w)
+    return tree_unflatten(treedef, [_normalized_mean_leaf(col, w) for col in columns])
 
 
 def fedprox_penalty(

@@ -27,7 +27,8 @@ What holds, as in the JAX package:
   resumes with the accepted updates and flushes the same next global.
 
 Each flush appends a history entry with ``updates_per_sec``,
-``buffer_fill``, the per-update ``staleness`` and ``global_version``;
+``buffer_fill``, the per-update ``staleness`` and ``global_version``
+(and, under DP, the epsilon map after charging each entry's sender);
 :func:`async_summary` reduces a history to staleness percentiles.
 """
 
@@ -342,6 +343,11 @@ class BufferedAggregator:
             # lists above keep what the buffer held.
             "quarantined": quarantined,
         }
+        # The DP charge: each buffered entry is one local fit whose noise
+        # is already in its blob, so each charges its sender, quarantined
+        # ones included (the budget was spent client-side).
+        privacy_steps, exhausted = R.charge_privacy(state, [e["cname"] for e in entries], entry)
+        finished = finished or exhausted
         # The retained window: the new broadcast joins, versions more than
         # max_staleness behind leave.
         bases = {
@@ -352,6 +358,7 @@ class BufferedAggregator:
         bases[new_version] = new_wire_blob or new_blob
         return state._replace(
             ledger=new_ledger,
+            privacy_steps=privacy_steps,
             global_blob=new_blob,
             wire_blob=new_wire_blob,
             current_round=new_round,

@@ -27,15 +27,24 @@ its wire bytes and codec. Under ``FedConfig.mode == "buffered"`` the
 pulls, the uploads and the passage of time go to FedBuff's handlers
 (``fed/buffered.py``) instead of the round barrier.
 
-The server's arithmetic (decode, ledger, fold, FedOpt, encode) runs on the
-host in float32 numpy, as the JAX package's does; the server holds no
-device state. What the port does not run yet raises at
-:func:`initial_state`: secure aggregation and DP noise.
+The privacy plane rides the same machine. Under ``config.secagg`` the
+masking roster freezes when enrollment closes, the ``TrainingNotice``
+reply carries it, the gate takes only masked uploads against that roster,
+and the round's fold is the modular unmask with dropout recovery
+(``privacy/secagg.py``). Under ``dp_noise_multiplier > 0`` each round
+charges its contributors' noise steps to the RDP accountant
+(``privacy/accountant.py``), records the cumulative epsilon map in the
+history entry and finishes the federation once the budget is spent.
+
+The server's arithmetic (decode, ledger, fold, FedOpt, encode, unmask)
+runs on the host in numpy, as the JAX package's does; the server holds no
+device state.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 from dataclasses import dataclass
 from typing import Any, Mapping
@@ -193,8 +202,14 @@ class ServerState:
     # Per-client health ledger (health/ledger.py), changed only through
     # its pure helpers.
     ledger: Mapping[str, dict] = dataclasses.field(default_factory=dict)
-    # Masking seeds received at enroll under config.secagg.
+    # The privacy plane: the masking seeds received at enroll under
+    # config.secagg; the {name: seed} roster frozen when the cohort closed
+    # (uploads are masked against it; a deadline shrink changes the cohort,
+    # never the roster); the accountant's per-client noise step counts
+    # (epsilon is recomputed from them, never stored).
     secagg_seeds: Mapping[str, int] = dataclasses.field(default_factory=dict)
+    secagg_roster: Mapping[str, int] = dataclasses.field(default_factory=dict)
+    privacy_steps: Mapping[str, int] = dataclasses.field(default_factory=dict)
 
     @property
     def broadcast_blob(self) -> bytes:
@@ -304,18 +319,6 @@ def _wire_cast(config: FedConfig) -> str | None:
     return "bfloat16" if config.wire_dtype == "bfloat16" else None
 
 
-def _refuse_unported(config: FedConfig) -> None:
-    if config.secagg:
-        raise NotImplementedError(
-            "secagg=True is not ported yet: privacy/secagg.py, ROADMAP Queue 1 item 3"
-        )
-    if config.dp_noise_multiplier > 0.0:
-        raise NotImplementedError(
-            "dp_noise_multiplier > 0 is not ported yet: the privacy accountant "
-            "(privacy/accountant.py), ROADMAP Queue 1 item 3"
-        )
-
-
 def _host_numpy(leaf: Any) -> Any:
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
@@ -326,9 +329,7 @@ def _host_numpy(leaf: Any) -> Any:
 
 def initial_state(config: FedConfig, global_variables: Any) -> ServerState:
     """Server boot: serialize the initial global model (numpy or torch
-    leaves); raises ``NotImplementedError`` for a configuration this
-    machine does not run."""
-    _refuse_unported(config)
+    leaves)."""
     cast = _wire_cast(config)
     blob = tree_to_bytes(global_variables)
     wire_blob = tree_to_bytes(global_variables, cast_dtype=cast) if cast else b""
@@ -386,7 +387,16 @@ def _barrier_met(state: ServerState) -> bool:
 
 
 def _start_running(state: ServerState, now: float) -> ServerState:
-    return state._replace(phase=PHASE_RUNNING, round_started_at=now)
+    """Close enrollment; under secagg freeze the masking roster to the
+    closed cohort (the seed sent at enroll, else the ``client_seed`` both
+    ends derive from the name)."""
+    state = state._replace(phase=PHASE_RUNNING, round_started_at=now)
+    if state.config.secagg:
+        from fedcrack_tpu_torch.privacy.secagg import client_seed
+
+        roster = {n: int(state.secagg_seeds.get(n, client_seed(n))) for n in sorted(state.cohort)}
+        state = state._replace(secagg_roster=roster)
+    return state
 
 
 def _advance_time(state: ServerState, now: float) -> ServerState:
@@ -469,33 +479,128 @@ def apply_fedopt(state: ServerState, avg: Any) -> tuple[Any, Any]:
     return avg, opt_state
 
 
+# The per-step RDP vector is a pure function of (sigma, q, delta) and costs
+# about 10^4 log-space terms, so one accountant per key is kept for the
+# process. Only its immutable per-step vector is read, never its steps
+# dict, so servers sharing an entry do not race.
+_ACCOUNTANT_MEMO: dict = {}
+
+
+def _epsilons_for(config: FedConfig, steps: Mapping[str, int]) -> dict[str, float]:
+    """Cumulative per-client eps(delta) for the given noise-step counts,
+    rounded to 6 places."""
+    from fedcrack_tpu_torch.privacy.accountant import PrivacyAccountant, rdp_to_epsilon
+
+    key = (config.dp_noise_multiplier, config.dp_sample_rate, config.dp_delta)
+    acct = _ACCOUNTANT_MEMO.get(key)
+    if acct is None:
+        acct = PrivacyAccountant(
+            noise_multiplier=config.dp_noise_multiplier,
+            sample_rate=config.dp_sample_rate,
+            delta=config.dp_delta,
+        )
+        _ACCOUNTANT_MEMO[key] = acct
+    out = {}
+    for n in sorted(steps):
+        t = int(steps[n])
+        eps = rdp_to_epsilon([r * t for r in acct._rdp_step], acct.orders, acct.delta)[0] if t > 0 else 0.0
+        out[str(n)] = round(eps, 6)
+    return out
+
+
+def privacy_summary(state: ServerState) -> dict:
+    """The privacy block the server command writes beside its metrics and
+    ``tools/health_report.py --privacy`` joins: the accountant's parameters
+    with each client's steps and epsilon, and the secagg facts. Sorted and
+    rounded, so it is a function of the state."""
+    cfg = state.config
+    dp_on = cfg.dp_noise_multiplier > 0.0
+    eps = _epsilons_for(cfg, state.privacy_steps) if dp_on else {}
+    return {
+        "dp": {
+            "enabled": dp_on,
+            "clip_norm": float(cfg.dp_clip_norm),
+            "noise_multiplier": float(cfg.dp_noise_multiplier),
+            "sample_rate": float(cfg.dp_sample_rate),
+            "delta": float(cfg.dp_delta),
+            "epsilon_budget": float(cfg.dp_epsilon_budget),
+            "clients": {
+                n: {"steps": int(state.privacy_steps[n]), "epsilon": eps[n]}
+                for n in sorted(state.privacy_steps)
+            }
+            if dp_on
+            else {},
+            "max_epsilon": max(eps.values(), default=0.0) if dp_on else 0.0,
+        },
+        "secagg": {
+            "enabled": bool(cfg.secagg),
+            "bits": int(cfg.secagg_bits),
+            "roster_size": len(state.secagg_roster),
+        },
+    }
+
+
+def charge_privacy(state: ServerState, names, entry: dict) -> tuple[Mapping[str, int], bool]:
+    """The DP accountant's charge at a round's close (or a FedBuff flush):
+    each of ``names`` (one per contribution) spends ``dp_steps_per_round``
+    (``local_epochs`` when 0). The cumulative epsilon map goes into
+    ``entry``; once any client reaches a set budget the entry says so and
+    the federation finishes. Returns ``(privacy_steps, exhausted)``."""
+    if state.config.dp_noise_multiplier <= 0.0:
+        return state.privacy_steps, False
+    steps_per = state.config.dp_steps_per_round or state.config.local_epochs
+    privacy_steps = dict(state.privacy_steps)
+    for n in names:
+        privacy_steps[n] = privacy_steps.get(n, 0) + int(steps_per)
+    epsilons = _epsilons_for(state.config, privacy_steps)
+    entry["epsilon"] = epsilons
+    budget = state.config.dp_epsilon_budget
+    exhausted = budget > 0.0 and bool(epsilons) and max(epsilons.values()) >= budget
+    if exhausted:
+        entry["epsilon_budget_exhausted"] = True
+    return privacy_steps, exhausted
+
+
+def _secagg_fold(state: ServerState, names: list) -> tuple[Any, dict]:
+    """The masked fold: sum the residues in sorted order, rebuild and take
+    out every (survivor, dropped) mask from the frozen roster's seeds and
+    divide by the total samples; the result equals the plaintext weighted
+    fixed-point mean bit for bit."""
+    from fedcrack_tpu_torch.privacy.secagg import decode_masked, round_roster, unmask_sum, unmasked_mean
+
+    bits = state.config.secagg_bits
+    roster = round_roster(state.secagg_roster, state.current_round)
+    uploads = {n: decode_masked(state.received[n][0]) for n in names}
+    total, total_samples, dropped = unmask_sum(uploads, roster, bits)
+    avg = unmasked_mean(total, total_samples, state.template, bits)
+    return avg, {"maskers": names, "recovered": dropped, "bits": int(bits)}
+
+
 def _aggregate(state: ServerState, now: float) -> ServerState:
     """Score the round's updates in the health ledger, leave out the
     quarantined ones, fold the rest through the configured algebra in
-    sorted client order, apply FedOpt, and advance round and version."""
+    sorted client order, apply FedOpt, and advance round and version.
+    Under secagg the fold is the modular unmask instead, and the ledger
+    (which cannot read masked residues) is left as it was."""
     names = sorted(state.received.keys())
     counts = [state.received[n][1] for n in names]
-    # Decode against the float32 template, whatever the wire dtype.
-    trees = [
-        tree_from_bytes(state.received[n][0], template=state.template)
-        for n in names
-    ]
-    new_ledger, scores = _health_ledger.observe_flush(
-        state.ledger,
-        list(zip(names, trees)),
-        _decoded_round_base(state),
-    )
-    quarantined = _aggregation.quarantine_set(
-        scores, names, state.config.quarantine_z
-    )
-    for qname in quarantined:
-        new_ledger = _health_ledger.record_quarantine(new_ledger, qname)
-    triples = [
-        (n, c, t)
-        for n, c, t in zip(names, counts, trees)
-        if n not in quarantined
-    ]
-    avg = _aggregation.fold(_aggregation.from_config(state.config), triples)
+    secagg_info = None
+    if state.config.secagg:
+        avg, secagg_info = _secagg_fold(state, names)
+        new_ledger, quarantined = state.ledger, []
+    else:
+        # Decode against the float32 template, whatever the wire dtype.
+        trees = [tree_from_bytes(state.received[n][0], template=state.template) for n in names]
+        new_ledger, scores = _health_ledger.observe_flush(
+            state.ledger,
+            list(zip(names, trees)),
+            _decoded_round_base(state),
+        )
+        quarantined = _aggregation.quarantine_set(scores, names, state.config.quarantine_z)
+        for qname in quarantined:
+            new_ledger = _health_ledger.record_quarantine(new_ledger, qname)
+        triples = [(n, c, t) for n, c, t in zip(names, counts, trees) if n not in quarantined]
+        avg = _aggregation.fold(_aggregation.from_config(state.config), triples)
     avg, opt_state = apply_fedopt(state, avg)
     new_blob = tree_to_bytes(avg)
     cast = _wire_cast(state.config)
@@ -523,8 +628,13 @@ def _aggregate(state: ServerState, now: float) -> ServerState:
         # name -> the robust-z score that left it out of the fold
         "quarantined": quarantined,
     }
+    if secagg_info is not None:
+        entry["secagg"] = secagg_info
+    privacy_steps, exhausted = charge_privacy(state, names, entry)
+    finished = finished or exhausted
     return state._replace(
         ledger=new_ledger,
+        privacy_steps=privacy_steps,
         global_blob=new_blob,
         wire_blob=new_wire_blob,
         current_round=new_round,
@@ -614,7 +724,25 @@ def transition(state: ServerState, event: Event) -> tuple[ServerState, Reply]:
                 config=_ready_config(state, "OK"),
             )
 
-        case TrainingNotice():
+        case TrainingNotice(cname=cname):
+            if (
+                state.config.secagg
+                and state.phase == PHASE_RUNNING
+                and cname in state.cohort
+                and state.secagg_roster
+            ):
+                # The frozen masking roster, in band; a notice that lands
+                # while enrollment is open gets none and is retried.
+                return state, Reply(
+                    status="OK",
+                    title="T",
+                    config={
+                        "__secagg_roster": json.dumps(
+                            {n: int(s) for n, s in sorted(state.secagg_roster.items())}, sort_keys=True
+                        ),
+                        "current_round": state.current_round,
+                    },
+                )
             return state, Reply(status="OK", title="T")
 
         case LogChunk(cname=cname, title=title, data=data, offset=offset):
@@ -718,14 +846,30 @@ def transition(state: ServerState, event: Event) -> tuple[ServerState, Reply]:
                         "server_round": state.current_round,
                     },
                 )
-            blob, wire_len, codec_name, problem, norm = decode_and_validate_update(
-                blob,
-                ns,
-                template=state.template,
-                base_fn=lambda: _decoded_round_base(state),
-                base_version=state.model_version,
-                sanitize=state.config.sanitize_updates,
-            )
+            if state.config.secagg:
+                # A masked upload is uniformly random residues: the gate is
+                # structural (magic, bits, the frozen roster, leaf shapes
+                # and dtypes) plus the sample count inside the blob. The
+                # blob stays masked in `received`; only the fold unmasks.
+                from fedcrack_tpu_torch.privacy.secagg import decode_masked, validate_masked
+
+                wire_len, codec_name, norm = len(blob), "secagg", None
+                problem = validate_masked(
+                    blob, state.template, bits=state.config.secagg_bits, cohort=state.secagg_roster
+                )
+                if problem is None:
+                    declared = int(decode_masked(blob)["n"])
+                    if declared != int(ns):
+                        problem = f"masked sample count {declared} disagrees with the declared {ns}"
+            else:
+                blob, wire_len, codec_name, problem, norm = decode_and_validate_update(
+                    blob,
+                    ns,
+                    template=state.template,
+                    base_fn=lambda: _decoded_round_base(state),
+                    base_version=state.model_version,
+                    sanitize=state.config.sanitize_updates,
+                )
             if problem is not None:
                 # Refused before it can touch the fold; recorded in the
                 # round's history entry.

@@ -2,9 +2,10 @@
 
 The counterpart of ``python -m fedcrack_tpu.serve``, with the same flags.
 It resolves the initial weights (``--weights`` msgpack file, then the
-statefile, then a seeded init, in that order), builds the engine on the
-card (``main`` takes another ``device``), starts the statefile hot-swap
-poller, and serves ``fedcrack.ServePlane`` ``Predict`` and
+statefile, then the latest round checkpoint of ``--ckpt-dir``, then a
+seeded init, in that order), builds the engine on the card (``main``
+takes another ``device``), starts the hot-swap poller over the statefile
+and the checkpoint directory, and serves ``fedcrack.ServePlane`` ``Predict`` and
 ``StreamPredict`` until SIGTERM or SIGINT. With ``quant != "none"``,
 ``replicas > 1``, ``min_replicas > 0`` or ``shadow_fraction > 0`` it
 serves through the ``ServeFleet`` (the fleet's manager owns the quant
@@ -20,9 +21,9 @@ ready (with ``--port 0``, the bound port); at shutdown with
 autoscaler's and the shadow controller's audits included. It exits
 non-zero when a phase of its start-up fails.
 
-Not ported yet, refused with ``NotImplementedError``: ``--ckpt-dir`` (the
-orbax checkpoint source, ROADMAP Queue 1 item 5) and ``--compute-dtype
-bfloat16`` (bf16 serving, Queue 1 item 5).
+Not ported yet, refused with ``NotImplementedError``: ``--compute-dtype
+bfloat16`` (bf16 serving, ROADMAP Queue 1 item 5). ``--ckpt-dir`` reads
+the port's round checkpoints (``ckpt/manager.py``), not orbax's.
 ``--compile-cache-dir`` configures an XLA cache, which the port has no
 use for: its kernels build once into ``fedcrack_tpu_torch/_build/``, and
 the flag is accepted and logged. The JAX command's recompile sentry has no
@@ -47,7 +48,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m fedcrack_tpu_torch.serve", description=__doc__)
     p.add_argument("--config", help="FedConfig JSON preset (serve + model sections)")
     p.add_argument("--weights", help="msgpack pytree to serve initially")
-    p.add_argument("--ckpt-dir", help="orbax checkpoint dir to hot-swap from (not ported yet)")
+    p.add_argument("--ckpt-dir", help="round checkpoint dir to hot-swap from")
     p.add_argument("--state-path", help="federation statefile to hot-swap from")
     p.add_argument("--host")
     p.add_argument("--port", type=int)
@@ -127,14 +128,9 @@ def resolve_config(args):
     return fed.model, serve
 
 
-def refuse_unported(args, serve_config) -> None:
+def refuse_unported(serve_config) -> None:
     """Raise ``NotImplementedError`` for what the port does not serve yet,
     naming the ROADMAP item that lifts it."""
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "--ckpt-dir is not ported yet: the orbax checkpoint source (ckpt/manager.py), "
-            "ROADMAP Queue 1 item 5"
-        )
     if serve_config.compute_dtype != "float32":
         raise NotImplementedError(
             "--compute-dtype bfloat16 is not ported yet: bf16 serving beside bf16 training, "
@@ -144,7 +140,7 @@ def refuse_unported(args, serve_config) -> None:
 
 def resolve_initial_weights(args, template, seed: int):
     """``(version, variables)``: the ``--weights`` file, else the statefile,
-    else the seeded ``template``."""
+    else the latest round checkpoint, else the seeded ``template``."""
     from fedcrack_tpu_torch.serve.hot_swap import read_statefile_weights
 
     if args.weights:
@@ -156,6 +152,16 @@ def resolve_initial_weights(args, template, seed: int):
         got = read_statefile_weights(args.state_path, template=template)
         if got is not None:
             return got
+    if args.ckpt_dir:
+        import os
+
+        from fedcrack_tpu_torch.ckpt.manager import FedCheckpointer
+
+        if os.path.isdir(args.ckpt_dir):
+            with FedCheckpointer(args.ckpt_dir) as ckptr:
+                ckpt = ckptr.restore(template)
+            if ckpt is not None:
+                return ckpt.model_version, ckpt.variables
     print(
         "no weights source found; serving seed-initialized model "
         f"(seed {seed}) until the first hot-swap",
@@ -173,7 +179,7 @@ async def _serve(args, device) -> int:
     from fedcrack_tpu_torch.serve.stream import StreamSessionManager
 
     model_config, serve_config = resolve_config(args)
-    refuse_unported(args, serve_config)
+    refuse_unported(serve_config)
     if args.compile_cache_dir:
         logging.info(
             "--compile-cache-dir %s unused: the port compiles no programs per shape; its kernels "
@@ -198,6 +204,7 @@ async def _serve(args, device) -> int:
             serve_config,
             variables,
             initial_version=version,
+            ckpt_dir=args.ckpt_dir,
             state_path=args.state_path,
             template=template,
             metrics=metrics,
@@ -214,6 +221,7 @@ async def _serve(args, device) -> int:
             engine,
             variables,
             initial_version=version,
+            ckpt_dir=args.ckpt_dir,
             state_path=args.state_path,
             poll_s=serve_config.swap_poll_s,
             template=template,

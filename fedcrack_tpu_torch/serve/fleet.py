@@ -32,8 +32,9 @@ labels an old payload with the new version. The JAX ``ServeFleet``'s
 ``router_window_s=`` are deliberately absent: the port's engine serves
 one device. With ``canary=`` the committed payload is probed once after
 each commit (every replica serves the same version), wrapped so that a
-raising canary never fails or blocks a swap. The orbax checkpoint source
-(``ckpt_dir=``) is not ported yet (ROADMAP Queue 1 item 5).
+raising canary never fails or blocks a swap. The manager watches the
+statefile (``state_path=``) and the round checkpoints (``ckpt_dir=``),
+the highest version winning.
 """
 
 from __future__ import annotations

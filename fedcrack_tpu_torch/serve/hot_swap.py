@@ -1,10 +1,11 @@
 """Live hot swap of the served model: serve while the federation trains.
 
-The counterpart of ``fedcrack_tpu.serve.hot_swap`` for one replica and
-the statefile source. The federation's server writes its global model
-into the mid-round statefile (``ckpt/statefile.py``: ``model_version`` and
-``global_blob``); :class:`ModelVersionManager` watches that file, loads a
-newer version OFF the serving path (decode, quantize, quant gate, device
+The counterpart of ``fedcrack_tpu.serve.hot_swap`` for one replica. The
+federation's server publishes its global model two ways: the mid-round
+statefile (``ckpt/statefile.py``: ``model_version`` and ``global_blob``)
+and the round checkpoints (``ckpt/manager.py``, one step per version).
+:class:`ModelVersionManager` watches either or both (the highest version
+wins), loads a newer version OFF the serving path (decode, quantize, quant gate, device
 placement) and installs the new ``(version, weights)`` snapshot with one
 pointer flip under a lock. The batcher reads one snapshot per batch, so a
 swap never tears a batch across versions and never stalls one in flight.
@@ -13,8 +14,7 @@ With ``quant == "int8"`` every install goes through
 only when its probe-batch IoU against the reference program clears the
 floor. With ``canary=`` (a ``health.canary.CanaryEvaluator``) each
 installed version is probed after the flip, in the poll thread; a raising
-canary is logged and never fails or blocks the swap. The orbax checkpoint
-source (``ckpt_dir=``) is not ported yet.
+canary is logged and never fails or blocks the swap.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import threading
 import time
 from typing import Any
 
+from fedcrack_tpu_torch.ckpt.manager import FedCheckpointer
 from fedcrack_tpu_torch.ckpt.statefile import STATE_FORMAT
 from fedcrack_tpu_torch.fed.serialization import packb, tree_from_bytes, tree_to_bytes, unpackb
 from fedcrack_tpu_torch.ioutils import atomic_write_bytes
@@ -34,12 +35,6 @@ from fedcrack_tpu_torch.obs.registry import REGISTRY
 from fedcrack_tpu_torch.serve.fleet import prepare_gated_payload
 
 log = logging.getLogger("fedcrack_torch.serve.hot_swap")
-
-_CKPT_DIR_REFUSAL = (
-    "ckpt_dir= (the orbax round-boundary checkpoint) is not ported yet: "
-    "ckpt/manager.py, ROADMAP Queue 1 item 5"
-)
-
 
 def read_statefile_weights(path: str, template: Any | None = None):
     """``(model_version, variables)`` from a federation statefile, or None
@@ -94,30 +89,45 @@ def publish_statefile(
 
 
 class WeightSourceWatcher:
-    """Where new global models come from and how to read them (the
-    statefile), nothing about serving. An unreadable source is logged and
-    skipped; the caller keeps its model."""
+    """Where new global models come from (the statefile and the checkpoint
+    directory), which one wins (the highest version) and how to read them;
+    nothing about serving. An unreadable source is logged and skipped; the
+    caller keeps its model."""
 
     def __init__(self, *, ckpt_dir: str | None = None, state_path: str | None = None,
                  template: Any | None = None):
-        if ckpt_dir:
-            raise NotImplementedError(_CKPT_DIR_REFUSAL)
+        self._ckpt_dir = ckpt_dir or None
         self._state_path = state_path or None
         self._template = template
 
     def best_available(self, newer_than: int):
-        """``(version, host_variables)`` of the statefile when it is newer
-        than ``newer_than``; None otherwise."""
+        """The highest ``(version, host_variables)`` across the sources that
+        is newer than ``newer_than``; None when nothing is."""
+        best = None
         if self._state_path and os.path.exists(self._state_path):
             got = read_statefile_weights(self._state_path, template=self._template)
             if got is not None and got[0] > newer_than:
-                return got
-        return None
+                best = got
+        if self._ckpt_dir and os.path.isdir(self._ckpt_dir):
+            try:
+                ckptr = FedCheckpointer(self._ckpt_dir)
+                latest = ckptr.latest_version()
+            except Exception:
+                log.exception("checkpoint dir %s unreadable; skipping", self._ckpt_dir)
+                latest = None
+            if latest is not None and latest > newer_than and (best is None or latest > best[0]):
+                try:
+                    ckpt = ckptr.restore(self._template)
+                    if ckpt is not None:
+                        best = (int(ckpt.model_version), ckpt.variables)
+                except Exception:
+                    log.exception("checkpoint restore failed; keeping current model")
+        return best
 
 
 class ModelVersionManager:
     """Owns the served weights snapshot and watches the federation's
-    statefile. ``snapshot()`` is the batcher's per-batch read: one lock,
+    statefile and checkpoint directory. ``snapshot()`` is the batcher's per-batch read: one lock,
     no disk and no device work. ``poll_once()`` does the heavy lifting; a
     daemon thread runs it every ``poll_s`` between ``start`` and
     ``stop`` (or the ``with`` block), and tests call it directly."""
@@ -163,8 +173,8 @@ class ModelVersionManager:
         return self.snapshot()[0]
 
     def poll_once(self) -> bool:
-        """Install the statefile's model when it is newer; returns whether
-        a swap happened."""
+        """Install the newest published model when it is newer than the
+        served one; returns whether a swap happened."""
         got = self._watcher.best_available(self.snapshot()[0])
         if got is None:
             return False

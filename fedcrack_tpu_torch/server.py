@@ -9,9 +9,12 @@ evaluates on the card unless ``main`` is given another ``device``.
 The initial global comes from ``torch.Generator().manual_seed(seed)``, not
 from ``jax.random.key(seed)``, so one ``--seed`` gives the two packages
 different weights; ``--init-weights`` (a flax msgpack tree) starts both
-from the same ones. ``--ckpt-dir`` (the round checkpointer) and the
-privacy flags (``--secagg*``, ``--dp-*``, ``--privacy-summary``) raise
-``NotImplementedError``: their modules are not ported yet.
+from the same ones. ``--ckpt-dir`` saves a round checkpoint after each
+aggregation and resumes from the latest one at boot (``ckpt/manager.py``;
+the port's own format, not orbax's). ``--secagg`` runs pairwise-mask
+secure aggregation, ``--dp-noise-multiplier`` charges each round to the
+RDP accountant, and at the end the privacy summary is logged and, with
+``--privacy-summary``, written as JSON (``fed.rounds.privacy_summary``).
 """
 
 from __future__ import annotations
@@ -28,12 +31,6 @@ from typing import Any
 import torch
 
 from fedcrack_tpu_torch.configs import FedConfig
-
-PRIVACY_FLAGS = (
-    "secagg", "secagg_bits", "dp_clip_norm", "dp_noise_multiplier", "dp_sample_rate", "dp_delta",
-    "dp_steps_per_round", "dp_seed", "dp_epsilon_budget", "privacy_summary_path",
-)
-
 
 def build_config(argv: list[str] | None = None) -> tuple[FedConfig, Any]:
     p = argparse.ArgumentParser(description=__doc__)
@@ -134,7 +131,7 @@ def build_config(argv: list[str] | None = None) -> tuple[FedConfig, Any]:
         action="store_const",
         const=True,
         default=None,
-        help="pairwise-mask secure aggregation (not ported yet: refused): "
+        help="pairwise-mask secure aggregation: "
         "the cohort uploads fixed-point masked updates whose masks cancel "
         "exactly in the fold; a dropped masker is recovered from its "
         "enroll-time seed. Requires aggregation=fedavg, quarantine_z=0 "
@@ -146,8 +143,6 @@ def build_config(argv: list[str] | None = None) -> tuple[FedConfig, Any]:
         dest="secagg_bits",
         help="fixed-point fractional bits for masked uploads (default 24)",
     )
-    # The privacy flags parse as the JAX package's do, and main refuses
-    # them: the privacy plane is not ported yet.
     p.add_argument(
         "--dp-clip-norm",
         type=float,
@@ -248,7 +243,8 @@ def build_config(argv: list[str] | None = None) -> tuple[FedConfig, Any]:
     p.add_argument(
         "--ckpt-dir",
         dest="ckpt_dir",
-        help="round checkpoint directory (not ported yet: refused)",
+        help="round checkpoint directory; when it already holds a checkpoint "
+        "the federation resumes from the latest round",
     )
     p.add_argument(
         "--metrics",
@@ -398,19 +394,6 @@ def build_config(argv: list[str] | None = None) -> tuple[FedConfig, Any]:
     return cfg, args
 
 
-def _refuse_unported(cfg: FedConfig, args: argparse.Namespace) -> None:
-    if cfg.ckpt_dir:
-        raise NotImplementedError(
-            "--ckpt-dir is not ported yet: the round checkpointer (ckpt/manager.py), ROADMAP Queue 1 item 5"
-        )
-    given = sorted(f for f in PRIVACY_FLAGS if getattr(args, f) is not None)
-    if given or cfg.secagg or cfg.dp_clip_norm > 0 or cfg.dp_noise_multiplier > 0:
-        raise NotImplementedError(
-            f"the privacy plane ({', '.join(given) or 'dp/secagg in the config'}) is not ported yet: "
-            "privacy/ (accountant, dpsgd, secagg), ROADMAP Queue 1 item 3"
-        )
-
-
 def make_eval_fn(cfg: FedConfig, dataset, template: dict, device: torch.device | str | None = None):
     """``eval_fn(global_blob) -> metrics`` for ``FedServer``: load the blob
     into one evaluator model on ``device``, estimate its BatchNorm
@@ -440,7 +423,6 @@ def main(argv: list[str] | None = None, *, device: torch.device | str | None = N
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     cfg, args = build_config(argv)
-    _refuse_unported(cfg, args)
     variables = init_variables(torch.Generator().manual_seed(cfg.seed), cfg.model)
     eval_fn = None
     if args.eval_synthetic or (args.eval_image_dir and args.eval_mask_dir):
@@ -484,8 +466,13 @@ def main(argv: list[str] | None = None, *, device: torch.device | str | None = N
 
     if args.spans_path:
         tracing.install(args.spans_path)
+    checkpointer = None
+    if cfg.ckpt_dir:
+        from fedcrack_tpu_torch.ckpt import FedCheckpointer
+
+        checkpointer = FedCheckpointer(cfg.ckpt_dir)
     try:
-        server = FedServer(cfg, variables, metrics=metrics, eval_fn=eval_fn)
+        server = FedServer(cfg, variables, checkpointer=checkpointer, metrics=metrics, eval_fn=eval_fn)
         final = asyncio.run(server.serve_until_finished())
     finally:
         if exporter is not None:
@@ -496,6 +483,18 @@ def main(argv: list[str] | None = None, *, device: torch.device | str | None = N
             tracing.uninstall()
     for entry in server.eval_history:
         logging.info("server eval %s", entry)
+    if args.privacy_summary_path or cfg.dp_noise_multiplier > 0 or cfg.secagg:
+        from fedcrack_tpu_torch.fed.rounds import privacy_summary
+
+        summary = privacy_summary(final)
+        logging.info("privacy summary: %s", summary)
+        if args.privacy_summary_path:
+            from fedcrack_tpu_torch.ioutils import atomic_write_bytes
+
+            atomic_write_bytes(
+                args.privacy_summary_path, json.dumps(summary, sort_keys=True, indent=2).encode("utf-8")
+            )
+            logging.info("privacy summary -> %s", args.privacy_summary_path)
     logging.info(
         "federation finished: %d rounds, final cohort %s", len(final.history), sorted(final.cohort)
     )

@@ -14,13 +14,19 @@ a per-call time budget; a code no retry can fix (``NON_RETRYABLE_CODES``)
 surfaces at once. The upload codec is the one the server advertises at
 enroll (``update_codec``), one instance per session, and a top-k residual
 is rolled back when the server resyncs an upload it never averaged.
-Secure aggregation and the chaos hooks are not ported yet and raise
+Against a server that runs secure aggregation (``secagg`` in the enroll
+reply) the client sends its masking seed at enroll when its own config
+asks for secagg, reads the frozen roster from the ``TrainingNotice``
+reply (announcing again until enrollment has closed) and uploads its
+trained tree pairwise-masked (``privacy/secagg.mask_update``, wire codec
+``"secagg"``). The chaos hooks are not ported yet and raise
 ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import inspect
+import json
 import logging
 import os
 import random
@@ -34,9 +40,11 @@ import grpc
 from fedcrack_tpu_torch.compress import get_codec
 from fedcrack_tpu_torch.configs import FedConfig
 from fedcrack_tpu_torch.fed import rounds as R
+from fedcrack_tpu_torch.fed.serialization import tree_from_bytes
 from fedcrack_tpu_torch.native import crc32c
 from fedcrack_tpu_torch.obs import spans as tracing
 from fedcrack_tpu_torch.obs.registry import REGISTRY
+from fedcrack_tpu_torch.privacy.secagg import client_seed, mask_update, round_roster
 from fedcrack_tpu_torch.transport import wire
 from fedcrack_tpu_torch.transport.service import METHOD, SERVICE_NAME, channel_options
 
@@ -214,8 +222,13 @@ class FedClient:
         channel, method = self._connect()
         try:
             # Phase 1: enroll
+            enroll_cfg: dict[str, Any] = {"current_round": 0}
+            if self.config.secagg:
+                # The masking seed, in band: the name-derived one the server
+                # would fall back to, so both ends agree either way.
+                enroll_cfg["__secagg_seed"] = client_seed(self.cname)
             with tracing.span("client.enroll", cname=self.cname):
-                rep = self._call(method, self._msg(wire.ReadyReq(config={"current_round": 0})))
+                rep = self._call(method, self._msg(wire.ReadyReq(config=enroll_cfg)))
             cfg = dict(rep.config)
             if rep.status != R.SW:
                 log.info("%s not enrolled: %s", self.cname, rep.status)
@@ -237,11 +250,9 @@ class FedClient:
                 topk_fraction=float(cfg.get("topk_fraction", 0.01) or 0.01),
                 client_tag=self.cname,
             )
-            if bool(cfg.get("secagg", False)):
-                raise NotImplementedError(
-                    "the server runs secure aggregation, which is not ported yet: "
-                    "privacy/secagg.py, ROADMAP Queue 1 item 3"
-                )
+            # The server's advertisement decides, as for the codec.
+            secagg_on = bool(cfg.get("secagg", False))
+            secagg_bits = int(cfg.get("secagg_bits", 24) or 24)
             if str(cfg.get("mode", "sync") or "sync") == "buffered":
                 return self._run_buffered(method, result, max_rounds=max_rounds)
 
@@ -254,7 +265,8 @@ class FedClient:
                 # One trace per update lifecycle, keyed on the base version.
                 trace = tracing.version_trace(model_version)
                 # Phase 3: announce training
-                self._call(method, self._msg(wire.TrainingNotice(round=current_round)))
+                notice = self._call(method, self._msg(wire.TrainingNotice(round=current_round)))
+                roster = self._await_roster(method, notice, current_round) if secagg_on else None
                 # Phase 4: local fit on the round base
                 round_base = weights
                 train_ctx = tracing.TraceContext(trace, f"train:{self.cname}:r{current_round}")
@@ -262,13 +274,24 @@ class FedClient:
                                   ctx=train_ctx.to_wire()) as train_span:
                     weights, n_samples, metrics = self._train(weights, current_round)
                 # Phase 5: report. The upload is the codec's encoding against
-                # the round base; the frame pins base_version server-side.
-                upload = self.codec.encode_update(
-                    weights, round_base, round=current_round, base_version=model_version
-                )
+                # the round base (the frame pins base_version server-side),
+                # or under secagg the trained tree masked against the
+                # roster with the round mixed into every seed.
+                if secagg_on:
+                    upload = mask_update(
+                        tree_from_bytes(weights),
+                        cname=self.cname,
+                        n_samples=n_samples,
+                        roster=round_roster(roster, current_round),
+                        bits=secagg_bits,
+                    )
+                else:
+                    upload = self.codec.encode_update(
+                        weights, round_base, round=current_round, base_version=model_version
+                    )
                 result.history.append({"round": current_round, "upload_bytes": len(upload), **metrics})
                 rep = self._push(method, upload, current_round, n_samples, metrics, trace, train_span,
-                                 f"r{current_round}")
+                                 f"r{current_round}", codec="secagg" if secagg_on else None)
                 if rep.status == R.NOT_WAIT:
                     # NOT_WAIT on the upload's own reply: the round closed
                     # without it, so the codec gets its cross-round mass back.
@@ -347,10 +370,27 @@ class FedClient:
                 self._upload_all(method)
                 return result
 
+    def _await_roster(self, method, notice: wire.ServerMessage, current_round: int) -> dict[str, int]:
+        """The frozen masking roster from the ``TrainingNotice`` reply. An
+        eager client can announce before enrollment closes; it announces
+        again every poll period until the reply carries the roster."""
+        deadline = time.monotonic() + self.retry_budget_s
+        while "__secagg_roster" not in notice.config:
+            if time.monotonic() >= deadline:
+                raise RuntimeError(
+                    "secagg masking roster never arrived: the round machine did not reach "
+                    f"RUNNING within {self.retry_budget_s:.0f}s"
+                )
+            time.sleep(self.poll_period_s)
+            notice = self._call(method, self._msg(wire.TrainingNotice(round=current_round)))
+        return {str(n): int(s) for n, s in json.loads(notice.config["__secagg_roster"]).items()}
+
     def _push(self, method, upload: bytes, rnd: int, n_samples: int, metrics: dict, trace: str,
-              train_span, tag: str) -> wire.ServerMessage:
+              train_span, tag: str, codec: str | None = None) -> wire.ServerMessage:
         """Send one encoded update in the ``client.push`` span, a child of
-        the fit's span; ``tag`` makes its wire context unique."""
+        the fit's span; ``tag`` makes its wire context unique, ``codec``
+        labels the upload (the session codec's name by default)."""
+        codec = codec or self.codec.name
         done = wire.TrainDone(
             round=rnd,
             weights=upload,
@@ -360,9 +400,9 @@ class FedClient:
         push_ctx = tracing.TraceContext(trace, f"push:{self.cname}:{tag}")
         if tracing.current() is not None:
             done.metrics["__trace"] = push_ctx.to_wire()
-        self._count_wire("up", len(upload), self.codec.name)
+        self._count_wire("up", len(upload), codec)
         with tracing.span("client.push", trace=trace, parent=train_span.span_id if train_span else None,
-                          cname=self.cname, upload_bytes=len(upload), codec=self.codec.name,
+                          cname=self.cname, upload_bytes=len(upload), codec=codec,
                           ctx=push_ctx.to_wire()):
             return self._call(method, self._msg(done))
 

@@ -16,8 +16,11 @@ sink's flush to ``logs_dir``, the ``metrics`` hook, the metric registry,
 and a ``fed.flush`` span per aggregation linked to the trace contexts of
 the uploads it averaged. With ``FedConfig.state_path`` it resumes from the
 mid-round statefile at boot and snapshots the state off the serving path
-whenever membership, the held updates, FedBuff's buffer or the pulled
-versions change. The orbax checkpointer is not ported yet.
+whenever membership, the held updates, FedBuff's buffer, the pulled
+versions or the privacy maps change. With ``checkpointer=`` (a
+``ckpt.FedCheckpointer``) it resumes from the latest round checkpoint at
+boot, a statefile at the same or a newer model version winning, and saves
+a step off the serving path after each version bump.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from typing import Any, AsyncIterator, Callable
 
 import grpc
 
-from fedcrack_tpu_torch.ckpt import load_state_file, save_state_file
+from fedcrack_tpu_torch.ckpt import load_state_file, restore_server_state, save_server_state, save_state_file
 from fedcrack_tpu_torch.compress import FRAME_OVERHEAD_BYTES, encoded_bytes_model
 from fedcrack_tpu_torch.configs import FedConfig
 from fedcrack_tpu_torch.fed import rounds as R
@@ -245,16 +248,24 @@ class FedServer:
         metrics: Any | None = None,
         eval_fn: Callable[[bytes], dict] | None = None,
     ):
-        if checkpointer is not None:
-            raise NotImplementedError(
-                "FedServer(checkpointer=...) is not ported yet: ckpt/manager.py, ROADMAP Queue 1 item 5"
-            )
         self.config = config
         self.state = R.initial_state(config, global_variables)
+        self._checkpointer = checkpointer
+        if checkpointer is not None:
+            # The latest round checkpoint: round, version, weights, history
+            # and logs carry over, and enrollment re-opens.
+            resumed = restore_server_state(checkpointer, config, global_variables)
+            if resumed is not None:
+                log.info(
+                    "resuming from checkpoint: round %d, model_version %d",
+                    resumed.current_round, resumed.model_version,
+                )
+                self.state = resumed
         self._state_path = config.state_path or None
         if self._state_path is not None:
-            # Resume from the statefile unless it is older than the boot
-            # state; it carries the round's received updates and the buffer.
+            # Resume from the statefile unless it is older than the boot or
+            # checkpoint state; at an equal version it wins, since only it
+            # carries the round's received updates and the buffer.
             mid = load_state_file(self._state_path, config)
             if mid is not None and mid.model_version >= self.state.model_version:
                 log.info(
@@ -295,6 +306,11 @@ class FedServer:
         # only the event loop touches _state_pending.
         self._state_lock = asyncio.Lock()
         self._state_pending: R.ServerState | None = None
+        # Checkpoint saves run one at a time, in version order (tasks start
+        # in creation order and the lock wakes waiters first in, first out).
+        self._ckpt_lock = asyncio.Lock()
+        # The checkpoint steps written: version and ms (read by the chip smoke).
+        self.checkpoints: collections.deque[dict] = collections.deque(maxlen=1024)
         # The latest snapshots written: version, buffered updates, bytes and
         # ms to encode and write them (read by the chip smoke).
         self.snapshots: collections.deque[dict] = collections.deque(maxlen=1024)
@@ -332,6 +348,8 @@ class FedServer:
             tuple(sorted((e["cname"], e["seq"]) for e in state.buffer)),
             tuple(sorted(state.pulled.items())),
             tuple(sorted(state.secagg_seeds.items())),
+            tuple(sorted(state.secagg_roster.items())),
+            tuple(sorted(state.privacy_steps.items())),
         )
 
     # -- state advancement (the only writer, under the lock) --
@@ -397,7 +415,22 @@ class FedServer:
                 ))
             if self._eval_fn is not None:
                 self._spawn(self._run_eval(state))
+            if self._checkpointer is not None:
+                # Off the serving path: the reply that closed the round must
+                # not wait for the disk, and a failed save must not swallow it.
+                self._spawn(self._save_checkpoint(state))
         return reply
+
+    async def _save_checkpoint(self, state: R.ServerState) -> None:
+        async with self._ckpt_lock:
+            try:
+                t0 = time.perf_counter()
+                await asyncio.to_thread(save_server_state, self._checkpointer, state)
+            except Exception:
+                log.exception("checkpoint save failed for model_version %d", state.model_version)
+                return
+            self.checkpoints.append({"model_version": state.model_version,
+                                     "ms": 1e3 * (time.perf_counter() - t0)})
 
     async def _save_state_file(self) -> None:
         async with self._state_lock:

@@ -16,8 +16,15 @@ port's own in-process federation.
 - A client ``main`` with ``--predict-dir`` after a one-round session
   writes ``pred_*.png`` and ``overlay_*.png`` at the model's size and logs
   a report equal to ``quantify_mask`` over the written masks.
-- The flags whose modules are not ported raise ``NotImplementedError``
-  naming their ROADMAP item.
+- The privacy flags and ``--ckpt-dir``: a DP federation (``--dp-*`` on
+  the clients, the accountant, ``--privacy-summary`` and ``--ckpt-dir`` on
+  the server) whose every upload is byte-equal to the JAX package's
+  ``dp_update_host`` on the recorded (trained, base) pair and whose
+  summary file and history epsilons are the JAX server's on the same
+  uploads; a server restarted on the checkpoint directory resumes past
+  the last round; a secagg federation whose global is the JAX server's
+  unmask of the same masked uploads and the fixed-point mean of the
+  clients' plaintext trees.
 """
 
 import argparse
@@ -256,22 +263,213 @@ def test_centralized_main_writes_checkpoints_and_metrics(tmp_path):
         centralized.main(["--synthetic", "1"], device="cpu")
 
 
-@pytest.mark.parametrize("entry,argv,item", [
-    ("server", ["--ckpt-dir", "ckpt"], "item 5"),
-    ("server", ["--dp-clip-norm", "1.0"], "item 3"),
-    ("server", ["--dp-seed", "3"], "item 3"),
-    ("server", ["--secagg"], "item 3"),
-    ("server", ["--privacy-summary", "p.json"], "item 3"),
-    ("client", ["--dp-clip-norm", "1.0", "--synthetic", "4"], "item 3"),
-    ("client", ["--dp-seed", "2", "--synthetic", "4"], "item 3"),
-], ids=["ckpt_dir", "server_dp_clip", "server_dp_seed", "secagg", "privacy_summary", "client_dp_clip",
-        "client_dp_seed"])
-def test_unported_flags_refuse_naming_their_item(entry, argv, item, tmp_path):
-    import importlib
+def _run_federation(server_argv, clients, timeout=240):
+    """``server.main`` and one ``client.main`` per ``(name, argv)`` of
+    ``clients`` in threads named after them, the clients pointed at the
+    server's port; returns the exit codes and the captured log lines."""
+    from fedcrack_tpu_torch import client, server
 
-    main = importlib.import_module(f"fedcrack_tpu_torch.{entry}").main
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        main(argv, device="cpu")
+    codes, errors = {}, []
+
+    def run(label, fn, argv):
+        try:
+            codes[label] = fn(argv, device="cpu")
+        except BaseException as e:  # re-raised below, on the test's thread
+            errors.append((label, e))
+
+    capture = _Capture()
+    loggers = [logging.getLogger("fedcrack.server"), logging.getLogger()]
+    levels = [lg.level for lg in loggers]
+    for lg in loggers:
+        lg.addHandler(capture)
+        lg.setLevel(logging.INFO)
+    threads = [threading.Thread(target=run, args=("server", server.main, server_argv), daemon=True)]
+    try:
+        threads[0].start()
+        port = _serving_port(capture.messages)
+        for name, argv in clients:
+            argv = [*argv, "--host", "127.0.0.1", "--port", str(port), "--name", name]
+            threads.append(threading.Thread(target=run, args=(name, client.main, argv), name=name, daemon=True))
+            threads[-1].start()
+        for t in threads:
+            t.join(timeout=timeout)
+    finally:
+        for lg, level in zip(loggers, levels):
+            lg.removeHandler(capture)
+            lg.setLevel(level)
+    assert not errors and not any(t.is_alive() for t in threads), errors
+    return codes, capture.messages
+
+
+@pytest.fixture
+def recorded(monkeypatch):
+    """Per client thread, each fit's (round, base blob, trained blob) and
+    each upload's (round, bytes, samples)."""
+    from fedcrack_tpu_torch import client
+    from fedcrack_tpu_torch.transport.client import FedClient
+
+    fits, uploads = {}, {}
+    make = client.make_train_fn
+
+    def make_recording(*args, **kwargs):
+        train_fn, holder = make(*args, **kwargs)
+
+        def fit(blob, rnd, hparams):
+            out, n_samples, metrics = train_fn(blob, rnd, hparams)
+            fits.setdefault(threading.current_thread().name, []).append((rnd, blob, out))
+            return out, n_samples, metrics
+
+        return fit, holder
+
+    push = FedClient._push
+
+    def push_recording(self, method, upload, rnd, n_samples, *args, **kwargs):
+        uploads.setdefault(self.cname, []).append((rnd, upload, n_samples))
+        return push(self, method, upload, rnd, n_samples, *args, **kwargs)
+
+    monkeypatch.setattr(client, "make_train_fn", make_recording)
+    monkeypatch.setattr(FedClient, "_push", push_recording)
+    return fits, uploads
+
+
+def _jax_replay(config, uploads, seeds=None):
+    """The JAX package's round machine fed the recorded uploads, round by
+    round in client order."""
+    from fedcrack_tpu.fed import rounds as JR
+
+    state = JR.initial_state(config, jax_variables(TINY_KW, seed=5))
+    names = sorted(uploads)
+    for name in names:
+        state, _ = JR.transition(state, JR.Ready(name, now=0.0, secagg_seed=(seeds or {}).get(name)))
+    now = 1.0
+    for i in range(len(uploads[names[0]])):
+        for name in names:
+            rnd, blob, ns = uploads[name][i]
+            state, reply = JR.transition(state, JR.TrainDone(name, round=rnd, blob=blob, num_samples=ns, now=now))
+            assert reply.status in (JR.RESP_ACY, JR.RESP_ARY, JR.FIN), reply
+            now += 1.0
+    return state
+
+
+def _client_argv(config, image_dir, mask_dir, i, *extra):
+    return ["--config", config, "--image-dir", image_dir, "--mask-dir", mask_dir, "--num-clients", "2",
+            "--client-index", str(i), "--transport-dtype", "uint8", *extra]
+
+
+def test_dp_clients_and_server_privacy_summary_and_ckpt_dir_match_jax(image_dirs, tmp_path, recorded):
+    from fedcrack_tpu import server as jax_server
+    from fedcrack_tpu.fed import serialization as jser
+    from fedcrack_tpu.fed.rounds import privacy_summary
+    from fedcrack_tpu.privacy.dpsgd import dp_update_host
+    from fedcrack_tpu_torch import server
+    from fedcrack_tpu_torch.ckpt import FedCheckpointer, load_state_file
+    from fedcrack_tpu_torch.fed.serialization import tree_to_bytes
+
+    (image_dir, mask_dir), _, config = image_dirs
+    fits, uploads = recorded
+    init = tmp_path / "init.msgpack"
+    init.write_bytes(tree_to_bytes(jax_variables(TINY_KW, seed=5)))
+    summary, ckpt_dir, state_path = (str(tmp_path / n) for n in ("privacy.json", "ckpt", "state.bin"))
+    server_argv = ["--config", config, "--host", "127.0.0.1", "--port", "0", "--rounds", "2", "--cohort", "2",
+                   "--registration-window", "60", "--init-weights", str(init), "--dp-clip-norm", "1.0",
+                   "--dp-noise-multiplier", "1.1", "--dp-steps-per-round", "2", "--privacy-summary", summary,
+                   "--ckpt-dir", ckpt_dir, "--state-path", state_path]
+    dp = ["--dp-clip-norm", "0.05", "--dp-noise-multiplier", "0.5", "--dp-seed", "4"]
+    codes, _ = _run_federation(server_argv, [(n, _client_argv(config, image_dir, mask_dir, i, *dp))
+                                             for i, n in enumerate(chip_smoke.CLI_NAMES)])
+    assert codes == {"server": 0, "client_0": 0, "client_1": 0}
+    for name in chip_smoke.CLI_NAMES:
+        assert [u[0] for u in uploads[name]] == [f[0] for f in fits[name]] == [1, 2]
+        for (rnd, base, trained), (_, upload, _) in zip(fits[name], uploads[name]):
+            want_base = jser.tree_from_bytes(base)
+            private = dp_update_host(jser.tree_from_bytes(trained, template=want_base), want_base, clip_norm=0.05,
+                                     noise_multiplier=0.5, dp_seed=4, cname=name, round_idx=rnd)
+            assert upload == jser.tree_to_bytes(private), (name, rnd)
+            assert upload != trained
+    jcfg, _ = jax_server.build_config(server_argv)
+    want = _jax_replay(jcfg, uploads)
+    with open(summary, "rb") as f:
+        assert f.read() == json.dumps(privacy_summary(want), sort_keys=True, indent=2).encode("utf-8")
+    state = load_state_file(state_path, server.build_config(server_argv)[0])
+    assert [h["epsilon"] for h in state.history] == [h["epsilon"] for h in want.history]
+    assert dict(state.privacy_steps) == dict(want.privacy_steps) == {"client_0": 4, "client_1": 4}
+    assert FedCheckpointer(ckpt_dir).latest_version() == 2
+
+    # A restart on the checkpoint directory alone resumes past the last
+    # round and finishes at once, with the history but not the DP spend
+    # (only the statefile keeps it), as the JAX server does.
+    os.remove(state_path)
+    os.remove(summary)
+    codes, messages = _run_federation(server_argv, [])
+    assert codes == {"server": 0}
+    assert any("resuming from checkpoint: round 3, model_version 2" in m for m in messages)
+    assert any("federation finished: 2 rounds" in m for m in messages)
+    with open(summary, encoding="utf-8") as f:
+        resumed = json.load(f)
+    assert resumed["dp"]["clients"] == {} and resumed["dp"]["enabled"] is True
+
+
+@pytest.mark.parametrize("wire", ["float32", "bfloat16"])
+def test_private_train_fn_matches_the_jax_clients_privatization(wire):
+    """The client's DP wrapper on a float32 and a bfloat16 wire: the base
+    and trained blobs decode, the trained tree in the base's dtypes, and
+    the re-encoded upload is the JAX client's bytes for the same blobs."""
+    from fedcrack_tpu.fed import serialization as jser
+    from fedcrack_tpu.privacy.dpsgd import dp_update_host
+    from fedcrack_tpu_torch.client import private_train_fn
+    from fedcrack_tpu_torch.configs import FedConfig
+
+    cast = "bfloat16" if wire == "bfloat16" else None
+    base_tree, trained_tree = jax_variables(TINY_KW, seed=1), jax_variables(TINY_KW, seed=2)
+    base_blob = jser.tree_to_bytes(base_tree, cast_dtype=cast)
+    trained_blob = jser.tree_to_bytes(trained_tree, cast_dtype=cast)
+    cfg = FedConfig(dp_clip_norm=0.5, dp_noise_multiplier=0.3, dp_seed=9)
+    private = private_train_fn(lambda blob, rnd, hparams: (trained_blob, 8, {"loss": 1.0}), cfg, "c")
+    for rnd in (1, 2):
+        upload, n_samples, metrics = private(base_blob, rnd, {})
+        base = jser.tree_from_bytes(base_blob)
+        want = dp_update_host(jser.tree_from_bytes(trained_blob, template=base), base, clip_norm=0.5,
+                              noise_multiplier=0.3, dp_seed=9, cname="c", round_idx=rnd)
+        assert upload == jser.tree_to_bytes(want) and (n_samples, metrics) == (8, {"loss": 1.0})
+
+
+def test_secagg_federation_global_is_the_fixed_point_mean_of_the_plaintexts(image_dirs, tmp_path, recorded):
+    from fedcrack_tpu import server as jax_server
+    from fedcrack_tpu.fed.rounds import privacy_summary
+    from fedcrack_tpu_torch import server
+    from fedcrack_tpu_torch.ckpt import load_state_file
+    from fedcrack_tpu_torch.fed.serialization import tree_from_bytes, tree_to_bytes
+    from fedcrack_tpu_torch.privacy import secagg
+
+    (image_dir, mask_dir), _, config = image_dirs
+    fits, uploads = recorded
+    init = tmp_path / "init.msgpack"
+    global0 = jax_variables(TINY_KW, seed=5)
+    init.write_bytes(tree_to_bytes(global0))
+    client_config = tmp_path / "client.json"
+    client_config.write_text(json.dumps({**TINY_CONFIG, "secagg": True}))
+    summary, state_path = str(tmp_path / "privacy.json"), str(tmp_path / "state.bin")
+    server_argv = ["--config", config, "--host", "127.0.0.1", "--port", "0", "--rounds", "1", "--cohort", "2",
+                   "--registration-window", "60", "--init-weights", str(init), "--secagg", "--privacy-summary",
+                   summary, "--state-path", state_path]
+    codes, _ = _run_federation(server_argv, [(n, _client_argv(str(client_config), image_dir, mask_dir, i))
+                                             for i, n in enumerate(chip_smoke.CLI_NAMES)])
+    assert codes == {"server": 0, "client_0": 0, "client_1": 0}
+    state = load_state_file(state_path, server.build_config(server_argv)[0])
+    names = list(chip_smoke.CLI_NAMES)
+    assert all(secagg.is_masked_blob(uploads[n][0][1]) for n in names)
+    assert state.history[-1]["secagg"] == {"maskers": names, "recovered": [], "bits": 24}
+    assert state.history[-1]["codecs"] == {n: "secagg" for n in names}
+    assert dict(state.secagg_roster) == {n: secagg.client_seed(n) for n in names}
+    plain = [tree_from_bytes(fits[n][0][2]) for n in names]
+    ns = [uploads[n][0][2] for n in names]
+    mean = secagg.fixed_point_decode(secagg.weighted_fixed_sum(plain, ns), sum(ns), 24, global0)
+    assert state.global_blob == tree_to_bytes(mean)
+    jcfg, _ = jax_server.build_config(server_argv)
+    want = _jax_replay(jcfg, uploads, seeds={n: secagg.client_seed(n) for n in names})
+    assert want.global_blob == state.global_blob
+    with open(summary, "rb") as f:
+        assert f.read() == json.dumps(privacy_summary(want), sort_keys=True, indent=2).encode("utf-8")
 
 
 def test_client_predict_dir_writes_masks_and_report(image_dirs, tmp_path):

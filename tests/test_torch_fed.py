@@ -3,7 +3,10 @@ whole sync round (train/federated.py) held against the JAX package.
 
 FedAvg on float32 numpy trees: within one float32 ulp of the JAX host path
 (its native accumulate rounds ``acc + w·x`` once, as the port does; the
-final scale is one multiply on both sides). The whole round: two clients
+final scale is one multiply on both sides). On any other tree (torch
+tensors, bfloat16, float64) bitwise equal to the JAX package's ``jnp``
+path (weights normalized in float32 first, the product and the sum each
+rounded). The whole round: two clients
 train from the same global tree through each package's ``make_train_fn``
 (JAX fed by ``tree_to_bytes`` blobs), the server folds the sorted triples
 through ``fold(FedAvg())``, and the new global is evaluated; the trees are
@@ -69,24 +72,67 @@ def test_fold_fedavg_matches_jax(weights):
     _nested_equal_ulp(got, want)
 
 
+def _at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
 @pytest.mark.parametrize("weights", [None, [3.0, 5.0]], ids=["unweighted", "weighted"])
 def test_fedavg_matches_jax_and_tensor_path(weights):
-    """numpy trees against JAX; tensor trees (the device path) equal to the
-    numpy path bitwise."""
+    """numpy trees against JAX's host path; tensor trees (the device path)
+    bitwise equal to JAX's ``jnp`` path on the same values as jax arrays,
+    which is the path the JAX package takes for device trees."""
+    import jax.numpy as jnp
+
     from fedcrack_tpu.fed.algorithms import fedavg as jax_fedavg
     from fedcrack_tpu_torch.fed.algorithms import fedavg
 
     trees = _client_trees(2, seed=2)
     got = fedavg(trees, weights)
     _nested_equal_ulp(got, jax_fedavg(trees, weights))
-    as_tensors = [_tree_map(torch.from_numpy, t) for t in trees]
-    on_tensors = fedavg(as_tensors, weights)
-    for path, value in flat_tree(got):
-        leaf = on_tensors
-        for key in path:
-            leaf = leaf[key]
-        assert isinstance(leaf, torch.Tensor)
-        np.testing.assert_array_equal(leaf.numpy(), value)
+    on_tensors = fedavg([_tree_map(torch.from_numpy, t) for t in trees], weights)
+    on_device = jax_fedavg([_tree_map(jnp.asarray, t) for t in trees], weights)
+    for path, _ in flat_tree(got):
+        leaf = _at(on_tensors, path)
+        assert isinstance(leaf, torch.Tensor) and leaf.dtype == torch.float32
+        assert leaf.numpy().tobytes() == np.asarray(_at(on_device, path)).tobytes(), path
+
+
+@pytest.mark.parametrize("kind", ["bfloat16", "float64", "tensor"])
+@pytest.mark.parametrize("weights", [None, [3.0, 5.0, 7.0], [0.1, 0.7, 0.2]], ids=["unweighted", "counts", "fractions"])
+def test_fedavg_on_non_float32_trees_is_bitwise_jax(kind, weights):
+    """Trees that are not all float32 numpy take the JAX package's ``jnp``
+    path in both packages: bfloat16 leaves (the port's are CPU tensors, the
+    JAX package's jax arrays), float64 numpy (the JAX package, without x64,
+    returns float32 there; the port keeps float64 and holds the same
+    float32 values), and float32 tensors against jax arrays. Bitwise."""
+    import jax.numpy as jnp
+
+    from fedcrack_tpu.fed.algorithms import fedavg as jax_fedavg
+    from fedcrack_tpu_torch.fed.algorithms import fedavg
+
+    rng = np.random.default_rng(4)
+    base = [_tree_map(lambda v: v + rng.normal(0, 0.5, v.shape), jax_variables(TINY_KW, seed=5)) for _ in range(3)]
+    if kind == "bfloat16":
+        port = [_tree_map(lambda v: torch.from_numpy(v.astype(np.float32)).to(torch.bfloat16), t) for t in base]
+        ref = [_tree_map(lambda v: jnp.asarray(v.float().numpy()).astype(jnp.bfloat16), t) for t in port]
+    elif kind == "float64":
+        port = ref = base
+    else:
+        port = [_tree_map(lambda v: torch.from_numpy(v.astype(np.float32)), t) for t in base]
+        ref = [_tree_map(lambda v: jnp.asarray(v.astype(np.float32)), t) for t in base]
+    got, want = fedavg(port, weights), jax_fedavg(ref, weights)
+    for path, _ in flat_tree(base[0]):
+        g, w = _at(got, path), np.asarray(_at(want, path))
+        if kind == "float64":
+            assert g.dtype == np.float64 and np.array_equal(g.astype(np.float32).astype(np.float64), g)
+            g = g.astype(np.float32)
+        else:
+            assert isinstance(g, torch.Tensor) and str(g.dtype) == f"torch.{w.dtype.name}"
+            g = g.float().numpy()
+            w = w.astype(np.float32)
+        assert g.tobytes() == w.tobytes(), path
 
 
 def test_fedavg_cancellation_stays_within_an_ulp_of_jax():

@@ -9,8 +9,9 @@ at the JAX fleet tests' tiny model (buckets 16 and 32).
 - A batch that snapshotted before a commit answers from its snapshot
   (the swap lands from inside ``predict_bucket``: the JAX test's chaos
   hook is not ported, and this is the same window).
-- The statefile poll swaps every replica; a refused quant gate serves the
-  reference program bitwise, as the JAX fleet refuses the same build.
+- The statefile poll swaps every replica, and so does a round checkpoint
+  (``ckpt_dir=``); a refused quant gate serves the reference program
+  bitwise, as the JAX fleet refuses the same build.
 - ``add_replica`` (via ``grow_slot``), a scale-up landing between a
   swap's prepare and its commit, ``remove_replica``, the swap-pause
   histogram and the replicas gauge; the quantized fleet's gate record
@@ -154,6 +155,42 @@ def test_fleet_poll_installs_from_statefile(stack, tmp_path):
         assert [fleet.manager.snapshot_for(i)[0] for i in range(2)] == [7, 7]
         assert not fleet.manager.poll_once()
         assert fleet.submit(_img(32)).result(timeout=60).model_version == 7
+    finally:
+        fleet.close()
+
+
+def test_fleet_poll_installs_from_checkpoint_dir(stack, tmp_path):
+    """``ckpt_dir=``: the newest round checkpoint swaps every replica, a
+    statefile at a higher version wins over it, and the answers after the
+    swap equal the JAX fleet's on the same weights."""
+    from fedcrack_tpu_torch import ckpt as TC
+    from fedcrack_tpu_torch.configs import ServeConfig
+    from fedcrack_tpu_torch.serve.fleet import ServeFleet
+    from fedcrack_tpu_torch.serve.hot_swap import publish_statefile
+
+    ckpt_dir, state = str(tmp_path / "ckpt"), str(tmp_path / "state.bin")
+    fleet = ServeFleet(port_config(TINY_KW), ServeConfig(**_serve_kw(replicas=2)), stack["var0"],
+                       shared_engine=stack["engine"], ckpt_dir=ckpt_dir, state_path=state, template=stack["var0"],
+                       warmup=False)
+    try:
+        assert not fleet.manager.poll_once()
+        with TC.FedCheckpointer(ckpt_dir) as ckptr:
+            ckptr.save(TC.FedCheckpoint(4, 3, stack["var1"]))
+        assert fleet.manager.poll_once() and fleet.manager.version == 3
+        assert [fleet.manager.snapshot_for(i)[0] for i in range(2)] == [3, 3]
+        images = [_img(32, seed=s) for s in range(3)]
+        got = _results(fleet, images)
+        jax_fleet = _jax_fleet(stack)
+        try:
+            jax_fleet.install(3, stack["var1"])
+            want = _results(jax_fleet, images)
+        finally:
+            jax_fleet.close()
+        for g, w in zip(got, want):
+            assert g.model_version == w.model_version == 3
+            np.testing.assert_allclose(g.probs, np.asarray(w.probs), rtol=0, atol=PROB_TOL)
+        publish_statefile(state, stack["var0"], model_version=5)
+        assert fleet.manager.poll_once() and fleet.manager.version == 5
     finally:
         fleet.close()
 
@@ -323,10 +360,8 @@ def test_swap_pause_histogram_and_replicas_gauge(stack):
 
 def test_unported_fleet_options_raise_naming_their_item(stack):
     from fedcrack_tpu_torch.configs import ServeConfig
-    from fedcrack_tpu_torch.serve.fleet import FleetVersionManager, ServeFleet
+    from fedcrack_tpu_torch.serve.fleet import ServeFleet
 
-    with pytest.raises(NotImplementedError, match="ckpt/manager.py, ROADMAP Queue 1 item 5$"):
-        FleetVersionManager(ServeConfig(**_serve_kw()), ckpt_dir="/nonexistent")
     with pytest.raises(NotImplementedError, match="chaos/, ROADMAP Queue 1 item 5$"):
         ServeFleet(port_config(TINY_KW), ServeConfig(**_serve_kw()), stack["var0"],
                    shared_engine=stack["engine"], chaos=object(), warmup=False)

@@ -12,6 +12,11 @@
 - The install's quant gate passes and refuses exactly where the JAX
   package's fleet manager (its install-time gate) does on the same
   weights and floor.
+- ``WeightSourceWatcher`` over a statefile and a checkpoint directory
+  picks the version and weights the JAX watcher picks over the same
+  publishes (each package's checkpoints written by its own
+  checkpointer); ``ModelVersionManager(ckpt_dir=...)`` installs the
+  newest checkpoint as a cold install of it would serve.
 """
 
 import os
@@ -203,11 +208,54 @@ def test_gate_refuses_exactly_where_the_jax_fleet_gate_refuses(tmp_path, weights
     assert isinstance(mgr.snapshot()[1], tq.QuantizedVariables) == got["passed"]
 
 
-def test_unported_sources_raise_naming_their_roadmap_item(weights):
-    with pytest.raises(NotImplementedError, match="ckpt/manager.py, ROADMAP Queue 1 item 5$"):
-        TH.ModelVersionManager(_engine(), weights[0], ckpt_dir="/nonexistent")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5$"):
-        TH.WeightSourceWatcher(ckpt_dir="/nonexistent")
+@pytest.mark.parametrize("state_version,ckpt_versions", [
+    (None, ()), (None, (1, 4)), (3, (1, 4)), (4, (1, 4)), (6, (1, 4)), (2, ()),
+], ids=["nothing", "ckpt_only", "ckpt_newer", "equal", "statefile_newer", "statefile_only"])
+def test_watcher_picks_the_highest_version_like_jax(tmp_path, weights, state_version, ckpt_versions):
+    """The statefile and the checkpoint directory, each published to the
+    same versions for both packages: for every floor the two watchers
+    return the same version and bitwise the same weights (the statefile
+    first at an equal version), or both None."""
+    from fedcrack_tpu import ckpt as JC
+    from fedcrack_tpu_torch import ckpt as TC
+
+    var0, var1 = weights
+    picks = {}
+    for who, H, C in (("port", TH, TC), ("jax", JH, JC)):
+        root = tmp_path / who
+        root.mkdir()
+        state_path = str(root / "state.msgpack")
+        if state_version is not None:
+            H.publish_statefile(state_path, var0, model_version=state_version)
+        with C.FedCheckpointer(root / "ckpt") as ckptr:
+            for v in ckpt_versions:
+                ckptr.save(C.FedCheckpoint(v + 1, v, var1 if v % 2 == 0 else var0))
+        watcher = H.WeightSourceWatcher(ckpt_dir=str(root / "ckpt"), state_path=state_path, template=var0)
+        picks[who] = [watcher.best_available(floor) for floor in range(-1, 7)]
+        if who == "jax":
+            watcher.close()
+    for got, want in zip(picks["port"], picks["jax"]):
+        assert (got is None) == (want is None)
+        if want is not None:
+            assert got[0] == want[0] and _leaves_equal(got[1], want[1])
+    assert TH.WeightSourceWatcher(ckpt_dir=str(tmp_path / "missing")).best_available(-1) is None
+
+
+def test_manager_installs_the_newest_checkpoint(tmp_path, weights):
+    from fedcrack_tpu_torch import ckpt as TC
+    from fedcrack_tpu_torch.serve.fleet import prepare_gated_payload
+
+    var0, var1 = weights
+    engine = _engine()
+    mgr = TH.ModelVersionManager(engine, var0, ckpt_dir=str(tmp_path / "ckpt"), template=var0)
+    assert mgr.poll_once() is False  # no directory yet
+    with TC.FedCheckpointer(tmp_path / "ckpt") as ckptr:
+        TC.save_server_state(ckptr, TR.initial_state(FedConfig(), var1)._replace(model_version=2, current_round=3))
+    assert mgr.poll_once() is True and mgr.version == 2 and mgr.last_quant_gate["passed"]
+    assert mgr.poll_once() is False
+    imgs = _images(2, 12)
+    cold, _ = prepare_gated_payload(engine, var1, engine.serve_config)
+    np.testing.assert_array_equal(engine.predict_bucket(mgr.snapshot()[1], imgs), engine.predict_bucket(cold, imgs))
 
 
 def test_manager_probes_each_installed_version_with_the_canary(weights):

@@ -8,8 +8,9 @@ transport (``fedcrack_tpu_torch/transport/``), in the serving front door
 (``fedcrack_tpu_torch/serve/service.py``) and in ``chip_smoke.py`` only,
 so the rest of the port imports without it: the fleet, router, stream
 sessions, autoscaler, shadow controller, canary and drift monitors, the
-serve command's module level and the tools (``load_gen`` reaches the
-front door through ``transport/serve_client.py``) included. The port's entry
+serve command's module level, the tools (``load_gen`` reaches the
+front door through ``transport/serve_client.py``), the privacy plane and
+the round checkpointer included. The port's entry
 points run on CUDA unless told otherwise.
 """
 
@@ -39,6 +40,12 @@ COMMAND_LINE_MODULES = (
     "fedcrack_tpu_torch.serve.shadow", "fedcrack_tpu_torch.health.canary", "fedcrack_tpu_torch.health.drift",
     "fedcrack_tpu_torch.tools", "fedcrack_tpu_torch.tools.quantify", "fedcrack_tpu_torch.tools.load_gen",
     "fedcrack_tpu_torch.tools.health_report",
+)
+# The privacy plane and the round checkpointer: no JAX, flax, orbax, optax,
+# msgpack or fedcrack_tpu, and no grpc either.
+PRIVACY_AND_CHECKPOINT_MODULES = (
+    "fedcrack_tpu_torch.privacy", "fedcrack_tpu_torch.privacy.accountant", "fedcrack_tpu_torch.privacy.dpsgd",
+    "fedcrack_tpu_torch.privacy.secagg", "fedcrack_tpu_torch.ckpt", "fedcrack_tpu_torch.ckpt.manager",
 )
 
 
@@ -117,6 +124,7 @@ def test_package_imports_with_jax_blocked():
     # fleet, import without grpc: only their sessions and the serving front
     # door reach it.
     assert set(COMMAND_LINE_MODULES) <= set(rest)
+    assert set(PRIVACY_AND_CHECKPOINT_MODULES) <= set(rest)
     for modules, blocked in ((rest, FORBIDDEN), (with_grpc, tuple(m for m in FORBIDDEN if m not in GRPC_ALLOWED))):
         out = _import_blocked(modules, blocked)
         assert out.returncode == 0, out.stderr

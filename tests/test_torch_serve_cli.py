@@ -15,6 +15,9 @@ CPU, held against ``python -m fedcrack_tpu.serve``.
   of the served weights is promoted, zeroed weights are rolled back and
   never staged again, no answer carries the rolled-back version, and
   ``serve_stats["shadow"]`` counts both verdicts.
+- ``resolve_initial_weights`` picks ``--weights``, the statefile, the
+  newest round checkpoint of ``--ckpt-dir`` and the seed in the JAX
+  command's order, to the same version and weights.
 - The refusals name their ROADMAP items.
 """
 
@@ -27,6 +30,7 @@ import threading
 import time
 
 import grpc
+import jax
 import numpy as np
 import pytest
 
@@ -85,14 +89,53 @@ def test_resolve_config_matches_jax(argv, with_file, tmp_path):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--ckpt-dir", "ckpt"], "ckpt/manager.py), ROADMAP Queue 1 item 5"),
     (["--compute-dtype", "bfloat16"], "bf16 serving beside bf16 training, ROADMAP Queue 1 item 5"),
-], ids=["ckpt_dir", "bf16"])
+], ids=["bf16"])
 def test_refusals_name_their_items(argv, item):
     from fedcrack_tpu_torch.serve.__main__ import main
 
     with pytest.raises(NotImplementedError, match=item.replace("(", r"\(").replace(")", r"\)") + "$"):
         main(argv, device="cpu")
+
+
+@pytest.mark.parametrize("sources", [("ckpt",), ("state", "ckpt"), ("weights", "state", "ckpt"), ()],
+                         ids=["ckpt_dir", "statefile_first", "weights_first", "seed"])
+def test_resolve_initial_weights_matches_jax(tmp_path, sources):
+    """``--weights``, then the statefile, then the newest round checkpoint
+    of ``--ckpt-dir`` (each package reading its own checkpoints), then the
+    seed: both commands pick the same source, version and weights."""
+    import argparse
+
+    from fedcrack_tpu import ckpt as JC
+    from fedcrack_tpu.fed.serialization import tree_to_bytes
+    from fedcrack_tpu.serve.__main__ import resolve_initial_weights as jax_resolve
+    from fedcrack_tpu_torch import ckpt as TC
+    from fedcrack_tpu_torch.serve.__main__ import resolve_initial_weights
+
+    template, state_w, ckpt_w, file_w = (jax_variables(TINY_KW, seed=s) for s in (0, 1, 2, 3))
+    picks = {}
+    for who, C, resolve in (("port", TC, resolve_initial_weights), ("jax", JC, jax_resolve)):
+        root = tmp_path / who
+        root.mkdir()
+        args = argparse.Namespace(weights=None, state_path=None, ckpt_dir=str(root / "missing"))
+        if "weights" in sources:
+            args.weights = str(root / "w.msgpack")
+            (root / "w.msgpack").write_bytes(tree_to_bytes(file_w))
+        if "state" in sources:
+            from fedcrack_tpu.serve.hot_swap import publish_statefile
+
+            args.state_path = str(root / "state.msgpack")
+            publish_statefile(args.state_path, state_w, model_version=4)
+        if "ckpt" in sources:
+            args.ckpt_dir = str(root / "ckpt")
+            with C.FedCheckpointer(args.ckpt_dir) as ckptr:
+                ckptr.save(C.FedCheckpoint(7, 6, ckpt_w))
+        picks[who] = resolve(args, template, 0)
+    want = file_w if "weights" in sources else state_w if "state" in sources else ckpt_w if sources else template
+    for version, tree in picks.values():
+        assert version == picks["jax"][0] == {"ckpt": 6, "state": 4, "weights": 0}.get(sources[0] if sources else "", 0)
+        assert [np.asarray(x).tobytes() for x in jax.tree_util.tree_leaves(tree)] == \
+               [np.asarray(x).tobytes() for x in jax.tree_util.tree_leaves(want)]
 
 
 CHILD = """

@@ -4,7 +4,9 @@ ledger's wire rows held against the JAX package's on the CPU.
 - Byte equality: after every event of every sync script of
   tests/test_torch_rounds.py (tests/test_fed.py's round-machine scripts,
   robust folds, quarantine, FedOpt with FedAvgM, FedAdam and FedYogi
-  moments, bf16 wire, frames), the JAX state carried over to the port's
+  moments, bf16 wire, frames) and of every privacy script of
+  tests/test_torch_privacy.py (the masking seeds, the frozen roster and
+  the accountant's steps), the JAX state carried over to the port's
   ``ServerState`` serializes to the JAX package's statefile bytes. The
   buffered states of tests/test_torch_buffered.py are held the same way
   there, after every event.
@@ -26,6 +28,7 @@ import msgpack
 import numpy as np
 import pytest
 
+import test_torch_privacy as privacy_tests
 import test_torch_rounds as rounds_tests
 from fedcrack_tpu.ckpt import statefile as JS
 from fedcrack_tpu.configs import FedConfig as JaxFedConfig
@@ -60,19 +63,14 @@ def transplant(j):
     return TR.ServerState(**{**fields, "config": port_config(j.config), "server_opt_state": opt})
 
 
-def _unsecured(config):
-    return dataclasses.replace(config, secagg=False)
-
-
 def check_statefiles(jstate, tstate):
     """The JAX state's bytes from both packages; each package's bytes
     restored by the other and written back unchanged."""
     want = JS.server_state_to_bytes(jstate)
     assert TS.server_state_to_bytes(transplant(jstate)) == want
     own = TS.server_state_to_bytes(tstate)
-    jcfg, tcfg = _unsecured(jstate.config), _unsecured(tstate.config)
-    assert JS.server_state_to_bytes(JS.server_state_from_bytes(own, jcfg)) == own
-    assert TS.server_state_to_bytes(TS.server_state_from_bytes(want, tcfg)) == want
+    assert JS.server_state_to_bytes(JS.server_state_from_bytes(own, jstate.config)) == own
+    assert TS.server_state_to_bytes(TS.server_state_from_bytes(want, tstate.config)) == want
     return len(want)
 
 
@@ -81,7 +79,10 @@ def check_statefiles(jstate, tstate):
 PHASE8 = "chip_smoke_phase8_robust_round_small_width"
 
 
-@pytest.mark.parametrize("name", sorted(set(rounds_tests.SCRIPTS) - {PHASE8}))
+SCRIPTS = {**rounds_tests.SCRIPTS, **privacy_tests.PRIVACY_SCRIPTS}
+
+
+@pytest.mark.parametrize("name", sorted(set(SCRIPTS) - {PHASE8}))
 def test_statefile_bytes_equal_jax_after_every_event(name, monkeypatch):
     check_state = rounds_tests.Pair.check_state
     checked = []
@@ -91,7 +92,7 @@ def test_statefile_bytes_equal_jax_after_every_event(name, monkeypatch):
         checked.append(check_statefiles(self.j, self.t))
 
     monkeypatch.setattr(rounds_tests.Pair, "check_state", check_with_statefile)
-    rounds_tests.SCRIPTS[name]()
+    SCRIPTS[name]()
     assert checked
 
 

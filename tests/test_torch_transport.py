@@ -8,7 +8,9 @@ the auth token, a late client, a dead client, a chunked log upload with a
 corrupt chunk, codec negotiation, FedBuff sessions (peers of either
 package, a deliberately stale client), a server resuming mid-buffer from
 either package's statefile, the flush span's trace links and the
-eval and metrics hooks work as the JAX package's do; and a session of
+eval and metrics hooks work as the JAX package's do; secure aggregation
+sessions (peers of either package, with and without a dropped masker)
+end on the fixed-point mean of the plaintexts bit for bit; and a session of
 ``make_train_fn`` clients at a few-layer width gives the globals that
 driving ``fed.rounds.transition`` in process gives. Every server binds
 port 0 and stops in ``finally``; every wait is bounded.
@@ -295,12 +297,84 @@ def test_startup_frame_budget_refuses_a_cap_that_cannot_carry_the_model():
 
 
 def test_unported_paths_raise_not_implemented_naming_their_roadmap_item(tmp_path):
-    from fedcrack_tpu_torch.transport import FedClient, FedServer
+    from fedcrack_tpu_torch.transport import FedClient
 
-    with pytest.raises(NotImplementedError, match="ckpt/manager.py, ROADMAP Queue 1 item 5$"):
-        FedServer(FedConfig(), _vars(0.0), checkpointer=object())
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5$"):
         FedClient(FedConfig(), _fake_train(tser, 1.0, 1), chaos=object())
+
+
+SECAGG = dict(max_rounds=2, cohort_size=3, secagg=True)
+
+
+def _secagg_globals(increments, samples, rounds, dropped_from=None):
+    """The federation the secagg sessions run, computed apart from any
+    server: each round's global is the fixed-point weighted mean of the
+    reporters' plaintext trees (``dropped_from``: the round from which the
+    last client reports nothing)."""
+    from fedcrack_tpu_torch.privacy import secagg
+
+    tree, out = _vars(0.0), []
+    for rnd in range(1, rounds + 1):
+        n = len(increments) - (1 if dropped_from is not None and rnd >= dropped_from else 0)
+        trees = [{"params": {"w": tree["params"]["w"] + np.float32(inc)}} for inc in increments[:n]]
+        tree = secagg.fixed_point_decode(secagg.weighted_fixed_sum(trees, samples[:n]), sum(samples[:n]), 24,
+                                         _vars(0.0))
+        out.append(tree)
+    return out
+
+
+@pytest.mark.parametrize("server_pkg,client_pkgs", [
+    ("torch", ["torch", "torch", "torch"]), ("torch", ["jax", "torch", "jax"]), ("jax", ["torch", "torch", "jax"]),
+])
+@pytest.mark.parametrize("dropout", [False, True], ids=["full", "dropout"])
+def test_secagg_sessions_between_peers_of_either_package(server_pkg, client_pkgs, dropout):
+    """Pairwise-masked uploads over a real socket: every round's global is
+    the fixed-point mean of the plaintexts, bit for bit, whichever package
+    masks and unmasks. With ``dropout`` the third masker's fit fails after
+    its notice, so the deadline closes both rounds on the two survivors
+    and the server recovers its masks from the enroll seeds."""
+    class Dropped(Exception):
+        pass
+
+    trains = []
+    for i, pkg in enumerate(client_pkgs):
+        fit = _fake_train(jser if pkg == "jax" else tser, 1.0 + 2 * i, 10 + 20 * i)
+        if dropout and i == 2:
+            def fit(blob, rnd):
+                raise Dropped()
+        trains.append(fit)
+    cfg = dict(SECAGG, round_deadline_s=3.0) if dropout else SECAGG
+    state, results, _ = _session(server_pkg, client_pkgs, cfg_kw=cfg, trains=trains)
+    if dropout:
+        assert isinstance(results[2], Dropped)
+        results = results[:2]
+    _assert_completed(state, results, rounds=2)
+    want = _secagg_globals([1.0, 3.0, 5.0], [10, 30, 50], 2, dropped_from=1 if dropout else None)
+    assert state.global_blob == tser.tree_to_bytes(want[-1])
+    maskers = ["a", "b"] if dropout else ["a", "b", "c"]
+    assert [h["secagg"] for h in state.history] == [{"maskers": maskers, "recovered": ["c"] if dropout else [],
+                                                     "bits": 24}] * 2
+    assert all(set(h["codecs"].values()) == {"secagg"} for h in state.history)
+    assert sorted(state.secagg_roster) == ["a", "b", "c"]
+
+
+def test_secagg_server_rejects_a_plaintext_upload_over_the_wire():
+    """A client of the port that ignores the server's secagg advertisement
+    (its codec forced to null plaintext) is refused, never averaged."""
+    from fedcrack_tpu_torch.transport import FedServer, wire
+    from fedcrack_tpu_torch.transport.service import ServerThread
+
+    with ServerThread(FedServer(FedConfig(**{**SESSION, **SECAGG}), _vars(0.0), tick_period_s=0.02)) as st:
+        callers = {name: _raw_caller(st.port, name) for name in ("a", "b", "c")}
+        try:
+            for _, call in callers.values():
+                call(wire.ReadyReq(config={"current_round": 0}))
+            reply = callers["a"][1](_done(1, 1.0, 10))
+        finally:
+            for channel, _ in callers.values():
+                channel.close()
+        assert reply.status == TR.REJECTED and "bad magic" in reply.config["reason"]
+        assert st.state.rejected == {"a": "not a secagg masked blob (bad magic)"}
 
 
 BUFFERED = dict(max_rounds=3, cohort_size=2, mode="buffered", buffer_k=2, staleness_alpha=0.5, max_staleness=4)
