@@ -206,6 +206,43 @@ on failure, so any failure exits non-zero and prints no result):
     (wrappers and profiler), within phase 4's limit of a CPU engine.
     Logged: walls, epsilons, host DP, masking and unmasking ms, the
     masked-to-plain wire ratio, checkpoint save and restore ms.
+17. the chaos plane, bf16 compute and the watch layer. (a) Phase 7's
+    model and data cut into three clients of 32 samples over loopback
+    gRPC with ``FedClient(chaos=ClientChaos(plan))`` and a 5 s round
+    deadline, the server a recording ``FedServer``: federation A (raw
+    msgpack) rides out a two-call network flap in round 1, then rejects a
+    NaN upload ("non-finite", never averaged) while a crash before upload
+    leaves the deadline to close round 2 on the survivor; federation B
+    (int8 frames, a statefile) rejects a frame with a flipped bit on its
+    CRC, then is killed (``ServerThread.kill``) with round 2 half
+    received and restarted from the statefile on the same port, which must
+    resume that round. Checked: each history entry's clients and rejected
+    clients (with a fragment of the reason) as the plans predict, every
+    session's outcome, each round's global and every reply byte-equal to
+    ``fed.rounds.transition`` fed the same wire bytes, ``bce_sums``
+    launches equal to the steps plus the eval batches. (b) A fused_int8
+    ``MicroBatcher`` with ``ServeChaos``: a device loss on batch 0
+    (retried, nothing dropped), version 2 installed under batch 1 after
+    its snapshot (it answers from version 1), batch 2 on version 2; a
+    two-replica ``ServeFleet(chaos=)`` taking a device loss, a grown slot
+    carrying the hook; a ``StreamSession`` with a ``StreamChaos`` reset,
+    each frame byte-equal to ``predict_tiled``; masks byte-equal to the
+    card engine at each batch's version, 15 / 8 / 1 dequant launches per
+    quantized forward, the gates' included. (c) bf16 at c5's shapes
+    (``ModelConfig(compute_dtype="bfloat16")``, 256 px, batch 32): a fit
+    and an eval batch through ``bce_sums``, float32 leaves; one card step
+    against a CPU step at 256 px batch 4 within the bounds
+    ``check_bf16_step`` derives; train and reference-program throughput
+    beside float32; ``python -m fedcrack_tpu_torch.serve --compute-dtype
+    bfloat16`` at ``--quant none`` and at ``--quant int8 --kernel-plane
+    fused_int8`` (on the fit's weights: the gate passes, 15 / 8 / 1
+    launches per forward), masks held to the card engine in process. (d)
+    A ``LeakSentry`` marked after (a)-(c) and steady after 10 bf16 steps
+    and 4 fused batches; a ``Watchdog`` on ``configs/slo_default.json``
+    over the bf16 serve process's ``/metrics`` with no breach; and
+    ``tools.trace_stitch`` over federation B's span file and that of a
+    manager that installs its last global from the statefile and serves
+    one batch: one complete client -> fed -> serve chain.
 
 ``python3 chip_smoke.py --serve-ticks 0.05,1.0,1.0,0.05`` builds
 ``dequant.cu`` and runs only phase 14, once per autoscaler tick given, and
@@ -3407,6 +3444,846 @@ def privacy_ckpt_phase(torch, card: str) -> dict:
     return out
 
 
+# ---- phase 17: the chaos plane, bf16 compute and the watch layer ----
+
+CHAOS_NAMES = ("client_0", "client_1", "client_2")
+CHAOS_SHARD = 32  # samples per chaos client: two steps of TRAIN_BATCH
+# The round deadline: many times a round of three fits on the card, so only
+# a dead or rejected client ever waits for it.
+CHAOS_DEADLINE_S = 5.0
+CHAOS_TIMEOUT_S = 300.0
+# configs/c5_bf16_batch_dp.json's image size and batch; the card-vs-CPU
+# step runs at c5's image size on BF16_CHECK_BATCH images (phase 7's
+# pixels per step, so the CPU side costs what phase 7's does).
+BF16_SIZE, BF16_BATCH, BF16_CHECK_BATCH = 256, 32, 4
+BF16_STEP = 2.0 ** -8
+WATCH_RULES = "configs/slo_default.json"
+
+
+def chaos_setup(torch) -> dict:
+    """Phase 7's model, image size, data and held-out set, cut into three
+    clients of ``CHAOS_SHARD`` samples."""
+    from fedcrack_tpu_torch.data.pipeline import ArrayDataset
+    from fedcrack_tpu_torch.train.federated import make_train_fn
+
+    fs = federation_setup(torch)
+    shards = {name: slice(CHAOS_SHARD * i, CHAOS_SHARD * (i + 1)) for i, name in enumerate(CHAOS_NAMES)}
+
+    def client_fn(i, name):
+        data = ArrayDataset(fs["imgs"][shards[name]], fs["msks"][shards[name]], batch_size=TRAIN_BATCH, seed=i)
+        return make_train_fn(fs["cfg"], data, TRAIN_BATCH, seed=i)[0]
+
+    return {**fs, "names": list(CHAOS_NAMES), "client_fn": client_fn}
+
+
+def chaos_federation(torch, fs: dict, server_cfg, plans: dict, eval_counter: list, kill: dict | None = None) -> dict:
+    """One federation over loopback gRPC with a ``ClientChaos`` per client
+    named in ``plans``, the server a ``recording_server_class`` one: every
+    ``TrainDone`` it applied, as it crossed the wire (poison included), in
+    the order it applied them, with its reply's status, is in ``sent``. A
+    client's exception is its result. With ``kill``
+    (``round``, ``survivor``, ``victim``) the victim's fit of that round
+    waits until the statefile holds the survivor's upload, the server is
+    killed (``ServerThread.kill``), a fresh ``FedServer`` boots from the
+    statefile on the same port and must resume that round, and the victim
+    goes on against it."""
+    import dataclasses
+    import threading
+
+    from fedcrack_tpu_torch.chaos import ClientChaos
+    from fedcrack_tpu_torch.ckpt import load_state_file
+    from fedcrack_tpu_torch.fed import rounds
+    from fedcrack_tpu_torch.transport import FedClient
+    from fedcrack_tpu_torch.transport.service import ServerThread
+
+    server_cls = recording_server_class()
+    steps, lock = [0], threading.Lock()
+    waiting, release = threading.Event(), threading.Event()
+
+    def fit_fn(i, name):
+        fit = fs["client_fn"](i, name)
+
+        def train_fn(blob, rnd, hparams):
+            if kill is not None and (name, rnd) == (kill["victim"], kill["round"]):
+                waiting.set()
+                if not release.wait(CHAOS_TIMEOUT_S):
+                    raise AssertionError("the restarted server never released the victim")
+            out, n_samples, metrics = fit(blob, rnd, hparams)
+            with lock:
+                steps[0] += n_samples // TRAIN_BATCH
+            return out, n_samples, metrics
+
+        return train_fn
+
+    def eval_fn(blob):
+        return held_out_eval(fs, eval_counter)(blob)
+
+    servers = [server_cls(server_cfg, fs["global0"], tick_period_s=0.05, eval_fn=eval_fn)]
+    st = ServerThread(servers[0]).__enter__()
+    results, out = {}, {}
+    t0 = time.perf_counter()
+    try:
+        clients = [FedClient(server_cfg, fit_fn(i, name), cname=name, port=st.port, max_retries=8,
+                             chaos=ClientChaos(plans[name]) if name in plans else None)
+                   for i, name in enumerate(fs["names"])]
+
+        def run(c):
+            try:
+                results[c.cname] = c.run_session()
+            except Exception as e:  # the exception is the result; checked by the caller
+                results[c.cname] = e
+
+        threads = [threading.Thread(target=run, args=(c,), daemon=True) for c in clients]
+        for t in threads:
+            t.start()
+        if kill is not None:
+            deadline = time.monotonic() + CHAOS_TIMEOUT_S
+            while True:
+                s = load_state_file(server_cfg.state_path, server_cfg)
+                if (s is not None and s.current_round == kill["round"] and kill["survivor"] in s.received
+                        and waiting.is_set()):
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError("never reached the mid-round kill point")
+                time.sleep(0.01)
+            st.kill()
+            t_kill = time.perf_counter()
+            servers.append(server_cls(dataclasses.replace(server_cfg, port=st.port), fs["global0"],
+                                      tick_period_s=0.05, eval_fn=eval_fn))
+            resumed = (servers[-1].state.current_round, sorted(servers[-1].state.received))
+            if resumed != (kill["round"], [kill["survivor"]]):
+                raise AssertionError(f"the restarted server resumed at {resumed}, want round {kill['round']} "
+                                     f"holding {kill['survivor']}'s upload")
+            st = ServerThread(servers[-1]).__enter__()
+            out["restart_s"] = time.perf_counter() - t_kill
+            release.set()
+        for t in threads:
+            t.join(timeout=CHAOS_TIMEOUT_S)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("a chaos client hung")
+        state = st.state
+    finally:
+        release.set()
+        st.__exit__(None, None, None)
+    torch.cuda.synchronize()
+    sent = [(e.cname, e.round, e.blob, e.num_samples, status)
+            for s in servers for e, status in s.applied if isinstance(e, rounds.TrainDone)]
+    out.update({"state": state, "results": results, "sent": sent, "steps": steps[0], "servers": servers,
+                "wall_s": time.perf_counter() - t0})
+    return out
+
+
+def replay_chaos(server_cfg, global0, names, sent) -> tuple:
+    """``fed.rounds.transition`` in process fed what reached the server:
+    Ready in name order, each round's uploads in the order the server
+    applied them, and where the round is still open after them, the
+    deadline's Tick. Returns the final state, each round's global and the
+    replay's reply statuses beside the server's."""
+    from fedcrack_tpu_torch.fed import rounds
+
+    state = rounds.initial_state(server_cfg, global0)
+    t = 0.0
+    for name in names:
+        state, _ = rounds.transition(state, rounds.Ready(name, now=t))
+    globals_, statuses = [], []
+    for rnd in range(1, server_cfg.max_rounds + 1):
+        for name, r, blob, n_samples, status in [u for u in sent if u[1] == rnd]:
+            t += 1e-3
+            state, reply = rounds.transition(state, rounds.TrainDone(name, round=r, blob=blob,
+                                                                     num_samples=n_samples, now=t))
+            statuses.append((name, r, reply.status, status))
+        if state.current_round == rnd:
+            t += server_cfg.round_deadline_s + 1.0
+            state, _ = rounds.transition(state, rounds.Tick(now=t))
+        globals_.append(state.global_blob)
+    return state, globals_, statuses
+
+
+def check_chaos_run(label: str, run: dict, server_cfg, fs: dict, want_history: list, want_results: dict) -> dict:
+    """The run's history against what its plan predicts (each round's
+    clients, and its rejected clients each with a fragment of its reason),
+    every session's outcome, and each round's global byte-equal to the
+    in-process round machine fed the same wire bytes (whose fold takes only
+    the accepted uploads)."""
+    state = run["state"]
+    got = [(h["round"], sorted(h["clients"]), {k: v for k, v in h["rejected"].items()}) for h in state.history]
+    if [(r, c, sorted(rej)) for r, c, rej in got] != [(r, c, sorted(rej)) for r, c, rej in want_history]:
+        raise AssertionError(f"[{label}] history {got} != the plan's {want_history}")
+    for (_, _, rej), (_, _, want) in zip(got, want_history):
+        for name, frag in want.items():
+            if frag not in rej[name]:
+                raise AssertionError(f"[{label}] {name} rejected for {rej[name]!r}, want {frag!r}")
+    for name, want in want_results.items():
+        res = run["results"][name]
+        if isinstance(want, type):
+            if not isinstance(res, want):
+                raise AssertionError(f"[{label}] {name} ended with {res!r}, want {want.__name__}")
+        elif isinstance(res, Exception) or res.rounds_completed != want:
+            raise AssertionError(f"[{label}] {name} ended with {res!r}, want {want} rounds")
+    replay, globals_, statuses = replay_chaos(server_cfg, fs["global0"], fs["names"], run["sent"])
+    if any(a != b for _, _, a, b in statuses):
+        raise AssertionError(f"[{label}] the in-process replies {statuses} differ from the server's")
+    if [h["rejected"] for h in replay.history] != [h["rejected"] for h in state.history]:
+        raise AssertionError(f"[{label}] the in-process rejections differ from the server's")
+    if replay.global_blob != state.global_blob or globals_[-1] != state.global_blob:
+        raise AssertionError(f"[{label}] the final global differs from the in-process fold")
+    finals = {r.final_weights for r in run["results"].values() if not isinstance(r, Exception)}
+    if finals != {state.global_blob}:
+        raise AssertionError(f"[{label}] the surviving clients hold another final global")
+    return {"globals": globals_, "replay_statuses": [s[:3] for s in statuses]}
+
+
+def chaos_grpc_run(torch, card: str, spans_dir: str) -> dict:
+    """Phase 17 (a): the chaos plane over gRPC at phase 7's width with
+    three clients. Federation A (raw msgpack uploads): a two-call network
+    flap in round 1 ridden out by retries, then in round 2 a NaN upload
+    (REJECTED, never averaged) and a crash before upload, the deadline
+    closing the round on the survivor. Federation B (int8 frames): a
+    corrupted frame in round 1 (the CRC rejects it), the deadline closing
+    the round on two, then ``ServerThread.kill`` mid round 2 and a restart
+    from the statefile that resumes the round. Spans of B go to
+    ``spans_dir``, and a f32 version manager then installs B's last
+    global from the statefile and serves one batch on it (for (d)'s
+    stitch)."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from fedcrack_tpu_torch.chaos import (
+        CORRUPT_COMPRESSED_FRAME,
+        CRASH_BEFORE_UPLOAD,
+        NAN_UPDATE,
+        NETWORK_FLAP,
+        Fault,
+        FaultPlan,
+        InjectedCrash,
+    )
+    from fedcrack_tpu_torch.configs import ServeConfig
+    from fedcrack_tpu_torch.obs import spans as tracing
+    from fedcrack_tpu_torch.ops import bce
+    from fedcrack_tpu_torch.serve.batcher import MicroBatcher
+    from fedcrack_tpu_torch.serve.engine import InferenceEngine
+    from fedcrack_tpu_torch.serve.hot_swap import ModelVersionManager
+
+    fs = chaos_setup(torch)
+    c0, c1, c2 = fs["names"]
+    base = dataclasses.replace(fs["server_cfg"], host="127.0.0.1", port=0, poll_period_s=0.05, cohort_size=3,
+                               round_deadline_s=CHAOS_DEADLINE_S)
+    eval_batches = [0]
+    bce.reset_launch_counts()
+
+    # ---- federation A: flap, NaN upload, crash before upload ----
+    cfg_a = base
+    plans_a = {c1: FaultPlan([Fault(NETWORK_FLAP, round=1, client=c1, count=2), Fault(NAN_UPDATE, round=2, client=c1)]),
+               c2: FaultPlan([Fault(CRASH_BEFORE_UPLOAD, round=2, client=c2)])}
+    run_a = chaos_federation(torch, fs, cfg_a, plans_a, eval_batches)
+    check_a = check_chaos_run("A", run_a, cfg_a, fs, [(1, [c0, c1, c2], {}), (2, [c0], {c1: "non-finite"})],
+                              {c0: 2, c1: RuntimeError, c2: InjectedCrash})
+    for name, plan in plans_a.items():
+        if plan.pending:
+            raise AssertionError(f"[A] {name}'s faults never fired: {plan.pending}")
+
+    # ---- federation B: a corrupted frame, then a kill and restart mid round 2 ----
+    with tempfile.TemporaryDirectory(prefix="fedcrack_chaos_") as tmp:
+        cfg_b = dataclasses.replace(base, update_codec="int8", state_path=os.path.join(tmp, "state.bin"))
+        plans_b = {c1: FaultPlan([Fault(CORRUPT_COMPRESSED_FRAME, round=1, client=c1)])}
+        tracing.install(os.path.join(spans_dir, "federation.jsonl"))
+        try:
+            run_b = chaos_federation(torch, fs, cfg_b, plans_b, eval_batches,
+                                     kill={"round": 2, "survivor": c0, "victim": c2})
+        finally:
+            tracing.uninstall()
+        check_b = check_chaos_run("B", run_b, cfg_b, fs, [(1, [c0, c2], {c1: "checksum mismatch"}),
+                                                          (2, [c0, c2], {})],
+                                  {c0: 2, c1: RuntimeError, c2: 2})
+        if plans_b[c1].pending:
+            raise AssertionError(f"[B] {c1}'s fault never fired")
+        if len(run_b["servers"]) != 2:
+            raise AssertionError("federation B was not killed and restarted")
+        launches = bce.bce_sums.launches
+        steps = run_a["steps"] + run_b["steps"]
+        if launches != steps + eval_batches[0]:
+            raise AssertionError(f"bce_sums launches {launches} != {steps} train steps + {eval_batches[0]} eval batches")
+        evals = [e for r in (run_a, run_b) for s in r["servers"] for e in s.eval_history]
+        if sorted(e["model_version"] for e in evals) != [1, 1, 2, 2] or not all(
+                np.isfinite(v) for e in evals for v in e.values()):
+            raise AssertionError(f"server evals {evals}")
+        # For (d)'s stitch: federation B's last global, installed from the
+        # statefile and served once (the f32 reference program).
+        tracing.install(os.path.join(spans_dir, "serve.jsonl"))
+        try:
+            engine = InferenceEngine(fs["cfg"].model, ServeConfig())
+            manager = ModelVersionManager(engine, fs["global0"], state_path=cfg_b.state_path,
+                                          template=fs["global0"])
+            if not manager.poll_once() or manager.version != 2:
+                raise AssertionError(f"the statefile install served version {manager.version}")
+            with MicroBatcher(engine, manager) as batcher:
+                answer = batcher.submit(np.zeros((BUCKET, BUCKET, 3), np.uint8)).result(timeout=120)
+            if answer.model_version != 2:
+                raise AssertionError(f"the stitch's batch answered from version {answer.model_version}")
+        finally:
+            tracing.uninstall()
+    out = {
+        "launches": launches, "steps": steps, "eval_batches": eval_batches[0],
+        "round_wall_s": {"A": [h["wall_clock_s"] for h in run_a["state"].history],
+                         "B": [h["wall_clock_s"] for h in run_b["state"].history]},
+        "session_wall_s": {"A": run_a["wall_s"], "B": run_b["wall_s"]},
+        "restart_s": run_b["restart_s"],
+        "rejected": {"A": [h["rejected"] for h in run_a["state"].history],
+                     "B": [h["rejected"] for h in run_b["state"].history]},
+        "frame_bytes": sorted(len(u[2]) for u in run_b["sent"]),
+    }
+    log(f"[chaos] A: flap ridden out, NaN upload REJECTED, crash before upload, the deadline closing round 2 on "
+        f"{c0}; B: the corrupted frame REJECTED by its CRC, the server killed mid round 2 and resumed from the "
+        f"statefile; every round's global byte-equal to fed.rounds.transition fed the same wire bytes, the replies "
+        f"equal; {json.dumps(out)} [{card}]")
+    return out
+
+
+def snapped_weights(torch, cfg, plane: str, seeds) -> dict:
+    """Phase 4's stand-in for trained weights: seeded weights snapped to
+    the plane's code grid (``{seed: host tree}``)."""
+    from fedcrack_tpu_torch.models.resunet import init_variables
+    from fedcrack_tpu_torch.serve import quant as quant_mod
+
+    return {seed: quant_mod.dequantize_variables(quant_mod.quantize_for_plane(
+        init_variables(torch.Generator().manual_seed(seed), cfg), plane).tree) for seed in seeds}
+
+
+def serve_chaos_run(torch, card: str) -> dict:
+    """Phase 17 (b): serve chaos through the fused_int8 plane at full
+    width. A ``MicroBatcher`` with a ``ServeChaos`` plan takes three
+    bucket-256 batches: batch 0 loses its device (retried, nothing
+    dropped), batch 1 has version 2 installed under it after its snapshot
+    (it answers entirely from version 1), batch 2 is served by version 2.
+    A two-replica ``ServeFleet`` sharing the engine takes a device loss
+    too, and a replica grown later carries the hook. A ``StreamSession``
+    with a ``StreamChaos`` reset re-runs the reset frame in full, each
+    frame byte-equal to ``predict_tiled``. Masks are byte-equal to the card
+    engine at the version each batch snapshotted, and every quantized
+    forward (the retried batch's and the install gate's included) launches
+    15 / 8 / 1 dequant kernels. Returns the launches and what the leak
+    check repeats."""
+    import dataclasses
+
+    import numpy as np
+
+    from fedcrack_tpu_torch.chaos import (
+        SERVE_DEVICE_LOSS,
+        SERVE_STREAM_RESET,
+        SERVE_SWAP_MIDFLIGHT,
+        Fault,
+        FaultPlan,
+        ServeChaos,
+        StreamChaos,
+    )
+    from fedcrack_tpu_torch.configs import ModelConfig, ServeConfig
+    from fedcrack_tpu_torch.kernels import dequant
+    from fedcrack_tpu_torch.serve.batcher import MicroBatcher
+    from fedcrack_tpu_torch.serve.engine import InferenceEngine
+    from fedcrack_tpu_torch.serve.fleet import ServeFleet
+    from fedcrack_tpu_torch.serve.hot_swap import ModelVersionManager
+    from fedcrack_tpu_torch.serve.stream import StreamSession
+
+    cfg, sc = ModelConfig(), ServeConfig(quant="int8", kernel_plane="fused_int8")
+    per_forward = {"dequant_matmul": len(matmul_shapes(cfg, BUCKET, BATCH)),
+                   "dequant_conv3x3": len(conv_shapes(cfg, BUCKET, BATCH)), "dequant_codes": 1}
+    weights = snapped_weights(torch, cfg, sc.kernel_plane, (0, 1))
+    engine = InferenceEngine(cfg, sc)
+    manager = ModelVersionManager(engine, weights[0])
+    if not manager.install(1, weights[0]) or not manager.last_quant_gate["passed"]:
+        raise AssertionError(f"version 1 was not installed quantized: {manager.last_quant_gate}")
+    payloads = {1: manager.snapshot()[1]}
+    engine.warmup(payloads[1])
+    rng = np.random.default_rng(17)
+    bursts = [rng.integers(0, 256, (BATCH, BUCKET, BUCKET, 3), dtype=np.uint8) for _ in range(4)]
+    plan = FaultPlan([Fault(SERVE_DEVICE_LOSS, round=0), Fault(SERVE_SWAP_MIDFLIGHT, round=1)])
+    chaos = ServeChaos(plan, swap_hook=lambda: manager.install(2, weights[1]))
+    torch.cuda.synchronize()
+
+    # ---- the main path, counted: the batcher, the fleet and a stream under chaos ----
+    dequant.reset_launch_counts()
+    fwd0 = engine.quantized_forwards
+    with MicroBatcher(engine, manager, max_delay_ms=200.0, chaos=chaos) as batcher:
+        answers = [[f.result(timeout=300) for f in [batcher.submit(img) for img in burst]] for burst in bursts[:3]]
+        stats = batcher.stats()
+    payloads[2] = manager.snapshot()[1]
+    fleet_chaos = ServeChaos(FaultPlan([Fault(SERVE_DEVICE_LOSS, round=0)]))
+    fleet = ServeFleet(cfg, dataclasses.replace(sc, replicas=2), weights[1], initial_version=2, chaos=fleet_chaos,
+                       shared_engine=engine, warmup=False)
+    try:
+        fleet_answers = [f.result(timeout=300) for f in [fleet.submit(img) for img in bursts[3]]]
+        fleet_stats = fleet.stats()
+        grown = fleet.add_replica(warm=False)
+        fleet_payload = fleet.manager.snapshot()[1]
+    finally:
+        fleet.close()
+    stream_plan = FaultPlan([Fault(SERVE_STREAM_RESET, round=2)])
+    session = StreamSession(engine, manager, height=384, width=384, chaos=StreamChaos(stream_plan), stream_id="cam")
+    frame = rng.integers(0, 256, (384, 384, 3), dtype=np.uint8)
+    frames = [session.process_frame(frame) for _ in range(4)]
+    torch.cuda.synchronize()
+    launches = {name: getattr(dequant, name).launches for name in per_forward}
+    forwards = engine.quantized_forwards - fwd0
+
+    # ---- what the main path did ----
+    if launches != {name: n * forwards for name, n in per_forward.items()}:
+        raise AssertionError(f"dequant launches {launches} != {per_forward} per forward x {forwards}")
+    gate = manager.last_quant_gate
+    # 3 batcher batches (the lost one never dispatched), 2 gate probes
+    # (one per bucket), the fleet's gate probes, its batches, 4 frames'
+    # misses (frames 0 and 2).
+    if [f.kind for f in plan.triggered] != [SERVE_DEVICE_LOSS, SERVE_SWAP_MIDFLIGHT] or not gate["passed"]:
+        raise AssertionError(f"serve faults fired {plan.triggered}, gate {gate}")
+    if (stats["completed"], stats["failed"], stats["batch_retries"], stats["batches"]) != (3 * BATCH, 0, 1, 3):
+        raise AssertionError(f"batcher stats {stats}")
+    versions = [sorted({a.model_version for a in burst}) for burst in answers]
+    if versions != [[1], [1], [2]]:
+        raise AssertionError(f"batch versions {versions}, want [1], [1] (its snapshot), [2]")
+    bitwise = True
+    for burst, got, v in zip(bursts, answers, (1, 1, 2)):
+        want = engine.predict_bucket(payloads[v], burst)
+        for a, w in zip(got, want):
+            if _mask(a.probs) != _mask(w):
+                raise AssertionError(f"a version-{v} mask differs from the card engine's at that version")
+            bitwise &= bool(np.array_equal(a.probs, w))
+    per_replica = fleet_stats["router"]["per_replica"]
+    if (sum(r["completed"] for r in per_replica.values()) != BATCH or sum(r["failed"] for r in per_replica.values())
+            or [f.kind for f in fleet_chaos.plan.triggered] != [SERVE_DEVICE_LOSS]
+            or grown.batcher._chaos is not fleet_chaos or {a.model_version for a in fleet_answers} != {2}):
+        raise AssertionError(f"fleet under chaos: {fleet_stats}")
+    want = engine.predict_bucket(fleet_payload, bursts[3])
+    if any(_mask(a.probs) != _mask(w) for a, w in zip(fleet_answers, want)):
+        raise AssertionError("a fleet mask differs from the card engine's")
+    tiled = engine.predict_tiled(payloads[2], frame).tobytes()
+    if [f.full_rerun for f in frames] != [True, False, True, False] or len(stream_plan.triggered) != 1:
+        raise AssertionError(f"stream frames {[(f.full_rerun, f.tiles_computed) for f in frames]}")
+    if any(f.probs.tobytes() != tiled for f in frames) or session.totals["resets"] != 1:
+        raise AssertionError("a stream frame differs from predict_tiled across the reset")
+    out = {"launches": launches, "quantized_forwards": forwards, "probs_bitwise_equal": bitwise,
+           "gate_iou": gate["iou"], "stream_tiles": [f.tiles_computed for f in frames],
+           "stream_frame_ms": [f.latency_ms for f in frames]}
+    log(f"[serve chaos] device loss retried (1 retry, 0 failed, {3 * BATCH} answered), the in-flight batch answered "
+        f"from version 1 with version 2 installed under it, the fleet's loss retried with nothing dropped, the "
+        f"stream reset frame a full re-run byte-equal to predict_tiled; masks byte-equal to the card engine at each "
+        f"batch's version; {json.dumps(out)} [{card}]")
+    return {**out, "engine": engine, "manager": manager, "bursts": bursts}
+
+
+def time_batches(engine, payload, size: int, n: int = 20) -> dict:
+    """Host ms of ``n`` full bucket batches (``predict_bucket``, copy in
+    and probabilities back included), after two warm ones."""
+    import numpy as np
+
+    batch = np.random.default_rng(size).integers(0, 256, (BATCH, size, size, 3), dtype=np.uint8)
+    for _ in range(2):
+        engine.predict_bucket(payload, batch)
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        engine.predict_bucket(payload, batch)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    p50, p95 = np.percentile(ms, [50, 95])
+    return {"img_per_s": BATCH * 1e3 / float(np.mean(ms)), "batch_p50_ms": float(p50), "batch_p95_ms": float(p95)}
+
+
+def time_steps(torch, state, batch, n: int = 20) -> dict:
+    """Host ms of ``n`` train steps ending in a synchronize, after three warm ones."""
+    import numpy as np
+
+    from fedcrack_tpu_torch.train import local
+
+    anchor = local.snapshot_params(state)
+    for _ in range(3):
+        local.train_step(state, batch, anchor)
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        local.train_step(state, batch, anchor)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    p50, p95 = np.percentile(ms, [50, 95])
+    return {"img_per_s": len(batch[0]) * 1e3 / float(np.mean(ms)), "step_p50_ms": float(p50),
+            "step_p95_ms": float(p95)}
+
+
+def check_bf16_step(torch, cfg, global0, batch, lr: float) -> dict:
+    """One bfloat16 train step from the same weights and batch on the card
+    (cuDNN) and on the CPU (oneDNN), the bounds of
+    tests/test_torch_bf16.py:
+
+    - the train-mode logits before the step: both sides round to bfloat16
+      at the same ``n`` points (every conv and BatchNorm); a value landing
+      on the other side of a rounding boundary moves one step, 2^-8, and
+      each flip adds at most a step on the way out, so every logit within
+      ``n * 2^-8 * max|logits|``, and, flips adding in quadrature, the
+      mean difference within ``sqrt(n) * 2^-8 * mean|logits|``;
+    - the loss: the per-pixel BCE is 1-Lipschitz in the logit, so the two
+      losses within the measured mean logit difference (plus 1e-5 of the
+      loss for the two float32 reductions);
+    - the parameters (as ``check_one_step``): Adam's first step is
+      ``lr * g / (|g| + 1e-7)``, at most ``lr`` on each side, so within
+      ``2 * lr`` everywhere; where both gradients have one sign and exceed
+      2e-5 the steps differ by at most ``lr * 1e-7 / 2e-5``, held to
+      1e-2·lr, whatever precision the gradients were computed in;
+    - the running statistics move by 0.01 of the batch moments, which carry
+      at most ``n`` flips of 2^-8 each: within
+      ``0.01 * n * 2^-8 * (max|batch moment| + 1)``."""
+    import numpy as np
+
+    from fedcrack_tpu_torch.data.pipeline import as_model_batch
+    from fedcrack_tpu_torch.models.convert import flax_to_state_dict
+    from fedcrack_tpu_torch.models.resunet import BatchNorm, Conv
+    from fedcrack_tpu_torch.train import local
+
+    side = {}
+    for device in ("cuda", "cpu"):
+        st = local.create_train_state(torch.Generator().manual_seed(0), cfg, lr, device=device)
+        st.replace_variables(global0)
+        images, _ = as_model_batch(*(torch.as_tensor(a, device=device) for a in batch))
+        st.model.train()
+        with torch.no_grad():
+            logits = st.model(images).cpu().numpy()
+        st.replace_variables(global0)  # the forward moved the running statistics
+        st, m = local.train_step(st, batch, local.snapshot_params(st), 0.0, 1.0)
+        side[device] = (float(m["loss"]), logits, st.model)
+    n = sum(isinstance(mod, (Conv, BatchNorm)) for mod in side["cpu"][2].modules())
+    (loss_card, lg_card, card_model), (loss_cpu, lg_cpu, cpu_model) = side["cuda"], side["cpu"]
+    diff = np.abs(lg_card - lg_cpu)
+    out = {"roundings": n, "logit_max_over_bound": float(diff.max() / (n * BF16_STEP * np.abs(lg_cpu).max())),
+           "logit_mean_over_bound": float(diff.mean() / (np.sqrt(n) * BF16_STEP * np.abs(lg_cpu).mean())),
+           "loss": [loss_card, loss_cpu], "mean_logit_diff": float(diff.mean())}
+    if out["logit_max_over_bound"] > 1 or out["logit_mean_over_bound"] > 1 \
+            or abs(loss_card - loss_cpu) > float(diff.mean()) + 1e-5 * abs(loss_cpu):
+        raise AssertionError(f"bf16 card and CPU forwards disagree past their bound: {out}")
+    start = flax_to_state_dict(global0)
+    cpu_params = dict(cpu_model.named_parameters())
+    worst = {"params_signed": 0.0, "params_flipped": 0.0, "batch_stats_over_bound": 0.0}
+    for name, p in card_model.named_parameters():
+        g_card, g_cpu = p.grad.detach().cpu(), cpu_params[name].grad
+        got, want = p.detach().cpu(), cpu_params[name].detach()
+        if {p.dtype, g_card.dtype, want.dtype, g_cpu.dtype} != {torch.float32}:
+            raise AssertionError(f"{name}: a parameter or gradient is not float32 after a bf16 step")
+        for side_p in (got, want):
+            if float((side_p - start[name]).abs().max()) > lr * (1 + 1e-3):
+                raise AssertionError(f"{name}: moved more than Adam's one-step bound lr")
+        signed = (torch.sign(g_card) == torch.sign(g_cpu)) & (g_card.abs() > 2e-5) & (g_cpu.abs() > 2e-5)
+        step_diff = (got - want).abs()
+        if signed.any():
+            worst["params_signed"] = max(worst["params_signed"], float(step_diff[signed].max()))
+        if (~signed).any():
+            worst["params_flipped"] = max(worst["params_flipped"], float(step_diff[~signed].max()))
+    cpu_buffers = dict(cpu_model.named_buffers())
+    for name, buf in card_model.named_buffers():
+        w, s0 = cpu_buffers[name], start[name]
+        moment = (w - 0.99 * s0) / 0.01
+        tol = 0.01 * n * BF16_STEP * (float(moment.abs().max()) + 1.0)
+        worst["batch_stats_over_bound"] = max(worst["batch_stats_over_bound"],
+                                             float((buf.cpu() - w).abs().max()) / tol)
+    out.update(worst)
+    if worst["params_signed"] > 1e-2 * lr or worst["params_flipped"] > 2 * lr * (1 + 1e-3) \
+            or worst["batch_stats_over_bound"] > 1.0:
+        raise AssertionError(f"bf16 card and CPU steps disagree past their bound: {out}")
+    return out
+
+
+def serve_cli_requests(client, engine, payload, sizes, rng, n: int = SERVE_PROBES) -> dict:
+    """``n`` sequential single-image Predict calls per bucket size against
+    the serve process: each mask held to ``engine`` in this process away
+    from the threshold (``SERVE_PROB_TOL``), and the client's p50 / p95."""
+    import numpy as np
+
+    latency = {}
+    for size in sizes:
+        img = rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
+        probs = engine.predict_image(payload, img)[..., 0]
+        far = np.abs(probs - 0.5) > SERVE_PROB_TOL
+        want = (probs > 0.5).astype(np.uint8) * 255
+        wall = []
+        for i in range(n):
+            t0 = time.perf_counter()
+            (r,) = client.predict(client.chunks(1000 * size + i, img, n=1))
+            wall.append((time.perf_counter() - t0) * 1e3)
+            got = np.frombuffer(r.mask, np.uint8).reshape(probs.shape)
+            if r.status != "OK" or not np.array_equal(got[far], want[far]):
+                raise AssertionError(f"bucket {size}: {r.status} {r.title!r}, or a mask away from the threshold "
+                                     "differs from the card engine in process")
+        latency[size] = {"client_p50_ms": float(np.percentile(wall, 50)),
+                         "client_p95_ms": float(np.percentile(wall, 95)),
+                         "pixels_within_tol_of_threshold": int((~far).sum())}
+    return latency
+
+
+def bf16_serve_process(torch, card: str, tmp: str, label: str, serve: dict, weights, engine, payload,
+                       watch=None) -> dict:
+    """``python -m fedcrack_tpu_torch.serve --compute-dtype bfloat16``
+    through ``CLI_SHIM`` at ``ModelConfig()`` with the ``serve`` section
+    of its ``--config`` file: its Predict masks against ``engine`` in this
+    process, then SIGTERM. ``watch(metrics_url)`` runs against its live
+    ``/metrics`` before the SIGTERM. Returns the shim's report, the
+    serve_stats, the latencies and what ``watch`` returned."""
+    import re
+
+    import numpy as np
+
+    from fedcrack_tpu_torch.fed import serialization
+
+    p = {k: os.path.join(tmp, f"{label}_{v}") for k, v in (("weights", "w.msgpack"), ("config", "serve.json"),
+                                                            ("metrics", "serve.jsonl"), ("spans", "spans.jsonl"))}
+    with open(p["weights"], "wb") as f:
+        f.write(serialization.tree_to_bytes(weights))
+    with open(p["config"], "w", encoding="utf-8") as f:
+        json.dump({"serve": serve}, f)
+    args = ["--config", p["config"], "--weights", p["weights"], "--compute-dtype", "bfloat16", "--host", "127.0.0.1",
+            "--port", "0", "--metrics-path", p["metrics"], "--metrics-port", "-1"]
+    deadline = time.monotonic() + SERVE_TIMEOUT_S
+    server = CliProcess(label, "fedcrack_tpu_torch.serve", args, tmp)
+    client, watched = None, None
+    try:
+        found = None
+        while time.monotonic() < deadline:
+            found = re.search(r"^SERVING \S+:(\d+) .* metrics_port=(\d+)", server.text(), re.M)
+            if found or server.proc.poll() is not None:
+                break
+            time.sleep(0.1)
+        if not found:
+            raise AssertionError(f"{label}: no SERVING line:\n{server.text()[-6000:]}")
+        t_serving = time.time() - server.started
+        client = ServeClient(int(found.group(1)))
+        rng = np.random.default_rng(23)
+        latency = serve_cli_requests(client, engine, payload, engine.bucket_sizes, rng)
+        if watch is not None:
+            watched = watch(f"http://127.0.0.1:{found.group(2)}/metrics", client, rng)
+        client.close()
+        client = None
+        server.proc.send_signal(signal.SIGTERM)
+        rc = server.wait(deadline)
+    finally:
+        if client is not None:
+            client.close()
+        server.kill()
+    text = server.text()
+    if rc != 0:
+        raise AssertionError(f"{label} exited {rc}:\n{text[-6000:]}")
+    stats_lines = [ln for ln in text.splitlines() if ln.startswith('{"serve_stats"')]
+    if len(stats_lines) != 1:
+        raise AssertionError(f"{label}: {len(stats_lines)} serve_stats lines:\n{text[-4000:]}")
+    return {"report": server.report(), "stats": json.loads(stats_lines[0])["serve_stats"], "latency_ms": latency,
+            "start_to_serving_s": t_serving, "watch": watched}
+
+
+def bf16_run(torch, card: str, tmp: str, watch) -> dict:
+    """Phase 17 (c): bfloat16 at configs/c5_bf16_batch_dp.json's model and
+    shapes, ``ModelConfig(compute_dtype="bfloat16")``, 256 px, batch 32.
+    A client fit (``make_train_fn``, two steps) and an eval batch on the
+    card through ``bce_sums``, every leaf float32; one step on the card
+    against the CPU (``check_bf16_step``); train images/s and step p50 /
+    p95 beside float32 at the same shape; the f32 and bf16 reference
+    programs' batches per bucket in process; then ``python -m
+    fedcrack_tpu_torch.serve --compute-dtype bfloat16`` at ``--quant
+    none`` (the bf16 reference program on cuDNN; ``watch`` runs against
+    its ``/metrics``) and at ``--quant int8 --kernel-plane fused_int8``
+    serving the bf16 fit's weights snapped to the code grid (the gate,
+    fused against the bf16 reference program, passes; 15 / 8 / 1 dequant
+    launches per forward). The gate is also logged on phase 4's seeded
+    snapped weights, where bf16 rounding flips pixels of a chaotic net."""
+    import dataclasses
+
+    import numpy as np
+
+    from fedcrack_tpu_torch.configs import DataConfig, FedConfig, ModelConfig, ServeConfig
+    from fedcrack_tpu_torch.data.pipeline import ArrayDataset
+    from fedcrack_tpu_torch.data.synthetic import synth_crack_batch
+    from fedcrack_tpu_torch.fed import serialization
+    from fedcrack_tpu_torch.models.resunet import init_variables
+    from fedcrack_tpu_torch.ops import bce
+    from fedcrack_tpu_torch.serve import quant as quant_mod
+    from fedcrack_tpu_torch.serve.engine import InferenceEngine
+    from fedcrack_tpu_torch.train import local
+    from fedcrack_tpu_torch.train.federated import make_train_fn
+
+    cfg16 = ModelConfig(img_size=BF16_SIZE, compute_dtype="bfloat16")
+    cfg32 = dataclasses.replace(cfg16, compute_dtype="float32")
+    fed = FedConfig(model=cfg16, data=DataConfig(img_size=BF16_SIZE, batch_size=BF16_BATCH), local_epochs=1)
+    lr = fed.learning_rate
+    imgs, msks = synth_crack_batch(3 * BF16_BATCH, BF16_SIZE, seed=5)
+    global0 = init_variables(torch.Generator().manual_seed(0), cfg16)
+
+    # ---- the main path, counted: a client fit and an eval batch in bf16 ----
+    bce.reset_launch_counts()
+    train_fn, holder = make_train_fn(fed, ArrayDataset(imgs[:2 * BF16_BATCH], msks[:2 * BF16_BATCH],
+                                                       batch_size=BF16_BATCH, seed=0), BF16_BATCH, seed=0)
+    blob, n_samples, metrics = train_fn(serialization.tree_to_bytes(global0), 1, {"local_epochs": 1})
+    state = holder["state"]
+    ev = local.evaluate(state, ArrayDataset(imgs[2 * BF16_BATCH:], msks[2 * BF16_BATCH:], batch_size=BF16_BATCH,
+                                            shuffle=False))
+    torch.cuda.synchronize()
+    launches, steps = bce.bce_sums.launches, n_samples // BF16_BATCH
+    if launches != steps + ev["num_batches"] or steps != 2:
+        raise AssertionError(f"bce_sums launches {launches} != {steps} steps + {ev['num_batches']} eval batches")
+    leaves = list(_flat_tree(serialization.tree_from_bytes(blob)))
+    if state.model.compute_dtype != torch.bfloat16 or any(
+            getattr(leaf, "dtype", None) != np.float32 or not np.isfinite(leaf).all() for _, leaf in leaves):
+        raise AssertionError("the bf16 fit's upload is not finite float32 leaves on a bf16 model")
+    if not all(np.isfinite(v) for v in [*metrics.values(), *ev.values()]):
+        raise AssertionError(f"non-finite bf16 metrics {metrics} {ev}")
+    log(f"[bf16] fit of {steps} steps at {BF16_SIZE} px batch {BF16_BATCH} and {ev['num_batches']} eval batch: "
+        f"bce_sums launches {launches}; train {json.dumps(metrics)}, eval {json.dumps(ev)}; "
+        f"{len(leaves)} float32 leaves uploaded")
+
+    check = check_bf16_step(torch, cfg16, global0, (imgs[:BF16_CHECK_BATCH], msks[:BF16_CHECK_BATCH]), lr)
+    log(f"[bf16] card vs CPU, one step at {BF16_SIZE} px batch {BF16_CHECK_BATCH}: {json.dumps(check)}")
+
+    batch = tuple(torch.from_numpy(a[:BF16_BATCH]).cuda() for a in (imgs, msks))
+    train_perf = {}
+    for name, mc in (("float32", cfg32), ("bfloat16", cfg16)):
+        st = local.create_train_state(torch.Generator().manual_seed(0), mc, lr).replace_variables(global0)
+        train_perf[name] = time_steps(torch, st, batch)
+    log(f"[bf16] train_step at {BF16_SIZE} px batch {BF16_BATCH}, 20 steps each: {json.dumps(train_perf)} [{card}]")
+
+    serve_perf, engines = {}, {}
+    for name in ("float32", "bfloat16"):
+        engines[name] = InferenceEngine(ModelConfig(), ServeConfig(compute_dtype=name))
+        payload = engines[name].prepare(global0)
+        serve_perf[name] = {size: time_batches(engines[name], payload, size) for size in engines[name].bucket_sizes}
+    log(f"[bf16] reference program batches of {BATCH} per bucket in process, 20 each: {json.dumps(serve_perf)} "
+        f"[{card}]")
+
+    # ---- the serve command in bf16: the reference program, then fused_int8 ----
+    ref_engine = engines["bfloat16"]
+    ref = bf16_serve_process(torch, card, tmp, "serve_bf16_ref", {"quant": "none"}, global0, ref_engine,
+                             ref_engine.prepare(global0), watch=watch)
+    if ref["report"]["dequant_launches"] != {"dequant_matmul": 0, "dequant_conv3x3": 0, "dequant_codes": 0}:
+        raise AssertionError(f"the bf16 reference program launched dequant kernels: {ref['report']}")
+    # The fused plane accumulates in float32 and the gate holds it against
+    # the bf16 reference program, so on top of int8 rounding the gate sees
+    # bf16 rounding. On the chaotic seeded net that flips probe pixels
+    # (logged); the served model is the bf16 fit above, trained in bf16 and
+    # served in bf16, snapped to the code grid as phase 4's weights are.
+    sc = ServeConfig(quant="int8", kernel_plane="fused_int8", compute_dtype="bfloat16")
+    fused_engine = InferenceEngine(ModelConfig(), sc)
+    gates = {}
+    for label, host in (("seeded", snapped_weights(torch, ModelConfig(), "fused_int8", (0,))[0]),
+                        ("bf16_fit", quant_mod.dequantize_variables(quant_mod.quantize_for_plane(
+                            serialization.tree_from_bytes(blob, template=global0), "fused_int8").tree))):
+        reference = fused_engine.prepare(host)
+        probe = quant_mod.probe_images(BUCKET, sc.quant_probe_batch, sc.quant_probe_seed)
+        gates[label] = {**quant_mod.quant_gate(fused_engine, reference, fused_engine.prepare_quantized(
+            quant_mod.quantize_for_plane(host, "fused_int8"))).to_json(),
+            "probe_crack_share_256": float((fused_engine.predict_bucket(reference, probe) > 0.5).mean())}
+    log(f"[bf16] quant gate in process, fused_int8 against the bf16 reference program: {json.dumps(gates)} [{card}]")
+    if not gates["bf16_fit"]["passed"]:
+        raise AssertionError(f"the bf16 fit's gate fails in process: {gates['bf16_fit']}")
+    snapped = quant_mod.dequantize_variables(quant_mod.quantize_for_plane(
+        serialization.tree_from_bytes(blob, template=global0), "fused_int8").tree)
+    fused = bf16_serve_process(torch, card, tmp, "serve_bf16_fused", {"quant": "int8", "kernel_plane": "fused_int8"},
+                               snapped, fused_engine,
+                               fused_engine.prepare_quantized(quant_mod.quantize_for_plane(snapped, "fused_int8")))
+    per_forward = {"dequant_matmul": len(matmul_shapes(ModelConfig(), BUCKET, BATCH)),
+                   "dequant_conv3x3": len(conv_shapes(ModelConfig(), BUCKET, BATCH)), "dequant_codes": 1}
+    forwards = fused["report"]["quantized_forwards"]
+    gate = fused["stats"]["quant_gate"]
+    if forwards == 0 or fused["report"]["dequant_launches"] != {k: v * forwards for k, v in per_forward.items()}:
+        raise AssertionError(f"bf16 fused serve: dequant launches {fused['report']} != {per_forward} x {forwards}")
+    if gate is None or not gate["passed"]:
+        raise AssertionError(f"the bf16 fused serve's gate did not pass: {gate}")
+    log(f"[bf16] serve --compute-dtype bfloat16 --quant none: client latency {json.dumps(ref['latency_ms'])}, "
+        f"SERVING after {ref['start_to_serving_s']:.2f} s; --quant int8 --kernel-plane fused_int8: gate "
+        f"{json.dumps(gate)} against the bf16 reference program, {forwards} quantized forwards, dequant launches "
+        f"{fused['report']['dequant_launches']}, client latency {json.dumps(fused['latency_ms'])} [{card}]")
+    return {"launches": launches, "served_launches": fused["report"]["dequant_launches"], "check": check,
+            "train_perf": train_perf, "serve_perf": serve_perf, "serve_cli_latency_ms": {
+                "bfloat16_reference": ref["latency_ms"], "bfloat16_fused_int8": fused["latency_ms"]},
+            "gate": gate, "gates_in_process": gates, "watch": ref["watch"], "state": holder["state"],
+            "batch": batch}
+
+
+def watch_serve_metrics(rules_path: str):
+    """(d)'s watchdog: ``Watchdog(load_rules(rules_path))`` evaluated over a
+    serve process's live ``/metrics`` twice, 1.1 s apart with requests in
+    between (rate rules read two scrapes). No breach is allowed; the rules
+    whose metric the process does not export stay indeterminate and are
+    reported."""
+    import numpy as np
+
+    from fedcrack_tpu_torch.obs.promexp import scrape
+    from fedcrack_tpu_torch.obs.watchdog import Watchdog, load_rules
+
+    def watch(url, client, rng):
+        wd = Watchdog(load_rules(rules_path))
+        first = wd.enforce(scrape(url))
+        t_end = time.monotonic() + 1.1
+        img = rng.integers(0, 256, (BUCKET, BUCKET, 3), dtype=np.uint8)
+        while time.monotonic() < t_end:
+            client.predict(client.chunks(77, img, n=1))
+        second = wd.enforce(scrape(url))
+        audit = wd.audit()
+        if audit["breaches"] or first["breaches"] or second["breaches"]:
+            raise AssertionError(f"SLO breach over the serve process's /metrics: {audit}")
+        return {"audit": audit, "values": {r["rule"]: r["value"] for r in second["results"]}}
+
+    return watch
+
+
+def chaos_bf16_watch_phase(torch, card: str) -> dict:
+    """Phase 17: (a) chaos over gRPC, (b) serve chaos, (c) bf16 compute,
+    and (d) the watch layer: a ``LeakSentry`` marked after (a)-(c) and
+    checked after a repeat of their steady work, the watchdog over the bf16
+    serve process's ``/metrics`` (run inside (c)), and ``tools.trace_stitch``
+    over (a)'s span files."""
+    import gc
+    import tempfile
+
+    from fedcrack_tpu_torch.obs.registry import MetricsRegistry
+    from fedcrack_tpu_torch.obs.sentries import LeakSentry
+    from fedcrack_tpu_torch.serve.batcher import MicroBatcher
+    from fedcrack_tpu_torch.tools import trace_stitch
+    from fedcrack_tpu_torch.train import local
+
+    t0 = time.monotonic()
+    sentry = LeakSentry(registry=MetricsRegistry())
+    with tempfile.TemporaryDirectory(prefix="fedcrack_phase17_") as tmp:
+        chaos = chaos_grpc_run(torch, card, tmp)
+        served = serve_chaos_run(torch, card)
+        bf16 = bf16_run(torch, card, tmp, watch_serve_metrics(os.path.join(HERE, WATCH_RULES)))
+        log(f"[watch] watchdog on {WATCH_RULES} over the bf16 serve process's /metrics: "
+            f"{json.dumps(bf16['watch'])}")
+
+        # ---- (d) the leak sentry: steady work after the mark ----
+        gc.collect()
+        torch.cuda.synchronize()
+        marked = sentry.mark()
+        anchor = local.snapshot_params(bf16["state"])
+        for _ in range(10):
+            local.train_step(bf16["state"], bf16["batch"], anchor)
+        with MicroBatcher(served["engine"], served["manager"]) as batcher:
+            for burst in served["bursts"]:
+                [f.result(timeout=300) for f in [batcher.submit(img) for img in burst]]
+        del anchor
+        gc.collect()
+        torch.cuda.synchronize()
+        sentry.assert_steady()
+        leak = {"mark": marked, **sentry.summary(), "memory_allocated": torch.cuda.memory_allocated(),
+                "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        log(f"[watch] leak sentry steady after 10 bf16 steps and 4 fused batches past the mark: {json.dumps(leak)} "
+            f"[{card}]")
+
+        # ---- (d) the stitch over (a)'s span files ----
+        paths = [os.path.join(tmp, "federation.jsonl"), os.path.join(tmp, "serve.jsonl")]
+        stitched = trace_stitch.summarize(trace_stitch.stitch_files(paths))
+        if not stitched["complete"] or stitched["planes_crossed"] != ["client", "fed", "serve"]:
+            raise AssertionError(f"trace_stitch over the phase's span files: {stitched}")
+        log(f"[watch] trace_stitch over the federation's and the serving manager's span files: {json.dumps(stitched)}")
+    out = {"launches": chaos["launches"] + bf16["launches"],
+           "served_launches": {k: served["launches"][k] + bf16["served_launches"][k] for k in served["launches"]},
+           "phase_s": time.monotonic() - t0}
+    log(f"[phase17] wall {out['phase_s']:.2f} s; bce_sums launches {out['launches']}; dequant launches "
+        f"{out['served_launches']} [{card}]")
+    return out
+
+
 def server_breakdown(config, template, rnd: dict, n: int = 3) -> dict:
     """Host ms (median of ``n``) of each step the round machine takes on
     one round's accepted uploads: the gate per upload (validate, decode,
@@ -3567,6 +4444,8 @@ def main() -> int:
     log("phase 15 progressive delivery under load_gen: a promote, a rollback and quantify --pred-dir: ok")
     privacy = privacy_ckpt_phase(torch, card)
     log("phase 16 the privacy plane (DP, secagg with a dropout) and a checkpoint resume served quantized: ok")
+    watched = chaos_bf16_watch_phase(torch, card)
+    log("phase 17 the chaos plane, bf16 training and serving, and the watch layer: ok")
 
     kernels = []
     replaces = {"dequant_matmul": "fedcrack_tpu/kernels/dequant.py:88",
@@ -3585,7 +4464,8 @@ def main() -> int:
                 **({"launches_phase12": swap["served_launches"][name],
                     "launches_phase14": serve_cli["launches"][name],
                     "launches_phase15": shadow["launches"][name],
-                    "launches_phase16": privacy["served_launches"][name]} if flavor == "int8" else {}),
+                    "launches_phase16": privacy["served_launches"][name],
+                    "launches_phase17": watched["served_launches"][name]} if flavor == "int8" else {}),
                 "max_abs_err": row["max_abs_err"],
                 "ms": row["ms"],
                 "plain_ms": row["plain_ms"],
@@ -3608,6 +4488,7 @@ def main() -> int:
         "launches_phase12": swap["launches"],
         "launches_phase13": cli["launches"],
         "launches_phase16": privacy["launches"],
+        "launches_phase17": watched["launches"],
         **bce_row,
     })
     log(f"profiler: {lead_kept(torch)} at {time.monotonic() - t_start:.1f} s [{card}]")

@@ -27,6 +27,19 @@ tests/test_torch_train.py:
 - The decoder residual conv and the head run at the low resolution, before
   the upsample they commute with; the head computes in float32.
 
+``ModelConfig(compute_dtype="bfloat16")`` (with float32 parameters) does
+what flax does with ``dtype=bfloat16``, with explicit casts and no
+``torch.autocast`` (whose per-op rules are not flax's): the input is cast
+to bfloat16; each conv casts its input, kernel and bias to bfloat16, and
+adds the bias to its rounded bfloat16 output as flax's ``y += bias``
+does; BatchNorm takes its moments in float32 (flax's ``_compute_stats``),
+normalizes in float32 and casts the result to bfloat16 (``_normalize``),
+its running statistics staying float32; pool, ReLU, residual adds and
+upsampling run in bfloat16; the head runs in float32 on the activations
+cast back. Parameters and their gradients stay float32. The fused serving
+planes (``kernels/forward.py``) ignore the compute dtype, as the JAX
+package's do.
+
 Inputs and outputs are NHWC, the JAX layout; inside, the module runs NCHW.
 """
 
@@ -44,6 +57,9 @@ from fedcrack_tpu_torch.ops.pooling import max_pool_auto, same_pads
 # Keras BatchNormalization defaults (the reference relies on them).
 BN_MOMENTUM = 0.99
 BN_EPSILON = 1e-3
+
+# ModelConfig.compute_dtype -> the activations' dtype.
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
@@ -64,8 +80,25 @@ def _pad_same(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
     return F.pad(x, (lo_w, hi_w, lo_h, hi_h))
 
 
+class Conv(nn.Conv2d):
+    """``nn.Conv2d`` with flax's reduced-precision semantics when
+    ``compute_dtype`` is set: input, kernel and bias cast to it, the bias
+    added to the rounded conv output. Unset, it is ``nn.Conv2d``."""
+
+    compute_dtype: torch.dtype | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        if self.bias is not None:
+            y = y + self.bias.to(dt)[:, None, None]
+        return y
+
+
 def _conv(cin: int, cout: int, k: int, *, stride: int = 1, groups: int = 1, bias: bool = True):
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=0, groups=groups, bias=bias)
+    return Conv(cin, cout, k, stride=stride, padding=0, groups=groups, bias=bias)
 
 
 class BatchNorm(nn.Module):
@@ -82,8 +115,10 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # NCHW
         if self.training:
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+            # Moments in float32 whatever the activations' dtype.
+            xs = x.to(torch.float32)
+            mean = xs.mean(dim=(0, 2, 3))
+            var = torch.clamp_min((xs * xs).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1.0 - m) * mean)
@@ -91,7 +126,9 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.mean, self.var
         mul = torch.rsqrt(var + BN_EPSILON) * self.scale
-        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        # A bfloat16 x promotes to float32 here; the result goes back to x's dtype.
+        y = (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
 
 
 class SeparableConv(nn.Module):
@@ -135,10 +172,10 @@ class ResUNet(nn.Module):
                 "the port runs only the reference parameter layouts; got "
                 f"stem_layout={cfg.stem_layout!r} res_layout={cfg.res_layout!r}"
             )
-        if cfg.compute_dtype != "float32" or cfg.param_dtype != "float32":
+        if cfg.compute_dtype not in COMPUTE_DTYPES or cfg.param_dtype != "float32":
             raise ValueError(
-                "the port serves float32 only; got compute_dtype="
-                f"{cfg.compute_dtype!r} param_dtype={cfg.param_dtype!r}"
+                "the port computes in float32 or bfloat16 with float32 parameters; got "
+                f"compute_dtype={cfg.compute_dtype!r} param_dtype={cfg.param_dtype!r}"
             )
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -148,8 +185,13 @@ class ResUNet(nn.Module):
             )
         self.config = cfg
         self.bn_momentum = bn_momentum
+        self.compute_dtype = COMPUTE_DTYPES[cfg.compute_dtype]
         with torch.device("meta"):
             self._build(cfg)
+        if self.compute_dtype != torch.float32:
+            for name, module in self.named_modules():
+                if isinstance(module, Conv) and name != "head":
+                    module.compute_dtype = self.compute_dtype
         self.to_empty(device=device)
         if generator is not None:
             self.reset_parameters(generator)
@@ -198,7 +240,7 @@ class ResUNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.config
-        x = x.to(torch.float32).permute(0, 3, 1, 2)
+        x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
         if self.training:
             # Train mode runs NCHW-contiguous: torch's CPU backward of the
             # 1x1 stride-2 residual conv on channels-last tensors crashes

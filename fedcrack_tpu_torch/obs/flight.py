@@ -4,10 +4,19 @@ The counterpart of ``fedcrack_tpu.obs.flight``. Instrumented code calls
 :func:`note` unconditionally (one global read when no ring is installed,
 one deque append when one is); :func:`dump` writes the ring as one JSON
 artifact, with the metric registry's exposition at that instant. Spans
-(``obs.spans``) and the transport's update outcomes and flushes feed it.
-The reference's crash triggers (chained ``sys.excepthook`` and
-``threading.excepthook``, SIGUSR2) belong to the server's command line,
-which is not ported yet, and are left out.
+(``obs.spans``), the transport's update outcomes and flushes, every fault
+``chaos.plan.FaultPlan.take`` hands out and every watchdog evaluation
+feed it.
+
+Besides an explicit :func:`dump` (a failed audit, a watchdog breach), two
+triggers dump the ring when :func:`install` arms them (``hooks=True``):
+
+- an unhandled exception: ``sys.excepthook`` and ``threading.excepthook``
+  are chained, so the previous hooks still run;
+- SIGUSR2: an operator can ask a live process for a dump (armed only
+  where the interpreter allows it, on the main thread).
+
+:func:`uninstall` disarms the ring and restores whatever it replaced.
 """
 
 from __future__ import annotations
@@ -15,7 +24,11 @@ from __future__ import annotations
 import collections
 import json
 import os
+import signal
+import sys
+import threading
 import time
+import traceback
 from typing import Any
 
 from fedcrack_tpu_torch.analysis.sanitizers import make_lock
@@ -91,22 +104,82 @@ class FlightRecorder:
 
 _ring: FlightRecorder | None = None
 _ring_lock = make_lock("obs.flight.install")
+_prev_excepthook = None
+_prev_threading_hook = None
+_prev_sigusr2: Any = None
+_hooks_armed = False
 
 
-def install(path: str | None = None, capacity: int = DEFAULT_CAPACITY) -> FlightRecorder:
-    """Arm the process flight recorder, replacing any existing ring.
+def _on_excepthook(exc_type, exc, tb) -> None:
+    ring = _ring
+    if ring is not None:
+        ring.dump("unhandled exception: " + "".join(traceback.format_exception_only(exc_type, exc)).strip())
+    if _prev_excepthook is not None:
+        _prev_excepthook(exc_type, exc, tb)
+
+
+def _on_threading_excepthook(args) -> None:
+    ring = _ring
+    if ring is not None:
+        ring.dump(
+            f"unhandled exception in thread {args.thread.name if args.thread else '?'}: "
+            + "".join(traceback.format_exception_only(args.exc_type, args.exc_value)).strip()
+        )
+    if _prev_threading_hook is not None:
+        _prev_threading_hook(args)
+
+
+def _on_sigusr2(signum, frame) -> None:
+    ring = _ring
+    if ring is not None:
+        ring.dump("SIGUSR2")
+    prev = _prev_sigusr2
+    if callable(prev):
+        prev(signum, frame)
+
+
+def install(path: str | None = None, capacity: int = DEFAULT_CAPACITY, hooks: bool = True) -> FlightRecorder:
+    """Arm the process flight recorder, replacing any existing ring, and
+    with ``hooks`` chain the exception hooks and the SIGUSR2 trigger.
     ``path`` is where :func:`dump` lands by default."""
-    global _ring
+    global _ring, _prev_excepthook, _prev_threading_hook, _prev_sigusr2, _hooks_armed
     ring = FlightRecorder(capacity=capacity, path=path)
     with _ring_lock:
         _ring = ring
+        if hooks and not _hooks_armed:
+            _prev_excepthook = sys.excepthook
+            sys.excepthook = _on_excepthook
+            _prev_threading_hook = threading.excepthook
+            threading.excepthook = _on_threading_excepthook
+            try:
+                _prev_sigusr2 = signal.signal(signal.SIGUSR2, _on_sigusr2)
+            except (ValueError, AttributeError, OSError):
+                # Not the main thread, or no SIGUSR2 here: the exception
+                # hooks still arm; the signal trigger is optional.
+                _prev_sigusr2 = None
+            _hooks_armed = True
     return ring
 
 
 def uninstall() -> None:
-    global _ring
+    """Disarm the ring and restore whatever hooks :func:`install` replaced."""
+    global _ring, _prev_excepthook, _prev_threading_hook, _prev_sigusr2, _hooks_armed
     with _ring_lock:
         _ring = None
+        if _hooks_armed:
+            if _prev_excepthook is not None:
+                sys.excepthook = _prev_excepthook
+                _prev_excepthook = None
+            if _prev_threading_hook is not None:
+                threading.excepthook = _prev_threading_hook
+                _prev_threading_hook = None
+            if _prev_sigusr2 is not None:
+                try:
+                    signal.signal(signal.SIGUSR2, _prev_sigusr2)
+                except (ValueError, AttributeError, OSError):
+                    pass
+                _prev_sigusr2 = None
+            _hooks_armed = False
 
 
 def current() -> FlightRecorder | None:

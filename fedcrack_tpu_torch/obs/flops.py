@@ -2,7 +2,7 @@
 
 Of ``fedcrack_tpu.obs.flops`` only :func:`export_kernel_plane` is ported:
 the FLOPs model and MFU accounting there count the TPU's MXU and have no
-H100 counterpart yet (ROADMAP Queue 1 item 5).
+H100 counterpart yet (ROADMAP Queue 1 item 6, the benchmark).
 """
 
 from __future__ import annotations

@@ -256,3 +256,16 @@ def read_spans(path: str | os.PathLike, name: str | None = None) -> list[dict]:
             if name is None or rec.get("name") == name:
                 out.append(rec)
     return out
+
+
+def span_files(path: str | os.PathLike) -> list[str]:
+    """The rotated set behind ``path``, oldest first (``path.N`` ...
+    ``path``): what a stitcher reads so a chain is never cut by a rotation.
+    The port writes no rotations; the JAX package's recorder does."""
+    p = os.fspath(path)
+    rotated: list[str] = []
+    i = 1
+    while os.path.exists(f"{p}.{i}"):
+        rotated.append(f"{p}.{i}")
+        i += 1
+    return list(reversed(rotated)) + ([p] if os.path.exists(p) else [])

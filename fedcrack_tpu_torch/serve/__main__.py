@@ -21,8 +21,8 @@ ready (with ``--port 0``, the bound port); at shutdown with
 autoscaler's and the shadow controller's audits included. It exits
 non-zero when a phase of its start-up fails.
 
-Not ported yet, refused with ``NotImplementedError``: ``--compute-dtype
-bfloat16`` (bf16 serving, ROADMAP Queue 1 item 5). ``--ckpt-dir`` reads
+``--compute-dtype bfloat16`` runs the reference programs in bfloat16
+(``serve/engine.py``); the fused planes ignore it. ``--ckpt-dir`` reads
 the port's round checkpoints (``ckpt/manager.py``), not orbax's.
 ``--compile-cache-dir`` configures an XLA cache, which the port has no
 use for: its kernels build once into ``fedcrack_tpu_torch/_build/``, and
@@ -128,16 +128,6 @@ def resolve_config(args):
     return fed.model, serve
 
 
-def refuse_unported(serve_config) -> None:
-    """Raise ``NotImplementedError`` for what the port does not serve yet,
-    naming the ROADMAP item that lifts it."""
-    if serve_config.compute_dtype != "float32":
-        raise NotImplementedError(
-            "--compute-dtype bfloat16 is not ported yet: bf16 serving beside bf16 training, "
-            "ROADMAP Queue 1 item 5"
-        )
-
-
 def resolve_initial_weights(args, template, seed: int):
     """``(version, variables)``: the ``--weights`` file, else the statefile,
     else the latest round checkpoint, else the seeded ``template``."""
@@ -179,7 +169,6 @@ async def _serve(args, device) -> int:
     from fedcrack_tpu_torch.serve.stream import StreamSessionManager
 
     model_config, serve_config = resolve_config(args)
-    refuse_unported(serve_config)
     if args.compile_cache_dir:
         logging.info(
             "--compile-cache-dir %s unused: the port compiles no programs per shape; its kernels "

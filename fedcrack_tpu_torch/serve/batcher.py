@@ -20,8 +20,10 @@ version and the first on the next), the ``serve_*`` registry families,
 one ``serve.batch`` span per dispatched batch, and, with ``metrics=``, one
 ``serve_batch`` record per batch. The fleet plumbing (``outstanding``,
 ``queued``, ``queued_by_bucket``, ``resubmit``, ``drain``) is what the
-router dispatches and fails over on. The JAX package's ``chaos=`` hook is
-not ported yet (ROADMAP Queue 1 item 5).
+router dispatches and fails over on. ``chaos=`` attaches a
+``chaos.ServeChaos`` hook, called as ``on_batch(bucket, batch_index,
+attempt)`` between each attempt's snapshot and its dispatch; an injected
+device loss takes the retry path a real failure would.
 """
 
 from __future__ import annotations
@@ -45,8 +47,6 @@ from fedcrack_tpu_torch.obs.registry import REGISTRY
 log = logging.getLogger("fedcrack_torch.serve.batcher")
 
 MAX_BATCH_ATTEMPTS = 3
-
-CHAOS_REFUSAL = "the serve chaos hooks (chaos=) are not ported yet: chaos/, ROADMAP Queue 1 item 5"
 
 
 @dataclass
@@ -97,9 +97,8 @@ class MicroBatcher:
         reservoir_capacity: int = 4096,
         replica: int | None = None,
     ):
-        if chaos is not None:
-            raise NotImplementedError(CHAOS_REFUSAL)
         self.engine = engine
+        self._chaos = chaos
         self.weights = weights
         self.replica = replica
         self.max_batch = engine.max_batch
@@ -266,6 +265,8 @@ class MicroBatcher:
             # One snapshot per attempt, taken right before dispatch.
             version, variables = self.weights.snapshot()
             try:
+                if self._chaos is not None:
+                    self._chaos.on_batch(size, batch_index, attempt)
                 with tracing.span(
                     "serve.batch",
                     bucket=size,

@@ -13,6 +13,12 @@ The counterpart of ``fedcrack_tpu.serve.engine``, one device, no mesh:
   ``"reference"`` dequantizes and runs the reference model,
   ``"fused_int8"`` / ``"fp8"`` run ``kernels.forward.fused_predict_logits``,
   whose convs are the hand-written dequant-matmul kernel on the card.
+- ``ServeConfig.compute_dtype`` is the reference programs' dtype (the
+  model of :meth:`prepare`, and the dequantized model of the quantized
+  ``"reference"`` plane): ``"bfloat16"`` runs them in bfloat16 as
+  ``models/resunet.py`` says. The fused planes ignore it and accumulate in
+  float32, as the JAX package's do, so the quant gate holds a fused
+  program against the bfloat16 reference program.
 - ``predict_image`` pads a request into the smallest bucket that holds it
   and crops the answer, or tiles an image larger than every bucket.
   The tile schedule, ramp weights and float32 host accumulation order are
@@ -97,10 +103,6 @@ class InferenceEngine:
         self.serve_config = serve_config or ServeConfig()
         if self.model_config.in_channels != 3:
             raise ValueError("serving assumes 3-channel RGB inputs")
-        if self.serve_config.compute_dtype != "float32":
-            raise ValueError(
-                "the port serves float32 only; bfloat16 serving is not ported yet"
-            )
         if self.serve_config.mesh_batch != 1:
             raise ValueError("the port serves on one device (mesh_batch=1)")
         self.device = torch.device("cuda" if device is None else device)

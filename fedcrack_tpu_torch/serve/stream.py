@@ -24,8 +24,9 @@ entries from older versions are purged the first frame after the swap.
 On top of the mask stream, :class:`CrackTracker` gives contours stable ids
 across frames by greedy centroid matching (OpenCV contours, imported where
 they are measured), and an optional EMA smooths the probability field for
-the tracker without touching the raw mask. The JAX package's ``chaos=``
-hook is not ported yet (ROADMAP Queue 1 item 5).
+the tracker without touching the raw mask. ``chaos=`` attaches a
+``chaos.StreamChaos`` hook, called at the top of each frame before its
+snapshot is pinned (a planned reset drops the cache there).
 """
 
 from __future__ import annotations
@@ -41,7 +42,6 @@ import numpy as np
 
 from fedcrack_tpu_torch.analysis.sanitizers import make_lock
 from fedcrack_tpu_torch.obs.registry import REGISTRY
-from fedcrack_tpu_torch.serve.batcher import CHAOS_REFUSAL
 from fedcrack_tpu_torch.serve.engine import _ramp_weights, tile_plan
 
 
@@ -212,8 +212,6 @@ class StreamSession:
         chaos: Any = None,
         stream_id: str = "",
     ):
-        if chaos is not None:
-            raise NotImplementedError(CHAOS_REFUSAL)
         if height < 1 or width < 1:
             raise ValueError(f"bad frame dimensions {height}x{width}")
         if not 0.0 <= smooth_alpha < 1.0:
@@ -227,6 +225,7 @@ class StreamSession:
         self.cache_tiles = cfg.stream_cache_tiles if cache_tiles is None else int(cache_tiles)
         self.smooth_alpha = float(smooth_alpha)
         self.stream_id = stream_id
+        self.chaos = chaos
         self.frame_index = 0
         # (version, sha256 digest) -> [tile, tile, 1] float32 probs.
         self._cache: OrderedDict[tuple[int, bytes], np.ndarray] = OrderedDict()
@@ -310,6 +309,11 @@ class StreamSession:
             raise ValueError(f"expected uint8 frame, got {image_u8.dtype}")
         frame_index = self.frame_index
         self.frame_index += 1
+
+        # A planned mid-stream reset drops the cache before the frame is
+        # served: this frame must be a clean full re-run.
+        if self.chaos is not None:
+            self.chaos.on_frame(self.stream_id, frame_index, self)
 
         # ONE snapshot per frame: a swap landing meanwhile cannot tear it.
         version, variables = self.weights.snapshot()
@@ -410,10 +414,9 @@ class StreamSessionManager:
         chaos: Any = None,
         registry: Any = None,
     ):
-        if chaos is not None:
-            raise NotImplementedError(CHAOS_REFUSAL)
         self.engine = engine
         self.weights = weights
+        self.chaos = chaos
         cfg = engine.serve_config
         self.max_sessions = cfg.stream_max_sessions if max_sessions is None else int(max_sessions)
         self._lock = make_lock("serve.stream.manager")
@@ -488,6 +491,7 @@ class StreamSessionManager:
             track=track,
             smooth_alpha=smooth_alpha,
             threshold=threshold,
+            chaos=self.chaos,
             stream_id=stream_id,
         )
         with self._lock:

@@ -19,8 +19,10 @@ reply) the client sends its masking seed at enroll when its own config
 asks for secagg, reads the frozen roster from the ``TrainingNotice``
 reply (announcing again until enrollment has closed) and uploads its
 trained tree pairwise-masked (``privacy/secagg.mask_update``, wire codec
-``"secagg"``). The chaos hooks are not ported yet and raise
-``NotImplementedError``.
+``"secagg"``). ``chaos=`` attaches a ``chaos.ClientChaos`` fault hook
+(None in production): it runs inside the retry loop right before each
+RPC, so an injected flap spends the same retry budget a real UNAVAILABLE
+would, and on each reply before it is returned.
 """
 
 from __future__ import annotations
@@ -100,11 +102,8 @@ class FedClient:
         upload_paths: Sequence[str] = (),
         chaos: Any | None = None,
     ):
-        if chaos is not None:
-            raise NotImplementedError(
-                "FedClient(chaos=...) is not ported yet: the chaos/ hooks, ROADMAP Queue 1 item 5"
-            )
         self.config = config
+        self._chaos = chaos
         self.train_fn = train_fn
         try:
             n_params = len(inspect.signature(train_fn).parameters)
@@ -170,8 +169,14 @@ class FedClient:
         deadline = time.monotonic() + self.retry_budget_s
         for attempt in range(self.max_retries):
             try:
+                if self._chaos is not None:
+                    # Inside the try: an injected flap takes the except-path
+                    # a real UNAVAILABLE would.
+                    self._chaos.before_send(self.cname, msg)
                 # wait_for_ready rides out a server still starting up.
                 for resp in method(iter([msg]), timeout=self.call_timeout_s, wait_for_ready=True):
+                    if self._chaos is not None:
+                        self._chaos.after_reply(self.cname, msg, resp)
                     return resp
                 raise RuntimeError("stream closed without a reply")
             except grpc.RpcError as e:

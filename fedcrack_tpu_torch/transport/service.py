@@ -608,6 +608,7 @@ class ServerThread:
         self.port: int | None = None
         self._started = threading.Event()
         self._error: BaseException | None = None
+        self._killed = False
         self._thread = threading.Thread(target=self._run, daemon=True)
 
     def _run(self) -> None:
@@ -627,7 +628,36 @@ class ServerThread:
             raise RuntimeError("server failed to start") from self._error
         return self
 
+    def kill(self) -> None:
+        """A process death mid-federation, the chaos harness's server kill:
+        the gRPC port closes with zero grace (in-flight client calls fail as
+        they would against a SIGKILLed process) and the loop stops without
+        draining background tasks, so no goodbye state is written. What
+        survives is what the atomic statefile writer had already renamed.
+        The context exit of a killed thread is a no-op; a fresh
+        ``FedServer`` over the same statefile models the restart."""
+        if self._killed:
+            return
+        self._killed = True
+
+        def die() -> None:
+            async def seq() -> None:
+                try:
+                    if self.server._server is not None:
+                        # The port must really close, so the restarted
+                        # server can bind it again.
+                        await self.server._server.stop(0)
+                finally:
+                    self.loop.stop()
+
+            asyncio.ensure_future(seq())
+
+        self.loop.call_soon_threadsafe(die)
+        self._thread.join(timeout=10)
+
     def __exit__(self, *exc) -> None:
+        if self._killed:
+            return
         fut = asyncio.run_coroutine_threadsafe(self.server.stop(grace=0.5), self.loop)
         try:
             fut.result(timeout=10)

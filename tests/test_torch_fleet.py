@@ -69,11 +69,12 @@ def _fleet(stack, *, quant="none", engine=None, replicas=2, **over):
 
     if engine is None:
         engine = stack["engine_q"] if quant == "int8" else stack["engine"]
+    chaos = over.pop("chaos", None)
     kw = dict(quant=quant, replicas=replicas, **over)
     if quant == "int8":
         kw["kernel_plane"] = "fused_int8"
     return ServeFleet(port_config(TINY_KW), ServeConfig(**_serve_kw(**kw)), stack["var0"], shared_engine=engine,
-                      warmup=False)
+                      warmup=False, chaos=chaos)
 
 
 def _jax_fleet(stack, *, quant="none", replicas=2, **over):
@@ -359,12 +360,55 @@ def test_swap_pause_histogram_and_replicas_gauge(stack):
 
 
 def test_unported_fleet_options_raise_naming_their_item(stack):
-    from fedcrack_tpu_torch.configs import ServeConfig
-    from fedcrack_tpu_torch.serve.fleet import ServeFleet
+    """``ServeFleet(chaos=)``, once refused, now runs. Mirror of
+    tests/test_fleet.py::test_replica_crash_reroutes_queued_requests: a
+    slow-batch hook on every replica, a ``SERVE_REPLICA_CRASH`` consumed
+    from the plan while a backlog is queued, zero accepted requests
+    dropped, the swap landing on the survivor. Then a ``ServeChaos``
+    device loss on a fleet: retried, nothing dropped, answers equal to the
+    engine's, and the hook reaches a replica grown later."""
+    import time
 
-    with pytest.raises(NotImplementedError, match="chaos/, ROADMAP Queue 1 item 5$"):
-        ServeFleet(port_config(TINY_KW), ServeConfig(**_serve_kw()), stack["var0"],
-                   shared_engine=stack["engine"], chaos=object(), warmup=False)
+    from fedcrack_tpu_torch.chaos import SERVE_DEVICE_LOSS, SERVE_REPLICA_CRASH, Fault, FaultPlan, ServeChaos
+
+    class SlowBatches:
+        def on_batch(self, bucket, batch_index, attempt):
+            time.sleep(0.08)
+
+    plan = FaultPlan([Fault(kind=SERVE_REPLICA_CRASH, round=1)])
+    fleet = _fleet(stack, replicas=2, chaos=SlowBatches())
+    try:
+        img = _img(16)
+        futs = [fleet.submit(img) for _ in range(16)]
+        assert plan.take(SERVE_REPLICA_CRASH, round=1) is not None
+        out = fleet.router.kill_replica(1)
+        assert out["failed"] == 0
+        assert len([f.result(timeout=120) for f in futs]) == 16  # zero dropped
+        assert out["rerouted"] > 0, "kill landed after the queue drained"
+        assert fleet.router.live_replicas()[0].index == 0
+        assert fleet.install(1, stack["var1"])
+        assert fleet.submit(img).result(timeout=60).model_version == 1
+        assert fleet.router.kill_replica(1)["already_dead"] is True
+    finally:
+        fleet.close()
+
+    chaos = ServeChaos(FaultPlan([Fault(kind=SERVE_DEVICE_LOSS, round=0)]))
+    fleet = _fleet(stack, replicas=1, chaos=chaos)
+    try:
+        images = [_img(16, seed=i) for i in range(3)]
+        results = _results(fleet, images)
+        assert [f.kind for f in chaos.plan.triggered] == [SERVE_DEVICE_LOSS]
+        per_replica = fleet.stats()["router"]["per_replica"]
+        assert sum(r["completed"] for r in per_replica.values()) == 3
+        assert sum(r["failed"] for r in per_replica.values()) == 0
+        assert fleet.replicas[0].batcher.stats()["batch_retries"] == 1
+        engine = stack["engine"]
+        for img, r in zip(images, results):
+            np.testing.assert_array_equal(r.probs, engine.predict_bucket(engine.prepare(stack["var0"]), img[None])[0])
+        grown = fleet.add_replica(warm=False)
+        assert grown.batcher._chaos is chaos
+    finally:
+        fleet.close()
 
 
 def test_fleet_manager_probes_each_commit_with_the_canary(stack):

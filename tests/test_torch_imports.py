@@ -9,8 +9,8 @@ transport (``fedcrack_tpu_torch/transport/``), in the serving front door
 so the rest of the port imports without it: the fleet, router, stream
 sessions, autoscaler, shadow controller, canary and drift monitors, the
 serve command's module level, the tools (``load_gen`` reaches the
-front door through ``transport/serve_client.py``), the privacy plane and
-the round checkpointer included. The port's entry
+front door through ``transport/serve_client.py``), the privacy plane, the
+round checkpointer, the chaos plane and the watch layer included. The port's entry
 points run on CUDA unless told otherwise.
 """
 
@@ -46,6 +46,12 @@ COMMAND_LINE_MODULES = (
 PRIVACY_AND_CHECKPOINT_MODULES = (
     "fedcrack_tpu_torch.privacy", "fedcrack_tpu_torch.privacy.accountant", "fedcrack_tpu_torch.privacy.dpsgd",
     "fedcrack_tpu_torch.privacy.secagg", "fedcrack_tpu_torch.ckpt", "fedcrack_tpu_torch.ckpt.manager",
+)
+# The chaos plane and the watch layer: no grpc either (the injected flap,
+# a grpc.RpcError, lives in transport/faults.py and is loaded lazily).
+CHAOS_AND_WATCH_MODULES = (
+    "fedcrack_tpu_torch.chaos", "fedcrack_tpu_torch.chaos.plan", "fedcrack_tpu_torch.chaos.inject",
+    "fedcrack_tpu_torch.obs.sentries", "fedcrack_tpu_torch.obs.watchdog", "fedcrack_tpu_torch.tools.trace_stitch",
 )
 
 
@@ -125,6 +131,8 @@ def test_package_imports_with_jax_blocked():
     # door reach it.
     assert set(COMMAND_LINE_MODULES) <= set(rest)
     assert set(PRIVACY_AND_CHECKPOINT_MODULES) <= set(rest)
+    assert set(CHAOS_AND_WATCH_MODULES) <= set(rest)
+    assert "fedcrack_tpu_torch.transport.faults" in with_grpc
     for modules, blocked in ((rest, FORBIDDEN), (with_grpc, tuple(m for m in FORBIDDEN if m not in GRPC_ALLOWED))):
         out = _import_blocked(modules, blocked)
         assert out.returncode == 0, out.stderr

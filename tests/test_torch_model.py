@@ -227,8 +227,13 @@ def test_model_rejects_layouts_the_port_does_not_run():
 
     with pytest.raises(ValueError):
         ResUNet(ModelConfig(stem_layout="s2d"), device="cpu")
+    # bfloat16 compute over float32 parameters runs (tests/test_torch_bf16.py);
+    # any other dtype pairing is refused.
+    assert ResUNet(ModelConfig(compute_dtype="bfloat16"), device="meta").compute_dtype == torch.bfloat16
     with pytest.raises(ValueError):
-        ResUNet(ModelConfig(compute_dtype="bfloat16"), device="cpu")
+        ResUNet(ModelConfig(compute_dtype="bfloat16", param_dtype="bfloat16"), device="cpu")
+    with pytest.raises(ValueError):
+        ResUNet(ModelConfig(compute_dtype="float16"), device="cpu")
 
 
 def test_configs_match_jax():

@@ -213,6 +213,11 @@ def test_engine_validates_inputs(stack):
     plain = InferenceEngine(port_config(TINY_KW), ServeConfig(**_serve_kw()), device="cpu")
     with pytest.raises(ValueError):
         plain.prepare_quantized(tq.quantize_variables(variables))
+    # bfloat16 serving builds (tests/test_torch_bf16.py holds it against
+    # JAX); bfloat16 parameters are refused.
+    bf16 = InferenceEngine(port_config(TINY_KW), ServeConfig(**_serve_kw(compute_dtype="bfloat16")),
+                           device="cpu")
+    assert bf16.bucket_model_config.compute_dtype == "bfloat16"
     with pytest.raises(ValueError):
-        InferenceEngine(port_config(TINY_KW), ServeConfig(**_serve_kw(compute_dtype="bfloat16")),
+        InferenceEngine(port_config(dict(TINY_KW, param_dtype="bfloat16")), ServeConfig(**_serve_kw()),
                         device="cpu")

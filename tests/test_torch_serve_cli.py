@@ -18,7 +18,7 @@ CPU, held against ``python -m fedcrack_tpu.serve``.
 - ``resolve_initial_weights`` picks ``--weights``, the statefile, the
   newest round checkpoint of ``--ckpt-dir`` and the seed in the JAX
   command's order, to the same version and weights.
-- The refusals name their ROADMAP items.
+- ``--compute-dtype bfloat16`` serves the bfloat16 reference program.
 """
 
 import json
@@ -88,14 +88,48 @@ def test_resolve_config_matches_jax(argv, with_file, tmp_path):
     assert dataclasses.asdict(model) == dataclasses.asdict(jmodel)
 
 
-@pytest.mark.parametrize("argv, item", [
-    (["--compute-dtype", "bfloat16"], "bf16 serving beside bf16 training, ROADMAP Queue 1 item 5"),
+@pytest.mark.parametrize("argv, quant", [
+    (["--compute-dtype", "bfloat16"], "none"),
 ], ids=["bf16"])
-def test_refusals_name_their_items(argv, item):
-    from fedcrack_tpu_torch.serve.__main__ import main
+def test_refusals_name_their_items(argv, quant, tmp_path):
+    """``--compute-dtype bfloat16``, once refused, now serves: the command
+    runs the bfloat16 reference program, and its Predict mask equals a
+    bfloat16 engine's in process."""
+    from fedcrack_tpu_torch.configs import ServeConfig
+    from fedcrack_tpu_torch.fed.serialization import tree_to_bytes
+    from fedcrack_tpu_torch.serve.engine import InferenceEngine
 
-    with pytest.raises(NotImplementedError, match=item.replace("(", r"\(").replace(")", r"\)") + "$"):
-        main(argv, device="cpu")
+    variables = jax_variables(TINY_KW, seed=0)
+    weights = tmp_path / "w.msgpack"
+    weights.write_bytes(tree_to_bytes(variables))
+    serve = dict(TINY_CONFIG["serve"], quant=quant, kernel_plane="reference")
+    config = tmp_path / "serve.json"
+    config.write_text(json.dumps(dict(TINY_CONFIG, serve=serve)))
+    proc, log, log_path, line = _start_child(tmp_path, "--config", str(config), "--weights", str(weights),
+                                             "--port", "0", *argv)
+    try:
+        assert line is not None, log_path.read_text()[-4000:]
+        assert f" quant={quant}" in line
+        port = int(line.split()[1].rsplit(":", 1)[1])
+        image = np.random.default_rng(8).integers(0, 256, (32, 32, 3), dtype=np.uint8)
+        request = W.PredictRequest(request_id=1, height=32, width=32, channels=3, image=image.tobytes(), last=True,
+                                   crc32c=crc32c(image.tobytes()))
+        with grpc.insecure_channel(f"127.0.0.1:{port}") as channel:
+            grpc.channel_ready_future(channel).result(timeout=60)
+            stub = channel.stream_stream("/fedcrack.ServePlane/Predict", request_serializer=W.PredictRequest.encode,
+                                         response_deserializer=W.PredictResponse.decode)
+            (response,) = list(stub(iter([request]), timeout=60))
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        log.close()
+    engine = InferenceEngine(port_config(TINY_KW), ServeConfig(**serve, compute_dtype="bfloat16"), device="cpu")
+    reference = engine.prepare(variables)
+    want = (engine.predict_image(reference, image)[..., 0] > 0.5).astype(np.uint8) * 255
+    assert response.status == "OK" and response.mask == want.tobytes()
 
 
 @pytest.mark.parametrize("sources", [("ckpt",), ("state", "ckpt"), ("weights", "state", "ckpt"), ()],

@@ -206,8 +206,38 @@ def test_session_input_validation(stack):
         session.process_frame(np.zeros((FRAME, FRAME, 3), np.float32))
     with pytest.raises(ValueError, match="smooth_alpha"):
         StreamSession(stack["engine"], _Static(0, None), height=8, width=8, smooth_alpha=1.0)
-    with pytest.raises(NotImplementedError, match="chaos/, ROADMAP Queue 1 item 5$"):
-        StreamSession(stack["engine"], _Static(0, None), height=8, width=8, chaos=object())
+    # chaos= (once refused) runs: mirror of tests/test_serve_stream.py::
+    # test_chaos_stream_reset_fires_once_and_keeps_bytes, the reset frame
+    # a full re-run byte-equal to predict_tiled, the same in both packages.
+    from fedcrack_tpu.chaos.inject import StreamChaos as JaxStreamChaos
+    from fedcrack_tpu.chaos.plan import Fault as JaxFault
+    from fedcrack_tpu.chaos.plan import FaultPlan as JaxFaultPlan
+    from fedcrack_tpu.obs.registry import MetricsRegistry as JaxRegistry
+    from fedcrack_tpu.serve.stream import StreamSession as JaxSession
+    from fedcrack_tpu.serve.stream import StreamSessionManager as JaxManager
+    from fedcrack_tpu_torch.chaos import SERVE_STREAM_RESET, Fault, FaultPlan, StreamChaos
+    from fedcrack_tpu_torch.obs.registry import MetricsRegistry
+    from fedcrack_tpu_torch.serve.stream import StreamSessionManager
+
+    frame = _frames(1, 0.0, seed=12)[0]
+    registry = MetricsRegistry()
+    manager = StreamSessionManager(stack["engine"], _Static(0, stack["w"][0]), registry=registry,
+                                   chaos=None)
+    manager.chaos = StreamChaos(FaultPlan([Fault(kind=SERVE_STREAM_RESET, round=2)]), manager=manager)
+    opened = manager.open("cam", height=FRAME, width=FRAME)
+    assert opened.chaos is manager.chaos
+    results = [opened.process_frame(frame) for _ in range(4)]
+    jreg = JaxRegistry()
+    jmanager = JaxManager(stack["jax_engine"], _Static(0, stack["var"][0]), registry=jreg)
+    jmanager.chaos = JaxStreamChaos(JaxFaultPlan([JaxFault(kind=SERVE_STREAM_RESET, round=2)]), manager=jmanager)
+    jsession = JaxSession(stack["jax_engine"], _Static(0, stack["var"][0]), height=FRAME, width=FRAME,
+                          chaos=jmanager.chaos)
+    jresults = [jsession.process_frame(frame) for _ in range(4)]
+    assert [r.full_rerun for r in results] == [r.full_rerun for r in jresults] == [True, False, True, False]
+    assert len(manager.chaos.plan.triggered) == 1 and opened.totals["resets"] == 1
+    assert sum(registry.values()["serve_stream_resets_total"].values()) == 1
+    tiled = stack["engine"].predict_tiled(stack["w"][0], frame).tobytes()
+    assert all(r.probs.tobytes() == tiled for r in results)
 
 
 def _blob_mask(size, cx, cy, r):

@@ -297,10 +297,45 @@ def test_startup_frame_budget_refuses_a_cap_that_cannot_carry_the_model():
 
 
 def test_unported_paths_raise_not_implemented_naming_their_roadmap_item(tmp_path):
-    from fedcrack_tpu_torch.transport import FedClient
+    """``FedClient(chaos=)``, once refused, now runs its hooks inside the
+    retry loop: an injected two-call flap spends two retries of the budget
+    and the third attempt reaches the server; a planned crash before the
+    upload leaves the call at once, without a retry; the crash armed after
+    an upload ends the next call."""
+    from fedcrack_tpu_torch.chaos import (
+        CRASH_AFTER_UPLOAD,
+        CRASH_BEFORE_UPLOAD,
+        NETWORK_FLAP,
+        ClientChaos,
+        Fault,
+        FaultPlan,
+        InjectedCrash,
+        InjectedRpcError,
+    )
+    from fedcrack_tpu_torch.obs.registry import REGISTRY
+    from fedcrack_tpu_torch.transport import FedClient, wire
 
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5$"):
-        FedClient(FedConfig(), _fake_train(tser, 1.0, 1), chaos=object())
+    calls = []
+
+    def method(it, timeout=None, wait_for_ready=None):
+        calls.append(next(it))
+        return iter([wire.ServerMessage(status="OK")])
+
+    plan = FaultPlan([Fault(NETWORK_FLAP, round=1, client="x", count=2),
+                      Fault(CRASH_BEFORE_UPLOAD, round=2, client="x"),
+                      Fault(CRASH_AFTER_UPLOAD, round=3, client="x")])
+    client = FedClient(FedConfig(port=0), _fake_train(tser, 1.0, 1), cname="x", chaos=ClientChaos(plan))
+    retries = REGISTRY.counter("client_retries_total", "").value
+    assert client._call(method, client._msg(wire.TrainingNotice(round=1))).status == "OK"
+    assert len(calls) == 1 and REGISTRY.counter("client_retries_total", "").value == retries + 2
+    assert issubclass(InjectedRpcError, __import__("grpc").RpcError)
+    with pytest.raises(InjectedCrash, match="crash before upload"):
+        client._call(method, client._msg(wire.TrainDone(round=2, weights=b"w")))
+    assert len(calls) == 1
+    assert client._call(method, client._msg(wire.TrainDone(round=3, weights=b"w"))).status == "OK"
+    with pytest.raises(InjectedCrash, match="crash after upload"):
+        client._call(method, client._msg(wire.PullReq()))
+    assert [f.kind for f in plan.triggered] == [NETWORK_FLAP, CRASH_BEFORE_UPLOAD, CRASH_AFTER_UPLOAD]
 
 
 SECAGG = dict(max_rounds=2, cohort_size=3, secagg=True)
