@@ -243,6 +243,29 @@ on failure, so any failure exits non-zero and prints no result):
     ``tools.trace_stitch`` over federation B's span file and that of a
     manager that installs its last global from the statefile and serves
     one batch: one complete client -> fed -> serve chain.
+18. the hierarchical aggregation tree and the chaos drills at phase 7's
+    width. (a) The main path: ``fed.tree.run_tree_federation`` over eight
+    leaves of 32 seeded synthetic samples, four a round from
+    ``sample_cohort(8, 4, r, 18)``, two edges, two rounds, each leaf one
+    local fit on the card from its base blob (recorded), the final global
+    evaluated on 32 held-out samples: ``bce_sums`` launches equal to the
+    leaf steps plus the eval batches, the root's and the edges' peak
+    blobs within the edge count and the leaf fan-in, each round's global
+    within ``fold_bound`` (derived in its docstring) of the flat FedAvg of
+    its recorded leaves, and the tree re-run over the recorded blobs
+    giving the same ``global_sha256``. (b) The same rounds over loopback
+    gRPC: a port ``FedServer`` root (``cohort_size=2``), one
+    ``EdgeRelay`` per edge, ``edge-0`` killed after its first leaf by a
+    ``FaultPlan`` ``EDGE_AGGREGATOR_CRASH`` and restored from its
+    statefile; its partial byte-equal to an unkilled edge's, each root
+    global byte-equal to the in-process tree's. (c) The final global
+    served ``fused_int8`` at bucket 128, batch 8: 15 / 8 / 1 dequant
+    launches (wrappers and profiler), fused within ``SERVE_PROB_TOL`` of
+    the reference plane. (d) ``python -m fedcrack_tpu_torch.tools.chaos_drill``
+    through ``CLI_SHIM``: exit 0, every verdict of its eleven drills true,
+    ``dp_replay`` recorded as not ported. Logged: root bytes against flat
+    bytes, the edge's restore and recover seconds, the drills' timings,
+    the phase's wall.
 
 ``python3 chip_smoke.py --serve-ticks 0.05,1.0,1.0,0.05`` builds
 ``dequant.cu`` and runs only phase 14, once per autoscaler tick given, and
@@ -4284,6 +4307,352 @@ def chaos_bf16_watch_phase(torch, card: str) -> dict:
     return out
 
 
+# ---- phase 18: the hierarchical aggregation tree and the chaos drills ----
+
+TREE_CLIENTS, TREE_SHARD, TREE_COHORT, TREE_EDGES, TREE_ROUNDS = 8, 32, 4, 2, 2
+TREE_SEED = 18
+TREE_HELD = 32  # held-out samples the final global is evaluated on
+TREE_BUCKET = 128
+DRILL_TIMEOUT_S = 300.0
+# float32's unit roundoff, and the magnitude below which its spacing stops
+# scaling (the subnormals).
+U32, TINY32 = 2.0 ** -24, 2.0 ** -149
+
+
+def fold_bound(leaf_vals, weights, shard_sizes) -> "np.ndarray":
+    """Per coordinate, how far a two-level tree FedAvg may lie from the
+    flat FedAvg of the same leaves. The host fold (``fed.algorithms``)
+    rounds ``acc + w * x`` once per update (w an integer count, so the
+    product is exact in float64) and twice more in ``* fl(1 / total)``.
+    With M = sum_i (w_i / W) |x_i|: the flat fold is within (n + 2) u M of
+    the exact mean; an edge's partial within (n_e + 2) u M_e of its
+    shard's, which the root carries at weight W_e / W (at most
+    (max n_e + 2) u M in all), and the root's own fold of E partials adds
+    (E + 2) u M. So |tree - flat| <= (n + max n_e + E + 6) u M, plus one
+    subnormal spacing per rounding."""
+    import numpy as np
+
+    w = np.asarray(weights, np.float64)
+    m = np.tensordot(w / w.sum(), np.abs(np.stack([np.asarray(x, np.float64) for x in leaf_vals])), axes=1)
+    k = len(leaf_vals) + max(shard_sizes) + len(shard_sizes) + 6
+    return k * U32 * m + k * TINY32
+
+
+def tree_setup(torch) -> dict:
+    """Phase 18's leaves: ``ModelConfig()`` at 128 px, batch 16, eight
+    clients of 32 seeded synthetic samples (their own ``make_train_fn``
+    on the card, seed = client index, made at first use) and 32 held
+    out."""
+    from fedcrack_tpu_torch.configs import DataConfig, FedConfig, ModelConfig
+    from fedcrack_tpu_torch.data.pipeline import ArrayDataset
+    from fedcrack_tpu_torch.data.synthetic import synth_crack_batch
+    from fedcrack_tpu_torch.models.resunet import init_variables
+    from fedcrack_tpu_torch.train import local
+    from fedcrack_tpu_torch.train.federated import make_train_fn
+
+    cfg = FedConfig(model=ModelConfig(), data=DataConfig(img_size=TRAIN_SIZE, batch_size=TRAIN_BATCH))
+    n = TREE_CLIENTS * TREE_SHARD
+    imgs, msks = synth_crack_batch(n + TREE_HELD, TRAIN_SIZE, seed=TREE_SEED)
+    fits = {}
+
+    def fit(idx):
+        if idx not in fits:
+            part = slice(idx * TREE_SHARD, (idx + 1) * TREE_SHARD)
+            data = ArrayDataset(imgs[part], msks[part], batch_size=TRAIN_BATCH, seed=idx)
+            fits[idx] = make_train_fn(cfg, data, TRAIN_BATCH, seed=idx)[0]
+        return fits[idx]
+
+    return {
+        "cfg": cfg, "fit": fit,
+        "held": ArrayDataset(imgs[n:], msks[n:], batch_size=TRAIN_BATCH, shuffle=False),
+        "global0": init_variables(torch.Generator().manual_seed(0), cfg.model),
+        "evaluator": local.create_train_state(torch.Generator().manual_seed(0), cfg.model, cfg.learning_rate),
+    }
+
+
+def tree_in_process(torch, ts: dict, card: str) -> dict:
+    """Phase 18 (a), the main path: ``run_tree_federation`` over 8 leaves,
+    4 a round from ``sample_cohort(8, 4, r, 18)``, 2 edges, 2 rounds, each
+    leaf one local fit on the card from the base blob, recorded; then the
+    final global evaluated on the held-out samples. Checked: the memory
+    bounds, each round's global against the flat FedAvg of its recorded
+    leaves within ``fold_bound``, ``bce_sums`` launches equal to the leaf
+    steps plus the eval batches, and a second tree over the recorded
+    blobs giving the same ``global_sha256``."""
+    import numpy as np
+
+    from fedcrack_tpu_torch.fed import rounds, serialization
+    from fedcrack_tpu_torch.fed.algorithms import fedavg, sample_cohort
+    from fedcrack_tpu_torch.fed.pytree import tree_leaves
+    from fedcrack_tpu_torch.fed.tree import partition_cohort, run_tree_federation
+    from fedcrack_tpu_torch.ops import bce
+    from fedcrack_tpu_torch.train import local
+
+    kwargs = dict(n_clients=TREE_CLIENTS, cohort_size=TREE_COHORT, n_rounds=TREE_ROUNDS, n_edges=TREE_EDGES,
+                  cohort_seed=TREE_SEED)
+    leaves, counts = {}, {"steps": 0}
+
+    def make_update(idx, r, base_blob, base_version):
+        blob, n_samples, metrics = ts["fit"](idx)(base_blob, r + 1, {"local_epochs": 1})
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"leaf {idx} round {r}: non-finite train metrics {metrics}")
+        counts["steps"] += n_samples // TRAIN_BATCH
+        leaves[(idx, r)] = {"blob": blob, "ns": n_samples, "base": base_blob, "base_version": base_version}
+        return blob, n_samples
+
+    # ---- the main path, counted ----
+    bce.reset_launch_counts()
+    t0 = time.monotonic()
+    res = run_tree_federation(ts["global0"], make_update, **kwargs)
+    final = serialization.tree_from_bytes(res.state.global_blob, template=ts["global0"])
+    ev = local.evaluate(ts["evaluator"].replace_variables(final), ts["held"])
+    torch.cuda.synchronize()
+    launches = bce.bce_sums.launches
+    wall = time.monotonic() - t0
+    steps = counts["steps"]
+    if launches != steps + ev["num_batches"] or steps != TREE_ROUNDS * TREE_COHORT * TREE_SHARD // TRAIN_BATCH:
+        raise AssertionError(f"bce_sums launches {launches} != {steps} leaf steps + {ev['num_batches']} eval batches")
+    if not all(np.isfinite(v) for v in ev.values()):
+        raise AssertionError(f"non-finite eval of the tree's global: {ev}")
+
+    cohorts = [[int(i) for i in sample_cohort(TREE_CLIENTS, TREE_COHORT, r, TREE_SEED)] for r in range(TREE_ROUNDS)]
+    if res.state.phase != rounds.PHASE_FINISHED or res.cohorts != cohorts:
+        raise AssertionError(f"tree ended at {res.state.phase}, cohorts {res.cohorts} != {cohorts}")
+    if not (res.root_peak_blobs <= res.n_edges and res.edge_peak_blobs <= res.max_leaf_fan_in):
+        raise AssertionError(f"peaks: root {res.root_peak_blobs} of {res.n_edges} edges, edge "
+                             f"{res.edge_peak_blobs} of fan-in {res.max_leaf_fan_in}")
+    if res.leaf_updates != TREE_ROUNDS * TREE_COHORT or res.leaf_rejections != 0:
+        raise AssertionError(f"{res.leaf_updates} leaf updates, {res.leaf_rejections} rejected")
+
+    # ---- each round's global against the flat FedAvg of its leaves ----
+    globals_ = [leaves[(cohorts[1][0], 1)]["base"], res.state.global_blob]
+    if any(leaves[(i, 1)]["base"] != globals_[0] for i in cohorts[1]):
+        raise AssertionError("round 2's leaves trained from different bases")
+    fold = []
+    for r in range(TREE_ROUNDS):
+        recs = [leaves[(i, r)] for i in cohorts[r]]
+        trees = [serialization.tree_from_bytes(rec["blob"], template=ts["global0"]) for rec in recs]
+        flat = tree_leaves(fedavg(trees, [rec["ns"] for rec in recs]))
+        got = tree_leaves(serialization.tree_from_bytes(globals_[r], template=ts["global0"]))
+        shards = [len(s) for s in partition_cohort(cohorts[r], TREE_EDGES)]
+        worst, err = 0.0, 0.0
+        for j, (g, f) in enumerate(zip(got, flat)):
+            bound = fold_bound([tree_leaves(t)[j] for t in trees], [rec["ns"] for rec in recs], shards)
+            diff = np.abs(np.asarray(g, np.float64) - np.asarray(f, np.float64))
+            if not (diff <= bound).all():
+                raise AssertionError(f"round {r + 1} leaf {j}: tree global {diff.max()} from the flat FedAvg, "
+                                     f"over the fold bound")
+            err = max(err, float(diff.max()))
+            worst = max(worst, float((diff / bound).max()))
+        fold.append({"max_abs_diff": err, "max_diff_over_bound": worst})
+
+    # ---- the same tree over the recorded blobs ----
+    def replay(idx, r, base_blob, base_version):
+        rec = leaves[(idx, r)]
+        if base_blob != rec["base"] or base_version != rec["base_version"]:
+            raise AssertionError(f"replay: leaf {idx} round {r} offered another base")
+        return rec["blob"], rec["ns"]
+
+    again = run_tree_federation(ts["global0"], replay, **kwargs)
+    if again.global_sha256 != res.global_sha256:
+        raise AssertionError("the tree over the recorded blobs gave another global")
+    out = {"launches": launches, "steps": steps, "eval_batches": ev["num_batches"], "wall_s": wall,
+           "cohorts": cohorts, "root_peak_blobs": res.root_peak_blobs, "edge_peak_blobs": res.edge_peak_blobs,
+           "max_leaf_fan_in": res.max_leaf_fan_in, "bytes_at_root": res.bytes_at_root,
+           "bytes_flat_equiv": res.bytes_flat_equiv, "fold_vs_flat": fold, "eval": ev,
+           "global_sha256": res.global_sha256}
+    log(f"[tree] main path: run_tree_federation, 2 rounds x 4 of 8 leaves over 2 edges, {steps} leaf steps on the "
+        f"card + {ev['num_batches']} eval batches in {wall:.2f} s, bce_sums launches {launches}; each round's "
+        f"global within fold_bound of the flat FedAvg of its recorded leaves; the replay gives the same "
+        f"global_sha256; {json.dumps(out)} [{card}]")
+    return {**out, "leaves": leaves, "globals": globals_}
+
+
+def tree_grpc_run(torch, ts: dict, tree: dict, card: str) -> dict:
+    """Phase 18 (b): the same tree over loopback gRPC with the recorded
+    leaves. A port ``FedServer`` is the root (``cohort_size=2``); each edge
+    pushes through its own ``EdgeRelay``. In round 1 ``edge-0`` is killed
+    after its first leaf (``FaultPlan`` ``EDGE_AGGREGATOR_CRASH``),
+    restored from its statefile, and takes the rest: its partial must be
+    byte-equal to an unkilled edge's over the same blobs, and each round's
+    root global byte-equal to the in-process tree's."""
+    import tempfile
+
+    from fedcrack_tpu_torch.chaos.plan import EDGE_AGGREGATOR_CRASH, Fault, FaultPlan
+    from fedcrack_tpu_torch.configs import FedConfig
+    from fedcrack_tpu_torch.fed import rounds
+    from fedcrack_tpu_torch.fed.tree import EdgeAggregator, partition_cohort
+    from fedcrack_tpu_torch.transport import FedServer
+    from fedcrack_tpu_torch.transport.edge import EdgeRelay
+    from fedcrack_tpu_torch.transport.service import ServerThread
+
+    cfg = FedConfig(max_rounds=TREE_ROUNDS, cohort_size=TREE_EDGES, registration_window_s=30.0,
+                    round_deadline_s=120.0, host="127.0.0.1", port=0)
+    plan = FaultPlan([Fault(kind=EDGE_AGGREGATOR_CRASH, round=1, client="edge-0")])
+    root = FedServer(cfg, ts["global0"], tick_period_s=0.05)
+    template = root.state.template
+    t0 = time.monotonic()
+    timings = {}
+    with tempfile.TemporaryDirectory(prefix="fedcrack_phase18_") as tmp, ServerThread(root) as st:
+        state_path = os.path.join(tmp, "edge-0.msgpack")
+        relays = {f"edge-{e}": EdgeRelay(f"edge-{e}", st.port, timeout_s=60.0) for e in range(TREE_EDGES)}
+        try:
+            hello = [relay.enroll() for relay in relays.values()]
+            rnd, version = int(hello[0]["current_round"]), int(hello[0]["model_version"])
+            edges = {"edge-0": EdgeAggregator("edge-0", template, state_path=state_path),
+                     "edge-1": EdgeAggregator("edge-1", template)}
+            for r in range(TREE_ROUNDS):
+                base = relays["edge-0"].pull()
+                if base != tree["leaves"][(tree["cohorts"][r][0], r)]["base"]:
+                    raise AssertionError(f"round {r + 1}: the root's base is not the in-process tree's")
+                shards = partition_cohort(tree["cohorts"][r], TREE_EDGES)
+                for e, (name, relay) in enumerate(relays.items()):
+                    edge = edges[name]
+                    shard = [int(i) for i in shards[e]]
+                    edge.begin_round(rnd, base, version, [f"client-{i}" for i in shard])
+                    for k, idx in enumerate(shard):
+                        rec = tree["leaves"][(idx, r)]
+                        ok, why = edge.offer(f"client-{idx}", rec["blob"], rec["ns"])
+                        if not ok:
+                            raise AssertionError(f"edge {name} refused client-{idx}: {why}")
+                        if name == "edge-0" and k == 0 and plan.take(EDGE_AGGREGATOR_CRASH, client=name, round=rnd):
+                            t_kill = time.perf_counter()
+                            del edge, edges[name]
+                            edge = EdgeAggregator.restore(state_path, template)
+                            timings["restore_s"] = time.perf_counter() - t_kill
+                            if edge is None or sorted(edge.received) != [f"client-{idx}"] or edge.round != rnd:
+                                raise AssertionError("edge-0 did not resume its round from the statefile")
+                            edges[name] = edge
+                    partial, total = edge.partial()
+                    if name == "edge-0" and r == 0:
+                        twin = EdgeAggregator("edge-0", template)
+                        twin.begin_round(rnd, base, version, [f"client-{i}" for i in shard])
+                        for idx in shard:
+                            rec = tree["leaves"][(idx, r)]
+                            twin.offer(f"client-{idx}", rec["blob"], rec["ns"])
+                        if twin.partial() != (partial, total):
+                            raise AssertionError("the restored edge's partial differs from an unkilled edge's")
+                    status, weights, config = relay.push_partial(rnd, partial, total, edge.last_partial_ctx)
+                    edge.end_round()
+                want = rounds.FIN if r == TREE_ROUNDS - 1 else rounds.RESP_ARY
+                if status != want or weights != tree["globals"][r]:
+                    raise AssertionError(f"round {r + 1}: root answered {status}; global equal to the in-process "
+                                         f"tree's: {weights == tree['globals'][r]}")
+                if r == 0:
+                    timings["kill_to_recover_s"] = time.perf_counter() - t_kill
+                if status == rounds.RESP_ARY:
+                    rnd, version = int(config["current_round"]), int(config["model_version"])
+        finally:
+            for relay in relays.values():
+                relay.close()
+        state = st.state
+    if [f.kind for f in plan.triggered] != [EDGE_AGGREGATOR_CRASH]:
+        raise AssertionError(f"the edge crash did not fire: {plan.triggered}")
+    if [h["clients"] for h in state.history] != [["edge-0", "edge-1"]] * TREE_ROUNDS:
+        raise AssertionError(f"root history {state.history}")
+    out = {**timings, "wall_s": time.monotonic() - t0,
+           "root_bytes_received": [h["bytes_received"] for h in state.history]}
+    log(f"[tree] over gRPC: edge-0 killed after its first leaf in round 1 and restored from its statefile, its "
+        f"partial byte-equal to an unkilled edge's; each round's root global byte-equal to the in-process tree's; "
+        f"{json.dumps(out)} [{card}]")
+    return out
+
+
+def tree_serve_run(torch, ts: dict, tree: dict, card: str) -> dict:
+    """Phase 18 (c): the tree's final global served through
+    ``ServeConfig(quant="int8", kernel_plane="fused_int8")`` at bucket 128,
+    batch 8: 15 / 8 / 1 dequant launches for the forward (wrappers and
+    profiler), and the fused output held to the reference plane on the
+    same codes as phase 4 holds it."""
+    import numpy as np
+
+    from fedcrack_tpu_torch.configs import ServeConfig
+    from fedcrack_tpu_torch.fed import serialization
+    from fedcrack_tpu_torch.serve import quant as quant_mod
+    from fedcrack_tpu_torch.serve.engine import InferenceEngine
+
+    model = ts["cfg"].model
+    sc = ServeConfig(quant="int8", kernel_plane="fused_int8")
+    engine = InferenceEngine(model, sc)
+    weights = serialization.tree_from_bytes(tree["globals"][-1], template=ts["global0"])
+    qtree = quant_mod.quantize_for_plane(weights, "fused_int8")
+    payload = engine.prepare(qtree)
+    batch = np.random.default_rng(18).integers(0, 256, (BATCH, TREE_BUCKET, TREE_BUCKET, 3), dtype=np.uint8)
+    counted, profiled, _ = served_batch_launches(torch, engine, payload, batch)
+    ref_engine = InferenceEngine(model, ServeConfig(quant="int8", kernel_plane="reference"))
+    probe = quant_mod.probe_images(TREE_BUCKET, sc.quant_probe_batch, sc.quant_probe_seed)
+    fused = engine.predict_bucket(payload, probe)
+    want = ref_engine.predict_bucket(ref_engine.prepare(qtree), probe)
+    diff = float(np.max(np.abs(fused.astype(np.float64) - want.astype(np.float64))))
+    iou = quant_mod.mask_iou(fused, want)
+    if diff >= SERVE_PROB_TOL or iou < 0.99:
+        raise AssertionError(f"the tree's global: fused plane {diff} from the reference plane, mask IoU {iou}")
+    out = {"served_launches": counted, "fused_vs_reference_max_diff": diff, "mask_iou": iou,
+           "probe_crack_share": float(np.mean(want > 0.5))}
+    log(f"[tree] the tree's global served fused_int8 at bucket {TREE_BUCKET} batch {BATCH}: {json.dumps(profiled)} "
+        f"(profiler); {json.dumps(out)} [{card}]")
+    return out
+
+
+def drill_run(card: str) -> dict:
+    """Phase 18 (d): ``python -m fedcrack_tpu_torch.tools.chaos_drill --out
+    F`` on the card through ``CLI_SHIM``; it must exit 0 with every boolean
+    verdict of its eleven drills true and ``dp_replay`` recorded as not
+    ported."""
+    import tempfile
+
+    def verdicts(node, path=()):
+        if isinstance(node, dict):
+            for key, value in node.items():
+                yield from verdicts(value, path + (key,))
+        elif isinstance(node, bool):
+            yield path, node
+
+    with tempfile.TemporaryDirectory(prefix="fedcrack_drill_") as tmp:
+        out_path = os.path.join(tmp, "drill.json")
+        proc = CliProcess("chaos_drill", "fedcrack_tpu_torch.tools.chaos_drill", ["--out", out_path], tmp)
+        try:
+            rc = proc.wait(time.monotonic() + DRILL_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            raise AssertionError(f"the drill command timed out:\n{proc.text()[-4000:]}")
+        if rc != 0:
+            raise AssertionError(f"the drill command exited {rc}:\n{proc.text()[-4000:]}")
+        with open(out_path, encoding="utf-8") as f:
+            artifact = json.load(f)
+        report = proc.report()
+    drills = sorted(k for k in artifact if k not in ("generated_by", "dp_replay"))
+    false = [path for path, value in verdicts(artifact) if not value]
+    if len(drills) != 11 or false or artifact["dp_replay"] != {"not_ported": "ROADMAP Queue 1 item 4"}:
+        raise AssertionError(f"drills {drills}; false verdicts {false}; dp_replay {artifact.get('dp_replay')}")
+    timings = {name: {k: artifact[name][k] for k in ("restore_s", "kill_to_recover_s", "session_s")
+                      if k in artifact[name]}
+               for name in ("kill_restart", "edge_crash", "buffered_kill")}
+    out = {"drills": drills, "verdicts": sum(1 for _ in verdicts(artifact)), "timings": timings,
+           "storm": {arm: artifact["straggler_storm"][arm]["updates_per_sec"] for arm in ("sync", "buffered")},
+           "command_wall_s": report["wall_s"]}
+    log(f"[drill] python -m fedcrack_tpu_torch.tools.chaos_drill: {out['verdicts']} verdicts true over "
+        f"{len(drills)} drills, dp_replay not ported (item 4); {json.dumps(out)} [{card}]")
+    return out
+
+
+def tree_drill_phase(torch, card: str) -> dict:
+    """Phase 18: the tree in process (the main path), over gRPC with a
+    killed edge, its global served quantized, and the drill command."""
+    t0 = time.monotonic()
+    ts = tree_setup(torch)
+    tree = tree_in_process(torch, ts, card)
+    grpc = tree_grpc_run(torch, ts, tree, card)
+    served = tree_serve_run(torch, ts, tree, card)
+    drill = drill_run(card)
+    out = {"launches": tree["launches"], "served_launches": served["served_launches"],
+           "bytes_at_root": tree["bytes_at_root"], "bytes_flat_equiv": tree["bytes_flat_equiv"],
+           "edge_restore_s": grpc["restore_s"], "edge_kill_to_recover_s": grpc["kill_to_recover_s"],
+           "drill_timings": drill["timings"], "phase_s": time.monotonic() - t0}
+    log(f"[phase18] {json.dumps(out)} [{card}]")
+    return out
+
+
 def server_breakdown(config, template, rnd: dict, n: int = 3) -> dict:
     """Host ms (median of ``n``) of each step the round machine takes on
     one round's accepted uploads: the gate per upload (validate, decode,
@@ -4446,6 +4815,8 @@ def main() -> int:
     log("phase 16 the privacy plane (DP, secagg with a dropout) and a checkpoint resume served quantized: ok")
     watched = chaos_bf16_watch_phase(torch, card)
     log("phase 17 the chaos plane, bf16 training and serving, and the watch layer: ok")
+    tree = tree_drill_phase(torch, card)
+    log("phase 18 the aggregation tree (in process, over gRPC with a killed edge, served) and the chaos drills: ok")
 
     kernels = []
     replaces = {"dequant_matmul": "fedcrack_tpu/kernels/dequant.py:88",
@@ -4465,7 +4836,8 @@ def main() -> int:
                     "launches_phase14": serve_cli["launches"][name],
                     "launches_phase15": shadow["launches"][name],
                     "launches_phase16": privacy["served_launches"][name],
-                    "launches_phase17": watched["served_launches"][name]} if flavor == "int8" else {}),
+                    "launches_phase17": watched["served_launches"][name],
+                    "launches_phase18": tree["served_launches"][name]} if flavor == "int8" else {}),
                 "max_abs_err": row["max_abs_err"],
                 "ms": row["ms"],
                 "plain_ms": row["plain_ms"],
@@ -4489,6 +4861,7 @@ def main() -> int:
         "launches_phase13": cli["launches"],
         "launches_phase16": privacy["launches"],
         "launches_phase17": watched["launches"],
+        "launches_phase18": tree["launches"],
         **bce_row,
     })
     log(f"profiler: {lead_kept(torch)} at {time.monotonic() - t_start:.1f} s [{card}]")

@@ -10,8 +10,11 @@ so the rest of the port imports without it: the fleet, router, stream
 sessions, autoscaler, shadow controller, canary and drift monitors, the
 serve command's module level, the tools (``load_gen`` reaches the
 front door through ``transport/serve_client.py``), the privacy plane, the
-round checkpointer, the chaos plane and the watch layer included. The port's entry
-points run on CUDA unless told otherwise.
+round checkpointer, the chaos plane and the watch layer, the aggregation
+tree and the chaos drills included (the drills reach grpc through the
+transport only). The port's entry points run on CUDA unless told
+otherwise, and every refusal of a part not yet ported names the ROADMAP
+item that lifts it.
 """
 
 import ast
@@ -52,6 +55,15 @@ PRIVACY_AND_CHECKPOINT_MODULES = (
 CHAOS_AND_WATCH_MODULES = (
     "fedcrack_tpu_torch.chaos", "fedcrack_tpu_torch.chaos.plan", "fedcrack_tpu_torch.chaos.inject",
     "fedcrack_tpu_torch.obs.sentries", "fedcrack_tpu_torch.obs.watchdog", "fedcrack_tpu_torch.tools.trace_stitch",
+)
+# The aggregation tree and the chaos drills: no grpc at import either (the
+# edge relay, transport/edge.py, is the transport's).
+TREE_AND_DRILL_MODULES = ("fedcrack_tpu_torch.fed.tree", "fedcrack_tpu_torch.tools.chaos_drill")
+# Every refusal of the port, by the callable that raises it, and the
+# ROADMAP item its message names (ROADMAP.md, "Open items").
+REFUSALS = (
+    ("fedcrack_tpu_torch.chaos.inject", "MeshChaos", (None,), "item 4"),
+    ("fedcrack_tpu_torch.tools.chaos_drill", "run_dp_replay_drill", (), "item 4"),
 )
 
 
@@ -132,11 +144,23 @@ def test_package_imports_with_jax_blocked():
     assert set(COMMAND_LINE_MODULES) <= set(rest)
     assert set(PRIVACY_AND_CHECKPOINT_MODULES) <= set(rest)
     assert set(CHAOS_AND_WATCH_MODULES) <= set(rest)
+    assert set(TREE_AND_DRILL_MODULES) <= set(rest)
     assert "fedcrack_tpu_torch.transport.faults" in with_grpc
+    assert "fedcrack_tpu_torch.transport.edge" in with_grpc
     for modules, blocked in ((rest, FORBIDDEN), (with_grpc, tuple(m for m in FORBIDDEN if m not in GRPC_ALLOWED))):
         out = _import_blocked(modules, blocked)
         assert out.returncode == 0, out.stderr
         assert out.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("module,name,args,item", REFUSALS, ids=[r[1] for r in REFUSALS])
+def test_refusals_name_their_roadmap_item(module, name, args, item):
+    import importlib
+
+    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}$"):
+        getattr(importlib.import_module(module), name)(*args)
+    roadmap = open(os.path.join(ROOT, "ROADMAP.md"), encoding="utf-8").read()
+    assert f"`{name}`" in roadmap
 
 
 def test_engine_defaults_to_cuda_and_raises_without_it():
