@@ -4558,26 +4558,22 @@ def tree_grpc_run(torch, ts: dict, tree: dict, card: str) -> dict:
     return out
 
 
-def tree_serve_run(torch, ts: dict, tree: dict, card: str) -> dict:
-    """Phase 18 (c): the tree's final global served through
-    ``ServeConfig(quant="int8", kernel_plane="fused_int8")`` at bucket 128,
-    batch 8: 15 / 8 / 1 dequant launches for the forward (wrappers and
-    profiler), and the fused output held to the reference plane on the
-    same codes as phase 4 holds it."""
+def serve_global(torch, model, weights, card: str, label: str, seed: int) -> dict:
+    """A federation's global served through ``ServeConfig(quant="int8",
+    kernel_plane="fused_int8")`` at bucket 128, batch 8: 15 / 8 / 1 dequant
+    launches for the forward (wrappers and profiler), and the fused output
+    held to the reference plane on the same codes as phase 4 holds it."""
     import numpy as np
 
     from fedcrack_tpu_torch.configs import ServeConfig
-    from fedcrack_tpu_torch.fed import serialization
     from fedcrack_tpu_torch.serve import quant as quant_mod
     from fedcrack_tpu_torch.serve.engine import InferenceEngine
 
-    model = ts["cfg"].model
     sc = ServeConfig(quant="int8", kernel_plane="fused_int8")
     engine = InferenceEngine(model, sc)
-    weights = serialization.tree_from_bytes(tree["globals"][-1], template=ts["global0"])
     qtree = quant_mod.quantize_for_plane(weights, "fused_int8")
     payload = engine.prepare(qtree)
-    batch = np.random.default_rng(18).integers(0, 256, (BATCH, TREE_BUCKET, TREE_BUCKET, 3), dtype=np.uint8)
+    batch = np.random.default_rng(seed).integers(0, 256, (BATCH, TREE_BUCKET, TREE_BUCKET, 3), dtype=np.uint8)
     counted, profiled, _ = served_batch_launches(torch, engine, payload, batch)
     ref_engine = InferenceEngine(model, ServeConfig(quant="int8", kernel_plane="reference"))
     probe = quant_mod.probe_images(TREE_BUCKET, sc.quant_probe_batch, sc.quant_probe_seed)
@@ -4586,19 +4582,27 @@ def tree_serve_run(torch, ts: dict, tree: dict, card: str) -> dict:
     diff = float(np.max(np.abs(fused.astype(np.float64) - want.astype(np.float64))))
     iou = quant_mod.mask_iou(fused, want)
     if diff >= SERVE_PROB_TOL or iou < 0.99:
-        raise AssertionError(f"the tree's global: fused plane {diff} from the reference plane, mask IoU {iou}")
+        raise AssertionError(f"{label}: fused plane {diff} from the reference plane, mask IoU {iou}")
     out = {"served_launches": counted, "fused_vs_reference_max_diff": diff, "mask_iou": iou,
            "probe_crack_share": float(np.mean(want > 0.5))}
-    log(f"[tree] the tree's global served fused_int8 at bucket {TREE_BUCKET} batch {BATCH}: {json.dumps(profiled)} "
+    log(f"[{label}] the global served fused_int8 at bucket {TREE_BUCKET} batch {BATCH}: {json.dumps(profiled)} "
         f"(profiler); {json.dumps(out)} [{card}]")
     return out
+
+
+def tree_serve_run(torch, ts: dict, tree: dict, card: str) -> dict:
+    """Phase 18 (c): the tree's final global served (:func:`serve_global`)."""
+    from fedcrack_tpu_torch.fed import serialization
+
+    weights = serialization.tree_from_bytes(tree["globals"][-1], template=ts["global0"])
+    return serve_global(torch, ts["cfg"].model, weights, card, "tree", 18)
 
 
 def drill_run(card: str) -> dict:
     """Phase 18 (d): ``python -m fedcrack_tpu_torch.tools.chaos_drill --out
     F`` on the card through ``CLI_SHIM``; it must exit 0 with every boolean
-    verdict of its eleven drills true and ``dp_replay`` recorded as not
-    ported."""
+    verdict of its twelve drills true, ``dp_replay``'s retried DP round on
+    the card bit-identical to the unkilled one."""
     import tempfile
 
     def verdicts(node, path=()):
@@ -4621,18 +4625,20 @@ def drill_run(card: str) -> dict:
         with open(out_path, encoding="utf-8") as f:
             artifact = json.load(f)
         report = proc.report()
-    drills = sorted(k for k in artifact if k not in ("generated_by", "dp_replay"))
+    drills = sorted(k for k in artifact if k != "generated_by")
     false = [path for path, value in verdicts(artifact) if not value]
-    if len(drills) != 11 or false or artifact["dp_replay"] != {"not_ported": "ROADMAP Queue 1 item 4"}:
-        raise AssertionError(f"drills {drills}; false verdicts {false}; dp_replay {artifact.get('dp_replay')}")
+    dp = artifact.get("dp_replay", {})
+    if len(drills) != 12 or false or dp.get("replay_bit_identical") is not True or dp.get("retries_round_0") != 1:
+        raise AssertionError(f"drills {drills}; false verdicts {false}; dp_replay {dp}")
     timings = {name: {k: artifact[name][k] for k in ("restore_s", "kill_to_recover_s", "session_s")
                       if k in artifact[name]}
                for name in ("kill_restart", "edge_crash", "buffered_kill")}
     out = {"drills": drills, "verdicts": sum(1 for _ in verdicts(artifact)), "timings": timings,
            "storm": {arm: artifact["straggler_storm"][arm]["updates_per_sec"] for arm in ("sync", "buffered")},
            "command_wall_s": report["wall_s"]}
+    out["dp_replay_s"] = dp.get("drill_s")
     log(f"[drill] python -m fedcrack_tpu_torch.tools.chaos_drill: {out['verdicts']} verdicts true over "
-        f"{len(drills)} drills, dp_replay not ported (item 4); {json.dumps(out)} [{card}]")
+        f"{len(drills)} drills, dp_replay's retried DP round bit-identical; {json.dumps(out)} [{card}]")
     return out
 
 
@@ -4650,6 +4656,412 @@ def tree_drill_phase(torch, card: str) -> dict:
            "edge_restore_s": grpc["restore_s"], "edge_kill_to_recover_s": grpc["kill_to_recover_s"],
            "drill_timings": drill["timings"], "phase_s": time.monotonic() - t0}
     log(f"[phase18] {json.dumps(out)} [{card}]")
+    return out
+
+
+# ---- phase 19: several clients per round on one card ----
+
+SLOT_ACTIVE = (1.0, 1.0, 1.0, 0.0)
+SLOT_SAMPLES = (32.0, 32.0, 64.0, 32.0)
+SLOT_STEPS, SLOT_EPOCHS, SLOT_ROUNDS = 2, 2, 2
+SLOT_POOL = 40  # samples in each slot's pool; a round draws 32
+SLOT_SEED = 19
+SLOT_TOPK = 0.01
+REFSCALE_ARGS = ["--clients", "2", "--rounds", "2", "--epochs", "1", "--samples", "64", "--img", "128",
+                 "--eval-samples", "16"]
+REFSCALE_TIMEOUT_S = 300.0
+
+
+def jax_refscale_keys(root: str = HERE) -> dict:
+    """The keys of the JAX package's ``tools/refscale_federation`` artifact,
+    read from its source with ``ast`` (nothing of it is imported): the
+    dict ``run_refscale_federation`` returns, its nested sections, and the
+    keys of a round entry (``_round``) and of a fit entry (``_fit``)."""
+    import ast
+
+    with open(os.path.join(root, "fedcrack_tpu", "tools", "refscale_federation.py"), encoding="utf-8") as f:
+        module = ast.parse(f.read())
+    fn = next(n for n in module.body if isinstance(n, ast.FunctionDef) and n.name == "run_refscale_federation")
+    ret = [n for n in ast.walk(fn) if isinstance(n, ast.Return) and isinstance(n.value, ast.Dict)][-1].value
+
+    def keys(d):
+        return {k.value: (keys(v) if isinstance(v, ast.Dict) else None) for k, v in zip(d.keys, d.values)}
+
+    out = keys(ret)
+    appended = [keys(n.args[0]) for n in ast.walk(fn) if isinstance(n, ast.Call)
+                and getattr(n.func, "attr", "") == "append" and n.args and isinstance(n.args[0], ast.Dict)]
+    out["_round"] = next(a for a in appended if "round" in a)
+    out["_fit"] = next(a for a in appended if "client" in a)
+    return out
+
+
+def check_refscale_artifact(artifact: dict, want: dict) -> None:
+    """Every key of the JAX artifact, and finite train and eval losses."""
+    import math
+
+    if set(artifact) != {k for k in want if not k.startswith("_")}:
+        raise AssertionError(f"refscale artifact keys {sorted(artifact)}")
+    for section in ("hardware", "workload", "summary"):
+        if set(artifact[section]) != set(want[section]):
+            raise AssertionError(f"refscale {section} keys {sorted(artifact[section])} != {sorted(want[section])}")
+    for rnd in artifact["rounds"]:
+        if set(rnd) != set(want["_round"]) or any(set(f) != set(want["_fit"]) for f in rnd["fits"]):
+            raise AssertionError(f"refscale round keys {sorted(rnd)}")
+        losses = [f["train_last_epoch"]["loss"] for f in rnd["fits"]] + [rnd["eval"]["loss"]]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"refscale round {rnd['round']}: non-finite losses {losses}")
+
+
+def slot_setup(torch) -> dict:
+    """Phase 19's federation: ``ModelConfig()`` at 128 px, batch 16, 4
+    slots (``active = [1, 1, 1, 0]``, ``n_samples = [32, 32, 64, 32]``),
+    each a 40-sample uint8 pool from which every round draws 2 steps, one
+    seeded global. ``slab_fn`` is the streamed data (``pool[idx]``),
+    ``plan_fn`` the resident one; both pure functions of the round."""
+    import numpy as np
+
+    from fedcrack_tpu_torch.configs import ModelConfig
+    from fedcrack_tpu_torch.data.pipeline import SamplePool, to_uint8_transport
+    from fedcrack_tpu_torch.data.synthetic import synth_crack_batch
+    from fedcrack_tpu_torch.models.resunet import init_variables
+
+    cfg = ModelConfig()
+    n = len(SLOT_ACTIVE)
+    pool = SamplePool.stack([to_uint8_transport(*synth_crack_batch(SLOT_POOL, TRAIN_SIZE, seed=SLOT_SEED * 100 + c))
+                             for c in range(n)])
+    active, ns = np.asarray(SLOT_ACTIVE, np.float32), np.asarray(SLOT_SAMPLES, np.float32)
+
+    def plan(r):
+        rngs = [np.random.default_rng([SLOT_SEED, r, c]) for c in range(n)]
+        return pool.round_indices(rngs, SLOT_EPOCHS, SLOT_STEPS, TRAIN_BATCH)
+
+    def slab_fn(r):
+        return (*pool.assemble_round_slab(plan(r)), active, ns)
+
+    return {"cfg": cfg, "pool": pool, "active": active, "ns": ns, "slab_fn": slab_fn,
+            "plan_fn": lambda r: (plan(r), active, ns),
+            "global0": init_variables(torch.Generator().manual_seed(SLOT_SEED), cfg)}
+
+
+def slot_run(torch, ss: dict, label: str, round_fn, mesh, launches: int, *, cohort: bool = False,
+             data_fn=None, **kwargs) -> dict:
+    """One counted 2-round run through the driver from the seeded global:
+    ``bce_sums`` launches must be exactly ``launches``; the weights and
+    metrics finite."""
+    import numpy as np
+
+    from fedcrack_tpu_torch.fed.pytree import tree_leaves
+    from fedcrack_tpu_torch.ops import bce
+    from fedcrack_tpu_torch.parallel import run_cohort_federation, run_mesh_federation
+
+    torch.cuda.synchronize()
+    bce.reset_launch_counts()
+    t0 = time.monotonic()
+    drive = run_cohort_federation if cohort else run_mesh_federation
+    variables, records = drive(round_fn, ss["global0"], data_fn or ss["slab_fn"], SLOT_ROUNDS, mesh, **kwargs)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    got = bce.bce_sums.launches
+    if got != launches:
+        raise AssertionError(f"[slots] {label}: bce_sums launches {got}, want {launches}")
+    if not all(bool(torch.isfinite(t).all()) for t in tree_leaves(variables)):
+        raise AssertionError(f"[slots] {label}: non-finite global")
+    if not all(np.isfinite(v).all() and v.shape == (len(SLOT_ACTIVE),) for r in records for v in r.metrics.values()):
+        raise AssertionError(f"[slots] {label}: metrics not finite [C] vectors")
+    return {"variables": variables, "records": records, "wall_s": wall, "launches": got,
+            "round_walls_s": [r.wall_clock_s for r in records], "retries": [r.retries for r in records]}
+
+
+def host_tree(tree):
+    from fedcrack_tpu_torch.fed.pytree import tree_map
+
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def same_bits(a, b) -> bool:
+    from fedcrack_tpu_torch.fed.pytree import tree_leaves
+
+    la = [t.detach().cpu().numpy() if hasattr(t, "detach") else t for t in tree_leaves(a)]
+    lb = [t.detach().cpu().numpy() if hasattr(t, "detach") else t for t in tree_leaves(b)]
+    return len(la) == len(lb) and all(x.tobytes() == y.tobytes() for x, y in zip(la, lb))
+
+
+def check_same_run(label: str, got: dict, want: dict) -> None:
+    if not same_bits(got["variables"], want["variables"]):
+        raise AssertionError(f"[slots] {label}: the global differs from the monolithic streamed run's")
+    for rg, rw in zip(got["records"], want["records"]):
+        for k in rw.metrics:
+            if rg.metrics[k].tobytes() != rw.metrics[k].tobytes():
+                raise AssertionError(f"[slots] {label}: round {rw.round_idx} metric {k} differs")
+
+
+def slot_host_path(torch, ss: dict, inputs: list, slots: dict, card: str) -> dict:
+    """Phase 19 (a)'s host path on the card: each slot of each round a
+    fresh ``train.local`` state loaded with the round's input global,
+    ``train_step`` over its slab, then ``fed.algorithms.fedavg`` over the
+    active slots. Each slot's weights must equal the round's slot bit for
+    bit, and each round's global lie within ``fold_bound`` of the host
+    FedAvg of the same slots (the two folds round differently)."""
+    import numpy as np
+
+    from fedcrack_tpu_torch.fed.algorithms import fedavg
+    from fedcrack_tpu_torch.fed.pytree import tree_leaves, tree_map
+    from fedcrack_tpu_torch.ops import bce
+    from fedcrack_tpu_torch.train import local
+
+    cfg, n = ss["cfg"], len(SLOT_ACTIVE)
+    state = local.create_train_state(torch.Generator().manual_seed(0), cfg, 1e-3)
+    torch.cuda.synchronize()
+    bce.reset_launch_counts()
+    walls, trained = [], {}
+    for r in range(SLOT_ROUNDS):
+        images, masks, _, _ = ss["slab_fn"](r)
+        images, masks = torch.from_numpy(images).cuda(), torch.from_numpy(masks).cuda()
+        snaps = []
+        t0 = time.monotonic()
+        for c in range(n):
+            state.replace_variables(inputs[r])
+            state.optimizer = local.make_optimizer(state.model.parameters(), 1e-3)
+            anchor = local.snapshot_params(state)
+            for _ in range(SLOT_EPOCHS):
+                for s in range(SLOT_STEPS):
+                    local.train_step(state, (images[c, s], masks[c, s]), anchor)
+            # A device clone, as the round's slot_hook takes inside its
+            # timed run; the copy to the host comes after the clock stops.
+            snaps.append({k: v.detach().clone() for k, v in state.model.state_dict().items()})
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+        for c, snap in enumerate(snaps):
+            state.model.load_state_dict(snap)
+            trained[(r, c)] = tree_map(np.array, state.variables)
+    launches = bce.bce_sums.launches
+    if launches != n * SLOT_STEPS * SLOT_EPOCHS * SLOT_ROUNDS:
+        raise AssertionError(f"[slots] host path: bce_sums launches {launches}")
+    worst = []
+    for r in range(SLOT_ROUNDS):
+        for c in range(n):
+            if not same_bits(trained[(r, c)], host_tree(slots[(r, c)])):
+                raise AssertionError(f"[slots] round {r} slot {c}: the host fit differs from the round's slot")
+        keep = [c for c in range(n) if SLOT_ACTIVE[c] > 0]
+        w = [SLOT_SAMPLES[c] for c in keep]
+        host = tree_leaves(fedavg([trained[(r, c)] for c in keep], w))
+        got = tree_leaves(host_tree(inputs[r + 1]))
+        ratio = 0.0
+        for j, (g, h) in enumerate(zip(got, host)):
+            bound = fold_bound([tree_leaves(trained[(r, c)])[j] for c in keep], w, [len(keep)])
+            diff = np.abs(np.asarray(g, np.float64) - np.asarray(h, np.float64))
+            if not (diff <= bound).all():
+                raise AssertionError(f"[slots] round {r} leaf {j}: the round's global {diff.max()} from the host "
+                                     "FedAvg, over the fold bound")
+            ratio = max(ratio, float((diff / bound).max()))
+        worst.append(ratio)
+    return {"round_walls_s": walls, "launches": launches, "global_diff_over_fold_bound": worst}
+
+
+def slot_codec_checks(torch, ss: dict, card: str, mesh) -> dict:
+    """Phase 19 (f): the top-k twin keeps, per leaf of each slot's round-0
+    delta, the entries the host ``TopKDeltaCodec`` keeps (its
+    ``topk_select`` with ``leaf_k``); the int8 twin leaves every value
+    within one bucket scale of its delta. Both runs 2 rounds, counted."""
+    from fedcrack_tpu_torch.compress.codecs import QSGD_BUCKET, leaf_k, topk_select
+    from fedcrack_tpu_torch.compress.mesh import int8_bucket_scales, int8_roundtrip, topk_keep
+    from fedcrack_tpu_torch.fed.pytree import tree_leaves, tree_map
+    from fedcrack_tpu_torch.parallel import build_federated_round
+
+    n = len(SLOT_ACTIVE)
+    want = n * SLOT_STEPS * SLOT_EPOCHS * SLOT_ROUNDS
+    g0 = tree_map(lambda a: torch.from_numpy(a).cuda(), ss["global0"])
+    out = {}
+    for codec in ("topk_delta", "int8"):
+        rf = build_federated_round(mesh, ss["cfg"], local_epochs=SLOT_EPOCHS, update_codec=codec,
+                                   topk_fraction=SLOT_TOPK)
+        slots = {}
+        rf.slot_hook = lambda c, v: slots.setdefault(c, v)  # round 0's slots
+        run = slot_run(torch, ss, codec, rf, mesh, want)
+        kept = checked = 0
+        for c in range(n):
+            delta = tree_map(lambda t, b: t.float() - b.float(), slots[c], g0)
+            if codec == "topk_delta":
+                for d in tree_leaves(delta):
+                    eff = (d + torch.zeros_like(d)).reshape(-1)
+                    k = leaf_k(eff.numel(), SLOT_TOPK)
+                    card_keep = torch.sort(topk_keep(eff, k)).values.cpu().numpy()
+                    if card_keep.tolist() != topk_select(eff.cpu().numpy(), k).tolist():
+                        raise AssertionError(f"[slots] top-k slot {c}: the card's keep set differs from the host's")
+                    kept += k
+            else:
+                q = int8_roundtrip(delta, (0, c))
+                for d, v in zip(tree_leaves(delta), tree_leaves(q)):
+                    flat = d.reshape(-1)
+                    nb = -(-flat.numel() // QSGD_BUCKET)
+                    segs = torch.nn.functional.pad(flat, (0, nb * QSGD_BUCKET - flat.numel())).reshape(nb, -1)
+                    scale = int8_bucket_scales(segs).repeat_interleave(QSGD_BUCKET)[: flat.numel()]
+                    if not bool((torch.abs(v.reshape(-1) - flat) <= scale * (1 + 1e-6)).all()):
+                        raise AssertionError(f"[slots] int8 slot {c}: a value is more than one scale from its delta")
+                    checked += flat.numel()
+        out[codec] = {"round_walls_s": run["round_walls_s"], "launches": run["launches"],
+                      "bytes_per_round": run["records"][0].bytes_per_round,
+                      **({"kept_entries": kept} if codec == "topk_delta" else {"values_checked": checked})}
+    return out
+
+
+def slot_dp_chaos(torch, ss: dict, mesh) -> dict:
+    """Phase 19 (g): DP-SGD (clip 1.0, noise 1.1) clean, then under
+    ``MeshChaos`` with ``MESH_DEVICE_FAIL`` (the attempt raises before a
+    step: no extra launch) and ``MESH_NONFINITE`` (a whole round runs, is
+    poisoned and replayed: one round's launches more) at round 0, each with
+    ``max_round_retries=1``, each bit-equal to the clean run."""
+    from fedcrack_tpu_torch.chaos import MESH_DEVICE_FAIL, MESH_NONFINITE, FaultPlan, MeshChaos
+    from fedcrack_tpu_torch.chaos.plan import Fault
+    from fedcrack_tpu_torch.parallel import build_federated_round
+
+    n = len(SLOT_ACTIVE)
+    per_round = n * SLOT_STEPS * SLOT_EPOCHS
+
+    def build():
+        return build_federated_round(mesh, ss["cfg"], local_epochs=SLOT_EPOCHS, dp_clip_norm=1.0,
+                                     dp_noise_multiplier=1.1, dp_seed=42)
+
+    clean = slot_run(torch, ss, "dp", build(), mesh, per_round * SLOT_ROUNDS)
+    out = {"dp": {"round_walls_s": clean["round_walls_s"], "launches": clean["launches"]}}
+    for kind, extra in ((MESH_DEVICE_FAIL, 0), (MESH_NONFINITE, per_round)):
+        plan = FaultPlan([Fault(kind, round=0)])
+        run = slot_run(torch, ss, f"dp+{kind}", build(), mesh, per_round * SLOT_ROUNDS + extra,
+                       max_round_retries=1, fault_injector=MeshChaos(plan))
+        if plan.pending or run["retries"] != [1, 0] or not same_bits(run["variables"], clean["variables"]):
+            raise AssertionError(f"[slots] dp under {kind}: retries {run['retries']}, pending {plan.pending}, "
+                                 "or the global differs from the clean DP run")
+        out[f"dp+{kind}"] = {"round_walls_s": run["round_walls_s"], "launches": run["launches"]}
+    return out
+
+
+def refscale_run(card: str) -> dict:
+    """``python -m fedcrack_tpu_torch.tools.refscale_federation`` at the
+    JAX docstring's smoke flags but 128 px, on the card through
+    ``CLI_SHIM``: exit 0, every key of the JAX artifact, finite losses, and
+    ``bce_sums`` launches = 2 clients x 2 rounds x 4 steps + 2 eval
+    batches."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="fedcrack_refscale_") as tmp:
+        out_path = os.path.join(tmp, "refscale.json")
+        proc = CliProcess("refscale", "fedcrack_tpu_torch.tools.refscale_federation", REFSCALE_ARGS + ["--out", out_path],
+                          tmp)
+        try:
+            rc = proc.wait(time.monotonic() + REFSCALE_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            raise AssertionError(f"the refscale command timed out:\n{proc.text()[-4000:]}")
+        if rc != 0:
+            raise AssertionError(f"the refscale command exited {rc}:\n{proc.text()[-4000:]}")
+        with open(out_path, encoding="utf-8") as f:
+            artifact = json.load(f)
+        report = proc.report()
+    check_refscale_artifact(artifact, jax_refscale_keys())
+    if report["bce_sums_launches"] != 2 * 2 * 4 + 2:
+        raise AssertionError(f"the refscale command: bce_sums launches {report['bce_sums_launches']}, want 18")
+    out = {"command_wall_s": report["wall_s"], "start_to_first_launch_s": report["start_to_first_launch_s"],
+           "bce_sums_launches": report["bce_sums_launches"], "summary": artifact["summary"],
+           "device_kind": artifact["hardware"]["device_kind"]}
+    log(f"[slots] python -m fedcrack_tpu_torch.tools.refscale_federation {' '.join(REFSCALE_ARGS)}: "
+        f"{json.dumps(out)} [{card}]")
+    return out
+
+
+def slots_phase(torch, card: str) -> dict:
+    """Phase 19, several clients per round on one card: the monolithic
+    streamed round through the driver (the main path, each slot's weights
+    held to a host fit), then the staging, segmented, resident, cohort,
+    codec and DP-under-chaos runs, each against it; the global served
+    quantized; the refscale command."""
+    import numpy as np
+
+    from fedcrack_tpu_torch.parallel import (
+        build_federated_cohort_round,
+        build_federated_round,
+        build_federated_round_segments,
+        make_mesh,
+    )
+
+    t0 = time.monotonic()
+    ss = slot_setup(torch)
+    n = len(SLOT_ACTIVE)
+    want = n * SLOT_STEPS * SLOT_EPOCHS * SLOT_ROUNDS
+    images = want * TRAIN_BATCH
+    mesh = make_mesh(n)
+    main_fn = build_federated_round(mesh, ss["cfg"], local_epochs=SLOT_EPOCHS)
+    slots, inputs = {}, [ss["global0"]]
+    main_fn.slot_hook = lambda c, v: slots.__setitem__((len(slots) // n, c), v)
+
+    # ---- (a) the main path, counted ----
+    main = slot_run(torch, ss, "main", main_fn, mesh, want, on_round=lambda rec, v: inputs.append(v))
+    main_fn.slot_hook = None
+    host = slot_host_path(torch, ss, inputs, slots, card)
+    runs = {"a_main": main}
+    # ---- (b)-(e) against the main path ----
+    runs["b_sequential"] = slot_run(torch, ss, "sequential", main_fn, mesh, want, overlap_staging=False)
+    seg = build_federated_round_segments(mesh, ss["cfg"], local_epochs=SLOT_EPOCHS, segments=2)
+    runs["c_segmented"] = slot_run(torch, ss, "segmented", seg, mesh, want)
+    res = build_federated_round(mesh, ss["cfg"], local_epochs=SLOT_EPOCHS, data_placement="resident")
+    runs["d_resident"] = slot_run(torch, ss, "resident", res, mesh, want, data_fn=ss["plan_fn"],
+                                  data_placement="resident", sample_pool=ss["pool"])
+    cohort = build_federated_cohort_round(make_mesh(2), ss["cfg"], local_epochs=SLOT_EPOCHS)
+    runs["e_cohort"] = slot_run(torch, ss, "cohort", cohort, make_mesh(2), want, cohort=True)
+    # ---- the overlap knobs, each against its sequential form, ABBA ----
+    overlap_runs = {
+        "overlapped_1": (main_fn, {}), "overlapped_2": (main_fn, {}),
+        "sequential_2": (main_fn, {"overlap_staging": False}),
+        "segmented_round_overlap_1": (seg, {"round_overlap": True}),
+        "segmented_round_overlap_2": (seg, {"round_overlap": True}), "segmented_2": (seg, {}),
+    }
+    for label, (fn, kw) in overlap_runs.items():
+        runs[label] = slot_run(torch, ss, label, fn, mesh, want, **kw)
+    for label in ("b_sequential", "c_segmented", "d_resident", "e_cohort", *overlap_runs):
+        check_same_run(label, runs[label], main)
+
+    def walls_of(*labels):
+        # Each run's round walls and its whole 2-round wall (the driver
+        # call, between-round work included).
+        return [{"rounds": runs[k]["round_walls_s"], "run": runs[k]["wall_s"]} for k in labels]
+
+    overlap_walls = {
+        "overlap_staging": {"sequential": walls_of("b_sequential", "sequential_2"),
+                            "overlapped": walls_of("overlapped_1", "overlapped_2")},
+        "round_overlap": {"off": walls_of("c_segmented", "segmented_2"),
+                          "on": walls_of("segmented_round_overlap_1", "segmented_round_overlap_2")},
+    }
+    plan_bytes = n * SLOT_EPOCHS * SLOT_STEPS * TRAIN_BATCH * 4
+    staged = [r.staged_bytes for r in runs["d_resident"]["records"]]
+    if staged != [ss["pool"].nbytes + plan_bytes, plan_bytes]:
+        raise AssertionError(f"[slots] resident staged bytes {staged}, want the pool once and the plan")
+    codecs = slot_codec_checks(torch, ss, card, mesh)
+    dp = slot_dp_chaos(torch, ss, mesh)
+    serve = serve_global(torch, ss["cfg"], host_tree(main["variables"]), card, "slots", SLOT_SEED)
+    refscale = refscale_run(card)
+    walls = {k: v["round_walls_s"] for k, v in runs.items()}
+    walls.update({k: v["round_walls_s"] for k, v in {**codecs, **dp}.items()})
+    out = {
+        "launches": main["launches"], "served_launches": serve["served_launches"],
+        "images_per_s": images / main["wall_s"], "host_loop_images_per_s": images / sum(host["round_walls_s"]),
+        "images_per_s_by_round": [images / SLOT_ROUNDS / w for w in main["round_walls_s"]],
+        "host_loop_images_per_s_by_round": [images / SLOT_ROUNDS / w for w in host["round_walls_s"]],
+        "host_loop_round_walls_s": host["round_walls_s"], "round_walls_s": walls, "overlap_walls_s": overlap_walls,
+        "global_diff_over_fold_bound": host["global_diff_over_fold_bound"],
+        "resident_staged_bytes": staged, "codecs": {k: {kk: vv for kk, vv in v.items() if kk != "round_walls_s"}
+                                                    for k, v in codecs.items()},
+        "launches_by_run": {k: v["launches"] for k, v in {**runs, **dp}.items()},
+        "refscale_command_s": refscale["command_wall_s"], "phase_s": time.monotonic() - t0,
+    }
+    log(f"[slots] main path: 4 slots (active {list(SLOT_ACTIVE)}, n_samples {list(SLOT_SAMPLES)}), 2 rounds x 2 "
+        f"epochs x 2 steps at 128 px batch 16: {out['images_per_s']:.1f} images/s through the driver (by round "
+        f"{out['images_per_s_by_round']}) against {out['host_loop_images_per_s']:.1f} through the host loop (by "
+        f"round {out['host_loop_images_per_s_by_round']}) [{card}]")
+    log(f"[slots] round walls (s) per run: {json.dumps(walls)} [{card}]")
+    log(f"[slots] overlap knobs, walls (s), run in the order sequential, overlapped, overlapped, sequential "
+        f"and off, on, on, off: {json.dumps(overlap_walls)} [{card}]")
+    log(f"[phase19] {json.dumps(out)} [{card}]")
+    if not np.isfinite(out["images_per_s"]):
+        raise AssertionError("[slots] no images/s")
     return out
 
 
@@ -4817,6 +5229,9 @@ def main() -> int:
     log("phase 17 the chaos plane, bf16 training and serving, and the watch layer: ok")
     tree = tree_drill_phase(torch, card)
     log("phase 18 the aggregation tree (in process, over gRPC with a killed edge, served) and the chaos drills: ok")
+    slot_plane = slots_phase(torch, card)
+    log("phase 19 several clients per round on one card (staging, segmented, resident, cohort, codecs, DP under "
+        "chaos), served, and the refscale command: ok")
 
     kernels = []
     replaces = {"dequant_matmul": "fedcrack_tpu/kernels/dequant.py:88",
@@ -4837,7 +5252,8 @@ def main() -> int:
                     "launches_phase15": shadow["launches"][name],
                     "launches_phase16": privacy["served_launches"][name],
                     "launches_phase17": watched["served_launches"][name],
-                    "launches_phase18": tree["served_launches"][name]} if flavor == "int8" else {}),
+                    "launches_phase18": tree["served_launches"][name],
+                    "launches_phase19": slot_plane["served_launches"][name]} if flavor == "int8" else {}),
                 "max_abs_err": row["max_abs_err"],
                 "ms": row["ms"],
                 "plain_ms": row["plain_ms"],
@@ -4862,6 +5278,7 @@ def main() -> int:
         "launches_phase16": privacy["launches"],
         "launches_phase17": watched["launches"],
         "launches_phase18": tree["launches"],
+        "launches_phase19": slot_plane["launches"],
         **bce_row,
     })
     log(f"profiler: {lead_kept(torch)} at {time.monotonic() - t_start:.1f} s [{card}]")

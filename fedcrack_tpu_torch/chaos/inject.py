@@ -17,7 +17,10 @@ The counterpart of ``fedcrack_tpu.chaos.inject``. Injection points, each a
   is in flight, and a device lost under a batch.
 - :class:`StreamChaos` is the ``chaos=`` hook of the video sessions
   (``serve/stream.py``): a mid-stream reset of the tile cache.
-- :class:`MeshChaos` belongs to the mesh driver, which is not ported yet.
+- :class:`MeshChaos` is the ``fault_injector`` of the slot driver
+  (``parallel.driver.run_mesh_federation``): a device failure before a
+  round attempt, or NaNs poured over its output, each absorbed by a
+  bounded replay.
 
 A server kill is deliberately not a hook: a dead process cannot run one.
 The harnesses call ``transport.service.ServerThread.kill`` and boot a
@@ -43,6 +46,8 @@ from fedcrack_tpu_torch.chaos.plan import (
     CRASH_AFTER_UPLOAD,
     CRASH_BEFORE_UPLOAD,
     CRASH_DURING_UPLOAD,
+    MESH_DEVICE_FAIL,
+    MESH_NONFINITE,
     NAN_UPDATE,
     NETWORK_FLAP,
     SCALED_UPDATE,
@@ -60,9 +65,6 @@ from fedcrack_tpu_torch.chaos.plan import (
 # honest cohort's norm spread, and float32 stays finite for any realistic
 # weight magnitude.
 SCALE_FACTOR = 1000.0
-
-MESH_REFUSAL = "MeshChaos is not ported yet: the mesh driver, ROADMAP Queue 1 item 4"
-
 
 class InjectedCrash(Exception):
     """The planned death of a client process (raised out of the session)."""
@@ -239,11 +241,21 @@ class ClientChaos:
 
 
 class MeshChaos:
-    """The mesh driver's ``fault_injector``; the mesh plane is not ported
-    yet, so construction raises."""
+    """``fault_injector`` for the slot driver's bounded-retry round loop."""
 
     def __init__(self, plan: FaultPlan):
-        raise NotImplementedError(MESH_REFUSAL)
+        self.plan = plan
+
+    def __call__(self, round_idx: int, attempt: int):
+        """Called before each attempt of round ``round_idx``. Raises for a
+        device failure; returns a ``(variables, metrics) -> (variables,
+        metrics)`` poison for silent corruption; None for a clean attempt.
+        Faults are one-shot, so the replay after a failure runs clean."""
+        if self.plan.take(MESH_DEVICE_FAIL, round=round_idx) is not None:
+            raise InjectedDeviceFailure(f"injected device failure (round {round_idx}, attempt {attempt})")
+        if self.plan.take(MESH_NONFINITE, round=round_idx) is not None:
+            return _nan_poison
+        return None
 
 
 class ServeChaos:
@@ -298,3 +310,18 @@ class StreamChaos:
             session.reset()
             if self.manager is not None:
                 self.manager.record_reset()
+
+
+def _nan_poison(variables, metrics):
+    """Every floating leaf of the round's output replaced by NaNs, on its
+    device."""
+    from fedcrack_tpu_torch.fed.pytree import tree_map
+
+    def nanify(tree):
+        return tree_map(
+            lambda a: torch.full_like(a, float("nan")) if isinstance(a, torch.Tensor) and a.is_floating_point()
+            else (np.full_like(a, np.nan) if isinstance(a, np.ndarray) and a.dtype.kind == "f" else a),
+            tree,
+        )
+
+    return nanify(variables), nanify(metrics)

@@ -43,7 +43,7 @@ SCALED_UPDATE = "scaled_update"
 # window the seed-recovery step exists for.
 SECAGG_DROPOUT = "secagg_dropout"
 
-# Mesh plane: the mesh driver's fault_injector (ROADMAP Queue 1 item 4).
+# Mesh plane: the slot driver's fault_injector (parallel/driver.py).
 MESH_DEVICE_FAIL = "mesh_device_fail"          # round dispatch raises (preemption)
 MESH_NONFINITE = "mesh_nonfinite"              # round output poisoned with NaNs
 

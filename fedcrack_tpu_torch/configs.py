@@ -293,8 +293,10 @@ class FedConfig:
     its round machine sends the same handshake map.
 
     The mesh plane's fields (``mesh_clients``, ``mesh_batch``,
-    ``segments``, ``segment_overlap``, ``data_placement``) are kept as data:
-    the mesh plane is not ported yet.
+    ``segments``, ``segment_overlap``, ``data_placement``) drive the slot
+    plane: ``parallel.round_from_config`` builds the round they describe on
+    one card (``mesh_batch`` 1 only), and ``segment_overlap`` is the
+    driver's knob of that name.
 
     Reference values: MAX_NUM_ROUND=5 (fl_server.py:18), 10 s registration
     window (fl_server.py:42), 20 s version poll (fl_client.py:141), local

@@ -228,13 +228,15 @@ def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
 def device_prefetch(iterator, device: torch.device | str, size: int = 2):
     """Overlap host batching with device compute: copy each numpy batch to
     ``device`` ``size`` batches ahead of the one being consumed (pinned
-    host memory and ``non_blocking`` copies on CUDA)."""
+    host memory and ``non_blocking`` copies on CUDA); a batch of tensors
+    already there passes through."""
     device = torch.device(device)
     buf = collections.deque()
     it = iter(iterator)
 
     def put(batch):
-        return tuple(_to_device(np.asarray(a), device) for a in batch)
+        return tuple(a.to(device) if isinstance(a, torch.Tensor) else _to_device(np.asarray(a), device)
+                     for a in batch)
 
     try:
         for _ in range(size):
@@ -248,6 +250,22 @@ def device_prefetch(iterator, device: torch.device | str, size: int = 2):
         except StopIteration:
             pass
         yield nxt
+
+
+def _to_device_now(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A fresh device copy of ``array``, landed before this returns (the
+    staging barrier). On CUDA the copy runs from pinned memory on a side
+    stream, and the tensor is marked as used by the current stream, so
+    the caching allocator keeps it until that stream is done with it."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type != "cuda":
+        return t.clone()
+    side = torch.cuda.Stream(device=device)
+    with torch.cuda.stream(side):
+        out = t.pin_memory().to(device, non_blocking=True)
+    side.synchronize()
+    out.record_stream(torch.cuda.current_stream(device))
+    return out
 
 
 class CrackDataset:
@@ -366,6 +384,348 @@ class CrackDataset:
                 except queue.Empty:
                     break
             t.join(timeout=5.0)
+
+
+S2D_REFUSAL = "SamplePool(layout='s2d') waits for the s2d layouts: ROADMAP Queue 1 item 8"
+
+
+class SamplePool:
+    """Deduplicated per-client sample pool: the resident data plane's
+    source of truth (the counterpart of ``fedcrack_tpu.data.pipeline.
+    SamplePool``).
+
+    The streamed plane ships the same samples every round in a new shuffle
+    order (``parallel.driver.shuffled_epoch_data``). This class keeps the
+    deduplicated pool as a host twin (``images [C, N, H, W, ch]``,
+    ``masks [C, N, H, W, 1]``, uint8 transport canon) and stages it once on
+    the device (:meth:`stage`); per round only an ``[C, epochs, steps,
+    batch]`` int32 gather plan ships, and the round gathers each step's
+    batch on the device (``parallel.fedavg_mesh``,
+    ``data_placement="resident"``). The plans consume the numpy generators
+    exactly as the JAX package's do, so both draw the same plans.
+
+    ``layout="s2d"`` (the JAX package's space-to-depth staging) waits for
+    the s2d layouts, ROADMAP Queue 1 item 8, and raises.
+
+    The host twin is kept: a replay (``max_round_retries``) re-stages the
+    pool from it bit for bit, and the HBM guard's fallback assembles
+    streamed epoch slabs from it (:meth:`assemble_round_slab`).
+    """
+
+    LAYOUTS = ("reference", "s2d")
+
+    def __init__(self, images: np.ndarray, masks: np.ndarray, *, layout: str = "reference"):
+        if layout not in self.LAYOUTS:
+            raise ValueError(f"layout must be one of {self.LAYOUTS}, got {layout!r}")
+        if layout == "s2d":
+            raise NotImplementedError(S2D_REFUSAL)
+        images = np.asarray(images)
+        masks = np.asarray(masks)
+        if images.ndim != 5 or masks.ndim != 5:
+            raise ValueError(
+                "SamplePool wants [C, N, H, W, ch] images and [C, N, H, W, 1] "
+                f"masks; got {images.shape} / {masks.shape}"
+            )
+        if images.shape[:2] != masks.shape[:2]:
+            raise ValueError(
+                f"images/masks disagree on [C, N]: {images.shape[:2]} vs "
+                f"{masks.shape[:2]}"
+            )
+        self.images = np.ascontiguousarray(images)
+        self.masks = np.ascontiguousarray(masks)
+        self.layout = layout
+        # Growable-pool bookkeeping (round 13 satellite, the serve→train
+        # flywheel's prerequisite): per-client VALID counts (capacity may
+        # exceed them after evictions) and per-client content digests of
+        # the STORED sample bytes, so append() preserves the pool's
+        # dedup invariant byte-exactly.
+        self._counts = np.full(self.images.shape[0], self.images.shape[1], np.int64)
+        # Built lazily on the first append/evict: hashing a reference-scale
+        # pool costs seconds, and read-only pools (every pre-flywheel user)
+        # never pay it.
+        self._digests: list[dict[bytes, int]] | None = None
+
+    @classmethod
+    def stack(
+        cls, client_pools: Sequence[tuple[np.ndarray, np.ndarray]], *, layout: str = "reference"
+    ) -> "SamplePool":
+        """Pool from per-client ``(images [N, ...], masks [N, ...])`` pairs.
+        Every client must hold the same N (static shapes — the mesh round
+        is one program over all clients)."""
+        if not client_pools:
+            raise ValueError("no client pools")
+        ns = {p[0].shape[0] for p in client_pools}
+        if len(ns) != 1:
+            raise ValueError(f"clients disagree on pool size: {sorted(ns)}")
+        return cls(
+            np.stack([p[0] for p in client_pools]),
+            np.stack([p[1] for p in client_pools]),
+            layout=layout,
+        )
+
+    @property
+    def n_clients(self) -> int:
+        return self.images.shape[0]
+
+    @property
+    def n_samples(self) -> int:
+        """Pool CAPACITY per client (the device array's sample axis);
+        :meth:`counts` gives the per-client valid counts, which trail
+        capacity after evictions."""
+        return self.images.shape[1]
+
+    @property
+    def nbytes(self) -> int:
+        return int(self.images.nbytes + self.masks.nbytes)
+
+    def counts(self) -> np.ndarray:
+        """Per-client valid sample counts ``[C]`` (gather plans index only
+        ``[0, counts[c])``; capacity lanes past them are retired padding)."""
+        return self._counts.copy()
+
+    @staticmethod
+    def _digest(image: np.ndarray, mask: np.ndarray) -> bytes:
+        import hashlib
+
+        h = hashlib.sha256(np.ascontiguousarray(image).tobytes())
+        h.update(np.ascontiguousarray(mask).tobytes())
+        return h.digest()
+
+    def _ensure_digests(self) -> list[dict[bytes, int]]:
+        if self._digests is None:
+            self._digests = [
+                {
+                    self._digest(self.images[c, i], self.masks[c, i]): i
+                    for i in range(int(self._counts[c]))
+                }
+                for c in range(self.n_clients)
+            ]
+        return self._digests
+
+    def append(self, client: int, images: np.ndarray, masks: np.ndarray) -> int:
+        """Grow one client's pool by the given ``[k, H, W, ch]`` samples
+        (REFERENCE layout in; an ``s2d`` pool packs on the way in, exactly
+        like the constructor), skipping any sample whose stored bytes are
+        already in that client's pool — the dedup invariant the resident
+        plane was built on survives growth. Returns how many samples were
+        actually kept.
+
+        Capacity grows for ALL clients when one client outgrows it (the
+        mesh round's static shapes want one rectangular ``[C, N, ...]``
+        placement); other clients' new lanes are zero padding outside
+        their valid counts. The host twin stays the byte oracle: a staged
+        device pool is a bit-exact copy of these arrays, so re-staging
+        after an append reproduces gathers over the old indices exactly.
+        """
+        if not 0 <= client < self.n_clients:
+            raise ValueError(f"client {client} outside [0, {self.n_clients})")
+        images = np.asarray(images)
+        masks = np.asarray(masks)
+        if images.ndim != 4 or masks.ndim != 4:
+            raise ValueError(
+                "append wants [k, H, W, ch] images and [k, H, W, 1] masks; "
+                f"got {images.shape} / {masks.shape}"
+            )
+        if images.shape[0] != masks.shape[0]:
+            raise ValueError(
+                f"images/masks disagree on k: {images.shape[0]} vs {masks.shape[0]}"
+            )
+        if images.shape[1:] != self.images.shape[2:]:
+            raise ValueError(
+                f"sample shape {images.shape[1:]} does not match pool "
+                f"{self.images.shape[2:]}"
+            )
+        if masks.shape[1:] != self.masks.shape[2:]:
+            raise ValueError(
+                f"mask shape {masks.shape[1:]} does not match pool "
+                f"{self.masks.shape[2:]}"
+            )
+        images = images.astype(self.images.dtype, copy=False)
+        masks = masks.astype(self.masks.dtype, copy=False)
+        fresh_i, fresh_m, fresh_d = [], [], []
+        seen = self._ensure_digests()[client]
+        for i in range(images.shape[0]):
+            d = self._digest(images[i], masks[i])
+            if d in seen or any(d == fd for fd in fresh_d):
+                continue
+            fresh_i.append(images[i])
+            fresh_m.append(masks[i])
+            fresh_d.append(d)
+        if not fresh_i:
+            return 0
+        need = int(self._counts[client]) + len(fresh_i)
+        if need > self.n_samples:
+            grow = need - self.n_samples
+            self.images = np.ascontiguousarray(
+                np.concatenate(
+                    [
+                        self.images,
+                        np.zeros(
+                            (self.n_clients, grow) + self.images.shape[2:],
+                            self.images.dtype,
+                        ),
+                    ],
+                    axis=1,
+                )
+            )
+            self.masks = np.ascontiguousarray(
+                np.concatenate(
+                    [
+                        self.masks,
+                        np.zeros(
+                            (self.n_clients, grow) + self.masks.shape[2:],
+                            self.masks.dtype,
+                        ),
+                    ],
+                    axis=1,
+                )
+            )
+        base = int(self._counts[client])
+        for j, (im, mk, d) in enumerate(zip(fresh_i, fresh_m, fresh_d)):
+            self.images[client, base + j] = im
+            self.masks[client, base + j] = mk
+            seen[d] = base + j
+        self._counts[client] = base + len(fresh_i)
+        return len(fresh_i)
+
+    def evict(self, client: int, indices) -> int:
+        """Retire samples from one client's pool by index. The survivors
+        compact to the front IN ORDER (so a plan regenerated from the new
+        counts stays dense) and the freed tail lanes zero out; capacity
+        never shrinks — the device placement's shape is stable until the
+        next capacity growth. Returns how many samples were evicted.
+        Out-of-range / already-invalid indices are an error (silently
+        ignoring them would desync the dedup digests)."""
+        if not 0 <= client < self.n_clients:
+            raise ValueError(f"client {client} outside [0, {self.n_clients})")
+        self._ensure_digests()
+        n_valid = int(self._counts[client])
+        drop = sorted(set(int(i) for i in np.atleast_1d(np.asarray(indices))))
+        if not drop:
+            return 0
+        if drop[0] < 0 or drop[-1] >= n_valid:
+            raise ValueError(
+                f"evict indices {drop} outside the valid range [0, {n_valid})"
+            )
+        drop_set = set(drop)
+        keep = [i for i in range(n_valid) if i not in drop_set]
+        new_imgs = self.images[client, keep]
+        new_msks = self.masks[client, keep]
+        self.images[client, : len(keep)] = new_imgs
+        self.masks[client, : len(keep)] = new_msks
+        self.images[client, len(keep) : n_valid] = 0
+        self.masks[client, len(keep) : n_valid] = 0
+        self._counts[client] = len(keep)
+        # Remap the surviving digests to their compacted indices instead of
+        # re-hashing the whole surviving pool (hashing a reference-scale
+        # client costs seconds; the digests already exist).
+        remap = {old: new for new, old in enumerate(keep)}
+        self._digests[client] = {
+            d: remap[i]
+            for d, i in self._digests[client].items()
+            if i in remap
+        }
+        return len(drop)
+
+    def round_indices(
+        self,
+        rngs: Sequence[np.random.Generator],
+        epochs: int,
+        steps: int,
+        batch_size: int,
+    ) -> np.ndarray:
+        """One round's gather plan: ``[C, epochs, steps, batch]`` int32.
+
+        Per client, ONE fresh permutation of the pool per round — drawn
+        exactly like ``parallel.driver.shuffled_epoch_data``
+        (``rng.permutation(n)[:steps*batch]``), then tiled across the
+        epochs axis (the mesh round consumes one epoch slab for all local
+        epochs). Same rng state in, same trajectory out — that equivalence
+        is what makes resident == streamed byte-identical (test-pinned).
+        """
+        if len(rngs) != self.n_clients:
+            raise ValueError(f"{len(rngs)} rngs for {self.n_clients} clients")
+        need = steps * batch_size
+        per_client = []
+        for c, rng in enumerate(rngs):
+            # Permute each client's VALID samples only (== the whole pool
+            # until the first append/evict, so untouched pools consume the
+            # rng identically to the pre-growable plane — the byte-oracle
+            # parity the resident tests pin).
+            n_valid = int(self._counts[c])
+            if n_valid < need:
+                raise ValueError(
+                    f"client {c} pool has {n_valid} valid samples, round "
+                    f"needs {need}"
+                )
+            perm = rng.permutation(n_valid)[:need].reshape(steps, batch_size)
+            per_client.append(np.broadcast_to(perm, (max(1, epochs), steps, batch_size)))
+        return np.ascontiguousarray(np.stack(per_client).astype(np.int32))
+
+    def assemble_round_slab(self, idx: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Host-assembled ``[C, steps, B, ...]`` epoch slab from a round's
+        index array — the HBM-guard fallback's bridge back to the streamed
+        plane, and the byte-identity test oracle (``pool[idx]`` on host is
+        the same data movement the device gather performs).
+
+        Requires the index array to be constant along the epochs axis (the
+        round layout holds ONE epoch of data; a per-epoch-varying plan has
+        no streamed equivalent)."""
+        idx = np.asarray(idx)
+        if idx.ndim != 4 or idx.shape[0] != self.n_clients:
+            raise ValueError(
+                f"idx must be [C={self.n_clients}, epochs, steps, batch]; got {idx.shape}"
+            )
+        if not (idx == idx[:, :1]).all():
+            raise ValueError(
+                "idx varies across the epochs axis: no streamed-slab equivalent"
+            )
+        e0 = idx[:, 0]  # [C, steps, B]
+        images = np.ascontiguousarray(
+            np.stack([self.images[c][e0[c]] for c in range(self.n_clients)])
+        )
+        masks = np.ascontiguousarray(
+            np.stack([self.masks[c][e0[c]] for c in range(self.n_clients)])
+        )
+        return images, masks
+
+    def stage(self, mesh) -> tuple:
+        """Device placement on ``mesh.device`` (a ``parallel.make_mesh``
+        value, or a device): one copy of each array, from pinned host
+        memory on CUDA, waited for before returning. Returns the
+        ``(images, masks)`` tensor pair the resident rounds gather from.
+        Re-staging from the host twin is bit-identical (the replay
+        contract)."""
+        device = torch.device(getattr(mesh, "device", mesh))
+        return tuple(_to_device_now(a, device) for a in (self.images, self.masks))
+
+
+def split_epoch_slab(
+    images: np.ndarray, masks: np.ndarray, n_chunks: int
+) -> tuple[tuple[np.ndarray, ...], tuple[np.ndarray, ...]]:
+    """Split one round's ``[C, steps, B, ...]`` epoch slab into ``n_chunks``
+    contiguous step-range chunks (zero-copy views) for segment-grain staging.
+
+    The chunks concatenate back to the original along the steps axis, so a
+    round program consuming them in order is byte-identical to one consuming
+    the monolithic slab (``parallel.fedavg_mesh.SegmentedRound``). Chunk
+    boundaries follow ``np.array_split`` (first ``steps % n_chunks`` chunks
+    one step longer); ``n_chunks`` is clamped to ``steps`` so tiny rounds
+    never produce empty chunks. The counterpart of
+    ``fedcrack_tpu.data.pipeline.split_epoch_slab``."""
+    if images.shape[:3] != masks.shape[:3]:
+        raise ValueError(
+            f"images/masks round layouts disagree: {images.shape[:3]} vs "
+            f"{masks.shape[:3]}"
+        )
+    if n_chunks < 1:
+        raise ValueError(f"n_chunks must be >= 1, got {n_chunks}")
+    steps = images.shape[1]
+    n_chunks = min(n_chunks, steps)
+    bounds = np.array_split(np.arange(steps), n_chunks)
+    img_chunks = tuple(images[:, b[0] : b[-1] + 1] for b in bounds)
+    msk_chunks = tuple(masks[:, b[0] : b[-1] + 1] for b in bounds)
+    return img_chunks, msk_chunks
 
 
 def dataset_from_source(

@@ -33,6 +33,7 @@ import math
 from typing import Any, Callable, Iterable, Sequence
 
 import numpy as np
+import torch
 
 from fedcrack_tpu_torch.fed.algorithms import fedavg
 from fedcrack_tpu_torch.fed.pytree import tree_leaves, tree_map
@@ -236,3 +237,62 @@ def quarantine_set(
     if out and len(out) >= len(set(names)):
         return {}
     return out
+
+
+# ---- the slot plane's instance: the same fold, on the device ----
+#
+# The counterpart of the JAX package's ``mesh_ordered_fold``,
+# ``mesh_zero_sums`` and ``mesh_finish_cohort_mean``. There the fold runs
+# inside ``shard_map`` over the clients axis; here the round's client slots
+# run one after another on one device and fold as they finish. Either way
+# the expression tree is ``(((0 + w0·x0) + w1·x1) + ...)`` in client order,
+# each product and each sum rounded to float32 as its own operation (no
+# fused multiply-add, no reduction whose order a library picks), so a
+# cohort run in groups that continue the carry equals the whole cohort run
+# at once, bit for bit. A zero-weight padding slot adds ±0.0, a bitwise
+# no-op on any partial sum reachable from the +0.0 start.
+
+
+def mesh_ordered_fold(tree: Any, weight: Any, init: tuple) -> tuple:
+    """Continue the carry ``init = (num_tree, den)`` with weighted updates
+    in client order. ``tree`` is one slot's tree with a 0-d ``weight``, or
+    a stacked tree (leaves ``[C, ...]``) with a ``[C]`` weight vector.
+    Float32 tensors on the carry's device throughout."""
+    num, den = init
+    w = torch.as_tensor(weight, dtype=torch.float32).to(den.device)
+    if w.ndim == 0:
+        num = tree_map(lambda a, x: a + w * x.to(torch.float32), num, tree)
+        return num, den + w
+    for i in range(w.shape[0]):
+        wi = w[i]
+        num = tree_map(lambda a, x: a + wi * x[i].to(torch.float32), num, tree)
+        den = den + wi
+    return num, den
+
+
+def mesh_zero_sums(tree: Any) -> tuple:
+    """The fold's identity carry: float32 zeros per update leaf, on each
+    leaf's device, and a 0-d zero weight."""
+    leaves = tree_leaves(tree)
+    device = leaves[0].device if leaves and isinstance(leaves[0], torch.Tensor) else torch.device("cpu")
+    zeros = tree_map(
+        lambda x: torch.zeros(tuple(x.shape), dtype=torch.float32,
+                              device=x.device if isinstance(x, torch.Tensor) else device),
+        tree,
+    )
+    return zeros, torch.zeros((), dtype=torch.float32, device=device)
+
+
+def mesh_finish_cohort_mean(num: Any, total_w: torch.Tensor, fallback: Any) -> Any:
+    """Divide the ordered sums into the FedAvg mean, with the empty-cohort
+    guard: a zero total weight returns ``fallback`` (the round's incoming
+    global) unchanged. Elementwise operations only, on the device."""
+    denom = torch.clamp_min(total_w, 1e-9)
+    keep = total_w > 0.0
+
+    def leaf(s, orig):
+        orig = torch.as_tensor(orig).to(s.device)
+        avg = (s / denom).to(orig.dtype)
+        return torch.where(keep, avg, orig.to(avg.dtype)).contiguous()
+
+    return tree_map(leaf, num, fallback)

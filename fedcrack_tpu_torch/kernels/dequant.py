@@ -40,6 +40,10 @@ a CUDA tensor launches the kernel or raises. Each wrapper counts its
 launches in a plain integer attribute (``dequant_matmul.launches``), so a
 run can show that its main path went through the kernels.
 
+:func:`fake_quant_leaf` and :func:`fake_quant_params` are no kernels: the
+straight-through int8 fake-quant of the slot plane's ``lowp`` twin, plain
+PyTorch.
+
 The kernels build at first use from the package's own sources with
 ``nvcc`` into ``fedcrack_tpu_torch/_build/`` (``kernels/build.py``: a
 shared library with a plain C interface, loaded with ``ctypes``), keyed by
@@ -330,3 +334,33 @@ def dequant_codes(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 dequant_codes.launches = 0
+
+
+# ---- training-side straight-through fake-quant ----
+
+
+def fake_quant_leaf(w: torch.Tensor, channel_axis: int = -1) -> torch.Tensor:
+    """Straight-through int8 fake-quant of one weight tensor: symmetric
+    per-channel codes along ``channel_axis`` (the last axis of a flax
+    HWIO kernel; axis 0 of a torch OIHW weight), an all-zero channel
+    scaled 1.0, the math of ``serve.quant.quantize_leaf`` and the plain
+    ``float(q) * scale`` expansion. The forward value is the dequantized
+    int8 projection; the gradient passes straight through to ``w``."""
+    w32 = w.to(torch.float32)
+    axis = channel_axis % w.ndim
+    dims = tuple(d for d in range(w.ndim) if d != axis)
+    absmax = torch.amax(torch.abs(w32), dim=dims, keepdim=True)
+    scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
+    q = torch.clamp(torch.round(w32 / scale), -127.0, 127.0).to(torch.int8)
+    wq = q.to(torch.float32) * scale
+    return (w32 + (wq - w32).detach()).to(w.dtype)
+
+
+def fake_quant_params(params, channel_axis: int = -1):
+    """:func:`fake_quant_leaf` on every leaf with a channel structure
+    (ndim >= 2) of a params dict or nested dict (the leaf set
+    ``quantize_variables`` quantizes); biases and BatchNorm affines pass
+    through."""
+    if isinstance(params, dict):
+        return {k: fake_quant_params(v, channel_axis) for k, v in params.items()}
+    return fake_quant_leaf(params, channel_axis) if params.ndim >= 2 else params

@@ -1,0 +1,35 @@
+"""Several federated clients per round on one device: the slot plane.
+
+The counterpart of ``fedcrack_tpu.parallel``. The JAX package runs a round
+as one ``shard_map`` program over ``Mesh(('clients', 'batch'))``, one
+client per chip; the port runs the round's client slots on one card in
+client order (``parallel.slots.make_mesh``), folds them in that order on
+the device, and drives rounds with double-buffered staging
+(``parallel.driver``). The spatial plane (``parallel/spatial.py``) and
+several cards (``parallel/multihost.py``) come later in ROADMAP Queue 1
+item 4; ``parallel/mesh.py`` is not ported, by design.
+"""
+
+from fedcrack_tpu_torch.parallel.driver import (  # noqa: F401
+    NonFiniteRound,
+    RoundRecord,
+    resident_pool_fits,
+    run_cohort_federation,
+    run_mesh_federation,
+    shuffled_epoch_data,
+    stage_round_data,
+    stage_round_indices,
+)
+from fedcrack_tpu_torch.parallel.fedavg_mesh import (  # noqa: F401
+    CohortRound,
+    SegmentedRound,
+    build_federated_cohort_round,
+    build_federated_round,
+    build_federated_round_segments,
+    build_spatial_federated_round,
+    mesh_fedavg,
+    pad_cohort_axis,
+    round_from_config,
+    stack_client_data,
+)
+from fedcrack_tpu_torch.parallel.slots import SlotMesh, make_mesh  # noqa: F401

@@ -7,15 +7,15 @@ the federation may learn about an honest client.
   the statefile.
 - :mod:`~fedcrack_tpu_torch.privacy.dpsgd`: update-level DP on the host
   (clip the round's delta, add one seeded Gaussian draw), which the
-  client command line applies before upload.
+  client command line applies before upload, and the per-step DP-SGD
+  transform the slot plane applies to each step's gradients.
 - :mod:`~fedcrack_tpu_torch.privacy.secagg`: pairwise-mask secure
   aggregation over the gRPC rounds, exact modular cancellation in numpy
   ``uint64`` and dropout recovery from the enroll seeds.
 
 Secure aggregation composes only with the plain FedAvg fold: masked
 updates are opaque to the health ledger, so the config refuses robust
-combines and quarantine with it. The per-step DP-SGD transform of the
-mesh plane comes with the mesh plane.
+combines and quarantine with it.
 """
 
 from fedcrack_tpu_torch.privacy.accountant import (  # noqa: F401

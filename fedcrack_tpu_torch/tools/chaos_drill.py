@@ -25,11 +25,12 @@ stack, and returns its verdicts beside its timings:
 - ``scaled_update`` and ``robust_aggregation``: an amplified update that
   the gate accepts, flagged by the ledger, cliffing the canary, breaching
   the watchdog's rules, and held off by the robust folds;
-- ``secagg_dropout``: a masker lost in the recovery window.
+- ``secagg_dropout``: a masker lost in the recovery window;
+- ``dp_replay``: a DP-SGD round of the slot plane killed by a device
+  failure and retried, bit-identical to an unkilled run.
 
-The serving drills run a tiny seeded model on ``device`` (CUDA unless
-given); everything else is host work. The mesh drill ``dp_replay`` waits
-for the mesh driver (:func:`run_dp_replay_drill`).
+The serving drills and ``dp_replay`` run a tiny seeded model on
+``device`` (CUDA unless given); everything else is host work.
 """
 
 from __future__ import annotations
@@ -47,7 +48,6 @@ from fedcrack_tpu_torch.configs import FedConfig
 from fedcrack_tpu_torch.fed import rounds as R
 from fedcrack_tpu_torch.fed.serialization import tree_from_bytes, tree_to_bytes
 
-DP_REPLAY_REFUSAL = "the DP replay drill needs the mesh driver: ROADMAP Queue 1 item 4"
 # The serving drills' tiny model (the JAX drills' widths).
 TINY_MODEL = dict(img_size=16, stem_features=4, encoder_features=(8,), decoder_features=(8, 4))
 
@@ -1338,16 +1338,56 @@ def run_secagg_dropout_drill() -> dict:
     }
 
 
-def run_dp_replay_drill() -> dict:
-    """The DP replay drill retries a killed mesh round with DP-SGD on and
-    holds the replay bit-identical; the mesh driver is not ported yet."""
-    raise NotImplementedError(DP_REPLAY_REFUSAL)
+def run_dp_replay_drill(device=None) -> dict:
+    """A slot-plane round with DP-SGD on (clip 1.0, noise multiplier 1.1)
+    is killed by an injected device failure at round 0 and retried under
+    ``max_round_retries``: the retried federation must equal an unkilled
+    one bit for bit. The noise's round seed is the round program's
+    per-dispatch counter, which the driver restores on the replay with
+    ``codec_state``; this drill is the proof that a retried DP round never
+    draws its noise twice."""
+    import torch
+
+    from fedcrack_tpu_torch.chaos.inject import MeshChaos
+    from fedcrack_tpu_torch.chaos.plan import MESH_DEVICE_FAIL, Fault, FaultPlan
+    from fedcrack_tpu_torch.configs import ModelConfig
+    from fedcrack_tpu_torch.data.synthetic import synth_crack_batch
+    from fedcrack_tpu_torch.fed.pytree import tree_leaves
+    from fedcrack_tpu_torch.models.resunet import init_variables
+    from fedcrack_tpu_torch.parallel import build_federated_round, make_mesh, run_mesh_federation, stack_client_data
+
+    tiny = ModelConfig(**TINY_MODEL)
+    steps, batch = 2, 2
+    mesh = make_mesh(1, 1, device=device)
+    t0 = time.perf_counter()
+
+    def data_fn(r: int):
+        images, masks = stack_client_data([synth_crack_batch(steps * batch, img_size=16, seed=r)], steps, batch)
+        return images, masks, np.ones(1, np.float32), np.full(1, float(steps * batch), np.float32)
+
+    def build():
+        return build_federated_round(mesh, tiny, learning_rate=1e-3, local_epochs=1,
+                                     dp_clip_norm=1.0, dp_noise_multiplier=1.1, dp_seed=42)
+
+    init = init_variables(torch.Generator().manual_seed(0), tiny)
+    v_clean, _ = run_mesh_federation(build(), init, data_fn, 2, mesh)
+    plan = FaultPlan([Fault(kind=MESH_DEVICE_FAIL, round=0)])
+    v_chaos, records = run_mesh_federation(build(), init, data_fn, 2, mesh, max_round_retries=1,
+                                           fault_injector=MeshChaos(plan))
+    identical = all(torch.equal(a, b) for a, b in zip(tree_leaves(v_clean), tree_leaves(v_chaos)))
+    return {
+        "fault_fired": not plan.pending and len(plan.triggered) == 1,
+        "retries_round_0": int(records[0].retries),
+        "replay_bit_identical": bool(identical),
+        "rounds": len(records),
+        "drill_s": round(time.perf_counter() - t0, 4),
+    }
 
 
 def main(argv=None, *, device=None) -> int:
     """Run every drill and write the artifact to ``--out``; any drill that
     raises fails the command, with the flight recorder's ring dumped
-    beside the artifact. ``dp_replay`` is recorded as not ported."""
+    beside the artifact."""
     p = argparse.ArgumentParser(prog="python -m fedcrack_tpu_torch.tools.chaos_drill", description=__doc__)
     p.add_argument("--out", required=True)
     p.add_argument("--rounds", type=int, default=3)
@@ -1372,7 +1412,7 @@ def main(argv=None, *, device=None) -> int:
             "robust_aggregation": run_robust_aggregation_drill(device),
             "stream_reset": run_stream_reset_drill(device),
             "secagg_dropout": run_secagg_dropout_drill(),
-            "dp_replay": {"not_ported": "ROADMAP Queue 1 item 4"},
+            "dp_replay": run_dp_replay_drill(device),
         }
     except BaseException:
         flight.dump("chaos drill failed")

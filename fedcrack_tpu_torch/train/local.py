@@ -106,22 +106,32 @@ def train_step(
     anchor_params: Mapping[str, torch.Tensor],
     mu: float = 0.0,
     pos_weight: float = 1.0,
+    forward=None,
+    after_backward=None,
 ) -> tuple[TrainState, dict[str, torch.Tensor]]:
     """One step: BCE (+ ``(mu/2)·||params − anchor||²``), Adam, BatchNorm
     running statistics. ``batch`` is (images, masks), uint8 or float32,
     numpy or tensors; ``anchor_params`` maps the model's parameter names to
     tensors on its device (:func:`snapshot_params`); the metrics come back
-    as 0-d tensors on the device."""
+    as 0-d tensors on the device.
+
+    The slot plane's twins hook in here, so its step is this step:
+    ``forward(model, images) -> logits`` replaces the model call (the
+    fake-quant forward, recomputation), and ``after_backward(model)`` runs
+    between the backward pass and the Adam step (the DP-SGD clip and
+    noise). Both None (the default) run none of their code."""
     images, masks = as_model_batch(*_device_batch(batch, state.device))
     model = state.model
     model.train()
-    logits = model(images)
+    logits = model(images) if forward is None else forward(model, images)
     metrics = fused_segmentation_metrics(logits, masks, pos_weight=pos_weight)
     loss = metrics["loss"]
     if mu != 0.0:
         loss = loss + fedprox_penalty(dict(model.named_parameters()), anchor_params, mu)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if after_backward is not None:
+        after_backward(model)
     state.optimizer.step()
     state.step += 1
     out = {k: v.detach() for k, v in metrics.items()}

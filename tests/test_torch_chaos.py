@@ -216,8 +216,24 @@ def test_take_is_one_shot_and_noted_in_the_flight_ring():
     finally:
         flight.uninstall()
     assert len(plan) == 0 and len(plan.triggered) == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4$"):
-        MeshChaos(plan)
+    # MeshChaos, the slot driver's hook, takes its faults the same way:
+    # one-shot, so the replay after a fault runs clean.
+    import torch
+
+    from fedcrack_tpu_torch.chaos import MESH_DEVICE_FAIL, MESH_NONFINITE
+    from fedcrack_tpu_torch.chaos.inject import InjectedDeviceFailure
+
+    mesh_plan = FaultPlan([Fault(MESH_DEVICE_FAIL, round=1), Fault(MESH_NONFINITE, round=2)])
+    chaos = MeshChaos(mesh_plan)
+    assert chaos(0, 0) is None
+    with pytest.raises(InjectedDeviceFailure, match="round 1"):
+        chaos(1, 0)
+    assert chaos(1, 1) is None
+    variables, metrics = chaos(2, 0)({"w": torch.ones(2), "n": torch.ones(2, dtype=torch.int32)},
+                                     {"loss": torch.zeros(3)})
+    assert torch.isnan(variables["w"]).all() and torch.isnan(metrics["loss"]).all()
+    assert torch.equal(variables["n"], torch.ones(2, dtype=torch.int32))
+    assert chaos(2, 1) is None and len(mesh_plan) == 0
 
 
 def _blobs():

@@ -25,9 +25,11 @@ artifacts must be equal but for these fields:
   recompile sentry, and -1 is what the JAX drill reports where its
   sentry is unsupported.
 
-Every boolean verdict must be true in both. ``run_dp_replay_drill``
-refuses, naming ROADMAP Queue 1 item 4, and ``main`` writes every key of
-the JAX package's artifact, ``dp_replay`` as a record of that refusal.
+Every boolean verdict must be true in both. ``run_dp_replay_drill`` (a
+DP-SGD round of the slot plane killed and retried) runs on the port only:
+the JAX drill runs the JAX mesh program, which the installed JAX cannot
+run. Its retried federation must equal the unkilled one bit for bit, and
+``main`` writes every key of the JAX package's artifact.
 """
 
 import json
@@ -107,9 +109,14 @@ def test_drill_agrees_with_jax(drill):
         assert got["shadow_completed"] < 64 and got["production_answered_during_shadow"] > 0
 
 
-def test_dp_replay_drill_refuses_naming_item_4():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4$"):
-        P.run_dp_replay_drill()
+def test_dp_replay_drill_replays_bit_identically():
+    """The port's drill, with the JAX drill's fields: the fault fired once,
+    round 0 was retried once, and the retried federation equals the
+    unkilled one bit for bit."""
+    got = P.run_dp_replay_drill("cpu")
+    assert set(got) == {"fault_fired", "retries_round_0", "replay_bit_identical", "rounds", "drill_s"}
+    assert got["fault_fired"] is True and got["replay_bit_identical"] is True
+    assert got["retries_round_0"] == 1 and got["rounds"] == 2
 
 
 def _jax_artifact_keys(tmp_path, monkeypatch) -> set:
@@ -127,7 +134,8 @@ def test_main_writes_every_key_of_the_jax_artifact(tmp_path, monkeypatch, capsys
     assert P.main(["--out", str(out), "--rounds", "2"], device="cpu") == 0
     artifact = json.loads(out.read_text())
     assert artifact["generated_by"] == "fedcrack_tpu_torch.tools.chaos_drill"
-    assert artifact["dp_replay"] == {"not_ported": "ROADMAP Queue 1 item 4"}
+    assert artifact["dp_replay"]["replay_bit_identical"] is True
+    assert artifact["dp_replay"]["retries_round_0"] == 1
     assert artifact["kill_restart"]["rounds"] == 2
     assert json.loads(capsys.readouterr().out.splitlines()[0]) == artifact["kill_restart"]
     for path, value in _verdicts(artifact):
@@ -137,7 +145,7 @@ def test_main_writes_every_key_of_the_jax_artifact(tmp_path, monkeypatch, capsys
 
 def test_main_fails_when_a_drill_raises_and_dumps_the_flight_ring(tmp_path, monkeypatch):
     for name in dir(P):
-        if name.startswith("run_") and name.endswith("_drill") and name != "run_dp_replay_drill":
+        if name.startswith("run_") and name.endswith("_drill"):
             monkeypatch.setattr(P, name, lambda *a, **k: {})
 
     def broken(**kwargs):

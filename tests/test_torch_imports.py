@@ -11,8 +11,8 @@ sessions, autoscaler, shadow controller, canary and drift monitors, the
 serve command's module level, the tools (``load_gen`` reaches the
 front door through ``transport/serve_client.py``), the privacy plane, the
 round checkpointer, the chaos plane and the watch layer, the aggregation
-tree and the chaos drills included (the drills reach grpc through the
-transport only). The port's entry points run on CUDA unless told
+tree and the chaos drills (the drills reach grpc through the transport
+only), and the slot plane with ``tools.refscale_federation`` included. The port's entry points run on CUDA unless told
 otherwise, and every refusal of a part not yet ported names the ROADMAP
 item that lifts it.
 """
@@ -59,11 +59,20 @@ CHAOS_AND_WATCH_MODULES = (
 # The aggregation tree and the chaos drills: no grpc at import either (the
 # edge relay, transport/edge.py, is the transport's).
 TREE_AND_DRILL_MODULES = ("fedcrack_tpu_torch.fed.tree", "fedcrack_tpu_torch.tools.chaos_drill")
-# Every refusal of the port, by the callable that raises it, and the
-# ROADMAP item its message names (ROADMAP.md, "Open items").
+# The slot plane (several clients per round on one card) and its tool: no
+# grpc either.
+SLOT_PLANE_MODULES = (
+    "fedcrack_tpu_torch.parallel", "fedcrack_tpu_torch.parallel.slots", "fedcrack_tpu_torch.parallel.fedavg_mesh",
+    "fedcrack_tpu_torch.parallel.driver", "fedcrack_tpu_torch.compress.mesh",
+    "fedcrack_tpu_torch.tools.refscale_federation",
+)
+# Every refusal of the port, by the callable that raises it, its
+# arguments, and the ROADMAP item its message names (ROADMAP.md, "Open
+# items").
 REFUSALS = (
-    ("fedcrack_tpu_torch.chaos.inject", "MeshChaos", (None,), "item 4"),
-    ("fedcrack_tpu_torch.tools.chaos_drill", "run_dp_replay_drill", (), "item 4"),
+    ("fedcrack_tpu_torch.parallel.fedavg_mesh", "build_spatial_federated_round", (None,), {}, "item 4"),
+    ("fedcrack_tpu_torch.parallel.slots", "make_mesh", (2, 2, "cpu"), {}, "item 4"),
+    ("fedcrack_tpu_torch.data.pipeline", "SamplePool", (None, None), {"layout": "s2d"}, "item 8"),
 )
 
 
@@ -145,6 +154,7 @@ def test_package_imports_with_jax_blocked():
     assert set(PRIVACY_AND_CHECKPOINT_MODULES) <= set(rest)
     assert set(CHAOS_AND_WATCH_MODULES) <= set(rest)
     assert set(TREE_AND_DRILL_MODULES) <= set(rest)
+    assert set(SLOT_PLANE_MODULES) <= set(rest)
     assert "fedcrack_tpu_torch.transport.faults" in with_grpc
     assert "fedcrack_tpu_torch.transport.edge" in with_grpc
     for modules, blocked in ((rest, FORBIDDEN), (with_grpc, tuple(m for m in FORBIDDEN if m not in GRPC_ALLOWED))):
@@ -153,12 +163,12 @@ def test_package_imports_with_jax_blocked():
         assert out.stdout.startswith("ok")
 
 
-@pytest.mark.parametrize("module,name,args,item", REFUSALS, ids=[r[1] for r in REFUSALS])
-def test_refusals_name_their_roadmap_item(module, name, args, item):
+@pytest.mark.parametrize("module,name,args,kwargs,item", REFUSALS, ids=[r[1] for r in REFUSALS])
+def test_refusals_name_their_roadmap_item(module, name, args, kwargs, item):
     import importlib
 
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}$"):
-        getattr(importlib.import_module(module), name)(*args)
+        getattr(importlib.import_module(module), name)(*args, **kwargs)
     roadmap = open(os.path.join(ROOT, "ROADMAP.md"), encoding="utf-8").read()
     assert f"`{name}`" in roadmap
 
@@ -257,3 +267,21 @@ def test_quantify_tool_defaults_to_cuda_and_raises_without_it(tmp_path):
     weights.write_bytes(b"")
     with pytest.raises(RuntimeError, match="cuda"):
         quantify.main(["--weights", str(weights), "--synthetic", "2", "--img-size", "32"])
+
+
+def test_slot_plane_defaults_to_cuda_and_raises_without_it(tmp_path):
+    """``make_mesh`` (and so every round builder and the driver) and
+    ``tools.refscale_federation`` run on CUDA unless given ``device``."""
+    import torch
+
+    from fedcrack_tpu_torch.parallel import make_mesh
+    from fedcrack_tpu_torch.tools import refscale_federation
+
+    if torch.cuda.is_available():
+        assert make_mesh(2).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_mesh(2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        refscale_federation.main(["--out", str(tmp_path / "a.json"), "--samples", "16", "--img", "32"])
+    assert make_mesh(2, device="cpu").device.type == "cpu"
