@@ -266,6 +266,29 @@ on failure, so any failure exits non-zero and prints no result):
     ``dp_replay`` recorded as not ported. Logged: root bytes against flat
     bytes, the edge's restore and recover seconds, the drills' timings,
     the phase's wall.
+19. several clients per round on one card at phase 7's width: 4 slots, 2
+    rounds x 2 epochs x 2 steps through ``parallel.run_mesh_federation``
+    (the main path, each slot bit-equal to a host fit), then the
+    sequential, segmented, resident, cohort, codec and DP-under-chaos runs
+    bit-equal to it, the global served ``fused_int8`` and
+    ``tools.refscale_federation`` as a process.
+20. a client's step split into shards with sync-BN, at full width. (a)
+    ``build_spatial_predict`` at S = 4 on two 1024 x 256 images against
+    the single-device forward (f32, TF32 off): the probabilities within
+    ``SERVE_PROB_TOL``, mask flips within the flip bound; S = 1, S = 4 and
+    the single-device forward timed. (b) One ``build_spatial_train_step``
+    step at S = 4 with SGD(1.0) against the single-device ``train_step``:
+    per leaf ||d|| <= 5e-3 ||ref|| + 1e-5, the statistics within rtol
+    1e-4, one ``bce_sums`` launch (wrapper and profiler). (c) The main
+    path: ``build_spatial_federated_round`` over 2 clients x 2 bands, 2
+    rounds x 2 steps of 2 images at 512 x 256, 8 launches, each round's
+    global within atol 1e-4 (BN-fed biases 5e-3) of the (2, 1) round's,
+    served ``fused_int8`` at 15 / 8 / 1. (d) ``round_from_config`` on
+    ``configs/c5_bf16_batch_dp.json``'s (4, 2) mesh at 128 px, batch 16:
+    within atol 5e-5 of the (4, 1) round in float32, finite in bfloat16.
+    (e) ``python -m fedcrack_tpu_torch.tools.measure_baseline`` over c1,
+    c2, c3 and c5 at a scaled workload: exit 0, four rows with the JAX
+    rows' keys, the card's name in ``hardware``.
 
 ``python3 chip_smoke.py --serve-ticks 0.05,1.0,1.0,0.05`` builds
 ``dequant.cu`` and runs only phase 14, once per autoscaler tick given, and
@@ -5065,6 +5088,453 @@ def slots_phase(torch, card: str) -> dict:
     return out
 
 
+# ---- phase 20: a client's step split into shards with sync-BN ----
+
+SPATIAL_SEED = 20
+SPATIAL_TALL = (2, 1024, 256)  # B, H, W of (a) and (b): the tall images the spatial plane exists for
+SPATIAL_SHARDS = 4
+SPATIAL_ROUND = {"clients": 2, "space": 2, "steps": 2, "batch": 2, "rounds": 2, "h": 512, "w": 256}
+# tests/test_parallel.py::TestSpatialFederatedRound's shapes: 4 clients x 2
+# bands, 2 epochs x 2 steps of 4 images at 32 px, the tiny U-Net.
+SPATIAL_JAX_TEST = {"clients": 4, "space": 2, "steps": 2, "batch": 4, "epochs": 2, "img": 32,
+                    "model": {"stem_features": 4, "encoder_features": (8,), "decoder_features": (8, 4)}}
+C5_IMG, C5_BATCH, C5_STEPS = 128, 16, 2
+BASELINE_ARGS = ["--configs", "c1,c2,c3,c5", "--samples", "32", "--epochs", "1", "--rounds", "1",
+                 "--mesh-steps", "2", "--mesh-img", "128", "--epochs-quality", "1"]
+BASELINE_TIMEOUT_S = 300.0
+
+
+def tall_batch(n: int, h: int, w: int, seed: int):
+    """``n`` seeded synthetic crack images of ``h x w`` and their masks
+    (``synth_crack_batch`` at ``h``, its first ``w`` columns)."""
+    import numpy as np
+
+    from fedcrack_tpu_torch.data.synthetic import synth_crack_batch
+
+    images, masks = synth_crack_batch(n, h, seed=seed)
+    return np.ascontiguousarray(images[:, :, :w]), np.ascontiguousarray(masks[:, :, :w])
+
+
+def trees_within(label: str, got, want, atol: float, bn_atol: float = 5e-3) -> dict:
+    """``tests/test_parallel.py::_assert_trees_match`` on two flax-layout
+    trees: every leaf within ``atol``, a bias feeding a BatchNorm within
+    ``bn_atol`` (its true gradient is 0, so Adam turns noise into lr-sized
+    steps there). Returns the largest difference of each class."""
+    import numpy as np
+
+    worst = {"other": 0.0, "bn_fed_bias": 0.0}
+    want_flat = dict(_flat_tree(host_tree(want)))
+    for path, g in _flat_tree(host_tree(got)):
+        name = ".".join(path[1:-1] + (path[-1] if path[-1] != "kernel" else "weight",))
+        kind = "bn_fed_bias" if path[0] == "params" and _bn_fed_bias(name) else "other"
+        d = float(np.max(np.abs(np.asarray(g, np.float64) - np.asarray(want_flat[path], np.float64))))
+        worst[kind] = max(worst[kind], d)
+    if worst["other"] > atol or worst["bn_fed_bias"] > bn_atol:
+        raise AssertionError(f"[spatial] {label}: {worst} over atol {atol} (BN-fed biases {bn_atol})")
+    return worst
+
+
+def adam_step_bound(steps: int, b1: float = 0.9, b2: float = 0.999) -> float:
+    """The most one bias-corrected Adam step (optax's, eps aside) can move
+    an element, in units of the learning rate, over the first ``steps``
+    steps: ``|m_hat| / sqrt(v_hat) <= sqrt(sum_i a_i^2 / b_i)`` (Cauchy-
+    Schwarz), ``a_i`` and ``b_i`` the weights of gradient ``i`` in
+    ``m_hat`` and ``v_hat``."""
+    import math
+
+    worst = 0.0
+    for t in range(1, steps + 1):
+        a = [(1 - b1) * b1 ** (t - i) / (1 - b1 ** t) for i in range(1, t + 1)]
+        b = [(1 - b2) * b2 ** (t - i) / (1 - b2 ** t) for i in range(1, t + 1)]
+        worst = max(worst, math.sqrt(sum(x * x / y for x, y in zip(a, b))))
+    return worst
+
+
+def spatial_predict_run(torch, cfg, variables, images, card: str) -> dict:
+    """Phase 20 (a): ``build_spatial_predict`` at S = 4 against the
+    single-device forward on the card, f32 with TF32 off: the largest
+    probability difference within ``SERVE_PROB_TOL``, and no more mask
+    flips than pixels within that difference of 0.5 (the flip bound).
+    S = 1, S = 4 and the single-device forward are timed."""
+    from fedcrack_tpu_torch.models.convert import from_flax_variables
+    from fedcrack_tpu_torch.models.resunet import ResUNet
+    from fedcrack_tpu_torch.parallel import build_spatial_predict, make_spatial_mesh
+
+    model = from_flax_variables(variables, ResUNet(cfg)).eval()
+    x = torch.from_numpy(images).cuda()
+    with torch.no_grad():
+        want = torch.sigmoid(model(x))
+    fns = {s: build_spatial_predict(make_spatial_mesh(s), cfg) for s in (1, SPATIAL_SHARDS)}
+    out = {}
+    for s, fn in fns.items():
+        got = fn(model, x)
+        diff = float((got - want).abs().max())
+        flips = int(((got > 0.5) != (want > 0.5)).sum())
+        near = int(((want - 0.5).abs() <= diff).sum())
+        if not diff < SERVE_PROB_TOL or flips > near or got.shape != want.shape:
+            raise AssertionError(f"[spatial] predict S={s}: {diff} from the single-device forward, {flips} flips "
+                                 f"against {near} pixels within it of 0.5, shape {tuple(got.shape)}")
+        out[f"S{s}"] = {"max_prob_diff": diff, "flips": flips, "pixels_near_threshold": near,
+                        "ms": cuda_ms(torch, lambda fn=fn: fn(model, x), iters=5, warmup=2)}
+
+    def single():
+        with torch.no_grad():
+            return torch.sigmoid(model(x))
+
+    out["single_device_ms"] = cuda_ms(torch, single, iters=5, warmup=2)
+    out["crack_share"] = float((want > 0.5).float().mean())
+    log(f"[spatial] (a) predict {SPATIAL_TALL[0]} x {SPATIAL_TALL[1]} x {SPATIAL_TALL[2]}: {json.dumps(out)} [{card}]")
+    return out
+
+
+def spatial_step_run(torch, cfg, variables, images, masks, card: str) -> dict:
+    """Phase 20 (b): one ``build_spatial_train_step`` step at S = 4 with
+    SGD(1.0), so a parameter's move is its gradient, against the
+    single-device ``train_step`` from the same weights: per leaf ||d|| <=
+    5e-3 ||ref|| + 1e-5 (``tests/test_spatial.py``'s criterion), the
+    running statistics within rtol 1e-4 / atol 1e-6, the loss within rtol
+    1e-5; one ``bce_sums`` launch for all bands, on its wrapper count and
+    the profiler's. Both steps are then timed.
+
+    A bias feeding a train-mode BatchNorm has a true gradient of exactly
+    0: both sides hold rounding noise there, which at these 524,288
+    pixels reaches JAX's 1e-5 floor (calibrated at 8,192) on the CPU too
+    (2 x 256 x 128 at full width: ||d|| 1.25e-5 against a bound of
+    1.004e-5, both sides' norms ~9e-6). Those leaves are held as phase 7
+    holds them: each side's gradient norm below 1e-4 of the largest
+    gradient of the net. Their JAX-criterion ratio is logged."""
+    import numpy as np
+
+    from fedcrack_tpu_torch.ops import bce
+    from fedcrack_tpu_torch.parallel import build_spatial_train_step, make_spatial_mesh
+    from fedcrack_tpu_torch.train import local
+
+    step = build_spatial_train_step(make_spatial_mesh(SPATIAL_SHARDS), cfg,
+                                    optimizer=lambda p, lr: torch.optim.SGD(p, lr=1.0))
+    batch = (torch.from_numpy(images).cuda(), torch.from_numpy(masks).cuda())
+    start = {k: v.detach().clone() for k, v in step.init(variables).model.named_parameters()}
+    sharded, single = step.init(variables), step.init(variables)
+    torch.cuda.synchronize()
+    bce.reset_launch_counts()
+    _, m_s = step(sharded, *batch)
+    torch.cuda.synchronize()
+    launches = bce.bce_sums.launches
+    _, m_1 = local.train_step(single, batch, {}, 0.0, 1.0)
+    loss_rel = abs(float(m_s["loss"]) - float(m_1["loss"])) / abs(float(m_1["loss"]))
+    worst = {"grad_err_over_bound": 0.0, "bn_fed_bias_err_over_bound": 0.0, "bn_fed_bias_norm_over_g_max": 0.0,
+             "stats_rel": 0.0}
+    single_params = dict(single.model.named_parameters())
+    grads = {name: ((start[name] - p.detach()).double(), (start[name] - single_params[name].detach()).double())
+             for name, p in sharded.model.named_parameters()}
+    g_max = max(float(g_1.abs().max()) for _, g_1 in grads.values())
+    bad = []
+    for name, (g_s, g_1) in grads.items():
+        err, bound = float(torch.linalg.vector_norm(g_s - g_1)), 5e-3 * float(torch.linalg.vector_norm(g_1)) + 1e-5
+        if _bn_fed_bias(name):
+            noise = max(float(torch.linalg.vector_norm(g_s)), float(torch.linalg.vector_norm(g_1))) / g_max
+            worst["bn_fed_bias_err_over_bound"] = max(worst["bn_fed_bias_err_over_bound"], err / bound)
+            worst["bn_fed_bias_norm_over_g_max"] = max(worst["bn_fed_bias_norm_over_g_max"], noise)
+            if noise > 1e-4:
+                bad.append(f"{name}: a BN-fed bias's gradient norm at {noise:.3e} of the largest gradient")
+        else:
+            worst["grad_err_over_bound"] = max(worst["grad_err_over_bound"], err / bound)
+            if err > bound:
+                bad.append(f"{name}: gradient off by ||d|| = {err:.3e}, bound {bound:.3e}")
+    if bad:
+        raise AssertionError(f"[spatial] (b) {bad}; {json.dumps(worst)}")
+    single_buffers = dict(single.model.named_buffers())
+    for name, b in sharded.model.named_buffers():
+        want = single_buffers[name]
+        if not torch.allclose(b, want, rtol=1e-4, atol=1e-6):
+            raise AssertionError(f"[spatial] (b) {name}: running statistics {float((b - want).abs().max())} apart")
+        worst["stats_rel"] = max(worst["stats_rel"], float(((b - want).abs() / want.abs().clamp_min(1e-6)).max()))
+    if loss_rel > 1e-5 or launches != 1:
+        raise AssertionError(f"[spatial] (b) loss {loss_rel} apart relatively, bce_sums launches {launches}")
+    seen = []
+    for _ in range(PROFILE_TRIES):
+        probe = step.init(variables)
+        torch.cuda.synchronize()
+        with card_profile(torch) as prof:
+            step(probe, *batch)
+        profiled = sum(e.count for e in card_kernels(prof) if "bce_sums_kernel" in e.key)
+        if profiled == 1:
+            break
+        seen.append(profiled)
+        log(f"profile retaken: {profiled} bce_sums_kernel records in one sharded step")
+    else:
+        raise AssertionError(f"[spatial] (b) the profiler saw {seen} bce_sums kernels in one step, want 1")
+
+    def step_ms(fn, state, n=5):
+        fn(state)
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn(state)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ms))
+
+    out = {"loss": float(m_s["loss"]), "loss_rel": loss_rel, **worst, "bce_sums_launches": launches,
+           "bce_sums_profiled": profiled,
+           "sharded_step_ms": step_ms(lambda st: step(st, *batch), sharded),
+           "single_step_ms": step_ms(lambda st: local.train_step(st, batch, {}, 0.0, 1.0), single)}
+    log(f"[spatial] (b) one step at S={SPATIAL_SHARDS} against the single-device step: {json.dumps(out)} [{card}]")
+    return out
+
+
+def spatial_round_run(torch, cfg, card: str) -> dict:
+    """Phase 20 (c), the main path: ``build_spatial_federated_round`` over
+    2 clients x 2 bands, 1 epoch x 2 steps of 2 images at 512 x 256, 2
+    rounds through the driver, counted (2 x 2 x 2 = 8 ``bce_sums``
+    launches); each round's global against the ``(2, 1)`` round's on the
+    same data within Adam's bound (below); (c2) the same comparison at
+    ``TestSpatialFederatedRound``'s shapes within its atol 1e-4 (BN-fed
+    biases 5e-3); the global served ``fused_int8``."""
+    import numpy as np
+
+    from fedcrack_tpu_torch.fed.pytree import tree_leaves
+    from fedcrack_tpu_torch.models.resunet import init_variables
+    from fedcrack_tpu_torch.ops import bce
+    from fedcrack_tpu_torch.parallel import build_federated_round, build_spatial_federated_round, make_mesh
+    from fedcrack_tpu_torch.parallel import run_mesh_federation
+    from fedcrack_tpu_torch.parallel.spatial import SPACE
+
+    p = SPATIAL_ROUND
+    c, steps, b = p["clients"], p["steps"], p["batch"]
+    per = [tall_batch(steps * b, p["h"], p["w"], SPATIAL_SEED * 100 + i) for i in range(c)]
+    images = np.stack([im.reshape(steps, b, *im.shape[1:]) for im, _ in per])
+    masks = np.stack([m.reshape(steps, b, *m.shape[1:]) for _, m in per])
+    active, ns = np.ones(c, np.float32), np.full(c, float(steps * b), np.float32)
+    global0 = init_variables(torch.Generator().manual_seed(SPATIAL_SEED + 1), cfg)
+    runs = {}
+    for label, mesh, build in (
+        ("spatial", make_mesh(c, p["space"], axis_names=("clients", SPACE)), build_spatial_federated_round),
+        ("unsplit", make_mesh(c), build_federated_round),
+    ):
+        rf = build(mesh, cfg, local_epochs=1)
+        globals_ = []
+        torch.cuda.synchronize()
+        bce.reset_launch_counts()
+        t0 = time.monotonic()
+        final, records = run_mesh_federation(rf, global0, lambda r: (images, masks, active, ns) if r == 0 else None,
+                                             p["rounds"], mesh, on_round=lambda rec, v: globals_.append(v))
+        torch.cuda.synchronize()
+        runs[label] = {"final": final, "globals": globals_, "wall_s": time.monotonic() - t0,
+                       "launches": bce.bce_sums.launches, "round_walls_s": [r.wall_clock_s for r in records],
+                       "losses": [r.metrics["loss"] for r in records]}
+        want = c * steps * p["rounds"]
+        if runs[label]["launches"] != want or not all(bool(torch.isfinite(t).all()) for t in tree_leaves(final)):
+            raise AssertionError(f"[spatial] (c) {label}: bce_sums launches {runs[label]['launches']} (want {want}) "
+                                 "or a non-finite global")
+    # Two float32 programs that sum in other orders (the bands' convs and
+    # BatchNorm moments against the whole image's) drift apart over Adam
+    # steps at full width: BatchNorm's fast variance and Adam's sign-like
+    # first steps amplify the rounding of near-zero gradients to lr-sized
+    # moves (phase 7 compares the card and the CPU over one step for the
+    # same reason). So each round's global is held to what Adam allows:
+    # each side moves an element at most adam_step_bound * lr a step, and
+    # FedAvg is a convex combination, so after round r the two differ by at
+    # most 2 * r * steps * bound * lr. How many elements leave the JAX
+    # test's atol 1e-4 is logged; check (c2) holds that tolerance at the JAX
+    # test's own shapes.
+    lr = 1e-3
+    step_bound = adam_step_bound(steps)
+    diffs = []
+    for r, (g, u) in enumerate(zip(runs["spatial"]["globals"], runs["unsplit"]["globals"])):
+        bound = 2 * (r + 1) * steps * step_bound * lr * (1 + 1e-3)
+        d = trees_within(f"round {r} (Adam bound)", g, u, atol=bound, bn_atol=bound)
+        gl, ul = tree_leaves(host_tree(g)), tree_leaves(host_tree(u))
+        d["beyond_1e-4"] = int(sum(int((np.abs(a - b) > 1e-4).sum()) for a, b in zip(gl, ul)))
+        d["elements"] = int(sum(a.size for a in gl))
+        d["adam_bound"] = bound
+        diffs.append(d)
+    losses = {k: [rec_m.tolist() for rec_m in v["losses"]] for k, v in runs.items()}
+    jax_shapes = spatial_round_jax_shapes(torch, card)
+    serve = serve_global(torch, cfg, host_tree(runs["spatial"]["final"]), card, "spatial", SPATIAL_SEED)
+    out = {"launches": runs["spatial"]["launches"], "served_launches": serve["served_launches"],
+           "global_diff_by_round": diffs, "client_losses_by_round": losses, "jax_test_shapes": jax_shapes,
+           **{f"{k}_round_walls_s": v["round_walls_s"] for k, v in runs.items()},
+           **{f"{k}_wall_s": v["wall_s"] for k, v in runs.items()}}
+    log(f"[spatial] (c) {c} clients x {p['space']} bands, {p['rounds']} rounds x {steps} steps of {b} at "
+        f"{p['h']} x {p['w']}: {json.dumps(out)} [{card}]")
+    return out
+
+
+def spatial_round_jax_shapes(torch, card: str) -> dict:
+    """Phase 20 (c2): ``tests/test_parallel.py::TestSpatialFederatedRound``
+    on the card: the tiny U-Net at 32 px, 4 clients x 2 bands, 2 epochs x
+    2 steps of 4 images, against the (4, 1) round on the same data, within
+    its atol 1e-4 (BN-fed biases 5e-3); 16 ``bce_sums`` launches a run."""
+    import dataclasses
+
+    import numpy as np
+
+    from fedcrack_tpu_torch.configs import ModelConfig
+    from fedcrack_tpu_torch.data.synthetic import synth_crack_batch
+    from fedcrack_tpu_torch.models.resunet import init_variables
+    from fedcrack_tpu_torch.ops import bce
+    from fedcrack_tpu_torch.parallel import build_federated_round, build_spatial_federated_round, make_mesh
+    from fedcrack_tpu_torch.parallel import stack_client_data
+    from fedcrack_tpu_torch.parallel.spatial import SPACE
+
+    p = SPATIAL_JAX_TEST
+    cfg = dataclasses.replace(ModelConfig(img_size=p["img"]), **p["model"])
+    c = p["clients"]
+    per = [synth_crack_batch(p["steps"] * p["batch"], p["img"], seed=i) for i in range(c)]
+    images, masks = stack_client_data(per, p["steps"], p["batch"])
+    active, ns = np.ones(c, np.float32), np.full(c, float(p["steps"] * p["batch"]), np.float32)
+    global0 = init_variables(torch.Generator().manual_seed(2), cfg)
+    got = {}
+    for label, mesh, build in (
+        ("spatial", make_mesh(c, p["space"], axis_names=("clients", SPACE)), build_spatial_federated_round),
+        ("unsplit", make_mesh(c), build_federated_round),
+    ):
+        bce.reset_launch_counts()
+        got[label], _ = build(mesh, cfg, learning_rate=1e-3, local_epochs=p["epochs"])(global0, images, masks,
+                                                                                         active, ns)
+        torch.cuda.synchronize()
+        if bce.bce_sums.launches != c * p["steps"] * p["epochs"]:
+            raise AssertionError(f"[spatial] (c2) {label}: bce_sums launches {bce.bce_sums.launches}")
+    return trees_within("(c2) at the JAX test's shapes", got["spatial"], got["unsplit"], atol=1e-4)
+
+
+def c5_batch_axis_run(torch, card: str) -> dict:
+    """Phase 20 (d): ``round_from_config`` on ``configs/c5_bf16_batch_dp.json``
+    at its mesh shape (4, 2), 128 px, batch 16, one epoch of 2 steps: in
+    float32 against the (4, 1) round within
+    ``test_intra_client_batch_dp_matches_host``'s atol 5e-5 (BN-fed biases
+    5e-3), then in c5's bfloat16 with finite weights; 8 ``bce_sums``
+    launches a run."""
+    import dataclasses
+
+    import numpy as np
+
+    from fedcrack_tpu_torch.configs import FedConfig
+    from fedcrack_tpu_torch.data.synthetic import synth_crack_batch
+    from fedcrack_tpu_torch.fed.pytree import tree_leaves
+    from fedcrack_tpu_torch.models.resunet import init_variables
+    from fedcrack_tpu_torch.ops import bce
+    from fedcrack_tpu_torch.parallel import round_from_config, stack_client_data
+
+    with open(os.path.join(HERE, "configs", "c5_bf16_batch_dp.json"), encoding="utf-8") as f:
+        c5 = FedConfig.from_json(f.read())
+    c5 = dataclasses.replace(c5, model=dataclasses.replace(c5.model, img_size=C5_IMG),
+                             data=dataclasses.replace(c5.data, img_size=C5_IMG, batch_size=C5_BATCH), local_epochs=1)
+    f32 = dataclasses.replace(c5, model=dataclasses.replace(c5.model, compute_dtype="float32"))
+    n = c5.mesh_clients
+    per = [synth_crack_batch(C5_STEPS * C5_BATCH, C5_IMG, seed=SPATIAL_SEED * 10 + i) for i in range(n)]
+    images, masks = stack_client_data(per, C5_STEPS, C5_BATCH)
+    active, ns = np.ones(n, np.float32), np.full(n, float(C5_STEPS * C5_BATCH), np.float32)
+    global0 = init_variables(torch.Generator().manual_seed(SPATIAL_SEED + 2), c5.model)
+    out, got = {}, {}
+    for label, cfg in (("f32_4x2", f32), ("f32_4x1", dataclasses.replace(f32, mesh_batch=1)), ("bf16_4x2", c5)):
+        mesh, rf = round_from_config(cfg)
+        torch.cuda.synchronize()
+        bce.reset_launch_counts()
+        t0 = time.monotonic()
+        got[label], _ = rf(global0, images, masks, active, ns)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = bce.bce_sums.launches
+        if launches != n * C5_STEPS or not all(bool(torch.isfinite(t).all()) for t in tree_leaves(got[label])):
+            raise AssertionError(f"[spatial] (d) {label}: bce_sums launches {launches} or a non-finite global")
+        out[label] = {"mesh": mesh.shape, "wall_s": wall, "launches": launches}
+    out["f32_4x2_vs_4x1"] = trees_within("c5 (4, 2) vs (4, 1)", got["f32_4x2"], got["f32_4x1"], atol=5e-5)
+    out["f32_bit_equal"] = same_bits(got["f32_4x2"], got["f32_4x1"])
+    log(f"[spatial] (d) c5's mesh fields, {n} clients x batch axis 2 at {C5_IMG} px batch {C5_BATCH}: "
+        f"{json.dumps(out)} [{card}]")
+    return out
+
+
+def jax_baseline_keys(root: str = HERE) -> dict:
+    """The row keys of the JAX package's ``tools/measure_baseline`` per
+    ``measure_*`` function, read from its source with ``ast`` (nothing of
+    it is imported); a ``**quality`` spread stands for ``_eval_quality``'s
+    keys."""
+    import ast
+
+    with open(os.path.join(root, "fedcrack_tpu", "tools", "measure_baseline.py"), encoding="utf-8") as f:
+        module = ast.parse(f.read())
+    fns = {n.name: n for n in module.body if isinstance(n, ast.FunctionDef)}
+
+    def returned(fn):
+        return [n for n in ast.walk(fns[fn]) if isinstance(n, ast.Return) and isinstance(n.value, ast.Dict)][-1].value
+
+    quality = {k.value for k in returned("_eval_quality").keys}
+    return {name: {k.value for k in returned(name).keys if k is not None}
+            | (quality if any(k is None for k in returned(name).keys) else set())
+            for name in ("measure_c1", "measure_c2", "measure_mesh")}
+
+
+def baseline_run(torch, card: str) -> dict:
+    """Phase 20 (e): ``python -m fedcrack_tpu_torch.tools.measure_baseline``
+    over c1, c2, c3 and c5 at a scaled workload on the card through
+    ``CLI_SHIM``: exit 0, four rows with every key of the JAX tool's rows,
+    the card's name in ``hardware.device_kind``, c5 on the (4, 2) mesh."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="fedcrack_baseline_") as tmp:
+        out_path = os.path.join(tmp, "baseline.json")
+        proc = CliProcess("baseline", "fedcrack_tpu_torch.tools.measure_baseline", BASELINE_ARGS + ["--out", out_path],
+                          tmp)
+        try:
+            rc = proc.wait(time.monotonic() + BASELINE_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            raise AssertionError(f"the measure_baseline command timed out:\n{proc.text()[-4000:]}")
+        if rc != 0:
+            raise AssertionError(f"the measure_baseline command exited {rc}:\n{proc.text()[-4000:]}")
+        with open(out_path, encoding="utf-8") as f:
+            artifact = json.load(f)
+        report = proc.report()
+    rows = artifact["rows"]
+    want = jax_baseline_keys()
+    kind = torch.cuda.get_device_name(0)
+    if len(rows) != 4 or artifact["hardware"]["device_kind"] != kind:
+        raise AssertionError(f"measure_baseline: {len(rows)} rows, hardware {artifact['hardware']}")
+    for row, fn in zip(rows, ("measure_c1", "measure_c2", "measure_mesh", "measure_mesh")):
+        if set(row) != want[fn] or row["hardware"]["device_kind"] != kind:
+            raise AssertionError(f"measure_baseline {row.get('config')}: keys {sorted(set(row) ^ want[fn])} differ "
+                                 f"from the JAX row's, or hardware {row['hardware']}")
+    if (rows[3]["workload"]["clients"], rows[3]["workload"]["batch_dp"]) != (4, 2):
+        raise AssertionError(f"measure_baseline c5 workload {rows[3]['workload']}")
+    out = {"command_wall_s": report["wall_s"], "start_to_first_launch_s": report["start_to_first_launch_s"],
+           "bce_sums_launches": report["bce_sums_launches"], "hardware": artifact["hardware"],
+           "rows": {r["config"]: {k: r.get(k) for k in ("round_wall_clock_s", "per_step_ms", "wall_clock_s",
+                                                         "val_loss", "iou")} for r in rows}}
+    log(f"[spatial] (e) python -m fedcrack_tpu_torch.tools.measure_baseline {' '.join(BASELINE_ARGS)}: "
+        f"{json.dumps(out)} [{card}]")
+    return out
+
+
+def spatial_phase(torch, card: str) -> dict:
+    """Phase 20, a client's step split into shards with sync-BN, at full
+    width (``ModelConfig()``): the spatial predict and train step on tall
+    images, the spatial round (the main path) served quantized, c5's batch
+    axis, and the measure_baseline command."""
+    from fedcrack_tpu_torch.configs import ModelConfig
+    from fedcrack_tpu_torch.models.resunet import init_variables
+    from fedcrack_tpu_torch.train.local import configure_backends
+
+    t0 = time.monotonic()
+    configure_backends()
+    cfg = ModelConfig()
+    variables = init_variables(torch.Generator().manual_seed(SPATIAL_SEED), cfg)
+    b, h, w = SPATIAL_TALL
+    images, masks = tall_batch(b, h, w, SPATIAL_SEED)
+    predict = spatial_predict_run(torch, cfg, variables, images, card)
+    step = spatial_step_run(torch, cfg, variables, images, masks, card)
+    rnd = spatial_round_run(torch, cfg, card)
+    c5 = c5_batch_axis_run(torch, card)
+    baseline = baseline_run(torch, card)
+    out = {"launches": rnd["launches"], "served_launches": rnd["served_launches"], "predict": predict,
+           "step": step, "round": {k: v for k, v in rnd.items() if k not in ("launches", "served_launches")},
+           "c5": c5, "baseline": baseline, "phase_s": time.monotonic() - t0}
+    log(f"[phase20] {json.dumps(out)} [{card}]")
+    return out
+
+
 def server_breakdown(config, template, rnd: dict, n: int = 3) -> dict:
     """Host ms (median of ``n``) of each step the round machine takes on
     one round's accepted uploads: the gate per upload (validate, decode,
@@ -5232,6 +5702,9 @@ def main() -> int:
     slot_plane = slots_phase(torch, card)
     log("phase 19 several clients per round on one card (staging, segmented, resident, cohort, codecs, DP under "
         "chaos), served, and the refscale command: ok")
+    spatial = spatial_phase(torch, card)
+    log("phase 20 a client's step split into shards with sync-BN: spatial predict and step on tall images, the "
+        "spatial round served, c5's batch axis, and the measure_baseline command: ok")
 
     kernels = []
     replaces = {"dequant_matmul": "fedcrack_tpu/kernels/dequant.py:88",
@@ -5253,7 +5726,8 @@ def main() -> int:
                     "launches_phase16": privacy["served_launches"][name],
                     "launches_phase17": watched["served_launches"][name],
                     "launches_phase18": tree["served_launches"][name],
-                    "launches_phase19": slot_plane["served_launches"][name]} if flavor == "int8" else {}),
+                    "launches_phase19": slot_plane["served_launches"][name],
+                    "launches_phase20": spatial["served_launches"][name]} if flavor == "int8" else {}),
                 "max_abs_err": row["max_abs_err"],
                 "ms": row["ms"],
                 "plain_ms": row["plain_ms"],
@@ -5279,6 +5753,7 @@ def main() -> int:
         "launches_phase17": watched["launches"],
         "launches_phase18": tree["launches"],
         "launches_phase19": slot_plane["launches"],
+        "launches_phase20": spatial["launches"],
         **bce_row,
     })
     log(f"profiler: {lead_kept(torch)} at {time.monotonic() - t_start:.1f} s [{card}]")

@@ -295,7 +295,8 @@ class FedConfig:
     The mesh plane's fields (``mesh_clients``, ``mesh_batch``,
     ``segments``, ``segment_overlap``, ``data_placement``) drive the slot
     plane: ``parallel.round_from_config`` builds the round they describe on
-    one card (``mesh_batch`` 1 only), and ``segment_overlap`` is the
+    one card (a ``mesh_batch`` above 1 splits each step's batch with
+    sync-BN), and ``segment_overlap`` is the
     driver's knob of that name.
 
     Reference values: MAX_NUM_ROUND=5 (fl_server.py:18), 10 s registration

@@ -132,15 +132,13 @@ class BatchNorm(nn.Module):
 
 
 class SeparableConv(nn.Module):
-    """Depthwise 3x3 (no bias) + pointwise 1x1, Keras ``SeparableConv2D``."""
+    """Depthwise 3x3 (no bias) + pointwise 1x1, Keras ``SeparableConv2D``:
+    :meth:`ResUNet.trunk` calls the two convs, padding between them."""
 
     def __init__(self, in_features: int, features: int):
         super().__init__()
         self.depthwise = _conv(in_features, in_features, 3, groups=in_features, bias=False)
         self.pointwise = _conv(in_features, features, 1)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:  # NCHW
-        return self.pointwise(self.depthwise(_pad_same(x, 3, 1)))
 
 
 class ResUNet(nn.Module):
@@ -239,37 +237,61 @@ class ResUNet(nn.Module):
                 module.var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        cfg = self.config
         x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
         if self.training:
             # Train mode runs NCHW-contiguous: torch's CPU backward of the
             # 1x1 stride-2 residual conv on channels-last tensors crashes
             # (oneDNN, batch 2 and 3). Eval mode keeps the layout it serves.
             x = x.contiguous()
-        x = self.stem_conv(_pad_same(x, 3, 2))
+        return _upsample2x_nchw(self.trunk(x, SAME)).permute(0, 2, 3, 1)
+
+    def trunk(self, x: torch.Tensor, geometry: "SameGeometry") -> torch.Tensor:
+        """The layers from the stem to the head on NCHW input in the
+        compute dtype: float32 logits at half resolution, before the final
+        upsample. ``geometry`` pads the 3x3 windows and pools; the spatial
+        plane (``parallel.spatial``) passes its halo geometry here, so a
+        sharded forward runs these very layers."""
+        cfg = self.config
+        x = self.stem_conv(geometry.pad_s2(x))
         x = torch.relu(self.stem_bn(x))
         previous = x
         for i in range(len(cfg.encoder_features)):
-            x = torch.relu(x)
-            x = self.get_submodule(f"enc{i}_bn1")(self.get_submodule(f"enc{i}_sep1")(x))
-            x = torch.relu(x)
-            x = self.get_submodule(f"enc{i}_bn2")(self.get_submodule(f"enc{i}_sep2")(x))
-            x = max_pool_auto(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+            for j in (1, 2):
+                x = torch.relu(x)
+                sep = self.get_submodule(f"enc{i}_sep{j}")
+                x = self.get_submodule(f"enc{i}_bn{j}")(sep.pointwise(sep.depthwise(geometry.pad_s1(x))))
+            x = geometry.pool(x)
             x = x + self.get_submodule(f"enc{i}_res")(previous)
             previous = x
         for i in range(len(cfg.decoder_features)):
             x = torch.relu(x)
-            x = self.get_submodule(f"dec{i}_convT1")(_pad_same(x, 3, 1))
+            x = self.get_submodule(f"dec{i}_convT1")(geometry.pad_s1(x))
             x = self.get_submodule(f"dec{i}_bn1")(x)
             x = torch.relu(x)
-            x = self.get_submodule(f"dec{i}_convT2")(_pad_same(x, 3, 1))
+            x = self.get_submodule(f"dec{i}_convT2")(geometry.pad_s1(x))
             x = self.get_submodule(f"dec{i}_bn2")(x)
             x = x + self.get_submodule(f"dec{i}_res")(previous)
             if i + 1 < len(cfg.decoder_features):
                 x = _upsample2x_nchw(x)
                 previous = x
-        logits = self.head(x.to(torch.float32))
-        return _upsample2x_nchw(logits).permute(0, 2, 3, 1)
+        return self.head(x.to(torch.float32))
+
+
+class SameGeometry:
+    """The single-device geometry of :meth:`ResUNet.trunk`: XLA ``"SAME"``
+    zero padding for the 3x3 convs, the SAME max pool."""
+
+    def pad_s1(self, x: torch.Tensor) -> torch.Tensor:
+        return _pad_same(x, 3, 1)
+
+    def pad_s2(self, x: torch.Tensor) -> torch.Tensor:
+        return _pad_same(x, 3, 2)
+
+    def pool(self, x: torch.Tensor) -> torch.Tensor:
+        return max_pool_auto(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
+SAME = SameGeometry()
 
 
 def init_variables(generator: torch.Generator, config: ModelConfig | None = None) -> dict:

@@ -5,9 +5,11 @@ as one ``shard_map`` program over ``Mesh(('clients', 'batch'))``, one
 client per chip; the port runs the round's client slots on one card in
 client order (``parallel.slots.make_mesh``), folds them in that order on
 the device, and drives rounds with double-buffered staging
-(``parallel.driver``). The spatial plane (``parallel/spatial.py``) and
-several cards (``parallel/multihost.py``) come later in ROADMAP Queue 1
-item 4; ``parallel/mesh.py`` is not ported, by design.
+(``parallel.driver``). A client's step splits over an inner ``batch``
+axis (sync-BN data parallelism) or, through the spatial plane
+(``parallel.spatial``), over image height. Several cards
+(``parallel/multihost.py``) come last in ROADMAP Queue 1 item 4;
+``parallel/mesh.py`` is not ported, by design.
 """
 
 from fedcrack_tpu_torch.parallel.driver import (  # noqa: F401
@@ -33,3 +35,10 @@ from fedcrack_tpu_torch.parallel.fedavg_mesh import (  # noqa: F401
     stack_client_data,
 )
 from fedcrack_tpu_torch.parallel.slots import SlotMesh, make_mesh  # noqa: F401
+from fedcrack_tpu_torch.parallel.spatial import (  # noqa: F401
+    build_spatial_predict,
+    build_spatial_train_step,
+    halo_exchange,
+    make_spatial_mesh,
+    spatial_apply,
+)

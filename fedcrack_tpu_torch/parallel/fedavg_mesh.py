@@ -32,6 +32,18 @@ that ``codec_state`` restores on a replay.
 Running the slots one after another is the first form, not the fast one:
 batching them into one launch per operation waits in ROADMAP Queue 2.
 
+The inner axis splits each client's step into shards with sync-BN and
+averaged gradients. A ``batch`` axis of ``n`` needs a per-step batch that
+divides by ``n`` (a batch that does not is refused, as the JAX sharding
+refuses it); on one card its sub-batches folded in order are the batch
+itself, so the step is the model's over the whole batch, whose
+BatchNorm takes the moments of every sub-batch: sync-BN. The loss and
+pixel accuracy are then the whole batch's means, which are the means
+over the equal-sized shards of theirs (the JAX ``_epoch_runner``'s
+pmean), and the IoU counts its sums (the psum). A ``space`` axis
+(:func:`build_spatial_federated_round`) runs each step through the
+spatial plane's fold forward (``parallel.spatial``).
+
 The segmented round (:class:`SegmentedRound`) keeps each slot's model and
 optimizer between segment calls, so the driver can stage between them; the
 cohort round (:class:`CohortRound`) runs a larger cohort in groups of
@@ -61,12 +73,9 @@ from fedcrack_tpu_torch.models.convert import flax_to_state_dict, from_flax_vari
 from fedcrack_tpu_torch.models.resunet import ResUNet
 from fedcrack_tpu_torch.ops.losses import iou_from_counts
 from fedcrack_tpu_torch.parallel.slots import BATCH, CLIENTS, SlotMesh
+from fedcrack_tpu_torch.parallel.spatial import SPACE, check_layout, spatial_forward, validate_shape
 from fedcrack_tpu_torch.train.local import TrainState, configure_backends, make_optimizer, train_step
 
-SPATIAL_REFUSAL = (
-    "build_spatial_federated_round waits for the spatial plane "
-    "(parallel/spatial.py): ROADMAP Queue 1 item 4"
-)
 _OIHW_TO_HWIO = (2, 3, 1, 0)
 
 
@@ -193,7 +202,7 @@ class _SlotFit:
 
     def __init__(self, model_config: ModelConfig, learning_rate: float, fedprox_mu: float,
                  pos_weight: float, remat: bool, device: torch.device, lowp: str | None = None,
-                 dp: dict | None = None):
+                 dp: dict | None = None, forward: Callable | None = None):
         configure_backends()
         self.model_config = model_config
         self.learning_rate = float(learning_rate)
@@ -202,7 +211,9 @@ class _SlotFit:
         self.device = device
         self.dp = dp
         self._workers: list[TrainState] = []
-        fwd = None
+        # ``forward(model, images)``: the spatial plane's fold forward, or
+        # None for the model's own.
+        fwd = forward
         if lowp == "fake_quant_int8":
             from fedcrack_tpu_torch.kernels.dequant import fake_quant_leaf
 
@@ -326,6 +337,22 @@ def _validate_channels(model_config: ModelConfig):
     return validate
 
 
+def _check_step_batch(images, n_inner: int) -> None:
+    """A streamed ``[C, steps, B, ...]`` slab's batch must divide over the
+    ``batch`` axis."""
+    if images.shape[2] % n_inner:
+        raise ValueError(f"per-step batch {images.shape[2]} does not divide over the {n_inner}-way inner axis")
+
+
+def _require_axes(mesh: SlotMesh, *axes: str) -> None:
+    missing = [a for a in axes if a not in mesh.shape]
+    if missing:
+        raise ValueError(
+            f"mesh has axes {mesh.axis_names}, but this round builder needs "
+            f"{axes} (missing {missing})"
+        )
+
+
 def _check_resident_inputs(pool, idx, n_client_shards, epochs, n_inner, validate_data) -> None:
     """Host-side validation of the resident round's data contract."""
     pool_imgs, pool_msks = pool
@@ -363,6 +390,9 @@ def _build_round(
     local_epochs: int,
     fedprox_mu: float,
     *,
+    inner_axis: str = BATCH,
+    forward: Callable | None = None,
+    validate_data: Callable | None = None,
     pos_weight: float = 1.0,
     remat: bool = False,
     data_placement: str = "streamed",
@@ -373,9 +403,13 @@ def _build_round(
     dp_noise_multiplier: float = 0.0,
     dp_seed: int = 0,
 ):
-    """The monolithic round (see :func:`build_federated_round`)."""
+    """The monolithic round (see :func:`build_federated_round`): the
+    client's step split over ``inner_axis``, run by ``forward`` (None: the
+    model's own), the data checked by ``validate_data``."""
     n_clients = mesh.shape[CLIENTS]
-    n_inner = mesh.shape[BATCH]
+    n_inner = mesh.shape[inner_axis]
+    # Only a batch axis splits the batch; the space axis splits H.
+    n_split = n_inner if inner_axis == BATCH else 1
     device = mesh.device
     epochs = max(1, local_epochs)
     if data_placement not in ("streamed", "resident"):
@@ -403,8 +437,8 @@ def _build_round(
     needs_seed = codec == "int8" or dp_on
     dp = {"clip": float(dp_clip_norm), "sigma": float(dp_noise_multiplier), "seed": int(dp_seed)} if dp_on else None
     fit = _SlotFit(model_config, learning_rate, fedprox_mu, pos_weight, remat, device,
-                   lowp=None if lowp == "null" else lowp, dp=dp)
-    validate_data = _validate_channels(model_config)
+                   lowp=None if lowp == "null" else lowp, dp=dp, forward=forward)
+    validate_data = validate_data or _validate_channels(model_config)
     ef_state: dict = {"ef": None, "calls": 0}
 
     def _wire_bytes_per_client(gvars) -> int:
@@ -454,7 +488,7 @@ def _build_round(
     if resident:
 
         def round_fn(variables, pool, idx, active, n_samples):
-            _check_resident_inputs(pool, idx, n_clients, epochs, n_inner, validate_data)
+            _check_resident_inputs(pool, idx, n_clients, epochs, n_split, validate_data)
             active, n_samples = _host_cohort_check(active, n_samples)
             pool_i, pool_m = (_as_device(p, device) for p in pool)
             plan = _plan_tensor(idx, device)
@@ -468,6 +502,7 @@ def _build_round(
                     f"data carries {images.shape[0]} clients, mesh has {n_clients} on the '{CLIENTS}' axis"
                 )
             validate_data(images)
+            _check_step_batch(images, n_split)
             active, n_samples = _host_cohort_check(active, n_samples)
             imgs, msks = _as_device(images, device), _as_device(masks, device)
             return _dispatch(variables, lambda c: ([(imgs[c], msks[c])], None), active, n_samples)
@@ -541,7 +576,12 @@ def build_federated_round(
     (``torch.utils.checkpoint``): the same gradients for about half the
     activation memory. ``update_codec``, ``topk_fraction``, ``lowp`` and
     ``dp_*`` are the twins described in the module docstring.
+
+    A ``batch`` axis wider than 1 needs a per-step batch ``B`` that
+    divides by it and trains as the ``(C, 1)`` round does (module
+    docstring).
     """
+    _require_axes(mesh, CLIENTS, BATCH)
     return _build_round(
         mesh, model_config or ModelConfig(), learning_rate, local_epochs, fedprox_mu,
         pos_weight=pos_weight, remat=remat, data_placement=data_placement,
@@ -598,6 +638,7 @@ class SegmentedRound:
                 raise ValueError(
                     f"data carries {c.shape[0]} clients, mesh has {self.n_client_shards} on the '{CLIENTS}' axis"
                 )
+            _check_step_batch(c, self.n_inner)
         self.validate_data(img_chunks[0])
         return _host_cohort_check(active, n_samples)
 
@@ -667,6 +708,7 @@ class SegmentedRound:
 def _build_round_segments(mesh: SlotMesh, model_config: ModelConfig, learning_rate: float, local_epochs: int,
                           fedprox_mu: float, *, pos_weight: float = 1.0, remat: bool = False,
                           segments: int = 0, data_placement: str = "streamed") -> SegmentedRound:
+    _require_axes(mesh, CLIENTS, BATCH)
     if data_placement not in ("streamed", "resident"):
         raise ValueError(f"data_placement must be 'streamed' or 'resident', got {data_placement!r}")
     epochs = max(1, local_epochs)
@@ -812,6 +854,7 @@ class CohortRound:
         if images.shape[0] != np.asarray(active).shape[0]:
             raise ValueError(f"data carries {images.shape[0]} clients, cohort mask {np.asarray(active).shape[0]}")
         self.seg.validate_data(images)
+        _check_step_batch(images, self.n_inner)
         _host_cohort_check(active, n_samples)
         active, n_samples, c, c_pad = self._padded_cohort(active, n_samples)
         images, masks = pad_cohort_axis(images, c_pad), pad_cohort_axis(masks, c_pad)
@@ -854,10 +897,40 @@ def build_federated_cohort_round(
     )
 
 
-def build_spatial_federated_round(*args, **kwargs):
-    """A round whose clients are each split over several cards by image
-    height: waits for the spatial plane."""
-    raise NotImplementedError(SPATIAL_REFUSAL)
+def build_spatial_federated_round(
+    mesh: SlotMesh,
+    model_config: ModelConfig | None = None,
+    learning_rate: float = 1e-3,
+    local_epochs: int = 1,
+    fedprox_mu: float = 0.0,
+    pos_weight: float = 1.0,
+    remat: bool = False,
+):
+    """A round over a ``(clients, space)`` mesh (``make_mesh(C, S,
+    axis_names=('clients', 'space'))``): FedAvg over ``C`` client slots
+    whose every step is split over image height into ``S`` bands with
+    halo exchange and sync-BN (``parallel.spatial``), the composition for
+    crops too large for one client's step. Each step is
+    ``train.local.train_step`` with the spatial fold forward; ``remat``
+    recomputes that forward in the backward pass. Trains as the ``(C, 1)``
+    round on the same data, within float reassociation.
+
+    :func:`build_federated_round`'s call contract (streamed data), with H
+    a multiple of 16 x ``S``. A transformed layout is refused."""
+    model_config = model_config or ModelConfig()
+    check_layout(model_config, "spatial sharding")
+    _require_axes(mesh, CLIENTS, SPACE)
+    n_space = mesh.shape[SPACE]
+    channels = _validate_channels(model_config)
+
+    def validate_data(images) -> None:
+        channels(images)
+        validate_shape(images.shape[3], images.shape[4], n_space)
+
+    return _build_round(
+        mesh, model_config, learning_rate, local_epochs, fedprox_mu, inner_axis=SPACE,
+        forward=spatial_forward(n_space), validate_data=validate_data, pos_weight=pos_weight, remat=remat,
+    )
 
 
 def mesh_fedavg(stacked: Any, weights=None, active=None) -> Any:
@@ -908,7 +981,9 @@ def stack_client_data(
 
 def round_from_config(cfg, device=None):
     """``(mesh, round)`` as a ``FedConfig``'s mesh fields describe them:
-    ``make_mesh(cfg.mesh_clients, cfg.mesh_batch)`` on ``device``, and the
+    ``make_mesh(cfg.mesh_clients, cfg.mesh_batch)`` on ``device`` (a
+    ``mesh_batch`` above 1, as ``configs/c5_bf16_batch_dp.json`` sets,
+    splits each step's batch with sync-BN), and the
     monolithic round (``cfg.segments == 0``) or the segmented one, with
     the config's model, learning rate, local epochs, FedProx mu, pos_weight
     and ``data_placement``. Drive it with

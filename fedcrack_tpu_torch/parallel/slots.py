@@ -4,13 +4,18 @@ The JAX package runs a round as one ``shard_map`` over ``Mesh(('clients',
 'batch'))``, one client per chip. The port has one card, so a round runs
 its ``clients`` slots on that card one after another, in client order
 (``parallel.fedavg_mesh``). :func:`make_mesh` takes the place of the JAX
-package's ``parallel.mesh.make_mesh`` for the round builders and the
-driver: a value that carries the two axis sizes and the device.
+package's ``parallel.mesh.make_mesh`` for the round builders, the spatial
+plane and the driver: a value that carries the two axes' names and sizes
+and the device.
 
-The ``batch`` axis splits one client's batch over chips with sync-BN, which
-makes ``(C, B)`` train exactly like ``(C, 1)``; on one card only ``batch=1``
-exists, and a wider one raises. Several cards (``parallel/multihost.py``
-over ``torch.distributed``) come last in ROADMAP Queue 1 item 4.
+The inner axis splits one client's step into shards whose BatchNorm
+moments are synchronised and whose gradients are averaged: ``batch``
+splits the batch (sync-BN data parallelism), ``space`` the image height
+(``parallel.spatial``). On one card the ``batch`` shards, folded in
+order, are the batch itself, so a ``(C, B)`` round runs the ``(C, 1)``
+round's steps; the ``space`` shards run as one fold of halo-exchanged
+rows. Several cards (``parallel/multihost.py`` over ``torch.distributed``)
+are ROADMAP Queue 1 item 4's last part.
 """
 
 from __future__ import annotations
@@ -20,11 +25,6 @@ import dataclasses
 import torch
 
 CLIENTS, BATCH = "clients", "batch"
-
-BATCH_REFUSAL = (
-    "a batch axis wider than 1 splits a client over several cards "
-    "(parallel/multihost.py over torch.distributed): ROADMAP Queue 1 item 4"
-)
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
@@ -41,23 +41,26 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class SlotMesh:
-    """``clients`` slots of one round on ``device`` (``batch`` is 1)."""
+    """Two named axes of ``sizes`` on ``device``: ``(clients, batch)`` for
+    a round, ``(clients, space)`` for a spatial round, ``(data, space)``
+    for the spatial plane."""
 
-    clients: int
-    batch: int
+    sizes: tuple
     device: torch.device
     axis_names: tuple = (CLIENTS, BATCH)
 
     @property
     def shape(self) -> dict:
-        """``{'clients': C, 'batch': B}``, as a JAX mesh's ``shape``."""
-        return {CLIENTS: self.clients, BATCH: self.batch}
+        """``{axis name: size}``, as a JAX mesh's ``shape``."""
+        return dict(zip(self.axis_names, self.sizes))
 
 
-def make_mesh(n_clients: int, n_batch: int = 1, device: torch.device | str | None = None) -> SlotMesh:
-    """A round of ``n_clients`` slots on ``device`` (CUDA unless named)."""
+def make_mesh(n_clients: int, n_batch: int = 1, device: torch.device | str | None = None,
+              axis_names: tuple = (CLIENTS, BATCH)) -> SlotMesh:
+    """A mesh of ``n_clients x n_batch`` on ``device`` (CUDA unless
+    named), its axes called ``axis_names``."""
     if n_clients <= 0 or n_batch <= 0:
         raise ValueError(f"mesh axes must be positive, got ({n_clients}, {n_batch})")
-    if n_batch != 1:
-        raise NotImplementedError(BATCH_REFUSAL)
-    return SlotMesh(int(n_clients), int(n_batch), resolve_device(device))
+    if len(axis_names) != 2 or axis_names[0] == axis_names[1]:
+        raise ValueError(f"a mesh takes two distinct axis names, got {axis_names!r}")
+    return SlotMesh((int(n_clients), int(n_batch)), resolve_device(device), tuple(axis_names))

@@ -12,7 +12,8 @@ serve command's module level, the tools (``load_gen`` reaches the
 front door through ``transport/serve_client.py``), the privacy plane, the
 round checkpointer, the chaos plane and the watch layer, the aggregation
 tree and the chaos drills (the drills reach grpc through the transport
-only), and the slot plane with ``tools.refscale_federation`` included. The port's entry points run on CUDA unless told
+only), and the slot and spatial planes with ``tools.refscale_federation``
+and ``tools.measure_baseline`` included. The port's entry points run on CUDA unless told
 otherwise, and every refusal of a part not yet ported names the ROADMAP
 item that lifts it.
 """
@@ -59,19 +60,18 @@ CHAOS_AND_WATCH_MODULES = (
 # The aggregation tree and the chaos drills: no grpc at import either (the
 # edge relay, transport/edge.py, is the transport's).
 TREE_AND_DRILL_MODULES = ("fedcrack_tpu_torch.fed.tree", "fedcrack_tpu_torch.tools.chaos_drill")
-# The slot plane (several clients per round on one card) and its tool: no
-# grpc either.
+# The slot plane (several clients per round on one card), the spatial
+# plane and their tools: no grpc either (measure_baseline's gRPC rows reach
+# the transport only when they run).
 SLOT_PLANE_MODULES = (
     "fedcrack_tpu_torch.parallel", "fedcrack_tpu_torch.parallel.slots", "fedcrack_tpu_torch.parallel.fedavg_mesh",
-    "fedcrack_tpu_torch.parallel.driver", "fedcrack_tpu_torch.compress.mesh",
-    "fedcrack_tpu_torch.tools.refscale_federation",
+    "fedcrack_tpu_torch.parallel.driver", "fedcrack_tpu_torch.parallel.spatial", "fedcrack_tpu_torch.compress.mesh",
+    "fedcrack_tpu_torch.tools.refscale_federation", "fedcrack_tpu_torch.tools.measure_baseline",
 )
 # Every refusal of the port, by the callable that raises it, its
 # arguments, and the ROADMAP item its message names (ROADMAP.md, "Open
 # items").
 REFUSALS = (
-    ("fedcrack_tpu_torch.parallel.fedavg_mesh", "build_spatial_federated_round", (None,), {}, "item 4"),
-    ("fedcrack_tpu_torch.parallel.slots", "make_mesh", (2, 2, "cpu"), {}, "item 4"),
     ("fedcrack_tpu_torch.data.pipeline", "SamplePool", (None, None), {"layout": "s2d"}, "item 8"),
 )
 
