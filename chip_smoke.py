@@ -289,6 +289,20 @@ on failure, so any failure exits non-zero and prints no result):
     (e) ``python -m fedcrack_tpu_torch.tools.measure_baseline`` over c1,
     c2, c3 and c5 at a scaled workload: exit 0, four rows with the JAX
     rows' keys, the card's name in ``hardware``.
+21. two processes sharing the card, joined by ``parallel.multihost``
+    over gloo (a ``file://`` store in a temp dir), each this script as
+    ``--multihost-worker`` through ``CLI_SHIM``. (a) Phase 19's main round
+    (4 slots, 2 rounds x 2 epochs x 2 steps at 128 px batch 16) with two
+    slots per process, null and int8: every round's global and metrics
+    bit-equal on both ranks and to the same round in this process, 16
+    ``bce_sums`` launches per process per build. (b) Phase 20's 2 x 1024 x
+    256 images at S = 4, two bands per process: the predict within 1e-5 of
+    the one-process S = 4 predict with no mask flip; one SGD(1.0) step
+    against the one-process S = 4 step by phase 20's criteria, the
+    stepped weights bit-equal on both ranks, one launch per process. (c)
+    The two-process global served ``fused_int8`` at 15 / 8 / 1. Logged:
+    the round walls and the gather beside phase 19's, the predict and
+    step times with their host-staged exchanges beside phase 20's.
 
 ``python3 chip_smoke.py --serve-ticks 0.05,1.0,1.0,0.05`` builds
 ``dequant.cu`` and runs only phase 14, once per autoscaler tick given, and
@@ -5008,6 +5022,7 @@ def slots_phase(torch, card: str) -> dict:
 
     t0 = time.monotonic()
     ss = slot_setup(torch)
+    split = {"setup": time.monotonic() - t0}
     n = len(SLOT_ACTIVE)
     want = n * SLOT_STEPS * SLOT_EPOCHS * SLOT_ROUNDS
     images = want * TRAIN_BATCH
@@ -5019,7 +5034,9 @@ def slots_phase(torch, card: str) -> dict:
     # ---- (a) the main path, counted ----
     main = slot_run(torch, ss, "main", main_fn, mesh, want, on_round=lambda rec, v: inputs.append(v))
     main_fn.slot_hook = None
+    t_host = time.monotonic()
     host = slot_host_path(torch, ss, inputs, slots, card)
+    split["host_path"] = time.monotonic() - t_host
     runs = {"a_main": main}
     # ---- (b)-(e) against the main path ----
     runs["b_sequential"] = slot_run(torch, ss, "sequential", main_fn, mesh, want, overlap_staging=False)
@@ -5057,10 +5074,18 @@ def slots_phase(torch, card: str) -> dict:
     staged = [r.staged_bytes for r in runs["d_resident"]["records"]]
     if staged != [ss["pool"].nbytes + plan_bytes, plan_bytes]:
         raise AssertionError(f"[slots] resident staged bytes {staged}, want the pool once and the plan")
+    split["slot_runs_a_to_e_and_overlap"] = time.monotonic() - t_host - split["host_path"]
+    t_rest = time.monotonic()
     codecs = slot_codec_checks(torch, ss, card, mesh)
+    split["codecs"] = time.monotonic() - t_rest
     dp = slot_dp_chaos(torch, ss, mesh)
+    split["dp_under_chaos"] = time.monotonic() - t_rest - split["codecs"]
+    t_rest = time.monotonic()
     serve = serve_global(torch, ss["cfg"], host_tree(main["variables"]), card, "slots", SLOT_SEED)
+    split["serve"] = time.monotonic() - t_rest
+    t_rest = time.monotonic()
     refscale = refscale_run(card)
+    split["refscale_process"] = time.monotonic() - t_rest
     walls = {k: v["round_walls_s"] for k, v in runs.items()}
     walls.update({k: v["round_walls_s"] for k, v in {**codecs, **dp}.items()})
     out = {
@@ -5074,6 +5099,8 @@ def slots_phase(torch, card: str) -> dict:
                                                     for k, v in codecs.items()},
         "launches_by_run": {k: v["launches"] for k, v in {**runs, **dp}.items()},
         "refscale_command_s": refscale["command_wall_s"], "phase_s": time.monotonic() - t0,
+        "main_run_s": main["wall_s"], "split_s": split,
+        "slot_round_walls_total_s": sum(sum(v) for v in walls.values()),
     }
     log(f"[slots] main path: 4 slots (active {list(SLOT_ACTIVE)}, n_samples {list(SLOT_SAMPLES)}), 2 rounds x 2 "
         f"epochs x 2 steps at 128 px batch 16: {out['images_per_s']:.1f} images/s through the driver (by round "
@@ -5187,6 +5214,42 @@ def spatial_predict_run(torch, cfg, variables, images, card: str) -> dict:
     return out
 
 
+def step_criteria(torch, label: str, start: dict, got_params: dict, want_params: dict, got_buffers: dict,
+                  want_buffers: dict) -> dict:
+    """Phase 20 (b)'s criteria for one SGD(1.0) step from ``start`` (so a
+    parameter's move is its gradient) against a reference step: per leaf
+    ||d|| <= 5e-3 ||ref|| + 1e-5, a BN-fed bias's gradient norm on either
+    side below 1e-4 of the largest gradient (see :func:`spatial_step_run`),
+    the running statistics within rtol 1e-4 / atol 1e-6. Returns the worst
+    ratios."""
+    worst = {"grad_err_over_bound": 0.0, "bn_fed_bias_err_over_bound": 0.0, "bn_fed_bias_norm_over_g_max": 0.0,
+             "stats_rel": 0.0}
+    grads = {name: ((start[name] - p.detach()).double(), (start[name] - want_params[name].detach()).double())
+             for name, p in got_params.items()}
+    g_max = max(float(g_1.abs().max()) for _, g_1 in grads.values())
+    bad = []
+    for name, (g_s, g_1) in grads.items():
+        err, bound = float(torch.linalg.vector_norm(g_s - g_1)), 5e-3 * float(torch.linalg.vector_norm(g_1)) + 1e-5
+        if _bn_fed_bias(name):
+            noise = max(float(torch.linalg.vector_norm(g_s)), float(torch.linalg.vector_norm(g_1))) / g_max
+            worst["bn_fed_bias_err_over_bound"] = max(worst["bn_fed_bias_err_over_bound"], err / bound)
+            worst["bn_fed_bias_norm_over_g_max"] = max(worst["bn_fed_bias_norm_over_g_max"], noise)
+            if noise > 1e-4:
+                bad.append(f"{name}: a BN-fed bias's gradient norm at {noise:.3e} of the largest gradient")
+        else:
+            worst["grad_err_over_bound"] = max(worst["grad_err_over_bound"], err / bound)
+            if err > bound:
+                bad.append(f"{name}: gradient off by ||d|| = {err:.3e}, bound {bound:.3e}")
+    if bad:
+        raise AssertionError(f"{label} {bad}; {json.dumps(worst)}")
+    for name, b in got_buffers.items():
+        want = want_buffers[name]
+        if not torch.allclose(b, want, rtol=1e-4, atol=1e-6):
+            raise AssertionError(f"{label} {name}: running statistics {float((b - want).abs().max())} apart")
+        worst["stats_rel"] = max(worst["stats_rel"], float(((b - want).abs() / want.abs().clamp_min(1e-6)).max()))
+    return worst
+
+
 def spatial_step_run(torch, cfg, variables, images, masks, card: str) -> dict:
     """Phase 20 (b): one ``build_spatial_train_step`` step at S = 4 with
     SGD(1.0), so a parameter's move is its gradient, against the
@@ -5221,33 +5284,9 @@ def spatial_step_run(torch, cfg, variables, images, masks, card: str) -> dict:
     launches = bce.bce_sums.launches
     _, m_1 = local.train_step(single, batch, {}, 0.0, 1.0)
     loss_rel = abs(float(m_s["loss"]) - float(m_1["loss"])) / abs(float(m_1["loss"]))
-    worst = {"grad_err_over_bound": 0.0, "bn_fed_bias_err_over_bound": 0.0, "bn_fed_bias_norm_over_g_max": 0.0,
-             "stats_rel": 0.0}
-    single_params = dict(single.model.named_parameters())
-    grads = {name: ((start[name] - p.detach()).double(), (start[name] - single_params[name].detach()).double())
-             for name, p in sharded.model.named_parameters()}
-    g_max = max(float(g_1.abs().max()) for _, g_1 in grads.values())
-    bad = []
-    for name, (g_s, g_1) in grads.items():
-        err, bound = float(torch.linalg.vector_norm(g_s - g_1)), 5e-3 * float(torch.linalg.vector_norm(g_1)) + 1e-5
-        if _bn_fed_bias(name):
-            noise = max(float(torch.linalg.vector_norm(g_s)), float(torch.linalg.vector_norm(g_1))) / g_max
-            worst["bn_fed_bias_err_over_bound"] = max(worst["bn_fed_bias_err_over_bound"], err / bound)
-            worst["bn_fed_bias_norm_over_g_max"] = max(worst["bn_fed_bias_norm_over_g_max"], noise)
-            if noise > 1e-4:
-                bad.append(f"{name}: a BN-fed bias's gradient norm at {noise:.3e} of the largest gradient")
-        else:
-            worst["grad_err_over_bound"] = max(worst["grad_err_over_bound"], err / bound)
-            if err > bound:
-                bad.append(f"{name}: gradient off by ||d|| = {err:.3e}, bound {bound:.3e}")
-    if bad:
-        raise AssertionError(f"[spatial] (b) {bad}; {json.dumps(worst)}")
-    single_buffers = dict(single.model.named_buffers())
-    for name, b in sharded.model.named_buffers():
-        want = single_buffers[name]
-        if not torch.allclose(b, want, rtol=1e-4, atol=1e-6):
-            raise AssertionError(f"[spatial] (b) {name}: running statistics {float((b - want).abs().max())} apart")
-        worst["stats_rel"] = max(worst["stats_rel"], float(((b - want).abs() / want.abs().clamp_min(1e-6)).max()))
+    worst = step_criteria(torch, "[spatial] (b)", start, dict(sharded.model.named_parameters()),
+                          dict(single.model.named_parameters()), dict(sharded.model.named_buffers()),
+                          dict(single.model.named_buffers()))
     if loss_rel > 1e-5 or launches != 1:
         raise AssertionError(f"[spatial] (b) loss {loss_rel} apart relatively, bce_sums launches {launches}")
     seen = []
@@ -5535,6 +5574,295 @@ def spatial_phase(torch, card: str) -> dict:
     return out
 
 
+# ---- phase 21: several processes sharing the card ----
+
+MULTIHOST_RANKS = 2
+MULTIHOST_TIMEOUT_S = 300.0
+MULTIHOST_SEED = 21
+MULTIHOST_REPEATS = 5  # timed predicts and steps, after one warm call
+
+
+def _save_flat(out: dict, prefix: str, tree) -> None:
+    for path, v in _flat_tree(host_tree(tree)):
+        out[prefix + "/".join(path)] = v
+
+
+def _load_flat(z: dict, prefix: str) -> dict:
+    return {k[len(prefix):]: v for k, v in z.items() if k.startswith(prefix)}
+
+
+def _exchange_ms(span, calls: int) -> dict:
+    """The span's host-staged collectives per call of what ran ``calls``
+    times since its last reset: ms, count and bytes."""
+    return {"exchange_ms": span.stats["seconds"] * 1e3 / calls, "exchanges": span.stats["calls"] // calls,
+            "exchange_bytes": span.stats["bytes"] // calls}
+
+
+def multihost_worker(argv: list) -> int:
+    """One rank of phase 21, run through ``CLI_SHIM`` as ``chip_smoke
+    --multihost-worker RANK STORE WORK``: joins the gloo group through the
+    ``file://`` STORE, then (a) phase 19's main round with this rank's two
+    slots, null and int8, 2 rounds each, counted and timed (the gather
+    apart), and (b) phase 20's tall images with this rank's two bands: the
+    predict and one SGD(1.0) step, counted, then both timed with the
+    host-staged exchanges apart. Writes ``rank<R>.npz`` (each round's
+    global, the probabilities, the stepped weights) and ``rank<R>.json``
+    under WORK."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from fedcrack_tpu_torch.configs import ModelConfig
+    from fedcrack_tpu_torch.models.convert import from_flax_variables
+    from fedcrack_tpu_torch.models.resunet import ResUNet, init_variables
+    from fedcrack_tpu_torch.ops import bce
+    from fedcrack_tpu_torch.parallel import (
+        build_federated_round,
+        build_spatial_predict,
+        build_spatial_train_step,
+        global_mesh_devices,
+        initialize_if_needed,
+        is_coordinator,
+        make_mesh,
+        make_spatial_mesh,
+    )
+    from fedcrack_tpu_torch.parallel.multihost import WORLD
+    from fedcrack_tpu_torch.train.local import configure_backends
+
+    rank, store, work = int(argv[0]), argv[1], argv[2]
+    if not torch.cuda.is_available():
+        raise SystemExit("multihost worker: no CUDA device")
+    configure_backends()
+    t_join = time.monotonic()
+    initialize_if_needed("file://" + store, MULTIHOST_RANKS, rank, timeout_s=MULTIHOST_TIMEOUT_S)
+    report = {"rank": rank, "join_s": time.monotonic() - t_join, "coordinator": is_coordinator(),
+              "devices": [str(d) for _, d in global_mesh_devices()]}
+    out: dict = {}
+
+    # (a) the round: this rank's block of phase 19's four slots.
+    ss = slot_setup(torch)
+    mesh = make_mesh(len(SLOT_ACTIVE), group=WORLD)
+    mine = slice(mesh.local_range("clients").start, mesh.local_range("clients").stop)
+    # The count is set to 0 before the main path (the null round) and read
+    # as differences after: the shim reports the process's total at exit.
+    torch.cuda.synchronize()
+    bce.reset_launch_counts()
+    for name, kw in (("null", {}), ("int8", {"update_codec": "int8"})):
+        round_fn = build_federated_round(mesh, ss["cfg"], local_epochs=SLOT_EPOCHS, **kw)
+        variables, walls, gathers = ss["global0"], [], []
+        before = bce.bce_sums.launches
+        for r in range(SLOT_ROUNDS):
+            images, masks, active, ns = ss["slab_fn"](r)
+            t0 = time.monotonic()
+            variables, metrics = round_fn(variables, images[mine], masks[mine], active, ns)
+            torch.cuda.synchronize()
+            walls.append(time.monotonic() - t0)
+            gathers.append(round_fn.last_gather)
+            _save_flat(out, f"{name}/{r}/", variables)
+            for k, v in metrics.items():
+                out[f"{name}/{r}/metrics/{k}"] = v.cpu().numpy()
+        report[name] = {"bce_sums_launches": bce.bce_sums.launches - before, "round_walls_s": walls,
+                        "gathers": gathers}
+
+    # (b) the spatial plane: this rank's block of phase 20's bands.
+    cfg = ModelConfig()
+    variables = init_variables(torch.Generator().manual_seed(SPATIAL_SEED), cfg)
+    b, h, w = SPATIAL_TALL
+    images, masks = tall_batch(b, h, w, SPATIAL_SEED)
+    smesh = make_spatial_mesh(SPATIAL_SHARDS, group=WORLD)
+    bands, span = smesh.local_range("space"), smesh.span
+    rows = slice(bands.start * h // SPATIAL_SHARDS, bands.stop * h // SPATIAL_SHARDS)
+    x = torch.from_numpy(np.ascontiguousarray(images[:, rows])).cuda()
+    y = torch.from_numpy(np.ascontiguousarray(masks[:, rows])).cuda()
+    model = from_flax_variables(variables, ResUNet(cfg)).eval()
+    predict = build_spatial_predict(smesh, cfg)
+    out["spatial/probs"] = predict(model, x).cpu().numpy()
+    span.reset_stats()
+    report["predict"] = {"ms": cuda_ms(torch, lambda: predict(model, x), iters=MULTIHOST_REPEATS, warmup=0),
+                         **_exchange_ms(span, MULTIHOST_REPEATS)}
+    step = build_spatial_train_step(smesh, cfg, optimizer=lambda p, lr: torch.optim.SGD(p, lr=1.0))
+    state = step.init(variables)
+    before = bce.bce_sums.launches
+    _, m = step(state, x, y)
+    torch.cuda.synchronize()
+    report["step"] = {"bce_sums_launches": bce.bce_sums.launches - before, "loss": float(m["loss"])}
+    # Copies: the timed steps below go on moving the model.
+    for n_, p in state.model.named_parameters():
+        out[f"step/param/{n_}"] = np.array(p.detach().cpu())
+    for n_, buf in state.model.named_buffers():
+        out[f"step/buffer/{n_}"] = np.array(buf.cpu())
+    for k, v in m.items():
+        out[f"step/metrics/{k}"] = v.cpu().numpy()
+    span.reset_stats()
+    ms = []
+    for _ in range(MULTIHOST_REPEATS):
+        t0 = time.perf_counter()
+        step(state, x, y)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    report["step"].update({"ms": float(np.median(ms)), **_exchange_ms(span, MULTIHOST_REPEATS)})
+    dist.barrier()
+    np.savez(os.path.join(work, f"rank{rank}.npz"), **out)
+    with open(os.path.join(work, f"rank{rank}.json"), "w", encoding="utf-8") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _first_difference(got: dict, want: dict) -> str:
+    import numpy as np
+
+    for key in sorted(want):
+        if got[key].tobytes() != want[key].tobytes():
+            d = float(np.max(np.abs(got[key].astype(np.float64) - want[key].astype(np.float64))))
+            return f"{key}: max |d| {d}"
+    return "none"
+
+
+def multihost_phase(torch, card: str, slot_plane: dict, spatial: dict) -> dict:
+    """Phase 21, two processes sharing the card over gloo
+    (:func:`multihost_worker`, through ``CLI_SHIM``). (a) Phase 19's main
+    round with two slots per process, null and int8: every round's global
+    bit-equal on both ranks and to the same round in this process, 16
+    ``bce_sums`` launches per process per build. (b) Phase 20's tall
+    images at S = 4, two bands per process: the predict within 1e-5 of the
+    one-process S = 4 predict with no mask flip, and one SGD(1.0) step
+    meeting phase 20's criteria (:func:`step_criteria`, the loss within
+    rtol 1e-5) against the one-process S = 4 step, one ``bce_sums`` launch
+    per process. (c) The round's global served ``fused_int8`` (15 / 8 / 1).
+    The walls, the gather and the exchanges are logged beside phases 19
+    and 20's."""
+    import tempfile
+
+    import numpy as np
+
+    from fedcrack_tpu_torch.configs import ModelConfig
+    from fedcrack_tpu_torch.fed.pytree import tree_flatten, tree_unflatten
+    from fedcrack_tpu_torch.models.convert import from_flax_variables
+    from fedcrack_tpu_torch.models.resunet import ResUNet, init_variables
+    from fedcrack_tpu_torch.parallel import (
+        build_federated_round,
+        build_spatial_predict,
+        build_spatial_train_step,
+        make_mesh,
+        make_spatial_mesh,
+    )
+
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="fedcrack_multihost_") as work:
+        store = os.path.join(work, "store")
+        procs = [CliProcess(f"rank{r}", "chip_smoke", ["--multihost-worker", str(r), store, work], work)
+                 for r in range(MULTIHOST_RANKS)]
+        run_processes(procs, time.monotonic() + MULTIHOST_TIMEOUT_S)
+        shims = [p.report() for p in procs]
+        ranks = [dict(np.load(os.path.join(work, f"rank{r}.npz"))) for r in range(MULTIHOST_RANKS)]
+        reports = []
+        for r in range(MULTIHOST_RANKS):
+            with open(os.path.join(work, f"rank{r}.json"), encoding="utf-8") as f:
+                reports.append(json.load(f))
+    workers_s = time.monotonic() - t0
+    want_launches = 2 * SLOT_STEPS * SLOT_EPOCHS * SLOT_ROUNDS
+    for rep, shim in zip(reports, shims):
+        counts = (rep["null"]["bce_sums_launches"], rep["int8"]["bce_sums_launches"], rep["step"]["bce_sums_launches"])
+        if counts != (want_launches, want_launches, 1):
+            raise AssertionError(f"[multihost] rank {rep['rank']}: bce_sums launches {counts}, want "
+                                 f"({want_launches}, {want_launches}, 1)")
+        if shim["bce_sums_launches"] != 2 * want_launches + 1 + MULTIHOST_REPEATS:
+            raise AssertionError(f"[multihost] rank {rep['rank']}: {shim['bce_sums_launches']} bce_sums launches "
+                                 "in the process")
+    if [rep["coordinator"] for rep in reports] != [True, False]:
+        raise AssertionError(f"[multihost] coordinators {[rep['coordinator'] for rep in reports]}")
+
+    # (a) against the same rounds in this process.
+    ss = slot_setup(torch)
+    mesh = make_mesh(len(SLOT_ACTIVE))
+    one_process = {}
+    for name, kw in (("null", {}), ("int8", {"update_codec": "int8"})):
+        round_fn = build_federated_round(mesh, ss["cfg"], local_epochs=SLOT_EPOCHS, **kw)
+        variables, walls = ss["global0"], []
+        for r in range(SLOT_ROUNDS):
+            t1 = time.monotonic()
+            variables, metrics = round_fn(variables, *ss["slab_fn"](r))
+            torch.cuda.synchronize()
+            walls.append(time.monotonic() - t1)
+            want = {"/".join(p): v for p, v in _flat_tree(host_tree(variables))}
+            for rank, got in enumerate(ranks):
+                mine = _load_flat(got, f"{name}/{r}/")
+                g = {k: v for k, v in mine.items() if not k.startswith("metrics/")}
+                if set(g) != set(want) or any(g[k].tobytes() != want[k].tobytes() for k in want):
+                    raise AssertionError(f"[multihost] {name} round {r}: rank {rank}'s global differs from the "
+                                         f"one-process round's; first difference {_first_difference(g, want)}")
+                for k, v in metrics.items():
+                    if mine[f"metrics/{k}"].tobytes() != v.cpu().numpy().tobytes():
+                        raise AssertionError(f"[multihost] {name} round {r}: rank {rank}'s metric {k} differs")
+        one_process[name] = walls
+    round_out = {
+        "round_walls_s": {name: [rep[name]["round_walls_s"] for rep in reports] for name in ("null", "int8")},
+        "gathers": {name: [rep[name]["gathers"] for rep in reports] for name in ("null", "int8")},
+        "one_process_round_walls_s": one_process,
+        "phase19_a_main_round_walls_s": slot_plane["round_walls_s"]["a_main"],
+        "bce_sums_launches_per_process": [rep["null"]["bce_sums_launches"] for rep in reports],
+    }
+    log(f"[multihost] (a) phase 19's round over 2 processes x 2 slots, null and int8, 2 rounds each: every "
+        f"global bit-equal on both ranks and to the one-process round; {json.dumps(round_out)} [{card}]")
+
+    # (b) against the one-process S = 4 plane.
+    cfg = ModelConfig()
+    variables = init_variables(torch.Generator().manual_seed(SPATIAL_SEED), cfg)
+    b, h, w = SPATIAL_TALL
+    images, masks = tall_batch(b, h, w, SPATIAL_SEED)
+    x, y = torch.from_numpy(images).cuda(), torch.from_numpy(masks).cuda()
+    model = from_flax_variables(variables, ResUNet(cfg)).eval()
+    want = build_spatial_predict(make_spatial_mesh(SPATIAL_SHARDS), cfg)(model, x).cpu().numpy()
+    got = np.concatenate([rk["spatial/probs"] for rk in ranks], axis=1)
+    diff = float(np.max(np.abs(got.astype(np.float64) - want.astype(np.float64))))
+    flips = int(((got > 0.5) != (want > 0.5)).sum())
+    if got.shape != want.shape or not diff <= 1e-5 or flips:
+        raise AssertionError(f"[multihost] (b) predict: {diff} from the one-process S=4 predict, {flips} flips, "
+                             f"shape {got.shape}")
+    step = build_spatial_train_step(make_spatial_mesh(SPATIAL_SHARDS), cfg,
+                                    optimizer=lambda p, lr: torch.optim.SGD(p, lr=1.0))
+    state = step.init(variables)
+    start = {k: v.detach().clone() for k, v in state.model.named_parameters()}
+    _, m_1 = step(state, x, y)
+    for rank, rk in enumerate(ranks[1:], 1):
+        if any(rk[k].tobytes() != ranks[0][k].tobytes() for k in ranks[0] if k.startswith("step/")):
+            raise AssertionError(f"[multihost] (b) rank {rank}'s stepped weights differ from rank 0's")
+    cuda = {k: torch.from_numpy(v).cuda() for k, v in ranks[0].items() if k.startswith("step/")}
+    worst = step_criteria(torch, "[multihost] (b)", start,
+                          {k[len("step/param/"):]: v for k, v in cuda.items() if k.startswith("step/param/")},
+                          dict(state.model.named_parameters()),
+                          {k[len("step/buffer/"):]: v for k, v in cuda.items() if k.startswith("step/buffer/")},
+                          dict(state.model.named_buffers()))
+    loss_rel = abs(float(ranks[0]["step/metrics/loss"]) - float(m_1["loss"])) / abs(float(m_1["loss"]))
+    if loss_rel > 1e-5:
+        raise AssertionError(f"[multihost] (b) loss {loss_rel} apart relatively")
+    spatial_out = {
+        "predict": {"max_prob_diff": diff, "flips": flips, "by_rank": [rep["predict"] for rep in reports],
+                    "phase20_S4_ms": spatial["predict"]["S4"]["ms"],
+                    "phase20_single_device_ms": spatial["predict"]["single_device_ms"]},
+        "step": {"loss_rel": loss_rel, **worst, "by_rank": [rep["step"] for rep in reports],
+                 "phase20_sharded_step_ms": spatial["step"]["sharded_step_ms"],
+                 "phase20_single_step_ms": spatial["step"]["single_step_ms"]},
+    }
+    log(f"[multihost] (b) phase 20's 2 x 1024 x 256 at S=4 over 2 processes x 2 bands: {json.dumps(spatial_out)} "
+        f"[{card}]")
+
+    # (c) the two-process round's global served.
+    _, treedef = tree_flatten(ss["global0"])
+    final = tree_unflatten(treedef, [ranks[0][f"null/{SLOT_ROUNDS - 1}/" + "/".join(path)]
+                                     for path, _ in _flat_tree(ss["global0"])])
+    serve = serve_global(torch, ss["cfg"], final, card, "multihost", MULTIHOST_SEED)
+    out = {"launches": sum(rep["null"]["bce_sums_launches"] for rep in reports),
+           "served_launches": serve["served_launches"], "round": round_out, "spatial": spatial_out,
+           "workers": [{"wall_s": s["wall_s"], "start_to_first_launch_s": s["start_to_first_launch_s"],
+                        "bce_sums_launches": s["bce_sums_launches"], "join_s": rep["join_s"]}
+                       for s, rep in zip(shims, reports)],
+           "workers_s": workers_s, "phase_s": time.monotonic() - t0}
+    log(f"[phase21] {json.dumps(out)} [{card}]")
+    return out
+
+
 def server_breakdown(config, template, rnd: dict, n: int = 3) -> dict:
     """Host ms (median of ``n``) of each step the round machine takes on
     one round's accepted uploads: the gate per upload (validate, decode,
@@ -5705,6 +6033,9 @@ def main() -> int:
     spatial = spatial_phase(torch, card)
     log("phase 20 a client's step split into shards with sync-BN: spatial predict and step on tall images, the "
         "spatial round served, c5's batch axis, and the measure_baseline command: ok")
+    multihost = multihost_phase(torch, card, slot_plane, spatial)
+    log("phase 21 two processes sharing the card over gloo: the round's clients and the spatial step's bands split "
+        "across them, the global served: ok")
 
     kernels = []
     replaces = {"dequant_matmul": "fedcrack_tpu/kernels/dequant.py:88",
@@ -5727,7 +6058,8 @@ def main() -> int:
                     "launches_phase17": watched["served_launches"][name],
                     "launches_phase18": tree["served_launches"][name],
                     "launches_phase19": slot_plane["served_launches"][name],
-                    "launches_phase20": spatial["served_launches"][name]} if flavor == "int8" else {}),
+                    "launches_phase20": spatial["served_launches"][name],
+                    "launches_phase21": multihost["served_launches"][name]} if flavor == "int8" else {}),
                 "max_abs_err": row["max_abs_err"],
                 "ms": row["ms"],
                 "plain_ms": row["plain_ms"],
@@ -5754,6 +6086,7 @@ def main() -> int:
         "launches_phase18": tree["launches"],
         "launches_phase19": slot_plane["launches"],
         "launches_phase20": spatial["launches"],
+        "launches_phase21": multihost["launches"],
         **bce_row,
     })
     log(f"profiler: {lead_kept(torch)} at {time.monotonic() - t_start:.1f} s [{card}]")
@@ -5797,6 +6130,8 @@ def serve_tick_sweep(ticks: list) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multihost-worker"] and len(sys.argv) == 5:
+        sys.exit(multihost_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--serve-ticks"] and len(sys.argv) == 3:
         sys.exit(serve_tick_sweep([float(t) for t in sys.argv[2].split(",")]))
     if sys.argv[1:]:

@@ -113,12 +113,18 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:  # NCHW
+    def forward(self, x: torch.Tensor, moments=None) -> torch.Tensor:  # NCHW
+        """``moments(xs) -> (mean, var)`` over float32 ``xs`` replaces the
+        batch moments in train mode (the spatial plane across processes
+        takes them over every rank's bands); None takes them over ``x``."""
         if self.training:
             # Moments in float32 whatever the activations' dtype.
             xs = x.to(torch.float32)
-            mean = xs.mean(dim=(0, 2, 3))
-            var = torch.clamp_min((xs * xs).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+            if moments is None:
+                mean = xs.mean(dim=(0, 2, 3))
+                var = torch.clamp_min((xs * xs).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+            else:
+                mean, var = moments(xs)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1.0 - m) * mean)
@@ -250,26 +256,28 @@ class ResUNet(nn.Module):
         compute dtype: float32 logits at half resolution, before the final
         upsample. ``geometry`` pads the 3x3 windows and pools; the spatial
         plane (``parallel.spatial``) passes its halo geometry here, so a
-        sharded forward runs these very layers."""
+        sharded forward runs these very layers; the geometry's ``moments``
+        (None on one process) feeds every BatchNorm."""
         cfg = self.config
+        moments = geometry.moments
         x = self.stem_conv(geometry.pad_s2(x))
-        x = torch.relu(self.stem_bn(x))
+        x = torch.relu(self.stem_bn(x, moments))
         previous = x
         for i in range(len(cfg.encoder_features)):
             for j in (1, 2):
                 x = torch.relu(x)
                 sep = self.get_submodule(f"enc{i}_sep{j}")
-                x = self.get_submodule(f"enc{i}_bn{j}")(sep.pointwise(sep.depthwise(geometry.pad_s1(x))))
+                x = self.get_submodule(f"enc{i}_bn{j}")(sep.pointwise(sep.depthwise(geometry.pad_s1(x))), moments)
             x = geometry.pool(x)
             x = x + self.get_submodule(f"enc{i}_res")(previous)
             previous = x
         for i in range(len(cfg.decoder_features)):
             x = torch.relu(x)
             x = self.get_submodule(f"dec{i}_convT1")(geometry.pad_s1(x))
-            x = self.get_submodule(f"dec{i}_bn1")(x)
+            x = self.get_submodule(f"dec{i}_bn1")(x, moments)
             x = torch.relu(x)
             x = self.get_submodule(f"dec{i}_convT2")(geometry.pad_s1(x))
-            x = self.get_submodule(f"dec{i}_bn2")(x)
+            x = self.get_submodule(f"dec{i}_bn2")(x, moments)
             x = x + self.get_submodule(f"dec{i}_res")(previous)
             if i + 1 < len(cfg.decoder_features):
                 x = _upsample2x_nchw(x)
@@ -280,6 +288,8 @@ class ResUNet(nn.Module):
 class SameGeometry:
     """The single-device geometry of :meth:`ResUNet.trunk`: XLA ``"SAME"``
     zero padding for the 3x3 convs, the SAME max pool."""
+
+    moments = None
 
     def pad_s1(self, x: torch.Tensor) -> torch.Tensor:
         return _pad_same(x, 3, 1)

@@ -152,8 +152,13 @@ def fused_segmentation_metrics(
     """Drop-in fused equivalent of ``ops.losses.segmentation_metrics``.
     ``pos_weight`` > 1 up-weights crack pixels in the loss (mean of
     ``(1 + (pos_weight - 1)·y)·bce``); ``None``/1.0 is plain BCE."""
-    sums = bce_sums(logits, labels)
-    n = float(logits.numel())
+    return metrics_from_sums(bce_sums(logits, labels), float(logits.numel()), pos_weight)
+
+
+def metrics_from_sums(sums: torch.Tensor, n: float, pos_weight: float | None = None) -> dict[str, torch.Tensor]:
+    """:func:`fused_segmentation_metrics` from the five sums over ``n``
+    pixels (the sums of several processes' pixels, added in rank order,
+    for the spatial plane across processes)."""
     loss = sums[0] / n
     if pos_weight is not None:
         loss = loss + pos_weight_minus_one(pos_weight) * sums[4] / n

@@ -7,9 +7,11 @@ client order (``parallel.slots.make_mesh``), folds them in that order on
 the device, and drives rounds with double-buffered staging
 (``parallel.driver``). A client's step splits over an inner ``batch``
 axis (sync-BN data parallelism) or, through the spatial plane
-(``parallel.spatial``), over image height. Several cards
-(``parallel/multihost.py``) come last in ROADMAP Queue 1 item 4;
-``parallel/mesh.py`` is not ported, by design.
+(``parallel.spatial``), over image height. A mesh made with ``group=``
+spans several processes of a ``torch.distributed`` group
+(``parallel.multihost``): a round's clients, or the spatial plane's
+bands, split across them, every cross-process sum gathered and added in
+client or rank order. ``parallel/mesh.py`` is not ported, by design.
 """
 
 from fedcrack_tpu_torch.parallel.driver import (  # noqa: F401
@@ -33,6 +35,11 @@ from fedcrack_tpu_torch.parallel.fedavg_mesh import (  # noqa: F401
     pad_cohort_axis,
     round_from_config,
     stack_client_data,
+)
+from fedcrack_tpu_torch.parallel.multihost import (  # noqa: F401
+    global_mesh_devices,
+    initialize_if_needed,
+    is_coordinator,
 )
 from fedcrack_tpu_torch.parallel.slots import SlotMesh, make_mesh  # noqa: F401
 from fedcrack_tpu_torch.parallel.spatial import (  # noqa: F401

@@ -59,6 +59,14 @@ SENTRY_REFUSAL = (
 )
 
 
+def _single_process(mesh: SlotMesh) -> None:
+    if mesh.span is not None:
+        raise ValueError(
+            f"the round loop runs in one process, and this mesh spans {mesh.span.world} processes: a "
+            "multi-process job drives its own loop around round_fn (parallel.multihost)"
+        )
+
+
 def _observe_round_record(record: "RoundRecord") -> None:
     """One RoundRecord into the metric registry and a correlation span."""
     REGISTRY.counter("driver_rounds_total", "mesh federated rounds driven to their barrier").inc()
@@ -412,9 +420,13 @@ def run_mesh_federation(
     variables)``, ``checkpointer`` with ``start_round`` and ``history``,
     ``max_round_retries`` and ``fault_injector``. ``recompile_sentry``
     takes None only. Returns the final global (tensors on the device) and
-    one :class:`RoundRecord` per round run."""
+    one :class:`RoundRecord` per round run.
+
+    One process only, as the JAX driver: a job whose mesh spans processes
+    drives its own loop around ``round_fn`` (``parallel.multihost``)."""
     if recompile_sentry is not None:
         raise ValueError(SENTRY_REFUSAL)
+    _single_process(mesh)
     if n_rounds <= 0:
         raise ValueError(f"n_rounds must be positive, got {n_rounds}")
     if not 0 <= start_round < n_rounds:
@@ -783,9 +795,11 @@ def run_cohort_federation(
     with ``sample_pool``, ``(idx [C, epochs, steps, B], active,
     n_samples)``) and never None. ``round_overlap`` issues round r+1's
     data, first group's staging and first group before reading round r's
-    metrics; bit-identical. Records carry a per-group timeline."""
+    metrics; bit-identical. Records carry a per-group timeline. One
+    process only."""
     if recompile_sentry is not None:
         raise ValueError(SENTRY_REFUSAL)
+    _single_process(mesh)
     if n_rounds <= 0:
         raise ValueError(f"n_rounds must be positive, got {n_rounds}")
     resident = sample_pool is not None

@@ -32,6 +32,18 @@ that ``codec_state`` restores on a replay.
 Running the slots one after another is the first form, not the fast one:
 batching them into one launch per operation waits in ROADMAP Queue 2.
 
+A mesh that spans processes (``make_mesh(..., group=)``) splits the
+``clients`` axis into one contiguous block per rank. ``round_fn`` then
+takes this rank's clients' data only (leading dimension the block's
+size), with ``active`` and ``n_samples`` still global ``[C]``. Each rank
+fits its slots as above, keyed by the global client index (the int8
+twin's rounding seed, the DP noise chain, the top-k residual, which stays
+with the rank that owns the client); the ranks then all-gather the slots'
+updates and metrics, and every rank folds all ``C`` updates in client
+order. No ``all_reduce`` decides the global: every rank holds the bits of
+the same round run in one process. The segmented round gathers the same
+way; the cohort round refuses such a mesh.
+
 The inner axis splits each client's step into shards with sync-BN and
 averaged gradients. A ``batch`` axis of ``n`` needs a per-step batch that
 divides by ``n`` (a batch that does not is refused, as the JAX sharding
@@ -68,10 +80,11 @@ from fedcrack_tpu_torch.fed.aggregation import (
     mesh_ordered_fold,
     mesh_zero_sums,
 )
-from fedcrack_tpu_torch.fed.pytree import tree_leaves, tree_map
+from fedcrack_tpu_torch.fed.pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from fedcrack_tpu_torch.models.convert import flax_to_state_dict, from_flax_variables
 from fedcrack_tpu_torch.models.resunet import ResUNet
 from fedcrack_tpu_torch.ops.losses import iou_from_counts
+from fedcrack_tpu_torch.parallel.multihost import ProcessSpan
 from fedcrack_tpu_torch.parallel.slots import BATCH, CLIENTS, SlotMesh
 from fedcrack_tpu_torch.parallel.spatial import SPACE, check_layout, spatial_forward, validate_shape
 from fedcrack_tpu_torch.train.local import TrainState, configure_backends, make_optimizer, train_step
@@ -174,6 +187,33 @@ def _fold_slot(variables: dict, active_c, n_c, sums: tuple) -> tuple:
     """One slot into the fold carry with weight ``active · n_samples``."""
     w = torch.tensor(np.float32(active_c) * np.float32(n_c), dtype=torch.float32)
     return mesh_ordered_fold(variables, w, sums)
+
+
+def _flat_update(tree) -> torch.Tensor:
+    """One slot's update tree as one float32 vector in leaf order (a
+    copy: the slot's model is reused by the next slot)."""
+    return torch.cat([leaf.detach().reshape(-1).to(torch.float32) for leaf in tree_leaves(tree)])
+
+
+def _gather_slots(span: ProcessSpan, flats: list, like) -> list:
+    """Every rank's slot updates in global client order, each a tree shaped
+    as ``like`` whose leaves are views of the gathered vectors."""
+    leaves, treedef = tree_flatten(like)
+    sizes = [int(leaf.numel()) for leaf in leaves]
+    out = []
+    for part in span.all_gather(torch.stack(flats)):
+        for row in part:
+            views = [v.view(tuple(leaf.shape)) for v, leaf in zip(torch.split(row, sizes), leaves)]
+            out.append(tree_unflatten(treedef, views))
+    return out
+
+
+def _gather_metrics(span: ProcessSpan, last: dict) -> dict:
+    """Every rank's ``[C_local]`` last-epoch counts as global ``[C]``."""
+    keys = sorted(last)
+    parts = span.all_gather(torch.stack([last[k] for k in keys]))
+    stacked = torch.cat(parts, dim=1)
+    return {k: stacked[i] for i, k in enumerate(keys)}
 
 
 def _round_metrics(last: dict, active, device: torch.device) -> dict:
@@ -407,6 +447,8 @@ def _build_round(
     client's step split over ``inner_axis``, run by ``forward`` (None: the
     model's own), the data checked by ``validate_data``."""
     n_clients = mesh.shape[CLIENTS]
+    span = mesh.span
+    local = mesh.local_range(CLIENTS)
     n_inner = mesh.shape[inner_axis]
     # Only a batch axis splits the batch; the space axis splits H.
     n_split = n_inner if inner_axis == BATCH else 1
@@ -454,14 +496,14 @@ def _build_round(
             round_fn.wire_bytes_per_client = _wire_bytes_per_client(gvars)
         seed_in = ef_state["calls"] if needs_seed else None
         if topk and ef_state["ef"] is None:
-            ef_state["ef"] = [zero_residual_like(gvars) for _ in range(n_clients)]
+            ef_state["ef"] = [zero_residual_like(gvars) for _ in local]
         ef_new = list(ef_state["ef"]) if topk else None
         anchor = _anchor(gvars, fit.worker(0).model)
         sums = mesh_zero_sums(gvars)
-        lasts = []
-        for c in range(n_clients):
+        lasts, flats = [], []
+        for i, c in enumerate(local):
             slot = fit.init(0, gvars)
-            chunks, idx = slot_data(c)
+            chunks, idx = slot_data(i)
             per_epoch = fit.run_epochs(slot, chunks, epochs, anchor, client=c, idx=idx, round_seed=seed_in)
             lasts.append(per_epoch[-1])
             update = _model_variables(slot.state.model)
@@ -470,15 +512,25 @@ def _build_round(
             if codec == "int8":
                 update = _tree_add_cast(gvars, int8_roundtrip(_tree_sub(update, gvars), (seed_in, c)))
             elif topk:
-                kept, residual = topk_roundtrip(_tree_sub(update, gvars), ef_state["ef"][c], topk_fraction)
+                kept, residual = topk_roundtrip(_tree_sub(update, gvars), ef_state["ef"][i], topk_fraction)
                 update = _tree_add_cast(gvars, kept)
                 # The residual advances only for an active client: on the
                 # wire an inactive client never encodes.
                 if float(active[c]) > 0.0:
-                    ef_new[c] = residual
-            sums = _fold_slot(update, active[c], n_samples[c], sums)
+                    ef_new[i] = residual
+            if span is None:
+                sums = _fold_slot(update, active[c], n_samples[c], sums)
+            else:
+                flats.append(_flat_update(update))
+        last = _stack_slots(lasts)
+        if span is not None:
+            before = dict(span.stats)
+            for c, update in enumerate(_gather_slots(span, flats, gvars)):
+                sums = _fold_slot(update, active[c], n_samples[c], sums)
+            last = _gather_metrics(span, last)
+            round_fn.last_gather = {k: span.stats[k] - before[k] for k in ("seconds", "bytes")}
         new_vars = mesh_finish_cohort_mean(sums[0], sums[1], gvars)
-        metrics = _round_metrics(_stack_slots(lasts), active, device)
+        metrics = _round_metrics(last, active, device)
         if needs_seed:
             ef_state["calls"] += 1
         if topk:
@@ -488,7 +540,7 @@ def _build_round(
     if resident:
 
         def round_fn(variables, pool, idx, active, n_samples):
-            _check_resident_inputs(pool, idx, n_clients, epochs, n_split, validate_data)
+            _check_resident_inputs(pool, idx, len(local), epochs, n_split, validate_data)
             active, n_samples = _host_cohort_check(active, n_samples)
             pool_i, pool_m = (_as_device(p, device) for p in pool)
             plan = _plan_tensor(idx, device)
@@ -497,9 +549,10 @@ def _build_round(
     else:
 
         def round_fn(variables, images, masks, active, n_samples):
-            if images.shape[0] != n_clients:
+            if images.shape[0] != len(local):
                 raise ValueError(
                     f"data carries {images.shape[0]} clients, mesh has {n_clients} on the '{CLIENTS}' axis"
+                    + ("" if span is None else f", {len(local)} of them in this process")
                 )
             validate_data(images)
             _check_step_batch(images, n_split)
@@ -512,6 +565,9 @@ def _build_round(
     round_fn.lowp = lowp
     round_fn.dp = "dpsgd" if dp_on else "null"
     round_fn.wire_bytes_per_client = None
+    # Across processes: the last dispatch's gather, its host-clock seconds
+    # and the bytes this rank moved.
+    round_fn.last_gather = None
     # Called as slot_hook(client, variables) with each slot's trained
     # weights (a copy, before any codec) when set: the per-slot check
     # against a host fit.
@@ -523,8 +579,8 @@ def _build_round(
             return None
         return tree_map(lambda *xs: torch.stack(xs), *ef_state["ef"])
 
-    # The top-k residuals stacked to [C, ...] per leaf (None before the
-    # first top-k dispatch): read-only, for tests.
+    # The top-k residuals stacked to [C, ...] per leaf, this process's
+    # clients' (None before the first top-k dispatch): read-only, for tests.
     round_fn.ef_state = _ef_view
     # A replay restores this with the weights: the round commits its
     # residuals and seed counter as it returns, before a driver can find a
@@ -612,6 +668,11 @@ class SegmentedRound:
     ``segment`` and ``finalize`` itself, to stage between segments. A
     carry is valid until the next ``init`` (the slot states are reused),
     as a donated carry is in the JAX package.
+
+    Across processes (``span``) the carry holds this rank's
+    ``n_client_shards`` slots, from global client ``client_offset`` on;
+    ``fold`` and ``finalize`` gather every rank's slots and fold them all
+    in client order.
     """
 
     n_segments: int
@@ -622,6 +683,8 @@ class SegmentedRound:
     validate_data: Callable = dataclasses.field(repr=False)
     data_placement: str = "streamed"
     n_inner: int = 1
+    span: ProcessSpan | None = dataclasses.field(default=None, repr=False)
+    client_offset: int = 0
 
     @property
     def device(self) -> torch.device:
@@ -661,21 +724,25 @@ class SegmentedRound:
             plan = _plan_tensor(msk_chunks, self.device)
             for c, slot in enumerate(carry):
                 per_epoch = self.fit.run_epochs(slot, [(pool_i[c], pool_m[c])], self.segment_epochs, anchor,
-                                                client=c, idx=plan[c])
+                                                client=self.client_offset + c, idx=plan[c])
                 lasts.append(per_epoch[-1])
         else:
             chunks = [(_as_device(i, self.device), _as_device(m, self.device))
                       for i, m in zip(_as_chunks(img_chunks), _as_chunks(msk_chunks))]
             for c, slot in enumerate(carry):
                 per_epoch = self.fit.run_epochs(slot, [(i[c], m[c]) for i, m in chunks], self.segment_epochs,
-                                                anchor, client=c)
+                                                anchor, client=self.client_offset + c)
                 lasts.append(per_epoch[-1])
         return carry, _stack_slots(lasts)
 
     def fold(self, carry: list, active, n_samples, sums: tuple) -> tuple:
-        """Fold every slot's weights into ``sums`` in client order."""
-        for c, slot in enumerate(carry):
-            sums = _fold_slot(_model_variables(slot.state.model), active[c], n_samples[c], sums)
+        """Fold every slot's weights into ``sums`` in client order (every
+        rank's slots, across processes)."""
+        updates = [_model_variables(slot.state.model) for slot in carry]
+        if self.span is not None:
+            updates = _gather_slots(self.span, [_flat_update(u) for u in updates], updates[0])
+        for c, update in enumerate(updates):
+            sums = _fold_slot(update, active[c], n_samples[c], sums)
         return sums
 
     def finalize(self, carry: list, variables, active, n_samples, raw_last):
@@ -684,6 +751,8 @@ class SegmentedRound:
         active32, n32 = np.asarray(active, np.float32), np.asarray(n_samples, np.float32)
         num, den = self.fold(carry, active32, n32, mesh_zero_sums(gvars))
         new_variables = mesh_finish_cohort_mean(num, den, gvars)
+        if self.span is not None:
+            raw_last = _gather_metrics(self.span, raw_last)
         return new_variables, _round_metrics(raw_last, active32, self.device)
 
     def __call__(self, variables, images, masks, active, n_samples):
@@ -718,15 +787,18 @@ def _build_round_segments(mesh: SlotMesh, model_config: ModelConfig, learning_ra
             f"segments={segments!r} must be a positive divisor of "
             f"local_epochs={epochs} (epoch-grain segmentation)"
         )
+    local = mesh.local_range(CLIENTS)
     return SegmentedRound(
         n_segments=n_segments,
         segment_epochs=epochs // n_segments,
         local_epochs=epochs,
-        n_client_shards=mesh.shape[CLIENTS],
+        n_client_shards=len(local),
         fit=_SlotFit(model_config, learning_rate, fedprox_mu, pos_weight, remat, mesh.device),
         validate_data=_validate_channels(model_config),
         data_placement=data_placement,
         n_inner=mesh.shape[BATCH],
+        span=mesh.span,
+        client_offset=local.start,
     )
 
 
@@ -882,7 +954,11 @@ def build_federated_cohort_round(
     in groups of ``mesh.clients`` slots (see :class:`CohortRound`).
     ``segments`` is per group and must divide ``local_epochs``;
     ``data_placement="resident"`` takes a cohort-wide pool, sliced per
-    group."""
+    group. A mesh that spans processes is refused."""
+    if mesh.span is not None:
+        raise NotImplementedError(
+            "the cohort round runs in one process; its groups across processes are ROADMAP Queue 1 item 4"
+        )
     seg = _build_round_segments(mesh, model_config or ModelConfig(), learning_rate, local_epochs, fedprox_mu,
                                 pos_weight=pos_weight, remat=remat, segments=segments,
                                 data_placement=data_placement)

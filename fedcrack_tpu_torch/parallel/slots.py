@@ -14,8 +14,14 @@ splits the batch (sync-BN data parallelism), ``space`` the image height
 (``parallel.spatial``). On one card the ``batch`` shards, folded in
 order, are the batch itself, so a ``(C, B)`` round runs the ``(C, 1)``
 round's steps; the ``space`` shards run as one fold of halo-exchanged
-rows. Several cards (``parallel/multihost.py`` over ``torch.distributed``)
-are ROADMAP Queue 1 item 4's last part.
+rows.
+
+A mesh made with ``group=`` spans the processes of a ``torch.distributed``
+process group (``parallel.multihost``): each rank holds a contiguous
+block of the outer axis (``clients``; ``space`` for the spatial plane's
+``(data, space)`` mesh), stages only that block's data, and the round
+gathers the blocks' updates and folds them in client order on every
+rank. The inner axis stays inside each process.
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from fedcrack_tpu_torch.parallel.multihost import ProcessSpan, process_span
 
 CLIENTS, BATCH = "clients", "batch"
 
@@ -43,24 +51,54 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
 class SlotMesh:
     """Two named axes of ``sizes`` on ``device``: ``(clients, batch)`` for
     a round, ``(clients, space)`` for a spatial round, ``(data, space)``
-    for the spatial plane."""
+    for the spatial plane. ``span`` is the processes the mesh spans (None:
+    this one), ``split_axis`` the axis whose blocks they share out."""
 
     sizes: tuple
     device: torch.device
     axis_names: tuple = (CLIENTS, BATCH)
+    span: ProcessSpan | None = None
+    split_axis: str | None = None
 
     @property
     def shape(self) -> dict:
-        """``{axis name: size}``, as a JAX mesh's ``shape``."""
+        """``{axis name: size}``, as a JAX mesh's ``shape``: the global
+        sizes."""
         return dict(zip(self.axis_names, self.sizes))
+
+    def local_range(self, axis: str) -> range:
+        """The indices along ``axis`` this process holds: all of them, or
+        its rank's contiguous block of the split axis."""
+        n = self.shape[axis]
+        if self.span is None or axis != self.split_axis:
+            return range(n)
+        per = n // self.span.world
+        return range(self.span.rank * per, (self.span.rank + 1) * per)
 
 
 def make_mesh(n_clients: int, n_batch: int = 1, device: torch.device | str | None = None,
-              axis_names: tuple = (CLIENTS, BATCH)) -> SlotMesh:
+              axis_names: tuple = (CLIENTS, BATCH), group=None, split_axis: str | None = None) -> SlotMesh:
     """A mesh of ``n_clients x n_batch`` on ``device`` (CUDA unless
-    named), its axes called ``axis_names``."""
+    named), its axes called ``axis_names``.
+
+    ``group`` (a ``torch.distributed`` process group, or
+    ``parallel.multihost.WORLD`` for the default one) spreads
+    ``split_axis`` (the first axis unless named) over the group's ranks in
+    contiguous blocks, which must be equal; it raises where no process
+    group is up."""
     if n_clients <= 0 or n_batch <= 0:
         raise ValueError(f"mesh axes must be positive, got ({n_clients}, {n_batch})")
     if len(axis_names) != 2 or axis_names[0] == axis_names[1]:
         raise ValueError(f"a mesh takes two distinct axis names, got {axis_names!r}")
-    return SlotMesh((int(n_clients), int(n_batch)), resolve_device(device), tuple(axis_names))
+    device = resolve_device(device)
+    sizes, axis_names = (int(n_clients), int(n_batch)), tuple(axis_names)
+    if group is None:
+        return SlotMesh(sizes, device, axis_names)
+    split_axis = split_axis or axis_names[0]
+    if split_axis not in axis_names:
+        raise ValueError(f"split_axis {split_axis!r} is not one of the mesh's axes {axis_names}")
+    span = process_span(group, device)
+    n = dict(zip(axis_names, sizes))[split_axis]
+    if n % span.world:
+        raise ValueError(f"the '{split_axis}' axis of {n} does not divide over {span.world} processes")
+    return SlotMesh(sizes, device, axis_names, span, split_axis)

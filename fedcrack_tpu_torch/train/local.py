@@ -108,6 +108,7 @@ def train_step(
     pos_weight: float = 1.0,
     forward=None,
     after_backward=None,
+    metrics_fn=None,
 ) -> tuple[TrainState, dict[str, torch.Tensor]]:
     """One step: BCE (+ ``(mu/2)·||params − anchor||²``), Adam, BatchNorm
     running statistics. ``batch`` is (images, masks), uint8 or float32,
@@ -119,12 +120,15 @@ def train_step(
     ``forward(model, images) -> logits`` replaces the model call (the
     fake-quant forward, recomputation), and ``after_backward(model)`` runs
     between the backward pass and the Adam step (the DP-SGD clip and
-    noise). Both None (the default) run none of their code."""
+    noise). Both None (the default) run none of their code.
+    ``metrics_fn(logits, masks, pos_weight=)`` replaces
+    ``fused_segmentation_metrics`` (the spatial plane across processes
+    sums the five sums over the ranks there)."""
     images, masks = as_model_batch(*_device_batch(batch, state.device))
     model = state.model
     model.train()
     logits = model(images) if forward is None else forward(model, images)
-    metrics = fused_segmentation_metrics(logits, masks, pos_weight=pos_weight)
+    metrics = (metrics_fn or fused_segmentation_metrics)(logits, masks, pos_weight=pos_weight)
     loss = metrics["loss"]
     if mu != 0.0:
         loss = loss + fedprox_penalty(dict(model.named_parameters()), anchor_params, mu)

@@ -13,7 +13,8 @@ front door through ``transport/serve_client.py``), the privacy plane, the
 round checkpointer, the chaos plane and the watch layer, the aggregation
 tree and the chaos drills (the drills reach grpc through the transport
 only), and the slot and spatial planes with ``tools.refscale_federation``
-and ``tools.measure_baseline`` included. The port's entry points run on CUDA unless told
+and ``tools.measure_baseline`` included, and the multi-process plane
+``parallel.multihost``. The port's entry points run on CUDA unless told
 otherwise, and every refusal of a part not yet ported names the ROADMAP
 item that lifts it.
 """
@@ -24,6 +25,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 pytestmark = pytest.mark.torch_port
 
@@ -67,12 +69,26 @@ SLOT_PLANE_MODULES = (
     "fedcrack_tpu_torch.parallel", "fedcrack_tpu_torch.parallel.slots", "fedcrack_tpu_torch.parallel.fedavg_mesh",
     "fedcrack_tpu_torch.parallel.driver", "fedcrack_tpu_torch.parallel.spatial", "fedcrack_tpu_torch.compress.mesh",
     "fedcrack_tpu_torch.tools.refscale_federation", "fedcrack_tpu_torch.tools.measure_baseline",
+    "fedcrack_tpu_torch.parallel.multihost",
 )
+
+
+def _spanned_mesh():
+    """A ``(4, 1)`` mesh whose clients span two processes, made without a
+    process group (the refusal comes before any collective)."""
+    from fedcrack_tpu_torch.parallel.multihost import ProcessSpan
+    from fedcrack_tpu_torch.parallel.slots import CLIENTS, SlotMesh
+
+    cpu = torch.device("cpu")
+    return SlotMesh((4, 1), cpu, span=ProcessSpan(None, 0, 2, "gloo", cpu), split_axis=CLIENTS)
+
+
 # Every refusal of the port, by the callable that raises it, its
 # arguments, and the ROADMAP item its message names (ROADMAP.md, "Open
 # items").
 REFUSALS = (
     ("fedcrack_tpu_torch.data.pipeline", "SamplePool", (None, None), {"layout": "s2d"}, "item 8"),
+    ("fedcrack_tpu_torch.parallel.fedavg_mesh", "build_federated_cohort_round", (_spanned_mesh(),), {}, "item 4"),
 )
 
 
@@ -285,3 +301,24 @@ def test_slot_plane_defaults_to_cuda_and_raises_without_it(tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         refscale_federation.main(["--out", str(tmp_path / "a.json"), "--samples", "16", "--img", "32"])
     assert make_mesh(2, device="cpu").device.type == "cpu"
+
+
+def test_cross_process_meshes_default_to_cuda_and_raise_without_it():
+    """``make_mesh(..., group=)``, ``make_spatial_mesh(..., group=)`` and
+    ``global_mesh_devices`` take this process's CUDA device unless told
+    otherwise; without CUDA they raise before touching a process group,
+    and on the CPU without a process group they raise too."""
+    from fedcrack_tpu_torch.parallel import global_mesh_devices, make_mesh, make_spatial_mesh
+    from fedcrack_tpu_torch.parallel.multihost import WORLD
+
+    if torch.cuda.is_available():
+        assert global_mesh_devices()[0][1].type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_mesh(4, 2, group=WORLD)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_spatial_mesh(4, group=WORLD)
+    with pytest.raises(RuntimeError, match="cuda"):
+        global_mesh_devices()
+    with pytest.raises(RuntimeError, match="initialized process group"):
+        make_spatial_mesh(4, device="cpu", group=WORLD)
