@@ -300,9 +300,32 @@ on failure, so any failure exits non-zero and prints no result):
     the one-process S = 4 predict with no mask flip; one SGD(1.0) step
     against the one-process S = 4 step by phase 20's criteria, the
     stepped weights bit-equal on both ranks, one launch per process. (c)
-    The two-process global served ``fused_int8`` at 15 / 8 / 1. Logged:
-    the round walls and the gather beside phase 19's, the predict and
-    step times with their host-staged exchanges beside phase 20's.
+    The two-process global served ``fused_int8`` at 15 / 8 / 1. (d) The
+    cohort round at 128 px, batch 16: six clients in groups of four (the
+    last ragged), streamed and resident, two slots of every group per
+    process (its padding slots on rank 1): every global and metric
+    bit-equal on both ranks and to the same cohort in this process, 8
+    ``bce_sums`` launches per process per run. Logged: the round walls and
+    the gather beside phase 19's, the predict and step times with their
+    host-staged exchanges beside phase 20's, the cohort's walls.
+22. ``configs/c6_s2d_layout.json`` on the card: c6's 8 slots, bfloat16,
+    ``s2d`` stem and ``packed`` residuals at ``ModelConfig()``'s widths,
+    128 px, batch 16, through ``parallel.round_from_config`` and
+    ``run_mesh_federation``, cut to 32 samples a client (256 of 6,213),
+    1 local epoch (of 10) and 2 rounds (of 5). (a) The main path three
+    ways, images packed on the device, pre-packed by
+    ``space_to_depth_images``, resident from ``SamplePool(layout="s2d")``:
+    bit-equal, 32 ``bce_sums`` launches a run. (b) The reference layouts'
+    round: bit-equal, or every parameter within Adam's per-step bound
+    (logged which). (c) The global on the reference plane, float32 and
+    int8 at buckets 128 and 256, ``max_batch`` 8, held to a
+    reference-layout engine by ``check_flip_bound``; images/s. (d)
+    ``fused_int8`` and ``fp8`` refuse the layouts with the JAX message. (e)
+    At 2 x 128 x 128, float32: packed input ``torch.equal`` to unpacked for
+    ``s2d`` and ``s2d_full``; ``s2d_full`` within atol and rtol 1e-4 of the
+    reference layout; ``s2d`` + ``packed`` bit-equal or within it (logged).
+    (f) Where ``h5py`` is installed, ``tools.h5_export`` then
+    ``tools.h5_import`` byte-equal, served once; else logged as not run.
 
 ``python3 chip_smoke.py --serve-ticks 0.05,1.0,1.0,0.05`` builds
 ``dequant.cu`` and runs only phase 14, once per autoscaler tick given, and
@@ -5580,6 +5603,8 @@ MULTIHOST_RANKS = 2
 MULTIHOST_TIMEOUT_S = 300.0
 MULTIHOST_SEED = 21
 MULTIHOST_REPEATS = 5  # timed predicts and steps, after one warm call
+COHORT_ACTIVE = (1.0, 1.0, 0.0, 1.0, 1.0, 1.0)  # six clients in groups of 4: the last group ragged
+COHORT_SAMPLES = (32.0, 32.0, 32.0, 64.0, 32.0, 32.0)
 
 
 def _save_flat(out: dict, prefix: str, tree) -> None:
@@ -5605,9 +5630,10 @@ def multihost_worker(argv: list) -> int:
     slots, null and int8, 2 rounds each, counted and timed (the gather
     apart), and (b) phase 20's tall images with this rank's two bands: the
     predict and one SGD(1.0) step, counted, then both timed with the
-    host-staged exchanges apart. Writes ``rank<R>.npz`` (each round's
-    global, the probabilities, the stepped weights) and ``rank<R>.json``
-    under WORK."""
+    host-staged exchanges apart; (d) the cohort round of six clients in
+    groups of four, streamed and resident, this rank's two slots of every
+    group. Writes ``rank<R>.npz`` (each round's global, the cohort's, the
+    probabilities, the stepped weights) and ``rank<R>.json`` under WORK."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -5617,6 +5643,7 @@ def multihost_worker(argv: list) -> int:
     from fedcrack_tpu_torch.models.resunet import ResUNet, init_variables
     from fedcrack_tpu_torch.ops import bce
     from fedcrack_tpu_torch.parallel import (
+        build_federated_cohort_round,
         build_federated_round,
         build_spatial_predict,
         build_spatial_train_step,
@@ -5664,6 +5691,20 @@ def multihost_worker(argv: list) -> int:
         report[name] = {"bce_sums_launches": bce.bce_sums.launches - before, "round_walls_s": walls,
                         "gathers": gathers}
 
+    # (d) the cohort round: this rank's block of every group of four.
+    cs = cohort_setup(torch)
+    for placement in ("streamed", "resident"):
+        cr = build_federated_cohort_round(mesh, cs["cfg"], local_epochs=1, data_placement=placement)
+        before = bce.bce_sums.launches
+        t0 = time.monotonic()
+        variables, metrics = cr(cs["global0"], *cohort_data(cs, placement), cs["active"], cs["ns"])
+        torch.cuda.synchronize()
+        report[f"cohort_{placement}"] = {"bce_sums_launches": bce.bce_sums.launches - before,
+                                         "wall_s": time.monotonic() - t0}
+        _save_flat(out, f"cohort_{placement}/", variables)
+        for k, v in metrics.items():
+            out[f"cohort_{placement}/metrics/{k}"] = v.cpu().numpy()
+
     # (b) the spatial plane: this rank's block of phase 20's bands.
     cfg = ModelConfig()
     variables = init_variables(torch.Generator().manual_seed(SPATIAL_SEED), cfg)
@@ -5709,6 +5750,47 @@ def multihost_worker(argv: list) -> int:
     return 0
 
 
+def cohort_setup(torch) -> dict:
+    """Phase 21 (d)'s cohort: ``ModelConfig()`` at 128 px, batch 16, six
+    clients of 32 uint8 samples (``active = [1, 1, 0, 1, 1, 1]``) in
+    groups of the mesh's four slots, so the second group is ragged; one
+    epoch of 2 steps from a seeded plan, streamed (``pool[idx]``) or
+    resident (the pool and the plan)."""
+    import numpy as np
+
+    from fedcrack_tpu_torch.configs import ModelConfig
+    from fedcrack_tpu_torch.data.pipeline import SamplePool, to_uint8_transport
+    from fedcrack_tpu_torch.data.synthetic import synth_crack_batch
+    from fedcrack_tpu_torch.models.resunet import init_variables
+
+    n = len(COHORT_ACTIVE)
+    pool = SamplePool.stack([to_uint8_transport(*synth_crack_batch(SLOT_STEPS * TRAIN_BATCH, TRAIN_SIZE,
+                                                                   seed=MULTIHOST_SEED * 100 + c))
+                             for c in range(n)])
+    idx = pool.round_indices([np.random.default_rng([MULTIHOST_SEED, c]) for c in range(n)], 1, SLOT_STEPS,
+                             TRAIN_BATCH)
+    images, masks = pool.assemble_round_slab(idx)
+    return {"cfg": ModelConfig(), "pool": pool, "idx": idx, "images": images, "masks": masks,
+            "active": np.asarray(COHORT_ACTIVE, np.float32), "ns": np.asarray(COHORT_SAMPLES, np.float32),
+            "global0": init_variables(torch.Generator().manual_seed(MULTIHOST_SEED), ModelConfig())}
+
+
+def cohort_data(cs: dict, placement: str) -> tuple:
+    """The cohort round's data arguments: the whole cohort's slabs, or its
+    pool and plan."""
+    if placement == "streamed":
+        return cs["images"], cs["masks"]
+    return (cs["pool"].images, cs["pool"].masks), cs["idx"]
+
+
+def cohort_launches_per_rank(ranks: int) -> int:
+    """``bce_sums`` launches of one cohort run on each of ``ranks``
+    processes: every rank trains its block of every group, padding
+    slots included, one epoch of ``SLOT_STEPS`` steps."""
+    groups = -(-len(COHORT_ACTIVE) // len(SLOT_ACTIVE))
+    return groups * (len(SLOT_ACTIVE) // ranks) * SLOT_STEPS
+
+
 def _first_difference(got: dict, want: dict) -> str:
     import numpy as np
 
@@ -5730,8 +5812,12 @@ def multihost_phase(torch, card: str, slot_plane: dict, spatial: dict) -> dict:
     meeting phase 20's criteria (:func:`step_criteria`, the loss within
     rtol 1e-5) against the one-process S = 4 step, one ``bce_sums`` launch
     per process. (c) The round's global served ``fused_int8`` (15 / 8 / 1).
-    The walls, the gather and the exchanges are logged beside phases 19
-    and 20's."""
+    (d) The cohort round, six clients in groups of four (the last ragged),
+    streamed and resident, two slots of every group per process: every
+    global and metric bit-equal on both ranks and to the same cohort in
+    this process, the ``bce_sums`` launches per process derived before the
+    run (:func:`cohort_launches_per_rank`). The walls, the gather and the
+    exchanges are logged beside phases 19 and 20's."""
     import tempfile
 
     import numpy as np
@@ -5741,6 +5827,7 @@ def multihost_phase(torch, card: str, slot_plane: dict, spatial: dict) -> dict:
     from fedcrack_tpu_torch.models.convert import from_flax_variables
     from fedcrack_tpu_torch.models.resunet import ResUNet, init_variables
     from fedcrack_tpu_torch.parallel import (
+        build_federated_cohort_round,
         build_federated_round,
         build_spatial_predict,
         build_spatial_train_step,
@@ -5762,12 +5849,14 @@ def multihost_phase(torch, card: str, slot_plane: dict, spatial: dict) -> dict:
                 reports.append(json.load(f))
     workers_s = time.monotonic() - t0
     want_launches = 2 * SLOT_STEPS * SLOT_EPOCHS * SLOT_ROUNDS
+    cohort_launches = cohort_launches_per_rank(MULTIHOST_RANKS)
     for rep, shim in zip(reports, shims):
-        counts = (rep["null"]["bce_sums_launches"], rep["int8"]["bce_sums_launches"], rep["step"]["bce_sums_launches"])
-        if counts != (want_launches, want_launches, 1):
+        counts = (rep["null"]["bce_sums_launches"], rep["int8"]["bce_sums_launches"], rep["step"]["bce_sums_launches"],
+                  rep["cohort_streamed"]["bce_sums_launches"], rep["cohort_resident"]["bce_sums_launches"])
+        if counts != (want_launches, want_launches, 1, cohort_launches, cohort_launches):
             raise AssertionError(f"[multihost] rank {rep['rank']}: bce_sums launches {counts}, want "
-                                 f"({want_launches}, {want_launches}, 1)")
-        if shim["bce_sums_launches"] != 2 * want_launches + 1 + MULTIHOST_REPEATS:
+                                 f"({want_launches}, {want_launches}, 1, {cohort_launches}, {cohort_launches})")
+        if shim["bce_sums_launches"] != 2 * want_launches + 1 + MULTIHOST_REPEATS + 2 * cohort_launches:
             raise AssertionError(f"[multihost] rank {rep['rank']}: {shim['bce_sums_launches']} bce_sums launches "
                                  "in the process")
     if [rep["coordinator"] for rep in reports] != [True, False]:
@@ -5805,6 +5894,30 @@ def multihost_phase(torch, card: str, slot_plane: dict, spatial: dict) -> dict:
     }
     log(f"[multihost] (a) phase 19's round over 2 processes x 2 slots, null and int8, 2 rounds each: every "
         f"global bit-equal on both ranks and to the one-process round; {json.dumps(round_out)} [{card}]")
+
+    # (d) the cohort round against the same cohort in this process.
+    cs = cohort_setup(torch)
+    cohort_out = {"bce_sums_launches_per_rank": cohort_launches, "by_rank": [
+        {k: rep[f"cohort_{k}"] for k in ("streamed", "resident")} for rep in reports], "one_process_wall_s": {}}
+    for placement in ("streamed", "resident"):
+        cr = build_federated_cohort_round(mesh, cs["cfg"], local_epochs=1, data_placement=placement)
+        t1 = time.monotonic()
+        variables, metrics = cr(cs["global0"], *cohort_data(cs, placement), cs["active"], cs["ns"])
+        torch.cuda.synchronize()
+        cohort_out["one_process_wall_s"][placement] = time.monotonic() - t1
+        want = {"/".join(p): v for p, v in _flat_tree(host_tree(variables))}
+        for rank, got in enumerate(ranks):
+            mine = _load_flat(got, f"cohort_{placement}/")
+            g = {k: v for k, v in mine.items() if not k.startswith("metrics/")}
+            if set(g) != set(want) or any(g[k].tobytes() != want[k].tobytes() for k in want):
+                raise AssertionError(f"[multihost] (d) cohort {placement}: rank {rank}'s global differs from the "
+                                     f"one-process cohort round's; first difference {_first_difference(g, want)}")
+            for k, v in metrics.items():
+                if v.shape != (len(COHORT_ACTIVE),) or mine[f"metrics/{k}"].tobytes() != v.cpu().numpy().tobytes():
+                    raise AssertionError(f"[multihost] (d) cohort {placement}: rank {rank}'s metric {k} differs")
+    log(f"[multihost] (d) the cohort round, {len(COHORT_ACTIVE)} clients in groups of {len(SLOT_ACTIVE)} (the last "
+        f"ragged), streamed and resident, 2 slots of every group a process: every global and metric bit-equal on "
+        f"both ranks and to one process; {json.dumps(cohort_out)} [{card}]")
 
     # (b) against the one-process S = 4 plane.
     cfg = ModelConfig()
@@ -5854,12 +5967,332 @@ def multihost_phase(torch, card: str, slot_plane: dict, spatial: dict) -> dict:
                                      for path, _ in _flat_tree(ss["global0"])])
     serve = serve_global(torch, ss["cfg"], final, card, "multihost", MULTIHOST_SEED)
     out = {"launches": sum(rep["null"]["bce_sums_launches"] for rep in reports),
+           "cohort_launches": sum(rep["cohort_streamed"]["bce_sums_launches"] for rep in reports),
            "served_launches": serve["served_launches"], "round": round_out, "spatial": spatial_out,
+           "cohort": cohort_out,
            "workers": [{"wall_s": s["wall_s"], "start_to_first_launch_s": s["start_to_first_launch_s"],
                         "bce_sums_launches": s["bce_sums_launches"], "join_s": rep["join_s"]}
                        for s, rep in zip(shims, reports)],
            "workers_s": workers_s, "phase_s": time.monotonic() - t0}
     log(f"[phase21] {json.dumps(out)} [{card}]")
+    return out
+
+
+# ---- phase 22: configs/c6_s2d_layout.json's layouts on the card ----
+
+C6_SEED = 22
+C6_SAMPLES = 32  # synthetic samples a client: two steps of 16 an epoch
+C6_CUTS = {"train_samples": 256, "local_epochs": 1, "max_rounds": 2}
+C6_BUCKETS = (128, 256)
+C6_FORWARD = (2, 128)  # tests/test_model.py's layout tests: batch 2 at 128 px
+
+
+def c6_setup(torch) -> dict:
+    """Phase 22's federation: ``configs/c6_s2d_layout.json`` through
+    ``FedConfig.from_json`` and the same config cut by ``C6_CUTS`` (widths,
+    layouts, dtype, batch and slots are c6's); 8 clients of 32 seeded
+    synthetic uint8 samples at its 128 px as a reference pool and as a
+    ``SamplePool(layout="s2d")``, each round's plan drawn from seeded
+    generators (2 steps of 16 a client), one seeded global."""
+    import dataclasses
+
+    import numpy as np
+
+    from fedcrack_tpu_torch.configs import FedConfig
+    from fedcrack_tpu_torch.data.pipeline import SamplePool, to_uint8_transport
+    from fedcrack_tpu_torch.data.synthetic import synth_crack_batch
+    from fedcrack_tpu_torch.models.resunet import init_variables
+
+    with open(os.path.join(HERE, "configs", "c6_s2d_layout.json"), encoding="utf-8") as f:
+        c6 = FedConfig.from_json(f.read())
+    cfg = dataclasses.replace(c6, local_epochs=C6_CUTS["local_epochs"], max_rounds=C6_CUTS["max_rounds"],
+                              data=dataclasses.replace(c6.data, train_samples=C6_CUTS["train_samples"]))
+    n, batch, size = cfg.mesh_clients, cfg.data.batch_size, cfg.model.img_size
+    if n * C6_SAMPLES != cfg.data.train_samples:
+        raise AssertionError(f"[c6] {n} clients x {C6_SAMPLES} samples is not train_samples {cfg.data.train_samples}")
+    pools = [to_uint8_transport(*synth_crack_batch(C6_SAMPLES, size, seed=C6_SEED * 100 + c)) for c in range(n)]
+    ref_pool, s2d_pool = SamplePool.stack(pools), SamplePool.stack(pools, layout="s2d")
+    active, ns = np.ones(n, np.float32), np.full(n, float(C6_SAMPLES), np.float32)
+    steps = C6_SAMPLES // batch
+
+    def plan(r):
+        return s2d_pool.round_indices([np.random.default_rng([C6_SEED, r, c]) for c in range(n)],
+                                      cfg.local_epochs, steps, batch)
+
+    return {"c6": c6, "cfg": cfg, "ref_pool": ref_pool, "s2d_pool": s2d_pool, "active": active, "ns": ns,
+            "steps": steps, "plan": plan, "launches": n * steps * cfg.local_epochs * cfg.max_rounds,
+            "global0": init_variables(torch.Generator().manual_seed(C6_SEED), cfg.model)}
+
+
+def c6_run(torch, cs: dict, label: str, cfg, data_fn, **kwargs) -> dict:
+    """One counted run of ``cfg.max_rounds`` rounds of ``round_from_config(cfg)``
+    through ``run_mesh_federation``: exactly ``cs["launches"]`` ``bce_sums``
+    launches, finite globals and ``[C]`` metrics."""
+    import numpy as np
+
+    from fedcrack_tpu_torch.fed.pytree import tree_leaves
+    from fedcrack_tpu_torch.ops import bce
+    from fedcrack_tpu_torch.parallel import round_from_config, run_mesh_federation
+
+    mesh, round_fn = round_from_config(cfg)
+    globals_ = []
+    torch.cuda.synchronize()
+    bce.reset_launch_counts()
+    t0 = time.monotonic()
+    final, records = run_mesh_federation(round_fn, cs["global0"], data_fn, cfg.max_rounds, mesh,
+                                         data_placement=cfg.data_placement,
+                                         on_round=lambda rec, v: globals_.append(v), **kwargs)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = bce.bce_sums.launches
+    if launches != cs["launches"]:
+        raise AssertionError(f"[c6] {label}: bce_sums launches {launches}, want {cs['launches']}")
+    if not all(bool(torch.isfinite(t).all()) for t in tree_leaves(final)):
+        raise AssertionError(f"[c6] {label}: non-finite global")
+    if not all(np.isfinite(v).all() and v.shape == (cfg.mesh_clients,) for r in records for v in r.metrics.values()):
+        raise AssertionError(f"[c6] {label}: metrics not finite [C] vectors")
+    return {"final": final, "globals": globals_, "records": records, "wall_s": wall, "launches": launches,
+            "round_walls_s": [r.wall_clock_s for r in records]}
+
+
+def ulp_distance(a, b) -> float:
+    """The largest ``|a - b|`` over the float32 spacing at the larger
+    magnitude of the two, elementwise."""
+    import numpy as np
+
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    scale = np.spacing(np.maximum(np.abs(a), np.abs(b)))
+    return float(np.max(np.abs(a.astype(np.float64) - b.astype(np.float64)) / scale))
+
+
+def c6_layout_rounds(torch, cs: dict, card: str) -> dict:
+    """Phase 22 (a) and (b). (a) The main path, c6's round three ways:
+    images packed on the device (reference-layout slabs), pre-packed on
+    the host by ``space_to_depth_images``, and resident from the
+    ``SamplePool(layout="s2d")``; every global and metric bit-equal,
+    ``cs["launches"]`` launches each. (b) The same rounds with the
+    reference layouts: bit-equal, or every parameter within Adam's
+    per-step bound (two sides each moving an element at most
+    ``adam_step_bound * lr`` a step, FedAvg convex), the statistics finite;
+    which held and the largest differences logged."""
+    import dataclasses
+
+    import numpy as np
+
+    from fedcrack_tpu_torch.data.pipeline import space_to_depth_images
+    from fedcrack_tpu_torch.fed.pytree import tree_leaves
+
+    cfg = cs["cfg"]
+
+    def device_packed(r):
+        return (*cs["ref_pool"].assemble_round_slab(cs["plan"](r)), cs["active"], cs["ns"])
+
+    def host_packed(r):
+        images, masks, active, ns = device_packed(r)
+        return space_to_depth_images(images), masks, active, ns
+
+    runs = {"a_device_packed": c6_run(torch, cs, "device_packed", cfg, device_packed)}
+    runs["a_host_packed"] = c6_run(torch, cs, "host_packed", cfg, host_packed)
+    runs["a_resident_s2d_pool"] = c6_run(
+        torch, cs, "resident_s2d_pool", dataclasses.replace(cfg, data_placement="resident"),
+        lambda r: (cs["plan"](r), cs["active"], cs["ns"]), sample_pool=cs["s2d_pool"])
+    main = runs["a_device_packed"]
+    for label in ("a_host_packed", "a_resident_s2d_pool"):
+        if not same_bits(runs[label]["final"], main["final"]):
+            raise AssertionError(f"[c6] (a) {label}: the global differs from the device-packed run's")
+        for rg, rw in zip(runs[label]["records"], main["records"]):
+            if any(rg.metrics[k].tobytes() != rw.metrics[k].tobytes() for k in rw.metrics):
+                raise AssertionError(f"[c6] (a) {label}: round {rw.round_idx} metrics differ")
+    ref_cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, stem_layout="reference",
+                                                                 res_layout="reference"))
+    runs["b_reference_layout"] = c6_run(torch, cs, "reference_layout", ref_cfg, device_packed)
+    lr, steps = cfg.learning_rate, cs["steps"] * cfg.local_epochs
+    step_bound = adam_step_bound(steps)
+    rounds = []
+    for r, (g, w) in enumerate(zip(main["globals"], runs["b_reference_layout"]["globals"])):
+        entry = {"bit_equal": same_bits(g, w)}
+        if not entry["bit_equal"]:
+            bound = 2 * (r + 1) * steps * step_bound * lr * (1 + 1e-3)
+            entry.update(trees_within(f"(b) round {r} against the reference layout (Adam bound)",
+                                      {"params": g["params"]}, {"params": w["params"]}, atol=bound, bn_atol=bound))
+            gs, ws = tree_leaves(host_tree(g["batch_stats"])), tree_leaves(host_tree(w["batch_stats"]))
+            if not all(np.isfinite(x).all() for x in gs):
+                raise AssertionError(f"[c6] (b) round {r}: non-finite statistics")
+            entry["batch_stats_max_diff"] = max(float(np.abs(a.astype(np.float64) - b).max()) for a, b in zip(gs, ws))
+            gl, wl = tree_leaves(host_tree(g["params"])), tree_leaves(host_tree(w["params"]))
+            entry["params_beyond_1e-4"] = int(sum(int((np.abs(a - b) > 1e-4).sum()) for a, b in zip(gl, wl)))
+            entry["adam_bound"] = bound
+        rounds.append(entry)
+    out = {"launches": main["launches"], "launches_by_run": {k: v["launches"] for k, v in runs.items()},
+           "round_walls_s": {k: v["round_walls_s"] for k, v in runs.items()},
+           "run_walls_s": {k: v["wall_s"] for k, v in runs.items()},
+           "images_per_s": cs["launches"] * cfg.data.batch_size / main["wall_s"],
+           "against_reference_layout": rounds}
+    log(f"[c6] (a) c6's round, {cfg.mesh_clients} slots x {cfg.max_rounds} rounds x {steps} steps of "
+        f"{cfg.data.batch_size} at {cfg.model.img_size} px, {cfg.model.compute_dtype}, stem {cfg.model.stem_layout}, "
+        f"residuals {cfg.model.res_layout}: packed on the device, on the host and resident from the s2d pool, "
+        f"bit-equal; (b) against the reference layouts: "
+        f"{'bit-equal' if all(e['bit_equal'] for e in rounds) else 'within Adam per-step bound'}; "
+        f"{json.dumps(out)} [{card}]")
+    return {**out, "final": main["final"]}
+
+
+def c6_forwards(torch, cs: dict, card: str) -> dict:
+    """Phase 22 (e) and the forward checks at the JAX layout tests' shapes
+    (float32 ``ModelConfig()`` widths, 2 x 128 x 128) on the seeded
+    global: packed and unpacked input to each space-to-depth stem
+    ``torch.equal`` (eval and train mode); ``s2d`` + ``packed`` against
+    the reference layout bit-equal or within the JAX tests' atol and rtol
+    1e-4 (logged which); ``s2d_full`` within atol and rtol 1e-4; c6's
+    bfloat16 forward against bfloat16 reference layouts logged."""
+    import dataclasses
+
+    import numpy as np
+
+    from fedcrack_tpu_torch.models import space_to_depth
+    from fedcrack_tpu_torch.models.convert import from_flax_variables
+    from fedcrack_tpu_torch.models.resunet import ResUNet
+
+    n, size = C6_FORWARD
+    x = torch.from_numpy(np.random.default_rng(C6_SEED).uniform(0, 1, (n, size, size, 3)).astype(np.float32)).cuda()
+    f32 = dataclasses.replace(cs["cfg"].model, compute_dtype="float32", img_size=size)
+    out = {}
+
+    def forward(cfg, inp, train):
+        model = from_flax_variables(cs["global0"], ResUNet(cfg))
+        model.train(train)
+        with torch.no_grad():
+            return model(inp).cpu().numpy()
+
+    for mode in ("eval", "train"):
+        train = mode == "train"
+        ref = forward(dataclasses.replace(f32, stem_layout="reference", res_layout="reference"), x, train)
+        for stem, res in (("s2d", "packed"), ("s2d_full", "packed"), ("s2d", "reference")):
+            cfg = dataclasses.replace(f32, stem_layout=stem, res_layout=res)
+            unpacked = forward(cfg, x, train)
+            packed = forward(cfg, space_to_depth(x), train)
+            if packed.tobytes() != unpacked.tobytes():
+                raise AssertionError(f"[c6] {stem}+{res} {mode}: packed input differs from unpacked input")
+            d = float(np.max(np.abs(unpacked.astype(np.float64) - ref)))
+            entry = {"bit_equal": unpacked.tobytes() == ref.tobytes(), "max_abs": d,
+                     "max_ulps": ulp_distance(unpacked, ref)}
+            if not entry["bit_equal"]:
+                np.testing.assert_allclose(unpacked, ref, rtol=1e-4, atol=1e-4,
+                                           err_msg=f"[c6] {stem}+{res} {mode} against the reference layout")
+            out[f"{stem}+{res}/{mode}"] = entry
+    bf16 = dataclasses.replace(f32, compute_dtype="bfloat16")
+    got = forward(bf16, x, False)
+    want = forward(dataclasses.replace(bf16, stem_layout="reference", res_layout="reference"), x, False)
+    out["bf16_s2d+packed/eval"] = {"bit_equal": got.tobytes() == want.tobytes(),
+                                   "max_abs": float(np.max(np.abs(got.astype(np.float64) - want)))}
+    log(f"[c6] (e) forwards at {n} x {size} x {size}, packed input torch.equal to unpacked for every stem, each "
+        f"layout against the reference layout: {json.dumps(out)} [{card}]")
+    return out
+
+
+def c6_serve(torch, cs: dict, weights, card: str) -> dict:
+    """Phase 22 (c), (d) and (f). (c) The c6 global through
+    ``InferenceEngine`` on the reference plane, float32 and int8
+    (``quantize_variables``) at buckets 128 and 256, ``max_batch`` 8,
+    against a reference-layout engine on the same weights: the canary IoU
+    and PSI of int8 against float32 on each side's probe batches held by
+    ``check_flip_bound``; images/s per engine, payload and bucket. (d)
+    ``fused_int8`` and ``fp8`` refuse c6's layouts with the JAX message.
+    (f) Where ``h5py`` is installed, the global exported by
+    ``tools.h5_export``, imported by ``tools.h5_import`` byte-equal, and
+    served once bit-equal to the original; else logged as not run."""
+    import dataclasses
+    import tempfile
+
+    from fedcrack_tpu_torch.configs import ServeConfig
+    from fedcrack_tpu_torch.fed.pytree import tree_leaves
+    from fedcrack_tpu_torch.serve import quant as quant_mod
+    from fedcrack_tpu_torch.serve.engine import InferenceEngine
+
+    model = cs["cfg"].model
+    ref_model = dataclasses.replace(model, stem_layout="reference", res_layout="reference")
+    sc = ServeConfig(bucket_sizes=C6_BUCKETS, max_batch=BATCH, quant="int8", kernel_plane="reference")
+    engines = {"c6": InferenceEngine(model, sc), "reference_layout": InferenceEngine(ref_model, sc)}
+    q = quant_mod.quantize_variables(weights)
+    probes, numbers, timing, payloads = {}, {}, {}, {}
+    for name, engine in engines.items():
+        payloads[name] = {"f32": engine.prepare(weights), "int8": engine.prepare(q)}
+        probes[name] = probe_probs(engine, payloads[name])
+        numbers[name] = verdict_numbers(probes[name], "f32", "int8")
+        timing[name] = {f"{kind}/{size}": time_batches(engine, payload, size)
+                        for kind, payload in payloads[name].items() for size in C6_BUCKETS}
+    flip = check_flip_bound("[c6] (c) c6 against the reference layout", probes["reference_layout"], probes["c6"],
+                            numbers["reference_layout"], numbers["c6"], "f32", "int8")
+    bit_equal = all(probes["c6"][size][1][k].tobytes() == probes["reference_layout"][size][1][k].tobytes()
+                    for size in C6_BUCKETS for k in ("f32", "int8"))
+    refused = {}
+    for plane in ("fused_int8", "fp8"):
+        want = (f"kernel_plane={plane!r} supports only the reference parameter layouts (kernels/forward.py); got "
+                f"stem_layout={model.stem_layout!r} res_layout={model.res_layout!r}")
+        try:
+            InferenceEngine(model, ServeConfig(quant="int8", kernel_plane=plane))
+        except ValueError as e:
+            if str(e) != want:
+                raise AssertionError(f"[c6] (d) {plane}: refused with {e!r}, want {want!r}") from e
+            refused[plane] = str(e)
+        else:
+            raise AssertionError(f"[c6] (d) {plane} accepted c6's layouts")
+    h5 = {"ran": False}
+    if importlib.util.find_spec("h5py") is None:
+        log(f"[c6] (f) h5py is not installed on this machine: the h5 round trip did not run [{card}]")
+    else:
+        from fedcrack_tpu_torch.tools.h5_export import export_resunet_h5
+        from fedcrack_tpu_torch.tools.h5_import import import_resunet_h5
+
+        with tempfile.TemporaryDirectory(prefix="fedcrack_h5_") as tmp:
+            path = os.path.join(tmp, "crack_segmentation.h5")
+            t0 = time.monotonic()
+            export_resunet_h5(weights, path, model)
+            back = import_resunet_h5(path, model)
+            h5 = {"ran": True, "bytes": os.path.getsize(path), "round_trip_s": time.monotonic() - t0}
+        if not same_bits(back, weights):
+            raise AssertionError("[c6] (f) the h5 round trip changed the global")
+        batch = probes["c6"][C6_BUCKETS[0]][0]
+        served = engines["c6"].predict_bucket(engines["c6"].prepare(back), batch)
+        if served.tobytes() != probes["c6"][C6_BUCKETS[0]][1]["f32"].tobytes():
+            raise AssertionError("[c6] (f) the re-imported global serves other probabilities")
+        h5["leaves"] = len(tree_leaves(back))
+    out = {"verdicts": {k: {"iou": v["iou"], "psi": v["psi"]} for k, v in numbers.items()}, "flip_bound": flip,
+           "bit_equal_to_reference_layout": bit_equal, "timing": timing, "refused": sorted(refused), "h5": h5}
+    log(f"[c6] (c) the c6 global served on the reference plane at buckets {list(C6_BUCKETS)}, max_batch {BATCH}, "
+        f"f32 and int8, held to the reference-layout engine by the flip bound; (d) fused_int8 and fp8 refused; "
+        f"(f) h5 {'round trip byte-equal and served' if h5['ran'] else 'not run'}: {json.dumps(out)} [{card}]")
+    return out
+
+
+def c6_phase(torch, card: str) -> dict:
+    """Phase 22: ``configs/c6_s2d_layout.json`` (8 slots, bfloat16, ``s2d``
+    stem, ``packed`` residuals, ``ModelConfig()`` widths at 128 px, batch
+    16) through ``parallel.round_from_config`` on the card, cut as
+    ``C6_CUTS`` says (logged): (a) the round three ways, bit-equal, 32
+    ``bce_sums`` launches a run; (b) against the reference layouts; (c)
+    served on the reference plane; (d) the fused planes' refusal; (e)
+    ``s2d_full`` and the forwards at the JAX tests' shapes; (f) the h5
+    round trip where ``h5py`` is installed."""
+    import dataclasses
+
+    t0 = time.monotonic()
+    cs = c6_setup(torch)
+    c6, cfg = cs["c6"], cs["cfg"]
+    cuts = {"clients": [c6.mesh_clients, cfg.mesh_clients], "samples_a_client": [None, C6_SAMPLES],
+            "train_samples": [c6.data.train_samples, cfg.data.train_samples],
+            "local_epochs": [c6.local_epochs, cfg.local_epochs], "max_rounds": [c6.max_rounds, cfg.max_rounds]}
+    log(f"[c6] configs/c6_s2d_layout.json cut for the smoke (c6's value, the phase's): {json.dumps(cuts)}; "
+        f"model {json.dumps(dataclasses.asdict(cfg.model))} [{card}]")
+    rounds = c6_layout_rounds(torch, cs, card)
+    t_forward = time.monotonic()
+    forwards = c6_forwards(torch, cs, card)
+    t_serve = time.monotonic()
+    serve = c6_serve(torch, cs, host_tree(rounds.pop("final")), card)
+    out = {"launches": rounds["launches"], "rounds": rounds, "forwards": forwards, "serve": serve,
+           "split_s": {"rounds": t_forward - t0, "forwards": t_serve - t_forward, "serve": time.monotonic() - t_serve},
+           "phase_s": time.monotonic() - t0}
+    log(f"[phase22] {json.dumps(out)} [{card}]")
     return out
 
 
@@ -6035,7 +6468,10 @@ def main() -> int:
         "spatial round served, c5's batch axis, and the measure_baseline command: ok")
     multihost = multihost_phase(torch, card, slot_plane, spatial)
     log("phase 21 two processes sharing the card over gloo: the round's clients and the spatial step's bands split "
-        "across them, the global served: ok")
+        "across them, the global served, the cohort round's groups split across them: ok")
+    c6 = c6_phase(torch, card)
+    log("phase 22 configs/c6_s2d_layout.json on the card: the s2d and packed layouts through the slot plane three "
+        "ways, against the reference layouts, served, the fused planes' refusal, s2d_full, the h5 bridge: ok")
 
     kernels = []
     replaces = {"dequant_matmul": "fedcrack_tpu/kernels/dequant.py:88",
@@ -6087,6 +6523,8 @@ def main() -> int:
         "launches_phase19": slot_plane["launches"],
         "launches_phase20": spatial["launches"],
         "launches_phase21": multihost["launches"],
+        "launches_phase21_cohort": multihost["cohort_launches"],
+        "launches_phase22": c6["launches"],
         **bce_row,
     })
     log(f"profiler: {lead_kept(torch)} at {time.monotonic() - t_start:.1f} s [{card}]")

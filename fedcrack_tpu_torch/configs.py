@@ -19,9 +19,10 @@ class ModelConfig:
 
     128x128x3 inputs, stem 32 filters, encoder (64, 128, 256), decoder
     (256, 128, 64, 32) and a single-logit head. ``stem_layout`` and
-    ``res_layout`` name exact re-expressions of the same weights; the port
-    runs the ``"reference"`` layouts only and refuses the others where it
-    builds a program.
+    ``res_layout`` name re-expressions of the same weights: the stem run
+    space-to-depth (``"s2d"``, ``"s2d_full"``) and the encoder's residual
+    projections run channel-packed (``"packed"``), with the parameters,
+    their names and shapes unchanged (``models.resunet``).
     """
 
     img_size: int = 128

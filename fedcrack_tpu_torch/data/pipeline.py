@@ -153,7 +153,9 @@ def as_model_batch(
     images: torch.Tensor, masks: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """A transport batch (uint8 or float32) in the model contract: float32
-    [0, 1] images, float32 {0, 1} masks."""
+    [0, 1] images, float32 {0, 1} masks. The images may be packed by
+    :func:`space_to_depth_images` for a space-to-depth model: the
+    normalization is elementwise."""
     images = normalize_images(images)
     if masks.dtype == torch.uint8:
         masks = masks.to(torch.float32)
@@ -386,7 +388,20 @@ class CrackDataset:
             t.join(timeout=5.0)
 
 
-S2D_REFUSAL = "SamplePool(layout='s2d') waits for the s2d layouts: ROADMAP Queue 1 item 8"
+def space_to_depth_images(images: np.ndarray) -> np.ndarray:
+    """Host-side space-to-depth for staging: ``[..., H, W, C] -> [...,
+    H/2, W/2, 4C]`` in ``models.resunet.space_to_depth``'s
+    block-position-major channel order, over any leading dims (a batch or
+    the ``[C, steps, B, ...]`` round layout) and any dtype; a space-to-depth
+    model takes either layout. Masks are never packed: the loss runs at
+    full resolution."""
+    *lead, h, w, c = images.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"space_to_depth_images needs even H,W; got {(h, w)}")
+    x = images.reshape(*lead, h // 2, 2, w // 2, 2, c)
+    n = len(lead)
+    x = x.transpose(*range(n), n, n + 2, n + 1, n + 3, n + 4)
+    return np.ascontiguousarray(x.reshape(*lead, h // 2, w // 2, 4 * c))
 
 
 class SamplePool:
@@ -404,8 +419,10 @@ class SamplePool:
     ``data_placement="resident"``). The plans consume the numpy generators
     exactly as the JAX package's do, so both draw the same plans.
 
-    ``layout="s2d"`` (the JAX package's space-to-depth staging) waits for
-    the s2d layouts, ROADMAP Queue 1 item 8, and raises.
+    ``layout="s2d"`` stores the images packed by
+    :func:`space_to_depth_images`: gathering from the packed pool equals
+    packing the gathered slab, since the packing is per sample. Masks are
+    never packed.
 
     The host twin is kept: a replay (``max_round_retries``) re-stages the
     pool from it bit for bit, and the HBM guard's fallback assembles
@@ -417,8 +434,6 @@ class SamplePool:
     def __init__(self, images: np.ndarray, masks: np.ndarray, *, layout: str = "reference"):
         if layout not in self.LAYOUTS:
             raise ValueError(f"layout must be one of {self.LAYOUTS}, got {layout!r}")
-        if layout == "s2d":
-            raise NotImplementedError(S2D_REFUSAL)
         images = np.asarray(images)
         masks = np.asarray(masks)
         if images.ndim != 5 or masks.ndim != 5:
@@ -431,6 +446,8 @@ class SamplePool:
                 f"images/masks disagree on [C, N]: {images.shape[:2]} vs "
                 f"{masks.shape[:2]}"
             )
+        if layout == "s2d":
+            images = space_to_depth_images(images)
         self.images = np.ascontiguousarray(images)
         self.masks = np.ascontiguousarray(masks)
         self.layout = layout
@@ -530,6 +547,8 @@ class SamplePool:
             raise ValueError(
                 f"images/masks disagree on k: {images.shape[0]} vs {masks.shape[0]}"
             )
+        if self.layout == "s2d":
+            images = space_to_depth_images(images)
         if images.shape[1:] != self.images.shape[2:]:
             raise ValueError(
                 f"sample shape {images.shape[1:]} does not match pool "

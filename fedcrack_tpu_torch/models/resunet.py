@@ -1,10 +1,10 @@
 """The crack-segmentation residual U-Net as a PyTorch module.
 
-The counterpart of ``fedcrack_tpu.models.resunet.ResUNet`` for the
-``"reference"`` stem and residual layouts, with the flax module names
-(``stem_conv``, ``enc{i}_sep1.depthwise``, ``dec{i}_convT1``, ``head``...),
-so ``models/convert.py`` maps a flax variables tree onto it name for name.
-Its convs are ``F.conv2d``, as the JAX package leaves its convs to XLA.
+The counterpart of ``fedcrack_tpu.models.resunet.ResUNet``, with the flax
+module names (``stem_conv``, ``enc{i}_sep1.depthwise``, ``dec{i}_convT1``,
+``head``...), so ``models/convert.py`` maps a flax variables tree onto it
+name for name. Its convs are ``F.conv2d``, as the JAX package leaves its
+convs to XLA.
 
 Parity points with flax, each pinned by tests/test_torch_model.py and
 tests/test_torch_train.py:
@@ -41,6 +41,24 @@ planes (``kernels/forward.py``) ignore the compute dtype, as the JAX
 package's do.
 
 Inputs and outputs are NHWC, the JAX layout; inside, the module runs NCHW.
+
+The layouts (``ModelConfig.stem_layout`` / ``res_layout``) re-express the
+stem and the encoder's residual projections over the same parameters,
+whose names, shapes and initial values do not change, so the weight
+carry, FedAvg, the wire and the statefile never see the layout. The
+transformed kernels are derived inside ``forward`` from the reference
+kernels (``fold_stem_kernel_s2d`` and the rest, plain functions on HWIO
+tensors as in the JAX package), so gradients land on the reference
+parameters. ``"s2d"`` runs the stem as a width-folded ``[3,2,2C,F]`` conv
+at strides (2, 1); ``"s2d_full"`` as a fully folded ``[2,2,4C,F]`` conv at
+stride 1 on the space-to-depth input; either takes the ``[N,H,W,C]`` input
+or the pre-packed ``[N,H/2,W/2,4C]`` of :func:`space_to_depth`.
+``"packed"`` runs each encoder residual ``Conv(F, 1x1, stride 2)`` as a
+stride-1 1x1 conv over the space-to-depth of its input with the kernel
+zero-extended to ``[1,1,4C,F]``. The same multiplies are summed with exact
+zeros between them; whether the backend sums the real terms in the
+reference's order (the JAX docstring's bit-exactness) depends on the
+backend's algorithm, and tests/test_torch_layouts.py measures it.
 """
 
 from __future__ import annotations
@@ -66,6 +84,115 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour x2 upsampling on NHWC (Keras ``UpSampling2D(2)``)."""
     n, h, w, c = x.shape
     return x[:, :, None, :, None, :].expand(n, h, 2, w, 2, c).reshape(n, 2 * h, 2 * w, c)
+
+
+def space_to_depth(x: torch.Tensor) -> torch.Tensor:
+    """``[N,H,W,C] -> [N,H/2,W/2,4C]``: 2x2 pixel blocks to channels,
+    block-position-major (packed channel ``(di*2+dj)*C + c`` for the pixel
+    at block offset ``(di, dj)``). Pure data movement; the host twin for
+    staging is ``data.pipeline.space_to_depth_images``."""
+    n, h, w, c = x.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"space_to_depth needs even H,W; got {(h, w)}")
+    return x.reshape(n, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5).reshape(n, h // 2, w // 2, 4 * c)
+
+
+def depth_to_space(x: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`space_to_depth`."""
+    n, h2, w2, c4 = x.shape
+    if c4 % 4:
+        raise ValueError(f"depth_to_space needs channels % 4 == 0; got {c4}")
+    c = c4 // 4
+    return x.reshape(n, h2, w2, 2, 2, c).permute(0, 1, 3, 2, 4, 5).reshape(n, 2 * h2, 2 * w2, c)
+
+
+def fold_stem_kernel_s2d(kernel: torch.Tensor) -> torch.Tensor:
+    """Reference stem kernel ``[3,3,C,F]`` (HWIO) -> width-folded
+    ``[3,2,2C,F]``: tap ``(kh, kw, c)`` lands at ``[kh, kw//2, (kw%2)*C +
+    c]``, the unused slot ``(kh, 1, C + c)`` exact zero. Linear in
+    ``kernel``, so differentiable."""
+    if tuple(kernel.shape[:2]) != (3, 3):
+        raise ValueError(f"expected a 3x3 stem kernel, got {tuple(kernel.shape)}")
+    k0 = torch.cat([kernel[:, 0], kernel[:, 1]], dim=1)  # [3, 2C, F]
+    k1 = torch.cat([kernel[:, 2], torch.zeros_like(kernel[:, 2])], dim=1)
+    return torch.stack([k0, k1], dim=1)
+
+
+def unfold_stem_kernel_s2d(folded: torch.Tensor) -> torch.Tensor:
+    """Exact inverse of :func:`fold_stem_kernel_s2d`."""
+    if tuple(folded.shape[:2]) != (3, 2):
+        raise ValueError(f"expected a [3,2,2C,F] folded kernel, got {tuple(folded.shape)}")
+    c = folded.shape[2] // 2
+    k0, k1 = folded[:, 0], folded[:, 1]
+    return torch.stack([k0[:, :c], k0[:, c:], k1[:, :c]], dim=1)
+
+
+def fold_stem_kernel_s2d_full(kernel: torch.Tensor) -> torch.Tensor:
+    """Reference stem kernel ``[3,3,C,F]`` -> fully folded ``[2,2,4C,F]``
+    for the stride-1 conv on the space-to-depth input: tap ``(kh, kw, c)``
+    lands at ``[kh//2, kw//2, ((kh%2)*2 + kw%2)*C + c]``. Taps of different
+    rows share a packed block, so the sum is reassociated."""
+    if tuple(kernel.shape[:2]) != (3, 3):
+        raise ValueError(f"expected a 3x3 stem kernel, got {tuple(kernel.shape)}")
+    zeros = torch.zeros_like(kernel[0, 0])  # [C, F]
+
+    def tap(kh: int, kw: int) -> torch.Tensor:
+        return kernel[kh, kw] if kh < 3 and kw < 3 else zeros
+
+    rows = [
+        torch.stack([torch.cat([tap(2 * bh + di, 2 * bw + dj) for di in (0, 1) for dj in (0, 1)], dim=0)
+                     for bw in range(2)], dim=0)
+        for bh in range(2)
+    ]
+    return torch.stack(rows, dim=0)
+
+
+def unfold_stem_kernel_s2d_full(folded: torch.Tensor) -> torch.Tensor:
+    """Exact inverse of :func:`fold_stem_kernel_s2d_full`."""
+    if tuple(folded.shape[:2]) != (2, 2):
+        raise ValueError(f"expected a [2,2,4C,F] folded kernel, got {tuple(folded.shape)}")
+    c = folded.shape[2] // 4
+    taps = []
+    for kh in range(3):
+        row = []
+        for kw in range(3):
+            lo = ((kh % 2) * 2 + kw % 2) * c
+            row.append(folded[kh // 2, kw // 2, lo:lo + c])
+        taps.append(torch.stack(row, dim=0))
+    return torch.stack(taps, dim=0)
+
+
+def pack_res_kernel(kernel: torch.Tensor) -> torch.Tensor:
+    """Reference 1x1 residual kernel ``[1,1,C,F]`` -> ``[1,1,4C,F]`` for
+    the stride-1 conv on the space-to-depth input: the real taps (block
+    offset (0, 0), the pixels a stride-2 1x1 conv reads) first, zeros
+    after."""
+    if tuple(kernel.shape[:2]) != (1, 1):
+        raise ValueError(f"expected a 1x1 residual kernel, got {tuple(kernel.shape)}")
+    zeros = kernel.new_zeros((1, 1, 3 * kernel.shape[2], kernel.shape[3]))
+    return torch.cat([kernel, zeros], dim=2)
+
+
+def unpack_res_kernel(packed: torch.Tensor) -> torch.Tensor:
+    """Exact inverse of :func:`pack_res_kernel`."""
+    if packed.shape[2] % 4:
+        raise ValueError(f"expected a [1,1,4C,F] packed kernel, got {tuple(packed.shape)}")
+    return packed[:, :, : packed.shape[2] // 4]
+
+
+def _space_to_depth_nchw(x: torch.Tensor) -> torch.Tensor:
+    """:func:`space_to_depth` on NCHW: ``[N,C,H,W] -> [N,4C,H/2,W/2]``."""
+    n, c, h, w = x.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"space_to_depth needs even H,W; got {(h, w)}")
+    return x.reshape(n, c, h // 2, 2, w // 2, 2).permute(0, 3, 5, 1, 2, 4).reshape(n, 4 * c, h // 2, w // 2)
+
+
+def _memory_format(x: torch.Tensor) -> torch.memory_format:
+    """The memory format a conv on ``x`` would run in."""
+    if not x.is_contiguous() and x.is_contiguous(memory_format=torch.channels_last):
+        return torch.channels_last
+    return torch.contiguous_format
 
 
 def _upsample2x_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -99,6 +226,76 @@ class Conv(nn.Conv2d):
 
 def _conv(cin: int, cout: int, k: int, *, stride: int = 1, groups: int = 1, bias: bool = True):
     return Conv(cin, cout, k, stride=stride, padding=0, groups=groups, bias=bias)
+
+
+class _DerivedKernelConv(Conv):
+    """A conv holding the reference kernel ``weight`` (OIHW) and bias, run
+    with a kernel derived from it per call: flax's reduced-precision
+    semantics as :class:`Conv` (the kernel cast before the derivation, the
+    bias added to the rounded output)."""
+
+    def _run(self, x: torch.Tensor, derive, stride) -> torch.Tensor:
+        dt = self.compute_dtype
+        kernel = self.weight if dt is None else self.weight.to(dt)
+        w = derive(kernel.permute(2, 3, 1, 0)).permute(3, 2, 0, 1)
+        if dt is None:
+            return F.conv2d(x, w, self.bias, stride)
+        return F.conv2d(x.to(dt), w, None, stride) + self.bias.to(dt)[:, None, None]
+
+
+class S2DStemConv(_DerivedKernelConv):
+    """The stem conv run space-to-depth, with the reference stem's
+    parameters (``weight [F,C,3,3]``, ``bias [F]``). Takes NCHW ``[N,C,H,W]``
+    or the pre-packed ``[N,4C,H/2,W/2]`` (the NHWC input of
+    :func:`space_to_depth`, permuted) and returns ``[N,F,H/2,W/2]``;
+    pads the stem's SAME itself. ``layout="s2d"``: the width fold, strides
+    (2, 1), padding ((0, 1), (0, 1)); ``"s2d_full"``: stride 1 on the
+    fully packed input, the same padding. The data movement copies into
+    the memory format the input arrived in, so the layers after the stem
+    run as they do after the reference stem."""
+
+    def __init__(self, cin: int, cout: int, layout: str):
+        super().__init__(cin, cout, 3, stride=2, padding=0, bias=True)
+        self.layout = layout
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = self.in_channels
+        n, ch, h, w = x.shape
+        packed = ch == 4 * c
+        if not packed and ch != c:
+            raise ValueError(
+                f"stem input has {ch} channels; expected {c} (reference layout) or {4 * c} "
+                "(space_to_depth-packed)"
+            )
+        fmt = _memory_format(x)
+        if self.layout == "s2d":
+            if packed:
+                # Unpack H only: [N,4C,H/2,W/2] -> [N,2C,H,W/2], channel dj*C + c.
+                x = x.reshape(n, 2, 2, c, h, w).permute(0, 2, 3, 4, 1, 5).reshape(n, 2 * c, 2 * h, w)
+            else:
+                # The width fold: [N,C,H,W] -> [N,2C,H,W/2], channel dj*C + c.
+                x = x.reshape(n, c, h, w // 2, 2).permute(0, 4, 1, 2, 3).reshape(n, 2 * c, h, w // 2)
+            derive, stride = fold_stem_kernel_s2d, (2, 1)
+        else:  # "s2d_full"
+            if not packed:
+                x = _space_to_depth_nchw(x)
+            derive, stride = fold_stem_kernel_s2d_full, (1, 1)
+        x = F.pad(x, (0, 1, 0, 1)).contiguous(memory_format=fmt)
+        return self._run(x, derive, stride)
+
+
+class PackedResConv(_DerivedKernelConv):
+    """An encoder residual projection, reference ``Conv(F, 1x1, stride 2)``
+    with its parameters (``weight [F,C,1,1]``, ``bias``), run as a stride-1
+    1x1 conv over the space-to-depth of its NCHW input with the kernel
+    zero-extended to ``[1,1,4C,F]`` (:func:`pack_res_kernel`)."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__(cin, cout, 1, stride=2, padding=0, bias=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        fmt = _memory_format(x)
+        return self._run(_space_to_depth_nchw(x).contiguous(memory_format=fmt), pack_res_kernel, (1, 1))
 
 
 class BatchNorm(nn.Module):
@@ -171,11 +368,6 @@ class ResUNet(nn.Module):
     ):
         super().__init__()
         cfg = config or ModelConfig()
-        if cfg.stem_layout != "reference" or cfg.res_layout != "reference":
-            raise ValueError(
-                "the port runs only the reference parameter layouts; got "
-                f"stem_layout={cfg.stem_layout!r} res_layout={cfg.res_layout!r}"
-            )
         if cfg.compute_dtype not in COMPUTE_DTYPES or cfg.param_dtype != "float32":
             raise ValueError(
                 "the port computes in float32 or bfloat16 with float32 parameters; got "
@@ -202,7 +394,10 @@ class ResUNet(nn.Module):
         self.eval()
 
     def _build(self, cfg: ModelConfig) -> None:
-        self.stem_conv = _conv(cfg.in_channels, cfg.stem_features, 3, stride=2)
+        if cfg.stem_layout == "reference":
+            self.stem_conv = _conv(cfg.in_channels, cfg.stem_features, 3, stride=2)
+        else:
+            self.stem_conv = S2DStemConv(cfg.in_channels, cfg.stem_features, cfg.stem_layout)
         self.stem_bn = BatchNorm(cfg.stem_features, self.bn_momentum)
         cin = cfg.stem_features
         for i, f in enumerate(cfg.encoder_features):
@@ -210,7 +405,8 @@ class ResUNet(nn.Module):
             self.add_module(f"enc{i}_bn1", BatchNorm(f, self.bn_momentum))
             self.add_module(f"enc{i}_sep2", SeparableConv(f, f))
             self.add_module(f"enc{i}_bn2", BatchNorm(f, self.bn_momentum))
-            self.add_module(f"enc{i}_res", _conv(cin, f, 1, stride=2))
+            packed = cfg.res_layout == "packed"
+            self.add_module(f"enc{i}_res", PackedResConv(cin, f) if packed else _conv(cin, f, 1, stride=2))
             cin = f
         prev = cin
         for i, f in enumerate(cfg.decoder_features):
@@ -260,7 +456,10 @@ class ResUNet(nn.Module):
         (None on one process) feeds every BatchNorm."""
         cfg = self.config
         moments = geometry.moments
-        x = self.stem_conv(geometry.pad_s2(x))
+        # A space-to-depth stem pads itself and takes [N,C,H,W] or the
+        # pre-packed [N,4C,H/2,W/2]; from stem_bn on the layers are the
+        # reference layout's.
+        x = self.stem_conv(x if cfg.stem_layout != "reference" else geometry.pad_s2(x))
         x = torch.relu(self.stem_bn(x, moments))
         previous = x
         for i in range(len(cfg.encoder_features)):

@@ -42,7 +42,7 @@ with the rank that owns the client); the ranks then all-gather the slots'
 updates and metrics, and every rank folds all ``C`` updates in client
 order. No ``all_reduce`` decides the global: every rank holds the bits of
 the same round run in one process. The segmented round gathers the same
-way; the cohort round refuses such a mesh.
+way, and so does the cohort round, group by group.
 
 The inner axis splits each client's step into shards with sync-BN and
 averaged gradients. A ``batch`` axis of ``n`` needs a per-step batch that
@@ -365,13 +365,18 @@ def _anchor(gvars: dict, model: ResUNet) -> dict:
 
 
 def _validate_channels(model_config: ModelConfig):
+    """The staging-layout check: ``C`` channels, or ``4C`` (images packed
+    by ``data.pipeline.space_to_depth_images``) under a space-to-depth
+    ``stem_layout``."""
     in_ch = model_config.in_channels
+    allowed = (in_ch, 4 * in_ch) if model_config.stem_layout != "reference" else (in_ch,)
 
     def validate(images) -> None:
         ch = images.shape[-1]
-        if ch != in_ch:
+        if ch not in allowed:
             raise ValueError(
-                f"images carry {ch} channels; stem_layout={model_config.stem_layout!r} accepts ({in_ch},)"
+                f"images carry {ch} channels; stem_layout={model_config.stem_layout!r} accepts {allowed} "
+                "(4x = space_to_depth-packed staging)"
             )
 
     return validate
@@ -853,6 +858,13 @@ class CohortRound:
     ragged cohort pads its last group with inactive zero-weight slots,
     sliced out of the metrics. The driver calls ``zeros``, ``run_group``
     and ``finish`` itself, to stage group by group.
+
+    Across processes (a mesh that spans them) each group's ``G`` slots
+    split over the ranks as the segmented round's do: every rank runs its
+    block of every group, the padding slots of a ragged last group
+    included, and ``run_group`` gathers the group's slots and metrics so
+    that every rank folds all ``G`` in client order, carrying the bits of
+    the one-process round.
     """
 
     group_size: int
@@ -872,13 +884,21 @@ class CohortRound:
         """The round's initial fold carry (float32 zeros on the device)."""
         return mesh_zero_sums(_device_tree(variables, self.seg.device))
 
+    @property
+    def block(self) -> slice:
+        """This process's slots within a group (all ``G`` in one process)."""
+        seg = self.seg
+        return slice(seg.client_offset, seg.client_offset + seg.n_client_shards)
+
     def run_group(self, sums, variables, data_a, data_b, active_g, n_g):
         """Train one group of G slots and fold them into ``sums``.
         Streamed: ``data_a``/``data_b`` the group's ``[G, steps, B, ...]``
         slabs; resident: the group's pool pair and its ``[G,
-        local_epochs, steps, B]`` plan. Returns ``(sums, raw_last)``. An
-        all-inactive group (pure padding) leaves ``sums`` bitwise as it
-        was."""
+        local_epochs, steps, B]`` plan; across processes, this rank's
+        :attr:`block` of them. ``active_g`` and ``n_g`` are the whole
+        group's. Returns ``(sums, raw_last)``, ``raw_last`` the group's
+        ``[G]`` counts. An all-inactive group (pure padding) leaves
+        ``sums`` bitwise as it was."""
         carry = self.seg.init(variables)
         raw_last = None
         if self.data_placement == "resident":
@@ -889,6 +909,8 @@ class CohortRound:
             for _ in range(self.n_segments):
                 carry, raw_last = self.seg.segment(carry, variables, data_a, data_b)
         sums = self.seg.fold(carry, np.asarray(active_g, np.float32), np.asarray(n_g, np.float32), sums)
+        if self.seg.span is not None:
+            raw_last = _gather_metrics(self.seg.span, raw_last)
         return sums, raw_last
 
     def finish(self, sums, variables, raw_lasts, active, cohort_size):
@@ -907,7 +929,13 @@ class CohortRound:
         return pad_cohort_axis(active, c_pad), pad_cohort_axis(n_samples, c_pad), c, c_pad
 
     def __call__(self, variables, images, masks, active, n_samples):
-        g = self.group_size
+        """The whole cohort's data in (across processes too: each rank
+        stages only its block of every group)."""
+        g, block = self.group_size, self.block
+
+        def mine(arr, lo):
+            return arr[lo + block.start:lo + block.stop]
+
         if self.data_placement == "resident":
             pool, idx = tuple(images), np.asarray(masks, np.int32)
             c = idx.shape[0]
@@ -919,8 +947,8 @@ class CohortRound:
             sums = self.zeros(variables)
             raw_lasts = []
             for lo in range(0, c_pad, g):
-                sums, raw = self.run_group(sums, variables, (pool_i[lo:lo + g], pool_m[lo:lo + g]),
-                                           idx[lo:lo + g], active[lo:lo + g], n_samples[lo:lo + g])
+                sums, raw = self.run_group(sums, variables, (mine(pool_i, lo), mine(pool_m, lo)),
+                                           mine(idx, lo), active[lo:lo + g], n_samples[lo:lo + g])
                 raw_lasts.append(raw)
             return self.finish(sums, variables, raw_lasts, active, c)
         if images.shape[0] != np.asarray(active).shape[0]:
@@ -933,7 +961,7 @@ class CohortRound:
         sums = self.zeros(variables)
         raw_lasts = []
         for lo in range(0, c_pad, g):
-            sums, raw = self.run_group(sums, variables, images[lo:lo + g], masks[lo:lo + g],
+            sums, raw = self.run_group(sums, variables, mine(images, lo), mine(masks, lo),
                                        active[lo:lo + g], n_samples[lo:lo + g])
             raw_lasts.append(raw)
         return self.finish(sums, variables, raw_lasts, active, c)
@@ -954,11 +982,8 @@ def build_federated_cohort_round(
     in groups of ``mesh.clients`` slots (see :class:`CohortRound`).
     ``segments`` is per group and must divide ``local_epochs``;
     ``data_placement="resident"`` takes a cohort-wide pool, sliced per
-    group. A mesh that spans processes is refused."""
-    if mesh.span is not None:
-        raise NotImplementedError(
-            "the cohort round runs in one process; its groups across processes are ROADMAP Queue 1 item 4"
-        )
+    group. On a mesh that spans processes each group's slots split over
+    the ranks (see :class:`CohortRound`)."""
     seg = _build_round_segments(mesh, model_config or ModelConfig(), learning_rate, local_epochs, fedprox_mu,
                                 pos_weight=pos_weight, remat=remat, segments=segments,
                                 data_placement=data_placement)

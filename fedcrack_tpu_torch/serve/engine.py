@@ -124,9 +124,19 @@ class InferenceEngine:
         # torch has e4m3 on every device, so an fp8 request never degrades
         # (the JAX engine's effective_kernel_plane has no counterpart).
         self.kernel_plane = self.serve_config.kernel_plane
-        # Parameterless twin of the model (it refuses layouts the port does
-        # not run): the quantized reference plane runs it over dequantized
-        # tensors with torch.func.functional_call.
+        # The fused planes run the reference layouts only (kernels/forward.py);
+        # the reference plane serves every layout, quantized or not.
+        cfg = self.bucket_model_config
+        if (self.serve_config.quant == "int8" and self.kernel_plane != "reference"
+                and (cfg.stem_layout != "reference" or cfg.res_layout != "reference")):
+            raise ValueError(
+                f"kernel_plane={self.kernel_plane!r} supports only the "
+                "reference parameter layouts (kernels/forward.py); got "
+                f"stem_layout={cfg.stem_layout!r} "
+                f"res_layout={cfg.res_layout!r}"
+            )
+        # Parameterless twin of the model: the quantized reference plane
+        # runs it over dequantized tensors with torch.func.functional_call.
         self._template = ResUNet(self.bucket_model_config, device="meta")
         self._max_batch = self.serve_config.max_batch
         self._count_lock = threading.Lock()

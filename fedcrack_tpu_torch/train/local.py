@@ -114,7 +114,9 @@ def train_step(
     running statistics. ``batch`` is (images, masks), uint8 or float32,
     numpy or tensors; ``anchor_params`` maps the model's parameter names to
     tensors on its device (:func:`snapshot_params`); the metrics come back
-    as 0-d tensors on the device.
+    as 0-d tensors on the device. Under a space-to-depth ``stem_layout``
+    the images may arrive packed (``data.pipeline.space_to_depth_images``);
+    the masks are full resolution either way.
 
     The slot plane's twins hook in here, so its step is this step:
     ``forward(model, images) -> logits`` replaces the model call (the

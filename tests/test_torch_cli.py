@@ -36,7 +36,7 @@ import threading
 import numpy as np
 import pytest
 
-from torch_port_helpers import TINY_KW, jax_variables
+from torch_port_helpers import TINY_KW, flat_tree, jax_variables
 
 import chip_smoke
 
@@ -534,3 +534,83 @@ def test_client_sharding_rules(image_dirs):
     pairs = list_pairs(image_dir, mask_dir)
     shards = [client.local_shard(cfg, 3, i)(pairs) for i in range(3)]
     assert sorted(sum(shards, [])) == sorted(reference_split(pairs, cfg.data.train_samples, cfg.data.split_seed)[0])
+
+
+# ---- configs/c6_s2d_layout.json through the command lines ----
+
+C6 = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs", "c6_s2d_layout.json")
+
+
+@pytest.mark.parametrize("argv", [[], ["--rounds", "2", "--cohort", "2", "--port", "0"]], ids=["file", "flags"])
+def test_build_config_matches_jax_for_c6(argv):
+    """``--config configs/c6_s2d_layout.json``: both packages' server
+    ``build_config`` give the same ``FedConfig`` (layouts, bf16, 8 mesh
+    slots) and flags. ``train.centralized`` takes no ``--config`` in
+    either package."""
+    from fedcrack_tpu import server as jax_server
+    from fedcrack_tpu.train import centralized as jax_centralized
+    from fedcrack_tpu_torch import server
+    from fedcrack_tpu_torch.train import centralized
+
+    got_cfg, got_args = server.build_config(["--config", C6, *argv])
+    want_cfg, want_args = jax_server.build_config(["--config", C6, *argv])
+    assert (got_cfg.model.stem_layout, got_cfg.model.res_layout, got_cfg.mesh_clients) == ("s2d", "packed", 8)
+    assert json.loads(got_cfg.to_json()) == json.loads(want_cfg.to_json())
+    assert vars(got_args) == vars(want_args)
+    for main in (centralized.main, jax_centralized.main):
+        with pytest.raises(SystemExit):
+            main(["--config", C6])
+
+
+def test_client_fit_runs_the_c6_layout_model(tmp_path):
+    """A tiny-width copy of c6 through both packages' server
+    ``build_config`` and ``make_train_fn`` (the client's fit): the port's
+    model runs the space-to-depth stem and the packed residuals, two bf16
+    steps land within the bounds of tests/test_torch_bf16.py's
+    command-line test of JAX's fit, and the fit is bit-equal to the same
+    fit with the reference layouts (oneDNN, tests/test_torch_layouts.py)."""
+    import dataclasses
+
+    from fedcrack_tpu import server as jax_server
+    from fedcrack_tpu.data.pipeline import ArrayDataset as JaxDataset
+    from fedcrack_tpu.fed import serialization as jser
+    from fedcrack_tpu.train.federated import make_train_fn as jax_make_train_fn
+    from fedcrack_tpu_torch import server
+    from fedcrack_tpu_torch.data.pipeline import ArrayDataset
+    from fedcrack_tpu_torch.data.synthetic import synth_crack_batch
+    from fedcrack_tpu_torch.models.resunet import PackedResConv, S2DStemConv
+    from fedcrack_tpu_torch.train.federated import make_train_fn
+
+    with open(C6, encoding="utf-8") as f:
+        tiny = dict(json.load(f), local_epochs=1)
+    tiny["model"] = dict(tiny["model"], **TINY_CONFIG["model"])
+    tiny["data"] = dict(tiny["data"], img_size=32, batch_size=4)
+    path = tmp_path / "c6_tiny.json"
+    path.write_text(json.dumps(tiny))
+    cfg, _ = server.build_config(["--config", str(path)])
+    jcfg, _ = jax_server.build_config(["--config", str(path)])
+    imgs, msks = synth_crack_batch(8, 32, seed=5)
+    variables = jax_variables(TINY_KW, seed=2)
+    blob = jser.tree_to_bytes(variables)
+    fits = {}
+    for name, c in (("c6", cfg), ("reference", dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, stem_layout="reference", res_layout="reference")))):
+        train_fn, holder = make_train_fn(c, ArrayDataset(imgs, msks, batch_size=4, shuffle=False), 4, device="cpu")
+        model = holder["state"].model
+        assert isinstance(model.stem_conv, S2DStemConv) == (name == "c6")
+        assert isinstance(model.enc0_res, PackedResConv) == (name == "c6")
+        fits[name] = train_fn(blob, 1, {})
+    assert fits["c6"][0] == fits["reference"][0]
+    jtrain_fn, _ = jax_make_train_fn(jcfg, JaxDataset(imgs, msks, batch_size=4, shuffle=False), 4)
+    want, jn, jmetrics = jtrain_fn(blob, 1)
+    got, n, metrics = fits["c6"]
+    assert n == jn == 8
+    np.testing.assert_allclose(metrics["loss"], jmetrics["loss"], rtol=2.0 ** -8)
+    g = dict(flat_tree(jser.tree_from_bytes(got)))
+    w = dict(flat_tree(jser.tree_from_bytes(want)))
+    start = dict(flat_tree(variables))
+    for key, value in w.items():
+        if key[0] == "params":
+            bound = 2 * cfg.learning_rate * 1.0014 + float(np.spacing(np.abs(start[key]).max() + 1e-3))
+            assert np.abs(g[key] - start[key]).max() <= bound, key
+            assert np.abs(value - start[key]).max() <= bound, key

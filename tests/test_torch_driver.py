@@ -623,15 +623,111 @@ def test_sample_pool_append_evict_byte_equal_to_jax():
 
 
 def test_sample_pool_s2d_refuses_and_stage_is_a_copy():
-    from fedcrack_tpu_torch.data.pipeline import SamplePool
+    """``layout="s2d"`` now runs: the pool stores its images packed by
+    ``space_to_depth_images`` (uint8 kept), the masks as they were; staging
+    is a copy of the host twin in either layout."""
+    from fedcrack_tpu_torch.data.pipeline import SamplePool, space_to_depth_images
 
     pool, _, client_pools = _pools()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        SamplePool.stack(client_pools, layout="s2d")
-    si, sm = pool.stage(_mesh())
-    assert si.numpy().tobytes() == pool.images.tobytes() and sm.numpy().tobytes() == pool.masks.tobytes()
-    si[0, 0, 0, 0, 0] ^= 1
-    assert si.numpy().tobytes() != pool.images.tobytes()  # the host twin is untouched
+    packed = SamplePool.stack(client_pools, layout="s2d")
+    assert packed.layout == "s2d" and packed.images.dtype == np.uint8
+    assert packed.images.shape == pool.images.shape[:2] + (8, 8, 12)
+    assert packed.images.tobytes() == space_to_depth_images(pool.images).tobytes()
+    assert packed.masks.tobytes() == pool.masks.tobytes()
+    for p in (pool, packed):
+        si, sm = p.stage(_mesh())
+        assert si.dtype == torch.uint8
+        assert si.numpy().tobytes() == p.images.tobytes() and sm.numpy().tobytes() == p.masks.tobytes()
+        si[0, 0, 0, 0, 0] ^= 1
+        assert si.numpy().tobytes() != p.images.tobytes()  # the host twin is untouched
+
+
+def test_sample_pool_s2d_byte_equal_to_jax():
+    """``SamplePool(layout="s2d")`` against JAX's, call for call: the
+    packed arrays after ``stack``, ``append`` (reference-layout samples
+    in, packed on the way) and ``evict``, the plans, and the slabs, which
+    equal the packing of the reference pool's slabs."""
+    from fedcrack_tpu.data.pipeline import SamplePool as JaxPool
+    from fedcrack_tpu_torch.data.pipeline import SamplePool, space_to_depth_images
+
+    ref, _, client_pools = _pools()
+    pool, jpool = SamplePool.stack(client_pools, layout="s2d"), JaxPool.stack(client_pools, layout="s2d")
+    assert pool.images.tobytes() == jpool.images.tobytes() and pool.nbytes == jpool.nbytes
+    rng = np.random.default_rng(5)
+    fresh_i = rng.integers(0, 255, size=(2, 16, 16, 3), dtype=np.uint8)
+    fresh_m = rng.integers(0, 2, size=(2, 16, 16, 1), dtype=np.uint8)
+    for call in (("append", 0, fresh_i, fresh_m), ("evict", 1, [3]), ("append", 1, fresh_i[:1], fresh_m[:1])):
+        assert getattr(pool, call[0])(*call[1:]) == getattr(jpool, call[0])(*call[1:]), call[0]
+        getattr(ref, call[0])(*call[1:])
+        assert pool.counts().tolist() == jpool.counts().tolist()
+        assert pool.images.tobytes() == jpool.images.tobytes() and pool.masks.tobytes() == jpool.masks.tobytes()
+    assert pool.images.tobytes() == space_to_depth_images(ref.images).tobytes()
+    idx = pool.round_indices([np.random.default_rng(c) for c in range(2)], 1, 2, 4)
+    jidx = jpool.round_indices([np.random.default_rng(c) for c in range(2)], 1, 2, 4)
+    assert idx.tobytes() == jidx.tobytes()
+    got, want = pool.assemble_round_slab(idx), jpool.assemble_round_slab(jidx)
+    assert got[0].tobytes() == want[0].tobytes() and got[1].tobytes() == want[1].tobytes()
+    assert got[0].tobytes() == space_to_depth_images(ref.assemble_round_slab(idx)[0]).tobytes()
+    with pytest.raises(ValueError, match="sample shape"):
+        pool.append(0, np.zeros((1, 8, 8, 3), np.uint8), np.zeros((1, 16, 16, 1), np.uint8))
+
+
+# ---- configs/c6_s2d_layout.json's layouts through the driver ----
+
+
+def _c6_model(**layouts):
+    """c6's ModelConfig (bfloat16, ``s2d`` stem, ``packed`` residuals) at
+    TINY_KW's widths; ``layouts`` overrides its layout fields."""
+    import dataclasses
+
+    from fedcrack_tpu_torch.configs import FedConfig
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "configs", "c6_s2d_layout.json"), encoding="utf-8") as f:
+        c6 = FedConfig.from_json(f.read())
+    assert (c6.model.stem_layout, c6.model.res_layout, c6.model.compute_dtype) == ("s2d", "packed", "bfloat16")
+    return dataclasses.replace(c6.model, **TINY_KW, **layouts)
+
+
+@pytest.fixture(scope="module")
+def c6_runs():
+    """Three rounds of the c6 model through ``run_mesh_federation``: the
+    streamed reference-layout slabs (the oracle), the streamed slabs of an
+    s2d pool (pre-packed), the resident s2d pool, and the same rounds with
+    the reference layouts."""
+    from fedcrack_tpu_torch.data.pipeline import SamplePool, to_uint8_transport
+    from fedcrack_tpu_torch.data.synthetic import synth_crack_batch
+    from fedcrack_tpu_torch.parallel import build_federated_round, run_mesh_federation
+
+    pools = [to_uint8_transport(*synth_crack_batch(POOL_N, 16, seed=c)) for c in range(N_CLIENTS)]
+    ref_pool, s2d_pool = SamplePool.stack(pools), SamplePool.stack(pools, layout="s2d")
+    c6 = _c6_model()
+    out = {}
+    for name, cfg, pool in (("oracle", c6, ref_pool), ("packed_staging", c6, s2d_pool),
+                            ("reference_layout", _c6_model(stem_layout="reference", res_layout="reference"),
+                             ref_pool)):
+        rf = build_federated_round(_mesh(), cfg, local_epochs=R_EPOCHS)
+        out[name] = run_mesh_federation(rf, _init_vars(), _slab_data_fn(pool), R_ROUNDS, _mesh())
+    resident = build_federated_round(_mesh(), c6, local_epochs=R_EPOCHS, data_placement="resident")
+    out["resident_s2d_pool"] = run_mesh_federation(resident, _init_vars(), _idx_data_fn(s2d_pool), R_ROUNDS,
+                                                   _mesh(), data_placement="resident", sample_pool=s2d_pool)
+    return out
+
+
+@pytest.mark.parametrize("run", ["packed_staging", "resident_s2d_pool", "reference_layout"])
+def test_c6_layout_rounds_bit_equal_across_stagings(c6_runs, run):
+    """Packed on the device, pre-packed on the host, or gathered from the
+    s2d pool: the same bits (and records) as the oracle; the reference
+    layouts give them too, on oneDNN (tests/test_torch_layouts.py)."""
+    from fedcrack_tpu_torch.fed.pytree import tree_leaves
+
+    want_v, want_r = c6_runs["oracle"]
+    assert all(bool(torch.isfinite(t).all()) for t in tree_leaves(want_v))
+    got_v, got_r = c6_runs[run]
+    _assert_trees_equal(got_v, want_v)
+    for a, b in zip(got_r, want_r):
+        for k in b.metrics:
+            assert a.metrics[k].tobytes() == b.metrics[k].tobytes(), (run, k)
 
 
 def test_split_epoch_slab_byte_equal_to_jax():

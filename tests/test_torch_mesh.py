@@ -988,6 +988,121 @@ def test_round_from_config_runs_c5s_mesh_fields():
     _assert_bytes_equal(got, unsplit(variables, images, masks, act, ns)[0])
 
 
+# ---- the s2d and packed layouts (configs/c6_s2d_layout.json) ----
+
+LAYOUT_PAIRS = [("s2d", "reference"), ("s2d", "packed"), ("s2d_full", "packed")]
+
+
+@pytest.mark.parametrize("stem,res", LAYOUT_PAIRS, ids=[f"{a}+{b}" for a, b in LAYOUT_PAIRS])
+def test_layout_round_matches_jax_host_round(stem, res):
+    """The float32 round with a transformed layout, its images staged
+    pre-packed (``space_to_depth_images``), against JAX's ``_host_round``
+    of the same layout on the unpacked images, at
+    ``tests/test_parallel.py``'s tolerances."""
+    from fedcrack_tpu_torch.configs import ModelConfig
+    from fedcrack_tpu_torch.data.pipeline import space_to_depth_images
+    from fedcrack_tpu_torch.parallel import build_federated_round
+
+    kw = dict(TINY_KW, stem_layout=stem, res_layout=res)
+    images, masks = _client_data(4)
+    variables = _jax_variables(0)
+    active, ns = np.ones(4, np.float32), np.array([8.0, 8.0, 16.0, 16.0], np.float32)
+    rf = build_federated_round(_mesh(4), ModelConfig(**kw), local_epochs=1)
+    got, _ = rf(variables, space_to_depth_images(images), masks, active, ns)
+    _assert_trees_match(got, _jax_host_round(variables, images, masks, active, ns, kw=kw))
+
+
+def _c6_tiny():
+    """``configs/c6_s2d_layout.json`` (8 slots, bfloat16, ``s2d`` +
+    ``packed``) with its model cut to TINY_KW's widths and one local
+    epoch."""
+    import dataclasses
+    import os
+
+    from fedcrack_tpu_torch.configs import FedConfig
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs",
+                        "c6_s2d_layout.json")
+    with open(path, encoding="utf-8") as f:
+        c6 = FedConfig.from_json(f.read())
+    return dataclasses.replace(c6, model=dataclasses.replace(c6.model, **TINY_KW),
+                               data=dataclasses.replace(c6.data, img_size=16, batch_size=BATCH), local_epochs=1)
+
+
+@pytest.fixture(scope="module")
+def c6_setup():
+    from fedcrack_tpu_torch.parallel import round_from_config
+
+    c6 = _c6_tiny()
+    mesh, rf = round_from_config(c6, device="cpu")
+    assert mesh.shape == {"clients": 8, "batch": 1}
+    assert (rf.data_placement, c6.model.stem_layout, c6.model.res_layout) == ("streamed", "s2d", "packed")
+    images, masks = _client_data(8, seed0=30)
+    active = np.array([1, 1, 0, 1, 1, 1, 1, 0], np.float32)
+    ns = np.array([8, 16, 8, 8, 24, 8, 16, 8], np.float32)
+    variables = _jax_variables(0)
+    return c6, (images, masks, active, ns), variables, rf(variables, images, masks, active, ns)
+
+
+C6_FORMS = ["packed_staging", "resident_s2d_pool", "segmented", "cohort_ragged", "reference_layout"]
+
+
+@pytest.mark.parametrize("form", C6_FORMS)
+def test_c6_round_forms_bit_equal(c6_setup, form):
+    """c6's round through ``round_from_config`` on unpacked slabs, against
+    the same round with the slabs pre-packed, from a resident
+    ``SamplePool(layout="s2d")``, segmented, as a cohort in ragged groups
+    of 3, and with the reference layouts (bit-equal on oneDNN,
+    tests/test_torch_layouts.py): every global and metric the same bits."""
+    import dataclasses
+
+    from fedcrack_tpu_torch.data.pipeline import SamplePool, space_to_depth_images
+    from fedcrack_tpu_torch.parallel import build_federated_cohort_round, round_from_config
+
+    c6, (images, masks, active, ns), variables, (want_v, want_m) = c6_setup
+    if form == "packed_staging":
+        got = round_from_config(c6, device="cpu")[1](variables, space_to_depth_images(images), masks, active, ns)
+    elif form == "resident_s2d_pool":
+        pool = SamplePool(images.reshape(8, STEPS * BATCH, *images.shape[3:]),
+                          masks.reshape(8, STEPS * BATCH, *masks.shape[3:]), layout="s2d")
+        idx = np.broadcast_to(np.arange(STEPS * BATCH, dtype=np.int32).reshape(1, 1, STEPS, BATCH),
+                              (8, 1, STEPS, BATCH))
+        _, rf = round_from_config(dataclasses.replace(c6, data_placement="resident"), device="cpu")
+        got = rf(variables, pool.stage(_mesh(8)), idx, active, ns)
+    elif form == "segmented":
+        _, rf = round_from_config(dataclasses.replace(c6, segments=1), device="cpu")
+        got = rf(variables, images, masks, active, ns)
+    elif form == "cohort_ragged":
+        cr = build_federated_cohort_round(_mesh(3), c6.model, local_epochs=1)
+        assert cr.n_groups(8) == 3
+        got = cr(variables, space_to_depth_images(images), masks, active, ns)
+    else:
+        ref = dataclasses.replace(c6, model=dataclasses.replace(c6.model, stem_layout="reference",
+                                                                res_layout="reference"))
+        got = round_from_config(ref, device="cpu")[1](variables, images, masks, active, ns)
+    _assert_bytes_equal(got[0], want_v)
+    _metrics_equal(got[1], want_m)
+
+
+def test_layout_rounds_take_packed_channels_only_under_a_stem_layout():
+    """4C channels are the packed staging under a space-to-depth stem and
+    refused under the reference stem (JAX's message); the spatial round
+    still refuses the layouts."""
+    import dataclasses
+
+    from fedcrack_tpu_torch.parallel import build_federated_round
+
+    images, masks = _client_data(2)
+    packed = np.concatenate([images] * 4, axis=-1)
+    variables = _jax_variables(0)
+    act, ns = np.ones(2, np.float32), np.full(2, 8.0, np.float32)
+    with pytest.raises(ValueError, match=r"accepts \(3,\)"):
+        build_federated_round(_mesh(2), _cfg())(variables, packed, masks, act, ns)
+    s2d = build_federated_round(_mesh(2), dataclasses.replace(_cfg(), stem_layout="s2d"))
+    with pytest.raises(ValueError, match=r"accepts \(3, 12\)"):
+        s2d(variables, np.concatenate([images] * 2, axis=-1), masks, act, ns)
+
+
 @pytest.mark.parametrize("segments", [0, 2])
 @pytest.mark.parametrize("field", [{"dp_clip_norm": 1.0, "dp_noise_multiplier": 1.1}, {"update_codec": "int8"},
                                    {"update_codec": "topk_delta"}, {"secagg": True}])

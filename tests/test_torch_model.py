@@ -222,11 +222,20 @@ def test_upsample_and_normalize_bit_exact():
 
 
 def test_model_rejects_layouts_the_port_does_not_run():
+    """Every layout the config accepts now builds, with the reference
+    layout's parameter shapes (tests/test_torch_layouts.py holds their
+    values); a layout name the config does not know is refused there."""
     from fedcrack_tpu_torch.configs import ModelConfig
     from fedcrack_tpu_torch.models.resunet import ResUNet
 
-    with pytest.raises(ValueError):
-        ResUNet(ModelConfig(stem_layout="s2d"), device="cpu")
+    shapes = {k: v.shape for k, v in ResUNet(ModelConfig(), device="meta").state_dict().items()}
+    for stem in ("reference", "s2d", "s2d_full"):
+        for res in ("reference", "packed"):
+            model = ResUNet(ModelConfig(stem_layout=stem, res_layout=res), device="meta")
+            assert {k: v.shape for k, v in model.state_dict().items()} == shapes
+    for kw in (dict(stem_layout="nope"), dict(res_layout="nope")):
+        with pytest.raises(ValueError, match="_layout"):
+            ModelConfig(**kw)
     # bfloat16 compute over float32 parameters runs (tests/test_torch_bf16.py);
     # any other dtype pairing is refused.
     assert ResUNet(ModelConfig(compute_dtype="bfloat16"), device="meta").compute_dtype == torch.bfloat16

@@ -14,6 +14,9 @@ workers), each with one intra-op thread, and run many cases in one launch:
   null build's first round within ``tests/test_parallel.py::
   _assert_trees_match``'s tolerances of JAX's ``_host_round`` (the JAX
   package's own two-process test is slow, and fails on the installed JAX);
+- the cohort round, six clients in groups of four (the last ragged),
+  streamed and resident, each rank staging its two slots of every group:
+  the global and metrics bit-equal on both ranks and to one process;
 - the spatial plane at S = 4, two bands per rank: the halo rows at the
   rank boundary (two distinct images) and their cotangents bit-equal to
   the one-process halo's; the predict and one SGD step against the
@@ -43,6 +46,11 @@ STEPS, BATCH, ROUNDS = 2, 4, 2
 ACTIVE = np.array([1, 1, 1, 0], np.float32)
 N_SAMPLES = np.array([8, 8, 16, 8], np.float32)
 SHARDS = 4
+# The cohort round across processes: six clients in groups of the mesh's
+# four slots, so the second group is ragged (two padding slots, both on
+# rank 1).
+COHORT_ACTIVE = np.array([1, 1, 0, 1, 1, 1], np.float32)
+COHORT_N = np.array([8, 16, 8, 8, 24, 8], np.float32)
 # The round builds the workers run, by name: build_federated_round's
 # keyword arguments.
 BUILDS = {
@@ -166,8 +174,8 @@ import torch
 torch.set_num_threads(1)
 rank, store, work = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 from fedcrack_tpu_torch.configs import ModelConfig
-from fedcrack_tpu_torch.parallel import (build_federated_round, build_federated_round_segments,
-    build_spatial_federated_round, build_spatial_predict, build_spatial_train_step, global_mesh_devices,
+from fedcrack_tpu_torch.parallel import (build_federated_cohort_round, build_federated_round,
+    build_federated_round_segments, build_spatial_federated_round, build_spatial_predict, build_spatial_train_step, global_mesh_devices,
     initialize_if_needed, is_coordinator, make_mesh, make_spatial_mesh, run_mesh_federation)
 from fedcrack_tpu_torch.parallel.multihost import WORLD
 from fedcrack_tpu_torch.parallel.spatial import fold_shards, halo_exchange
@@ -224,6 +232,26 @@ flat(res_vars, "resident/", out)
 seg = build_federated_round_segments(mesh, tiny, learning_rate=1e-3, local_epochs=2, segments=2)
 seg_vars, _ = seg(unflat(z, "global/"), images, masks, active, n_samples)
 flat(seg_vars, "segmented/", out)
+# The cohort round: the whole cohort's data in, each rank staging its
+# block (two slots) of every group of four, the ragged last group's
+# padding included; streamed and resident.
+c_imgs, c_msks = z["cohort_images"], z["cohort_masks"]
+for placement in ("streamed", "resident"):
+    cr = build_federated_cohort_round(mesh, tiny, learning_rate=1e-3, local_epochs=2, segments=2,
+                                      data_placement=placement)
+    assert cr.block == slice(2 * rank, 2 * rank + 2)
+    if placement == "streamed":
+        data = (c_imgs, c_msks)
+    else:
+        n = c_imgs.shape[1] * c_imgs.shape[2]
+        plan = np.broadcast_to(np.arange(n, dtype=np.int32).reshape(1, 1, *c_imgs.shape[1:3]),
+                               (c_imgs.shape[0], 2, *c_imgs.shape[1:3]))
+        data = ((c_imgs.reshape(c_imgs.shape[0], n, *c_imgs.shape[3:]),
+                 c_msks.reshape(c_msks.shape[0], n, *c_msks.shape[3:])), plan)
+    cv, cm = cr(unflat(z, "global/"), *data, z["cohort_active"], z["cohort_n"])
+    flat(cv, f"cohort_{{placement}}/", out)
+    for k, v in cm.items():
+        out[f"cohort_{{placement}}/metrics/{{k}}"] = v.numpy()
 try:
     run_mesh_federation(round_fn, unflat(z, "global/"), lambda r: None, 1, mesh)
 except ValueError as e:
@@ -318,6 +346,15 @@ def _jax_inputs():
     return images, masks, variables
 
 
+def _cohort_data():
+    """Six clients' tiny round data (``[6, STEPS, BATCH, 16, 16, ch]``)."""
+    from fedcrack_tpu.data.synthetic import synth_crack_batch
+    from fedcrack_tpu.parallel import stack_client_data
+
+    return stack_client_data([synth_crack_batch(STEPS * BATCH, img_size=16, seed=40 + c)
+                              for c in range(len(COHORT_ACTIVE))], STEPS, BATCH)
+
+
 @pytest.fixture(scope="module")
 def two_process_run(tmp_path_factory):
     """One launch of the two workers; returns the inputs and each rank's
@@ -336,7 +373,10 @@ def two_process_run(tmp_path_factory):
     sr_vars = init_variables(torch.Generator().manual_seed(17), ModelConfig(**SPATIAL_ROUND_KW))
     halo_x = (np.arange(2 * 8 * 3 * 2, dtype=np.float32).reshape(2, 8, 3, 2) + 1.0)
     halo_g = rng.integers(-8, 9, size=(8, 2, 4, 3)).astype(np.float32)  # the fold of 2 images x 4 bands
+    c_images, c_masks = _cohort_data()
     inputs = {"images": images, "masks": masks, "active": ACTIVE, "n_samples": N_SAMPLES,
+              "cohort_images": c_images, "cohort_masks": c_masks, "cohort_active": COHORT_ACTIVE,
+              "cohort_n": COHORT_N,
               "s_images": s_images, "s_masks": s_masks, "halo_x": halo_x, "halo_g": halo_g,
               "sr_images": sr_images, "sr_masks": sr_masks,
               **{f"global/{k}": v for k, v in _flat(variables)}, **{f"s_global/{k}": v for k, v in _flat(s_vars)},
@@ -428,6 +468,36 @@ def test_two_process_resident_round_bit_equal(two_process_run):
         got = _tree_of(rank, "resident/")
         for key in want:
             assert got[key].tobytes() == want[key].tobytes(), key
+
+
+@pytest.mark.parametrize("placement", ["streamed", "resident"])
+def test_two_process_cohort_round_bit_equal(two_process_run, placement):
+    """``build_federated_cohort_round`` on the ``(4, 2)`` mesh over two
+    processes: six clients in groups of four (the last ragged, its two
+    padding slots on rank 1), two epochs in two segments. Every rank's
+    global and ``[6]`` metrics are the one-process cohort round's bits,
+    which are the monolithic round's over the six."""
+    from fedcrack_tpu_torch.configs import ModelConfig
+    from fedcrack_tpu_torch.parallel import build_federated_cohort_round, build_federated_round, make_mesh
+
+    inp = two_process_run["inputs"]
+    cr = build_federated_cohort_round(make_mesh(4, 2, device="cpu"), ModelConfig(**TINY_KW), learning_rate=1e-3,
+                                      local_epochs=2, segments=2)
+    assert cr.n_groups(6) == 2 and cr.block == slice(0, 4)
+    args = (inp["cohort_images"], inp["cohort_masks"], COHORT_ACTIVE, COHORT_N)
+    want, want_m = cr(two_process_run["variables"], *args)
+    mono, mono_m = build_federated_round(make_mesh(6, 2, device="cpu"), ModelConfig(**TINY_KW), learning_rate=1e-3,
+                                         local_epochs=2)(two_process_run["variables"], *args)
+    for key, w in _flat(want):
+        assert dict(_flat(mono))[key].tobytes() == w.tobytes(), key
+    for rank in two_process_run["ranks"]:
+        got = _tree_of(rank, f"cohort_{placement}/")
+        assert set(got) == {k for k, _ in _flat(want)}
+        for key, w in _flat(want):
+            assert got[key].tobytes() == w.tobytes(), (placement, key)
+        for k, v in want_m.items():
+            assert v.shape == (6,) and mono_m[k].numpy().tobytes() == v.numpy().tobytes(), k
+            assert rank[f"cohort_{placement}/metrics/{k}"].tobytes() == v.numpy().tobytes(), (placement, k)
 
 
 def test_two_process_segmented_round_bit_equal(two_process_run):

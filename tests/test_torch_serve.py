@@ -221,3 +221,67 @@ def test_engine_validates_inputs(stack):
     with pytest.raises(ValueError):
         InferenceEngine(port_config(dict(TINY_KW, param_dtype="bfloat16")), ServeConfig(**_serve_kw()),
                         device="cpu")
+
+
+# ---- the layouts (configs/c6_s2d_layout.json's s2d + packed) ----
+
+C6_LAYOUTS = dict(TINY_KW, stem_layout="s2d", res_layout="packed")
+
+
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_layout_engine_matches_jax_and_the_reference_layout(quant):
+    """An engine on the c6 layouts, float32 and int8 through the reference
+    plane (``dequantize_variables``), against the JAX engine on the same
+    layouts and weights (1e-4), and bit-equal to the port's
+    reference-layout engine on oneDNN (tests/test_torch_layouts.py)."""
+    from fedcrack_tpu.configs import ServeConfig as JaxServeConfig
+    from fedcrack_tpu.serve import quant as jq
+    from fedcrack_tpu.serve.engine import InferenceEngine as JaxEngine
+    from fedcrack_tpu_torch.configs import ServeConfig
+    from fedcrack_tpu_torch.serve import quant as tq
+    from fedcrack_tpu_torch.serve.engine import InferenceEngine
+
+    variables = jax_variables(TINY_KW, seed=4)
+    kw = _serve_kw(quant=quant)
+    jax_engine = JaxEngine(jax_config(C6_LAYOUTS), JaxServeConfig(**kw))
+    engine = InferenceEngine(port_config(C6_LAYOUTS), ServeConfig(**kw), device="cpu")
+    ref_engine = InferenceEngine(port_config(TINY_KW), ServeConfig(**kw), device="cpu")
+    batch = _images(3, BUCKET, BUCKET, 5)
+    if quant == "int8":
+        want = jax_engine.predict_bucket(jax_engine.prepare_quantized(jq.quantize_variables(variables)), batch)
+        q = tq.quantize_variables(variables)
+        got = engine.predict_bucket(engine.prepare_quantized(q), batch)
+        same = ref_engine.predict_bucket(ref_engine.prepare_quantized(q), batch)
+    else:
+        want = jax_engine.predict_bucket(jax_engine.prepare(variables), batch)
+        got = engine.predict_bucket(engine.prepare(variables), batch)
+        same = ref_engine.predict_bucket(ref_engine.prepare(variables), batch)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    assert got.tobytes() == same.tobytes()
+
+
+@pytest.mark.parametrize("plane", ["fused_int8", "fp8"])
+def test_fused_planes_refuse_the_layouts_at_construction(plane):
+    """``fused_int8`` and ``fp8`` with a non-reference layout raise at
+    construction with the JAX engine's message (which the JAX
+    ``fused_int8`` engine raises too); without quantization there is no
+    fused program, and nothing is refused."""
+    from fedcrack_tpu.configs import ServeConfig as JaxServeConfig
+    from fedcrack_tpu.serve.engine import InferenceEngine as JaxEngine
+    from fedcrack_tpu_torch.configs import ServeConfig
+    from fedcrack_tpu_torch.serve.engine import InferenceEngine
+
+    kw = _serve_kw(quant="int8", kernel_plane=plane)
+    with pytest.raises(ValueError) as got:
+        InferenceEngine(port_config(C6_LAYOUTS), ServeConfig(**kw), device="cpu")
+    assert str(got.value) == (f"kernel_plane={plane!r} supports only the reference parameter layouts "
+                              "(kernels/forward.py); got stem_layout='s2d' res_layout='packed'")
+    if plane == "fused_int8":
+        with pytest.raises(ValueError) as want:
+            JaxEngine(jax_config(C6_LAYOUTS), JaxServeConfig(**kw))
+        assert str(got.value) == str(want.value)
+    for stem, res in (("s2d", "reference"), ("reference", "packed")):
+        with pytest.raises(ValueError, match="reference parameter layouts"):
+            InferenceEngine(port_config(dict(TINY_KW, stem_layout=stem, res_layout=res)), ServeConfig(**kw),
+                            device="cpu")
+    InferenceEngine(port_config(C6_LAYOUTS), ServeConfig(**_serve_kw()), device="cpu")
