@@ -326,6 +326,24 @@ on failure, so any failure exits non-zero and prints no result):
     reference layout; ``s2d`` + ``packed`` bit-equal or within it (logged).
     (f) Where ``h5py`` is installed, ``tools.h5_export`` then
     ``tools.h5_import`` byte-equal, served once; else logged as not run.
+23. the concurrent soak and fedlint. (a) ``tools.soak.run_soak`` on the
+    card at the JAX soak's shape (its tiny model, 8 s of traffic): a
+    buffered federation of three gRPC clients and an edge shard under a
+    straggler storm, poisons and a root kill -> restart, the reference
+    serve plane (bucket 16, batch 4) hot-swapping off the live statefile
+    with the canary and drift probes, a driver leg and the EF twin; the
+    audit clean by tests/test_telemetry.py's ``_assert_soak_clean`` (no
+    recompile arm), a swap and the kill; every engine forward on CUDA
+    (engine, weights, device 0 in every thread), no kernel launched.
+    (b) The same at ``ModelConfig()``'s widths (img_size 32) for 20 s
+    with the RSS slack derived from ``SOAK_LIVE_TREES``. (c) ``python -m
+    fedcrack_tpu_torch.tools.soak --duration 5 --out F`` through
+    ``CLI_SHIM``: exit 0, a clean artifact, no launch. (d) ``python -m
+    fedcrack_tpu_torch.tools.fedlint fedcrack_tpu_torch --baseline
+    fedlint_torch_baseline.json``: exit 0, no finding, the lock graph's
+    nodes and cycles equal to ``analysis/serve_lock_graph.json``. Logged:
+    requests, flushes, swaps, p50 / p99, planes, RSS and device
+    watermarks, the root's wire bytes, walls.
 
 ``python3 chip_smoke.py --serve-ticks 0.05,1.0,1.0,0.05`` builds
 ``dequant.cu`` and runs only phase 14, once per autoscaler tick given, and
@@ -6296,6 +6314,256 @@ def c6_phase(torch, card: str) -> dict:
     return out
 
 
+# ---- phase 23: the concurrent soak and fedlint ----
+
+SOAK_SEED = 0
+SOAK_JAX_SHAPE_S = 8.0
+SOAK_FULL_WIDTH_S = 20.0
+SOAK_CLI_S = 5.0
+SOAK_CLI_TIMEOUT_S = 180.0
+FEDLINT_TIMEOUT_S = 180.0
+# The JAX soak's RSS slack, chosen for a model of a few kilobytes.
+SOAK_RSS_SLACK = 256 * 1024 * 1024
+# Host copies of the weight tree (or its blob) the soak can hold at one
+# instant, by holder, at buffer_k 2 and max_staleness 8 (9 retained
+# versions): the full-width slack is SOAK_RSS_SLACK plus their sum times
+# the tree's bytes.
+SOAK_LIVE_TREES = {
+    "root: the retained broadcasts (9 blobs) and their decoded memo (9 trees)": 18,
+    "root: the statefile snapshot (9 bases, the global, 2 buffered) as msgpack parts and joined bytes": 24,
+    "manager: the statefile it reads (12 blobs) and the decoded global": 13,
+    "the killed root's state, referenced until the soak returns (9 bases, the global, 2 buffered)": 12,
+    "edge: its retained bases (9 blobs) and their decoded trees (9)": 18,
+    "3 clients: pulled blob, decoded tree, perturbed tree, upload blob, top-k residual, its base": 18,
+    "EF twin: base tree and blob, trained, decoded, codec residual and base, 5 float64 leaf lists (2 each)": 16,
+}
+
+
+def soak_rss_slack(tree_bytes: int) -> int:
+    return SOAK_RSS_SLACK + sum(SOAK_LIVE_TREES.values()) * tree_bytes
+
+
+def check_soak(artifact: dict, label: str) -> None:
+    """tests/test_telemetry.py's ``_assert_soak_clean`` without its
+    recompile arm (the port's audit has none), plus a swap and the
+    kill -> restart."""
+    audit, wd, tr = artifact["audit"], artifact["watchdog"], artifact["tracing"]
+    spans = artifact["spans"]["by_name"]
+    problems = []
+    if not audit["clean"]:
+        problems.append("audit not clean")
+    for arm in ("zero_torn_versions", "serve_healthy", "ef_mass_conserved", "statefile_restore_bit_identical",
+                "watermarks_steady", "watchdog_clean"):
+        if not audit[arm]:
+            problems.append(arm)
+    if audit["torn_versions"] != 0 or "recompiles_since_warmup" in audit:
+        problems.append("torn versions or a recompile arm")
+    if not (artifact["scrape"]["all_planes_covered"] and artifact["scrape"]["mid_soak_families"] > 0):
+        problems.append(f"scrape {artifact['scrape']}")
+    if not (artifact["serve"]["completed"] > 0 and artifact["serve"]["failed"] == 0):
+        problems.append("serve completed/failed")
+    if not (artifact["federation"]["flushes"] > 0 and artifact["spans"]["total"] > 0):
+        problems.append("no flush or no span")
+    problems += [f"no {n} span" for n in ("serve.batch", "fed.flush", "driver.round", "client.train")
+                 if not spans.get(n)]
+    if not (wd["clean"] and wd["all_rules_evaluated"] and wd["breaches"] == [] and wd["evaluations"] > 1):
+        problems.append("watchdog")
+    if not (tr["complete"] and {"client", "fed", "serve"} <= set(tr["planes_crossed"])
+            and tr["trace"].startswith("fedtr-v") and {"fed.flush", "serve.swap", "serve.batch"} <= set(tr["stages"])
+            and {"client.push", "edge.flush_partial"} & set(tr["stages"])):
+        problems.append("tracing")
+    if not (artifact["serve"]["swaps"] > 0 and artifact["federation"]["kill_restart"]["killed"]):
+        problems.append("no swap or no kill")
+    if problems:
+        raise AssertionError(f"{label}: {problems}: " + json.dumps(
+            {k: artifact[k] for k in ("audit", "watchdog", "tracing", "serve", "federation")}, default=str)[:6000])
+
+
+@contextlib.contextmanager
+def served_devices(torch):
+    """Record where every engine forward ran: the engine's device, its
+    weights' device, the calling thread and its current CUDA device."""
+    import threading
+
+    from fedcrack_tpu_torch.serve import engine as serve_engine
+
+    seen = {"batches": 0, "engine": set(), "weights": set(), "threads": set(), "current_device": set()}
+    lock = threading.Lock()
+    forward = serve_engine.InferenceEngine._forward_batch
+
+    def probe(self, variables, images_u8):
+        weights = ({p.device.type for p in variables.parameters()} if isinstance(variables, torch.nn.Module)
+                   else {type(variables).__name__})
+        with lock:
+            seen["batches"] += 1
+            seen["engine"].add(str(self.device))
+            seen["weights"] |= weights
+            seen["threads"].add(threading.current_thread().name)
+            seen["current_device"].add(torch.cuda.current_device())
+        return forward(self, variables, images_u8)
+
+    serve_engine.InferenceEngine._forward_batch = probe
+    try:
+        yield seen
+    finally:
+        serve_engine.InferenceEngine._forward_batch = forward
+
+
+def kernel_launches() -> dict:
+    from fedcrack_tpu_torch.kernels import dequant
+    from fedcrack_tpu_torch.ops import bce
+
+    return {"bce_sums": bce.bce_sums.launches,
+            **{n: getattr(dequant, n).launches for n in ("dequant_matmul", "dequant_conv3x3", "dequant_codes")}}
+
+
+def wire_bytes() -> dict:
+    from fedcrack_tpu_torch.obs.promexp import parse_prometheus_text
+    from fedcrack_tpu_torch.obs.registry import REGISTRY
+
+    parsed = parse_prometheus_text(REGISTRY.exposition())
+    return {d: _counter_sum(parsed, "fed_wire_bytes_total", {"direction": d}) for d in ("up", "down")}
+
+
+def soak_summary(artifact: dict, seen: dict, wall_s: float) -> dict:
+    lat, marks = artifact["serve"]["latency_ms"], artifact["audit"]["watermarks"]
+    return {
+        "wall_s": wall_s, "traffic_wall_s": artifact["traffic_wall_s"],
+        "completed": artifact["serve"]["completed"], "failed": artifact["serve"]["failed"],
+        "req_per_s": artifact["serve"]["completed"] / artifact["traffic_wall_s"],
+        "p50_ms": lat["p50"], "p99_ms": lat["p99"], "deadline_missed": artifact["serve"]["deadline_missed"],
+        "flushes": artifact["federation"]["flushes"], "swaps": artifact["serve"]["swaps"],
+        "versions_seen": len(artifact["serve"]["versions_seen"]),
+        "client_restarts": artifact["federation"]["client_restarts"],
+        "restart_s": artifact["federation"]["kill_restart"].get("restart_s"),
+        "edge_flushes": artifact["edge"]["flushes"], "ef_checks": artifact["audit"]["ef"]["checks"],
+        "planes_covered": artifact["scrape"]["planes_covered"], "spans": artifact["spans"]["total"],
+        "rss_mark": marks["mark"]["rss"], "rss_delta": marks["deltas"]["rss"],
+        "rss_watermark": marks["watermark"]["rss"], "device_mark": marks["mark"]["device"],
+        "device_delta": marks["deltas"]["device"], "device_watermark": marks["watermark"]["device"],
+        "batches_seen": seen["batches"], "threads": sorted(seen["threads"]),
+    }
+
+
+def soak_run(torch, card: str, label: str, **kwargs) -> dict:
+    """One ``run_soak`` on the card: the audit clean, every engine forward
+    on CUDA (engine, weights, the calling thread's device 0), and no kernel
+    launched (the soak serves the reference plane)."""
+    from fedcrack_tpu_torch.tools.soak import run_soak
+
+    launches, wire = kernel_launches(), wire_bytes()
+    t0 = time.monotonic()
+    with served_devices(torch) as seen:
+        artifact = run_soak(seed=SOAK_SEED, device="cuda", **kwargs)
+    wall_s = time.monotonic() - t0
+    check_soak(artifact, label)
+    if not (seen["batches"] > 0 and seen["engine"] == {"cuda"} and seen["weights"] == {"cuda"}
+            and seen["current_device"] == {0}):
+        raise AssertionError(f"{label}: forwards off the card: {seen}")
+    if kernel_launches() != launches:
+        raise AssertionError(f"{label}: the soak launched kernels: {launches} -> {kernel_launches()}")
+    after = wire_bytes()
+    out = soak_summary(artifact, seen, wall_s)
+    out["root_wire_bytes"] = {d: after[d] - wire[d] for d in after}
+    log(f"[soak {label}] {json.dumps(out)} [{card}]")
+    return out
+
+
+def soak_cli_run(card: str) -> dict:
+    """(c) ``python -m fedcrack_tpu_torch.tools.soak --duration 5 --out F``
+    on the card through ``CLI_SHIM``: exit 0, a clean artifact, no kernel
+    launched."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="fedcrack_soak_") as tmp:
+        out_path = os.path.join(tmp, "soak.json")
+        proc = CliProcess("soak", "fedcrack_tpu_torch.tools.soak",
+                          ["--duration", str(SOAK_CLI_S), "--out", out_path], tmp)
+        try:
+            rc = proc.wait(time.monotonic() + SOAK_CLI_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            raise AssertionError(f"the soak command timed out:\n{proc.text()[-4000:]}")
+        if rc != 0:
+            raise AssertionError(f"the soak command exited {rc}:\n{proc.text()[-4000:]}")
+        with open(out_path, encoding="utf-8") as f:
+            artifact = json.load(f)
+        report = proc.report()
+    check_soak(artifact, "cli")
+    if report["bce_sums_launches"] or any(report["dequant_launches"].values()):
+        raise AssertionError(f"the soak command launched kernels: {report}")
+    out = {"command_wall_s": report["wall_s"], "traffic_wall_s": artifact["traffic_wall_s"],
+           "completed": artifact["serve"]["completed"], "flushes": artifact["federation"]["flushes"],
+           "swaps": artifact["serve"]["swaps"], "p50_ms": artifact["serve"]["latency_ms"]["p50"],
+           "p99_ms": artifact["serve"]["latency_ms"]["p99"]}
+    log(f"[soak cli] python -m fedcrack_tpu_torch.tools.soak: exit 0, audit clean; {json.dumps(out)} [{card}]")
+    return out
+
+
+def fedlint_run(card: str) -> dict:
+    """(d) ``python -m fedcrack_tpu_torch.tools.fedlint fedcrack_tpu_torch
+    --baseline fedlint_torch_baseline.json``: exit 0, no finding, and its
+    lock graph equal to the committed one in nodes and cycles."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="fedcrack_lint_") as tmp:
+        findings_path, graph_path = os.path.join(tmp, "findings.json"), os.path.join(tmp, "graph.json")
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "fedcrack_tpu_torch.tools.fedlint", "fedcrack_tpu_torch",
+             "--baseline", "fedlint_torch_baseline.json", "--no-cache", "--json", findings_path,
+             "--lock-graph", graph_path], cwd=HERE, capture_output=True, text=True, timeout=FEDLINT_TIMEOUT_S)
+        wall_s = time.monotonic() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"fedlint exited {proc.returncode}:\n{proc.stdout[-4000:]}\n{proc.stderr[-2000:]}")
+        with open(findings_path, encoding="utf-8") as f:
+            findings = json.load(f)["findings"]
+        with open(graph_path, encoding="utf-8") as f:
+            graph = json.load(f)
+    with open(os.path.join(HERE, "fedcrack_tpu_torch", "analysis", "serve_lock_graph.json"), encoding="utf-8") as f:
+        committed = json.load(f)
+    if findings or graph["cycles"] or graph["cycles"] != committed["cycles"] or \
+            [n["node_id"] for n in graph["nodes"]] != [n["node_id"] for n in committed["nodes"]]:
+        raise AssertionError(f"fedlint: findings {findings}; graph {graph} against {committed}")
+    out = {"wall_s": wall_s, "findings": len(findings), "locks": len(graph["nodes"]), "edges": len(graph["edges"]),
+           "cycles": len(graph["cycles"])}
+    log(f"[fedlint] python -m fedcrack_tpu_torch.tools.fedlint: exit 0, clean; {json.dumps(out)} [{card}]")
+    return out
+
+
+def soak_lint_phase(torch, card: str) -> dict:
+    """Phase 23: (a) the soak at the JAX soak's shape on the card, (b) at
+    ``ModelConfig()``'s widths with the derived RSS slack, (c) the soak
+    command, (d) fedlint over the port."""
+    from fedcrack_tpu_torch.configs import ModelConfig
+    from fedcrack_tpu_torch.fed.pytree import tree_leaves
+    from fedcrack_tpu_torch.fed.serialization import tree_to_bytes
+    from fedcrack_tpu_torch.models.resunet import init_variables
+
+    t0 = time.monotonic()
+    before = kernel_launches()
+    jax_shape = soak_run(torch, card, "jax-shape", duration_s=SOAK_JAX_SHAPE_S)
+    full = ModelConfig(img_size=32)
+    template = init_variables(torch.Generator().manual_seed(SOAK_SEED), full)
+    tree_bytes = sum(int(leaf.nbytes) for leaf in tree_leaves(template))
+    slack = soak_rss_slack(tree_bytes)
+    log(f"[soak full-width] tree {tree_bytes} B, blob {len(tree_to_bytes(template))} B; RSS slack {slack} B = "
+        f"{SOAK_RSS_SLACK} + {sum(SOAK_LIVE_TREES.values())} trees: {json.dumps(SOAK_LIVE_TREES)}")
+    del template
+    full_width = soak_run(torch, card, "full-width", duration_s=SOAK_FULL_WIDTH_S, model_config=full,
+                          rss_slack_bytes=slack)
+    full_width.update(tree_bytes=tree_bytes, rss_slack=slack)
+    cli = soak_cli_run(card)
+    lint = fedlint_run(card)
+    after = kernel_launches()
+    # In this process; the soak command's own counts are held at 0 above.
+    launches = {k: after[k] - before[k] for k in after}
+    out = {"jax_shape": jax_shape, "full_width": full_width, "cli": cli, "fedlint": lint,
+           "launches": launches, "phase_s": time.monotonic() - t0}
+    log(f"[phase23] {json.dumps(out)} [{card}]")
+    return out
+
+
 def server_breakdown(config, template, rnd: dict, n: int = 3) -> dict:
     """Host ms (median of ``n``) of each step the round machine takes on
     one round's accepted uploads: the gate per upload (validate, decode,
@@ -6472,6 +6740,9 @@ def main() -> int:
     c6 = c6_phase(torch, card)
     log("phase 22 configs/c6_s2d_layout.json on the card: the s2d and packed layouts through the slot plane three "
         "ways, against the reference layouts, served, the fused planes' refusal, s2d_full, the h5 bridge: ok")
+    soak = soak_lint_phase(torch, card)
+    log("phase 23 the concurrent soak at the JAX soak's shape and at full width, the soak command, and fedlint over "
+        "the port: ok")
 
     kernels = []
     replaces = {"dequant_matmul": "fedcrack_tpu/kernels/dequant.py:88",
@@ -6495,7 +6766,8 @@ def main() -> int:
                     "launches_phase18": tree["served_launches"][name],
                     "launches_phase19": slot_plane["served_launches"][name],
                     "launches_phase20": spatial["served_launches"][name],
-                    "launches_phase21": multihost["served_launches"][name]} if flavor == "int8" else {}),
+                    "launches_phase21": multihost["served_launches"][name],
+                    "launches_phase23": soak["launches"][name]} if flavor == "int8" else {}),
                 "max_abs_err": row["max_abs_err"],
                 "ms": row["ms"],
                 "plain_ms": row["plain_ms"],
@@ -6525,6 +6797,7 @@ def main() -> int:
         "launches_phase21": multihost["launches"],
         "launches_phase21_cohort": multihost["cohort_launches"],
         "launches_phase22": c6["launches"],
+        "launches_phase23": soak["launches"]["bce_sums"],
         **bce_row,
     })
     log(f"profiler: {lead_kept(torch)} at {time.monotonic() - t_start:.1f} s [{card}]")

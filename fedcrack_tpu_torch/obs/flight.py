@@ -83,6 +83,7 @@ class FlightRecorder:
             "reason": reason,
             # Interval math in events is monotonic ("t"); the wall clock is
             # the display-only dump timestamp, per the obs convention.
+            # fedlint: disable=DET001 -- human-readable dump timestamp
             "ts": time.time(),
             "capacity": self.capacity,
             "events_seen": seen,

@@ -57,6 +57,7 @@ class MetricsLogger:
             self._tb = SummaryWriter(tb_dir)
 
     def log(self, kind: str, **fields: Any) -> dict:
+        # fedlint: disable=DET001 -- human-readable record timestamp
         record = {"kind": kind, "t": round(time.monotonic() - self._t0, 6), "ts": time.time()}
         for k, v in fields.items():
             record[k] = _coerce(v)

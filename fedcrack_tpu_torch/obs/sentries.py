@@ -52,6 +52,30 @@ def rss_bytes() -> int:
         return int(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss) * 1024
 
 
+# glibc's mallopt parameter number for the mmap threshold, and the value
+# it starts from.
+_M_MMAP_THRESHOLD = -3
+_MMAP_THRESHOLD_BYTES = 128 * 1024
+
+
+def pin_mmap_threshold() -> bool:
+    """Fix glibc's mmap threshold at its starting value (128 KiB) for this
+    process. Left dynamic, glibc raises the threshold to the size of each
+    large block freed, so multi-MB weight blobs and leaves churned by many
+    threads land in per-thread heaps that never shrink, and RSS climbs
+    with the churn though nothing stays live; pinned, every block above
+    the threshold is mapped on its own and returned to the system when
+    freed. Returns whether the allocator took the setting (False off
+    glibc)."""
+    import ctypes
+
+    try:
+        libc = ctypes.CDLL("libc.so.6")
+        return bool(libc.mallopt(_M_MMAP_THRESHOLD, _MMAP_THRESHOLD_BYTES))
+    except (OSError, AttributeError):
+        return False
+
+
 def device_memory_bytes() -> int:
     """Bytes of live tensors on the visible CUDA devices
     (``torch.cuda.memory_allocated``, summed); 0 where CUDA is absent."""

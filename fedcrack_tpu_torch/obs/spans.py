@@ -145,6 +145,7 @@ class SpanRecorder:
                 "dur_s": round(dur, 6),
                 # Interval math above is monotonic; the wall clock is the
                 # display-only "ts" field (obs JSONL convention).
+                # fedlint: disable=DET001 -- human-readable record timestamp
                 "ts": time.time(),
             }
             for k, v in attrs.items():

@@ -160,12 +160,14 @@ class SummaryWriter:
         os.makedirs(logdir, exist_ok=True)
         name = (
             # TensorBoard's file-naming convention: creation time, host, pid
+            # fedlint: disable=DET001 -- wall-clock creation time in the name
             f"events.out.tfevents.{int(time.time())}.{socket.gethostname()}"
             f".{os.getpid()}.{next(_FILE_COUNTER)}"
         )
         self.path = os.path.join(logdir, name)
         self._f = open(self.path, "ab")
         self._lock = threading.Lock()
+        # fedlint: disable=DET001 -- TB displays events on a wall-clock axis
         self._write(_version_event(time.time()))
 
     def _write(self, event: bytes) -> None:
@@ -185,6 +187,7 @@ class SummaryWriter:
     ) -> None:
         self._write(
             _scalar_event(
+                # fedlint: disable=DET001 -- TB's wall-time display axis
                 tag, value, step, time.time() if wall_time is None else wall_time
             )
         )
@@ -204,6 +207,7 @@ class SummaryWriter:
                 tag,
                 HistoData(values, bins=bins),
                 step,
+                # fedlint: disable=DET001 -- TB's wall-time display axis
                 time.time() if wall_time is None else wall_time,
             )
         )

@@ -207,7 +207,7 @@ class InferenceEngine:
         return fused_predict_logits(variables.tree, x, self.bucket_model_config, variables.depthwise)
 
     @torch.inference_mode()
-    def _run(self, variables: Any, images_u8: np.ndarray) -> np.ndarray:
+    def _forward_batch(self, variables: Any, images_u8: np.ndarray) -> np.ndarray:
         x = normalize_images(torch.from_numpy(images_u8).to(self.device))
         if isinstance(variables, QuantizedVariables):
             if self.serve_config.quant != "int8":
@@ -245,7 +245,7 @@ class InferenceEngine:
         if b < self._max_batch:
             pad = np.zeros((self._max_batch - b, h, w, c), np.uint8)
             images_u8 = np.concatenate([images_u8, pad], axis=0)
-        return self._run(variables, np.ascontiguousarray(images_u8))[:b]
+        return self._forward_batch(variables, np.ascontiguousarray(images_u8))[:b]
 
     def predict_image(self, variables: Any, image_u8: np.ndarray) -> np.ndarray:
         """One ``[H, W, 3]`` uint8 image at any size: direct bucket, padded

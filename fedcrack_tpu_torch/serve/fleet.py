@@ -330,6 +330,7 @@ class FleetVersionManager:
             "pause_ms": round(pause_s * 1e3, 3),
             "replicas": flipped,
             "quant_gate": gate_record,
+            # fedlint: disable=DET001 -- human-readable record timestamp
             "ts": time.time(),
         }
         self.swaps.append(record)

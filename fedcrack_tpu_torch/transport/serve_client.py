@@ -15,9 +15,12 @@ from __future__ import annotations
 
 import grpc
 
-from fedcrack_tpu_torch.serve.service import OK, PREDICT_PATH, REJECTED, SHED, STREAM_PATH  # noqa: F401
+from fedcrack_tpu_torch.serve.service import OK, PREDICT_PATH, REJECTED, SHED, STREAM_PATH
 from fedcrack_tpu_torch.transport import wire
 from fedcrack_tpu_torch.transport.service import channel_options
+
+# The answer statuses are re-exported: a client reads them from here.
+__all__ = ["OK", "REJECTED", "SHED", "predict_stub", "serve_channel", "stream_stub"]
 
 
 def serve_channel(target: str, max_message_mb: int = 64, ready_timeout_s: float = 30.0) -> grpc.Channel:

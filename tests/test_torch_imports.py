@@ -13,8 +13,11 @@ front door through ``transport/serve_client.py``), the privacy plane, the
 round checkpointer, the chaos plane and the watch layer, the aggregation
 tree and the chaos drills (the drills reach grpc through the transport
 only), and the slot and spatial planes with ``tools.refscale_federation``
-and ``tools.measure_baseline`` included, and the multi-process plane
-``parallel.multihost``. The port's entry points run on CUDA unless told
+and ``tools.measure_baseline`` included, the multi-process plane
+``parallel.multihost``, the fedlint engine (``analysis/`` and
+``tools/fedlint.py``, the standard library and the port only) and the
+concurrent soak (``tools/soak.py``, which reaches grpc through the
+transport and the serving front door). The port's entry points run on CUDA unless told
 otherwise, every refusal of a part not yet ported names the ROADMAP item
 that lifts it, and ``h5py`` is imported only lazily by the Keras h5
 bridge (``tools/h5_import.py``, ``tools/h5_export.py``).
@@ -72,6 +75,19 @@ SLOT_PLANE_MODULES = (
     "fedcrack_tpu_torch.tools.refscale_federation", "fedcrack_tpu_torch.tools.measure_baseline",
     "fedcrack_tpu_torch.parallel.multihost",
 )
+
+
+# The fedlint engine and the concurrent soak: no grpc at import either
+# (the soak reaches the transport and the serving plane inside run_soak).
+ANALYSIS_AND_SOAK_MODULES = (
+    "fedcrack_tpu_torch.analysis", "fedcrack_tpu_torch.analysis.engine", "fedcrack_tpu_torch.analysis.rules",
+    "fedcrack_tpu_torch.analysis.rules.locks", "fedcrack_tpu_torch.analysis.rules.kernel_plane",
+    "fedcrack_tpu_torch.analysis.rules.trace", "fedcrack_tpu_torch.tools.fedlint", "fedcrack_tpu_torch.tools.soak",
+)
+# The lint engine and its command line are host code over ``ast``: the
+# standard library and the port only, no torch, numpy or grpc.
+ANALYSIS = os.path.join(PACKAGE, "analysis")
+FEDLINT = os.path.join(PACKAGE, "tools", "fedlint.py")
 
 
 # h5py is allowed in the Keras h5 bridge only, and only inside its
@@ -158,12 +174,32 @@ def test_package_imports_with_jax_blocked():
     assert set(CHAOS_AND_WATCH_MODULES) <= set(rest)
     assert set(TREE_AND_DRILL_MODULES) <= set(rest)
     assert set(SLOT_PLANE_MODULES) <= set(rest)
+    assert set(ANALYSIS_AND_SOAK_MODULES) <= set(rest)
     assert "fedcrack_tpu_torch.transport.faults" in with_grpc
     assert "fedcrack_tpu_torch.transport.edge" in with_grpc
     for modules, blocked in ((rest, FORBIDDEN), (with_grpc, tuple(m for m in FORBIDDEN if m not in GRPC_ALLOWED))):
         out = _import_blocked(modules, blocked)
         assert out.returncode == 0, out.stderr
         assert out.stdout.startswith("ok")
+
+
+def test_analysis_and_fedlint_import_only_the_standard_library_and_the_port():
+    """``analysis/`` and ``tools/fedlint.py`` keep their own copy of the
+    lint engine: they import the standard library and the port, and never
+    ``fedcrack_tpu.analysis`` (which is JAX-free, but the JAX package's)."""
+    paths = [p for p in _port_sources() if p.startswith(ANALYSIS + os.sep) or p == FEDLINT]
+    assert len(paths) >= 19
+    for path in paths:
+        rel = os.path.relpath(path, ROOT)
+        roots = set(_imported_roots(path))
+        assert roots <= set(sys.stdlib_module_names) | {"fedcrack_tpu_torch"}, (rel, sorted(roots))
+    for path in _port_sources():
+        tree = ast.parse(open(path, encoding="utf-8").read(), filename=path)
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            assert not any(n == "fedcrack_tpu.analysis" or n.startswith("fedcrack_tpu.analysis.") for n in names), \
+                os.path.relpath(path, ROOT)
 
 
 def _not_implemented_raises(source):
