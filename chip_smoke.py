@@ -344,6 +344,24 @@ on failure, so any failure exits non-zero and prints no result):
     nodes and cycles equal to ``analysis/serve_lock_graph.json``. Logged:
     requests, flushes, swaps, p50 / p99, planes, RSS and device
     watermarks, the root's wire bytes, walls.
+24. the FLOPs model, a profiled round and the ``bce_sums`` A/B, through
+    each tool's ``main`` in this process. (a) ``obs.flops`` equals the JAX
+    package's counts at three configs (``FLOPS_WANT``), and
+    ``device_peak_flops`` knows the card (logged beside its name and power
+    limit). (b) ``python -m fedcrack_tpu_torch.tools.profile_step`` at 256
+    px, bfloat16, batch 16, 8 steps x 2 rounds: ``kernel_stats`` present,
+    the category fractions summing to 1 +- 0.02, exactly 16
+    ``bce_sums_kernel`` records (the artifact's
+    ``kernel_stats["bce_sums_records"]``; the window retaken once if it
+    lost records), 32 launches counted by the wrapper from 0,
+    the profiled device time a round within the round's wall, 0 <
+    ``naive_mfu`` <= 1. (c) ``python -m fedcrack_tpu_torch.tools.ab_bce`` at
+    128 and 256 px, bfloat16, batch 16, 8 steps, 3 reps, fit factor 4,
+    both arms: ``bce_sums`` launches, counted from 0, exactly the cuda
+    arm's 400 steps (warm-up and timed), none from the plain arm; both arms' metrics on
+    the first step's logits within phase 6's tolerance, count lanes exact.
+    Logged: the FLOPs, the peak, the category split, both arms'
+    ``per_step_ms`` and MFU, the speedup.
 
 ``python3 chip_smoke.py --serve-ticks 0.05,1.0,1.0,0.05`` builds
 ``dequant.cu`` and runs only phase 14, once per autoscaler tick given, and
@@ -390,10 +408,8 @@ MATMUL_SWEEP = SWEEP_SHAPES + [(1000, 27, 1), (129, 36, 33), (70, 2304, 257), (3
 CONV_SWEEP = [(1, 5, 7, 8, 12), (2, 6, 6, 4, 9), (1, 1, 1, 4, 3), (3, 9, 11, 36, 17),
               (2, 17, 13, 132, 40), (1, 33, 31, 64, 129)]
 BUCKET, BATCH = 256, 8
-# The throwaway kernels that open every profile window (card_profile): a
-# spin of LEAD_CYCLES clocks each; and how often a window that lost kernel
-# records is taken again before a count check fails.
-PROFILE_LEAD, LEAD_CYCLES, LEAD_KERNEL = 128, 20_000, "spin_kernel"
+# How often a card_profile window (fedcrack_tpu_torch.obs.metrics) that
+# lost kernel records is taken again before a count check fails.
 PROFILE_TRIES = 3
 # The largest probability difference allowed between a served batch and
 # the same weights through another plane or on the CPU (phases 4, 5, 12).
@@ -489,43 +505,6 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-@contextlib.contextmanager
-def card_profile(torch, cpu: bool = True):
-    """torch.profiler over the body, after ``PROFILE_LEAD`` throwaway spin
-    kernels and a synchronize. On the H100 the profiler drops the first
-    kernel records of a window, more of them the older the process, and now
-    and then a whole window's; the lead takes the first kind of loss
-    (``lead_kept`` shows how much of it there was), ``card_kernels`` leaves
-    it out, and every count check retakes a window that lost records."""
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with profile(activities=activities) as prof:
-        for _ in range(PROFILE_LEAD):
-            torch.cuda._sleep(LEAD_CYCLES)
-        torch.cuda.synchronize()
-        yield prof
-        torch.cuda.synchronize()
-
-
-def card_kernels(prof) -> list:
-    """The CUDA kernels of a ``card_profile`` window by name, without its lead."""
-    from torch.autograd import DeviceType
-
-    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and LEAD_KERNEL not in e.key]
-
-
-def lead_kept(torch) -> str:
-    """How many of an empty window's lead kernels the profiler kept."""
-    from torch.autograd import DeviceType
-
-    with card_profile(torch) as prof:
-        pass
-    kept = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA and LEAD_KERNEL in e.key)
-    return f"{kept} of {PROFILE_LEAD} lead kernels kept"
-
-
 def device_ms(torch, fns, n: int = 5, launches: int | None = None) -> float:
     """Device time of one pass over ``fns``: every CUDA kernel they launch,
     summed, from torch.profiler (n passes after one warm pass).
@@ -533,12 +512,14 @@ def device_ms(torch, fns, n: int = 5, launches: int | None = None) -> float:
     A profile that lost kernel records would read short, so the count of
     kernels seen is checked: against ``launches`` per pass where the caller
     knows it (one per wrapper call), else against a second profile."""
+    from fedcrack_tpu_torch.obs.metrics import card_kernels, card_profile, lead_kept
+
     for fn in fns:
         fn()
     torch.cuda.synchronize()
     counts = []
     for _ in range(PROFILE_TRIES):
-        with card_profile(torch) as prof:
+        with card_profile() as prof:
             for _ in range(n):
                 for fn in fns:
                     fn()
@@ -550,7 +531,7 @@ def device_ms(torch, fns, n: int = 5, launches: int | None = None) -> float:
         if launches is not None or len(counts) > 1:  # an unknown count needs two windows anyway
             log(f"profile retaken: {count} kernel records (want {launches} x {n})")
     raise AssertionError(f"the profiler's kernel counts disagree: {counts} (want {launches} x {n}); "
-                         f"{lead_kept(torch)}")
+                         f"{lead_kept()}")
 
 
 def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
@@ -904,9 +885,16 @@ def serve_phase(torch, card: str, kernel_plane: str, requests: bool) -> dict:
 
 def profile_batches(torch, engine, weights, batch, card: str, n: int = 5) -> None:
     """Where one bucket-256 batch's time goes: CUDA kernel time by name and
-    the device's idle share of the host-clock window (torch.profiler)."""
+    the device's idle share of the host-clock window (torch.profiler), and
+    the batch's MFU (``obs.flops``: the canonical forward FLOPs over the
+    card's bf16 peak)."""
+    import dataclasses
+
+    from fedcrack_tpu_torch.obs.flops import mfu, resunet_forward_flops
+    from fedcrack_tpu_torch.obs.metrics import card_kernels, card_profile
+
     engine.predict_bucket(weights, batch)
-    with card_profile(torch) as prof:
+    with card_profile() as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             engine.predict_bucket(weights, batch)
@@ -916,9 +904,12 @@ def profile_batches(torch, engine, weights, batch, card: str, n: int = 5) -> Non
     if not kernels:
         log("profile: the profiler saw no CUDA kernels; device time not measured")
         return
+    flops = resunet_forward_flops(dataclasses.replace(engine.model_config, img_size=BUCKET), BATCH)
     log(f"profile: {n} fused batches (bucket {BUCKET}, batch {BATCH}) in {wall_us / n / 1e3:.3f} ms "
         f"each on the host clock, device busy {busy_us / n / 1e3:.3f} ms each, "
-        f"idle share {1 - busy_us / wall_us:.3f} [{card}]")
+        f"idle share {1 - busy_us / wall_us:.3f}; {flops:.6g} FLOP a batch, MFU "
+        f"{mfu(busy_us / n / 1e6, flops, 0):.5f} of device busy, {mfu(wall_us / n / 1e6, flops, 0):.5f} of the "
+        f"host clock [{card}]")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"profile: {e.self_device_time_total / n / 1e3:8.4f} ms/batch "
             f"{e.count // n:4d} calls/batch  {e.key[:110]}")
@@ -1016,11 +1007,13 @@ def kernel_device_us(torch, fn, n: int = 20) -> dict[str, tuple[float, float]]:
     launches per call, from torch.profiler. A profile that lost kernel
     records would read short, so a profile whose launch counts are not
     whole multiples of ``n`` is taken again (up to three times)."""
+    from fedcrack_tpu_torch.obs.metrics import card_kernels, card_profile, lead_kept
+
     fn()
     torch.cuda.synchronize()
     seen = []
     for _ in range(PROFILE_TRIES):
-        with card_profile(torch) as prof:
+        with card_profile() as prof:
             for _ in range(n):
                 fn()
         kernels = card_kernels(prof)
@@ -1030,7 +1023,7 @@ def kernel_device_us(torch, fn, n: int = 20) -> dict[str, tuple[float, float]]:
         seen.append(out)
         log(f"profile retaken: kernel records not whole per call over {n} calls")
     raise AssertionError(f"the profiler's kernel counts are not whole per call: {seen}; "
-                         f"{lead_kept(torch)}")
+                         f"{lead_kept()}")
 
 
 def _flat_tree(tree, path=()):
@@ -1228,6 +1221,7 @@ def train_phase(torch, card: str) -> dict:
 
     from fedcrack_tpu_torch.fed import rounds, serialization
     from fedcrack_tpu_torch.fed.aggregation import FedAvg, fold
+    from fedcrack_tpu_torch.obs.flops import mfu, train_step_flops
     from fedcrack_tpu_torch.ops import bce
     from fedcrack_tpu_torch.train import local
 
@@ -1347,9 +1341,11 @@ def train_phase(torch, card: str) -> dict:
         lat.append((time.perf_counter() - t0) * 1e3)
     p50, p95 = np.percentile(lat, [50, 95])
     perf = {"img_per_s": TRAIN_BATCH * 1e3 / float(np.mean(lat)), "p50_ms": float(p50), "p95_ms": float(p95)}
+    flops = train_step_flops(cfg.model, TRAIN_BATCH)
     log(f"[train] train_step ModelConfig() {TRAIN_SIZE} px batch {TRAIN_BATCH}: {perf['img_per_s']:.1f} img/s, "
-        f"step p50 {p50:.3f} ms p95 {p95:.3f} ms over 20 steps [{card}]")
-    profile_steps(torch, lambda: local.train_step(st, dev_batch, anchor), card)
+        f"step p50 {p50:.3f} ms p95 {p95:.3f} ms over 20 steps; {flops:.6g} FLOP a step, MFU at p50 "
+        f"{mfu(p50 / 1e3, flops, 0):.5f} [{card}]")
+    profile_steps(torch, lambda: local.train_step(st, dev_batch, anchor), card, flops)
     return {"launches": launches, "steps": steps, "eval_batches": eval_batches, "perf": perf,
             "history": history, "fed": fed, "globals": [r["blob"] for r in run["rounds"]]}
 
@@ -1918,6 +1914,7 @@ def served_batch_launches(torch, engine, payload, batch) -> tuple[dict, dict, ob
     import numpy as np
 
     from fedcrack_tpu_torch.kernels import dequant
+    from fedcrack_tpu_torch.obs.metrics import card_kernels, card_profile, lead_kept
 
     engine.predict_bucket(payload, batch)
     torch.cuda.synchronize()
@@ -1925,7 +1922,7 @@ def served_batch_launches(torch, engine, payload, batch) -> tuple[dict, dict, ob
     seen = []
     for _ in range(PROFILE_TRIES):
         dequant.reset_launch_counts()
-        with card_profile(torch, cpu=False) as prof:
+        with card_profile(cpu=False) as prof:
             probs = engine.predict_bucket(payload, batch)
         counted = {name: getattr(dequant, name).launches for name in want}
         kernels = card_kernels(prof)
@@ -1937,7 +1934,7 @@ def served_batch_launches(torch, engine, payload, batch) -> tuple[dict, dict, ob
         seen.append(profiled)
         log(f"profile retaken: {profiled} kernel records (want {want})")
     else:
-        raise AssertionError(f"served batch launches: profiler {seen}, want {want}; {lead_kept(torch)}")
+        raise AssertionError(f"served batch launches: profiler {seen}, want {want}; {lead_kept()}")
     if not (np.isfinite(probs).all() and probs.shape == (len(batch), batch.shape[1], batch.shape[2], 1)):
         raise AssertionError("served probabilities not finite of the bucket's shape")
     return counted, profiled, probs
@@ -5309,6 +5306,7 @@ def spatial_step_run(torch, cfg, variables, images, masks, card: str) -> dict:
     gradient of the net. Their JAX-criterion ratio is logged."""
     import numpy as np
 
+    from fedcrack_tpu_torch.obs.metrics import card_kernels, card_profile
     from fedcrack_tpu_torch.ops import bce
     from fedcrack_tpu_torch.parallel import build_spatial_train_step, make_spatial_mesh
     from fedcrack_tpu_torch.train import local
@@ -5334,7 +5332,7 @@ def spatial_step_run(torch, cfg, variables, images, masks, card: str) -> dict:
     for _ in range(PROFILE_TRIES):
         probe = step.init(variables)
         torch.cuda.synchronize()
-        with card_profile(torch) as prof:
+        with card_profile() as prof:
             step(probe, *batch)
         profiled = sum(e.count for e in card_kernels(prof) if "bce_sums_kernel" in e.key)
         if profiled == 1:
@@ -6564,6 +6562,170 @@ def soak_lint_phase(torch, card: str) -> dict:
     return out
 
 
+# Phase 24: the JAX FLOPs model's counts at three configs, which the port's
+# must equal exactly; the profiled round and the A/B, each cut from its
+# tool's defaults in steps and rounds only (the A/B keeps its sizes).
+FLOPS_WANT = {"forward, ModelConfig(), batch 2": 2_144_993_280.0,
+              "train step, ModelConfig(), batch 16": 51_479_838_720.0,
+              "train step, 256 px, batch 32": 411_838_709_760.0}
+PROFILE_STEPS, PROFILE_ROUNDS = 8, 2
+PROFILE_ARGS = ["--img", "256", "--dtype", "bfloat16", "--steps", str(PROFILE_STEPS), "--batch", "16",
+                "--rounds", str(PROFILE_ROUNDS), "--top", "1000"]
+AB_STEPS, AB_REPS, AB_FIT, AB_SIZES = 8, 3, 4, (128, 256)
+AB_ARGS = ["--sizes", ",".join(map(str, AB_SIZES)), "--steps", str(AB_STEPS), "--batch", "16", "--reps",
+           str(AB_REPS), "--fit-factor", str(AB_FIT), "--dtype", "bfloat16"]
+
+
+def flops_counts() -> dict:
+    from fedcrack_tpu_torch.configs import ModelConfig
+    from fedcrack_tpu_torch.obs.flops import resunet_forward_flops, train_step_flops
+
+    return dict(zip(FLOPS_WANT, (resunet_forward_flops(ModelConfig(), 2), train_step_flops(ModelConfig(), 16),
+                                 train_step_flops(ModelConfig(img_size=256), 32))))
+
+
+def check_profile_artifact(art: dict) -> list:
+    """(b)'s checks of a ``tools.profile_step`` artifact, but the
+    ``bce_sums_kernel`` records' count (the caller's, since a window may
+    lose records)."""
+    stats, measured = art["kernel_stats"], art["measured"]
+    if stats is None:
+        return ["kernel_stats is None: the window held no CUDA kernel"]
+    problems = []
+    total = sum(c["fraction"] for c in stats["by_category"].values())
+    if abs(total - 1.0) > 0.02:
+        problems.append(f"category fractions sum to {total}")
+    if not measured["profiled_device_s_per_round"] <= measured["round_wall_s_median"]:
+        problems.append(f"device {measured['profiled_device_s_per_round']} s a round past the wall "
+                        f"{measured['round_wall_s_median']} s")
+    if not (measured["naive_mfu"] is not None and 0.0 < measured["naive_mfu"] <= 1.0):
+        problems.append(f"naive_mfu {measured['naive_mfu']}")
+    return problems
+
+
+def flops_profile_ab_phase(torch, card: str) -> dict:
+    """Phase 24: (a) the FLOPs model and the card's peak, (b)
+    ``tools.profile_step`` at 256 px bf16 (its lead-opened window retaken
+    once if it lost ``bce_sums`` records), (c) ``tools.ab_bce``'s two arms:
+    ``bce_sums`` launches exactly the cuda arm's steps, and the arms' first
+    step agrees; all in this process, through each tool's ``main``."""
+    import tempfile
+
+    from fedcrack_tpu_torch.configs import ModelConfig
+    from fedcrack_tpu_torch.data.pipeline import as_model_batch
+    from fedcrack_tpu_torch.data.synthetic import synth_crack_batch
+    from fedcrack_tpu_torch.obs.flops import device_peak_flops
+    from fedcrack_tpu_torch.obs.metrics import lead_kept
+    from fedcrack_tpu_torch.ops import bce
+    from fedcrack_tpu_torch.tools import ab_bce, profile_step
+    from fedcrack_tpu_torch.train.local import create_train_state
+
+    t0 = time.monotonic()
+    dev = torch.device("cuda", 0)
+    # ---- (a) ----
+    counts = flops_counts()
+    if counts != FLOPS_WANT:
+        raise AssertionError(f"FLOPs model {counts} != the JAX package's {FLOPS_WANT}")
+    peak = device_peak_flops(dev)
+    if peak is None:
+        raise AssertionError(f"no bf16 peak for {torch.cuda.get_device_name(dev)!r}")
+    log(f"[flops] {json.dumps(counts)}; bf16 dense peak {peak / 1e12:.1f} TFLOP/s for "
+        f"{torch.cuda.get_device_name(dev)} [{card}]")
+
+    with tempfile.TemporaryDirectory(prefix="fedcrack_phase24_") as tmp:
+        # ---- (b) the profiled round ----
+        want = PROFILE_STEPS * PROFILE_ROUNDS
+        out = os.path.join(tmp, "profile.json")
+        for attempt in range(2):
+            bce.reset_launch_counts()
+            t_b = time.monotonic()
+            if profile_step.main([*PROFILE_ARGS, "--trace-dir", os.path.join(tmp, "trace"), "--out", out]) != 0:
+                raise AssertionError("profile_step.main failed")
+            wall_b = time.monotonic() - t_b
+            prof_launched = bce.bce_sums.launches
+            with open(out, encoding="utf-8") as f:
+                prof = json.load(f)
+            problems = check_profile_artifact(prof)
+            if problems:
+                raise AssertionError(f"profile_step: {problems}: {json.dumps(prof)[:4000]}")
+            records = prof["kernel_stats"]["bce_sums_records"]
+            if records["expected"] != want:
+                raise AssertionError(f"profile_step expects {records['expected']} bce_sums_kernel records, want {want}")
+            if prof_launched != PROFILE_STEPS * (2 + PROFILE_ROUNDS):
+                raise AssertionError(f"profile_step: {prof_launched} bce_sums launches, want "
+                                     f"{PROFILE_STEPS * (2 + PROFILE_ROUNDS)}")
+            if records["observed"] == want:
+                break
+            log(f"profile retaken: {records['observed']} bce_sums_kernel records (want {want}); {lead_kept()}")
+        else:
+            raise AssertionError(f"profile_step: the bce_sums_kernel records read {records['observed']} twice, "
+                                 f"want {want}")
+        cats = {k: (v["fraction"], round(v["self_time_us"] / PROFILE_ROUNDS / 1e3, 4), v["occurrences"])
+                for k, v in prof["kernel_stats"]["by_category"].items()}
+        log(f"[profile] 256 px bf16 batch 16, {PROFILE_STEPS} steps x {PROFILE_ROUNDS} rounds: "
+            f"{json.dumps(prof['measured'])}; by category (fraction, ms a round, kernels): {json.dumps(cats)}; "
+            f"{wall_b:.2f} s [{card}]")
+        ops = prof["kernel_stats"]["top_ops"]
+        for op in ops[:8] + [op for op in ops[8:] if op["category"] == "other"]:
+            log(f"[profile] {op['self_time_us'] / PROFILE_ROUNDS / 1e3:8.4f} ms/round {op['occurrences']:5d} "
+                f"{op['category']:12s} {op['name'][:90]}")
+
+        # ---- (c) the A/B ----
+        cuda_steps = (2 + AB_REPS) * (1 + AB_FIT) * AB_STEPS * len(AB_SIZES)
+        out = os.path.join(tmp, "ab.json")
+        bce.reset_launch_counts()
+        t_c = time.monotonic()
+        if ab_bce.main([*AB_ARGS, "--out", out]) != 0:
+            raise AssertionError("ab_bce.main failed")
+        wall_c = time.monotonic() - t_c
+        launched = bce.bce_sums.launches
+        with open(out, encoding="utf-8") as f:
+            ab = json.load(f)
+        # The cuda arm launches one kernel a step; a launch from the plain
+        # arm would push the count past its steps.
+        if launched != cuda_steps:
+            raise AssertionError(f"ab_bce: {launched} bce_sums launches, want the cuda arm's {cuda_steps} "
+                                 "steps and none from the plain arm")
+        for key, point in ab["points"].items():
+            for impl in ab_bce.IMPLS:
+                p = point["impls"][impl]
+                if not (p["round_s_short"] > 0 and p["round_s_long"] > 0 and "per_step_ms" in p):
+                    raise AssertionError(f"ab_bce {key} {impl}: {p}")
+
+    # The arms' first step: the same logits and mask through each arm's
+    # metrics (phase 6's tolerance, count lanes exact).
+    img = AB_SIZES[0]
+    config = ModelConfig(img_size=img, compute_dtype="bfloat16")
+    imgs, msks = synth_crack_batch(AB_STEPS * 16, img, seed=0)
+    state = create_train_state(torch.Generator().manual_seed(0), config, device=dev)
+    x, y = as_model_batch(torch.from_numpy(imgs[:16]).to(dev), torch.from_numpy(msks[:16]).to(dev))
+    state.model.train()
+    with torch.no_grad():
+        logits = state.model(x)
+    sums = {"cuda": bce.bce_sums(logits, y), "plain": bce._bce_sums_plain(logits, y)}
+    metrics = {impl: ab_bce.metrics_fn(impl, dev)(logits, y, pos_weight=1.0) for impl in ab_bce.IMPLS}
+    torch.cuda.synchronize()
+    if not torch.equal(sums["cuda"][1:4], sums["plain"][1:4]):
+        raise AssertionError(f"ab_bce first step: count lanes {sums['cuda'].tolist()} vs {sums['plain'].tolist()}")
+    err = (sums["cuda"] - sums["plain"]).abs()
+    if not bool((err <= 1e-3 + 1e-5 * sums["plain"].abs()).all()):
+        raise AssertionError(f"ab_bce first step: sums {sums['cuda'].tolist()} vs {sums['plain'].tolist()}")
+    first = {impl: {k: float(v) for k, v in m.items()} for impl, m in metrics.items()}
+    for k, v in first["plain"].items():
+        if not abs(first["cuda"][k] - v) <= 1e-3 + 1e-5 * abs(v):
+            raise AssertionError(f"ab_bce first step: {k} {first['cuda'][k]} vs plain {v}")
+    summary = {key: {"per_step_ms": {i: point["impls"][i]["per_step_ms"] for i in ab_bce.IMPLS},
+                     "mfu": {i: point["impls"][i]["mfu"] for i in ab_bce.IMPLS},
+                     "speedup_first_over_second": point.get("speedup_first_over_second")}
+               for key, point in ab["points"].items()}
+    log(f"[ab_bce] {json.dumps(summary)}; {launched} bce_sums launches (the cuda arm's steps); first step "
+        f"{json.dumps(first['cuda'])} against plain {json.dumps(first['plain'])}; {wall_c:.2f} s [{card}]")
+    result = {"flops": counts, "peak_flops": peak, "profile": prof, "ab": ab, "first_step": first,
+              "launches": {"profile_step": prof_launched, "ab_bce": launched}, "phase_s": time.monotonic() - t0}
+    log(f"[phase24] {json.dumps({k: result[k] for k in ('flops', 'peak_flops', 'launches', 'phase_s')})} [{card}]")
+    return result
+
+
 def server_breakdown(config, template, rnd: dict, n: int = 3) -> dict:
     """Host ms (median of ``n``) of each step the round machine takes on
     one round's accepted uploads: the gate per upload (validate, decode,
@@ -6638,12 +6800,16 @@ def check_robust_round(R, run: dict, names) -> None:
         raise AssertionError(f"robust round history {entry}, departed {state.departed}")
 
 
-def profile_steps(torch, step, card: str, n: int = 3) -> None:
-    """Where one train step's time goes: CUDA kernel time by name and the
-    device's idle share of the host-clock window (torch.profiler)."""
+def profile_steps(torch, step, card: str, flops: float, n: int = 3) -> None:
+    """Where one train step's time goes: CUDA kernel time by name, the
+    device's idle share of the host-clock window (torch.profiler), and the
+    MFU of ``flops`` a step over the device busy time."""
+    from fedcrack_tpu_torch.obs.flops import mfu
+    from fedcrack_tpu_torch.obs.metrics import card_kernels, card_profile
+
     step()
     torch.cuda.synchronize()
-    with card_profile(torch) as prof:
+    with card_profile() as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             step()
@@ -6656,7 +6822,8 @@ def profile_steps(torch, step, card: str, n: int = 3) -> None:
     busy_us = sum(e.self_device_time_total for e in kernels)
     log(f"profile: {n} train steps in {wall_us / n / 1e3:.3f} ms each on the host clock, device busy "
         f"{busy_us / n / 1e3:.3f} ms each, idle share {1 - busy_us / wall_us:.3f}, "
-        f"{sum(e.count for e in kernels) // n} kernel launches per step [{card}]")
+        f"{sum(e.count for e in kernels) // n} kernel launches per step, MFU {mfu(busy_us / n / 1e6, flops, 0):.5f} "
+        f"of device busy [{card}]")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"profile: {e.self_device_time_total / n / 1e3:8.4f} ms/step "
             f"{e.count // n:4d} calls/step  {e.key[:110]}")
@@ -6674,8 +6841,8 @@ def main() -> int:
     for m in REFERENCE_STACK:
         if m not in PORT_NEEDS:
             sys.modules.setdefault(m, None)
-    sys.path.insert(0, HERE)
     from fedcrack_tpu_torch.kernels import build, dequant
+    from fedcrack_tpu_torch.obs.metrics import lead_kept
     from fedcrack_tpu_torch.ops import bce
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6695,7 +6862,7 @@ def main() -> int:
         with open(f"{lib}.log", encoding="utf-8") as f:
             log(f.read())
 
-    log(f"profiler: {lead_kept(torch)} at {time.monotonic() - t_start:.1f} s [{card}]")
+    log(f"profiler: {lead_kept()} at {time.monotonic() - t_start:.1f} s [{card}]")
     rows = kernel_phase(torch, card)
     log("phase 3 kernels vs plain: ok")
     int8 = serve_phase(torch, card, "fused_int8", requests=True)
@@ -6743,6 +6910,9 @@ def main() -> int:
     soak = soak_lint_phase(torch, card)
     log("phase 23 the concurrent soak at the JAX soak's shape and at full width, the soak command, and fedlint over "
         "the port: ok")
+    flops_ab = flops_profile_ab_phase(torch, card)
+    log("phase 24 the FLOPs model and the card's peak, a profiled round at 256 px bf16 (tools.profile_step) and the "
+        "bce_sums A/B inside the train step (tools.ab_bce): ok")
 
     kernels = []
     replaces = {"dequant_matmul": "fedcrack_tpu/kernels/dequant.py:88",
@@ -6798,9 +6968,11 @@ def main() -> int:
         "launches_phase21_cohort": multihost["cohort_launches"],
         "launches_phase22": c6["launches"],
         "launches_phase23": soak["launches"]["bce_sums"],
+        "launches_phase24": flops_ab["launches"]["ab_bce"],
+        "launches_phase24_profile": flops_ab["launches"]["profile_step"],
         **bce_row,
     })
-    log(f"profiler: {lead_kept(torch)} at {time.monotonic() - t_start:.1f} s [{card}]")
+    log(f"profiler: {lead_kept()} at {time.monotonic() - t_start:.1f} s [{card}]")
     log(f"total {time.monotonic() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -6820,7 +6992,6 @@ def serve_tick_sweep(ticks: list) -> int:
     for m in REFERENCE_STACK:
         if m not in PORT_NEEDS:
             sys.modules.setdefault(m, None)
-    sys.path.insert(0, HERE)
     from fedcrack_tpu_torch.kernels import build, dequant
 
     torch.backends.cuda.matmul.allow_tf32 = False

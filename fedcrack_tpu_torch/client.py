@@ -92,9 +92,12 @@ def private_train_fn(train_fn, cfg: FedConfig, cname: str):
 
 def main(argv: list[str] | None = None, *, device: torch.device | str | None = None) -> int:
     """Parse ``argv`` and run one session; local fits on ``device`` (the
-    card unless given)."""
+    card unless given). glibc's mmap threshold is pinned first, as in the
+    server command (``obs.sentries.pin_mmap_threshold``)."""
+    from fedcrack_tpu_torch.obs import sentries
     from fedcrack_tpu_torch.transport.client import FedClient, default_cname
 
+    sentries.pin_mmap_threshold()
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--config", help="JSON FedConfig file")

@@ -33,6 +33,24 @@ PTR = ctypes.c_void_p
 I32 = ctypes.c_int
 I64 = ctypes.c_longlong
 
+# Every kernel library this process has loaded, each built first where its
+# cache held none: the port's only run-time compiles (the serve command's
+# ``serve_recompiles_total``).
+_compiles = 0
+_compiles_lock = threading.Lock()
+
+
+def compile_count() -> int:
+    """How many kernel libraries this process has loaded."""
+    with _compiles_lock:
+        return _compiles
+
+
+def _count_compile() -> None:
+    global _compiles
+    with _compiles_lock:
+        _compiles += 1
+
 
 def _nvcc() -> str:
     found = shutil.which("nvcc")
@@ -95,6 +113,7 @@ class KernelLibrary:
                     fn.restype = I32
                     self._fns[symbol] = fn
                 self._lib = lib
+                _count_compile()
             return self._lib
 
     def launch(self, symbol: str, device: torch.device, *args) -> None:

@@ -510,3 +510,17 @@ def init_variables(generator: torch.Generator, config: ModelConfig | None = None
     from fedcrack_tpu_torch.models.convert import to_flax_variables
 
     return to_flax_variables(ResUNet(config, generator=generator, device="cpu"))
+
+
+def predict(variables: dict, images, config: ModelConfig | None = None,
+            device: torch.device | str | None = None) -> torch.Tensor:
+    """Sigmoid probabilities ``[N, H, W, num_classes]`` for a batch of NHWC
+    float images (numpy or a tensor) under the flax-layout ``variables``,
+    in inference mode (running BatchNorm statistics), on ``device`` (CUDA
+    unless the caller names another)."""
+    from fedcrack_tpu_torch.models.convert import from_flax_variables
+
+    model = from_flax_variables(variables, ResUNet(config, device=device))
+    x = torch.as_tensor(images, device=next(model.parameters()).device)
+    with torch.no_grad():
+        return torch.sigmoid(model(x))

@@ -1,11 +1,16 @@
 """Observability (the counterpart of ``fedcrack_tpu.obs``): the JSONL
 metrics sink with its TensorBoard tee, timing and profiler helpers, the
 metric registry and its Prometheus endpoint, trace spans, the flight
-recorder with its crash hooks, the leak sentries and the SLO watchdog
-(``watchdog``), and ``flops.export_kernel_plane``. The rest of ``flops``
-(the FLOPs model and an H100 peak) comes with the benchmark, ROADMAP
-Queue 1 item 6."""
+recorder with its crash hooks, the leak sentries, the SLO watchdog
+(``watchdog``), and ``flops``: the FLOPs model, the H100's peak and MFU,
+and the kernel-plane gauge."""
 
+from fedcrack_tpu_torch.obs.flops import (  # noqa: F401
+    device_peak_flops,
+    mfu,
+    resunet_forward_flops,
+    train_step_flops,
+)
 from fedcrack_tpu_torch.obs.metrics import (  # noqa: F401
     MetricsLogger,
     profiler_trace,

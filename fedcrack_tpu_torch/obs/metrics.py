@@ -184,6 +184,56 @@ def profiler_trace(logdir: str | None) -> Iterator[None]:
         yield
 
 
+# The throwaway kernels that open every card_profile window: a spin of
+# LEAD_CYCLES clocks each.
+PROFILE_LEAD, LEAD_CYCLES, LEAD_KERNEL = 128, 20_000, "spin_kernel"
+
+
+@contextlib.contextmanager
+def card_profile(cpu: bool = True) -> Iterator[Any]:
+    """torch.profiler over the body on the current CUDA device, after
+    ``PROFILE_LEAD`` throwaway spin kernels and a synchronize; yields the
+    profiler. On the H100 the profiler drops the first kernel records of a
+    window, more of them the older the process, and now and then a whole
+    window's: the lead takes the first kind of loss (:func:`lead_kept`
+    shows how much of it there was), :func:`card_kernels` leaves it out,
+    and a caller that needs every record checks its count and retakes the
+    window. ``cpu`` also records host activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        for _ in range(PROFILE_LEAD):
+            torch.cuda._sleep(LEAD_CYCLES)
+        torch.cuda.synchronize()
+        yield prof
+        torch.cuda.synchronize()
+
+
+def card_kernels(prof) -> list:
+    """The CUDA kernels of a :func:`card_profile` window by name
+    (``key_averages`` rows), without its lead and without the device-side
+    ranges of user annotations: ``Optimizer.step#Adam.step`` comes back as
+    a CUDA row spanning the optimizer's kernels, which would count their
+    time twice."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation and LEAD_KERNEL not in e.key]
+
+
+def lead_kept() -> str:
+    """How many of an empty window's lead kernels the profiler kept."""
+    from torch.autograd import DeviceType
+
+    with card_profile() as prof:
+        pass
+    kept = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA and LEAD_KERNEL in e.key)
+    return f"{kept} of {PROFILE_LEAD} lead kernels kept"
+
+
 class StreamingPercentiles:
     """Streaming p50/p95/p99 over a bounded reservoir (Vitter's algorithm R).
 

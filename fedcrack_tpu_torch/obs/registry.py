@@ -130,6 +130,9 @@ class Gauge(_Child):
             self._fn = None
             self._value += float(amount)
 
+    def dec(self, amount: float = 1.0) -> None:
+        self.inc(-amount)
+
     def set_function(self, fn: Callable[[], float]) -> None:
         """Collect-time callback: the gauge reads ``fn()`` at every read
         (outside the family lock); a raising callback reads as NaN rather
@@ -255,6 +258,9 @@ class MetricFamily:
     def inc(self, amount: float = 1.0) -> None:
         self._solo().inc(amount)
 
+    def dec(self, amount: float = 1.0) -> None:
+        self._solo().dec(amount)
+
     def set(self, value: float) -> None:
         self._solo().set(value)
 
@@ -366,6 +372,11 @@ class MetricsRegistry:
         with self._lock:
             fams = list(self._families.values())
         return sorted(fams, key=lambda f: f.name)
+
+    def get(self, name: str) -> MetricFamily | None:
+        """The family registered as ``name``, or None."""
+        with self._lock:
+            return self._families.get(name)
 
     def exposition(self) -> str:
         """Prometheus text format v0.0.4 of the whole registry — sorted

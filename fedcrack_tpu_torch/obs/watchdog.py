@@ -143,9 +143,8 @@ def default_rules() -> list[SloRule]:
         ),
         SloRule(
             # <= 0, not == 0: a gauge of -1 means unknown, not a breach.
-            # The port exports no recompile gauge (eager torch does not
-            # recompile per shape), so over a port process this rule stays
-            # indeterminate.
+            # The port's serve command exports it as the kernel libraries
+            # loaded (and built) since warm-up (serve.engine.watch_kernel_compiles).
             name="zero_serve_recompiles", metric="serve_recompiles_total",
             op="<=", threshold=0.0,
         ),

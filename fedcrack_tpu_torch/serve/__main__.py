@@ -26,9 +26,12 @@ non-zero when a phase of its start-up fails.
 the port's round checkpoints (``ckpt/manager.py``), not orbax's.
 ``--compile-cache-dir`` configures an XLA cache, which the port has no
 use for: its kernels build once into ``fedcrack_tpu_torch/_build/``, and
-the flag is accepted and logged. The JAX command's recompile sentry has no
-counterpart either: torch does not recompile per shape, so no recompile
-gauge is exported. A seeded model is not the JAX package's
+the flag is accepted and logged. In place of the JAX command's recompile
+sentry, ``serve_recompiles_total`` counts the kernel libraries built or
+loaded after the warm-up (``serve.engine.watch_kernel_compiles``), the
+port's only run-time compiles. glibc's mmap threshold is pinned first
+(``obs.sentries.pin_mmap_threshold``): a long serve fleet churns multi-MB
+weight trees. A seeded model is not the JAX package's
 (``torch.Generator`` against ``jax.random.key``); pass ``--weights`` to
 serve the same model from both.
 """
@@ -165,6 +168,7 @@ async def _serve(args, device) -> int:
 
     from fedcrack_tpu_torch.models.resunet import init_variables
     from fedcrack_tpu_torch.obs.promexp import start_exporter
+    from fedcrack_tpu_torch.serve.engine import watch_kernel_compiles
     from fedcrack_tpu_torch.serve.service import ServeServer, ServeService
     from fedcrack_tpu_torch.serve.stream import StreamSessionManager
 
@@ -217,6 +221,7 @@ async def _serve(args, device) -> int:
         )
         engine.warmup(manager.snapshot()[1])
         batcher_like = MicroBatcher(engine, manager, metrics=metrics)
+    watch_kernel_compiles()
     exporter = start_exporter(args.metrics_port)
     if args.spans_path:
         from fedcrack_tpu_torch.obs import spans as tracing
@@ -293,6 +298,9 @@ async def _serve(args, device) -> int:
 def main(argv=None, *, device=None) -> int:
     """Parse ``argv`` and serve until SIGTERM/SIGINT on ``device`` (the
     card unless given)."""
+    from fedcrack_tpu_torch.obs import sentries
+
+    sentries.pin_mmap_threshold()
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
     return asyncio.run(_serve(args, device))

@@ -297,3 +297,24 @@ class InferenceEngine:
         overlap = self.serve_config.tile_overlap
         ph, pw = max(h, tile), max(w, tile)
         return len(tile_plan(ph, tile, overlap)) * len(tile_plan(pw, tile, overlap))
+
+
+def watch_kernel_compiles(registry: Any = None) -> None:
+    """Export the port's run-time compiles since this call as the serve
+    plane's ``serve_recompiles_total`` gauge, read at every scrape: the
+    kernel libraries loaded, each built first where its cache held none
+    (``kernels.build.compile_count``), the only compiling the eager port
+    does. Call it after the engines'
+    warm-up, as the JAX command calls ``watch_recompiles``: the
+    steady-state contract says the gauge then stays 0 across any number of
+    hot swaps."""
+    from fedcrack_tpu_torch.kernels.build import compile_count
+    from fedcrack_tpu_torch.obs.registry import REGISTRY
+
+    mark = compile_count()
+    reg = registry if registry is not None else REGISTRY
+    reg.gauge(
+        "serve_recompiles_total",
+        "kernel libraries loaded (and built) since the serve plane's warm-up "
+        "(steady-state contract: 0 across any number of hot swaps)",
+    ).set_function(lambda: compile_count() - mark)

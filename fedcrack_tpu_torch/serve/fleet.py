@@ -378,6 +378,7 @@ class FleetVersionManager:
             self._stop.set()
             self._thread.join(timeout=30)
             self._thread = None
+        self._watcher.close()
 
 
 class ServeFleet:

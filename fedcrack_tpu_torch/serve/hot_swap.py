@@ -99,6 +99,14 @@ class WeightSourceWatcher:
         self._ckpt_dir = ckpt_dir or None
         self._state_path = state_path or None
         self._template = template
+        self._ckptr: FedCheckpointer | None = None
+
+    def _checkpointer(self) -> FedCheckpointer:
+        # The port's checkpointer lists the directory on every read, so one
+        # held for the watcher's life sees every new step.
+        if self._ckptr is None:
+            self._ckptr = FedCheckpointer(self._ckpt_dir)
+        return self._ckptr
 
     def best_available(self, newer_than: int):
         """The highest ``(version, host_variables)`` across the sources that
@@ -110,7 +118,7 @@ class WeightSourceWatcher:
                 best = got
         if self._ckpt_dir and os.path.isdir(self._ckpt_dir):
             try:
-                ckptr = FedCheckpointer(self._ckpt_dir)
+                ckptr = self._checkpointer()
                 latest = ckptr.latest_version()
             except Exception:
                 log.exception("checkpoint dir %s unreadable; skipping", self._ckpt_dir)
@@ -123,6 +131,13 @@ class WeightSourceWatcher:
                 except Exception:
                     log.exception("checkpoint restore failed; keeping current model")
         return best
+
+    def close(self) -> None:
+        """Release the checkpointer the watcher holds; idempotent, and a
+        later read opens a new one."""
+        if self._ckptr is not None:
+            self._ckptr.close()
+            self._ckptr = None
 
 
 class ModelVersionManager:
@@ -255,6 +270,7 @@ class ModelVersionManager:
         self._stop.set()
         self._thread.join(timeout=10)
         self._thread = None
+        self._watcher.close()
 
     def __enter__(self) -> "ModelVersionManager":
         self.start()

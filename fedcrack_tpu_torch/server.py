@@ -417,10 +417,14 @@ def make_eval_fn(cfg: FedConfig, dataset, template: dict, device: torch.device |
 
 def main(argv: list[str] | None = None, *, device: torch.device | str | None = None) -> int:
     """Parse ``argv``, serve the federation to its end; the per-round eval
-    runs on ``device`` (the card unless given)."""
+    runs on ``device`` (the card unless given). glibc's mmap threshold is
+    pinned first: a long FedBuff root churns multi-MB weight blobs
+    (``obs.sentries.pin_mmap_threshold``)."""
     from fedcrack_tpu_torch.models.resunet import init_variables
+    from fedcrack_tpu_torch.obs import sentries
     from fedcrack_tpu_torch.transport.service import FedServer
 
+    sentries.pin_mmap_threshold()
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     cfg, args = build_config(argv)
     variables = init_variables(torch.Generator().manual_seed(cfg.seed), cfg.model)

@@ -42,6 +42,28 @@ import chip_smoke
 
 pytestmark = pytest.mark.torch_port
 
+
+@pytest.fixture(autouse=True)
+def mmap_pins(monkeypatch):
+    """The server and client ``main``s pin glibc's mmap threshold for their
+    process; here they run in the test process, so a recorder takes the
+    call and the test process's allocator is left as it was."""
+    from fedcrack_tpu_torch.obs import sentries
+
+    calls = []
+    monkeypatch.setattr(sentries, "pin_mmap_threshold", lambda: calls.append(True) or True)
+    return calls
+
+
+@pytest.mark.parametrize("command", ["server", "client"])
+def test_main_pins_the_mmap_threshold_once_before_anything_else(command, mmap_pins):
+    import importlib
+
+    main = importlib.import_module(f"fedcrack_tpu_torch.{command}").main
+    with pytest.raises(SystemExit):
+        main(["--no-such-flag"], device="cpu")
+    assert mmap_pins == [True]
+
 TINY_CONFIG = {
     "model": {**TINY_KW, "encoder_features": list(TINY_KW["encoder_features"]),
               "decoder_features": list(TINY_KW["decoder_features"])},

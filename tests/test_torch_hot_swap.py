@@ -21,6 +21,7 @@
 
 import os
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -277,3 +278,34 @@ def test_manager_probes_each_installed_version_with_the_canary(weights):
     assert canary.history == by_hand.history
     assert [h["version"] for h in canary.history] == [1, 2] and canary.reference_version == 1
     assert canary.history[0]["iou"] == 1.0 and canary.history[1]["iou"] < 1.0
+
+
+def test_watcher_close_releases_its_checkpointer_and_is_idempotent(tmp_path, weights):
+    """Like the JAX watcher, the port's holds one checkpointer once it has
+    read the directory; ``close`` releases it, a second ``close`` is a no-op,
+    and a later read opens a new one. Stopping a manager closes its watcher,
+    as the JAX manager's ``stop`` does."""
+    from fedcrack_tpu import ckpt as JC
+    from fedcrack_tpu_torch import ckpt as TC
+
+    var0, var1 = weights
+    for who, H, C in (("port", TH, TC), ("jax", JH, JC)):
+        with C.FedCheckpointer(tmp_path / who) as ckptr:
+            ckptr.save(C.FedCheckpoint(2, 1, var1))
+        watcher = H.WeightSourceWatcher(ckpt_dir=str(tmp_path / who), template=var0)
+        assert watcher._ckptr is None
+        assert watcher.best_available(0)[0] == 1
+        assert watcher._ckptr is not None
+        watcher.close()
+        assert watcher._ckptr is None
+        watcher.close()
+        assert watcher.best_available(0)[0] == 1 and watcher._ckptr is not None
+        watcher.close()
+    mgr = TH.ModelVersionManager(_engine(), var0, ckpt_dir=str(tmp_path / "port"), template=var0, poll_s=0.05)
+    mgr.start()
+    deadline = time.monotonic() + 30
+    while mgr.version != 1 and time.monotonic() < deadline:
+        time.sleep(0.02)
+    assert mgr.version == 1 and mgr._watcher._ckptr is not None
+    mgr.stop()
+    assert mgr._watcher._ckptr is None

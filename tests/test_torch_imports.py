@@ -350,11 +350,16 @@ def test_training_entry_points_default_to_cuda_and_raise_without_it():
     assert create_train_state(torch.Generator(), cfg, device="cpu").device.type == "cpu"
 
 
-def test_command_lines_default_to_cuda_and_raise_without_it(tmp_path):
-    """Each ``main`` trains or evaluates on CUDA unless given ``device``."""
+def test_command_lines_default_to_cuda_and_raise_without_it(tmp_path, monkeypatch):
+    """Each ``main`` trains or evaluates on CUDA unless given ``device``.
+    (The server's and client's pin of glibc's mmap threshold is recorded,
+    not made, in this test process.)"""
     import torch
 
     from fedcrack_tpu_torch import client, server
+    from fedcrack_tpu_torch.obs import sentries
+
+    monkeypatch.setattr(sentries, "pin_mmap_threshold", lambda: True)
     from fedcrack_tpu_torch.train import centralized
 
     if torch.cuda.is_available():

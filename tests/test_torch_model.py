@@ -270,3 +270,44 @@ def test_configs_match_jax():
             JaxModelConfig(**kw)
         with pytest.raises(ValueError):
             ModelConfig(**kw)
+
+
+@pytest.mark.parametrize("name", ["resunet", "UNet", "mobilenet_v2", "MOBILENET_V2"])
+def test_get_model_resolves_the_jax_aliases(name):
+    from fedcrack_tpu.models import get_model as jax_get_model
+
+    from fedcrack_tpu_torch.models import ResUNet, get_model
+
+    cfg = port_config(TINY_KW)
+    model = get_model(name, cfg, device="cpu")
+    assert isinstance(model, ResUNet) and model.config == cfg
+    assert type(jax_get_model(name, jax_config(TINY_KW))).__name__ == "ResUNet"
+
+
+def test_get_model_refuses_an_unknown_name_with_the_jax_text():
+    from fedcrack_tpu.models import get_model as jax_get_model
+
+    from fedcrack_tpu_torch.models import get_model
+
+    with pytest.raises(KeyError) as jax_err:
+        jax_get_model("vgg16")
+    with pytest.raises(KeyError) as port_err:
+        get_model("vgg16", device="cpu")
+    assert str(port_err.value) == str(jax_err.value)
+
+
+def test_predict_matches_flax():
+    """``models.resunet.predict``: sigmoid probabilities in inference mode,
+    against the JAX ``predict`` on the same weights (the logits' tolerance
+    above; the sigmoid only shrinks a difference)."""
+    from fedcrack_tpu.models.resunet import predict as jax_predict
+
+    from fedcrack_tpu_torch.models.resunet import predict
+
+    variables = jax_variables(TINY_KW, seed=5)
+    x = np.random.default_rng(6).uniform(0, 1, (2, 32, 32, 3)).astype(np.float32)
+    want = np.asarray(jax_predict(variables, x, jax_config(TINY_KW)))
+    got = predict(variables, x, port_config(TINY_KW), device="cpu")
+    assert got.device.type == "cpu" and not got.requires_grad
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    assert float(got.min()) >= 0.0 and float(got.max()) <= 1.0

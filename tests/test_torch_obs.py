@@ -211,3 +211,32 @@ def test_local_fit_record_and_histogram_tags_match_jax(tmp_path):
     assert tags[0].startswith("weights/") and any(t.startswith("round_update/") for t in tags)
     assert len(tags) == 2 * sum(1 for t in tags if t.startswith("weights/"))
     assert [g["num"] for _, g, _ in g_hist] == [w["num"] for _, w, _ in w_hist]
+
+
+def test_gauge_dec_and_registry_get_match_jax():
+    """``Gauge.dec``, ``MetricFamily.dec`` and ``MetricsRegistry.get``: the
+    same sequence of calls on both packages' registries gives the same
+    exposition text, and ``get`` finds a family or gives None."""
+    from fedcrack_tpu.obs.registry import MetricsRegistry as JaxRegistry
+
+    from fedcrack_tpu_torch.obs.registry import MetricsRegistry
+
+    texts = []
+    for cls in (MetricsRegistry, JaxRegistry):
+        reg = cls()
+        solo = reg.gauge("inflight_requests_total", "requests in flight")
+        solo.inc(3)
+        solo.dec()
+        solo.dec(0.5)
+        lanes = reg.gauge("lanes_busy_replicas", "busy lanes by replica", labels=("replica",))
+        lanes.labels(replica="0").inc(4)
+        lanes.labels(replica="0").dec(2)
+        lanes.labels(replica="1").dec()
+        reg.counter("served_total", "served").inc(2)
+        assert reg.get("inflight_requests_total") is solo and reg.get("lanes_busy_replicas") is lanes
+        assert reg.get("no_such_family") is None
+        assert solo.value == 1.5 and lanes.labels(replica="1").value == -1.0
+        with pytest.raises(AttributeError):
+            reg.get("served_total").dec()  # a counter only goes up
+        texts.append(reg.exposition())
+    assert texts[0] == texts[1]

@@ -329,3 +329,90 @@ def test_main_with_shadow_fraction_stages_each_publish(tmp_path):
     assert (rolled["version"], rolled["verdict"], rolled["installed"]) == (3, "rollback", False)
     assert any(r.startswith("canary iou") for r in rolled["reasons"])
     assert [s["to_version"] for s in stats["swaps"]] == [2] and stats["replica_versions"] == [2]
+
+
+def test_main_pins_the_mmap_threshold_before_anything_else(monkeypatch):
+    """The serve command pins glibc's mmap threshold first thing (a long
+    serve fleet churns multi-MB weight trees); a recorder takes the call
+    here, in the test process."""
+    from fedcrack_tpu_torch.obs import sentries
+    from fedcrack_tpu_torch.serve.__main__ import main
+
+    calls = []
+    monkeypatch.setattr(sentries, "pin_mmap_threshold", lambda: calls.append(True) or True)
+    with pytest.raises(SystemExit):
+        main(["--no-such-flag"], device="cpu")
+    assert calls == [True]
+
+
+def test_kernel_compiles_gauge_counts_builds_and_loads_after_the_mark(tmp_path, monkeypatch):
+    """``serve_recompiles_total`` reads the kernel libraries loaded (each
+    built first where its cache held none) since ``watch_kernel_compiles``
+    marked the count: a load after the mark reads 1, a second load of the
+    same library nothing more."""
+    import ctypes
+
+    from fedcrack_tpu_torch.kernels import build
+    from fedcrack_tpu_torch.obs.registry import MetricsRegistry
+    from fedcrack_tpu_torch.serve.engine import watch_kernel_compiles
+
+    reg = MetricsRegistry()
+    watch_kernel_compiles(reg)
+    assert reg.get("serve_recompiles_total").value == 0
+    lib = build.KernelLibrary("fake", {})
+    monkeypatch.setattr(lib, "build", lambda: "libc.so.6")
+    monkeypatch.setattr(ctypes, "CDLL", lambda path: object())
+    lib.load()
+    lib.load()
+    assert reg.get("serve_recompiles_total").value == 1
+
+
+def test_default_slo_rules_over_the_serve_commands_metrics(tmp_path, capsys):
+    """The standalone watchdog with ``configs/slo_default.json`` over the
+    serve command's ``/metrics``: ``zero_serve_recompiles`` is determinate
+    and reads 0 (no kernel library loaded after the warm-up), no
+    rule breaches, and the rules left indeterminate are those whose
+    metrics a serve process does not export in either package: the
+    federation root's staleness and accepted updates, and the leak
+    sentries' RSS watermark."""
+    from fedcrack_tpu_torch.fed.serialization import tree_to_bytes
+    from fedcrack_tpu_torch.obs import watchdog
+    from fedcrack_tpu_torch.obs.promexp import scrape
+
+    variables = jax_variables(TINY_KW, seed=0)
+    weights, config = tmp_path / "w.msgpack", tmp_path / "serve.json"
+    weights.write_bytes(tree_to_bytes(variables))
+    config.write_text(json.dumps(TINY_CONFIG))
+    proc, log, log_path, line = _start_child(tmp_path, "--config", str(config), "--weights", str(weights),
+                                             "--port", "0", "--metrics-port", "-1")
+    try:
+        assert line is not None, log_path.read_text()[-4000:]
+        port = int(line.split()[1].rsplit(":", 1)[1])
+        url = f"http://127.0.0.1:{line.rsplit('metrics_port=', 1)[1].split()[0]}/metrics"
+        with grpc.insecure_channel(f"127.0.0.1:{port}") as channel:
+            grpc.channel_ready_future(channel).result(timeout=60)
+            stub = channel.stream_stream("/fedcrack.ServePlane/Predict", request_serializer=W.PredictRequest.encode,
+                                         response_deserializer=W.PredictResponse.decode)
+            for rid in range(3):
+                image = np.random.default_rng(rid).integers(0, 256, (16, 16, 3), dtype=np.uint8)
+                request = W.PredictRequest(request_id=rid, height=16, width=16, channels=3, image=image.tobytes(),
+                                           last=True)
+                assert [r.status for r in stub(iter([request]), timeout=60)] == ["OK"]
+        assert scrape(url)["serve_recompiles_total"]["samples"] == {(): 0.0}
+        capsys.readouterr()
+        rc = watchdog.main(["--rules", os.path.join(ROOT, "configs", "slo_default.json"), "--url", url,
+                            "--interval", "1.1", "--count", "2"])
+        printed = capsys.readouterr().out
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+            log.close()
+    audit = json.loads(printed[printed.index("{"):])
+    assert audit["breaches"] == [] and audit["evaluations"] == 2 and audit["rules_evaluated"] == 6
+    assert audit["never_determinate"] == ["rss_watermark_ceiling", "staleness_p99_versions", "updates_per_sec_floor"]
+    assert rc == 1  # not clean: only for the rules a serve process cannot evaluate
