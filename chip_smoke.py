@@ -9,14 +9,19 @@ Runs from the root of a checkout on a machine with one NVIDIA H100 and
 on failure, so any failure exits non-zero and prints no result):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-2. build: compiles ``fedcrack_tpu_torch/kernels/csrc/dequant.cu`` and
-   ``bce_sums.cu`` (sm_90a), one nvcc each, started together;
+2. build: compiles ``fedcrack_tpu_torch/kernels/csrc/dequant.cu``,
+   ``dequant_conv.cu`` and ``bce_sums.cu`` (sm_90a), one nvcc each, started
+   together;
 3. kernels vs plain, int8 and e4m3 codes: ``dequant_matmul`` at the 15
    GEMMs and ``dequant_conv3x3`` at the 8 decoder convs the fused forward
    launches at bucket 256 x batch 8 with ``ModelConfig()``, each plus a
    ragged sweep: per entry within the per-channel scale + 1e-6 of the
    plain version (the largest |kernel - plain| / scale is logged), bitwise
-   equal run to run and over a launch of fewer rows; ``dequant_codes_group``
+   equal run to run and over a launch of fewer rows (for the conv, the
+   first image alone, and the last image alone, equal to the same images
+   inside the batch); the conv kernel's ``-Xptxas -v`` lines (registers,
+   shared memory, spills) and the wrapper's host µs per call, logged;
+   ``dequant_codes_group``
    bitwise equal to its plain version at every leaf of the forward's six
    depthwise kernels in one call, of a ragged group, of a group with a
    misaligned leaf, and of one-leaf calls. Per forward: device time
@@ -601,6 +606,45 @@ def time_cases(torch, card: str, name: str, kernel, plain, library: str, cases) 
     return row
 
 
+def ptxas_lines(build_log: str, kernel: str) -> list[str]:
+    """``-Xptxas -v``'s report for each instantiation of ``kernel``, one line
+    each: its template arguments (from the mangled name), registers,
+    barriers, stack and spills."""
+    import re
+
+    out, current = [], None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            current = None
+            if kernel in name:
+                args = re.match(r"I(a|13__nv_fp8_e4m3)((?:Li\d+E)*)", name[name.index(kernel) + len(kernel):])
+                params = ["int8" if args.group(1) == "a" else "e4m3"] + re.findall(r"Li(\d+)E", args.group(2))
+                current = f"{kernel}<{', '.join(params)}>:"
+                out.append(current)
+        elif current is not None and ("spill" in line or "Used" in line):
+            out[-1] += " " + line.split(":", 1)[-1].strip() if "Used" in line else " " + line.strip() + ";"
+    return out
+
+
+def wrapper_host_us(torch, kernel, cases, calls: int = 200, runs: int = 5) -> dict:
+    """Host µs per call of a kernel's wrapper at each case's shape: the
+    least of ``runs`` walls of ``calls`` back-to-back calls, the device
+    synchronised before and after each run (its queue can take them all)."""
+    out = {}
+    for layer, _, args, _, _, _ in cases:
+        walls = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                kernel(*args)
+            walls.append((time.perf_counter() - t0) / calls * 1e6)
+            torch.cuda.synchronize()
+        out[layer] = min(walls)
+    return out
+
+
 def kernel_phase(torch, card: str) -> dict:
     """Phase 3: each dequant kernel against its plain version on the card,
     at the fused forward's shapes (bucket 256 x batch 8) and ragged sweeps."""
@@ -652,6 +696,9 @@ def kernel_phase(torch, card: str) -> dict:
             err = check_against_plain(torch, f"{name} {layer}", dequant.dequant_conv3x3,
                                       dequant._dequant_conv3x3_plain, (x, q, s), s, part)
             errs = [max(a, b) for a, b in zip(errs, err)]
+            if n_img > 1 and not torch.equal(dequant.dequant_conv3x3(x[-1:].contiguous(), q, s),
+                                             dequant.dequant_conv3x3(x, q, s)[-1:]):
+                raise AssertionError(f"{name} {layer}: the last image alone differs from it in the batch")
             if not layer.startswith("sweep"):
                 # cuDNN on the channels-last view of the same NHWC tensor, f32 weights expanded once.
                 w_oihw = (q.float() * s).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
@@ -661,10 +708,16 @@ def kernel_phase(torch, card: str) -> dict:
                               lambda x_nchw=x_nchw, w_oihw=w_oihw: F.conv2d(x_nchw, w_oihw, padding=1),
                               4 * pixels * c + 9 * c * f + 4 * f + 4 * pixels * f, 2 * pixels * 9 * c * f))
         log(f"{name}: {len(main)} main-path convs and {len(CONV_SWEEP)} ragged within the per-channel bound, "
-            f"bitwise repeatable; max |kernel - plain| {errs[0]:.3g}, max |kernel - plain| / scale {errs[1]:.3g}")
+            f"bitwise repeatable, an image alone equal to it in the batch; max |kernel - plain| {errs[0]:.3g}, "
+            f"max |kernel - plain| / scale {errs[1]:.3g}")
+        for (layer, *shape), (_, _, args, _, _, _) in zip(main, cases):
+            log(f"{name} {layer} tile plan {dequant.conv_tile_plan(*shape)}")
         rows[name] = time_cases(torch, card, name, dequant.dequant_conv3x3, dequant._dequant_conv3x3_plain,
                                 "F.conv2d(channels_last)", cases)
-        rows[name].update(max_abs_err=errs[0], max_err_over_scale=errs[1])
+        rows[name].update(max_abs_err=errs[0], max_err_over_scale=errs[1],
+                          host_us=wrapper_host_us(torch, dequant.dequant_conv3x3, cases))
+        log(f"{name} wrapper host µs per call (min of 5 runs of 200 back-to-back calls per layer): "
+            f"{json.dumps(rows[name]['host_us'])} [{card}]")
 
         # dequant_codes: bitwise, grouped as the forward calls it.
         name = f"dequant_codes[{flavor}]"
@@ -6855,12 +6908,15 @@ def main() -> int:
         f"{[m for m in REFERENCE_STACK if m in sys.modules and sys.modules[m] is None]}")
 
     t0 = time.monotonic()
-    libs = build.build_all([dequant.LIBRARY, bce.LIBRARY])
+    libs = build.build_all([dequant.LIBRARY, dequant.CONV_LIBRARY, bce.LIBRARY])
     log(f"phase 2 build: {time.monotonic() - t0:.2f} s "
         f"({', '.join(os.path.relpath(lib, HERE) for lib in libs)})")
     for lib in libs:
         with open(f"{lib}.log", encoding="utf-8") as f:
             log(f.read())
+    with open(f"{libs[1]}.log", encoding="utf-8") as f:
+        for line in ptxas_lines(f.read(), "dequant_conv3x3_kernel"):
+            log(f"ptxas {line}")
 
     log(f"profiler: {lead_kept()} at {time.monotonic() - t_start:.1f} s [{card}]")
     rows = kernel_phase(torch, card)
@@ -6925,7 +6981,8 @@ def main() -> int:
             kernels.append({
                 "name": f"{name}[{flavor}]",
                 "route": "cuda",
-                "source": "fedcrack_tpu_torch/kernels/csrc/dequant.cu",
+                "source": "fedcrack_tpu_torch/kernels/csrc/" + ("dequant_conv.cu" if name == "dequant_conv3x3"
+                                                                 else "dequant.cu"),
                 "replaces": replaces[name],
                 "launches": served["launches"][name],
                 **({"launches_phase12": swap["served_launches"][name],
@@ -6997,7 +7054,7 @@ def serve_tick_sweep(ticks: list) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    build.build_all([dequant.LIBRARY])
+    build.build_all([dequant.LIBRARY, dequant.CONV_LIBRARY])
     for tick in ticks:
         t0 = time.monotonic()
         out = serve_cli_phase(torch, card, scale_interval_s=tick)

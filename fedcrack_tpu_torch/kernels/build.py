@@ -2,8 +2,9 @@
 
 Each kernel source under ``csrc/`` compiles with ``nvcc`` for sm_90a into
 a shared library with a plain C interface, loaded with ``ctypes``. A
-library is keyed by a hash of its source and the compiler flags, so an
-edited source rebuilds and an unchanged one is reused; nvcc's
+library is keyed by a hash of its source, the headers beside it
+(``csrc/*.cuh``) and the compiler flags, so an edited source or header
+rebuilds and an unchanged one is reused; nvcc's
 ``-Xptxas -v`` report (registers, shared memory, spills) is kept beside it
 as ``<library>.so.log``. Nothing builds at import: a library builds at its
 first launch (or when :func:`build_all` is called), on a host with the CUDA
@@ -81,11 +82,16 @@ class KernelLibrary:
         self._lock = threading.Lock()
 
     def build(self) -> str:
-        """Compile the source unless a library built from the same source
-        and flags exists; returns the library's path."""
-        with open(self.source, "rb") as f:
-            source = f.read()
-        digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        """Compile the source unless a library built from the same source,
+        headers and flags exists; returns the library's path."""
+        csrc = os.path.dirname(self.source)
+        inputs = [self.source] + sorted(os.path.join(csrc, f) for f in os.listdir(csrc) if f.endswith(".cuh"))
+        digest = hashlib.sha256()
+        for path in inputs:
+            with open(path, "rb") as f:
+                digest.update(f.read())
+        digest.update(" ".join(NVCC_FLAGS).encode())
+        digest = digest.hexdigest()[:16]
         path = os.path.join(BUILD_DIR, f"libfedcrack_{self.name}_{digest}.so")
         if os.path.exists(path):
             return path

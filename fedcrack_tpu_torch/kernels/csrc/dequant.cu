@@ -6,17 +6,12 @@
 //   y[M,N] = (x[M,K] f32 @ float(q[K,N] codes)) * scale[N], with int8 or
 //   fp8 e4m3 codes. The 1x1 convs and the stride-2 stem of the fused U-Net
 //   forward (kernels/forward.py) land here.
-// * dequant_conv3x3_kernel <- the same _matmul_kernel behind the JAX
-//   _conv3x3 (fedcrack_tpu/kernels/forward.py), whose im2col patches XLA
-//   materialises: y[N,H,W,F] = conv3x3_SAME_stride1(x[N,H,W,C] NHWC,
-//   dequant(q[3,3,C,F] HWIO codes, scale[F])). The same GEMM body with
-//   another A loader: it gathers each K tile straight from the NHWC
-//   activation (K ordered (kh, kw, c), so every 16-byte copy is 4 channels of
-//   one tap), border taps zero-filled by the copy. No padded or im2col
-//   buffer exists; the codes enter as q.reshape(9C, F).
 // * dequant_codes_kernel <- _dequant_kernel (via _dequant_codes_pallas):
 //   out[i] = float(q[i]) * scale[i % N], the depthwise-kernel expansion,
 //   for up to 16 leaves in one launch (see its section below).
+//
+// The stride-1 3x3 conv, the same _matmul_kernel behind the JAX _conv3x3,
+// has its own Hopper kernel in dequant_conv.cu under the same contract.
 //
 // Contract (held against the plain PyTorch versions in dequant.py):
 //
@@ -43,26 +38,22 @@
 //   N only, never on M: a served image's result does not depend on how many
 //   rows share its launch.
 // * Ragged M, K and N are masked in the kernel (zero-filled copies, guarded
-//   stores); the caller pads nothing. The conv needs C % 4 == 0 and a
-//   16-byte aligned x (its copies are 16 bytes), and refuses anything else.
+//   stores); the caller pads nothing.
 //
 // What bounds it on an H100, and what the design does about it: at bucket
-// 256 x batch 8 one forward is ~34 GFLOP, ~100 GFLOP as three bf16 passes.
-// The 1x1 GEMMs (K = 27..256) are bound by device-memory bytes (0.11 ms at
-// 3.35 TB/s), the 3x3 convs by the three passes (0.08 ms at 989 TFLOP/s
-// dense) once they read their NHWC activation once instead of a 9x-wide
-// im2col matrix. So A goes through a 3-stage cp.async ring (16-byte copies,
-// zero-filled at the edges) that keeps two K tiles in flight while the
-// tensor cores run; B (small) is prefetched into registers a stage ahead and
-// stored converted.
+// 256 x batch 8 the 1x1 GEMMs (K = 27..256) are bound by device-memory
+// bytes (0.11 ms at 3.35 TB/s). So A goes through a 3-stage cp.async ring
+// (16-byte copies, zero-filled at the edges) that keeps two K tiles in
+// flight while the tensor cores run; B (small) is prefetched into registers
+// a stage ahead and stored converted.
 // The N tile fits the layer (8 for the head's N = 1, up to 128), and the M
 // tile (64 or 128) is picked so that small-M GEMMs still fill 132 SMs. Each
 // warp owns a 32 x 32 output tile (16 rows in a 64 x 32 block, fewer
 // columns for small N) and issues its MMAs term-major, so back-to-back MMAs
 // never wait on each other.
-// mma.sync.m16n8k16 is used instead of wgmma: wgmma would want A in its own
-// register layout or in swizzled shared memory, and the three-term split is
-// cheapest on mma.sync's fragments; wgmma with a TMA ring is later work.
+// mma.sync.m16n8k16 is used instead of wgmma: at these K the bytes, not the
+// tensor cores, bound the GEMM, and the three-term split is cheapest on
+// mma.sync's fragments.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -71,15 +62,14 @@
 #include <cstdint>
 #include <cstring>
 
+#include "dequant_common.cuh"
+
 namespace {
 
-__device__ __forceinline__ float code_to_float(int8_t c) {
-  return static_cast<float>(c);
-}
-
-__device__ __forceinline__ float code_to_float(__nv_fp8_e4m3 c) {
-  return static_cast<float>(c);
-}
+using fc::bf16x2_bits;
+using fc::code_to_float;
+using fc::smem_u32;
+using fc::split3;
 
 constexpr int BK = 32;            // K depth of one staged tile: two k16 MMA steps
 constexpr int STAGES = 3;         // cp.async ring depth
@@ -96,10 +86,6 @@ __host__ __device__ constexpr int tile_threads(int bm, int bn) {
 }
 __host__ __device__ constexpr int tile_smem(int bm, int bn) {
   return STAGES * (bm * A_STRIDE * 4 + bn * B_STRIDE * 2);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // src_bytes = 0 reads nothing and zero-fills the destination.
@@ -122,27 +108,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING) : "memory");
 }
 
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
-  uint32_t bits;
-  memcpy(&bits, &v, sizeof(bits));
-  return bits;
-}
-
-// Two neighbouring-k activations into their hi/mid/lo bf16 pairs (the lower
-// k in the low half, as the MMA fragment wants).
-__device__ __forceinline__ void split3(float2 v, uint32_t& hi, uint32_t& mid, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
-  const float2 hf = __bfloat1622float2(h);
-  const float r0 = v.x - hf.x;  // exact: x minus its nearest bf16
-  const float r1 = v.y - hf.y;
-  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
-  const float2 mf = __bfloat1622float2(m);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(r0 - mf.x, r1 - mf.y);
-  hi = bf16x2_bits(h);
-  mid = bf16x2_bits(m);
-  lo = bf16x2_bits(l);
-}
-
 // Not volatile: the compiler may interleave independent MMAs; the "+f"
 // operands keep each accumulator's own sequence in order.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
@@ -154,17 +119,14 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The GEMM body shared by both entry points. A rows are output rows
-// (pixels, for the conv); CONV selects the A loader: x[M, K] row-major, or
-// the implicit im2col of x[M pixels, C] NHWC with K = 9C ordered (kh, kw, c).
-// vec (GEMM only): K % 4 == 0 and x 16-byte aligned, so A moves in 16-byte
-// copies; else in 4-byte ones.
-template <typename CodeT, int BM, int BN, bool CONV>
+// The GEMM body: x[M, K] row-major. vec: K % 4 == 0 and x 16-byte aligned,
+// so A moves in 16-byte copies; else in 4-byte ones.
+template <typename CodeT, int BM, int BN>
 __device__ __forceinline__ void mma_body(const float* __restrict__ x,
                                          const CodeT* __restrict__ q,
                                          const float* __restrict__ scale,
                                          float* __restrict__ y, int M, int K, int N,
-                                         int H, int W, int C, bool vec) {
+                                         bool vec) {
   constexpr int WARP_M = warp_m(BM, BN);
   constexpr int WARP_N = warp_n(BN);
   constexpr int WM = BM / WARP_M;
@@ -195,46 +157,24 @@ __device__ __forceinline__ void mma_body(const float* __restrict__ x,
   const int ktiles = (K + BK - 1) / BK;
 
   // Each thread copies the same rows and the same 4-wide K column of every
-  // A tile: their offsets into x (m * K, or m * C for the conv's pixel) and,
-  // for the conv, their pixel coordinates are computed once. The host keeps
+  // A tile: their offsets into x (m * K) are computed once. The host keeps
   // every offset inside 32 bits.
   const int a_col = (tid % CHUNKS_PER_ROW) * 4;
-  int a_off[A_CHUNKS], a_h[A_CHUNKS], a_w[A_CHUNKS];
+  int a_off[A_CHUNKS];
 #pragma unroll
   for (int j = 0; j < A_CHUNKS; ++j) {
     const long long m = m0 + tid / CHUNKS_PER_ROW + j * ROWS_PER_PASS;
-    a_off[j] = m < M ? static_cast<int>(m) * (CONV ? C : K) : -1;  // -1: a row past M
-    a_h[j] = 0;
-    a_w[j] = 0;
-    if (CONV && m < M) {
-      const int rem = static_cast<int>(m % (static_cast<long long>(H) * W));
-      a_h[j] = rem / W;
-      a_w[j] = rem % W;
-    }
+    a_off[j] = m < M ? static_cast<int>(m) * K : -1;  // -1: a row past M
   }
 
   auto load_a = [&](int stage, int k0) {
     float* dst_tile = a_smem + stage * BM * A_STRIDE;
     const int k = k0 + a_col;
-    // The conv's tap and channel of this thread's K column, once per tile.
-    int tap = 0, delta = 0;
-    if (CONV && k < K) {
-      tap = k / C;
-      delta = ((tap / 3 - 1) * W + (tap % 3 - 1)) * C + (k - tap * C);
-    }
-    const int dh = tap / 3 - 1;
-    const int dw = tap % 3 - 1;
 #pragma unroll
     for (int j = 0; j < A_CHUNKS; ++j) {
       float* dst = dst_tile + (tid / CHUNKS_PER_ROW + j * ROWS_PER_PASS) * A_STRIDE + a_col;
       const bool row_ok = a_off[j] >= 0;
-      if (CONV) {
-        const int ih = a_h[j] + dh;
-        const int iw = a_w[j] + dw;
-        const bool ok = row_ok && k < K && static_cast<unsigned>(ih) < static_cast<unsigned>(H) &&
-                        static_cast<unsigned>(iw) < static_cast<unsigned>(W);
-        cp_async16(dst, ok ? x + a_off[j] + delta : x, ok);
-      } else if (vec) {
+      if (vec) {
         const bool ok = row_ok && k < K;
         cp_async16(dst, ok ? x + a_off[j] + k : x, ok);
       } else {
@@ -371,41 +311,21 @@ __global__ void __launch_bounds__(tile_threads(BM, BN))
 dequant_matmul_kernel(const float* __restrict__ x, const CodeT* __restrict__ q,
                       const float* __restrict__ scale, float* __restrict__ y,
                       int M, int K, int N, int vec) {
-  mma_body<CodeT, BM, BN, false>(x, q, scale, y, M, K, N, 0, 0, 0, vec != 0);
+  mma_body<CodeT, BM, BN>(x, q, scale, y, M, K, N, vec != 0);
 }
 
+// One launch at a fixed tile.
 template <typename CodeT, int BM, int BN>
-__global__ void __launch_bounds__(tile_threads(BM, BN))
-dequant_conv3x3_kernel(const float* __restrict__ x, const CodeT* __restrict__ q,
-                       const float* __restrict__ scale, float* __restrict__ y,
-                       int M, int H, int W, int C, int F) {
-  mma_body<CodeT, BM, BN, true>(x, q, scale, y, M, 9 * C, F, H, W, C, true);
-}
-
-// One launch at a fixed tile; conv selects the entry point.
-template <typename CodeT, int BM, int BN>
-int launch_tile(bool conv, const void* x, const void* q, const void* scale, void* y,
-                int M, int K, int N, int H, int W, int C, int vec, cudaStream_t stream) {
+int launch_tile(const void* x, const void* q, const void* scale, void* y,
+                int M, int K, int N, int vec, cudaStream_t stream) {
   constexpr int smem = tile_smem(BM, BN);
   const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  const auto* xf = static_cast<const float*>(x);
-  const auto* qc = static_cast<const CodeT*>(q);
-  const auto* sf = static_cast<const float*>(scale);
-  auto* yf = static_cast<float*>(y);
-  cudaError_t err;
-  if (conv) {
-    err = cudaFuncSetAttribute(dequant_conv3x3_kernel<CodeT, BM, BN>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dequant_conv3x3_kernel<CodeT, BM, BN><<<grid, tile_threads(BM, BN), smem, stream>>>(
-        xf, qc, sf, yf, M, H, W, C, N);
-  } else {
-    err = cudaFuncSetAttribute(dequant_matmul_kernel<CodeT, BM, BN>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dequant_matmul_kernel<CodeT, BM, BN><<<grid, tile_threads(BM, BN), smem, stream>>>(
-        xf, qc, sf, yf, M, K, N, vec);
-  }
+  const cudaError_t err = cudaFuncSetAttribute(dequant_matmul_kernel<CodeT, BM, BN>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dequant_matmul_kernel<CodeT, BM, BN><<<grid, tile_threads(BM, BN), smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const CodeT*>(q), static_cast<const float*>(scale),
+      static_cast<float*>(y), M, K, N, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -421,8 +341,8 @@ constexpr long long SMS = 132;  // H100 SXM
 // would leave SMs idle, the N tile halved down to 32. None of this changes
 // an entry's K order.
 template <typename CodeT>
-int launch_gemm(bool conv, const void* x, const void* q, const void* scale, void* y,
-                int M, int K, int N, int H, int W, int C, int vec, void* stream_ptr) {
+int launch_gemm(const void* x, const void* q, const void* scale, void* y,
+                int M, int K, int N, int vec, void* stream_ptr) {
   const auto stream = static_cast<cudaStream_t>(stream_ptr);
   constexpr long long OFFSET_LIMIT = 1LL << 31;  // the kernel's A offsets are 32-bit
   if (static_cast<long long>(M) * K >= OFFSET_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
@@ -431,8 +351,7 @@ int launch_gemm(bool conv, const void* x, const void* q, const void* scale, void
   while (bm == 64 && bn > 32 && tile_blocks(M, N, 64, bn) < SMS) bn /= 2;
 #define FC_TILE(BM_, BN_)                                                          \
   if (bm == BM_ && bn == BN_)                                                      \
-    return launch_tile<CodeT, BM_, BN_>(conv, x, q, scale, y, M, K, N, H, W, C, vec, \
-                                        stream);
+    return launch_tile<CodeT, BM_, BN_>(x, q, scale, y, M, K, N, vec, stream);
   FC_TILE(128, 8) FC_TILE(128, 16) FC_TILE(128, 32) FC_TILE(128, 64)
   FC_TILE(64, 8) FC_TILE(64, 16) FC_TILE(64, 32) FC_TILE(64, 64) FC_TILE(64, 128)
 #undef FC_TILE
@@ -443,17 +362,7 @@ template <typename CodeT>
 int launch_matmul(const void* x, const void* q, const void* scale, void* y,
                   int M, int K, int N, void* stream) {
   const int vec = (K % 4 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
-  return launch_gemm<CodeT>(false, x, q, scale, y, M, K, N, 0, 0, 0, vec, stream);
-}
-
-template <typename CodeT>
-int launch_conv3x3(const void* x, const void* q, const void* scale, void* y,
-                   int n_img, int H, int W, int C, int F, void* stream) {
-  if (C % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return launch_gemm<CodeT>(true, x, q, scale, y, n_img * H * W, 9 * C, F, H, W, C, 1,
-                            stream);
+  return launch_gemm<CodeT>(x, q, scale, y, M, K, N, vec, stream);
 }
 
 // ---- grouped code expansion ----
@@ -566,16 +475,6 @@ int fc_dequant_matmul_i8(const void* x, const void* q, const void* scale,
 int fc_dequant_matmul_e4m3(const void* x, const void* q, const void* scale,
                            void* y, int M, int K, int N, void* stream) {
   return launch_matmul<__nv_fp8_e4m3>(x, q, scale, y, M, K, N, stream);
-}
-
-int fc_dequant_conv3x3_i8(const void* x, const void* q, const void* scale, void* y,
-                          int n_img, int H, int W, int C, int F, void* stream) {
-  return launch_conv3x3<int8_t>(x, q, scale, y, n_img, H, W, C, F, stream);
-}
-
-int fc_dequant_conv3x3_e4m3(const void* x, const void* q, const void* scale, void* y,
-                            int n_img, int H, int W, int C, int F, void* stream) {
-  return launch_conv3x3<__nv_fp8_e4m3>(x, q, scale, y, n_img, H, W, C, F, stream);
 }
 
 // table: a CodeSegments in host memory, read before the launch returns;

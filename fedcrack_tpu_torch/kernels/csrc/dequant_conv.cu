@@ -1,0 +1,635 @@
+// Hand-written Hopper (sm_90a) kernel of the quantized serving path's
+// stride-1 3x3 conv.
+//
+// dequant_conv3x3_kernel <- the Pallas _matmul_kernel of
+// fedcrack_tpu/kernels/dequant.py behind the JAX _conv3x3
+// (fedcrack_tpu/kernels/forward.py), whose im2col patches XLA materialises:
+// y[N,H,W,F] = conv3x3_SAME_stride1(x[N,H,W,C] f32 NHWC,
+// float(q[3,3,C,F] HWIO codes) * scale[F]), with int8 or fp8 e4m3 codes.
+// The 8 decoder convs of the fused U-Net forward (kernels/forward.py) land
+// here.
+//
+// Contract: dequant.cu's, held against the plain version in dequant.py.
+// Codes are exact in bf16; x is split into hi, mid and lo bf16 terms
+// (dequant_common.cuh), and each 16-deep K step accumulates lo, then mid,
+// then hi into one f32 accumulator; the scale multiplies the finished
+// accumulator once; no split-K, no atomics. K runs over chunks of 32 input
+// channels, then the taps (kh, kw), then the chunk's channels in two k16
+// steps: a function of C alone. The tile plan (dequant.py, conv_tile_plan)
+// picks the pixel tile, the column block and the ring depth from the shape,
+// and none of them changes an entry's sums, so a pixel's result does not
+// depend on its neighbours in the batch or on the grid, and it is the same
+// bit for bit run to run.
+//
+// What bounds it on an H100: at bucket 256 x batch 8 the forward's 8 convs
+// are 80 GFLOP as three bf16 passes, 0.081 ms at 989 TFLOP/s dense, against
+// 0.047 ms of device-memory bytes (each activation read once, each output
+// written once). So the tensor cores bound it, and the design feeds them:
+//
+// * A unit of work is TH x TW output pixels of one image (8 x 8 or 8 x 16)
+//   and BN output channels; one block an SM walks over the units, its ring
+//   running on from one unit into the next. For each chunk of a unit, one
+//   TMA load (cp.async.bulk.tensor.4d, completing on an mbarrier) brings
+//   the (TH + 2) x (TW + 2) x 32 halo box of x into shared memory with the
+//   128-byte swizzle. The box starts at
+//   (h0 - 1, w0 - 1), and TMA zero-fills what lies outside the image: that
+//   is the SAME padding. The nine taps read shifted windows of that one
+//   tile, so x crosses device memory (TH + 2)(TW + 2) / (TH TW) times per
+//   column block, not nine times.
+// * A producer warpgroup fills a ring of stages: its thread 0 issues the
+//   halo's TMA load, and all 128 threads read the chunk's 9 x 32 x BN codes
+//   and store them once, converted to bf16, in the K-major 64-byte-swizzled
+//   layout that a wgmma B descriptor reads. The codes pass through
+//   registers, not TMA: TMA wants 16-byte row strides (F % 16 == 0), and
+//   ragged F has none. Consumers release a stage through its empty barrier.
+// * One or two consumer warpgroups of 64 pixels each split the chunk's halo
+//   once (split3) into hi, mid and lo bf16 planes in shared memory. Per tap
+//   and k16 step each warp loads its 16 pixels' fragments of the three
+//   planes at the tap's shifted window with ldmatrix (A in registers, in
+//   mma.sync m16n8k16's layout, which wgmma's register A shares), and
+//   issues three wgmma.mma_async.m64nBNk16 (lo, mid, hi) against the
+//   stage's codes. Three fragment buffers, loaded two steps ahead, keep the
+//   tensor cores fed while a step's wgmma wait for the one before. Splitting
+//   per chunk, not per tap, does the split's ALU work once instead of nine
+//   times.
+// * The epilogue scales the accumulators and stores them, masked at the
+//   image's edge and past F, while the producer fills the next unit's
+//   stages.
+//
+// What holds it at ~30% of the bound: shared-memory traffic. With A in
+// registers, each k16 step reads three A fragments (ldmatrix) and the
+// stage's codes three times (one wgmma a term), about as many bytes as the
+// SM's shared memory moves in the step's tensor time at BN = 64, more at
+// BN = 32; the consumers' split pass and the producer's conversion of the
+// codes come on top. PERF.md (PR 20) has the measurements.
+
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime, no -lcuda
+#include <cuda_bf16.h>
+#include <cuda_fp8.h>
+#include <cuda_runtime.h>
+
+#include <atomic>
+#include <cstdint>
+#include <cstring>
+
+#include "dequant_common.cuh"
+
+namespace {
+
+using fc::bf16x2_bits;
+using fc::code_to_float;
+using fc::smem_u32;
+using fc::split3;
+
+constexpr int CHUNK = 32;               // input channels a stage: 128 B of f32, one swizzle row
+constexpr int TAPS = 9;
+constexpr int STEPS = TAPS * CHUNK / 16;  // k16 steps a chunk
+constexpr int WG = 128;                 // threads of a warpgroup
+constexpr int PIXEL_BYTES = CHUNK * 4;  // one halo pixel's chunk in f32
+constexpr int ROW_BYTES = CHUNK * 2;    // one pixel's (or column's) chunk in bf16: a 64-byte swizzle row
+constexpr int HALO_ALIGN = 1024;        // the 128-byte swizzle repeats every 8 rows
+constexpr int ATOM_BYTES = 8 * ROW_BYTES;  // the 64-byte swizzle repeats every 8 rows
+constexpr int MAX_STAGES = 4;
+constexpr int SMEM_LIMIT = 232448;      // dynamic shared memory a block may have on sm_90
+
+// Mirrored by dequant.py's conv_smem_bytes.
+__host__ __device__ constexpr int round_up(int x, int to) { return (x + to - 1) / to * to; }
+__host__ __device__ constexpr int halo_bytes(int th, int tw) {
+  return round_up((th + 2) * (tw + 2) * PIXEL_BYTES, HALO_ALIGN);
+}
+__host__ __device__ constexpr int plane_bytes(int th, int tw) {
+  return round_up((th + 2) * (tw + 2) * ROW_BYTES, HALO_ALIGN);
+}
+__host__ __device__ constexpr int tap_bytes(int bn) { return bn / 8 * ATOM_BYTES; }
+__host__ __device__ constexpr int codes_bytes(int bn) { return TAPS * tap_bytes(bn); }
+// Per stage a halo tile, the bf16 codes, a full and an empty barrier; the
+// three bf16 planes of the chunk being computed; and the slack that aligns
+// the dynamic shared memory's base to HALO_ALIGN.
+__host__ __device__ constexpr int conv_smem(int th, int tw, int bn, int stages) {
+  return stages * (halo_bytes(th, tw) + codes_bytes(bn) + 16) + 3 * plane_bytes(th, tw) + HALO_ALIGN;
+}
+
+// The 64-byte swizzle (wgmma's B64 layout): a row's 16-byte chunk c of a
+// 64-byte row r sits at chunk c ^ ((r >> 1) & 3), so 8 neighbouring rows
+// fall in 8 different bank groups.
+__host__ __device__ constexpr int swizzle64(int row, int chunk) {
+  return row * ROW_BYTES + ((chunk ^ ((row >> 1) & 3)) << 4);
+}
+
+// ---- mbarriers, TMA, wgmma ----
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+// An arrival that also expects `bytes` of transactions (the TMA load's).
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// The halo box at (channel c, column w, row h, image n) of x's tensor map.
+__device__ __forceinline__ void tma_load_halo(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                              int c, int w, int h, int n) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(w), "r"(h), "r"(n), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(PENDING) : "memory");
+}
+
+// Keeps the compiler from moving accumulator accesses across a point where
+// wgmma may still be writing them.
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// Descriptor of a K-major B tile in the 64-byte swizzle: each column's 32
+// k (64 bytes) a row, 8-row atoms of 512 bytes one after another (the
+// stride byte offset); the leading byte offset is unused in this layout.
+// A k16 step starts 32 bytes into the row.
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ULL << 16) |
+         (static_cast<uint64_t>(ATOM_BYTES >> 4) << 32) | (2ULL << 62);
+}
+
+// Four 8 x 8 bf16 matrices from shared memory: lanes 8i..8i+7 give the row
+// addresses of matrix i, which lands in register i.
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+
+__device__ __forceinline__ void consumer_sync(int threads) {
+  asm volatile("bar.sync 1, %0;\n" :: "r"(threads) : "memory");
+}
+
+// d[64 x BN] += a[64 x 16] (registers, bf16) @ b[16 x BN] (shared, bf16).
+// Accumulator d[4j + 2i + e] is row 16 warp + g + 8i, column 8j + 2t + e;
+// a holds rows g and g + 8 at k 2t (a[0], a[1]) and 2t + 8 (a[2], a[3]),
+// mma.sync m16n8k16's fragment (g = lane / 4, t = lane % 4).
+template <int BN>
+struct Mma;
+
+template <>
+struct Mma<16> {
+  static __device__ __forceinline__ void run(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Mma<32> {
+  static __device__ __forceinline__ void run(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Mma<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+          "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+// ---- the producer's codes ----
+
+template <typename CodeT>
+__device__ __forceinline__ float byte_code(uint32_t word, int j) {
+  const unsigned char byte = static_cast<unsigned char>(word >> (8 * j));
+  CodeT code;
+  memcpy(&code, &byte, 1);
+  return code_to_float(code);
+}
+
+// One task of store_codes: a channel pair (k, k + 1) at four neighbouring
+// columns of one tap. A warp's 32 tasks at a time are 4 pairs x 4 chunks x
+// 2 column quads, whose stores fall in 16 banks twice.
+struct CodeTask {
+  int pair;  // channel pair within its 16-byte chunk
+  int kc;    // 16-byte chunk of the row: 8 channels
+  int quad;  // column quad of the block
+  int tap;
+};
+
+template <int BN>
+__device__ __forceinline__ CodeTask code_task(int task) {
+  constexpr int QUADS = BN / 4;
+  return {task & 3, (task >> 2) & 3, (task >> 4) % QUADS, task / (16 * QUADS)};
+}
+
+// The chunk's codes q[tap][c0 + k][n0 + j] (k < 32, j < BN), zero past C
+// and past F, into bf16 at dst: per tap, per column, the chunk's 32 k as
+// one 64-byte row of the 64-byte swizzle (tap_bytes apart). A task loads
+// two 4-byte words of codes (byte loads where F % 4 != 0 or q is
+// misaligned: !vec) and stores four 4-byte bf16 pairs. A thread's tasks
+// go in batches of up to 9 whose loads are all issued before any is used:
+// a chunk costs one or two round trips to L2, not one a task.
+template <typename CodeT, int BN>
+__device__ __forceinline__ void store_codes(const CodeT* __restrict__ q, unsigned char* dst, int pt,
+                                            int c0, int n0, int C, int F, bool vec) {
+  constexpr int TASKS = TAPS * (CHUNK / 2) * (BN / 4);
+  constexpr int ITERS = (TASKS + WG - 1) / WG;
+  constexpr int BATCH = ITERS < 9 ? ITERS : 9;
+  static_assert(ITERS % BATCH == 0, "code batches");
+  const auto* qb = reinterpret_cast<const unsigned char*>(q);
+#pragma unroll
+  for (int i0 = 0; i0 < ITERS; i0 += BATCH) {
+    uint32_t lo[BATCH], hi[BATCH];  // channels c and c + 1 at columns n..n+3, the first in the low byte
+#pragma unroll
+    for (int b = 0; b < BATCH; ++b) {
+      const int task = pt + (i0 + b) * WG;
+      const CodeTask tk = code_task<BN>(task);
+      const int c = c0 + 8 * tk.kc + 2 * tk.pair;  // C % 4 == 0: c < C means c + 1 < C
+      const int n = n0 + 4 * tk.quad;
+      const long long at = (static_cast<long long>(tk.tap) * C + c) * F + n;
+      const bool ok = (TASKS % WG == 0 || task < TASKS) && c < C;
+      lo[b] = 0;
+      hi[b] = 0;
+      if (vec) {
+        if (ok && n < F) {
+          lo[b] = __ldg(reinterpret_cast<const uint32_t*>(qb + at));
+          hi[b] = __ldg(reinterpret_cast<const uint32_t*>(qb + at + F));
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (ok && n + e < F) {
+            lo[b] |= static_cast<uint32_t>(qb[at + e]) << (8 * e);
+            hi[b] |= static_cast<uint32_t>(qb[at + F + e]) << (8 * e);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < BATCH; ++b) {
+      const int task = pt + (i0 + b) * WG;
+      if (TASKS % WG != 0 && task >= TASKS) break;
+      const CodeTask tk = code_task<BN>(task);
+      unsigned char* out = dst + tk.tap * tap_bytes(BN) + tk.pair * 4;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const __nv_bfloat162 v =
+            __floats2bfloat162_rn(byte_code<CodeT>(lo[b], j), byte_code<CodeT>(hi[b], j));
+        *reinterpret_cast<uint32_t*>(out + swizzle64(4 * tk.quad + j, tk.kc)) = bf16x2_bits(v);
+      }
+    }
+  }
+}
+
+// ---- the kernel ----
+
+// A unit of work is one pixel tile of one image and BN output channels:
+// unit u is column block u / tiles and pixel tile u % tiles of the images
+// in order, tiles row-major within an image (dequant.py's
+// conv_unit_origin). Block b computes units b, b + gridDim.x, ... while its
+// producer fills the ring ahead, across units. NC consumer warpgroups
+// (threads 0 .. 128 NC - 1), then the producer warpgroup; TH = 8, TW = 8 NC.
+struct Unit {
+  int img, h0, w0, n0;
+};
+
+template <int TH, int TW, int BN>
+__device__ __forceinline__ Unit unit_origin(int u, int H, int W, int N) {
+  const int tiles_w = (W + TW - 1) / TW;
+  const int per_image = tiles_w * ((H + TH - 1) / TH);
+  const int tiles = per_image * N;
+  const int col = u / tiles;
+  const int tile = u - col * tiles;
+  const int img = tile / per_image;
+  const int t = tile - img * per_image;
+  return {img, t / tiles_w * TH, t % tiles_w * TW, col * BN};
+}
+
+template <typename CodeT, int BN, int NC>
+__global__ void __launch_bounds__((NC + 1) * WG, 1)
+dequant_conv3x3_kernel(const __grid_constant__ CUtensorMap x_map, const CodeT* __restrict__ q,
+                       const float* __restrict__ scale, float* __restrict__ y,
+                       int N, int H, int W, int C, int F, int stages, int vec) {
+  constexpr int TH = 8;
+  constexpr int TW = 8 * NC;
+  constexpr int HALO_W = TW + 2;
+  constexpr int HALO_PIXELS = (TH + 2) * HALO_W;
+  constexpr int HALO = halo_bytes(TH, TW);
+  constexpr int PLANE = plane_bytes(TH, TW);
+  constexpr int CODES = codes_bytes(BN);
+  constexpr int ACC = BN / 2;
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + HALO_ALIGN - 1) & ~static_cast<uint32_t>(HALO_ALIGN - 1);
+  unsigned char* smem = smem_raw + (base - raw);
+  // [stages] halo tiles, [stages] code tiles, the hi, mid and lo planes,
+  // [stages] full barriers, [stages] empty barriers.
+  const int codes_off = stages * HALO;
+  const int planes_off = codes_off + stages * CODES;
+  const uint32_t full0 = base + planes_off + 3 * PLANE;
+  const uint32_t empty0 = full0 + 8 * stages;
+
+  const int units = N * ((H + TH - 1) / TH) * ((W + TW - 1) / TW) * ((F + BN - 1) / BN);
+  const int chunks = (C + CHUNK - 1) / CHUNK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full0 + 8 * s, WG + 1);  // the producers, and thread 0's expect_tx
+      mbar_init(empty0 + 8 * s, NC * WG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= NC * WG) {
+    // ---- producer warpgroup: chunk after chunk, unit after unit ----
+    const int pt = threadIdx.x - NC * WG;
+    int it = 0;  // chunks filled so far: stage it % stages, pass it / stages
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const Unit un = unit_origin<TH, TW, BN>(u, H, W, N);
+      for (int cc = 0; cc < chunks; ++cc, ++it) {
+        const int s = it % stages;
+        mbar_wait(empty0 + 8 * s, ((it / stages) & 1) ^ 1);  // the first pass finds it free
+        if (pt == 0) {
+          mbar_arrive_expect_tx(full0 + 8 * s, HALO_PIXELS * PIXEL_BYTES);
+          tma_load_halo(base + s * HALO, &x_map, full0 + 8 * s, cc * CHUNK, un.w0 - 1, un.h0 - 1, un.img);
+        }
+        store_codes<CodeT, BN>(q, smem + codes_off + s * CODES, pt, cc * CHUNK, un.n0, C, F, vec != 0);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the stores, seen by wgmma
+        mbar_arrive(full0 + 8 * s);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups ----
+  const int ct = threadIdx.x;
+  const int warp = ct >> 5;  // the warp's 16 rows of the tile's 64 NC
+  const int lane = ct & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  unsigned char* planes = smem + planes_off;  // [hi, mid, lo][halo pixel][32 channels], 64-byte swizzle
+  const uint32_t planes_u32 = base + planes_off;
+  // This lane's ldmatrix row: matrix lane / 8 is rows 0-7 or 8-15 of the
+  // warp's 16 (lane & 8) at k 0-7 or 8-15 of the step (lane & 16).
+  int ld_pixel;
+  {
+    const int m = warp * 16 + (lane & 7) + (lane & 8);
+    ld_pixel = m / TW * HALO_W + m % TW;  // halo pixel at tap (0, 0)
+  }
+  const int ld_half = lane >> 4;
+  uint32_t frag[3][3][4];  // [buffer][lo, mid, hi][fragment register]
+
+  int it = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const Unit un = unit_origin<TH, TW, BN>(u, H, W, N);
+    float acc[ACC];
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) acc[i] = 0.0f;
+
+    for (int cc = 0; cc < chunks; ++cc, ++it) {
+      const int s = it % stages;
+      mbar_wait(full0 + 8 * s, (it / stages) & 1);
+      __syncwarp();
+      const unsigned char* halo = smem + s * HALO;
+      const uint32_t codes = base + codes_off + s * CODES;
+
+      // The chunk's halo split once into hi, mid and lo bf16 planes: a
+      // unit is 4 channels (16 bytes) of a pixel. The f32 tile is in TMA's
+      // 128-byte swizzle; the planes are in the 64-byte one, which ldmatrix
+      // reads free of bank conflicts for 8 neighbouring pixels.
+      consumer_sync(NC * WG);  // every consumer warp is done with the last chunk's planes
+      for (int e = ct; e < HALO_PIXELS * (CHUNK / 4); e += NC * WG) {
+        const int p = e >> 3;
+        const int j = e & 7;
+        const float4 v = *reinterpret_cast<const float4*>(halo + p * PIXEL_BYTES + ((j ^ (p & 7)) << 4));
+        uint32_t hi[2], mid[2], lo[2];
+        split3(make_float2(v.x, v.y), hi[0], mid[0], lo[0]);
+        split3(make_float2(v.z, v.w), hi[1], mid[1], lo[1]);
+        unsigned char* out = planes + swizzle64(p, j >> 1) + (j & 1) * 8;
+        *reinterpret_cast<uint2*>(out) = make_uint2(hi[0], hi[1]);
+        *reinterpret_cast<uint2*>(out + PLANE) = make_uint2(mid[0], mid[1]);
+        *reinterpret_cast<uint2*>(out + 2 * PLANE) = make_uint2(lo[0], lo[1]);
+      }
+      consumer_sync(NC * WG);  // the planes are whole
+
+      // Step (tap, k16 step ks): the fragments of rows g and g + 8 from the
+      // tap's shifted window of each plane.
+      auto load = [&](int step, uint32_t (&f)[3][4]) {
+        const int tap = step >> 1;
+        const int p = ld_pixel + tap / 3 * HALO_W + tap % 3;
+        const uint32_t at = planes_u32 + swizzle64(p, 2 * (step & 1) + ld_half);
+        ldsm_x4(at, f[2]);              // hi
+        ldsm_x4(at + PLANE, f[1]);      // mid
+        ldsm_x4(at + 2 * PLANE, f[0]);  // lo
+      };
+
+      // Three fragment buffers, loaded two steps ahead: when a step's
+      // wgmma are issued, its fragments are in registers, and the step
+      // before it is still in the tensor cores.
+      load(0, frag[0]);
+      load(1, frag[1]);
+#pragma unroll
+      for (int step = 0; step < STEPS; ++step) {
+        const uint64_t desc = b_desc(codes + (step >> 1) * tap_bytes(BN) + (step & 1) * 32);
+        wgmma_fence();
+        fence_acc(acc);
+        Mma<BN>::run(acc, frag[step % 3][0], desc);  // lo
+        Mma<BN>::run(acc, frag[step % 3][1], desc);  // mid
+        Mma<BN>::run(acc, frag[step % 3][2], desc);  // hi
+        wgmma_commit();
+        fence_acc(acc);
+        if (step + 2 < STEPS) {
+          wgmma_wait<1>();  // the step before is done with the buffer loaded next
+          load(step + 2, frag[(step + 2) % 3]);
+        }
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      mbar_arrive(empty0 + 8 * s);  // the halo tile and the codes of this stage are free
+    }
+
+    // Epilogue: the scale multiplies the finished accumulator once.
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = un.n0 + 8 * j + 2 * t;
+      const float s0 = n < F ? scale[n] : 0.0f;
+      const float s1 = n + 1 < F ? scale[n + 1] : 0.0f;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int m = warp * 16 + g + 8 * i;
+        const int h = un.h0 + m / TW;
+        const int w = un.w0 + m % TW;
+        if (h >= H || w >= W || n >= F) continue;
+        float* out = y + ((static_cast<long long>(un.img) * H + h) * W + w) * F + n;
+        const float v0 = acc[4 * j + 2 * i] * s0;
+        const float v1 = acc[4 * j + 2 * i + 1] * s1;
+        if (F % 2 == 0) {
+          *reinterpret_cast<float2*>(out) = make_float2(v0, v1);
+        } else {
+          out[0] = v0;
+          if (n + 1 < F) out[1] = v1;
+        }
+      }
+    }
+  }
+}
+
+// ---- host side ----
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, found once through the runtime.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                                                      : nullptr;
+  }();
+  return fn;
+}
+
+constexpr int MAX_DEVICES = 64;
+
+template <typename CodeT, int BN, int NC>
+int launch_tile(const CUtensorMap& map, const void* q, const void* scale, void* y, int blocks, int N,
+                int H, int W, int C, int F, int stages, int smem, int vec, cudaStream_t stream) {
+  // The shared-memory limit is raised once per device to the most a plan
+  // may ask for; the launch is on the caller's current device.
+  static std::atomic<bool> raised[MAX_DEVICES];
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device >= MAX_DEVICES || !raised[device].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(dequant_conv3x3_kernel<CodeT, BN, NC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (device < MAX_DEVICES) raised[device].store(true, std::memory_order_release);
+  }
+  dequant_conv3x3_kernel<CodeT, BN, NC><<<blocks, (NC + 1) * WG, smem, stream>>>(
+      map, static_cast<const CodeT*>(q), static_cast<const float*>(scale), static_cast<float*>(y),
+      N, H, W, C, F, stages, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Checks the tile plan (TH, TW, BN, stages, smem and blocks from
+// dequant.py's conv_tile_plan) against what this file launches, encodes
+// x's tensor map and launches.
+template <typename CodeT>
+int launch_conv3x3(const void* x, const void* q, const void* scale, void* y, int n_img, int H, int W,
+                   int C, int F, int TH, int TW, int BN, int stages, int smem, int blocks, void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (n_img < 1 || H < 1 || W < 1 || C < 1 || F < 1) return bad;
+  if (C % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0) return bad;  // TMA's strides, address
+  if (9LL * C * F >= (1LL << 31)) return bad;
+  if (TH != 8 || (TW != 8 && TW != 16) || (BN != 16 && BN != 32 && BN != 64)) return bad;
+  if (stages < 1 || stages > MAX_STAGES || smem != conv_smem(TH, TW, BN, stages) || smem > SMEM_LIMIT) {
+    return bad;
+  }
+  const long long units = static_cast<long long>(n_img) * ((H + TH - 1) / TH) * ((W + TW - 1) / TW) *
+                          ((F + BN - 1) / BN);
+  if (units >= (1LL << 31) || blocks < 1 || blocks > units) return bad;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+
+  CUtensorMap map;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(n_img)};
+  const cuuint64_t strides[3] = {4ULL * C, 4ULL * C * W, 4ULL * C * W * H};  // bytes, dims 1..3
+  const cuuint32_t box[4] = {CHUNK, static_cast<cuuint32_t>(TW + 2), static_cast<cuuint32_t>(TH + 2), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(x), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
+    return bad;
+  }
+  const int vec = F % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 4 == 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+#define FC_TILE(BN_, NC_)                                                                          \
+  if (BN == BN_ && TW == 8 * NC_)                                                                  \
+    return launch_tile<CodeT, BN_, NC_>(map, q, scale, y, blocks, n_img, H, W, C, F, stages, smem, vec, s);
+  FC_TILE(16, 1) FC_TILE(32, 1) FC_TILE(64, 1) FC_TILE(16, 2) FC_TILE(32, 2) FC_TILE(64, 2)
+#undef FC_TILE
+  return static_cast<int>(cudaErrorInvalidConfiguration);
+}
+
+}  // namespace
+
+// Plain C interface, loaded with ctypes. Each entry point launches on the
+// given stream, does not synchronise, allocates nothing, and returns
+// cudaGetLastError() (0 = launched) or the error that refused the launch.
+extern "C" {
+
+int fc_dequant_conv3x3_i8(const void* x, const void* q, const void* scale, void* y, int n_img, int H,
+                          int W, int C, int F, int TH, int TW, int BN, int stages, int smem, int blocks,
+                          void* stream) {
+  return launch_conv3x3<int8_t>(x, q, scale, y, n_img, H, W, C, F, TH, TW, BN, stages, smem, blocks, stream);
+}
+
+int fc_dequant_conv3x3_e4m3(const void* x, const void* q, const void* scale, void* y, int n_img, int H,
+                            int W, int C, int F, int TH, int TW, int BN, int stages, int smem, int blocks,
+                            void* stream) {
+  return launch_conv3x3<__nv_fp8_e4m3>(x, q, scale, y, n_img, H, W, C, F, TH, TW, BN, stages, smem, blocks,
+                                       stream);
+}
+
+}  // extern "C"

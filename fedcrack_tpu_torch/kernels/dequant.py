@@ -1,15 +1,18 @@
 """Fused dequantize kernels: int8 / fp8 e4m3 codes into an f32 product.
 
-Hand-written CUDA kernels for Hopper (``csrc/dequant.cu``) take the place
-of the Pallas kernels of ``fedcrack_tpu.kernels.dequant``:
+Hand-written CUDA kernels for Hopper (``csrc/dequant.cu``,
+``csrc/dequant_conv.cu``) take the place of the Pallas kernels of
+``fedcrack_tpu.kernels.dequant``:
 
 - :func:`dequant_matmul`: ``[M, K] f32 @ dequant([K, N] codes, [N] scales)``
   (``_matmul_kernel``), for the 1x1 convs and the stride-2 stem.
 - :func:`dequant_conv3x3`: the stride-1 SAME 3x3 conv of an NHWC activation
-  with HWIO codes, the same GEMM with the im2col fused into its A loads
-  (``_matmul_kernel`` behind the JAX ``_conv3x3``, whose patches XLA
-  materialises). It reads the activation once: no padded copy and no
-  9x-wide patch matrix in device memory.
+  with HWIO codes (``_matmul_kernel`` behind the JAX ``_conv3x3``, whose
+  patches XLA materialises). Its own kernel: a block loads a halo tile of
+  the activation per 32-channel chunk by TMA, zero-filled at the image's
+  edge, and the nine taps read shifted windows of it; no padded copy and no
+  9x-wide patch matrix exist in device memory. :func:`conv_tile_plan`
+  chooses its tiles.
 - :func:`dequant_codes_group`: ``float(q) * scale`` with per-last-axis
   scales for up to 16 leaves in one launch, each leaf's result a view of
   one arena, bitwise equal to its plain version (``_dequant_kernel``);
@@ -17,22 +20,23 @@ of the Pallas kernels of ``fedcrack_tpu.kernels.dequant``:
   six depthwise kernels in one call, from a :class:`CodeGroup` validated
   once when the tree is placed.
 
-The two GEMMs run on the tensor cores (``mma.sync`` bf16, f32
-accumulators). Codes are exact in bf16; the f32 activation is split into
-three bf16 terms (hi, mid, lo) that carry its whole significand, each term
-times a code is exact, and the sums accumulate in f32. The per-channel
-scale multiplies the finished accumulator once. So each entry differs from
-``x @ (q * scale)`` only by the order and rounding of its f32 sums: within
-one per-channel scale (the JAX package's bound), in an order fixed by K and
-N alone, never by M. The conv orders K as ``(kh, kw, c)`` against the plain
-version's ``(c, kh, kw)``: float reassociation again, within the same bound.
-On an H100, per bucket-256 x batch-8 forward, the 1x1 GEMMs are bound by
-device-memory bytes (0.11 ms at 3.35 TB/s, their K being 27 to 256) and
-the 3x3 convs by the three bf16 passes (0.08 ms at 989 TFLOP/s dense) once
-they read their activation once. So the design keeps bytes off device
-memory (the fused im2col), keeps copies in flight (a 3-stage ``cp.async``
-ring for A) and keeps the tensor cores fed (tiles fitted to the layer's N
-and M, independent MMAs back to back).
+The two contractions run on the tensor cores (bf16 operands, f32
+accumulators): the GEMM on ``mma.sync``, the conv on ``wgmma``. Codes are
+exact in bf16; the f32 activation is split into three bf16 terms (hi, mid,
+lo) that carry its whole significand, each term times a code is exact, and
+the sums accumulate in f32. The per-channel scale multiplies the finished
+accumulator once. So each entry differs from ``x @ (q * scale)`` only by
+the order and rounding of its f32 sums: within one per-channel scale (the
+JAX package's bound), in an order fixed by K (for the conv, by C) alone,
+never by the rows or the grid. The conv orders K as (32-channel chunk, kh,
+kw, channel) against the plain version's ``(c, kh, kw)``: float
+reassociation again, within the same bound. On an H100, per bucket-256 x
+batch-8 forward, the 1x1 GEMMs are bound by device-memory bytes (0.11 ms
+at 3.35 TB/s, their K being 27 to 256) and the 3x3 convs by the three bf16
+passes (0.08 ms at 989 TFLOP/s dense). So the GEMM keeps copies in flight
+(a 3-stage ``cp.async`` ring) and fits its tiles to the layer; the conv
+reads each activation about once per column block from its halo tiles and
+keeps ``wgmma`` fed from a ring of TMA-loaded stages.
 
 Routing is by device, never by fallback: a tensor on the CPU takes the
 plain PyTorch version (what the CPU tests check against the JAX package),
@@ -46,15 +50,17 @@ PyTorch.
 
 The kernels build at first use from the package's own sources with
 ``nvcc`` into ``fedcrack_tpu_torch/_build/`` (``kernels/build.py``: a
-shared library with a plain C interface, loaded with ``ctypes``), keyed by
-a hash of source and flags.
+shared library with a plain C interface per source, loaded with
+``ctypes``), keyed by a hash of sources and flags.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from collections.abc import Sequence
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -68,10 +74,14 @@ CODE_DTYPES = (torch.int8, torch.float8_e4m3fn)
 LIBRARY = KernelLibrary("dequant", {
     "fc_dequant_matmul_i8": [PTR, PTR, PTR, PTR, I32, I32, I32, PTR],
     "fc_dequant_matmul_e4m3": [PTR, PTR, PTR, PTR, I32, I32, I32, PTR],
-    "fc_dequant_conv3x3_i8": [PTR, PTR, PTR, PTR, I32, I32, I32, I32, I32, PTR],
-    "fc_dequant_conv3x3_e4m3": [PTR, PTR, PTR, PTR, I32, I32, I32, I32, I32, PTR],
     "fc_dequant_codes_i8": [PTR, PTR, PTR],
     "fc_dequant_codes_e4m3": [PTR, PTR, PTR],
+})
+# x, q, scale, y; N, H, W, C, F; the tile plan's TH, TW, BN, stages,
+# shared-memory bytes and blocks; the stream.
+CONV_LIBRARY = KernelLibrary("dequant_conv", {
+    "fc_dequant_conv3x3_i8": [PTR, PTR, PTR, PTR] + [I32] * 11 + [PTR],
+    "fc_dequant_conv3x3_e4m3": [PTR, PTR, PTR, PTR] + [I32] * 11 + [PTR],
 })
 
 _count_lock = threading.Lock()
@@ -178,10 +188,98 @@ def _dequant_conv3x3_plain(
     return _dequant_matmul_plain(rows, q2, scale).reshape(n, h, w, f)
 
 
+# The conv kernel's tiling (csrc/dequant_conv.cu): K runs over chunks of
+# CONV_CHUNK input channels, one 128-byte swizzle row of f32 a halo pixel;
+# a unit of work is 8 x 8 pixels (one consumer warpgroup) or 8 x 16 (two).
+CONV_CHUNK = 32
+_CONV_TH = 8
+_CONV_MAX_STAGES = 4
+_HALO_ALIGN = 1024  # TMA's 128-byte swizzle repeats every 1024 bytes
+_ROW_BYTES = 2 * CONV_CHUNK  # a pixel's or a column's chunk in bf16: one 64-byte swizzle row
+_SMS = 132  # H100 SXM
+_SMEM_PER_BLOCK = 232_448  # what one block may have (227 KB)
+
+
+class ConvTilePlan(NamedTuple):
+    """How ``dequant_conv3x3_kernel`` tiles one conv: a unit of work is
+    ``th`` x ``tw`` output pixels of one image and ``bn`` output channels;
+    ``chunk`` input channels a pipeline stage, ``stages`` stages in the
+    ring; ``units`` units, computed by ``blocks`` persistent blocks (block
+    ``b`` takes units ``b``, ``b + blocks``, ...); the dynamic shared memory
+    of a block in bytes."""
+
+    th: int
+    tw: int
+    bn: int
+    chunk: int
+    stages: int
+    units: int
+    blocks: int
+    smem: int
+
+
+def conv_smem_bytes(th: int, tw: int, bn: int, stages: int) -> int:
+    """Shared memory of a conv block (``conv_smem`` in csrc/dequant_conv.cu):
+    per stage the f32 halo tile and the chunk's codes in bf16 for 9 taps,
+    and two barriers; the halo's hi, mid and lo bf16 planes; the base's
+    alignment slack. Tiles and planes are aligned for their swizzles."""
+    pixels = (th + 2) * (tw + 2)
+    halo = -(-pixels * CONV_CHUNK * 4 // _HALO_ALIGN) * _HALO_ALIGN
+    plane = -(-pixels * _ROW_BYTES // _HALO_ALIGN) * _HALO_ALIGN
+    codes = 9 * bn * _ROW_BYTES
+    return stages * (halo + codes + 16) + 3 * plane + _HALO_ALIGN
+
+
+@functools.lru_cache(maxsize=256)
+def conv_tile_plan(n: int, h: int, w: int, c: int, f: int) -> ConvTilePlan:
+    """The conv kernel's tiles for ``x [n, h, w, c]`` and ``f`` outputs.
+
+    ``chunk`` is fixed, so every entry's K order is a function of ``c``
+    alone, and nothing else here changes a sum: each wgmma computes a
+    column from its own k16 products whatever the tile's rows and width
+    (held on the card by chip_smoke.py's phase 3, which compares images
+    alone, planned otherwise, with the same images in a batch of 8, bit for
+    bit).
+    The pixel tile is 8 x 16 (two consumer warpgroups share each stage of
+    codes) unless the image is at most 8 wide. The column block is the
+    narrowest of 16, 32 and 64 that holds ``f``, halved while the units
+    would fill fewer than half the SMs (the deep decoder layers have few
+    pixels and many channels). One block an SM walks over the units, and
+    its ring holds up to 4 chunks (as many as fit in a block's 227 KB, and
+    no more than the block computes), so the producer fills the next
+    unit's stages during this one's tail."""
+    if min(n, h, w, c, f) < 1:
+        raise ValueError(f"no conv tiles for an empty shape: x {(n, h, w, c)}, F {f}")
+    tw = 16 if w > 8 else 8
+    tiles = n * -(-h // _CONV_TH) * -(-w // tw)
+    bn = 16 if f <= 16 else 32 if f <= 32 else 64
+    while bn > 16 and tiles * -(-f // bn) < _SMS // 2:
+        bn //= 2
+    units = tiles * -(-f // bn)
+    blocks = min(units, _SMS)
+    stages = min(-(-units // blocks) * -(-c // CONV_CHUNK), _CONV_MAX_STAGES)  # a block's chunks at most
+    while stages > 1 and conv_smem_bytes(_CONV_TH, tw, bn, stages) > _SMEM_PER_BLOCK:
+        stages -= 1
+    return ConvTilePlan(_CONV_TH, tw, bn, CONV_CHUNK, stages, units, blocks,
+                        conv_smem_bytes(_CONV_TH, tw, bn, stages))
+
+
+def conv_unit_origin(plan: ConvTilePlan, n: int, h: int, w: int, unit: int) -> tuple[int, int, int, int]:
+    """``(image, first row, first column, first output channel)`` of work
+    unit ``unit``: column block ``unit // tiles``, then pixel tile ``unit %
+    tiles`` of the images in order, tiles row-major within an image (the
+    kernel's mapping)."""
+    tiles_w = -(-w // plan.tw)
+    per_image = tiles_w * -(-h // plan.th)
+    col, tile = divmod(unit, per_image * n)
+    img, t = divmod(tile, per_image)
+    return img, t // tiles_w * plan.th, t % tiles_w * plan.tw, col * plan.bn
+
+
 def dequant_conv3x3(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """``conv3x3_SAME_stride1(x [N, H, W, C] f32, dequant(q [3, 3, C, F]
     codes, scale [F])) -> [N, H, W, F]`` f32. On CUDA, C must be a multiple
-    of 4 (the kernel moves 4 channels per copy)."""
+    of 4 and x 16-byte aligned (what the kernel's TMA loads address)."""
     if x.ndim != 4 or q.ndim != 4 or tuple(q.shape[:2]) != (3, 3) or q.shape[2] != x.shape[3]:
         raise ValueError(f"bad conv shapes: x {tuple(x.shape)}, q {tuple(q.shape)}")
     if tuple(scale.shape) != (q.shape[3],):
@@ -198,12 +296,15 @@ def dequant_conv3x3(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> to
     f = q.shape[3]
     if x.data_ptr() % 16:
         raise ValueError("dequant_conv3x3 wants a 16-byte aligned activation")
-    _check_offsets(n * h * w * 9 * c)
+    if 9 * c * f >= 2**31:
+        raise ValueError(f"codes of {9 * c * f} elements exceed the kernel's 2^31 offsets")
     y = torch.empty((n, h, w, f), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y
+    plan = conv_tile_plan(n, h, w, c, f)
     name = "fc_dequant_conv3x3_i8" if q.dtype == torch.int8 else "fc_dequant_conv3x3_e4m3"
-    LIBRARY.launch(name, x.device, x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(), n, h, w, c, f)
+    CONV_LIBRARY.launch(name, x.device, x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
+                        n, h, w, c, f, plan.th, plan.tw, plan.bn, plan.stages, plan.smem, plan.blocks)
     _count(dequant_conv3x3)
     return y
 

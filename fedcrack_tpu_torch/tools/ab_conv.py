@@ -1,0 +1,174 @@
+"""A/B of the quantized forward's kernels between checkouts, on one card.
+
+    python -m fedcrack_tpu_torch.tools.ab_conv --tree OLD --tree . --tree . --tree OLD \\
+        --out chiprun_out/ab_conv.json
+
+Each ``--tree`` runs in a process of its own with that checkout's package
+first on ``sys.path``, in the order given, so a parent, change, change,
+parent sequence compares two versions within one call on one card. A run
+builds ``ModelConfig()`` on the fused int8 plane (the codes of seeded
+weights; their values do not change a time) and records the arguments of
+every ``dequant_conv3x3`` and ``dequant_matmul`` call of one bucket-256 x
+batch-8 forward. On those inputs it measures each kernel's device time
+(torch.profiler) per call and per forward, and its wrapper's host µs per
+call (the least of 5 runs of 200 back-to-back calls). It then profiles 5
+served batches for their host ms, device busy ms and idle share. The card's
+name and power limit go beside every run. CUDA only.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+BUCKET, BATCH = 256, 8
+KERNELS = ("dequant_conv3x3", "dequant_matmul")
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def _device_ms(torch, fns, n: int) -> float:
+    """Device time of one pass over ``fns``: the CUDA kernels they launch,
+    summed, over ``n`` passes after a warm one."""
+    from fedcrack_tpu_torch.obs.metrics import card_kernels, card_profile
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with card_profile() as prof:
+        for _ in range(n):
+            for fn in fns:
+                fn()
+    return sum(e.self_device_time_total for e in card_kernels(prof)) / n / 1e3
+
+
+def _host_us(torch, fn, calls: int = 200, runs: int = 5) -> float:
+    walls = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        walls.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return min(walls)
+
+
+def run_tree() -> dict:
+    """One run in this process's checkout (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from fedcrack_tpu_torch.configs import ModelConfig, ServeConfig
+    from fedcrack_tpu_torch.kernels import dequant
+    from fedcrack_tpu_torch.kernels import forward as fused
+    from fedcrack_tpu_torch.models.resunet import init_variables
+    from fedcrack_tpu_torch.obs.metrics import card_kernels, card_profile
+    from fedcrack_tpu_torch.serve import quant as quant_mod
+    from fedcrack_tpu_torch.serve.engine import InferenceEngine
+
+    if not torch.cuda.is_available():
+        raise SystemExit("ab_conv: no CUDA device; it measures on the card only")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = ModelConfig()
+    engine = InferenceEngine(cfg, ServeConfig(quant="int8", kernel_plane="fused_int8"))
+    raw = init_variables(torch.Generator().manual_seed(0), cfg)
+    weights = engine.prepare(quant_mod.quantize_for_plane(raw, "fused_int8"))
+    batch = np.random.default_rng(1).integers(0, 256, (BATCH, BUCKET, BUCKET, 3), dtype=np.uint8)
+
+    calls = {name: [] for name in KERNELS}
+    wrapped = {name: getattr(fused, name) for name in KERNELS}
+
+    def recorder(name):
+        def record(*args):
+            calls[name].append(args)
+            return wrapped[name](*args)
+        return record
+
+    for name in KERNELS:
+        setattr(fused, name, recorder(name))
+    try:
+        engine.predict_bucket(weights, batch)
+    finally:
+        for name in KERNELS:
+            setattr(fused, name, wrapped[name])
+    torch.cuda.synchronize()
+
+    out = {"card": card_line(), "device": torch.cuda.get_device_name(0), "torch": torch.__version__}
+    for name in KERNELS:
+        kernel = getattr(dequant, name)
+        args = calls[name]
+        per_call = [_device_ms(torch, [lambda a=a: kernel(*a)], n=20) for a in args]
+        out[name] = {
+            "calls": len(args),
+            "shapes": [[tuple(t.shape) for t in a[:2]] for a in args],
+            "device_ms_per_call": per_call,
+            "device_ms_per_forward": _device_ms(torch, [lambda a=a: kernel(*a) for a in args], n=10),
+            "host_us_per_call": [_host_us(torch, lambda a=a: kernel(*a)) for a in args],
+        }
+
+    engine.predict_bucket(weights, batch)
+    lat = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        engine.predict_bucket(weights, batch)  # returns host numpy: synchronized
+        lat.append((time.perf_counter() - t0) * 1e3)
+    with card_profile() as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            engine.predict_bucket(weights, batch)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us = sum(e.self_device_time_total for e in card_kernels(prof))
+    out["served_batch"] = {"host_ms_p50": float(np.percentile(lat, 50)), "profiled_host_ms": wall_us / 5e3,
+                           "device_busy_ms": busy_us / 5e3, "idle_share": 1 - busy_us / wall_us}
+    return out
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--tree", action="append", required=True,
+                        help="a checkout to run, in order (repeat it: parent, change, change, parent)")
+    parser.add_argument("--out", default=None, help="write every run's numbers here as JSON")
+    parser.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    args = parser.parse_args(argv)
+    if args.worker:
+        print("AB_CONV " + json.dumps(run_tree()), flush=True)
+        return 0
+    runs = []
+    for tree in args.tree:
+        root = os.path.abspath(tree)
+        env = dict(os.environ, PYTHONPATH=root)
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", "--tree", root],
+                              cwd=root, env=env, capture_output=True, text=True, timeout=900)
+        line = [x for x in proc.stdout.splitlines() if x.startswith("AB_CONV ")]
+        if proc.returncode != 0 or not line:
+            sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
+            raise SystemExit(f"ab_conv: the run in {tree} failed ({proc.returncode})")
+        run = json.loads(line[0][len("AB_CONV "):])
+        run["tree"] = tree
+        runs.append(run)
+        print(f"{tree}: conv {run['dequant_conv3x3']['device_ms_per_forward']:.4f} ms a forward "
+              f"({run['dequant_conv3x3']['calls']} calls), matmul "
+              f"{run['dequant_matmul']['device_ms_per_forward']:.4f} ms ({run['dequant_matmul']['calls']}), "
+              f"served batch: device busy {run['served_batch']['device_busy_ms']:.3f} ms, host p50 "
+              f"{run['served_batch']['host_ms_p50']:.3f} ms, idle share {run['served_batch']['idle_share']:.3f}; "
+              f"conv host µs a call {[round(x, 1) for x in run['dequant_conv3x3']['host_us_per_call']]} "
+              f"[{run['card']}]", flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w", encoding="utf-8") as f:
+            json.dump(runs, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

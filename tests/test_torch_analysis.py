@@ -466,7 +466,7 @@ def test_kern001_guards_each_wrapper_by_its_plain_twin(rel, twins):
         stripped = re.sub(rf"\b{t}\b", t.replace("_plain", "_eager"), stripped)
     got = engine.lint_source(stripped, path=path)
     assert sorted(f.line for f in got) == sites
-    assert len(got) == {"ops/bce.py": 2, "kernels/dequant.py": 4}[rel]
+    assert len(got) == {"ops/bce.py": 2, "kernels/dequant.py": 5}[rel]
 
 
 # ---- TRACE001, retargeted to torch's transforms and CUDA graphs ----

@@ -176,14 +176,14 @@ def _c_params(source: str, symbol: str) -> int:
     return len([p for p in params.split(",") if p.strip()])
 
 
-@pytest.mark.parametrize("library", ["dequant", "bce_sums"])
+@pytest.mark.parametrize("library", ["dequant", "dequant_conv", "bce_sums"])
 def test_ctypes_signatures_match_the_sources(library):
     """Every entry point's ctypes argument list has as many arguments as
     its C declaration."""
     from fedcrack_tpu_torch.kernels import dequant
     from fedcrack_tpu_torch.ops import bce
 
-    lib = {"dequant": dequant.LIBRARY, "bce_sums": bce.LIBRARY}[library]
+    lib = {"dequant": dequant.LIBRARY, "dequant_conv": dequant.CONV_LIBRARY, "bce_sums": bce.LIBRARY}[library]
     source = Path(lib.source).read_text()
     for symbol, argtypes in lib.symbols.items():
         assert _c_params(source, symbol) == len(argtypes), symbol
