@@ -19,8 +19,9 @@ on failure, so any failure exits non-zero and prints no result):
    plain version (the largest |kernel - plain| / scale is logged), bitwise
    equal run to run and over a launch of fewer rows (for the conv, the
    first image alone, and the last image alone, equal to the same images
-   inside the batch); the conv kernel's ``-Xptxas -v`` lines (registers,
-   shared memory, spills) and the wrapper's host µs per call, logged;
+   inside the batch); each GEMM's ``matmul_tile_plan`` and conv's
+   ``conv_tile_plan``, both kernels' ``-Xptxas -v`` lines (registers,
+   shared memory, spills) and both wrappers' host µs per call, logged;
    ``dequant_codes_group``
    bitwise equal to its plain version at every leaf of the forward's six
    depthwise kernels in one call, of a ragged group, of a group with a
@@ -407,8 +408,12 @@ BF16_PASSES = 3
 
 SWEEP_SHAPES = [(4, 7, 5), (8, 128, 128), (33, 130, 129), (1, 256, 3), (16, 9, 17)]
 # Ragged GEMMs beside the JAX tests' sweep: the stem's K = 27 and the head's
-# N = 1, and M, K, N that are multiples of no tile.
-MATMUL_SWEEP = SWEEP_SHAPES + [(1000, 27, 1), (129, 36, 33), (70, 2304, 257), (300, 20, 8)]
+# N = 1, and M, K, N that are multiples of no tile; then shapes whose plans
+# take the wide tiles raggedly: TMA loads and stores with every block
+# changing column block (30000 x 64 -> 200), TMA loads and stores from
+# registers (-> 66), and the cp.async ring at BM 128 (K = 33) and BM 64 (K = 50).
+MATMUL_SWEEP = SWEEP_SHAPES + [(1000, 27, 1), (129, 36, 33), (70, 2304, 257), (300, 20, 8),
+                               (30000, 64, 200), (20000, 36, 66), (9000, 33, 18), (2500, 50, 130)]
 # Ragged convs (N, H, W, C, F): odd grids, a 1x1 image, C and F off every tile.
 CONV_SWEEP = [(1, 5, 7, 8, 12), (2, 6, 6, 4, 9), (1, 1, 1, 4, 3), (3, 9, 11, 36, 17),
               (2, 17, 13, 132, 40), (1, 33, 31, 64, 129)]
@@ -681,9 +686,14 @@ def kernel_phase(torch, card: str) -> dict:
                               4 * m * k + k * n + 4 * n + 4 * m * n, 2 * m * k * n))
         log(f"{name}: {len(main)} main-path GEMMs and {len(MATMUL_SWEEP)} ragged within the per-channel bound, "
             f"bitwise repeatable; max |kernel - plain| {errs[0]:.3g}, max |kernel - plain| / scale {errs[1]:.3g}")
+        for layer, m, k, n in main:
+            log(f"{name} {layer} tile plan {dequant.matmul_tile_plan(m, k, n)}")
         rows[name] = time_cases(torch, card, name, dequant.dequant_matmul, dequant._dequant_matmul_plain,
                                 "torch.matmul", cases)
-        rows[name].update(max_abs_err=errs[0], max_err_over_scale=errs[1])
+        rows[name].update(max_abs_err=errs[0], max_err_over_scale=errs[1],
+                          host_us=wrapper_host_us(torch, dequant.dequant_matmul, cases))
+        log(f"{name} wrapper host µs per call (min of 5 runs of 200 back-to-back calls per layer): "
+            f"{json.dumps(rows[name]['host_us'])} [{card}]")
 
         # dequant_conv3x3: the 8 decoder convs of a forward, then the ragged sweep.
         name = f"dequant_conv3x3[{flavor}]"
@@ -6914,9 +6924,10 @@ def main() -> int:
     for lib in libs:
         with open(f"{lib}.log", encoding="utf-8") as f:
             log(f.read())
-    with open(f"{libs[1]}.log", encoding="utf-8") as f:
-        for line in ptxas_lines(f.read(), "dequant_conv3x3_kernel"):
-            log(f"ptxas {line}")
+    for lib, kernel in ((libs[0], "dequant_matmul_kernel"), (libs[1], "dequant_conv3x3_kernel")):
+        with open(f"{lib}.log", encoding="utf-8") as f:
+            for line in ptxas_lines(f.read(), kernel):
+                log(f"ptxas {line}")
 
     log(f"profiler: {lead_kept()} at {time.monotonic() - t_start:.1f} s [{card}]")
     rows = kernel_phase(torch, card)

@@ -17,48 +17,104 @@
 //
 // * Codes are exact in bf16: an int8 code in [-128, 127] has at most 8
 //   significant bits, a finite e4m3 value 4 and an exponent inside bf16's
-//   range. They are converted to bf16 as their tile is staged into shared
+//   range. They are converted to bf16 as they are staged into shared
 //   memory.
 // * The f32 activation is split in registers into three bf16 terms,
 //   hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), which carry
 //   x's 24-bit significand (|x - (hi + mid + lo)| <= 2^-24 |x| for normal x
 //   of the activations' range). Each term x code product is exact in the
 //   tensor core (8 x 8 significant bits), and the sums accumulate in f32
-//   registers: three mma.sync per 16-deep K step against the same B
-//   fragment, lo then mid then hi. What differs from the plain f32 product
-//   is the order and rounding of the f32 sums, the same float reassociation
-//   as the JAX kernel's K blocking, so an entry stays within one
-//   per-channel scale of x @ (q * scale) (the JAX bound; in code units the
-//   sums' rounding error is orders of magnitude below 1).
+//   registers: three wgmma per 16-deep K step against the same codes, lo
+//   then mid then hi. What differs from the plain f32 product is the order
+//   and rounding of the f32 sums, the same float reassociation as the JAX
+//   kernel's K blocking, so an entry stays within one per-channel scale of
+//   x @ (q * scale) (the JAX bound; in code units the sums' rounding error
+//   is orders of magnitude below 1).
 // * The per-output-channel scale multiplies the finished accumulator once,
 //   in the epilogue, as the Pallas kernel does after its last K block.
 // * Deterministic: every output tile owns its whole K loop, in order; no
-//   split-K, no atomics. An entry's sum is the same sequence of MMAs over
-//   16-deep K steps whatever tile the launch picked, so it depends on K and
-//   N only, never on M: a served image's result does not depend on how many
-//   rows share its launch.
-// * Ragged M, K and N are masked in the kernel (zero-filled copies, guarded
-//   stores); the caller pads nothing.
+//   split-K, no atomics. K runs over chunks of 32, each two k16 steps; within
+//   a step the 16 k sit in the MMA's slots in a fixed order (below). So an
+//   entry's sum is the same sequence of MMAs whatever tile or grid the plan
+//   picked: it depends on K and N only, never on M, and a served image's
+//   result does not depend on how many rows share its launch.
+// * Ragged M, K and N are masked in the kernel (zero-filled loads, clipped
+//   or guarded stores); the caller pads nothing.
 //
-// What bounds it on an H100, and what the design does about it: at bucket
-// 256 x batch 8 the 1x1 GEMMs (K = 27..256) are bound by device-memory
-// bytes (0.11 ms at 3.35 TB/s). So A goes through a 3-stage cp.async ring
-// (16-byte copies, zero-filled at the edges) that keeps two K tiles in
-// flight while the tensor cores run; B (small) is prefetched into registers
-// a stage ahead and stored converted.
-// The N tile fits the layer (8 for the head's N = 1, up to 128), and the M
-// tile (64 or 128) is picked so that small-M GEMMs still fill 132 SMs. Each
-// warp owns a 32 x 32 output tile (16 rows in a 64 x 32 block, fewer
-// columns for small N) and issues its MMAs term-major, so back-to-back MMAs
-// never wait on each other.
-// mma.sync.m16n8k16 is used instead of wgmma: at these K the bytes, not the
-// tensor cores, bound the GEMM, and the three-term split is cheapest on
-// mma.sync's fragments.
+// What bounds it on an H100: at bucket 256 x batch 8 the forward's 15 GEMMs
+// (K = 27..256, N = 1..256) are bound by device-memory bytes, 0.110 ms at
+// 3.35 TB/s (each operand read once, y written once), against 0.034 ms of
+// three bf16 passes at 989 TFLOP/s; the large-M GEMMs write as many bytes as
+// they read or more. So the design keeps bytes moving both ways and gives
+// each SM one block that never waits on a round trip it could have started
+// earlier:
+//
+// * Persistent grid, tiles from Python. dequant.py's matmul_tile_plan picks
+//   the row tile BM (128, two consumer warpgroups of 64 rows; 256, four,
+//   where K is one chunk and the column block at most 32 wide, whose short
+//   chains of dependent wgmma leave the tensor cores waiting on latency
+//   unless more warpgroups interleave theirs; 64 where M is), the column
+//   block BN (8..128), the ring depth and the grid; the entry
+//   point refuses a plan whose shared memory it computes otherwise. A unit
+//   of work is BM rows x BN columns; unit u is column block u / mtiles, row
+//   tile u % mtiles, and block b computes units b, b + gridDim.x, ...
+// * Resident codes. At its first unit, and again only where its next unit
+//   is in another column block, a block's consumers load the column block's
+//   K x BN codes with batched, row-coalesced 32-bit loads (its scales in
+//   flight with them), convert them to bf16 once, and store them in the
+//   K-major 64-byte-swizzled layout a wgmma
+//   B descriptor reads (with the block's BN scales). The codes then stay in
+//   shared memory across all the block's row tiles: at most 8 x 32 x 128
+//   bf16 = 64 KB for K <= 256.
+// * A TMA-fed A ring across tiles. A producer warp keeps loads of A in
+//   flight, one stage a chunk of 32 f32 of BM rows (a 128-byte swizzle row a
+//   row), ahead across K and across the next unit, signalling full
+//   mbarriers with the bytes; consumers free a stage (empty mbarriers) as
+//   soon as its values are in registers. TMA wants 16-byte row strides and
+//   a 16-byte aligned x: where K % 4 != 0 (the stem's K = 27) or x is
+//   misaligned, the producer's 32 lanes fill the same ring with cp.async
+//   that arrive on the same barrier: where K < 32, a unit's rows as one
+//   contiguous span (one bulk copy where it is 16-byte aligned and sized),
+//   kept linear, the consumers reading zeros past K; else row by row, 4
+//   bytes a lane, zero-filled past M and K, in the swizzle TMA would use.
+// * wgmma on the three-term split. Each consumer thread reads its rows' A
+//   values of a k16 step as two 16-byte loads, splits them in registers, and
+//   issues wgmma.mma_async.m64nBNk16 with A from registers and the resident
+//   codes as B, lo then mid then hi; two fragment sets let one chunk's
+//   split overlap the last chunk's wgmma (one set with four warpgroups,
+//   which hide each other's waits and have fewer registers). Splitting in
+//   registers, not into
+//   bf16 planes in shared memory as the conv does, is right here: each A
+//   value is used once per column block (the conv reads each nine times,
+//   once a tap), so a plane pass would add shared-memory traffic for no
+//   saved work. To make the 16-byte loads possible, the 16 k of a step take
+//   the MMA's k slots permuted: thread t's four k 4t..4t+3 fill slots 2t,
+//   2t + 1 (a[0], a[1]) and 2t + 8, 2t + 9 (a[2], a[3]), and the codes are
+//   stored in the same slots. The permutation is fixed: it reorders the
+//   step's products the same way for every entry of every launch.
+// * A TMA store epilogue. Each consumer warpgroup scales its 64 x BN
+//   accumulators once, writes them into its staging tile (the swizzle of
+//   the store's box), and one thread stores the tile with
+//   cp.async.bulk.tensor, clipped at M and N, and goes straight on to the
+//   next unit: the store drains while the ring's next loads are in flight.
+//   Two staging tiles alternate, so a store is waited for only two units
+//   later, before its tile is written again. Where N % 4 != 0 (the head's
+//   N = 1) y's rows have no 16-byte stride, and the consumers store from
+//   registers, masked.
+//
+// What holds it short of its bound (PERF.md has the readings): the deep
+// GEMMs (M <= 8,192, K = 128..256) are one unit a block, so a block's loads,
+// wgmma and store follow one another behind a fixed start of a few
+// microseconds; the one- and two-chunk GEMMs wait on short chains of
+// dependent wgmma; where A is read from device memory the large GEMMs run
+// near its practical rate.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime, no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 #include <cstring>
 
@@ -66,303 +122,496 @@
 
 namespace {
 
+using fc::B_ROW_BYTES;
+using fc::b_desc;
 using fc::bf16x2_bits;
+using fc::byte_code;
 using fc::code_to_float;
+using fc::fence_acc;
+using fc::fence_proxy_async;
+using fc::mbar_arrive;
+using fc::mbar_arrive_expect_tx;
+using fc::mbar_init;
+using fc::mbar_wait;
+using fc::Mma;
+using fc::named_sync;
 using fc::smem_u32;
 using fc::split3;
+using fc::swizzle64;
+using fc::wgmma_commit;
+using fc::wgmma_fence;
+using fc::wgmma_wait;
 
-constexpr int BK = 32;            // K depth of one staged tile: two k16 MMA steps
-constexpr int STAGES = 3;         // cp.async ring depth
-constexpr int A_STRIDE = BK + 8;  // floats per staged A row (conflict-free float2 reads)
-constexpr int B_STRIDE = BK + 8;  // bf16 per staged B column (conflict-free 32-bit reads)
-constexpr int MAX_WARP_N = 32;    // columns per warp: up to four n8 tiles
+constexpr int CHUNK = 32;               // K of a ring stage: 32 f32, one 128-byte swizzle row a row of A
+constexpr int WG = 128;                 // threads of a warpgroup
+constexpr int WG_ROWS = 64;             // rows of a unit a consumer warpgroup owns: one wgmma m64
+constexpr int A_ROW_BYTES = CHUNK * 4;  // a row of A's chunk in f32
+constexpr int ALIGN = 1024;             // the 128-byte swizzle repeats every 8 rows
+constexpr int MAX_STAGES = 8;
+constexpr int SMEM_LIMIT = 232448;      // dynamic shared memory a block may have on sm_90
+constexpr int STORE_COLS = 32;          // columns of a TMA store box: 128 bytes of f32, one swizzle row
+constexpr int CODE_BATCH = 16;          // code tasks whose loads a consumer issues before using any
 
-// Rows per warp: two m16 tiles, or one where a 64-row block no wider than
-// 32 columns would otherwise have only two warps to hide latency with.
-__host__ __device__ constexpr int warp_m(int bm, int bn) { return bm == 64 && bn <= 32 ? 16 : 32; }
-__host__ __device__ constexpr int warp_n(int bn) { return bn < MAX_WARP_N ? bn : MAX_WARP_N; }
-__host__ __device__ constexpr int tile_threads(int bm, int bn) {
-  return 32 * (bm / warp_m(bm, bn)) * (bn / warp_n(bn));
+// Mirrored by dequant.py's matmul_smem_bytes.
+__host__ __device__ constexpr int k_chunks(int k) { return (k + CHUNK - 1) / CHUNK; }
+__host__ __device__ constexpr int stage_bytes(int bm) { return bm * A_ROW_BYTES; }
+__host__ __device__ constexpr int out_bytes(int bm, int bn) { return bm * bn * 4; }
+__host__ __device__ constexpr int codes_bytes(int k, int bn) { return k_chunks(k) * bn * B_ROW_BYTES; }
+// The ring's stages with a full and an empty barrier each; two staged
+// output tiles; a column block's codes in bf16 and its scales; and the
+// slack that aligns the dynamic shared memory's base to ALIGN.
+__host__ __device__ constexpr int matmul_smem(int bm, int bn, int k, int stages) {
+  return stages * (stage_bytes(bm) + 16) + 2 * out_bytes(bm, bn) + codes_bytes(k, bn) + bn * 4 + ALIGN;
 }
-__host__ __device__ constexpr int tile_smem(int bm, int bn) {
-  return STAGES * (bm * A_STRIDE * 4 + bn * B_STRIDE * 2);
+// The most K a block can hold codes for (at BN = 8, with nothing else).
+constexpr int MAX_K = SMEM_LIMIT / (8 * B_ROW_BYTES) * CHUNK;
+
+// The byte of column `col` (even) of row `row` in a warpgroup's staging
+// tile: boxes of min(BN, 32) columns one after another, each 64 rows of
+// the box's width in the TMA swizzle of that width (32, 64 or 128 bytes:
+// address bits 7.. XORed into the 16-byte chunk).
+template <int BN>
+__device__ __forceinline__ int staged_offset(int row, int col) {
+  constexpr int COLS = BN < STORE_COLS ? BN : STORE_COLS;
+  constexpr int ROW = COLS * 4;
+  const int a = row * ROW + (col % COLS) * 4;
+  return (col / COLS) * WG_ROWS * ROW + (a ^ (((a >> 7) & (ROW / 16 - 1)) << 4));
 }
 
 // src_bytes = 0 reads nothing and zero-fills the destination.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0) : "memory");
+               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+// An arrival on bar once this thread's cp.async so far have landed (one of
+// the barrier's expected arrivals).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
 }
 
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING) : "memory");
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// `bytes` (a multiple of 16) from src to dst (both 16-byte aligned) in one
+// bulk copy, completing on the mbarrier bar.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+               :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
-// Not volatile: the compiler may interleave independent MMAs; the "+f"
-// operands keep each accumulator's own sequence in order.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// One task of load_codes: a k pair (k, k + 1) at four neighbouring columns.
+// Tasks run pair-in-quartet fastest, then column quad, then quartet, then
+// chunk: a warp's loads read 8 rows of up to 32 contiguous bytes, and its
+// bf16 stores fall at most 4 to a bank.
+struct CodeTask {
+  int k;     // the pair's first k
+  int quad;  // column quad of the block
+};
+
+template <int BN>
+__device__ __forceinline__ CodeTask code_task(int task) {
+  constexpr int QUADS = BN / 4;
+  const int rest = (task >> 2) / QUADS;
+  return {(rest >> 2) * CHUNK + 2 * ((rest & 3) * 4 + (task & 3)), (task >> 2) % QUADS};
 }
 
-// The GEMM body: x[M, K] row-major. vec: K % 4 == 0 and x 16-byte aligned,
-// so A moves in 16-byte copies; else in 4-byte ones.
-template <typename CodeT, int BM, int BN>
-__device__ __forceinline__ void mma_body(const float* __restrict__ x,
-                                         const CodeT* __restrict__ q,
-                                         const float* __restrict__ scale,
-                                         float* __restrict__ y, int M, int K, int N,
-                                         bool vec) {
-  constexpr int WARP_M = warp_m(BM, BN);
-  constexpr int WARP_N = warp_n(BN);
-  constexpr int WM = BM / WARP_M;
-  constexpr int THREADS = tile_threads(BM, BN);
-  constexpr int MT = WARP_M / 16;  // m16 tiles per warp
-  constexpr int NT = WARP_N / 8;   // n8 tiles per warp
-  constexpr int CHUNKS_PER_ROW = BK / 4;
-  constexpr int A_CHUNKS = BM * CHUNKS_PER_ROW / THREADS;  // 16-byte A chunks per thread
-  constexpr int ROWS_PER_PASS = THREADS / CHUNKS_PER_ROW;
-  constexpr int B_PAIRS = (BK / 2) * BN / THREADS;  // (k, k+1) code pairs per thread
-  static_assert(A_CHUNKS * THREADS == BM * CHUNKS_PER_ROW, "A tile split");
-  static_assert(B_PAIRS * THREADS == (BK / 2) * BN && B_PAIRS >= 1, "B tile split");
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* a_smem = reinterpret_cast<float*>(smem);  // [STAGES][BM][A_STRIDE]
-  __nv_bfloat16* b_smem = reinterpret_cast<__nv_bfloat16*>(
-      smem + STAGES * BM * A_STRIDE * sizeof(float));  // [STAGES][BN][B_STRIDE], k fastest
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp % WM;
-  const int wn = warp / WM;
-  const int g = lane >> 2;  // MMA group: fragment row / column
-  const int t = lane & 3;   // thread in group: fragment k / column pair
-  const long long m0 = static_cast<long long>(blockIdx.x) * BM;
-  const int n0 = blockIdx.y * BN;
-  const int ktiles = (K + BK - 1) / BK;
-
-  // Each thread copies the same rows and the same 4-wide K column of every
-  // A tile: their offsets into x (m * K) are computed once. The host keeps
-  // every offset inside 32 bits.
-  const int a_col = (tid % CHUNKS_PER_ROW) * 4;
-  int a_off[A_CHUNKS];
+// The column block's codes q[k][n0 + j] (j < BN, every k < K), zero past K
+// and past N, into bf16 at dst: per 32-k chunk, per column, one 64-byte row
+// of the 64-byte swizzle, each k in its MMA slot (the header's
+// permutation: k 16s + 4t + 2h + e of a chunk in slot 16s + 2t + 8h + e);
+// and the block's BN scales, zero past N. A task loads two 32-bit words of
+// codes (byte loads where N % 4 != 0 or q is misaligned) and stores four
+// bf16 pairs.
+template <typename CodeT, int BN, int THREADS>
+__device__ __forceinline__ void load_codes(const CodeT* __restrict__ q, const float* __restrict__ scale,
+                                           unsigned char* dst, float* scales, int ct, int n0, int K, int N) {
+  const int tasks = k_chunks(K) * (CHUNK / 2) * (BN / 4);
+  const bool vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 4 == 0;
+  const auto* qb = reinterpret_cast<const unsigned char*>(q);
+  static_assert(THREADS >= BN, "a scale a thread");
+  const float sc = ct < BN && n0 + ct < N ? scale[n0 + ct] : 0.0f;  // in flight with the codes
+  for (int first = ct; first < tasks; first += CODE_BATCH * THREADS) {
+    uint32_t lo[CODE_BATCH], hi[CODE_BATCH];  // k and k + 1 at columns n..n+3, the first in the low byte
 #pragma unroll
-  for (int j = 0; j < A_CHUNKS; ++j) {
-    const long long m = m0 + tid / CHUNKS_PER_ROW + j * ROWS_PER_PASS;
-    a_off[j] = m < M ? static_cast<int>(m) * K : -1;  // -1: a row past M
-  }
-
-  auto load_a = [&](int stage, int k0) {
-    float* dst_tile = a_smem + stage * BM * A_STRIDE;
-    const int k = k0 + a_col;
-#pragma unroll
-    for (int j = 0; j < A_CHUNKS; ++j) {
-      float* dst = dst_tile + (tid / CHUNKS_PER_ROW + j * ROWS_PER_PASS) * A_STRIDE + a_col;
-      const bool row_ok = a_off[j] >= 0;
+    for (int b = 0; b < CODE_BATCH; ++b) {
+      const int task = first + b * THREADS;
+      const CodeTask tk = code_task<BN>(task);
+      const int n = n0 + 4 * tk.quad;
+      const long long at = static_cast<long long>(tk.k) * N + n;
+      lo[b] = 0;
+      hi[b] = 0;
+      if (task >= tasks) continue;
       if (vec) {
-        const bool ok = row_ok && k < K;
-        cp_async16(dst, ok ? x + a_off[j] + k : x, ok);
+        if (n < N && tk.k < K) lo[b] = __ldg(reinterpret_cast<const uint32_t*>(qb + at));
+        if (n < N && tk.k + 1 < K) hi[b] = __ldg(reinterpret_cast<const uint32_t*>(qb + at + N));
       } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const bool ok = row_ok && k + e < K;
-          cp_async4(dst + e, ok ? x + a_off[j] + k + e : x, ok);
+          if (n + e >= N) break;
+          if (tk.k < K) lo[b] |= static_cast<uint32_t>(qb[at + e]) << (8 * e);
+          if (tk.k + 1 < K) hi[b] |= static_cast<uint32_t>(qb[at + N + e]) << (8 * e);
         }
       }
     }
-  };
-
-  CodeT b_regs[B_PAIRS][2];
-  auto fetch_b = [&](int k0) {
 #pragma unroll
-    for (int j = 0; j < B_PAIRS; ++j) {
-      const int p = tid + j * THREADS;
-      const int gn = n0 + p % BN;
-      const int gk = k0 + 2 * (p / BN);
-      const bool n_ok = gn < N;
-      CodeT zero;
-      memset(&zero, 0, sizeof(zero));
-      b_regs[j][0] = (n_ok && gk < K) ? q[static_cast<long long>(gk) * N + gn] : zero;
-      b_regs[j][1] = (n_ok && gk + 1 < K) ? q[static_cast<long long>(gk + 1) * N + gn] : zero;
-    }
-  };
-  auto store_b = [&](int stage) {
-    __nv_bfloat16* dst_tile = b_smem + stage * BN * B_STRIDE;
+    for (int b = 0; b < CODE_BATCH; ++b) {
+      const int task = first + b * THREADS;
+      if (task >= tasks) break;
+      const CodeTask tk = code_task<BN>(task);
+      const int r = tk.k % CHUNK;        // 16 s + 4 t + 2 h
+      const int chunk16 = 2 * (r >> 4) + ((r >> 1) & 1);  // slot 16 s + 8 h + 2 t: chunk 2 s + h, word t
+      unsigned char* out = dst + (tk.k / CHUNK) * BN * B_ROW_BYTES + 4 * ((r & 15) >> 2);
 #pragma unroll
-    for (int j = 0; j < B_PAIRS; ++j) {
-      const int p = tid + j * THREADS;
-      const __nv_bfloat162 v = __floats2bfloat162_rn(code_to_float(b_regs[j][0]),
-                                                     code_to_float(b_regs[j][1]));
-      *reinterpret_cast<__nv_bfloat162*>(dst_tile + (p % BN) * B_STRIDE + 2 * (p / BN)) = v;
-    }
-  };
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+      for (int j = 0; j < 4; ++j) {
+        const __nv_bfloat162 v = __floats2bfloat162_rn(byte_code<CodeT>(lo[b], j), byte_code<CodeT>(hi[b], j));
+        *reinterpret_cast<uint32_t*>(out + swizzle64(4 * tk.quad + j, chunk16)) = bf16x2_bits(v);
+      }
     }
   }
+  if (ct < BN) scales[ct] = sc;
+}
 
-  // Prologue: the first STAGES - 1 tiles in flight (one commit group each).
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ktiles) {
-      load_a(s, s * BK);
-      fetch_b(s * BK);
-      store_b(s);
+// ---- the kernel ----
+
+// How A reaches a stage: by TMA through x_map (K % 4 == 0, x 16-byte
+// aligned), into the 128-byte swizzle; as rows, by 4-byte cp.async into the
+// same swizzle; or, where all of K is one chunk (K < 32), as the unit's
+// span of rows x K contiguous floats, in one bulk copy where the span is
+// 16-byte aligned and sized (else by 4-byte cp.async), kept linear: row r's
+// k at r K + k.
+enum AMode { A_TMA = 0, A_ROWS = 1, A_SPAN = 2 };
+
+// NC consumer warpgroups (threads 0 .. 128 NC - 1), each owning 64 rows of
+// a unit's BM = 64 NC, then the producer warp. store_tma: y moves by TMA
+// through y_map (else by stores from registers).
+template <typename CodeT, int BN, int NC>
+__global__ void __launch_bounds__(NC * WG + 32, 1)
+dequant_matmul_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap y_map,
+                      const float* __restrict__ x, const CodeT* __restrict__ q,
+                      const float* __restrict__ scale, float* __restrict__ y, int M, int K, int N,
+                      int stages, int a_mode, int store_tma) {
+  constexpr int BM = NC * WG_ROWS;
+  constexpr int STAGE = stage_bytes(BM);
+  constexpr int ACC = BN / 2;
+  constexpr int BOXES = (BN + STORE_COLS - 1) / STORE_COLS;
+  constexpr int BOX_BYTES = WG_ROWS * (BN < STORE_COLS ? BN : STORE_COLS) * 4;
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + ALIGN - 1) & ~static_cast<uint32_t>(ALIGN - 1);
+  unsigned char* smem = smem_raw + (base - raw);
+  // [stages] A tiles, the staging tiles ([NC][2] of 64 x BN), the codes,
+  // the scales, [stages] full barriers, [stages] empty barriers.
+  const int out_off = stages * STAGE;
+  const int codes_off = out_off + 2 * out_bytes(BM, BN);
+  const int scales_off = codes_off + codes_bytes(K, BN);
+  const uint32_t full0 = base + scales_off + BN * 4;
+  const uint32_t empty0 = full0 + 8 * stages;
+
+  const int mtiles = (M + BM - 1) / BM;
+  const int units = mtiles * ((N + BN - 1) / BN);
+  const int chunks = k_chunks(K);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full0 + 8 * s, a_mode == A_TMA ? 1 : 32);  // lane 0's expect_tx, or each lane's arrival
+      mbar_init(empty0 + 8 * s, NC * WG);
     }
-    cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<STAGES - 2>();  // this thread's copies of tile kt have landed
-    __syncthreads();              // everyone's have; everyone is done with tile kt - 1
-    const int pre = kt + STAGES - 1;
-    const bool prefetch = pre < ktiles;
-    if (prefetch) {
-      load_a(pre % STAGES, pre * BK);  // into the stage tile kt - 1 used
-      fetch_b(pre * BK);
-    }
-    cp_async_commit();
-
-    const float* a_tile = a_smem + (kt % STAGES) * BM * A_STRIDE;
-    const __nv_bfloat16* b_tile = b_smem + (kt % STAGES) * BN * B_STRIDE;
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      uint32_t a_frag[3][MT][4];  // [lo, mid, hi][m16 tile][fragment register]
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const float* r0 = a_tile + (wm * WARP_M + mt * 16 + g) * A_STRIDE + ks + 2 * t;
-        const float* r8 = r0 + 8 * A_STRIDE;
-        // Fragment registers: (row g, k 2t), (row g+8, k 2t), (row g, k 2t+8), (row g+8, k 2t+8).
-        const float* src[4] = {r0, r8, r0 + 8, r8 + 8};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          split3(*reinterpret_cast<const float2*>(src[i]), a_frag[2][mt][i], a_frag[1][mt][i],
-                 a_frag[0][mt][i]);
+  if (threadIdx.x >= NC * WG) {
+    // ---- the producer warp: chunk after chunk, unit after unit ----
+    const int lane = threadIdx.x & 31;
+    int it = 0;  // chunks filled so far: stage it % stages, pass it / stages
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int m0 = (u % mtiles) * BM;
+      for (int cc = 0; cc < chunks; ++cc, ++it) {
+        const int s = it % stages;
+        mbar_wait(empty0 + 8 * s, ((it / stages) & 1) ^ 1);  // the first pass finds it free
+        if (a_mode == A_TMA) {
+          if (lane == 0) {
+            mbar_arrive_expect_tx(full0 + 8 * s, STAGE);
+            fc::tma_load_2d(base + s * STAGE, &x_map, full0 + 8 * s, cc * CHUNK, m0);
+          }
+        } else if (a_mode == A_SPAN) {
+          const int n = (M - m0 < BM ? M - m0 : BM) * K;  // the unit's floats
+          const float* src = x + static_cast<long long>(m0) * K;
+          if (reinterpret_cast<uintptr_t>(src) % 16 == 0 && n % 4 == 0) {
+            if (lane == 0) {
+              mbar_arrive_expect_tx(full0 + 8 * s, 4 * n);
+              bulk_load(base + s * STAGE, src, 4 * n, full0 + 8 * s);
+            } else {
+              mbar_arrive(full0 + 8 * s);
+            }
+          } else {
+            for (int i = lane; i < n; i += 32) cp_async4(base + s * STAGE + 4 * i, src + i, true);
+            cp_async_arrive(full0 + 8 * s);
+          }
+        } else {
+          // Lane l copies k = cc * 32 + l of every row, into the 128-byte swizzle TMA would use.
+          const int k = cc * CHUNK + lane;
+          const float* src = x + static_cast<long long>(m0) * K + k;
+          const uint32_t dst = base + s * STAGE + (lane & 3) * 4;
+          for (int r = 0; r < BM; ++r, src += K) {
+            const bool ok = k < K && m0 + r < M;
+            cp_async4(dst + r * A_ROW_BYTES + (((lane >> 2) ^ (r & 7)) << 4), ok ? src : x, ok);
+          }
+          cp_async_arrive(full0 + 8 * s);
         }
       }
-      uint32_t b_frag[NT][2];
+    }
+    cp_async_wait_all();  // no copy outlives the thread
+    return;
+  }
+
+  // ---- the consumer warpgroups ----
+  const int ct = threadIdx.x;
+  const int wg = ct / WG;
+  const int wt = ct % WG;    // thread of its warpgroup
+  const int warp = wt >> 5;  // the warp's 16 rows of the warpgroup's 64
+  const int lane = ct & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int a_row = (wg * WG_ROWS + warp * 16 + g) * A_ROW_BYTES;  // row g; row g + 8 is 8 rows on
+  const int a_span = (wg * WG_ROWS + warp * 16 + g) * K;            // the same row in the linear span
+  unsigned char* staged0 = smem + out_off + wg * 2 * WG_ROWS * BN * 4;
+  const uint32_t staged0_u32 = base + out_off + wg * 2 * WG_ROWS * BN * 4;
+  int stored = 0;  // units through the epilogue: the two staging tiles alternate
+  const float* scales = reinterpret_cast<const float*>(smem + scales_off);
+  const uint32_t codes_u32 = base + codes_off;
+  uint32_t frag_a[2][3][4], frag_b[2][3][4];  // [k16 step][lo, mid, hi][fragment register], two chunks
+
+  int it = 0;         // chunks consumed so far
+  int resident = -1;  // the column block whose codes are in shared memory
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int col = u / mtiles;
+    const int m0 = (u - col * mtiles) * BM;
+    const int n0 = col * BN;
+    if (col != resident) {
+      named_sync(1, NC * WG);  // every consumer is done with the last block's codes and scales
+      load_codes<CodeT, BN, NC * WG>(q, scale, smem + codes_off, reinterpret_cast<float*>(smem + scales_off),
+                                     ct, n0, K, N);
+      fence_proxy_async();     // the codes, seen by wgmma
+      named_sync(1, NC * WG);  // the codes are whole
+      resident = col;
+    }
+
+    float acc[ACC];
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const __nv_bfloat16* col = b_tile + (wn * WARP_N + nt * 8 + g) * B_STRIDE + ks + 2 * t;
-        b_frag[nt][0] = *reinterpret_cast<const uint32_t*>(col);
-        b_frag[nt][1] = *reinterpret_cast<const uint32_t*>(col + 8);
+    for (int i = 0; i < ACC; ++i) acc[i] = 0.0f;
+
+    // One chunk: its two k16 steps' A values of rows g and g + 8 (thread
+    // t's k 4t..4t+3 of the step: 16-byte chunk 4 step + t of the row in
+    // the 128-byte swizzle, or four floats of the linear span, zero past
+    // K), the stage freed, then split and multiplied.
+    auto chunk = [&](uint32_t (&f)[2][3][4], int cc) {
+      const int s = it % stages;
+      mbar_wait(full0 + 8 * s, (it / stages) & 1);
+      float4 v[2][2];  // [step][row g, row g + 8]
+      if (a_mode == A_SPAN) {
+        const float* a = reinterpret_cast<const float*>(smem + s * STAGE) + a_span;
+#pragma unroll
+        for (int step = 0; step < 2; ++step) {
+          const int k = 16 * step + 4 * t;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const float* r = a + i * 8 * K + k;
+            v[step][i] = make_float4(k < K ? r[0] : 0.0f, k + 1 < K ? r[1] : 0.0f, k + 2 < K ? r[2] : 0.0f,
+                                     k + 3 < K ? r[3] : 0.0f);
+          }
+        }
+      } else {
+        const unsigned char* a = smem + s * STAGE + a_row;
+#pragma unroll
+        for (int step = 0; step < 2; ++step) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            v[step][i] = *reinterpret_cast<const float4*>(a + i * 8 * A_ROW_BYTES + (((4 * step + t) ^ g) << 4));
+          }
+        }
       }
-      // Term-major: the MMAs issued back to back are independent, and every
-      // accumulator still takes lo, then mid, then hi of each k16 step.
+      mbar_arrive(empty0 + 8 * s);
+      ++it;
+      if constexpr (NC == 4) {
+        wgmma_wait<0>();  // one fragment set: the last chunk, which read f, is done
+      } else {
+        wgmma_wait<1>();  // the chunk before last, which read f, is done
+      }
 #pragma unroll
-      for (int term = 0; term < 3; ++term) {
+      for (int step = 0; step < 2; ++step) {
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
+        for (int i = 0; i < 2; ++i) {
+          split3(make_float2(v[step][i].x, v[step][i].y), f[step][2][i], f[step][1][i], f[step][0][i]);
+          split3(make_float2(v[step][i].z, v[step][i].w), f[step][2][2 + i], f[step][1][2 + i],
+                 f[step][0][2 + i]);
+        }
+      }
+      wgmma_fence();
+      fence_acc(acc);
 #pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            mma_bf16(acc[mt][nt], a_frag[term][mt], b_frag[nt][0], b_frag[nt][1]);
+      for (int step = 0; step < 2; ++step) {
+        const uint64_t desc = b_desc(codes_u32 + cc * BN * B_ROW_BYTES + step * 32);
+        Mma<BN>::run(acc, f[step][0], desc);  // lo
+        Mma<BN>::run(acc, f[step][1], desc);  // mid
+        Mma<BN>::run(acc, f[step][2], desc);  // hi
+      }
+      wgmma_commit();
+      fence_acc(acc);
+    };
+    int cc = 0;
+    if constexpr (NC == 4) {
+      for (; cc < chunks; ++cc) chunk(frag_a, cc);
+    } else {
+      for (; cc + 1 < chunks; cc += 2) {
+        chunk(frag_a, cc);
+        chunk(frag_b, cc + 1);
+      }
+      if (cc < chunks) chunk(frag_a, cc);
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+
+    // Epilogue: the scale multiplies the finished accumulator once.
+    const int row0 = m0 + wg * WG_ROWS;
+    if (store_tma) {
+      unsigned char* staged = staged0 + (stored & 1) * WG_ROWS * BN * 4;
+      const uint32_t staged_u32 = staged0_u32 + (stored & 1) * WG_ROWS * BN * 4;
+      ++stored;
+      if (wt == 0) fc::bulk_wait_read<1>();  // the store before last has read this staging tile
+      named_sync(2 + wg, WG);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        const float2 sc = *reinterpret_cast<const float2*>(scales + c);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          *reinterpret_cast<float2*>(staged + staged_offset<BN>(warp * 16 + g + 8 * i, c)) =
+              make_float2(acc[4 * j + 2 * i] * sc.x, acc[4 * j + 2 * i + 1] * sc.y);
+        }
+      }
+      fence_proxy_async();  // the staging tile, seen by the TMA store
+      named_sync(2 + wg, WG);
+      if (wt == 0) {
+        if (row0 < M) {
+#pragma unroll
+          for (int b = 0; b < BOXES; ++b) {
+            fc::tma_store_2d(&y_map, staged_u32 + b * BOX_BYTES, n0 + b * STORE_COLS, row0);
+          }
+        }
+        fc::bulk_commit();  // a group a unit, stored or not: the wait above counts units
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        const int n = n0 + c;
+        if (n >= N) continue;
+        const float2 sc = *reinterpret_cast<const float2*>(scales + c);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int m = row0 + warp * 16 + g + 8 * i;
+          if (m >= M) continue;
+          float* out = y + static_cast<long long>(m) * N + n;
+          const float v0 = acc[4 * j + 2 * i] * sc.x;
+          const float v1 = acc[4 * j + 2 * i + 1] * sc.y;
+          if (N % 2 == 0) {
+            *reinterpret_cast<float2*>(out) = make_float2(v0, v1);
+          } else {
+            out[0] = v0;
+            if (n + 1 < N) out[1] = v1;
           }
         }
       }
     }
-    if (prefetch) store_b(pre % STAGES);
   }
-  cp_async_wait<0>();  // no copy outlives the block
-
-  // Epilogue: the scale multiplies the finished accumulator once.
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int gn = n0 + wn * WARP_N + nt * 8 + 2 * t;
-    const float s0 = gn < N ? scale[gn] : 0.0f;
-    const float s1 = gn + 1 < N ? scale[gn + 1] : 0.0f;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      const long long gm = m0 + wm * WARP_M + mt * 16 + g;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const long long row = gm + 8 * half;
-        if (row >= M) continue;
-        float* out = y + row * N + gn;
-        if (gn < N) out[0] = acc[mt][nt][2 * half] * s0;
-        if (gn + 1 < N) out[1] = acc[mt][nt][2 * half + 1] * s1;
-      }
-    }
-  }
+  if (store_tma && wt == 0) fc::bulk_wait_read<0>();  // no store outlives the staging tile it reads
 }
 
-template <typename CodeT, int BM, int BN>
-__global__ void __launch_bounds__(tile_threads(BM, BN))
-dequant_matmul_kernel(const float* __restrict__ x, const CodeT* __restrict__ q,
-                      const float* __restrict__ scale, float* __restrict__ y,
-                      int M, int K, int N, int vec) {
-  mma_body<CodeT, BM, BN>(x, q, scale, y, M, K, N, vec != 0);
-}
+// ---- host side ----
 
-// One launch at a fixed tile.
-template <typename CodeT, int BM, int BN>
-int launch_tile(const void* x, const void* q, const void* scale, void* y,
-                int M, int K, int N, int vec, cudaStream_t stream) {
-  constexpr int smem = tile_smem(BM, BN);
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  const cudaError_t err = cudaFuncSetAttribute(dequant_matmul_kernel<CodeT, BM, BN>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+constexpr int MAX_DEVICES = 64;
+
+template <typename CodeT, int BN, int NC>
+int launch_tile(const CUtensorMap& x_map, const CUtensorMap& y_map, const void* x, const void* q,
+                const void* scale, void* y, int M, int K, int N, int stages, int smem, int blocks,
+                int a_mode, int store_tma, cudaStream_t stream) {
+  // The shared-memory limit is raised once per device to the most a plan
+  // may ask for; the launch is on the caller's current device.
+  static std::atomic<bool> raised[MAX_DEVICES];
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dequant_matmul_kernel<CodeT, BM, BN><<<grid, tile_threads(BM, BN), smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const CodeT*>(q), static_cast<const float*>(scale),
-      static_cast<float*>(y), M, K, N, vec);
+  if (device >= MAX_DEVICES || !raised[device].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(dequant_matmul_kernel<CodeT, BN, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_LIMIT);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (device < MAX_DEVICES) raised[device].store(true, std::memory_order_release);
+  }
+  dequant_matmul_kernel<CodeT, BN, NC><<<blocks, NC * WG + 32, smem, stream>>>(
+      x_map, y_map, static_cast<const float*>(x), static_cast<const CodeT*>(q), static_cast<const float*>(scale),
+      static_cast<float*>(y), M, K, N, stages, a_mode, store_tma);
   return static_cast<int>(cudaGetLastError());
 }
 
-long long tile_blocks(int M, int N, int bm, int bn) {
-  return static_cast<long long>((M + bm - 1) / bm) * ((N + bn - 1) / bn);
+// A row-major [rows, cols] f32 tensor map with boxes of box_cols x
+// box_rows in the swizzle of the box's row bytes (32, 64 or 128).
+bool encode_2d(fc::EncodeTiled encode, CUtensorMap* map, const void* ptr, int rows, int cols, int box_cols,
+               int box_rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {4ULL * cols};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUtensorMapSwizzle swizzle = box_cols == 32   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : box_cols == 16 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-constexpr long long SMS = 132;  // H100 SXM
-
-// The tile fits the layer: the narrowest N tile of 8..128 that holds N (wider
-// N takes several column blocks); M tile 128 (N tile up to 64) where that
-// still gives two blocks per SM, else 64; and where 64-row blocks alone
-// would leave SMs idle, the N tile halved down to 32. None of this changes
-// an entry's K order.
+// Checks the tile plan (BM, BN, stages, smem and blocks from dequant.py's
+// matmul_tile_plan) against what this file launches, picks how A moves,
+// encodes the tensor maps of x (for TMA) and y (where N % 4 == 0), and
+// launches.
 template <typename CodeT>
-int launch_gemm(const void* x, const void* q, const void* scale, void* y,
-                int M, int K, int N, int vec, void* stream_ptr) {
-  const auto stream = static_cast<cudaStream_t>(stream_ptr);
-  constexpr long long OFFSET_LIMIT = 1LL << 31;  // the kernel's A offsets are 32-bit
-  if (static_cast<long long>(M) * K >= OFFSET_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
-  int bn = N <= 8 ? 8 : N <= 16 ? 16 : N <= 32 ? 32 : N <= 64 ? 64 : 128;
-  const int bm = bn <= 64 && tile_blocks(M, N, 128, bn) >= 2 * SMS ? 128 : 64;
-  while (bm == 64 && bn > 32 && tile_blocks(M, N, 64, bn) < SMS) bn /= 2;
-#define FC_TILE(BM_, BN_)                                                          \
-  if (bm == BM_ && bn == BN_)                                                      \
-    return launch_tile<CodeT, BM_, BN_>(x, q, scale, y, M, K, N, vec, stream);
-  FC_TILE(128, 8) FC_TILE(128, 16) FC_TILE(128, 32) FC_TILE(128, 64)
-  FC_TILE(64, 8) FC_TILE(64, 16) FC_TILE(64, 32) FC_TILE(64, 64) FC_TILE(64, 128)
+int launch_matmul(const void* x, const void* q, const void* scale, void* y, int M, int K, int N, int BM,
+                  int BN, int stages, int smem, int blocks, void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (M < 1 || K < 1 || N < 1 || K > MAX_K) return bad;
+  if (reinterpret_cast<uintptr_t>(y) % 16 != 0) return bad;
+  if ((BM != 64 && BM != 128 && BM != 256) || (BN != 8 && BN != 16 && BN != 32 && BN != 64 && BN != 128)) {
+    return bad;
+  }
+  if (BM == 256 && BN > 32) return bad;
+  if (stages < 1 || stages > MAX_STAGES || smem != matmul_smem(BM, BN, K, stages) || smem > SMEM_LIMIT) {
+    return bad;
+  }
+  const long long units = static_cast<long long>((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  if (units >= (1LL << 31) || blocks < 1 || blocks > units) return bad;
+  const bool vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int a_mode = vec ? A_TMA : K < CHUNK ? A_SPAN : A_ROWS;
+  const int store_tma = N % 4 == 0;
+  CUtensorMap x_map, y_map;
+  memset(&x_map, 0, sizeof(x_map));
+  memset(&y_map, 0, sizeof(y_map));
+  if (vec || store_tma) {
+    const fc::EncodeTiled encode = fc::encode_tiled();
+    if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+    if (vec && !encode_2d(encode, &x_map, x, M, K, CHUNK, BM)) return bad;
+    if (store_tma && !encode_2d(encode, &y_map, y, M, N, BN < STORE_COLS ? BN : STORE_COLS, WG_ROWS)) return bad;
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+#define FC_TILE(BN_, NC_)                                                                                 \
+  if (BN == BN_ && BM == NC_ * WG_ROWS)                                                                   \
+    return launch_tile<CodeT, BN_, NC_>(x_map, y_map, x, q, scale, y, M, K, N, stages, smem, blocks,     \
+                                        a_mode, store_tma, s);
+  FC_TILE(8, 1) FC_TILE(16, 1) FC_TILE(32, 1) FC_TILE(64, 1) FC_TILE(128, 1)
+  FC_TILE(8, 2) FC_TILE(16, 2) FC_TILE(32, 2) FC_TILE(64, 2) FC_TILE(128, 2)
+  FC_TILE(8, 4) FC_TILE(16, 4) FC_TILE(32, 4)
 #undef FC_TILE
   return static_cast<int>(cudaErrorInvalidConfiguration);
-}
-
-template <typename CodeT>
-int launch_matmul(const void* x, const void* q, const void* scale, void* y,
-                  int M, int K, int N, void* stream) {
-  const int vec = (K % 4 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
-  return launch_gemm<CodeT>(x, q, scale, y, M, K, N, vec, stream);
 }
 
 // ---- grouped code expansion ----
@@ -467,14 +716,16 @@ int launch_codes(const void* table_ptr, void* out, void* stream) {
 // cudaGetLastError() (0 = launched) or the error that refused the launch.
 extern "C" {
 
-int fc_dequant_matmul_i8(const void* x, const void* q, const void* scale,
-                         void* y, int M, int K, int N, void* stream) {
-  return launch_matmul<int8_t>(x, q, scale, y, M, K, N, stream);
+// The tile plan's BM, BN, stages, shared-memory bytes and blocks come from
+// dequant.py's matmul_tile_plan; a plan this file does not launch is refused.
+int fc_dequant_matmul_i8(const void* x, const void* q, const void* scale, void* y, int M, int K, int N,
+                         int BM, int BN, int stages, int smem, int blocks, void* stream) {
+  return launch_matmul<int8_t>(x, q, scale, y, M, K, N, BM, BN, stages, smem, blocks, stream);
 }
 
-int fc_dequant_matmul_e4m3(const void* x, const void* q, const void* scale,
-                           void* y, int M, int K, int N, void* stream) {
-  return launch_matmul<__nv_fp8_e4m3>(x, q, scale, y, M, K, N, stream);
+int fc_dequant_matmul_e4m3(const void* x, const void* q, const void* scale, void* y, int M, int K, int N,
+                           int BM, int BN, int stages, int smem, int blocks, void* stream) {
+  return launch_matmul<__nv_fp8_e4m3>(x, q, scale, y, M, K, N, BM, BN, stages, smem, blocks, stream);
 }
 
 // table: a CodeSegments in host memory, read before the launch returns;

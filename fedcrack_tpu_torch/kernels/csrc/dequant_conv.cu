@@ -76,10 +76,22 @@
 
 namespace {
 
+using fc::b_desc;
 using fc::bf16x2_bits;
-using fc::code_to_float;
+using fc::byte_code;
+using fc::fence_acc;
+using fc::ldsm_x4;
+using fc::mbar_arrive;
+using fc::mbar_arrive_expect_tx;
+using fc::mbar_init;
+using fc::mbar_wait;
+using fc::Mma;
 using fc::smem_u32;
 using fc::split3;
+using fc::swizzle64;
+using fc::wgmma_commit;
+using fc::wgmma_fence;
+using fc::wgmma_wait;
 
 constexpr int CHUNK = 32;               // input channels a stage: 128 B of f32, one swizzle row
 constexpr int TAPS = 9;
@@ -109,150 +121,9 @@ __host__ __device__ constexpr int conv_smem(int th, int tw, int bn, int stages) 
   return stages * (halo_bytes(th, tw) + codes_bytes(bn) + 16) + 3 * plane_bytes(th, tw) + HALO_ALIGN;
 }
 
-// The 64-byte swizzle (wgmma's B64 layout): a row's 16-byte chunk c of a
-// 64-byte row r sits at chunk c ^ ((r >> 1) & 3), so 8 neighbouring rows
-// fall in 8 different bank groups.
-__host__ __device__ constexpr int swizzle64(int row, int chunk) {
-  return row * ROW_BYTES + ((chunk ^ ((row >> 1) & 3)) << 4);
-}
-
-// ---- mbarriers, TMA, wgmma ----
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-// An arrival that also expects `bytes` of transactions (the TMA load's).
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// The halo box at (channel c, column w, row h, image n) of x's tensor map.
-__device__ __forceinline__ void tma_load_halo(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                              int c, int w, int h, int n) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(w), "r"(h), "r"(n), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int PENDING>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(PENDING) : "memory");
-}
-
-// Keeps the compiler from moving accumulator accesses across a point where
-// wgmma may still be writing them.
-template <int R>
-__device__ __forceinline__ void fence_acc(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// Descriptor of a K-major B tile in the 64-byte swizzle: each column's 32
-// k (64 bytes) a row, 8-row atoms of 512 bytes one after another (the
-// stride byte offset); the leading byte offset is unused in this layout.
-// A k16 step starts 32 bytes into the row.
-__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ULL << 16) |
-         (static_cast<uint64_t>(ATOM_BYTES >> 4) << 32) | (2ULL << 62);
-}
-
-// Four 8 x 8 bf16 matrices from shared memory: lanes 8i..8i+7 give the row
-// addresses of matrix i, which lands in register i.
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
-}
-
-__device__ __forceinline__ void consumer_sync(int threads) {
-  asm volatile("bar.sync 1, %0;\n" :: "r"(threads) : "memory");
-}
-
-// d[64 x BN] += a[64 x 16] (registers, bf16) @ b[16 x BN] (shared, bf16).
-// Accumulator d[4j + 2i + e] is row 16 warp + g + 8i, column 8j + 2t + e;
-// a holds rows g and g + 8 at k 2t (a[0], a[1]) and 2t + 8 (a[2], a[3]),
-// mma.sync m16n8k16's fragment (g = lane / 4, t = lane % 4).
-template <int BN>
-struct Mma;
-
-template <>
-struct Mma<16> {
-  static __device__ __forceinline__ void run(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-        "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct Mma<32> {
-  static __device__ __forceinline__ void run(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-          "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct Mma<64> {
-  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-          "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
+static_assert(ROW_BYTES == fc::B_ROW_BYTES && ATOM_BYTES == fc::B_ATOM_BYTES, "the shared B layout");
 
 // ---- the producer's codes ----
-
-template <typename CodeT>
-__device__ __forceinline__ float byte_code(uint32_t word, int j) {
-  const unsigned char byte = static_cast<unsigned char>(word >> (8 * j));
-  CodeT code;
-  memcpy(&code, &byte, 1);
-  return code_to_float(code);
-}
 
 // One task of store_codes: a channel pair (k, k + 1) at four neighbouring
 // columns of one tap. A warp's 32 tasks at a time are 4 pairs x 4 chunks x
@@ -401,10 +272,10 @@ dequant_conv3x3_kernel(const __grid_constant__ CUtensorMap x_map, const CodeT* _
         mbar_wait(empty0 + 8 * s, ((it / stages) & 1) ^ 1);  // the first pass finds it free
         if (pt == 0) {
           mbar_arrive_expect_tx(full0 + 8 * s, HALO_PIXELS * PIXEL_BYTES);
-          tma_load_halo(base + s * HALO, &x_map, full0 + 8 * s, cc * CHUNK, un.w0 - 1, un.h0 - 1, un.img);
+          fc::tma_load_4d(base + s * HALO, &x_map, full0 + 8 * s, cc * CHUNK, un.w0 - 1, un.h0 - 1, un.img);
         }
         store_codes<CodeT, BN>(q, smem + codes_off + s * CODES, pt, cc * CHUNK, un.n0, C, F, vec != 0);
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the stores, seen by wgmma
+        fc::fence_proxy_async();  // the stores, seen by wgmma
         mbar_arrive(full0 + 8 * s);
       }
     }
@@ -447,7 +318,7 @@ dequant_conv3x3_kernel(const __grid_constant__ CUtensorMap x_map, const CodeT* _
       // unit is 4 channels (16 bytes) of a pixel. The f32 tile is in TMA's
       // 128-byte swizzle; the planes are in the 64-byte one, which ldmatrix
       // reads free of bank conflicts for 8 neighbouring pixels.
-      consumer_sync(NC * WG);  // every consumer warp is done with the last chunk's planes
+      fc::named_sync(1, NC * WG);  // every consumer warp is done with the last chunk's planes
       for (int e = ct; e < HALO_PIXELS * (CHUNK / 4); e += NC * WG) {
         const int p = e >> 3;
         const int j = e & 7;
@@ -460,7 +331,7 @@ dequant_conv3x3_kernel(const __grid_constant__ CUtensorMap x_map, const CodeT* _
         *reinterpret_cast<uint2*>(out + PLANE) = make_uint2(mid[0], mid[1]);
         *reinterpret_cast<uint2*>(out + 2 * PLANE) = make_uint2(lo[0], lo[1]);
       }
-      consumer_sync(NC * WG);  // the planes are whole
+      fc::named_sync(1, NC * WG);  // the planes are whole
 
       // Step (tap, k16 step ks): the fragments of rows g and g + 8 from the
       // tap's shifted window of each plane.
@@ -526,27 +397,7 @@ dequant_conv3x3_kernel(const __grid_constant__ CUtensorMap x_map, const CodeT* _
 
 // ---- host side ----
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, found once through the runtime.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
-                                                                      : nullptr;
-  }();
-  return fn;
-}
+using fc::encode_tiled;
 
 constexpr int MAX_DEVICES = 64;
 
@@ -588,7 +439,7 @@ int launch_conv3x3(const void* x, const void* q, const void* scale, void* y, int
   const long long units = static_cast<long long>(n_img) * ((H + TH - 1) / TH) * ((W + TW - 1) / TW) *
                           ((F + BN - 1) / BN);
   if (units >= (1LL << 31) || blocks < 1 || blocks > units) return bad;
-  const EncodeTiled encode = encode_tiled();
+  const fc::EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
 
   CUtensorMap map;

@@ -5,7 +5,12 @@ Hand-written CUDA kernels for Hopper (``csrc/dequant.cu``,
 ``fedcrack_tpu.kernels.dequant``:
 
 - :func:`dequant_matmul`: ``[M, K] f32 @ dequant([K, N] codes, [N] scales)``
-  (``_matmul_kernel``), for the 1x1 convs and the stride-2 stem.
+  (``_matmul_kernel``), for the 1x1 convs and the stride-2 stem. One
+  persistent block an SM keeps its column block's codes in shared memory
+  across all its row tiles, a producer warp feeds A through a TMA ring
+  (``cp.async`` where K % 4 != 0), and each tile leaves by a TMA store that
+  drains under the next tile's loads. :func:`matmul_tile_plan` chooses its
+  tiles.
 - :func:`dequant_conv3x3`: the stride-1 SAME 3x3 conv of an NHWC activation
   with HWIO codes (``_matmul_kernel`` behind the JAX ``_conv3x3``, whose
   patches XLA materialises). Its own kernel: a block loads a halo tile of
@@ -20,23 +25,22 @@ Hand-written CUDA kernels for Hopper (``csrc/dequant.cu``,
   six depthwise kernels in one call, from a :class:`CodeGroup` validated
   once when the tree is placed.
 
-The two contractions run on the tensor cores (bf16 operands, f32
-accumulators): the GEMM on ``mma.sync``, the conv on ``wgmma``. Codes are
-exact in bf16; the f32 activation is split into three bf16 terms (hi, mid,
-lo) that carry its whole significand, each term times a code is exact, and
-the sums accumulate in f32. The per-channel scale multiplies the finished
-accumulator once. So each entry differs from ``x @ (q * scale)`` only by
-the order and rounding of its f32 sums: within one per-channel scale (the
-JAX package's bound), in an order fixed by K (for the conv, by C) alone,
-never by the rows or the grid. The conv orders K as (32-channel chunk, kh,
-kw, channel) against the plain version's ``(c, kh, kw)``: float
+The two contractions run on ``wgmma`` (bf16 operands, f32 accumulators).
+Codes are exact in bf16; the f32 activation is split into three bf16 terms
+(hi, mid, lo) that carry its whole significand, each term times a code is
+exact, and the sums accumulate in f32. The per-channel scale multiplies the
+finished accumulator once. So each entry differs from ``x @ (q * scale)``
+only by the order and rounding of its f32 sums: within one per-channel
+scale (the JAX package's bound), in an order fixed by K (for the conv, by
+C) alone, never by the rows or the grid. The conv orders K as (32-channel
+chunk, kh, kw, channel) against the plain version's ``(c, kh, kw)``: float
 reassociation again, within the same bound. On an H100, per bucket-256 x
 batch-8 forward, the 1x1 GEMMs are bound by device-memory bytes (0.11 ms
 at 3.35 TB/s, their K being 27 to 256) and the 3x3 convs by the three bf16
-passes (0.08 ms at 989 TFLOP/s dense). So the GEMM keeps copies in flight
-(a 3-stage ``cp.async`` ring) and fits its tiles to the layer; the conv
-reads each activation about once per column block from its halo tiles and
-keeps ``wgmma`` fed from a ring of TMA-loaded stages.
+passes (0.08 ms at 989 TFLOP/s dense). So the GEMM reads its codes once a
+column block and keeps loads and stores of the activations in flight
+together; the conv reads each activation about once per column block from
+its halo tiles and keeps ``wgmma`` fed from a ring of TMA-loaded stages.
 
 Routing is by device, never by fallback: a tensor on the CPU takes the
 plain PyTorch version (what the CPU tests check against the JAX package),
@@ -70,10 +74,12 @@ from fedcrack_tpu_torch.ops.pooling import same_pads
 
 CODE_DTYPES = (torch.int8, torch.float8_e4m3fn)
 
-# Every entry point: operand pointers, sizes, then the CUDA stream.
+# Every entry point: operand pointers, sizes, then the CUDA stream. The
+# matmul's: x, q, scale, y; M, K, N; the tile plan's BM, BN, stages,
+# shared-memory bytes and blocks; the stream.
 LIBRARY = KernelLibrary("dequant", {
-    "fc_dequant_matmul_i8": [PTR, PTR, PTR, PTR, I32, I32, I32, PTR],
-    "fc_dequant_matmul_e4m3": [PTR, PTR, PTR, PTR, I32, I32, I32, PTR],
+    "fc_dequant_matmul_i8": [PTR, PTR, PTR, PTR] + [I32] * 8 + [PTR],
+    "fc_dequant_matmul_e4m3": [PTR, PTR, PTR, PTR] + [I32] * 8 + [PTR],
     "fc_dequant_codes_i8": [PTR, PTR, PTR],
     "fc_dequant_codes_e4m3": [PTR, PTR, PTR],
 })
@@ -117,10 +123,14 @@ def _check_operands(*tensors: torch.Tensor) -> None:
         raise ValueError(f"dequant kernels run on cuda (or plain on cpu), got {device}")
 
 
-def _check_offsets(a_elements: int) -> None:
-    """The GEMM kernels address A (rows x K) with 32-bit offsets."""
-    if a_elements >= 2**31:
-        raise ValueError(f"A operand of {a_elements} elements exceeds the kernels' 2^31 offsets")
+# What the two tensor-core kernels share (csrc/dequant_common.cuh): TMA's
+# 128-byte swizzle, the 64-byte row of bf16 a column of codes takes per
+# 32-deep chunk (wgmma's B layout), the card's SMs and a block's shared
+# memory.
+_HALO_ALIGN = 1024  # TMA's 128-byte swizzle repeats every 1024 bytes
+_ROW_BYTES = 64  # a pixel's or a column's chunk of 32 in bf16: one 64-byte swizzle row
+_SMS = 132  # H100 SXM
+_SMEM_PER_BLOCK = 232_448  # what one block may have (227 KB)
 
 
 # ---- fused dequant-matmul ----
@@ -133,8 +143,109 @@ def _dequant_matmul_plain(
     return x.float() @ (q.float() * scale)
 
 
+# The matmul kernel's tiling (csrc/dequant.cu): K runs over chunks of
+# MATMUL_CHUNK, one 128-byte swizzle row of f32 a row of A; a unit of work
+# is 64 rows a consumer warpgroup (one, two or four) by a column block of 8
+# to 128.
+MATMUL_CHUNK = 32
+_MATMUL_WG_ROWS = 64
+_MATMUL_BNS = (8, 16, 32, 64, 128)
+_MATMUL_NARROW = 32  # column blocks this narrow over one chunk of K take four consumer warpgroups
+_MATMUL_MAX_STAGES = 8
+# What a unit costs beyond its bytes, counted as bytes in the plan's
+# estimate: the ring's first round trip and the epilogue's barriers.
+_MATMUL_UNIT_BYTES = 16384
+
+
+class MatmulTilePlan(NamedTuple):
+    """How ``dequant_matmul_kernel`` tiles one GEMM: a unit of work is
+    ``bm`` rows and ``bn`` columns; ``chunk`` of K a pipeline stage,
+    ``stages`` stages in the ring; ``units`` units, computed by ``blocks``
+    persistent blocks (block ``b`` takes units ``b``, ``b + blocks``, ...);
+    the dynamic shared memory of a block in bytes."""
+
+    bm: int
+    bn: int
+    chunk: int
+    stages: int
+    units: int
+    blocks: int
+    smem: int
+
+
+def matmul_smem_bytes(bm: int, bn: int, k: int, stages: int) -> int:
+    """Shared memory of a matmul block (``matmul_smem`` in csrc/dequant.cu):
+    per stage a chunk of ``bm`` rows of f32 and two barriers; two staged
+    ``bm x bn`` f32 output tiles; the column block's codes in bf16 (a 64-byte
+    row a column for each of ``ceil(k / 32)`` chunks) and its ``bn`` scales;
+    the base's alignment slack."""
+    codes = -(-k // MATMUL_CHUNK) * bn * _ROW_BYTES
+    return stages * (bm * 4 * MATMUL_CHUNK + 16) + 2 * bm * bn * 4 + codes + bn * 4 + _HALO_ALIGN
+
+
+@functools.lru_cache(maxsize=256)
+def matmul_tile_plan(m: int, k: int, n: int) -> MatmulTilePlan:
+    """The matmul kernel's tiles for ``x [m, k] @ q [k, n]``.
+
+    ``chunk`` is fixed, so every entry's K order is a function of ``k``
+    alone, and nothing else here changes a sum: each wgmma computes a
+    column from its own k16 products whatever the tile (held on the card by
+    chip_smoke.py's phase 3, which compares the leading rows of a launch
+    over fewer rows, planned otherwise, bit for bit).
+    The row tile is 128, two consumer warpgroups sharing each stage of A and
+    the codes (on the card one warpgroup alone ran the deep GEMMs slower at
+    every column block tried); 256, four warpgroups, where ``k`` is one
+    chunk and the column block at most 32 wide (the stem, the head), whose
+    short chains of dependent wgmma leave the tensor cores waiting on
+    latency unless more warpgroups interleave theirs; 64 where ``m`` fits.
+    Among column blocks of 8 to 128 (no wider than ``n`` needs) whose codes
+    and two stages fit a block's 227 KB, it takes the one whose
+    busiest block moves the fewest bytes: its units' rows of A and of the
+    output, a fixed cost a unit, and the codes it loads once a column block.
+    One block an SM walks over the units, and its ring holds up to 8 chunks
+    (as many as fit, and no more than the block computes). Raises for a
+    ``k`` whose codes no block can hold (past about 12,000)."""
+    if min(m, k, n) < 1:
+        raise ValueError(f"no matmul tiles for an empty shape: M {m}, K {k}, N {n}")
+    widest = next((bn for bn in _MATMUL_BNS if bn >= n), _MATMUL_BNS[-1])
+    best = None
+    for bn in _MATMUL_BNS:
+        if m <= _MATMUL_WG_ROWS:
+            bm = _MATMUL_WG_ROWS
+        elif bn <= _MATMUL_NARROW and k <= MATMUL_CHUNK and m > 2 * _MATMUL_WG_ROWS:
+            bm = 4 * _MATMUL_WG_ROWS
+        else:
+            bm = 2 * _MATMUL_WG_ROWS
+        if bn > widest or matmul_smem_bytes(bm, bn, k, 2) > _SMEM_PER_BLOCK:
+            continue
+        cols = -(-n // bn)
+        units = -(-m // bm) * cols
+        blocks = min(units, _SMS)
+        per_block = -(-units // blocks)
+        cost = per_block * (bm * (k + bn) * 4 + _MATMUL_UNIT_BYTES) + min(per_block, cols) * k * bn
+        if best is None or cost < best[0]:
+            best = (cost, bm, bn, units, blocks, per_block)
+    if best is None:
+        raise ValueError(f"dequant_matmul: the codes of K={k} do not fit a block's shared memory")
+    _, bm, bn, units, blocks, per_block = best
+    stages = min(per_block * -(-k // MATMUL_CHUNK), _MATMUL_MAX_STAGES)
+    while stages > 1 and matmul_smem_bytes(bm, bn, k, stages) > _SMEM_PER_BLOCK:
+        stages -= 1
+    return MatmulTilePlan(bm, bn, MATMUL_CHUNK, stages, units, blocks, matmul_smem_bytes(bm, bn, k, stages))
+
+
+def matmul_unit_origin(plan: MatmulTilePlan, m: int, unit: int) -> tuple[int, int]:
+    """``(first row, first column)`` of work unit ``unit``: column block
+    ``unit // mtiles``, then row tile ``unit % mtiles`` (the kernel's
+    mapping)."""
+    col, tile = divmod(unit, -(-m // plan.bm))
+    return tile * plan.bm, col * plan.bn
+
+
 def dequant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """``[M, K] f32 @ dequant([K, N] codes, [N] scales) -> [M, N]`` f32."""
+    """``[M, K] f32 @ dequant([K, N] codes, [N] scales) -> [M, N]`` f32. On
+    CUDA, K is at most what a block's shared memory holds codes for (see
+    :func:`matmul_tile_plan`)."""
     if x.ndim != 2 or q.ndim != 2 or x.shape[1] != q.shape[0]:
         raise ValueError(f"bad matmul shapes: x {tuple(x.shape)}, q {tuple(q.shape)}")
     if tuple(scale.shape) != (q.shape[1],):
@@ -147,12 +258,15 @@ def dequant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> tor
         return _dequant_matmul_plain(x, q, scale)
     m, k = x.shape
     n = q.shape[1]
-    _check_offsets(m * k)
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return y
+    if k == 0:
+        return y.zero_()
+    plan = matmul_tile_plan(m, k, n)
     name = "fc_dequant_matmul_i8" if q.dtype == torch.int8 else "fc_dequant_matmul_e4m3"
-    LIBRARY.launch(name, x.device, x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(), m, k, n)
+    LIBRARY.launch(name, x.device, x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(), m, k, n,
+                   plan.bm, plan.bn, plan.stages, plan.smem, plan.blocks)
     _count(dequant_matmul)
     return y
 
@@ -194,10 +308,6 @@ def _dequant_conv3x3_plain(
 CONV_CHUNK = 32
 _CONV_TH = 8
 _CONV_MAX_STAGES = 4
-_HALO_ALIGN = 1024  # TMA's 128-byte swizzle repeats every 1024 bytes
-_ROW_BYTES = 2 * CONV_CHUNK  # a pixel's or a column's chunk in bf16: one 64-byte swizzle row
-_SMS = 132  # H100 SXM
-_SMEM_PER_BLOCK = 232_448  # what one block may have (227 KB)
 
 
 class ConvTilePlan(NamedTuple):

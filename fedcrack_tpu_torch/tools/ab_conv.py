@@ -11,9 +11,11 @@ weights; their values do not change a time) and records the arguments of
 every ``dequant_conv3x3`` and ``dequant_matmul`` call of one bucket-256 x
 batch-8 forward. On those inputs it measures each kernel's device time
 (torch.profiler) per call and per forward, and its wrapper's host µs per
-call (the least of 5 runs of 200 back-to-back calls). It then profiles 5
-served batches for their host ms, device busy ms and idle share. The card's
-name and power limit go beside every run. CUDA only.
+call (the least of 5 runs of 200 back-to-back calls); and
+``dequant_matmul``'s device time per forward again with the same codes as
+fp8 e4m3 (``dequant_matmul_e4m3``). It then profiles 5 served batches for
+their host ms, device busy ms and idle share. The card's name and power
+limit go beside every run. CUDA only.
 """
 
 from __future__ import annotations
@@ -36,18 +38,26 @@ def card_line() -> str:
 
 
 def _device_ms(torch, fns, n: int) -> float:
-    """Device time of one pass over ``fns``: the CUDA kernels they launch,
-    summed, over ``n`` passes after a warm one."""
+    """Device time of one pass over ``fns``, each launching one kernel: the
+    CUDA kernels, summed, over ``n`` passes after a warm one. A window that
+    lost kernel records would read short, so it is taken again (up to 3
+    times) until it holds ``n`` per call."""
     from fedcrack_tpu_torch.obs.metrics import card_kernels, card_profile
 
     for fn in fns:
         fn()
     torch.cuda.synchronize()
-    with card_profile() as prof:
-        for _ in range(n):
-            for fn in fns:
-                fn()
-    return sum(e.self_device_time_total for e in card_kernels(prof)) / n / 1e3
+    counts = []
+    for _ in range(3):
+        with card_profile() as prof:
+            for _ in range(n):
+                for fn in fns:
+                    fn()
+        kernels = card_kernels(prof)
+        counts.append(sum(e.count for e in kernels))
+        if counts[-1] == n * len(fns):
+            return sum(e.self_device_time_total for e in kernels) / n / 1e3
+    raise RuntimeError(f"ab_conv: the profiler kept {counts} kernel records, want {n * len(fns)}")
 
 
 def _host_us(torch, fn, calls: int = 200, runs: int = 5) -> float:
@@ -116,6 +126,12 @@ def run_tree() -> dict:
             "host_us_per_call": [_host_us(torch, lambda a=a: kernel(*a)) for a in args],
         }
 
+    # The same GEMMs with e4m3 codes: every int8 code is exact in e4m3 but
+    # +-127 (rounded to +-128), which changes no time.
+    e4m3 = [(x, q.float().to(torch.float8_e4m3fn), s) for x, q, s in calls["dequant_matmul"]]
+    out["dequant_matmul_e4m3"] = {"device_ms_per_forward": _device_ms(
+        torch, [lambda a=a: dequant.dequant_matmul(*a) for a in e4m3], n=10)}
+
     engine.predict_bucket(weights, batch)
     lat = []
     for _ in range(20):
@@ -158,11 +174,15 @@ def main(argv: list[str] | None = None) -> int:
         runs.append(run)
         print(f"{tree}: conv {run['dequant_conv3x3']['device_ms_per_forward']:.4f} ms a forward "
               f"({run['dequant_conv3x3']['calls']} calls), matmul "
-              f"{run['dequant_matmul']['device_ms_per_forward']:.4f} ms ({run['dequant_matmul']['calls']}), "
+              f"{run['dequant_matmul']['device_ms_per_forward']:.4f} ms ({run['dequant_matmul']['calls']}; "
+              f"e4m3 {run['dequant_matmul_e4m3']['device_ms_per_forward']:.4f}), "
               f"served batch: device busy {run['served_batch']['device_busy_ms']:.3f} ms, host p50 "
               f"{run['served_batch']['host_ms_p50']:.3f} ms, idle share {run['served_batch']['idle_share']:.3f}; "
-              f"conv host µs a call {[round(x, 1) for x in run['dequant_conv3x3']['host_us_per_call']]} "
+              f"host µs a call: conv {[round(x, 1) for x in run['dequant_conv3x3']['host_us_per_call']]}, "
+              f"matmul {[round(x, 1) for x in run['dequant_matmul']['host_us_per_call']]} "
               f"[{run['card']}]", flush=True)
+        print(f"{tree}: matmul ms a call {[round(x, 5) for x in run['dequant_matmul']['device_ms_per_call']]}",
+              flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w", encoding="utf-8") as f:
