@@ -44,10 +44,13 @@ on failure, so any failure exits non-zero and prints no result):
 6. ``bce_sums`` vs plain at the train step's logits (16 x 128 x 128), at
    8 x 256 x 256, and over a ragged sweep: count lanes equal, BCE lanes
    within rtol 1e-5 / atol 1e-3, bitwise equal run to run, back to back at
-   alternating sizes and on two streams at once; one kernel per call by
-   the profiler; device time (``ms``) and CUDA-event time (``event_ms``)
-   of kernel, plain version and ``F.binary_cross_entropy_with_logits``
-   (``library_ms``, ``library_event_ms``), and the bound;
+   alternating sizes and on two streams at once, each size's plan
+   (``bce_plan``) logged; one kernel per call by the profiler; device time
+   (``ms``) and CUDA-event time (``event_ms``) of kernel, plain version and
+   ``F.binary_cross_entropy_with_logits`` (``library_ms``,
+   ``library_event_ms``), the bound, and the card's launch floor (the
+   device time of a one-element ``zero_()``, ``launch_floor_us``, also in
+   the ``dequant_codes`` rows);
 7. the federation at full width (the training path's main path):
    ``ModelConfig()`` at 128 px, batch 16, two clients of 64 seeded
    synthetic samples and 32 held out. The server is
@@ -980,9 +983,12 @@ def profile_batches(torch, engine, weights, batch, card: str, n: int = 5) -> Non
 
 def bce_phase(torch, card: str) -> dict:
     """Phase 6: ``bce_sums`` against its plain version on the card: at the
-    train step's logits, at 8 x 256 x 256 and over a ragged sweep; calls at
+    train step's logits, at 8 x 256 x 256 and over a ragged sweep, each
+    size's ``bce_plan`` logged; calls at
     alternating sizes back to back (the ticket's reset), and on two streams
-    at once (one workspace each); one kernel per call by the profiler."""
+    at once (one workspace each); one kernel per call by the profiler. The
+    card's launch floor: the device time of one launch that stores 4 bytes
+    (``launch_floor_us``)."""
     import torch.nn.functional as F
 
     from fedcrack_tpu_torch.ops import bce
@@ -1009,8 +1015,11 @@ def bce_phase(torch, card: str) -> dict:
         if not bool((err <= 1e-3 + 1e-5 * plain.abs()).all()):
             raise AssertionError(f"bce_sums {label}: BCE lanes {got.tolist()} vs plain {plain.tolist()}")
         row["max_abs_err"] = max(row["max_abs_err"], float(err.max()))
+        log(f"bce_sums {label} (n={x.numel()}): plan {bce.bce_plan(x.numel())._asdict()}, max |kernel - plain| "
+            f"{float(err.max()):.3g}")
 
-    # Back to back at alternating sizes (grids of 1 to 256 blocks), no
+    # Back to back at alternating sizes (grids of 1 to 132 blocks, which
+    # share the stream's workspace), no
     # synchronisation between calls: each must equal the same call made alone.
     order = [label for _ in range(3) for label, _ in cases]
     outs = [bce.bce_sums(*inputs[label]) for label in order]
@@ -1036,6 +1045,15 @@ def bce_phase(torch, card: str) -> dict:
         f"repeatable, {len(order)} back-to-back calls at alternating sizes and {len(results)} calls on two "
         f"streams bitwise equal to single calls; max |kernel - plain| {row['max_abs_err']:.3g}")
 
+    # The launch floor: one kernel that stores 4 bytes, timed as below.
+    cell = torch.zeros(1, device=dev)
+    kernels = kernel_device_us(torch, cell.zero_)
+    if len(kernels) != 1 or next(iter(kernels.values()))[1] != 1:
+        raise AssertionError(f"launch floor: want one kernel per zero_(), the profiler saw {kernels}")
+    row["launch_floor_us"] = next(iter(kernels.values()))[0]
+    log(f"launch_floor_us {row['launch_floor_us']:.4f}: device time of one one-element zero_() "
+        f"({next(iter(kernels))}) [{card}]")
+
     for label in ("train_step", "256px"):
         x, y = inputs[label]
         n = x.numel()
@@ -1059,7 +1077,8 @@ def bce_phase(torch, card: str) -> dict:
             f"{case['ms']:.6f} ms, plain {case['plain_ms']:.6f} ms, F.binary_cross_entropy_with_logits "
             f"(lane 0 only) {case['library_ms']:.6f} ms; CUDA events kernel {case['event_ms']:.6f} ms, plain "
             f"{case['plain_event_ms']:.6f} ms, library {case['library_event_ms']:.6f} ms; bound "
-            f"{case['bound_ms']:.6f} ms ({case['bound_by']}) [{card}]")
+            f"{case['bound_ms']:.6f} ms ({case['bound_by']}), launch floor {row['launch_floor_us'] / 1e3:.6f} ms "
+            f"[{card}]")
         if label == "train_step":
             row.update(case)
     return row
@@ -7014,6 +7033,7 @@ def main() -> int:
                 "library_ms": row["library_ms"],
                 "event_ms": row["event_ms"],
                 "library_event_ms": row["library_event_ms"],
+                **({"launch_floor_us": bce_row["launch_floor_us"]} if name == "dequant_codes" else {}),
             })
     kernels.append({
         "name": "bce_sums",

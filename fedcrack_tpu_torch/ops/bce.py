@@ -4,8 +4,10 @@ The counterpart of ``fedcrack_tpu.ops.pallas_bce``. Every train step and
 every eval batch reduces the same logits and mask to the BCE sum, the
 correct-pixel count, the IoU intersection and union, and the crack-pixel
 BCE sum; one hand-written CUDA kernel (``kernels/csrc/bce_sums.cu``) reads
-the two tensors once and produces all five in one launch, its cross-block
-fold done by the last block to finish, in a per-stream workspace.
+the two tensors once and produces all five in one launch, its blocks'
+rows folded by the last block through a per-stream workspace. The
+launch's shape is :func:`bce_plan`, a function of the element count
+alone.
 
 Routing is by device, never by fallback: a CPU tensor takes the plain
 PyTorch version :func:`_bce_sums_plain` (the counterpart of the JAX
@@ -20,7 +22,9 @@ BCE lanes (0 and 4) carry one; the counts are piecewise constant.
 
 from __future__ import annotations
 
+import functools
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -28,17 +32,58 @@ from fedcrack_tpu_torch.kernels.build import I32, I64, PTR, KernelLibrary
 from fedcrack_tpu_torch.ops.losses import iou_from_counts, pos_weight_minus_one, sigmoid_bce_per_pixel
 
 LANES = 5
-MAX_BLOCKS = 1024  # the kernel's largest grid (csrc/bce_sums.cu)
+# The kernel's constants (csrc/bce_sums.cu): a stage is one float4 of x
+# and of y for each of a block's threads; a grid is at most one wave of an
+# H100 SXM's 132 SMs; the count lanes are int32, so n < 2^31.
+THREADS = 512
+STAGE_ELEMS = 4 * THREADS
+MAX_GRID = 132
+MAX_N = 2**31 - 1
 
 LIBRARY = KernelLibrary("bce_sums", {
-    "fc_bce_sums": [PTR, PTR, PTR, PTR, PTR, I64, I32, PTR],
+    "fc_bce_sums": [PTR, PTR, PTR, PTR, PTR, I64, I32, I32, PTR],
 })
 
+
+class BcePlan(NamedTuple):
+    """How ``bce_sums_kernel`` cuts n elements: block ``b`` of ``blocks``
+    reduces the ``stages`` stages of ``STAGE_ELEMS`` elements from ``b *
+    stages * STAGE_ELEMS`` on (the last block's share may be short)."""
+
+    blocks: int
+    stages: int
+
+
+@functools.lru_cache(maxsize=256)
+def bce_plan(n: int) -> BcePlan:
+    """The kernel's launch for ``n`` elements, a function of ``n`` alone,
+    so one ``n`` always reduces in the same order (bitwise repeatable): at
+    most one block an SM, each as few stages as that allows."""
+    if not 0 <= n <= MAX_N:
+        raise ValueError(f"bce_sums takes 0 to 2^31 - 1 elements on cuda, got {n}")
+    total = max(1, -(-n // STAGE_ELEMS))
+    stages = -(-total // MAX_GRID)
+    return BcePlan(-(-total // stages), stages)
+
+
+def check_bce_plan(n: int, plan: BcePlan) -> None:
+    """Raises ``ValueError`` for a plan the kernel's entry point refuses
+    (``plan_ok`` in csrc/bce_sums.cu, condition for condition)."""
+    blocks, stages = plan
+    if not 0 <= n <= MAX_N:
+        raise ValueError(f"n {n} outside 0 .. 2^31 - 1")
+    if not 1 <= blocks <= MAX_GRID or stages < 1:
+        raise ValueError(f"{blocks} blocks of {stages} stages: not 1 to {MAX_GRID} blocks of at least one stage")
+    if blocks * stages * STAGE_ELEMS < n:
+        raise ValueError(f"{blocks} blocks of {stages} stages do not cover {n} elements")
+
+
 _count_lock = threading.Lock()
-# (device index, stream) -> (partials [MAX_BLOCKS, LANES] f32, ticket [1]
-# int32): the kernel's scratch, allocated once per stream with the ticket
-# zeroed on that stream. Calls on one stream run in order, so they take
-# turns with it; the kernel leaves the ticket at 0 for the next call.
+# (device index, stream) -> (partials [MAX_GRID, LANES] int32, ticket [1]
+# int32): the scratch of a grid of several blocks, allocated once
+# per stream with the ticket zeroed on that stream. Calls on one stream run
+# in order, so they take turns with it; the kernel leaves the ticket at 0
+# for the next call.
 _workspaces: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 _workspace_lock = threading.Lock()
 
@@ -80,7 +125,7 @@ def _workspace(device: torch.device, stream: int) -> tuple[torch.Tensor, torch.T
         with _workspace_lock:
             ws = _workspaces.get(key)
             if ws is None:
-                ws = (torch.empty((MAX_BLOCKS, LANES), dtype=torch.float32, device=device),
+                ws = (torch.empty((MAX_GRID, LANES), dtype=torch.int32, device=device),
                       torch.zeros((1,), dtype=torch.int32, device=device))
                 _workspaces[key] = ws
     return ws
@@ -88,10 +133,11 @@ def _workspace(device: torch.device, stream: int) -> tuple[torch.Tensor, torch.T
 
 def _bce_sums_kernel(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """The CUDA kernel on contiguous float32 tensors of one CUDA device."""
+    n = x.numel()
     partials, ticket = _workspace(x.device, torch.cuda.current_stream(x.device).cuda_stream)
     out = torch.empty((LANES,), dtype=torch.float32, device=x.device)
     LIBRARY.launch("fc_bce_sums", x.device, x.data_ptr(), y.data_ptr(), partials.data_ptr(),
-                   ticket.data_ptr(), out.data_ptr(), x.numel(), MAX_BLOCKS)
+                   ticket.data_ptr(), out.data_ptr(), n, *bce_plan(n))
     with _count_lock:
         bce_sums.launches += 1
     return out

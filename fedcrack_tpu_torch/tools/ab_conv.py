@@ -14,8 +14,10 @@ batch-8 forward. On those inputs it measures each kernel's device time
 call (the least of 5 runs of 200 back-to-back calls); and
 ``dequant_matmul``'s device time per forward again with the same codes as
 fp8 e4m3 (``dequant_matmul_e4m3``). It then profiles 5 served batches for
-their host ms, device busy ms and idle share. The card's name and power
-limit go beside every run. CUDA only.
+their host ms, device busy ms and idle share. Last, ``bce_sums`` on seeded
+logits and masks at the train step's 16 x 128 x 128 and at 8 x 256 x 256:
+device time per call and the wrapper's host µs per call. The card's name
+and power limit go beside every run. CUDA only.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import time
 
 BUCKET, BATCH = 256, 8
 KERNELS = ("dequant_conv3x3", "dequant_matmul")
+BCE_SHAPES = {"train_step": (16, 128, 128, 1), "256px": (8, 256, 256, 1)}
 
 
 def card_line() -> str:
@@ -146,6 +149,22 @@ def run_tree() -> dict:
     busy_us = sum(e.self_device_time_total for e in card_kernels(prof))
     out["served_batch"] = {"host_ms_p50": float(np.percentile(lat, 50)), "profiled_host_ms": wall_us / 5e3,
                            "device_busy_ms": busy_us / 5e3, "idle_share": 1 - busy_us / wall_us}
+    out["bce_sums"] = _bce_sums_run(torch)
+    return out
+
+
+def _bce_sums_run(torch) -> dict:
+    """``bce_sums`` in this tree (see the module docstring)."""
+    from fedcrack_tpu_torch.ops import bce
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out = {}
+    for label, shape in BCE_SHAPES.items():
+        x = torch.randn(shape, generator=gen, device="cuda") * 2.0
+        y = (torch.rand(shape, generator=gen, device="cuda") > 0.7).to(torch.float32)
+        out[label] = {"n": x.numel(),
+                      "device_us_per_call": _device_ms(torch, [lambda: bce.bce_sums(x, y)], n=50) * 1e3,
+                      "host_us_per_call": _host_us(torch, lambda: bce.bce_sums(x, y))}
     return out
 
 
@@ -183,6 +202,10 @@ def main(argv: list[str] | None = None) -> int:
               f"[{run['card']}]", flush=True)
         print(f"{tree}: matmul ms a call {[round(x, 5) for x in run['dequant_matmul']['device_ms_per_call']]}",
               flush=True)
+        sums = run["bce_sums"]
+        print(f"{tree}: bce_sums device µs a call " + ", ".join(
+            f"{label} (n={sums[label]['n']}) {sums[label]['device_us_per_call']:.4f}, host "
+            f"{sums[label]['host_us_per_call']:.1f}" for label in BCE_SHAPES) + f" [{run['card']}]", flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w", encoding="utf-8") as f:

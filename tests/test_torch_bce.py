@@ -190,8 +190,8 @@ def test_wrapper_validates():
 
 def test_workspace_is_one_per_stream_under_threads():
     """Threads that ask at once for a stream's workspace all get the same
-    one (the check-then-create runs under a lock), sized to the kernel's
-    largest grid, with its ticket at 0."""
+    one (the check-then-create runs under a lock), a row for each block
+    of the kernel's largest grid, with its ticket at 0."""
     import re
     import sys
     import threading
@@ -200,7 +200,7 @@ def test_workspace_is_one_per_stream_under_threads():
     from fedcrack_tpu_torch.ops import bce
 
     source = Path(bce.LIBRARY.source).read_text()
-    assert int(re.search(r"MAX_BLOCKS = (\d+);", source).group(1)) == bce.MAX_BLOCKS
+    assert int(re.search(r"MAX_GRID = (\d+);", source).group(1)) == bce.MAX_GRID
     # The only atomic is the unsigned-int ticket: no float atomics in the sums.
     assert re.findall(r"atomic_ref<([\w ]+),", source) == ["unsigned int"]
     assert not re.findall(r"\batomic(Add|Sub|Exch|Min|Max|CAS)\w*\(", source)
@@ -221,6 +221,5 @@ def test_workspace_is_one_per_stream_under_threads():
     assert not any(t.is_alive() for t in threads) and len(got) == 16
     assert all(ws is workspace for ws in got)
     partials, ticket = workspace
-    assert partials.shape == (bce.MAX_BLOCKS, bce.LANES) and partials.dtype == torch.float32
+    assert partials.shape == (bce.MAX_GRID, bce.LANES) and partials.dtype == torch.int32
     assert ticket.dtype == torch.int32 and ticket.tolist() == [0]
-
