@@ -10,8 +10,8 @@ on failure, so any failure exits non-zero and prints no result):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compiles ``fedcrack_tpu_torch/kernels/csrc/dequant.cu``,
-   ``dequant_conv.cu`` and ``bce_sums.cu`` (sm_90a), one nvcc each, started
-   together;
+   ``dequant_conv.cu``, ``dequant_dw.cu`` and ``bce_sums.cu`` (sm_90a), one
+   nvcc each, started together;
 3. kernels vs plain, int8 and e4m3 codes: ``dequant_matmul`` at the 15
    GEMMs and ``dequant_conv3x3`` at the 8 decoder convs the fused forward
    launches at bucket 256 x batch 8 with ``ModelConfig()``, each plus a
@@ -22,6 +22,15 @@ on failure, so any failure exits non-zero and prints no result):
    inside the batch); each GEMM's ``matmul_tile_plan`` and conv's
    ``conv_tile_plan``, both kernels' ``-Xptxas -v`` lines (registers,
    shared memory, spills) and both wrappers' host µs per call, logged;
+   ``dequant_dwconv3x3`` at the 6 depthwise stages of that forward and a
+   ragged sweep (C of 1, 3, 17, 36, 40, 64, 80, odd grids, a 1x1 image,
+   batch 1 and 3), on inputs holding -0.0, NaN and negatives and on an activation
+   TMA cannot address: bitwise equal to its plain version, run to run, and
+   for the first and the last image alone; each stage's
+   ``dwconv_tile_plan``, its ``-Xptxas -v`` lines and the wrapper's host
+   µs logged, one kernel per call by the profiler, the kernel, the plain
+   version and ``F.conv2d(groups=C)`` on ``relu(x)`` timed per forward
+   beside the bound (bytes at 3.35 TB/s);
    ``dequant_codes_group``
    bitwise equal to its plain version at every leaf of the forward's six
    depthwise kernels in one call, of a ragged group, of a group with a
@@ -37,8 +46,9 @@ on failure, so any failure exits non-zero and prints no result):
    buckets), then requests through ``MicroBatcher.submit`` (16 at 256^2,
    8 at 128^2, 2 padded) and one tiled 512 x 384 image through
    ``predict_image``, twice. Launch counts are reset right before and read
-   right after (15 ``dequant_matmul``, 8 ``dequant_conv3x3`` and 1
-   ``dequant_codes`` per forward); fused vs reference plane on the probe
+   right after (15 ``dequant_matmul``, 8 ``dequant_conv3x3``, 6
+   ``dequant_dwconv3x3`` and 0 ``dequant_codes`` per forward); fused vs
+   reference plane on the probe
    batch; throughput; a profile of one bucket-256 batch;
 5. the fp8 plane: the same with ``kernel_plane="fp8"``, one batch served;
 6. ``bce_sums`` vs plain at the train step's logits (16 x 128 x 128), at
@@ -116,8 +126,8 @@ on failure, so any failure exits non-zero and prints no result):
     the flushed weights snapped to the code grid, published with
     ``publish_statefile`` at version 2, pass the gate and are installed;
     one bucket-256 batch on them launches 15 ``dequant_matmul``, 8
-    ``dequant_conv3x3`` and 1 ``dequant_codes`` kernel (wrapper counts
-    and profiler). Logged: install ms (gate included);
+    ``dequant_conv3x3``, 6 ``dequant_dwconv3x3`` and no ``dequant_codes``
+    kernel (wrapper counts and profiler). Logged: install ms (gate included);
 13. the command lines at full width, one process per client: 129 train
     and 32 eval PNG pairs at 448 px from ``synth_crack_batch`` in a temp
     directory (OpenCV decodes them to 128 px; the reference split leaves
@@ -167,7 +177,7 @@ on failure, so any failure exits non-zero and prints no result):
     through a StreamSession in this process. At
     SIGTERM: exit 0, both gates passed, at least one scale-up, no failed
     or shed request, every live replica at version 2, dequant launches 15
-    / 8 / 1 per quantized forward. Logged: the latencies, the frames, the
+    / 8 / 6 / 0 per quantized forward. Logged: the latencies, the frames, the
     swap's pause, start-up and wall.
 15. progressive delivery under load: ``python -m fedcrack_tpu_torch.serve``
     through the shim at phase 14's config, weights and buckets, one
@@ -186,7 +196,7 @@ on failure, so any failure exits non-zero and prints no result):
     rolled back 1, mirrored requests and no shadow failure; each verdict's
     IoU and PSI equal to the same probes on the card in process, and within
     the flip bound of a CPU engine's (``check_flip_bound``) with the same
-    verdict; 15 / 8 / 1 dequant launches per quantized forward, probe
+    verdict; 15 / 8 / 6 / 0 dequant launches per quantized forward, probe
     forwards included; ``python -m fedcrack_tpu_torch.tools.quantify
     --pred-dir`` over the served masks equal to ``quantify_mask``. Logged:
     the probe's crack share, publish to served and to each verdict, the
@@ -211,7 +221,7 @@ on failure, so any failure exits non-zero and prints no result):
     a ``FedCheckpointer`` runs round 1 and is stopped; a new one resumes
     at round 2 with round 1's global and runs round 2; a fused_int8
     ``ModelVersionManager(ckpt_dir=)`` installs version 2 (the gate must
-    pass) and serves one bucket-256 batch with 15 / 8 / 1 dequant launches
+    pass) and serves one bucket-256 batch with 15 / 8 / 6 / 0 dequant launches
     (wrappers and profiler), within phase 4's limit of a CPU engine.
     Logged: walls, epsilons, host DP, masking and unmasking ms, the
     masked-to-plain wire ratio, checkpoint save and restore ms.
@@ -236,7 +246,7 @@ on failure, so any failure exits non-zero and prints no result):
     two-replica ``ServeFleet(chaos=)`` taking a device loss, a grown slot
     carrying the hook; a ``StreamSession`` with a ``StreamChaos`` reset,
     each frame byte-equal to ``predict_tiled``; masks byte-equal to the
-    card engine at each batch's version, 15 / 8 / 1 dequant launches per
+    card engine at each batch's version, 15 / 8 / 6 / 0 dequant launches per
     quantized forward, the gates' included. (c) bf16 at c5's shapes
     (``ModelConfig(compute_dtype="bfloat16")``, 256 px, batch 32): a fit
     and an eval batch through ``bce_sums``, float32 leaves; one card step
@@ -244,7 +254,7 @@ on failure, so any failure exits non-zero and prints no result):
     ``check_bf16_step`` derives; train and reference-program throughput
     beside float32; ``python -m fedcrack_tpu_torch.serve --compute-dtype
     bfloat16`` at ``--quant none`` and at ``--quant int8 --kernel-plane
-    fused_int8`` (on the fit's weights: the gate passes, 15 / 8 / 1
+    fused_int8`` (on the fit's weights: the gate passes, 15 / 8 / 6 / 0
     launches per forward), masks held to the card engine in process. (d)
     A ``LeakSentry`` marked after (a)-(c) and steady after 10 bf16 steps
     and 4 fused batches; a ``Watchdog`` on ``configs/slo_default.json``
@@ -268,7 +278,7 @@ on failure, so any failure exits non-zero and prints no result):
     ``FaultPlan`` ``EDGE_AGGREGATOR_CRASH`` and restored from its
     statefile; its partial byte-equal to an unkilled edge's, each root
     global byte-equal to the in-process tree's. (c) The final global
-    served ``fused_int8`` at bucket 128, batch 8: 15 / 8 / 1 dequant
+    served ``fused_int8`` at bucket 128, batch 8: 15 / 8 / 6 / 0 dequant
     launches (wrappers and profiler), fused within ``SERVE_PROB_TOL`` of
     the reference plane. (d) ``python -m fedcrack_tpu_torch.tools.chaos_drill``
     through ``CLI_SHIM``: exit 0, every verdict of its eleven drills true,
@@ -292,7 +302,7 @@ on failure, so any failure exits non-zero and prints no result):
     path: ``build_spatial_federated_round`` over 2 clients x 2 bands, 2
     rounds x 2 steps of 2 images at 512 x 256, 8 launches, each round's
     global within atol 1e-4 (BN-fed biases 5e-3) of the (2, 1) round's,
-    served ``fused_int8`` at 15 / 8 / 1. (d) ``round_from_config`` on
+    served ``fused_int8`` at 15 / 8 / 6 / 0. (d) ``round_from_config`` on
     ``configs/c5_bf16_batch_dp.json``'s (4, 2) mesh at 128 px, batch 16:
     within atol 5e-5 of the (4, 1) round in float32, finite in bfloat16.
     (e) ``python -m fedcrack_tpu_torch.tools.measure_baseline`` over c1,
@@ -309,7 +319,7 @@ on failure, so any failure exits non-zero and prints no result):
     the one-process S = 4 predict with no mask flip; one SGD(1.0) step
     against the one-process S = 4 step by phase 20's criteria, the
     stepped weights bit-equal on both ranks, one launch per process. (c)
-    The two-process global served ``fused_int8`` at 15 / 8 / 1. (d) The
+    The two-process global served ``fused_int8`` at 15 / 8 / 6 / 0. (d) The
     cohort round at 128 px, batch 16: six clients in groups of four (the
     last ragged), streamed and resident, two slots of every group per
     process (its padding slots on rank 1): every global and metric
@@ -431,6 +441,14 @@ SERVE_PROB_TOL = 1e-3
 # test's ragged sizes for bce_sums.
 TRAIN_SIZE, TRAIN_BATCH = 128, 16
 BCE_SWEEP = [1, 100, 128, 32768, 32769, 100_000]
+# Ragged depthwise convs (N, H, W, C): C of 1, 3 and 17 (no TMA map: the
+# producer loads the halo itself), 36, 40, 64 and 80 (TMA, C off the unit's
+# 32 or 64 channels), odd grids, a 1x1 image, batch 1 and 3; and shapes
+# whose plans take 8- and 16-row tiles of 32 and 64 channels raggedly.
+DW_SWEEP = [(1, 5, 7, 1), (3, 9, 11, 3), (1, 1, 1, 17), (3, 13, 17, 40), (1, 33, 31, 64), (3, 1, 1, 36),
+            (8, 70, 130, 40), (8, 70, 40, 64), (6, 50, 70, 80)]
+# The quantized forward's kernel wrappers, as they count their launches.
+DEQUANT_KERNELS = ("dequant_matmul", "dequant_conv3x3", "dequant_dwconv3x3", "dequant_codes")
 # Ragged code groups: 1 and 17 codes, 1000 x 37, 4099, and 45 (a
 # depthwise kernel of 5 channels): numels on and off the kernel's 4-code units.
 CODES_RAGGED = [(1,), (17,), (1000, 37), (4099,), (3, 3, 1, 5)]
@@ -495,8 +513,30 @@ def conv_shapes(cfg, size: int, batch: int) -> list[tuple[str, int, int, int, in
     return shapes
 
 
+def dwconv_shapes(cfg, size: int, batch: int) -> list[tuple[str, int, int, int, int]]:
+    """(layer, N, H, W, C) of every dequant_dwconv3x3 of the fused forward:
+    each encoder block's sep1 and sep2."""
+    shapes, g, cin = [], -(-size // 2), cfg.stem_features
+    for i, f in enumerate(cfg.encoder_features):
+        shapes.append((f"enc{i}_sep1", batch, g, g, cin))
+        shapes.append((f"enc{i}_sep2", batch, g, g, f))
+        g = -(-g // 2)
+        cin = f
+    return shapes
+
+
+def forward_launches(cfg) -> dict:
+    """Each dequant wrapper's launches in one fused forward of ``cfg``
+    (15 / 8 / 6 / 0 at ``ModelConfig()``): the depthwise stages expand
+    their codes inside ``dequant_dwconv3x3``, so ``dequant_codes`` is not
+    launched."""
+    return {"dequant_matmul": len(matmul_shapes(cfg, BUCKET, BATCH)),
+            "dequant_conv3x3": len(conv_shapes(cfg, BUCKET, BATCH)),
+            "dequant_dwconv3x3": len(dwconv_shapes(cfg, BUCKET, BATCH)), "dequant_codes": 0}
+
+
 def depthwise_shapes(cfg) -> list[tuple[int, int, int, int]]:
-    """Shape of every depthwise kernel the fused forward expands (two per
+    """Shape of every depthwise kernel of the fused forward (two per
     encoder block), in forward order."""
     out, cin = [], cfg.stem_features
     for f in cfg.encoder_features:
@@ -732,10 +772,143 @@ def kernel_phase(torch, card: str) -> dict:
         log(f"{name} wrapper host µs per call (min of 5 runs of 200 back-to-back calls per layer): "
             f"{json.dumps(rows[name]['host_us'])} [{card}]")
 
-        # dequant_codes: bitwise, grouped as the forward calls it.
+        # dequant_dwconv3x3: bitwise, the 6 depthwise stages of a forward, then the ragged sweep.
+        name = f"dequant_dwconv3x3[{flavor}]"
+        rows[name] = dwconv_case(torch, card, name, codes, gen, cfg)
+
+        # dequant_codes: bitwise, grouped as the port's dequant_codes API calls it.
         name = f"dequant_codes[{flavor}]"
         rows[name] = codes_case(torch, card, name, flavor, codes, cfg)
     return rows
+
+
+def same_floats(torch, a, b) -> bool:
+    """Bit for bit: NaN payloads and the sign of zero included."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def dwconv_case(torch, card: str, name: str, codes, gen, cfg) -> dict:
+    """``dequant_dwconv3x3`` bitwise against its plain version at the six
+    depthwise stages of a bucket-256 x batch-8 forward and over
+    ``DW_SWEEP``, bitwise run to run, the first and the last image alone
+    bitwise equal to the same images in the batch; inputs holding -0.0,
+    NaN and negatives bitwise equal to the plain version and, value for
+    value, to the same taps over ``torch.relu(x)`` (what torch.relu does to
+    -0.0 and NaN on the card is logged); an activation 4 bytes off TMA's
+    alignment (the producer loads its halo by hand) bitwise equal too. Per
+    forward: device time (profiler, one kernel per call) and CUDA-event
+    time of the kernel, the plain version and ``F.conv2d(padding=1,
+    groups=C)`` on ``relu(x)`` channels-last with the weights expanded once
+    (``library_ms``; with the ReLU's launch, ``library_relu_ms``), the
+    bound, each stage's tile plan and the wrapper's host µs per call."""
+    import torch.nn.functional as F
+
+    from fedcrack_tpu_torch.kernels import dequant
+
+    dev = torch.device("cuda")
+
+    def check(label, x, q, s):
+        y = dequant.dequant_dwconv3x3(x, q, s)
+        again = dequant.dequant_dwconv3x3(x, q, s)
+        want = dequant._dequant_dwconv3x3_plain(x, q, s)
+        torch.cuda.synchronize()
+        if not same_floats(torch, y, want):
+            diff = y.view(torch.int32) != want.view(torch.int32)
+            raise AssertionError(f"{name} {label}: {int(diff.sum())} outputs differ from the plain version, max "
+                                 f"|kernel - plain| {float((y - want).abs().nan_to_num().max()):.3g}")
+        if not same_floats(torch, y, again):
+            raise AssertionError(f"{name} {label}: not bitwise equal run to run")
+        for i in {0, x.shape[0] - 1} if x.shape[0] > 1 else ():
+            if not same_floats(torch, dequant.dequant_dwconv3x3(x[i:i + 1].contiguous(), q, s), y[i:i + 1]):
+                raise AssertionError(f"{name} {label}: image {i} alone differs from it in the batch")
+        return y
+
+    def relu_taps(x, q, s):
+        # The parent forward's stage: torch.relu, F.pad, the nine taps of the expanded kernel.
+        n, h, w, c = x.shape
+        taps = (q.float() * s).reshape(9, c)
+        xp = F.pad(torch.relu(x), (0, 0, 1, 1, 1, 1))
+        acc = xp[:, :h, :w] * taps[0]
+        for t in range(1, 9):
+            acc = acc + xp[:, t // 3:t // 3 + h, t % 3:t % 3 + w] * taps[t]
+        return acc
+
+    main = dwconv_shapes(cfg, BUCKET, BATCH)
+    cases = []
+    for layer, n_img, h, w, c in main + [(f"sweep{s}", *s) for s in DW_SWEEP]:
+        x = torch.randn((n_img, h, w, c), generator=gen, device=dev)
+        q, s = codes((3, 3, 1, c))
+        check(layer, x, q, s)
+        if not layer.startswith("sweep"):
+            # cuDNN on the channels-last view of relu(x), its weights expanded once.
+            relu_nchw = torch.relu(x).permute(0, 3, 1, 2)
+            w_oihw = (q.float() * s).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            cases.append((layer, f"N={n_img} H={h} W={w} C={c}", (x, q, s),
+                          lambda r=relu_nchw, k=w_oihw: F.conv2d(r, k, padding=1, groups=k.shape[0]),
+                          8 * x.numel() + 9 * c + 4 * c, 17 * x.numel()))
+
+    # Signed zeros, NaN and negatives, on the TMA path (C = 40) and the hand-loaded one (C = 3).
+    for c in (40, 3):
+        x = torch.randn((3, 9, 11, c), generator=gen, device=dev)
+        x[0, 0, :, :] = -0.0
+        x[1, 4, 5, :] = float("nan")
+        x[2, :, 3, : c // 2 + 1] = -0.0
+        x[2, 8, 10, 0] = float("nan")
+        q, s = codes((3, 3, 1, c))
+        y = check(f"special values C={c}", x, q, s)
+        ref = relu_taps(x, q, s)
+        if not (torch.equal(torch.isnan(y), torch.isnan(ref)) and torch.equal(y.nan_to_num(), ref.nan_to_num())):
+            raise AssertionError(f"{name} special values C={c}: differs from the taps over torch.relu(x)")
+    probe = torch.tensor([-0.0, float("nan"), -1.0, 1.0, 0.0], device=dev)
+    log(f"{name}: torch.relu on the card maps [-0.0, nan, -1, 1, 0] to bits "
+        f"{[hex(v & 0xFFFFFFFF) for v in torch.relu(probe).view(torch.int32).tolist()]}; the kernel's clamp "
+        f"(v < 0 ? 0 : v) to {[hex(v & 0xFFFFFFFF) for v in probe.masked_fill(probe < 0, 0.0).view(torch.int32).tolist()]}")
+
+    # An activation 4 bytes into its storage: no TMA map, the producer loads the halo.
+    buf = torch.randn(2 * 17 * 19 * 32 + 1, generator=gen, device=dev)
+    x = buf[1:].view(2, 17, 19, 32)
+    if x.data_ptr() % 16 == 0:
+        raise AssertionError("the misaligned activation is aligned")
+    check("misaligned x", x, *codes((3, 3, 1, 32)))
+    log(f"{name}: {len(main)} main-path stages, {len(DW_SWEEP)} ragged shapes, special values (-0.0, NaN, "
+        f"negatives) on both load paths and a misaligned activation bitwise equal to the plain version, bitwise "
+        f"repeatable, the first and last image alone equal to them in the batch")
+    for layer, *shape in main:
+        log(f"{name} {layer} tile plan {dequant.dwconv_tile_plan(*shape)}")
+
+    row = {"max_abs_err": 0.0, "event_ms": 0.0, "plain_event_ms": 0.0, "library_event_ms": 0.0,
+           "bytes_ms": 0.0, "ops_ms": 0.0}
+    for layer, shape, args, lib, n_bytes, n_ops in cases:
+        t_k = cuda_ms(torch, lambda: dequant.dequant_dwconv3x3(*args))
+        t_p = cuda_ms(torch, lambda: dequant._dequant_dwconv3x3_plain(*args))
+        t_l = cuda_ms(torch, lib)
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        row["event_ms"] += t_k
+        row["plain_event_ms"] += t_p
+        row["library_event_ms"] += t_l
+        row["bytes_ms"] += n_bytes / HBM_BYTES_PER_S * 1e3
+        row["ops_ms"] += n_ops / FP32_FLOPS_PER_S * 1e3
+        log(f"{name} {layer} {shape}: events kernel {t_k:.4f} ms, plain {t_p:.4f} ms, F.conv2d {t_l:.4f} ms; "
+            f"bound {b_ms:.4f} ms ({b_by}) [{card}]")
+    row["bound_ms"], row["bound_by"] = max(row["bytes_ms"], row["ops_ms"]), (
+        "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations")
+    calls = [lambda a=args: dequant.dequant_dwconv3x3(*a) for _, _, args, _, _, _ in cases]
+    row["ms"] = device_ms(torch, calls, launches=len(cases))
+    row["plain_ms"] = device_ms(torch, [lambda a=args: dequant._dequant_dwconv3x3_plain(*a)
+                                        for _, _, args, _, _, _ in cases])
+    row["library_ms"] = device_ms(torch, [lib for _, _, _, lib, _, _ in cases])
+    relu_libs = [lambda a=args, lib=lib: (torch.relu(a[0]), lib()) for _, _, args, lib, _, _ in cases]
+    row["library_relu_ms"] = device_ms(torch, relu_libs)
+    row["host_us"] = wrapper_host_us(torch, dequant.dequant_dwconv3x3, cases)
+    log(f"{name} one forward ({len(cases)} launches), device time: kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, F.conv2d(groups=C) on relu(x) {row['library_ms']:.4f} ms (with torch.relu's "
+        f"launches {row['library_relu_ms']:.4f} ms); bound {row['bound_ms']:.4f} ms ({row['bound_by']}; bytes "
+        f"{row['bytes_ms']:.4f}, f32 {row['ops_ms']:.4f}), {row['bound_ms'] / row['ms']:.3f} of the bound; CUDA "
+        f"events: kernel {row['event_ms']:.4f} ms, plain {row['plain_event_ms']:.4f} ms, F.conv2d "
+        f"{row['library_event_ms']:.4f} ms [{card}]")
+    log(f"{name} wrapper host µs per call (min of 5 runs of 200 back-to-back calls per layer): "
+        f"{json.dumps(row['host_us'])} [{card}]")
+    return row
 
 
 def codes_case(torch, card: str, name: str, flavor: str, codes, cfg) -> dict:
@@ -833,9 +1006,7 @@ def serve_phase(torch, card: str, kernel_plane: str, requests: bool) -> dict:
     host = quant_mod.dequantize_variables(quant_mod.quantize_for_plane(raw, kernel_plane).tree)
     manager = ModelVersionManager(engine, host)
     rng = np.random.default_rng(1)
-    per_forward = {"dequant_matmul": len(matmul_shapes(cfg, BUCKET, BATCH)),
-                   "dequant_conv3x3": len(conv_shapes(cfg, BUCKET, BATCH)),
-                   "dequant_codes": 1}  # the forward's depthwise leaves, grouped
+    per_forward = forward_launches(cfg)
 
     # ---- the main path, counted ----
     dequant.reset_launch_counts()
@@ -1990,17 +2161,18 @@ def one_message_callers(cfg, names, port) -> dict:
 def served_batch_launches(torch, engine, payload, batch) -> tuple[dict, dict, object]:
     """One bucket batch on a quantized payload after a warm one: its
     dequant launches on the wrappers' counts and on the profiler's (15 /
-    8 / 1 per forward), a window that lost records taken again with a new
-    batch. Returns both counts and the batch's probabilities, finite and of
-    the bucket's shape."""
+    8 / 6 / 0 per forward), a window that lost records taken again with a
+    new batch. Returns both counts and the batch's probabilities, finite
+    and of the bucket's shape."""
     import numpy as np
 
+    from fedcrack_tpu_torch.configs import ModelConfig
     from fedcrack_tpu_torch.kernels import dequant
     from fedcrack_tpu_torch.obs.metrics import card_kernels, card_profile, lead_kept
 
     engine.predict_bucket(payload, batch)
     torch.cuda.synchronize()
-    want = {"dequant_matmul": 15, "dequant_conv3x3": 8, "dequant_codes": 1}
+    want = forward_launches(ModelConfig())
     seen = []
     for _ in range(PROFILE_TRIES):
         dequant.reset_launch_counts()
@@ -2204,8 +2376,7 @@ def tracked(self, *args, **kwargs):
 serve_engine.InferenceEngine.__init__ = tracked
 atexit.register(lambda: print("CLI_SHIM " + json.dumps({{
     "bce_sums_launches": bce.bce_sums.launches,
-    "dequant_launches": {{name: getattr(dequant, name).launches
-                         for name in ("dequant_matmul", "dequant_conv3x3", "dequant_codes")}},
+    "dequant_launches": {{name: getattr(dequant, name).launches for name in {kernels!r}}},
     "quantized_forwards": sum(e.quantized_forwards for e in engines),
     "first_launch_unix": first.get("bce"),
     "first_dequant_launch_unix": first.get("dequant")}}), flush=True))
@@ -2266,7 +2437,7 @@ class CliProcess:
 
     def __init__(self, label: str, module: str, args: list[str], log_dir: str):
         blocked = tuple(m for m in REFERENCE_STACK if m not in PORT_NEEDS)
-        code = CLI_SHIM.format(blocked=blocked, root=HERE, module=module)
+        code = CLI_SHIM.format(blocked=blocked, root=HERE, module=module, kernels=DEQUANT_KERNELS)
         self.label, self.path = label, os.path.join(log_dir, f"{label}.log")
         self._out = open(self.path, "w", encoding="utf-8")
         self.started = time.time()
@@ -2867,8 +3038,7 @@ def serve_cli_phase(torch, card: str, scale_interval_s: float = SERVE_SCALE_INTE
 
     # ---- what the process reported ----
     forwards = report["quantized_forwards"]
-    per_forward = {"dequant_matmul": len(matmul_shapes(cfg, BUCKET, BATCH)),
-                   "dequant_conv3x3": len(conv_shapes(cfg, BUCKET, BATCH)), "dequant_codes": 1}
+    per_forward = forward_launches(cfg)
     launches = report["dequant_launches"]
     if forwards == 0 or launches != {name: n * forwards for name, n in per_forward.items()}:
         raise AssertionError(f"dequant launches {launches} != {per_forward} per forward x {forwards}")
@@ -3240,8 +3410,7 @@ def shadow_cli_phase(torch, card: str) -> dict:
             if cpu_axes != card_axes:
                 raise AssertionError(f"v{record['version']}: the CPU engine decides {cpu_axes}, the card {card_axes}")
             bounds[record["version"]].update(cpu_iou=cpu_n["iou"], cpu_psi_max=max(cpu_n["psi"].values()))
-        per_forward = {"dequant_matmul": len(matmul_shapes(cfg, BUCKET, BATCH)),
-                       "dequant_conv3x3": len(conv_shapes(cfg, BUCKET, BATCH)), "dequant_codes": 1}
+        per_forward = forward_launches(cfg)
         forwards, launches = report["quantized_forwards"], report["dequant_launches"]
         if forwards == 0 or launches != {name: n * forwards for name, n in per_forward.items()}:
             raise AssertionError(f"dequant launches {launches} != {per_forward} per forward x {forwards}")
@@ -3512,7 +3681,7 @@ def ckpt_resume_serve_run(torch, fs: dict, card: str) -> dict:
     fits and is stopped; a new one on the same directory resumes at round 2
     with round 1's global and runs round 2; then a fused_int8
     ``ModelVersionManager(ckpt_dir=)`` installs the checkpointed version 2
-    and serves one bucket batch through the dequant kernels (15 / 8 / 1),
+    and serves one bucket batch through the dequant kernels (15 / 8 / 6 / 0),
     within phase 4's limit of a CPU engine on the same weights."""
     import dataclasses
     import tempfile
@@ -3943,7 +4112,7 @@ def serve_chaos_run(torch, card: str) -> dict:
     frame byte-equal to ``predict_tiled``. Masks are byte-equal to the card
     engine at the version each batch snapshotted, and every quantized
     forward (the retried batch's and the install gate's included) launches
-    15 / 8 / 1 dequant kernels. Returns the launches and what the leak
+    15 / 8 / 6 / 0 dequant kernels. Returns the launches and what the leak
     check repeats."""
     import dataclasses
 
@@ -3967,8 +4136,7 @@ def serve_chaos_run(torch, card: str) -> dict:
     from fedcrack_tpu_torch.serve.stream import StreamSession
 
     cfg, sc = ModelConfig(), ServeConfig(quant="int8", kernel_plane="fused_int8")
-    per_forward = {"dequant_matmul": len(matmul_shapes(cfg, BUCKET, BATCH)),
-                   "dequant_conv3x3": len(conv_shapes(cfg, BUCKET, BATCH)), "dequant_codes": 1}
+    per_forward = forward_launches(cfg)
     weights = snapped_weights(torch, cfg, sc.kernel_plane, (0, 1))
     engine = InferenceEngine(cfg, sc)
     manager = ModelVersionManager(engine, weights[0])
@@ -4266,7 +4434,7 @@ def bf16_run(torch, card: str, tmp: str, watch) -> dict:
     none`` (the bf16 reference program on cuDNN; ``watch`` runs against
     its ``/metrics``) and at ``--quant int8 --kernel-plane fused_int8``
     serving the bf16 fit's weights snapped to the code grid (the gate,
-    fused against the bf16 reference program, passes; 15 / 8 / 1 dequant
+    fused against the bf16 reference program, passes; 15 / 8 / 6 / 0 dequant
     launches per forward). The gate is also logged on phase 4's seeded
     snapped weights, where bf16 rounding flips pixels of a chaotic net."""
     import dataclasses
@@ -4335,7 +4503,7 @@ def bf16_run(torch, card: str, tmp: str, watch) -> dict:
     ref_engine = engines["bfloat16"]
     ref = bf16_serve_process(torch, card, tmp, "serve_bf16_ref", {"quant": "none"}, global0, ref_engine,
                              ref_engine.prepare(global0), watch=watch)
-    if ref["report"]["dequant_launches"] != {"dequant_matmul": 0, "dequant_conv3x3": 0, "dequant_codes": 0}:
+    if ref["report"]["dequant_launches"] != dict.fromkeys(DEQUANT_KERNELS, 0):
         raise AssertionError(f"the bf16 reference program launched dequant kernels: {ref['report']}")
     # The fused plane accumulates in float32 and the gate holds it against
     # the bf16 reference program, so on top of int8 rounding the gate sees
@@ -4361,8 +4529,7 @@ def bf16_run(torch, card: str, tmp: str, watch) -> dict:
     fused = bf16_serve_process(torch, card, tmp, "serve_bf16_fused", {"quant": "int8", "kernel_plane": "fused_int8"},
                                snapped, fused_engine,
                                fused_engine.prepare_quantized(quant_mod.quantize_for_plane(snapped, "fused_int8")))
-    per_forward = {"dequant_matmul": len(matmul_shapes(ModelConfig(), BUCKET, BATCH)),
-                   "dequant_conv3x3": len(conv_shapes(ModelConfig(), BUCKET, BATCH)), "dequant_codes": 1}
+    per_forward = forward_launches(ModelConfig())
     forwards = fused["report"]["quantized_forwards"]
     gate = fused["stats"]["quant_gate"]
     if forwards == 0 or fused["report"]["dequant_launches"] != {k: v * forwards for k, v in per_forward.items()}:
@@ -4717,7 +4884,7 @@ def tree_grpc_run(torch, ts: dict, tree: dict, card: str) -> dict:
 
 def serve_global(torch, model, weights, card: str, label: str, seed: int) -> dict:
     """A federation's global served through ``ServeConfig(quant="int8",
-    kernel_plane="fused_int8")`` at bucket 128, batch 8: 15 / 8 / 1 dequant
+    kernel_plane="fused_int8")`` at bucket 128, batch 8: 15 / 8 / 6 / 0 dequant
     launches for the forward (wrappers and profiler), and the fused output
     held to the reference plane on the same codes as phase 4 holds it."""
     import numpy as np
@@ -5909,7 +6076,7 @@ def multihost_phase(torch, card: str, slot_plane: dict, spatial: dict) -> dict:
     one-process S = 4 predict with no mask flip, and one SGD(1.0) step
     meeting phase 20's criteria (:func:`step_criteria`, the loss within
     rtol 1e-5) against the one-process S = 4 step, one ``bce_sums`` launch
-    per process. (c) The round's global served ``fused_int8`` (15 / 8 / 1).
+    per process. (c) The round's global served ``fused_int8`` (15 / 8 / 6 / 0).
     (d) The cohort round, six clients in groups of four (the last ragged),
     streamed and resident, two slots of every group per process: every
     global and metric bit-equal on both ranks and to the same cohort in
@@ -6494,7 +6661,7 @@ def kernel_launches() -> dict:
     from fedcrack_tpu_torch.ops import bce
 
     return {"bce_sums": bce.bce_sums.launches,
-            **{n: getattr(dequant, n).launches for n in ("dequant_matmul", "dequant_conv3x3", "dequant_codes")}}
+            **{n: getattr(dequant, n).launches for n in DEQUANT_KERNELS}}
 
 
 def wire_bytes() -> dict:
@@ -6937,13 +7104,13 @@ def main() -> int:
         f"{[m for m in REFERENCE_STACK if m in sys.modules and sys.modules[m] is None]}")
 
     t0 = time.monotonic()
-    libs = build.build_all([dequant.LIBRARY, dequant.CONV_LIBRARY, bce.LIBRARY])
+    libs = build.build_all([*dequant.LIBRARIES, bce.LIBRARY])
     log(f"phase 2 build: {time.monotonic() - t0:.2f} s "
         f"({', '.join(os.path.relpath(lib, HERE) for lib in libs)})")
     for lib in libs:
         with open(f"{lib}.log", encoding="utf-8") as f:
             log(f.read())
-    for lib, kernel in ((libs[0], "dequant_matmul_kernel"), (libs[1], "dequant_conv3x3_kernel")):
+    for lib, kernel in zip(libs, ("dequant_matmul_kernel", "dequant_conv3x3_kernel", "dequant_dwconv3x3_kernel")):
         with open(f"{lib}.log", encoding="utf-8") as f:
             for line in ptxas_lines(f.read(), kernel):
                 log(f"ptxas {line}")
@@ -7004,15 +7171,17 @@ def main() -> int:
     replaces = {"dequant_matmul": "fedcrack_tpu/kernels/dequant.py:88",
                 "dequant_conv3x3": ("fedcrack_tpu/kernels/dequant.py:88 "
                                     "(with fedcrack_tpu/kernels/forward.py:76, the JAX _conv3x3)"),
+                "dequant_dwconv3x3": ("fedcrack_tpu/kernels/dequant.py:175 (its _dequant_kernel, in the prologue; "
+                                      "with fedcrack_tpu/kernels/forward.py:88, the JAX _sepconv's depthwise conv)"),
                 "dequant_codes": "fedcrack_tpu/kernels/dequant.py:175"}
+    sources = {"dequant_conv3x3": "dequant_conv.cu", "dequant_dwconv3x3": "dequant_dw.cu"}
     for flavor, served in (("int8", int8), ("e4m3", fp8)):
-        for name in ("dequant_matmul", "dequant_conv3x3", "dequant_codes"):
+        for name in DEQUANT_KERNELS:
             row = rows[f"{name}[{flavor}]"]
             kernels.append({
                 "name": f"{name}[{flavor}]",
                 "route": "cuda",
-                "source": "fedcrack_tpu_torch/kernels/csrc/" + ("dequant_conv.cu" if name == "dequant_conv3x3"
-                                                                 else "dequant.cu"),
+                "source": "fedcrack_tpu_torch/kernels/csrc/" + sources.get(name, "dequant.cu"),
                 "replaces": replaces[name],
                 "launches": served["launches"][name],
                 **({"launches_phase12": swap["served_launches"][name],
@@ -7025,6 +7194,9 @@ def main() -> int:
                     "launches_phase20": spatial["served_launches"][name],
                     "launches_phase21": multihost["served_launches"][name],
                     "launches_phase23": soak["launches"][name]} if flavor == "int8" else {}),
+                # dequant_codes left the forward's path: its work runs in
+                # dequant_dwconv3x3's prologue; phase 3 launches it alone.
+                **({"on_main_path": False} if name == "dequant_codes" else {}),
                 "max_abs_err": row["max_abs_err"],
                 "ms": row["ms"],
                 "plain_ms": row["plain_ms"],
@@ -7033,6 +7205,7 @@ def main() -> int:
                 "library_ms": row["library_ms"],
                 "event_ms": row["event_ms"],
                 "library_event_ms": row["library_event_ms"],
+                **({"library_relu_ms": row["library_relu_ms"]} if name == "dequant_dwconv3x3" else {}),
                 **({"launch_floor_us": bce_row["launch_floor_us"]} if name == "dequant_codes" else {}),
             })
     kernels.append({
@@ -7085,7 +7258,7 @@ def serve_tick_sweep(ticks: list) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    build.build_all([dequant.LIBRARY, dequant.CONV_LIBRARY])
+    build.build_all(list(dequant.LIBRARIES))
     for tick in ticks:
         t0 = time.monotonic()
         out = serve_cli_phase(torch, card, scale_interval_s=tick)

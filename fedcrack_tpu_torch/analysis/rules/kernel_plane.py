@@ -5,7 +5,8 @@
   ``kernels/dequant.py``) is that the module launching a kernel ships its
   plain PyTorch version beside it: a function whose name carries
   ``_plain`` (``_dequant_matmul_plain``, ``_dequant_conv3x3_plain``,
-  ``_dequant_codes_plain``, ``_bce_sums_plain``). The wrappers take it on
+  ``_dequant_dwconv3x3_plain``, ``_dequant_codes_plain``,
+  ``_bce_sums_plain``). The wrappers take it on
   CPU tensors, the tests hold it against the JAX package, and the chip
   smoke holds each kernel against it on the card.
 

@@ -1,8 +1,8 @@
 """Fused dequantize kernels: int8 / fp8 e4m3 codes into an f32 product.
 
 Hand-written CUDA kernels for Hopper (``csrc/dequant.cu``,
-``csrc/dequant_conv.cu``) take the place of the Pallas kernels of
-``fedcrack_tpu.kernels.dequant``:
+``csrc/dequant_conv.cu``, ``csrc/dequant_dw.cu``) take the place of the
+Pallas kernels of ``fedcrack_tpu.kernels.dequant``:
 
 - :func:`dequant_matmul`: ``[M, K] f32 @ dequant([K, N] codes, [N] scales)``
   (``_matmul_kernel``), for the 1x1 convs and the stride-2 stem. One
@@ -21,9 +21,16 @@ Hand-written CUDA kernels for Hopper (``csrc/dequant.cu``,
 - :func:`dequant_codes_group`: ``float(q) * scale`` with per-last-axis
   scales for up to 16 leaves in one launch, each leaf's result a view of
   one arena, bitwise equal to its plain version (``_dequant_kernel``);
-  :func:`dequant_codes` is its one-leaf case. The fused forward expands its
-  six depthwise kernels in one call, from a :class:`CodeGroup` validated
-  once when the tree is placed.
+  :func:`dequant_codes` is its one-leaf case.
+- :func:`dequant_dwconv3x3`: the stride-1 SAME depthwise 3x3 conv of
+  ``relu(x)`` (NHWC) with ``float(q) * scale`` as its taps: the
+  ``_dequant_kernel`` work of the depthwise kernel, expanded in the
+  kernel's prologue, and the conv the JAX ``_sepconv`` leaves to XLA. A
+  producer warp loads halo tiles by TMA, zero-filled at the image's edge
+  (the SAME padding), and each lane of the consumer warps owns a channel.
+  :func:`dwconv_tile_plan` chooses its tiles. The fused forward's six
+  depthwise stages run here, so on its path the codes are never expanded
+  into device memory.
 
 The two contractions run on ``wgmma`` (bf16 operands, f32 accumulators).
 Codes are exact in bf16; the f32 activation is split into three bf16 terms
@@ -34,10 +41,13 @@ only by the order and rounding of its f32 sums: within one per-channel
 scale (the JAX package's bound), in an order fixed by K (for the conv, by
 C) alone, never by the rows or the grid. The conv orders K as (32-channel
 chunk, kh, kw, channel) against the plain version's ``(c, kh, kw)``: float
-reassociation again, within the same bound. On an H100, per bucket-256 x
-batch-8 forward, the 1x1 GEMMs are bound by device-memory bytes (0.11 ms
-at 3.35 TB/s, their K being 27 to 256) and the 3x3 convs by the three bf16
-passes (0.08 ms at 989 TFLOP/s dense). So the GEMM reads its codes once a
+reassociation again, within the same bound. The depthwise conv has no
+contraction to speak of: nine f32 multiplies and eight adds an output, in
+a fixed order, bitwise equal to its plain version. On an H100, per
+bucket-256 x batch-8 forward, the 1x1 GEMMs are bound by device-memory
+bytes (0.11 ms at 3.35 TB/s, their K being 27 to 256), the 3x3 convs by
+the three bf16 passes (0.08 ms at 989 TFLOP/s dense) and the depthwise
+convs by bytes (0.053 ms). So the GEMM reads its codes once a
 column block and keeps loads and stores of the activations in flight
 together; the conv reads each activation about once per column block from
 its halo tiles and keeps ``wgmma`` fed from a ring of TMA-loaded stages.
@@ -89,6 +99,13 @@ CONV_LIBRARY = KernelLibrary("dequant_conv", {
     "fc_dequant_conv3x3_i8": [PTR, PTR, PTR, PTR] + [I32] * 11 + [PTR],
     "fc_dequant_conv3x3_e4m3": [PTR, PTR, PTR, PTR] + [I32] * 11 + [PTR],
 })
+# x, q, scale, y; N, H, W, C; the tile plan's TH, TW, channels a unit,
+# stages, shared-memory bytes and blocks; the stream.
+DW_LIBRARY = KernelLibrary("dequant_dw", {
+    "fc_dequant_dwconv3x3_i8": [PTR, PTR, PTR, PTR] + [I32] * 10 + [PTR],
+    "fc_dequant_dwconv3x3_e4m3": [PTR, PTR, PTR, PTR] + [I32] * 10 + [PTR],
+})
+LIBRARIES = (LIBRARY, CONV_LIBRARY, DW_LIBRARY)
 
 _count_lock = threading.Lock()
 
@@ -103,6 +120,7 @@ def reset_launch_counts() -> None:
     with _count_lock:
         dequant_matmul.launches = 0
         dequant_conv3x3.launches = 0
+        dequant_dwconv3x3.launches = 0
         dequant_codes.launches = 0
 
 
@@ -420,6 +438,131 @@ def dequant_conv3x3(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> to
 
 
 dequant_conv3x3.launches = 0
+
+
+# ---- fused dequant depthwise 3x3 conv (stride 1, SAME, ReLU'd input) ----
+
+
+def _dequant_dwconv3x3_plain(
+    x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor
+) -> torch.Tensor:
+    # The kernel's arithmetic: v < 0 ? 0 : v (-0.0 and NaN pass), a zero
+    # pad, the taps float(q) * scale, then the nine shifted products summed
+    # in (dy, dx) row-major order, each product and each sum its own op.
+    n, h, w, c = x.shape
+    taps = _dequant_codes_plain(q, scale).reshape(9, c)
+    xp = F.pad(x.masked_fill(x < 0, 0.0), (0, 0, 1, 1, 1, 1))
+    acc = xp[:, :h, :w] * taps[0]
+    for t in range(1, 9):
+        dy, dx = divmod(t, 3)
+        acc = acc + xp[:, dy:dy + h, dx:dx + w] * taps[t]
+    return acc.contiguous()
+
+
+# The depthwise kernel's tiling (csrc/dequant_dw.cu): a unit of work is TH
+# x TW pixels of one image and UC channels (``chunk``), 32 of them to a
+# warp's lanes; its consumer warps take COLS columns each, so TW x UC / 32 =
+# DWCONV_SPAN, the warps times the columns.
+DWCONV_CHUNK = 32
+DWCONV_SPAN = 32
+_DW_MAX_STAGES = 4
+_DW_ALIGN = 128  # TMA's shared-memory destination
+
+
+class DwTilePlan(NamedTuple):
+    """How ``dequant_dwconv3x3_kernel`` tiles one depthwise conv: a unit of
+    work is ``th`` x ``tw`` output pixels of one image and ``chunk``
+    channels; ``stages`` halo tiles in the ring; ``units`` units, computed
+    by ``blocks`` persistent blocks (block ``b`` takes units ``b``, ``b +
+    blocks``, ...); the dynamic shared memory of a block in bytes."""
+
+    th: int
+    tw: int
+    chunk: int
+    stages: int
+    units: int
+    blocks: int
+    smem: int
+
+
+def dwconv_smem_bytes(th: int, tw: int, chunk: int, stages: int) -> int:
+    """Shared memory of a depthwise block (``dw_smem`` in
+    csrc/dequant_dw.cu): per stage the f32 halo tile of ``(th + 2) x (tw +
+    2)`` pixels of ``chunk`` channels and two barriers; the base's
+    alignment slack."""
+    return stages * ((th + 2) * (tw + 2) * chunk * 4 + 16) + _DW_ALIGN
+
+
+@functools.lru_cache(maxsize=256)
+def dwconv_tile_plan(n: int, h: int, w: int, c: int) -> DwTilePlan:
+    """The depthwise kernel's tiles for ``x [n, h, w, c]``.
+
+    No tile changes a sum: an output is its own 3x3 window's nine products
+    in a fixed order. A unit takes 64 channels where ``c`` is a multiple of
+    64 (a whole pixel of the forward's 64-channel stages: its box reads
+    contiguous rows), else 32; so 16 or 32 columns. Its rows: 16 where that
+    still gives three quarters of the SMs a unit and 8 rows would not give
+    each SM three, else 8 (on an H100 at the forward's six stages, the
+    fewer units paid off only where 8 rows left a block one or two). One
+    block an SM walks over the units, and its ring holds up to 4 halo tiles
+    (as many as fit a block's 227 KB, and no more than the block
+    computes)."""
+    if min(n, h, w, c) < 1:
+        raise ValueError(f"no depthwise tiles for an empty shape: x {(n, h, w, c)}")
+    chunk = 2 * DWCONV_CHUNK if c % (2 * DWCONV_CHUNK) == 0 else DWCONV_CHUNK
+    tw = DWCONV_SPAN * DWCONV_CHUNK // chunk
+
+    def units(th: int) -> int:
+        return n * -(-h // th) * -(-w // tw) * -(-c // chunk)
+
+    th = 16 if units(16) >= _SMS * 3 // 4 and units(8) < 3 * _SMS else 8
+    blocks = min(units(th), _SMS)
+    stages = min(-(-units(th) // blocks), _DW_MAX_STAGES)
+    while stages > 1 and dwconv_smem_bytes(th, tw, chunk, stages) > _SMEM_PER_BLOCK:
+        stages -= 1
+    return DwTilePlan(th, tw, chunk, stages, units(th), blocks, dwconv_smem_bytes(th, tw, chunk, stages))
+
+
+def dwconv_unit_origin(plan: DwTilePlan, n: int, h: int, w: int, unit: int) -> tuple[int, int, int, int]:
+    """``(image, first row, first column, first channel)`` of work unit
+    ``unit``: channel block ``unit // tiles``, then pixel tile ``unit %
+    tiles`` of the images in order, tiles row-major within an image (the
+    kernel's mapping)."""
+    tiles_w = -(-w // plan.tw)
+    per_image = tiles_w * -(-h // plan.th)
+    block, tile = divmod(unit, per_image * n)
+    img, t = divmod(tile, per_image)
+    return img, t // tiles_w * plan.th, t % tiles_w * plan.tw, block * plan.chunk
+
+
+def dequant_dwconv3x3(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``depthwise_conv3x3_SAME_stride1(relu(x [N, H, W, C] f32),
+    dequant(q [3, 3, 1, C] codes, scale [C])) -> [N, H, W, C]`` f32, a new
+    contiguous tensor. The ReLU is ``v < 0 ? 0 : v``; on the card the
+    result is bitwise equal to the plain version's."""
+    if x.ndim != 4 or q.ndim != 4 or tuple(q.shape) != (3, 3, 1, x.shape[3]):
+        raise ValueError(f"bad depthwise shapes: x {tuple(x.shape)}, q {tuple(q.shape)}")
+    if tuple(scale.shape) != (q.shape[3],):
+        raise ValueError(f"scale {tuple(scale.shape)} != per-channel ({q.shape[3]},)")
+    _check_codes(q)
+    if x.dtype != torch.float32 or scale.dtype != torch.float32:
+        raise TypeError(f"x and scale must be float32, got {x.dtype} and {scale.dtype}")
+    _check_operands(x, q, scale)
+    if x.device.type == "cpu":
+        return _dequant_dwconv3x3_plain(x, q, scale)
+    n, h, w, c = x.shape
+    y = torch.empty((n, h, w, c), dtype=torch.float32, device=x.device)
+    if y.numel() == 0:
+        return y
+    plan = dwconv_tile_plan(n, h, w, c)
+    name = "fc_dequant_dwconv3x3_i8" if q.dtype == torch.int8 else "fc_dequant_dwconv3x3_e4m3"
+    DW_LIBRARY.launch(name, x.device, x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
+                      n, h, w, c, plan.th, plan.tw, plan.chunk, plan.stages, plan.smem, plan.blocks)
+    _count(dequant_dwconv3x3)
+    return y
+
+
+dequant_dwconv3x3.launches = 0
 
 
 # ---- elementwise dequant (weight expansion without a contraction) ----

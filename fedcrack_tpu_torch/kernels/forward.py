@@ -19,28 +19,29 @@ scales):
   ``dequant_matmul``.
 - 1x1 convs (pointwise, decoder residuals, head): reshape and matmul.
 - encoder residual 1x1 stride 2 SAME: it reads exactly ``x[:, ::2, ::2]``.
-- depthwise 3x3: O(9 C) weights, all of a forward's expanded up front by
-  one :func:`~fedcrack_tpu_torch.kernels.dequant.dequant_codes_group`
-  call (from the :class:`~fedcrack_tpu_torch.kernels.dequant.CodeGroup`
-  that :func:`depthwise_group` builds once when the tree is placed) and
-  each run as a grouped conv.
+- depthwise 3x3 with the ReLU before it:
+  :func:`~fedcrack_tpu_torch.kernels.dequant.dequant_dwconv3x3` takes the
+  pre-ReLU activation and the layer's codes and scales, and expands the
+  nine taps, clamps the input and pads it (TMA's zero fill) inside the
+  kernel; its codes come from the
+  :class:`~fedcrack_tpu_torch.kernels.dequant.CodeGroup` that
+  :func:`depthwise_group` builds once when the tree is placed.
 
 Per forward at ``ModelConfig()`` that is 15 ``dequant_matmul`` launches
 (stem, 9 encoder, 4 decoder residuals, head), 8 ``dequant_conv3x3``
-launches and 1 ``dequant_codes`` launch for the 6 depthwise kernels.
-Everything accumulates in float32.
+launches, 6 ``dequant_dwconv3x3`` launches and no ``dequant_codes``
+launch. Everything accumulates in float32.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from fedcrack_tpu_torch.configs import ModelConfig
 from fedcrack_tpu_torch.kernels.dequant import (
     CodeGroup,
-    dequant_codes_group,
     dequant_conv3x3,
+    dequant_dwconv3x3,
     dequant_matmul,
     im2col3x3,
 )
@@ -81,12 +82,10 @@ def _conv3x3(x: torch.Tensor, mod: dict, *, stride: int) -> torch.Tensor:
     return y.reshape(x.shape[0], ho, wo, f) + mod["bias"]
 
 
-def _sepconv(x: torch.Tensor, kernel: torch.Tensor, mod: dict) -> torch.Tensor:
-    """``kernel``: the expanded (3, 3, 1, C) depthwise kernel of ``mod``."""
-    kern = kernel.permute(3, 2, 0, 1)  # (C, 1, 3, 3)
-    xc = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1))
-    xc = F.conv2d(xc, kern, groups=xc.shape[1])
-    return _conv1x1(xc.permute(0, 2, 3, 1), mod["pointwise"])
+def _sepconv(x: torch.Tensor, codes: tuple[torch.Tensor, torch.Tensor], mod: dict) -> torch.Tensor:
+    """``relu(x)`` through the depthwise then the pointwise conv of ``mod``;
+    ``codes``: the (3, 3, 1, C) depthwise codes of ``mod`` and their scales."""
+    return _conv1x1(dequant_dwconv3x3(x.contiguous(), *codes), mod["pointwise"])
 
 
 def _depthwise_codes(qtree: dict, config: ModelConfig) -> list[tuple[torch.Tensor, torch.Tensor]]:
@@ -129,7 +128,7 @@ def fused_predict_logits(
     ):
         raise ValueError("depthwise group was not built from this tree's depthwise codes")
     p, st = qtree["params"], qtree["batch_stats"]
-    kernels = dequant_codes_group(depthwise)
+    codes = depthwise.leaves
     x = x.to(torch.float32)
 
     x = _conv3x3(x, p["stem_conv"], stride=2)
@@ -137,11 +136,9 @@ def fused_predict_logits(
     prev = x
 
     for i in range(len(config.encoder_features)):
-        x = torch.relu(x)
-        x = _sepconv(x, kernels[2 * i], p[f"enc{i}_sep1"])
+        x = _sepconv(x, codes[2 * i], p[f"enc{i}_sep1"])  # the ReLU is the kernel's
         x = _bn(x, p[f"enc{i}_bn1"], st[f"enc{i}_bn1"])
-        x = torch.relu(x)
-        x = _sepconv(x, kernels[2 * i + 1], p[f"enc{i}_sep2"])
+        x = _sepconv(x, codes[2 * i + 1], p[f"enc{i}_sep2"])
         x = _bn(x, p[f"enc{i}_bn2"], st[f"enc{i}_bn2"])
         x = max_pool_auto(x)
         x = x + _conv1x1(prev[:, ::2, ::2, :], p[f"enc{i}_res"])

@@ -13,11 +13,17 @@ batch-8 forward. On those inputs it measures each kernel's device time
 (torch.profiler) per call and per forward, and its wrapper's host µs per
 call (the least of 5 runs of 200 back-to-back calls); and
 ``dequant_matmul``'s device time per forward again with the same codes as
-fp8 e4m3 (``dequant_matmul_e4m3``). It then profiles 5 served batches for
-their host ms, device busy ms and idle share. Last, ``bce_sums`` on seeded
-logits and masks at the train step's 16 x 128 x 128 and at 8 x 256 x 256:
-device time per call and the wrapper's host µs per call. The card's name
-and power limit go beside every run. CUDA only.
+fp8 e4m3 (``dequant_matmul_e4m3``). The depthwise stage's device time per
+forward: in a tree whose forward calls ``dequant_dwconv3x3``, its six
+launches on the recorded inputs; in a tree whose forward expands its
+depthwise codes with ``dequant_codes_group`` and runs ``torch.relu``,
+``F.pad`` and a grouped ``F.conv2d`` per stage, those kernels on the
+recorded inputs of its six ``_sepconv`` calls (as that forward wrote them)
+and the one ``dequant_codes`` launch. It then profiles 5 served batches for
+their host ms, device busy ms, kernel launches per batch and idle share.
+Last, ``bce_sums`` on seeded logits and masks at the train step's 16 x 128
+x 128 and at 8 x 256 x 256: device time per call and the wrapper's host µs
+per call. The card's name and power limit go beside every run. CUDA only.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import time
 
 BUCKET, BATCH = 256, 8
 KERNELS = ("dequant_conv3x3", "dequant_matmul")
+DW_KERNEL = "dequant_dwconv3x3"
 BCE_SHAPES = {"train_step": (16, 128, 128, 1), "256px": (8, 256, 256, 1)}
 
 
@@ -40,16 +47,17 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _device_ms(torch, fns, n: int) -> float:
-    """Device time of one pass over ``fns``, each launching one kernel: the
-    CUDA kernels, summed, over ``n`` passes after a warm one. A window that
-    lost kernel records would read short, so it is taken again (up to 3
-    times) until it holds ``n`` per call."""
+def _device_ms(torch, fns, n: int, per_pass: int | None = None) -> float:
+    """Device time of one pass over ``fns``: the CUDA kernels, summed, over
+    ``n`` passes after a warm one. A window that lost kernel records would
+    read short, so it is taken again (up to 3 times) until it holds
+    ``per_pass`` records a pass (one a call where not given)."""
     from fedcrack_tpu_torch.obs.metrics import card_kernels, card_profile
 
     for fn in fns:
         fn()
     torch.cuda.synchronize()
+    want = n * (len(fns) if per_pass is None else per_pass)
     counts = []
     for _ in range(3):
         with card_profile() as prof:
@@ -58,9 +66,9 @@ def _device_ms(torch, fns, n: int) -> float:
                     fn()
         kernels = card_kernels(prof)
         counts.append(sum(e.count for e in kernels))
-        if counts[-1] == n * len(fns):
+        if counts[-1] == want:
             return sum(e.self_device_time_total for e in kernels) / n / 1e3
-    raise RuntimeError(f"ab_conv: the profiler kept {counts} kernel records, want {n * len(fns)}")
+    raise RuntimeError(f"ab_conv: the profiler kept {counts} kernel records, want {want}")
 
 
 def _host_us(torch, fn, calls: int = 200, runs: int = 5) -> float:
@@ -98,8 +106,12 @@ def run_tree() -> dict:
     weights = engine.prepare(quant_mod.quantize_for_plane(raw, "fused_int8"))
     batch = np.random.default_rng(1).integers(0, 256, (BATCH, BUCKET, BUCKET, 3), dtype=np.uint8)
 
-    calls = {name: [] for name in KERNELS}
-    wrapped = {name: getattr(fused, name) for name in KERNELS}
+    # The depthwise stage: the kernel where this tree's forward calls it,
+    # else the parent's ReLU + pad + grouped conv and its grouped expansion.
+    stage = DW_KERNEL if hasattr(fused, DW_KERNEL) else "_sepconv"
+    recorded = KERNELS + (stage,) + (() if stage == DW_KERNEL else ("dequant_codes_group",))
+    calls = {name: [] for name in recorded}
+    wrapped = {name: getattr(fused, name) for name in recorded}
 
     def recorder(name):
         def record(*args):
@@ -107,12 +119,12 @@ def run_tree() -> dict:
             return wrapped[name](*args)
         return record
 
-    for name in KERNELS:
+    for name in recorded:
         setattr(fused, name, recorder(name))
     try:
         engine.predict_bucket(weights, batch)
     finally:
-        for name in KERNELS:
+        for name in recorded:
             setattr(fused, name, wrapped[name])
     torch.cuda.synchronize()
 
@@ -135,6 +147,8 @@ def run_tree() -> dict:
     out["dequant_matmul_e4m3"] = {"device_ms_per_forward": _device_ms(
         torch, [lambda a=a: dequant.dequant_matmul(*a) for a in e4m3], n=10)}
 
+    out["depthwise_stage"] = _depthwise_stage(torch, stage, calls)
+
     engine.predict_bucket(weights, batch)
     lat = []
     for _ in range(20):
@@ -146,11 +160,55 @@ def run_tree() -> dict:
         for _ in range(5):
             engine.predict_bucket(weights, batch)
         wall_us = (time.perf_counter() - t0) * 1e6
-    busy_us = sum(e.self_device_time_total for e in card_kernels(prof))
+    kernels = card_kernels(prof)
+    busy_us = sum(e.self_device_time_total for e in kernels)
     out["served_batch"] = {"host_ms_p50": float(np.percentile(lat, 50)), "profiled_host_ms": wall_us / 5e3,
-                           "device_busy_ms": busy_us / 5e3, "idle_share": 1 - busy_us / wall_us}
+                           "device_busy_ms": busy_us / 5e3, "idle_share": 1 - busy_us / wall_us,
+                           "launches_per_batch": sum(e.count for e in kernels) / 5}
     out["bce_sums"] = _bce_sums_run(torch)
     return out
+
+
+def _depthwise_stage(torch, stage: str, calls: dict) -> dict:
+    """The depthwise stage's device time per forward on the recorded inputs
+    (see the module docstring) and its kernel launches per forward."""
+    import torch.nn.functional as F
+
+    from fedcrack_tpu_torch.kernels import dequant
+
+    if stage == DW_KERNEL:
+        fns = [lambda a=a: dequant.dequant_dwconv3x3(*a) for a in calls[stage]]
+    else:
+        # The parent's stage: torch.relu before each _sepconv (its x is the
+        # ReLU's output, the same shape as its input), then F.pad and the
+        # grouped conv of _sepconv; and the forward's one grouped expansion.
+        def parent_stage(x, kernel):
+            relu = torch.relu(x)
+            kern = kernel.permute(3, 2, 0, 1)
+            xc = F.pad(relu.permute(0, 3, 1, 2), (1, 1, 1, 1))
+            return F.conv2d(xc, kern, groups=xc.shape[1])
+
+        fns = [lambda x=x, k=k: parent_stage(x, k) for x, k, _ in calls[stage]]
+        fns += [lambda g=g: dequant.dequant_codes_group(g) for (g,) in calls["dequant_codes_group"]]
+    launches = _kernel_count(torch, fns)
+    return {"kind": stage, "calls": len(calls[stage]),
+            "shapes": [tuple(a[0].shape) for a in calls[stage]],
+            "device_ms_per_forward": _device_ms(torch, fns, n=10, per_pass=launches),
+            "launches_per_forward": launches}
+
+
+def _kernel_count(torch, fns) -> int:
+    """Kernel records of one pass over ``fns``: the most of 3 windows (a
+    window may lose records, never gain them)."""
+    from fedcrack_tpu_torch.obs.metrics import card_kernels, card_profile
+
+    counts = []
+    for _ in range(3):
+        with card_profile() as prof:
+            for fn in fns:
+                fn()
+        counts.append(sum(e.count for e in card_kernels(prof)))
+    return max(counts)
 
 
 def _bce_sums_run(torch) -> dict:
@@ -202,6 +260,11 @@ def main(argv: list[str] | None = None) -> int:
               f"[{run['card']}]", flush=True)
         print(f"{tree}: matmul ms a call {[round(x, 5) for x in run['dequant_matmul']['device_ms_per_call']]}",
               flush=True)
+        dw, batch = run["depthwise_stage"], run["served_batch"]
+        print(f"{tree}: depthwise stage ({dw['kind']}, {dw['calls']} calls) {dw['device_ms_per_forward']:.4f} ms "
+              f"a forward in {dw['launches_per_forward']} kernels; served batch {batch['launches_per_batch']:.1f} "
+              f"kernels, device busy {batch['device_busy_ms']:.4f} ms, idle share {batch['idle_share']:.3f} "
+              f"[{run['card']}]", flush=True)
         sums = run["bce_sums"]
         print(f"{tree}: bce_sums device µs a call " + ", ".join(
             f"{label} (n={sums[label]['n']}) {sums[label]['device_us_per_call']:.4f}, host "

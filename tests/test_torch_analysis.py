@@ -449,7 +449,8 @@ def _launch_sites(src):
 
 @pytest.mark.parametrize("rel,twins", [
     ("ops/bce.py", ("_bce_sums_plain",)),
-    ("kernels/dequant.py", ("_dequant_matmul_plain", "_dequant_conv3x3_plain", "_dequant_codes_plain")),
+    ("kernels/dequant.py", ("_dequant_matmul_plain", "_dequant_conv3x3_plain", "_dequant_dwconv3x3_plain",
+                            "_dequant_codes_plain")),
 ], ids=["bce", "dequant"])
 def test_kern001_guards_each_wrapper_by_its_plain_twin(rel, twins):
     """The four routes' wrappers launch in ops/bce.py and
@@ -466,7 +467,7 @@ def test_kern001_guards_each_wrapper_by_its_plain_twin(rel, twins):
         stripped = re.sub(rf"\b{t}\b", t.replace("_plain", "_eager"), stripped)
     got = engine.lint_source(stripped, path=path)
     assert sorted(f.line for f in got) == sites
-    assert len(got) == {"ops/bce.py": 2, "kernels/dequant.py": 5}[rel]
+    assert len(got) == {"ops/bce.py": 2, "kernels/dequant.py": 7}[rel]
 
 
 # ---- TRACE001, retargeted to torch's transforms and CUDA graphs ----

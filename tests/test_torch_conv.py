@@ -376,13 +376,14 @@ def test_dequant_conv3x3_validates_and_counts_no_cpu_launch():
 def test_fused_forward_sends_stride1_convs_to_dequant_conv3x3(monkeypatch):
     """Per forward: the stem, three GEMMs per encoder block, one residual per
     decoder block and the head through dequant_matmul; two convs per decoder
-    block through dequant_conv3x3; the two depthwise kernels of every
-    encoder block expanded by one dequant_codes_group call."""
+    block through dequant_conv3x3; the two depthwise stages of every
+    encoder block through dequant_dwconv3x3, which expands their codes
+    itself (no dequant_codes_group call)."""
     from fedcrack_tpu_torch.kernels import forward
     from fedcrack_tpu_torch.serve import quant as tq
     from torch_port_helpers import TWO_BLOCK_KW, jax_variables, port_config
 
-    calls = {"dequant_matmul": 0, "dequant_conv3x3": 0, "dequant_codes_group": 0}
+    calls = {"dequant_matmul": 0, "dequant_conv3x3": 0, "dequant_dwconv3x3": 0}
 
     def counting(name):
         inner = getattr(forward, name)
@@ -400,7 +401,8 @@ def test_fused_forward_sends_stride1_convs_to_dequant_conv3x3(monkeypatch):
     forward.fused_predict_logits(qtree, torch.zeros(1, 32, 32, 3), cfg, forward.depthwise_group(qtree, cfg))
     enc, dec = len(cfg.encoder_features), len(cfg.decoder_features)
     assert calls == {"dequant_matmul": 1 + 3 * enc + dec + 1, "dequant_conv3x3": 2 * dec,
-                     "dequant_codes_group": 1}
+                     "dequant_dwconv3x3": 2 * enc}
+    assert not hasattr(forward, "dequant_codes_group")
 
 
 def test_ab_conv_measures_on_the_card_only(monkeypatch, capsys):

@@ -64,9 +64,12 @@ def test_fused_forward_matches_port_reference_program(kw, shape):
 @pytest.mark.parametrize("plane", ["fused_int8", "fp8"])
 @pytest.mark.parametrize("kw,shape", CASES, ids=IDS)
 def test_grouped_expansion_matches_leaf_by_leaf_bitwise(kw, shape, plane, monkeypatch):
-    """The forward over its depthwise kernels expanded in one group equals,
-    bitwise, the same forward with each kernel expanded on its own by the
-    plain version."""
+    """The forward, whose depthwise stages expand their codes inside
+    dequant_dwconv3x3, equals bitwise the forward whose depthwise stage is
+    relu -> F.pad -> the nine shifted taps of the kernels expanded by one
+    dequant_codes_group call on the same group."""
+    import torch.nn.functional as F
+
     from fedcrack_tpu import jaxcompat
     from fedcrack_tpu_torch.kernels import dequant, forward
 
@@ -75,11 +78,25 @@ def test_grouped_expansion_matches_leaf_by_leaf_bitwise(kw, shape, plane, monkey
     qtree, cfg = to_torch_tree(_quantized(kw, plane)), port_config(kw)
     x = torch.from_numpy(np.random.default_rng(16).uniform(0, 1, shape).astype(np.float32))
     group = forward.depthwise_group(qtree, cfg)
-    grouped = forward.fused_predict_logits(qtree, x, cfg, group)
-    monkeypatch.setattr(forward, "dequant_codes_group",
-                        lambda group: [dequant._dequant_codes_plain(q, s) for q, s in group.leaves])
-    leaf_by_leaf = forward.fused_predict_logits(qtree, x, cfg, group)
-    assert torch.equal(grouped, leaf_by_leaf)
+    fused = forward.fused_predict_logits(qtree, x, cfg, group)
+    expanded = {id(q): kern for (q, _), kern in zip(group.leaves, dequant.dequant_codes_group(group))}
+    stages = []
+
+    def expanded_stage(x, q, scale):
+        n, h, w, c = x.shape
+        taps = expanded[id(q)].reshape(9, c)
+        xp = F.pad(torch.relu(x), (0, 0, 1, 1, 1, 1))
+        acc = xp[:, :h, :w] * taps[0]
+        for t in range(1, 9):
+            dy, dx = divmod(t, 3)
+            acc = acc + xp[:, dy:dy + h, dx:dx + w] * taps[t]
+        stages.append(id(q))
+        return acc.contiguous()
+
+    monkeypatch.setattr(forward, "dequant_dwconv3x3", expanded_stage)
+    reference = forward.fused_predict_logits(qtree, x, cfg, group)
+    assert stages == [id(q) for q, _ in group.leaves]
+    assert torch.equal(fused, reference)
 
 
 def test_im2col_patch_order_matches_jax_on_a_non_square_kernel():
@@ -123,6 +140,7 @@ def test_fused_forward_counts_no_launch_on_cpu_and_refuses_layouts():
     dequant.reset_launch_counts()
     fused_predict_logits(qtree, torch.zeros(1, 32, 32, 3), cfg, group)
     assert dequant.dequant_matmul.launches == 0 and dequant.dequant_codes.launches == 0
+    assert dequant.dequant_dwconv3x3.launches == 0
     with pytest.raises(ValueError):
         fused_predict_logits(qtree, torch.zeros(1, 32, 32, 3),
                              ModelConfig(**TINY_KW, res_layout="packed"), group)
