@@ -19,7 +19,15 @@ on failure, so any failure exits non-zero and prints no result):
    plain version (the largest |kernel - plain| / scale is logged), bitwise
    equal run to run and over a launch of fewer rows (for the conv, the
    first image alone, and the last image alone, equal to the same images
-   inside the batch); each GEMM's ``matmul_tile_plan`` and conv's
+   inside the batch); then each launch with the epilogue the forward
+   gives it (its bias; the BatchNorm, ReLU, residual add and input ReLU of
+   ``forward_epilogue``), the sweep shapes with the forward's mixes in
+   turn, each of ``MATMUL_MIXES`` / ``CONV_MIXES`` on ``EPILOGUE_MATMULS``
+   / ``EPILOGUE_CONVS`` with -0.0 and NaN in x and the residual and a ReLU
+   of -0.0, bit for bit equal to the same kernel without its epilogue
+   followed by the torch ops it stands for (``check_fused``), and over
+   fewer rows or the last image alone; a misaligned residual refused; a
+   -0.0 input giving the bits of +0.0, with and without ``relu_input``; each GEMM's ``matmul_tile_plan`` and conv's
    ``conv_tile_plan``, both kernels' ``-Xptxas -v`` lines (registers,
    shared memory, spills) and both wrappers' host µs per call, logged;
    ``dequant_dwconv3x3`` at the 6 depthwise stages of that forward and a
@@ -36,10 +44,13 @@ on failure, so any failure exits non-zero and prints no result):
    depthwise kernels in one call, of a ragged group, of a group with a
    misaligned leaf, and of one-leaf calls. Per forward: device time
    (profiler) of kernel, plain version and library call (``torch.matmul``
-   / ``F.conv2d`` on channels-last input, weights expanded once, TF32 off;
-   6 x ``torch.mul(q, s)``), CUDA-event times beside them, and the bound
-   (bytes at 3.35 TB/s with A read once, or three bf16 passes at 989
-   TFLOP/s; the f32-FMA bound logged beside it);
+   / ``F.conv2d`` on channels-last input, weights expanded once, TF32 off,
+   followed by the epilogue's torch ops; 6 x ``torch.mul(q, s)``), of the
+   two contractions without their epilogues and with the torch ops after
+   them, CUDA-event times beside them, and the bound (bytes at 3.35 TB/s
+   with A and the residual read once, or three bf16 passes at 989 TFLOP/s
+   and the epilogue's f32 operations at 67; the f32-FMA bound logged
+   beside it);
 4. serve at full width (the main path): ``ModelConfig()`` with
    ``ServeConfig(quant="int8", kernel_plane="fused_int8")``, install through
    ``ModelVersionManager.install`` (the quant gate must pass at both
@@ -49,7 +60,9 @@ on failure, so any failure exits non-zero and prints no result):
    right after (15 ``dequant_matmul``, 8 ``dequant_conv3x3``, 6
    ``dequant_dwconv3x3`` and 0 ``dequant_codes`` per forward); fused vs
    reference plane on the probe
-   batch; throughput; a profile of one bucket-256 batch;
+   batch; throughput; a profile of one bucket-256 batch: its device busy
+   time, its kernels by name and count, and no kernel of the torch ops the
+   epilogues replaced (``EPILOGUE_OP_KERNELS``);
 5. the fp8 plane: the same with ``kernel_plane="fp8"``, one batch served;
 6. ``bce_sums`` vs plain at the train step's logits (16 x 128 x 128), at
    8 x 256 x 256, and over a ragged sweep: count lanes equal, BCE lanes
@@ -617,40 +630,136 @@ def check_against_plain(torch, label: str, kernel, plain, args, scale, part=None
     return float(err.max()), float((err / scale).max())
 
 
+def forward_epilogue(layer: str) -> dict:
+    """What the fused forward's launch at ``layer`` (a name of
+    ``matmul_shapes`` or ``conv_shapes``) does after the scale besides its
+    bias: a BatchNorm (the stem, the encoder's pointwise convs, the decoder
+    convs), a ReLU after it (the stem, each decoder block's first conv), a
+    residual add (the residual convs) and the ReLU of its input (each
+    decoder block's first conv)."""
+    return {"bn": layer == "stem_conv" or "_sep" in layer or "_convT" in layer,
+            "relu": layer == "stem_conv" or layer.endswith("_convT1"),
+            "residual": layer.endswith("_res"), "relu_input": layer.endswith("_convT1")}
+
+
+def make_epilogue(torch, gen, n: int, bn: bool, relu: bool):
+    """A seeded ``dequant.Epilogue`` of ``n`` channels: a bias, a BatchNorm
+    where asked (running mean, a variance in [0.5, 1.5), scale and bias;
+    its ``inv`` computed as the forward's plan computes it) and a ReLU
+    where asked."""
+    from fedcrack_tpu_torch.kernels import dequant
+    from fedcrack_tpu_torch.models.resunet import BN_EPSILON
+
+    dev = torch.device("cuda")
+
+    def vec(std):
+        return torch.randn(n, generator=gen, device=dev) * std
+
+    vectors = None
+    if bn:
+        var = torch.rand(n, generator=gen, device=dev) + 0.5
+        vectors = (vec(0.1), vec(1.0) * torch.rsqrt(var + BN_EPSILON), vec(0.1))
+    return dequant.Epilogue(bias=vec(0.1), bn=vectors, relu=relu)
+
+
+def epilogue_text(kw: dict) -> str:
+    """The steps a launch's keyword arguments fuse, as text."""
+    epi, parts = kw.get("epilogue"), []
+    if epi is not None:
+        parts += ["bias"] + ["bn"] * (epi.bn is not None) + ["relu"] * epi.relu
+    parts += ["residual"] * (kw.get("residual") is not None) + ["relu_input"] * bool(kw.get("relu_input"))
+    return "+".join(parts) or "no epilogue"
+
+
+def epilogue_f32_ops(kw: dict, outputs: int) -> int:
+    """The f32 operations of a launch's epilogue: the scale's multiply and
+    one a step (three for the BatchNorm) an output."""
+    epi = kw.get("epilogue")
+    per = 1 + (kw.get("residual") is not None)
+    if epi is not None:
+        per += 1 + 3 * (epi.bn is not None) + epi.relu
+    return per * outputs
+
+
+def unfused_args(torch, args, kw: dict) -> tuple:
+    """The launch's positional arguments for the kernel without its
+    epilogue: ``relu_input``'s ReLU taken first, by torch."""
+    return (torch.relu(args[0]),) + tuple(args[1:]) if kw.get("relu_input") else tuple(args)
+
+
+def unfused(torch, kernel, args, kw: dict):
+    """The launch without its epilogue, then the torch ops the epilogue
+    stands for: what the forward ran before the epilogues were fused."""
+    from fedcrack_tpu_torch.kernels import dequant
+
+    return dequant._torch_epilogue(kernel(*unfused_args(torch, args, kw)), kw.get("epilogue"), kw.get("residual"))
+
+
+def check_fused(torch, label: str, kernel, args, kw: dict):
+    """The launch with its epilogue bit for bit equal to :func:`unfused`
+    on the card and to itself run to run; returns its output."""
+    got = kernel(*args, **kw)
+    again = kernel(*args, **kw)
+    want = unfused(torch, kernel, args, kw)
+    torch.cuda.synchronize()
+    if not same_floats(torch, got, want):
+        diff = got.view(torch.int32) != want.view(torch.int32)
+        raise AssertionError(
+            f"{label} ({epilogue_text(kw)}): {int(diff.sum())} of {got.numel()} outputs differ from the kernel "
+            f"without its epilogue followed by the torch ops, max |diff| "
+            f"{float((got - want).abs().nan_to_num().max()):.3g}")
+    if not same_floats(torch, got, again):
+        raise AssertionError(f"{label} ({epilogue_text(kw)}): not bitwise equal run to run")
+    return got
+
+
 def time_cases(torch, card: str, name: str, kernel, plain, library: str, cases) -> dict:
-    """Times of one forward's launches of a dequant kernel. Per shape, CUDA
-    events over back-to-back calls (host-inclusive: at tens of microseconds
-    they time the wrapper as much as the kernel); per forward, device time
-    from the profiler for the kernel, its plain version and the library
-    call. Each case: (layer, shape text, args, library closure, bytes,
-    operations)."""
+    """Times of one forward's launches of a dequant kernel, each with the
+    epilogue the forward gives it. Per shape, CUDA events over back-to-back
+    calls (host-inclusive: at tens of microseconds they time the wrapper as
+    much as the kernel); per forward, device time from the profiler for the
+    kernel, its plain version, the library call followed by the torch ops
+    the epilogue stands for (``library_ms``), and the kernel without its
+    epilogue (``unfused_ms``) and with those ops after it
+    (``unfused_ops_ms``, the forward before the epilogues). Each case:
+    (layer, shape text, args, keyword args, library closure, bytes,
+    tensor-core operations, f32 operations). The bound adds the f32
+    operations' time at the f32 rate to the tensor cores'."""
     row = {"event_ms": 0.0, "plain_event_ms": 0.0, "library_event_ms": 0.0, "bound_ms": 0.0,
            "bytes_ms": 0.0, "ops_ms": 0.0, "fp32_bound_ms": 0.0}
-    for layer, shape, args, lib, n_bytes, n_flops in cases:
-        t_k = cuda_ms(torch, lambda: kernel(*args))
-        t_p = cuda_ms(torch, lambda: plain(*args))
+    for layer, shape, args, kw, lib, n_bytes, n_flops, n_f32 in cases:
+        t_k = cuda_ms(torch, lambda: kernel(*args, **kw))
+        t_p = cuda_ms(torch, lambda: plain(*args, **kw))
         t_l = cuda_ms(torch, lib)
-        b_ms, b_by = bound_ms(n_bytes, BF16_PASSES * n_flops, BF16_TC_FLOPS_PER_S)
-        f_ms, _ = bound_ms(n_bytes, n_flops)
+        ops_ms = (BF16_PASSES * n_flops / BF16_TC_FLOPS_PER_S + n_f32 / FP32_FLOPS_PER_S) * 1e3
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        b_ms, b_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+        f_ms, _ = bound_ms(n_bytes, n_flops + n_f32)
         row["event_ms"] += t_k
         row["plain_event_ms"] += t_p
         row["library_event_ms"] += t_l
         row["bound_ms"] += b_ms
         row["fp32_bound_ms"] += f_ms
-        row["bytes_ms"] += n_bytes / HBM_BYTES_PER_S * 1e3
-        row["ops_ms"] += BF16_PASSES * n_flops / BF16_TC_FLOPS_PER_S * 1e3
-        log(f"{name} {layer} {shape}: events kernel {t_k:.4f} ms, plain {t_p:.4f} ms, {library} {t_l:.4f} ms; "
-            f"bound {b_ms:.4f} ms ({b_by}), f32-FMA bound {f_ms:.4f} ms [{card}]")
-    row["ms"] = device_ms(torch, [lambda a=args: kernel(*a) for _, _, args, _, _, _ in cases],
+        row["bytes_ms"] += bytes_ms
+        row["ops_ms"] += ops_ms
+        log(f"{name} {layer} {shape} {epilogue_text(kw)}: events kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+            f"{library} {t_l:.4f} ms; bound {b_ms:.4f} ms ({b_by}), f32-FMA bound {f_ms:.4f} ms [{card}]")
+    row["ms"] = device_ms(torch, [lambda a=args, k=kw: kernel(*a, **k) for _, _, args, kw, *_ in cases],
                           launches=len(cases))
-    row["plain_ms"] = device_ms(torch, [lambda a=args: plain(*a) for _, _, args, _, _, _ in cases])
-    row["library_ms"] = device_ms(torch, [lib for _, _, _, lib, _, _ in cases])
+    row["plain_ms"] = device_ms(torch, [lambda a=args, k=kw: plain(*a, **k) for _, _, args, kw, *_ in cases])
+    row["library_ms"] = device_ms(torch, [lib for _, _, _, _, lib, *_ in cases])
+    row["unfused_ms"] = device_ms(torch, [lambda a=unfused_args(torch, args, kw): kernel(*a)
+                                          for _, _, args, kw, *_ in cases], launches=len(cases))
+    row["unfused_ops_ms"] = device_ms(torch, [lambda a=args, k=kw: unfused(torch, kernel, a, k)
+                                              for _, _, args, kw, *_ in cases])
     row["bound_by"] = "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations"
-    log(f"{name} one forward ({len(cases)} launches), device time: kernel {row['ms']:.4f} ms, "
-        f"plain {row['plain_ms']:.4f} ms, {library} {row['library_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms "
-        f"({row['bound_by']}; bytes {row['bytes_ms']:.4f}, bf16 x{BF16_PASSES} {row['ops_ms']:.4f}), "
-        f"f32-FMA bound {row['fp32_bound_ms']:.4f} ms; CUDA events: kernel {row['event_ms']:.4f} ms, "
-        f"plain {row['plain_event_ms']:.4f} ms, {library} {row['library_event_ms']:.4f} ms [{card}]")
+    log(f"{name} one forward ({len(cases)} launches with their epilogues), device time: kernel {row['ms']:.4f} "
+        f"ms, plain {row['plain_ms']:.4f} ms, {library} and the epilogue's torch ops {row['library_ms']:.4f} ms; "
+        f"the kernel without its epilogue {row['unfused_ms']:.4f} ms, with the torch ops after it "
+        f"{row['unfused_ops_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms ({row['bound_by']}; bytes "
+        f"{row['bytes_ms']:.4f}, bf16 x{BF16_PASSES} and the epilogue's f32 {row['ops_ms']:.4f}), f32-FMA bound "
+        f"{row['fp32_bound_ms']:.4f} ms; CUDA events: kernel {row['event_ms']:.4f} ms, plain "
+        f"{row['plain_event_ms']:.4f} ms, {library} {row['library_event_ms']:.4f} ms [{card}]")
     return row
 
 
@@ -675,18 +784,19 @@ def ptxas_lines(build_log: str, kernel: str) -> list[str]:
     return out
 
 
-def wrapper_host_us(torch, kernel, cases, calls: int = 200, runs: int = 5) -> dict:
-    """Host µs per call of a kernel's wrapper at each case's shape: the
+def wrapper_host_us(torch, kernel, calls_at, calls: int = 200, runs: int = 5) -> dict:
+    """Host µs per call of a kernel's wrapper at each ``(layer, args,
+    keyword args)`` of ``calls_at``: the
     least of ``runs`` walls of ``calls`` back-to-back calls, the device
     synchronised before and after each run (its queue can take them all)."""
     out = {}
-    for layer, _, args, _, _, _ in cases:
+    for layer, args, kw in calls_at:
         walls = []
         for _ in range(runs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(calls):
-                kernel(*args)
+                kernel(*args, **kw)
             walls.append((time.perf_counter() - t0) / calls * 1e6)
             torch.cuda.synchronize()
         out[layer] = min(walls)
@@ -711,11 +821,15 @@ def kernel_phase(torch, card: str) -> dict:
             leaf = leaf_fn((torch.randn(shape, generator=gen, device=dev) * 0.1).cpu().numpy())
             return leaf[key].to(dev), leaf[SKEY].to(dev)
 
-        # dequant_matmul: the 15 GEMMs of a forward, then the ragged sweep.
+        # dequant_matmul: the 15 GEMMs of a forward, then the ragged sweep;
+        # without an epilogue against the plain version, then with the
+        # forward's epilogue at its layers (its mixes in turn on the sweep)
+        # bit for bit against the same kernel followed by the epilogue's
+        # torch ops.
         name = f"dequant_matmul[{flavor}]"
         cases, errs = [], [0.0, 0.0]
         main = matmul_shapes(cfg, BUCKET, BATCH)
-        for layer, m, k, n in main + [(f"sweep{s}", *s) for s in MATMUL_SWEEP]:
+        for i, (layer, m, k, n) in enumerate(main + [(f"sweep{s}", *s) for s in MATMUL_SWEEP]):
             x = torch.randn((m, k), generator=gen, device=dev)
             q, s = codes((k, n))
             rows_part = m // 3 + 1
@@ -723,26 +837,47 @@ def kernel_phase(torch, card: str) -> dict:
                                       dequant._dequant_matmul_plain, (x, q, s), s,
                                       ((x[:rows_part].contiguous(), q, s), rows_part))
             errs = [max(a, b) for a, b in zip(errs, err)]
-            if not layer.startswith("sweep"):
+            sweep = layer.startswith("sweep")
+            steps = (dict(zip(("bn", "relu", "residual"), MATMUL_MIXES[i % len(MATMUL_MIXES)])) if sweep
+                     else forward_epilogue(layer))
+            kw = {"epilogue": make_epilogue(torch, gen, n, steps["bn"], steps["relu"])}
+            if steps["residual"]:
+                kw["residual"] = torch.randn((m, n), generator=gen, device=dev)
+            y = check_fused(torch, f"{name} {layer}", dequant.dequant_matmul, (x, q, s), kw)
+            part_kw = dict(kw, **({"residual": kw["residual"][:rows_part]} if steps["residual"] else {}))
+            if not same_floats(torch, dequant.dequant_matmul(x[:rows_part].contiguous(), q, s, **part_kw),
+                               y[:rows_part]):
+                raise AssertionError(f"{name} {layer}: with its epilogue, the leading rows change with the M")
+            if not sweep:
                 wd = q.float() * s
-                cases.append((layer, f"M={m} K={k} N={n}", (x, q, s), lambda x=x, wd=wd: torch.matmul(x, wd),
-                              4 * m * k + k * n + 4 * n + 4 * m * n, 2 * m * k * n))
+                vectors = 1 + 3 * steps["bn"]
+                cases.append((layer, f"M={m} K={k} N={n}", (x, q, s), kw,
+                              lambda x=x, wd=wd, kw=kw: dequant._torch_epilogue(
+                                  torch.matmul(x, wd), kw["epilogue"], kw.get("residual")),
+                              4 * m * k + k * n + 4 * n + 4 * m * n * (1 + steps["residual"]) + 4 * n * vectors,
+                              2 * m * k * n, epilogue_f32_ops(kw, m * n)))
+        fused = matmul_epilogue_sweep(torch, name, codes, gen)
         log(f"{name}: {len(main)} main-path GEMMs and {len(MATMUL_SWEEP)} ragged within the per-channel bound, "
-            f"bitwise repeatable; max |kernel - plain| {errs[0]:.3g}, max |kernel - plain| / scale {errs[1]:.3g}")
+            f"bitwise repeatable; max |kernel - plain| {errs[0]:.3g}, max |kernel - plain| / scale {errs[1]:.3g}; "
+            f"with epilogues ({len(main)} as the forward's, {len(MATMUL_SWEEP)} ragged with its mixes, {fused} more "
+            f"step subsets and -0.0 / NaN inputs) bitwise equal to the kernel followed by the torch ops, and over "
+            f"fewer rows")
         for layer, m, k, n in main:
             log(f"{name} {layer} tile plan {dequant.matmul_tile_plan(m, k, n)}")
         rows[name] = time_cases(torch, card, name, dequant.dequant_matmul, dequant._dequant_matmul_plain,
                                 "torch.matmul", cases)
         rows[name].update(max_abs_err=errs[0], max_err_over_scale=errs[1],
-                          host_us=wrapper_host_us(torch, dequant.dequant_matmul, cases))
+                          host_us=wrapper_host_us(torch, dequant.dequant_matmul, [c[:1] + c[2:4] for c in cases]))
         log(f"{name} wrapper host µs per call (min of 5 runs of 200 back-to-back calls per layer): "
             f"{json.dumps(rows[name]['host_us'])} [{card}]")
 
-        # dequant_conv3x3: the 8 decoder convs of a forward, then the ragged sweep.
+        # dequant_conv3x3: the 8 decoder convs of a forward, then the ragged
+        # sweep; checked as the GEMM is, the last image alone equal to it in
+        # the batch with and without the epilogue.
         name = f"dequant_conv3x3[{flavor}]"
         cases, errs = [], [0.0, 0.0]
         main = conv_shapes(cfg, BUCKET, BATCH)
-        for layer, n_img, h, w, c, f in main + [(f"sweep{s}", *s) for s in CONV_SWEEP]:
+        for i, (layer, n_img, h, w, c, f) in enumerate(main + [(f"sweep{s}", *s) for s in CONV_SWEEP]):
             x = torch.randn((n_img, h, w, c), generator=gen, device=dev)
             q, s = codes((3, 3, c, f))
             part = ((x[:1].contiguous(), q, s), 1) if n_img > 1 else None
@@ -752,23 +887,43 @@ def kernel_phase(torch, card: str) -> dict:
             if n_img > 1 and not torch.equal(dequant.dequant_conv3x3(x[-1:].contiguous(), q, s),
                                              dequant.dequant_conv3x3(x, q, s)[-1:]):
                 raise AssertionError(f"{name} {layer}: the last image alone differs from it in the batch")
-            if not layer.startswith("sweep"):
-                # cuDNN on the channels-last view of the same NHWC tensor, f32 weights expanded once.
+            sweep = layer.startswith("sweep")
+            steps = ({"relu": CONV_MIXES[i % len(CONV_MIXES)], "relu_input": i % 2 == 0} if sweep
+                     else forward_epilogue(layer))
+            kw = {"epilogue": make_epilogue(torch, gen, f, True, steps["relu"]), "relu_input": steps["relu_input"]}
+            y = check_fused(torch, f"{name} {layer}", dequant.dequant_conv3x3, (x, q, s), kw)
+            if n_img > 1:
+                if not same_floats(torch, dequant.dequant_conv3x3(x[-1:].contiguous(), q, s, **kw), y[-1:]):
+                    raise AssertionError(f"{name} {layer}: with its epilogue, the last image alone differs from it "
+                                         f"in the batch")
+            if not sweep:
+                # cuDNN on the channels-last view of the same NHWC tensor, f32 weights expanded once,
+                # then the torch ops the epilogue stands for on the NHWC view of its output.
                 w_oihw = (q.float() * s).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
                 x_nchw = x.permute(0, 3, 1, 2)
                 pixels = n_img * h * w
-                cases.append((layer, f"N={n_img} H={h} W={w} C={c} F={f}", (x, q, s),
-                              lambda x_nchw=x_nchw, w_oihw=w_oihw: F.conv2d(x_nchw, w_oihw, padding=1),
-                              4 * pixels * c + 9 * c * f + 4 * f + 4 * pixels * f, 2 * pixels * 9 * c * f))
+
+                def library(x_nchw=x_nchw, w_oihw=w_oihw, kw=kw):
+                    xin = torch.relu(x_nchw) if kw["relu_input"] else x_nchw
+                    out = F.conv2d(xin, w_oihw, padding=1).permute(0, 2, 3, 1)
+                    return dequant._torch_epilogue(out, kw["epilogue"], None)
+
+                cases.append((layer, f"N={n_img} H={h} W={w} C={c} F={f}", (x, q, s), kw, library,
+                              4 * pixels * c + 9 * c * f + 4 * f + 4 * pixels * f + 4 * f * 4,
+                              2 * pixels * 9 * c * f, epilogue_f32_ops(kw, pixels * f)))
+        fused = conv_epilogue_sweep(torch, name, codes, gen)
         log(f"{name}: {len(main)} main-path convs and {len(CONV_SWEEP)} ragged within the per-channel bound, "
             f"bitwise repeatable, an image alone equal to it in the batch; max |kernel - plain| {errs[0]:.3g}, "
-            f"max |kernel - plain| / scale {errs[1]:.3g}")
-        for (layer, *shape), (_, _, args, _, _, _) in zip(main, cases):
+            f"max |kernel - plain| / scale {errs[1]:.3g}; with epilogues ({len(main)} as the forward's, "
+            f"{len(CONV_SWEEP)} ragged with its mixes and relu_input, {fused} more cases: the mixes, -0.0 and "
+            f"NaN inputs, relu_input on -0.0) bitwise equal to the kernel followed by the torch ops, the last image "
+            f"alone equal to it in the batch")
+        for layer, *shape in main:
             log(f"{name} {layer} tile plan {dequant.conv_tile_plan(*shape)}")
         rows[name] = time_cases(torch, card, name, dequant.dequant_conv3x3, dequant._dequant_conv3x3_plain,
                                 "F.conv2d(channels_last)", cases)
         rows[name].update(max_abs_err=errs[0], max_err_over_scale=errs[1],
-                          host_us=wrapper_host_us(torch, dequant.dequant_conv3x3, cases))
+                          host_us=wrapper_host_us(torch, dequant.dequant_conv3x3, [c[:1] + c[2:4] for c in cases]))
         log(f"{name} wrapper host µs per call (min of 5 runs of 200 back-to-back calls per layer): "
             f"{json.dumps(rows[name]['host_us'])} [{card}]")
 
@@ -780,6 +935,113 @@ def kernel_phase(torch, card: str) -> dict:
         name = f"dequant_codes[{flavor}]"
         rows[name] = codes_case(torch, card, name, flavor, codes, cfg)
     return rows
+
+
+# The mixes of the forward's fused launches, each after the conv's bias:
+# the GEMM's (BatchNorm, ReLU, residual), the head's the bias alone; the
+# conv's ReLU after its BatchNorm.
+MATMUL_MIXES = [(False, False, False), (True, False, False), (True, True, False), (False, False, True)]
+CONV_MIXES = [False, True]
+# The mixes' GEMMs: the register store path (N % 4 != 0: N 33, 1, 130)
+# and the TMA one (N 8, 96), the cp.async ring (K 36, 27, 50) and TMA's (K
+# 20 is one chunk, A_SPAN); the convs: ragged grids, C 4 and 36, F 9 and 17.
+EPILOGUE_MATMULS = [(129, 36, 33), (300, 20, 8), (1000, 27, 1), (2500, 50, 130), (4000, 64, 96)]
+EPILOGUE_CONVS = [(2, 6, 6, 4, 9), (3, 9, 11, 36, 17), (2, 17, 13, 32, 40)]
+
+
+def mix_kw(torch, gen, shape: tuple, n: int, mix: tuple) -> dict:
+    """A GEMM launch's epilogue keywords for one of ``MATMUL_MIXES``, the
+    residual of ``shape``."""
+    bn, relu, residual = mix
+    kw = {"epilogue": make_epilogue(torch, gen, n, bn, relu)}
+    if residual:
+        kw["residual"] = torch.randn(shape, generator=gen, device="cuda")
+    return kw
+
+
+def negative_zero_epilogue(torch, n: int):
+    """An epilogue whose BatchNorm turns a zero accumulator into -0.0
+    before its ReLU: bias -0.0, mean +0.0, inv -1, beta -0.0."""
+    from fedcrack_tpu_torch.kernels import dequant
+
+    zeros = torch.zeros(n, device="cuda")
+    return dequant.Epilogue(bias=-zeros, bn=(zeros, -torch.ones(n, device="cuda"), -zeros), relu=True)
+
+
+def matmul_epilogue_sweep(torch, name: str, codes, gen) -> int:
+    """``dequant_matmul`` with each of ``MATMUL_MIXES`` on
+    ``EPILOGUE_MATMULS``; with the residual mix and the BatchNorm-ReLU mix
+    on inputs holding -0.0 rows and NaN in x and the residual; with zero
+    rows of x through :func:`negative_zero_epilogue` (a ReLU of -0.0): each
+    bit for bit the kernel followed by the torch ops. A residual off TMA's
+    16-byte alignment is refused. Returns the cases checked."""
+    from fedcrack_tpu_torch.kernels import dequant
+
+    count = 0
+    for m, k, n in EPILOGUE_MATMULS:
+        x = torch.randn((m, k), generator=gen, device="cuda")
+        q, s = codes((k, n))
+        for mix in MATMUL_MIXES:
+            check_fused(torch, f"{name} mix M={m} K={k} N={n}", dequant.dequant_matmul, (x, q, s),
+                        mix_kw(torch, gen, (m, n), n, mix))
+            count += 1
+        x[0] = -0.0
+        x[5, k // 2] = float("nan")
+        kw = mix_kw(torch, gen, (m, n), n, MATMUL_MIXES[3])
+        kw["residual"][1] = -0.0
+        kw["residual"][9, 0] = float("nan")
+        check_fused(torch, f"{name} special values M={m} K={k} N={n}", dequant.dequant_matmul, (x, q, s), kw)
+        check_fused(torch, f"{name} special values M={m} K={k} N={n}", dequant.dequant_matmul, (x, q, s),
+                    mix_kw(torch, gen, (m, n), n, MATMUL_MIXES[2]))
+        x[:8] = 0.0
+        check_fused(torch, f"{name} relu of -0.0 M={m} K={k} N={n}", dequant.dequant_matmul, (x, q, s),
+                    {"epilogue": negative_zero_epilogue(torch, n)})
+        buf = torch.randn(m * n + 2, generator=gen, device="cuda")
+        try:
+            dequant.dequant_matmul(x, q, s, epilogue=kw["epilogue"], residual=buf[2:].view(m, n))
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"{name} M={m} K={k} N={n}: a residual 8 bytes off TMA's alignment was launched")
+        count += 4
+    return count
+
+
+def conv_epilogue_sweep(torch, name: str, codes, gen) -> int:
+    """``dequant_conv3x3`` as :func:`matmul_epilogue_sweep` checks the GEMM
+    (each of ``CONV_MIXES`` with and without ``relu_input``), on
+    ``EPILOGUE_CONVS``; and an input holding -0.0 gives the bits the same
+    input with +0.0 gives, with and without ``relu_input``: the accumulator
+    starts at +0.0, so the sign of a zero input reaches no output. Returns
+    the cases checked."""
+    from fedcrack_tpu_torch.kernels import dequant
+
+    count = 0
+    for n_img, h, w, c, f in EPILOGUE_CONVS:
+        x = torch.randn((n_img, h, w, c), generator=gen, device="cuda")
+        q, s = codes((3, 3, c, f))
+        for relu in CONV_MIXES:
+            for relu_input in (False, True):
+                kw = {"epilogue": make_epilogue(torch, gen, f, True, relu), "relu_input": relu_input}
+                check_fused(torch, f"{name} mix {(n_img, h, w, c, f)}", dequant.dequant_conv3x3, (x, q, s), kw)
+                count += 1
+        x[0, 0] = -0.0
+        x[-1, h // 2, :, : c // 2] = -0.0
+        signed = x.clone()
+        x[n_img // 2, h // 2, w // 2, :] = float("nan")
+        kw = {"epilogue": make_epilogue(torch, gen, f, True, True), "relu_input": True}
+        check_fused(torch, f"{name} special values {(n_img, h, w, c, f)}", dequant.dequant_conv3x3, (x, q, s), kw)
+        unsigned = torch.where(signed == 0, torch.zeros_like(signed), signed)  # -0.0 -> +0.0
+        for relu_input in (False, True):
+            if not same_floats(torch, dequant.dequant_conv3x3(signed, q, s, relu_input=relu_input),
+                               dequant.dequant_conv3x3(unsigned, q, s, relu_input=relu_input)):
+                raise AssertionError(f"{name} {(n_img, h, w, c, f)}: -0.0 inputs change an output bit "
+                                     f"(relu_input={relu_input})")
+        x[:, :2] = 0.0
+        check_fused(torch, f"{name} relu of -0.0 {(n_img, h, w, c, f)}", dequant.dequant_conv3x3, (x, q, s),
+                    {"epilogue": negative_zero_epilogue(torch, f)})
+        count += 4
+    return count
 
 
 def same_floats(torch, a, b) -> bool:
@@ -899,7 +1161,7 @@ def dwconv_case(torch, card: str, name: str, codes, gen, cfg) -> dict:
     row["library_ms"] = device_ms(torch, [lib for _, _, _, lib, _, _ in cases])
     relu_libs = [lambda a=args, lib=lib: (torch.relu(a[0]), lib()) for _, _, args, lib, _, _ in cases]
     row["library_relu_ms"] = device_ms(torch, relu_libs)
-    row["host_us"] = wrapper_host_us(torch, dequant.dequant_dwconv3x3, cases)
+    row["host_us"] = wrapper_host_us(torch, dequant.dequant_dwconv3x3, [(c[0], c[2], {}) for c in cases])
     log(f"{name} one forward ({len(cases)} launches), device time: kernel {row['ms']:.4f} ms, plain "
         f"{row['plain_ms']:.4f} ms, F.conv2d(groups=C) on relu(x) {row['library_ms']:.4f} ms (with torch.relu's "
         f"launches {row['library_relu_ms']:.4f} ms); bound {row['bound_ms']:.4f} ms ({row['bound_by']}; bytes "
@@ -1114,17 +1376,28 @@ def serve_phase(torch, card: str, kernel_plane: str, requests: bool) -> dict:
             log(f"[{kernel_plane}] {name} program bucket {size} batch {BATCH}: "
                 f"{perf[f'{name}_{size}']['img_per_s']:.1f} img/s, batch latency p50 {p50:.3f} ms "
                 f"p95 {p95:.3f} ms [{card}]")
+    profile = {}
     if requests:
-        profile_batches(torch, engine, payload, rng.integers(0, 256, (BATCH, BUCKET, BUCKET, 3),
-                                                             dtype=np.uint8), card)
-    return {"launches": launches, "forwards": forwards, "perf": perf}
+        profile = profile_batches(torch, engine, payload, rng.integers(0, 256, (BATCH, BUCKET, BUCKET, 3),
+                                                                       dtype=np.uint8), card)
+    return {"launches": launches, "forwards": forwards, "perf": perf, "profile": profile}
 
 
-def profile_batches(torch, engine, weights, batch, card: str, n: int = 5) -> None:
+# Kernels of the torch ops the fused epilogues replaced (the bias, the
+# BatchNorm's sub / mul / add and its rsqrt, torch.relu, the residual add):
+# none may run in a served batch. The one scalar multiply that normalizes
+# the uint8 images is an AUnaryFunctor, not a BinaryFunctor.
+EPILOGUE_OP_KERNELS = ("CUDAFunctor_add", "BinaryFunctor<float, float, float, binary_internal::MulFunctor",
+                       "clamp", "rsqrt")
+
+
+def profile_batches(torch, engine, weights, batch, card: str, n: int = 5) -> dict:
     """Where one bucket-256 batch's time goes: CUDA kernel time by name and
-    the device's idle share of the host-clock window (torch.profiler), and
-    the batch's MFU (``obs.flops``: the canonical forward FLOPs over the
-    card's bf16 peak)."""
+    the device's idle share of the host-clock window (torch.profiler), the
+    kernels a batch launches, and the batch's MFU (``obs.flops``: the
+    canonical forward FLOPs over the card's bf16 peak). No kernel of
+    ``EPILOGUE_OP_KERNELS`` may run: the fused launches' epilogues do that
+    work."""
     import dataclasses
 
     from fedcrack_tpu_torch.obs.flops import mfu, resunet_forward_flops
@@ -1140,16 +1413,24 @@ def profile_batches(torch, engine, weights, batch, card: str, n: int = 5) -> Non
     busy_us = sum(e.self_device_time_total for e in kernels)
     if not kernels:
         log("profile: the profiler saw no CUDA kernels; device time not measured")
-        return
+        return {}
     flops = resunet_forward_flops(dataclasses.replace(engine.model_config, img_size=BUCKET), BATCH)
+    launches = sum(e.count for e in kernels) / n
     log(f"profile: {n} fused batches (bucket {BUCKET}, batch {BATCH}) in {wall_us / n / 1e3:.3f} ms "
-        f"each on the host clock, device busy {busy_us / n / 1e3:.3f} ms each, "
+        f"each on the host clock, device busy {busy_us / n / 1e3:.4f} ms each, {launches:.1f} kernels each, "
         f"idle share {1 - busy_us / wall_us:.3f}; {flops:.6g} FLOP a batch, MFU "
         f"{mfu(busy_us / n / 1e6, flops, 0):.5f} of device busy, {mfu(wall_us / n / 1e6, flops, 0):.5f} of the "
         f"host clock [{card}]")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"profile: {e.self_device_time_total / n / 1e3:8.4f} ms/batch "
             f"{e.count // n:4d} calls/batch  {e.key[:110]}")
+    log("profile: every kernel of a batch: " + "; ".join(
+        f"{e.count / n:g} x {e.key[:90]}" for e in sorted(kernels, key=lambda e: -e.count)))
+    leftover = [e.key for e in kernels if any(op in e.key for op in EPILOGUE_OP_KERNELS)]
+    if leftover:
+        raise AssertionError(f"a served batch still runs the epilogues' torch ops: {leftover}")
+    return {"launches_per_batch": launches, "device_busy_ms": busy_us / n / 1e3,
+            "host_ms": wall_us / n / 1e3}
 
 
 def bce_phase(torch, card: str) -> dict:

@@ -31,7 +31,9 @@
 //   x @ (q * scale) (the JAX bound; in code units the sums' rounding error
 //   is orders of magnitude below 1).
 // * The per-output-channel scale multiplies the finished accumulator once,
-//   in the epilogue, as the Pallas kernel does after its last K block.
+//   in the epilogue, as the Pallas kernel does after its last K block; the
+//   fused bias, BatchNorm, ReLU and residual follow it, each one correctly
+//   rounded op, bit for bit the torch ops they replace.
 // * Deterministic: every output tile owns its whole K loop, in order; no
 //   split-K, no atomics. K runs over chunks of 32, each two k16 steps; within
 //   a step the 16 k sit in the MMA's slots in a fixed order (below). So an
@@ -93,14 +95,20 @@
 //   stored in the same slots. The permutation is fixed: it reorders the
 //   step's products the same way for every entry of every launch.
 // * A TMA store epilogue. Each consumer warpgroup scales its 64 x BN
-//   accumulators once, writes them into its staging tile (the swizzle of
-//   the store's box), and one thread stores the tile with
+//   accumulators once, applies the fused epilogue (dequant_common.cuh: the
+//   bias, an eval BatchNorm, a ReLU, a residual, in a straight-line copy of
+//   the code for each mix the forward launches; the column block's rows of
+//   the host's epilogue table read through L1, prefetched there when the
+//   block's codes are loaded), writes them into its staging tile (the
+//   swizzle of the store's box), and one thread stores the tile with
 //   cp.async.bulk.tensor, clipped at M and N, and goes straight on to the
 //   next unit: the store drains while the ring's next loads are in flight.
 //   Two staging tiles alternate, so a store is waited for only two units
-//   later, before its tile is written again. Where N % 4 != 0 (the head's
+//   later, before its tile is written again. A residual (16-byte aligned)
+//   lands in the unit's staging tile by TMA in y's boxes while the K loop
+//   runs, and the epilogue adds in place. Where N % 4 != 0 (the head's
 //   N = 1) y's rows have no 16-byte stride, and the consumers store from
-//   registers, masked.
+//   registers, masked, reading the residual beside each store.
 //
 // What holds it short of its bound (PERF.md has the readings): the deep
 // GEMMs (M <= 8,192, K = 128..256) are one unit a block, so a block's loads,
@@ -127,6 +135,8 @@ using fc::b_desc;
 using fc::bf16x2_bits;
 using fc::byte_code;
 using fc::code_to_float;
+using fc::Epilogue;
+using fc::epilogue_pair;
 using fc::fence_acc;
 using fc::fence_proxy_async;
 using fc::mbar_arrive;
@@ -163,6 +173,10 @@ __host__ __device__ constexpr int codes_bytes(int k, int bn) { return k_chunks(k
 __host__ __device__ constexpr int matmul_smem(int bm, int bn, int k, int stages) {
   return stages * (stage_bytes(bm) + 16) + 2 * out_bytes(bm, bn) + codes_bytes(k, bn) + bn * 4 + ALIGN;
 }
+// What a launch with a residual adds past the plan's shared memory: a
+// residual barrier for each of up to 4 consumer warpgroups. Mirrored by
+// dequant.py's MATMUL_RESIDUAL_SMEM.
+constexpr int RESIDUAL_SMEM = 32;
 // The most K a block can hold codes for (at BN = 8, with nothing else).
 constexpr int MAX_K = SMEM_LIMIT / (8 * B_ROW_BYTES) * CHUNK;
 
@@ -283,13 +297,17 @@ enum AMode { A_TMA = 0, A_ROWS = 1, A_SPAN = 2 };
 
 // NC consumer warpgroups (threads 0 .. 128 NC - 1), each owning 64 rows of
 // a unit's BM = 64 NC, then the producer warp. store_tma: y moves by TMA
-// through y_map (else by stores from registers).
-template <typename CodeT, int BN, int NC>
+// through y_map (else by stores from registers). KIND: what follows the
+// scale (dequant_common.cuh: EPI_NONE, EPI_AFFINE with the ReLU of
+// EPI_AFFINE_RELU a select, or EPI_BIAS_RESIDUAL), an instantiation of its
+// own, so that an epilogue's code and registers are only in the kernels
+// that run it; epi: its vectors and residual ([M, N] like y).
+template <typename CodeT, int BN, int NC, int KIND>
 __global__ void __launch_bounds__(NC * WG + 32, 1)
 dequant_matmul_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap y_map,
-                      const float* __restrict__ x, const CodeT* __restrict__ q,
-                      const float* __restrict__ scale, float* __restrict__ y, int M, int K, int N,
-                      int stages, int a_mode, int store_tma) {
+                      const __grid_constant__ CUtensorMap r_map, const float* __restrict__ x,
+                      const CodeT* __restrict__ q, const float* __restrict__ scale, float* __restrict__ y,
+                      const Epilogue epi, int M, int K, int N, int stages, int a_mode, int store_tma) {
   constexpr int BM = NC * WG_ROWS;
   constexpr int STAGE = stage_bytes(BM);
   constexpr int ACC = BN / 2;
@@ -301,12 +319,14 @@ dequant_matmul_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_co
   const uint32_t base = (raw + ALIGN - 1) & ~static_cast<uint32_t>(ALIGN - 1);
   unsigned char* smem = smem_raw + (base - raw);
   // [stages] A tiles, the staging tiles ([NC][2] of 64 x BN), the codes,
-  // the scales, [stages] full barriers, [stages] empty barriers.
+  // the scales, [stages] full barriers, [stages] empty barriers, and with a
+  // residual (RESIDUAL_SMEM past the plan) [NC] residual barriers.
   const int out_off = stages * STAGE;
   const int codes_off = out_off + 2 * out_bytes(BM, BN);
   const int scales_off = codes_off + codes_bytes(K, BN);
   const uint32_t full0 = base + scales_off + BN * 4;
   const uint32_t empty0 = full0 + 8 * stages;
+  const uint32_t rbar0 = empty0 + 8 * stages;  // a residual barrier a consumer warpgroup
 
   const int mtiles = (M + BM - 1) / BM;
   const int units = mtiles * ((N + BN - 1) / BN);
@@ -316,6 +336,9 @@ dequant_matmul_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_co
     for (int s = 0; s < stages; ++s) {
       mbar_init(full0 + 8 * s, a_mode == A_TMA ? 1 : 32);  // lane 0's expect_tx, or each lane's arrival
       mbar_init(empty0 + 8 * s, NC * WG);
+    }
+    if (KIND == fc::EPI_BIAS_RESIDUAL && store_tma && epi.residual != nullptr) {
+      for (int w = 0; w < NC; ++w) mbar_init(rbar0 + 8 * w, 1);  // thread 0 of warpgroup w's expect_tx
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -381,6 +404,7 @@ dequant_matmul_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_co
   int stored = 0;  // units through the epilogue: the two staging tiles alternate
   const float* scales = reinterpret_cast<const float*>(smem + scales_off);
   const uint32_t codes_u32 = base + codes_off;
+  int rloads = 0;  // residual tiles this warpgroup's barrier has received: its phase
   uint32_t frag_a[2][3][4], frag_b[2][3][4];  // [k16 step][lo, mid, hi][fragment register], two chunks
 
   int it = 0;         // chunks consumed so far
@@ -393,9 +417,28 @@ dequant_matmul_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_co
       named_sync(1, NC * WG);  // every consumer is done with the last block's codes and scales
       load_codes<CodeT, BN, NC * WG>(q, scale, smem + codes_off, reinterpret_cast<float*>(smem + scales_off),
                                      ct, n0, K, N);
+      if constexpr (KIND != fc::EPI_NONE) fc::prefetch_vectors(epi, BN, ct, n0);
       fence_proxy_async();     // the codes, seen by wgmma
       named_sync(1, NC * WG);  // the codes are whole
       resident = col;
+    }
+
+    // A residual on the TMA store path lands by TMA through r_map (y's
+    // boxes and swizzle) in the staging tile where this unit's outputs will
+    // be written, during the K loop, and the epilogue adds in place. The
+    // tile is free once the store that last read it (two units ago) is done
+    // reading.
+    if (KIND == fc::EPI_BIAS_RESIDUAL && store_tma && epi.residual != nullptr) {
+      const int row0 = m0 + wg * WG_ROWS;
+      if (wt == 0 && row0 < M) {
+        fc::bulk_wait_read<1>();
+        mbar_arrive_expect_tx(rbar0 + 8 * wg, WG_ROWS * BN * 4);
+        const uint32_t staged_u32 = staged0_u32 + (stored & 1) * WG_ROWS * BN * 4;
+#pragma unroll
+        for (int b = 0; b < BOXES; ++b) {
+          fc::tma_load_2d(staged_u32 + b * BOX_BYTES, &r_map, rbar0 + 8 * wg, n0 + b * STORE_COLS, row0);
+        }
+      }
     }
 
     float acc[ACC];
@@ -473,22 +516,31 @@ dequant_matmul_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_co
     wgmma_wait<0>();
     fence_acc(acc);
 
-    // Epilogue: the scale multiplies the finished accumulator once.
+    // Epilogue: the scale multiplies the finished accumulator once, then
+    // the steps of epi's kind, per output.
     const int row0 = m0 + wg * WG_ROWS;
+    const bool r_staged = KIND == fc::EPI_BIAS_RESIDUAL && store_tma && epi.residual != nullptr;
+    const bool relu = epi.kind == fc::EPI_AFFINE_RELU;
     if (store_tma) {
       unsigned char* staged = staged0 + (stored & 1) * WG_ROWS * BN * 4;
       const uint32_t staged_u32 = staged0_u32 + (stored & 1) * WG_ROWS * BN * 4;
       ++stored;
-      if (wt == 0) fc::bulk_wait_read<1>();  // the store before last has read this staging tile
-      named_sync(2 + wg, WG);
+      if (r_staged && row0 < M) {
+        mbar_wait(rbar0 + 8 * wg, rloads++ & 1);  // the residual tile has landed
+      } else {
+        if (wt == 0) fc::bulk_wait_read<1>();  // the store before last has read this staging tile
+        named_sync(2 + wg, WG);
+      }
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
         const int c = 8 * j + 2 * t;
         const float2 sc = *reinterpret_cast<const float2*>(scales + c);
+        const fc::ChannelPair ch = fc::channel_pair<KIND>(epi.table + n0, epi.stride, c);
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-          *reinterpret_cast<float2*>(staged + staged_offset<BN>(warp * 16 + g + 8 * i, c)) =
-              make_float2(acc[4 * j + 2 * i] * sc.x, acc[4 * j + 2 * i + 1] * sc.y);
+          float2* at = reinterpret_cast<float2*>(staged + staged_offset<BN>(warp * 16 + g + 8 * i, c));
+          const float2 r = r_staged ? *at : make_float2(-0.0f, -0.0f);
+          *at = epilogue_pair<KIND>(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1], sc, ch, r, relu);
         }
       }
       fence_proxy_async();  // the staging tile, seen by the TMA store
@@ -509,18 +561,28 @@ dequant_matmul_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_co
         const int n = n0 + c;
         if (n >= N) continue;
         const float2 sc = *reinterpret_cast<const float2*>(scales + c);
+        const fc::ChannelPair ch = fc::channel_pair<KIND>(epi.table + n0, epi.stride, c);
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           const int m = row0 + warp * 16 + g + 8 * i;
           if (m >= M) continue;
-          float* out = y + static_cast<long long>(m) * N + n;
-          const float v0 = acc[4 * j + 2 * i] * sc.x;
-          const float v1 = acc[4 * j + 2 * i + 1] * sc.y;
+          const long long at = static_cast<long long>(m) * N + n;
+          float2 r = make_float2(-0.0f, -0.0f);
+          if (KIND == fc::EPI_BIAS_RESIDUAL && epi.residual != nullptr) {
+            if (N % 2 == 0) {
+              r = *reinterpret_cast<const float2*>(epi.residual + at);
+            } else {
+              r.x = epi.residual[at];
+              if (n + 1 < N) r.y = epi.residual[at + 1];
+            }
+          }
+          const float2 v = epilogue_pair<KIND>(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1], sc, ch, r, relu);
+          float* out = y + at;
           if (N % 2 == 0) {
-            *reinterpret_cast<float2*>(out) = make_float2(v0, v1);
+            *reinterpret_cast<float2*>(out) = v;
           } else {
-            out[0] = v0;
-            if (n + 1 < N) out[1] = v1;
+            out[0] = v.x;
+            if (n + 1 < N) out[1] = v.y;
           }
         }
       }
@@ -533,10 +595,10 @@ dequant_matmul_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_co
 
 constexpr int MAX_DEVICES = 64;
 
-template <typename CodeT, int BN, int NC>
-int launch_tile(const CUtensorMap& x_map, const CUtensorMap& y_map, const void* x, const void* q,
-                const void* scale, void* y, int M, int K, int N, int stages, int smem, int blocks,
-                int a_mode, int store_tma, cudaStream_t stream) {
+template <typename CodeT, int BN, int NC, int KIND>
+int launch_tile(const CUtensorMap& x_map, const CUtensorMap& y_map, const CUtensorMap& r_map, const void* x,
+                const void* q, const void* scale, void* y, const Epilogue& epi, int M, int K, int N, int stages,
+                int smem, int blocks, int a_mode, int store_tma, cudaStream_t stream) {
   // The shared-memory limit is raised once per device to the most a plan
   // may ask for; the launch is on the caller's current device.
   static std::atomic<bool> raised[MAX_DEVICES];
@@ -544,15 +606,34 @@ int launch_tile(const CUtensorMap& x_map, const CUtensorMap& y_map, const void* 
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device >= MAX_DEVICES || !raised[device].load(std::memory_order_acquire)) {
-    err = cudaFuncSetAttribute(dequant_matmul_kernel<CodeT, BN, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SMEM_LIMIT);
+    err = cudaFuncSetAttribute(dequant_matmul_kernel<CodeT, BN, NC, KIND>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (device < MAX_DEVICES) raised[device].store(true, std::memory_order_release);
   }
-  dequant_matmul_kernel<CodeT, BN, NC><<<blocks, NC * WG + 32, smem, stream>>>(
-      x_map, y_map, static_cast<const float*>(x), static_cast<const CodeT*>(q), static_cast<const float*>(scale),
-      static_cast<float*>(y), M, K, N, stages, a_mode, store_tma);
+  dequant_matmul_kernel<CodeT, BN, NC, KIND><<<blocks, NC * WG + 32, smem, stream>>>(
+      x_map, y_map, r_map, static_cast<const float*>(x), static_cast<const CodeT*>(q),
+      static_cast<const float*>(scale), static_cast<float*>(y), epi, M, K, N, stages, a_mode, store_tma);
   return static_cast<int>(cudaGetLastError());
+}
+
+// launch_tile of the kernel instantiation for epi's kind.
+template <typename CodeT, int BN, int NC>
+int launch_kind(const CUtensorMap& x_map, const CUtensorMap& y_map, const CUtensorMap& r_map, const void* x,
+                const void* q, const void* scale, void* y, const Epilogue& epi, int M, int K, int N, int stages,
+                int smem, int blocks, int a_mode, int store_tma, cudaStream_t stream) {
+  switch (epi.kind) {
+    case fc::EPI_AFFINE:
+    case fc::EPI_AFFINE_RELU:
+      return launch_tile<CodeT, BN, NC, fc::EPI_AFFINE>(x_map, y_map, r_map, x, q, scale, y, epi, M, K, N, stages,
+                                                          smem, blocks, a_mode, store_tma, stream);
+    case fc::EPI_BIAS_RESIDUAL:
+      return launch_tile<CodeT, BN, NC, fc::EPI_BIAS_RESIDUAL>(x_map, y_map, r_map, x, q, scale, y, epi, M, K, N,
+                                                                 stages, smem, blocks, a_mode, store_tma, stream);
+    default:
+      return launch_tile<CodeT, BN, NC, fc::EPI_NONE>(x_map, y_map, r_map, x, q, scale, y, epi, M, K, N, stages,
+                                                        smem, blocks, a_mode, store_tma, stream);
+  }
 }
 
 // A row-major [rows, cols] f32 tensor map with boxes of box_cols x
@@ -576,11 +657,11 @@ bool encode_2d(fc::EncodeTiled encode, CUtensorMap* map, const void* ptr, int ro
 // encodes the tensor maps of x (for TMA) and y (where N % 4 == 0), and
 // launches.
 template <typename CodeT>
-int launch_matmul(const void* x, const void* q, const void* scale, void* y, int M, int K, int N, int BM,
-                  int BN, int stages, int smem, int blocks, void* stream) {
+int launch_matmul(const void* x, const void* q, const void* scale, void* y, const Epilogue& epi, int M, int K,
+                  int N, int BM, int BN, int stages, int smem, int blocks, void* stream) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (M < 1 || K < 1 || N < 1 || K > MAX_K) return bad;
-  if (reinterpret_cast<uintptr_t>(y) % 16 != 0) return bad;
+  if (reinterpret_cast<uintptr_t>(y) % 16 != 0 || !fc::epilogue_ok(epi, N)) return bad;
   if ((BM != 64 && BM != 128 && BM != 256) || (BN != 8 && BN != 16 && BN != 32 && BN != 64 && BN != 128)) {
     return bad;
   }
@@ -593,20 +674,27 @@ int launch_matmul(const void* x, const void* q, const void* scale, void* y, int 
   const bool vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const int a_mode = vec ? A_TMA : K < CHUNK ? A_SPAN : A_ROWS;
   const int store_tma = N % 4 == 0;
-  CUtensorMap x_map, y_map;
+  CUtensorMap x_map, y_map, r_map;
   memset(&x_map, 0, sizeof(x_map));
   memset(&y_map, 0, sizeof(y_map));
+  memset(&r_map, 0, sizeof(r_map));
   if (vec || store_tma) {
     const fc::EncodeTiled encode = fc::encode_tiled();
     if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
     if (vec && !encode_2d(encode, &x_map, x, M, K, CHUNK, BM)) return bad;
     if (store_tma && !encode_2d(encode, &y_map, y, M, N, BN < STORE_COLS ? BN : STORE_COLS, WG_ROWS)) return bad;
+    if (store_tma && epi.residual != nullptr &&
+        !encode_2d(encode, &r_map, epi.residual, M, N, BN < STORE_COLS ? BN : STORE_COLS, WG_ROWS)) {
+      return bad;
+    }
   }
+  const int launch_smem = smem + (epi.residual != nullptr ? RESIDUAL_SMEM : 0);
+  if (launch_smem > SMEM_LIMIT) return bad;  // no room for the residual's barriers past this plan
   const auto s = static_cast<cudaStream_t>(stream);
 #define FC_TILE(BN_, NC_)                                                                                 \
   if (BN == BN_ && BM == NC_ * WG_ROWS)                                                                   \
-    return launch_tile<CodeT, BN_, NC_>(x_map, y_map, x, q, scale, y, M, K, N, stages, smem, blocks,     \
-                                        a_mode, store_tma, s);
+    return launch_kind<CodeT, BN_, NC_>(x_map, y_map, r_map, x, q, scale, y, epi, M, K, N, stages,        \
+                                        launch_smem, blocks, a_mode, store_tma, s);
   FC_TILE(8, 1) FC_TILE(16, 1) FC_TILE(32, 1) FC_TILE(64, 1) FC_TILE(128, 1)
   FC_TILE(8, 2) FC_TILE(16, 2) FC_TILE(32, 2) FC_TILE(64, 2) FC_TILE(128, 2)
   FC_TILE(8, 4) FC_TILE(16, 4) FC_TILE(32, 4)
@@ -718,14 +806,21 @@ extern "C" {
 
 // The tile plan's BM, BN, stages, shared-memory bytes and blocks come from
 // dequant.py's matmul_tile_plan; a plan this file does not launch is refused.
-int fc_dequant_matmul_i8(const void* x, const void* q, const void* scale, void* y, int M, int K, int N,
-                         int BM, int BN, int stages, int smem, int blocks, void* stream) {
-  return launch_matmul<int8_t>(x, q, scale, y, M, K, N, BM, BN, stages, smem, blocks, stream);
+// The epilogue (dequant_common.cuh): table, [4][table_stride] floats (bias,
+// mean, inv, beta), null for no epilogue; residual, [M, N] (16-byte
+// aligned) or null; kind, one of EPI_*.
+int fc_dequant_matmul_i8(const void* x, const void* q, const void* scale, void* y, const void* table,
+                         const void* residual, int table_stride, int kind, int M, int K, int N, int BM, int BN,
+                         int stages, int smem, int blocks, void* stream) {
+  return launch_matmul<int8_t>(x, q, scale, y, fc::make_epilogue(table, residual, table_stride, kind), M, K, N, BM,
+                               BN, stages, smem, blocks, stream);
 }
 
-int fc_dequant_matmul_e4m3(const void* x, const void* q, const void* scale, void* y, int M, int K, int N,
-                           int BM, int BN, int stages, int smem, int blocks, void* stream) {
-  return launch_matmul<__nv_fp8_e4m3>(x, q, scale, y, M, K, N, BM, BN, stages, smem, blocks, stream);
+int fc_dequant_matmul_e4m3(const void* x, const void* q, const void* scale, void* y, const void* table,
+                           const void* residual, int table_stride, int kind, int M, int K, int N, int BM, int BN,
+                           int stages, int smem, int blocks, void* stream) {
+  return launch_matmul<__nv_fp8_e4m3>(x, q, scale, y, fc::make_epilogue(table, residual, table_stride, kind), M, K,
+                                      N, BM, BN, stages, smem, blocks, stream);
 }
 
 // table: a CodeSegments in host memory, read before the launch returns;

@@ -1,6 +1,7 @@
 // Device helpers shared by the dequant kernels (dequant.cu, dequant_conv.cu):
 // the exact code-to-float conversion and the three-term bf16 split of an f32
-// activation, whose arithmetic both kernels' contracts rest on; and the
+// activation, whose arithmetic both kernels' contracts rest on; the fused
+// epilogue (scale, bias, BatchNorm, ReLU, residual) both apply; and the
 // Hopper machinery both are built from: mbarriers, TMA loads and stores,
 // the 64-byte swizzle of a K-major wgmma B tile and its descriptor,
 // ldmatrix, named barriers, and wgmma.mma_async with A from registers.
@@ -48,6 +49,110 @@ __device__ __forceinline__ void split3(float2 v, uint32_t& hi, uint32_t& mid, ui
   hi = bf16x2_bits(h);
   mid = bf16x2_bits(m);
   lo = bf16x2_bits(l);
+}
+
+// ---- the epilogue of the two contractions ----
+
+// What follows the scale, per output channel n, in dequant_matmul_kernel's
+// and dequant_conv3x3_kernel's epilogue (dequant.py's Epilogue), in this
+// order:
+//   v = acc * scale[n]
+//   v = v + bias[n]
+//   v = ((v - mean[n]) * inv[n]) + beta[n]   (eval BatchNorm, inv = gamma * rsqrt(var + eps))
+//   v = relu(v)                              (torch.relu's: NaN passes, fmaxf otherwise)
+//   v = r + v                                (r: the residual, in the output's layout)
+// Each step is one correctly rounded f32 operation (__fmul_rn, __fadd_rn,
+// __fsub_rn: nvcc's default -fmad=true would contract a multiply and an add
+// into an FMA), so a fused launch gives bit for bit what the launch without
+// an epilogue followed by torch's elementwise kernels gives. A launch runs
+// one of the mixes the forward has (its kind), each kind a kernel
+// instantiation of its own (EPI_AFFINE_RELU runs as EPI_AFFINE with the
+// ReLU a select), so no kind's code or registers weigh on another's:
+// * EPI_NONE: no epilogue; the scale alone.
+// * EPI_AFFINE, EPI_AFFINE_RELU: the bias and the BatchNorm, then a ReLU
+//   (the forward's stem, pointwise and decoder convs).
+// * EPI_BIAS_RESIDUAL: the bias, then the residual where there is one
+//   (-0.0 where there is none: -0.0 + v is v, bit for bit): the forward's
+//   residual convs and its head. The GEMM only.
+struct Epilogue {
+  const float* table;     // [EPI_VECTORS][stride]: bias, mean, inv, beta; null: no epilogue
+  const float* residual;  // the output's shape and layout, 16-byte aligned; null: none
+  int stride;             // a row of the table: a multiple of 128 columns, past every column block
+  int kind;               // EPI_*
+};
+
+constexpr int EPI_VECTORS = 4;  // bias, mean, inv, beta
+enum : int { EPI_NONE = 0, EPI_AFFINE, EPI_AFFINE_RELU, EPI_BIAS_RESIDUAL };
+
+// The rows of the table at columns n0 .. n0 + bn - 1 into L1, in flight
+// while the K loop runs, so the epilogue's reads of them hit (the GEMM's):
+// thread ct prefetches one 128-byte line, of row ct / lines (a column block
+// of at most 32 columns lies in one line, n0 being a multiple of its
+// width).
+__device__ __forceinline__ void prefetch_vectors(const Epilogue& e, int bn, int ct, int n0) {
+  const int lines = (bn + 31) / 32;
+  if (e.kind == EPI_NONE || ct >= EPI_VECTORS * lines) return;
+  const float* at = e.table + (ct / lines) * e.stride + n0 + (ct % lines) * 32;
+  asm volatile("prefetch.global.L1 [%0];\n" :: "l"(at));
+}
+
+// The per-channel vectors of two neighbouring output channels (the first
+// even).
+struct ChannelPair {
+  float2 bias, mean, inv, beta;
+};
+
+// Columns c and c + 1 (c even) of the rows kind K uses, of the vectors at
+// v, rows `stride` floats apart: the table in device memory (the GEMM) or
+// its column block staged in shared memory (the conv).
+template <int K>
+__device__ __forceinline__ ChannelPair channel_pair(const float* v, int stride, int c) {
+  ChannelPair p = {};
+  if constexpr (K != EPI_NONE) p.bias = *reinterpret_cast<const float2*>(v + c);
+  if constexpr (K == EPI_AFFINE) {
+    p.mean = *reinterpret_cast<const float2*>(v + stride + c);
+    p.inv = *reinterpret_cast<const float2*>(v + 2 * stride + c);
+    p.beta = *reinterpret_cast<const float2*>(v + 3 * stride + c);
+  }
+  return p;
+}
+
+// The table's columns n0 .. n0 + bn - 1 into dst ([EPI_VECTORS][bn]
+// floats, the conv's): thread ct < bn copies column n0 + ct of each row,
+// its four loads in flight together.
+__device__ __forceinline__ void stage_vectors(const Epilogue& e, float* dst, int bn, int ct, int n0) {
+  if (ct >= bn) return;
+  float v[EPI_VECTORS];
+#pragma unroll
+  for (int i = 0; i < EPI_VECTORS; ++i) v[i] = __ldg(e.table + i * e.stride + n0 + ct);
+#pragma unroll
+  for (int i = 0; i < EPI_VECTORS; ++i) dst[i * bn + ct] = v[i];
+}
+
+// torch.relu on the card: clamp_min(v, 0), which passes NaN and otherwise
+// takes max(v, 0) (so -0.0 becomes +0.0).
+__device__ __forceinline__ float relu_torch(float v) { return isnan(v) ? v : fmaxf(v, 0.0f); }
+
+// One output: the scale, then the steps of kind K (EPI_NONE, EPI_AFFINE or
+// EPI_BIAS_RESIDUAL); relu: EPI_AFFINE's ReLU, where the launch's kind is
+// EPI_AFFINE_RELU.
+template <int K>
+__device__ __forceinline__ float epilogue_value(float acc, float scale, float bias, float mean, float inv,
+                                                float beta, float r, bool relu) {
+  float v = __fmul_rn(acc, scale);
+  if constexpr (K != EPI_NONE) v = __fadd_rn(v, bias);
+  if constexpr (K == EPI_AFFINE) v = __fadd_rn(__fmul_rn(__fsub_rn(v, mean), inv), beta);
+  if constexpr (K == EPI_AFFINE) v = relu ? relu_torch(v) : v;
+  if constexpr (K == EPI_BIAS_RESIDUAL) v = __fadd_rn(r, v);
+  return v;
+}
+
+// Both outputs of a channel pair.
+template <int K>
+__device__ __forceinline__ float2 epilogue_pair(float acc0, float acc1, float2 scale, const ChannelPair& c,
+                                                float2 r, bool relu) {
+  return make_float2(epilogue_value<K>(acc0, scale.x, c.bias.x, c.mean.x, c.inv.x, c.beta.x, r.x, relu),
+                     epilogue_value<K>(acc1, scale.y, c.bias.y, c.mean.y, c.inv.y, c.beta.y, r.y, relu));
 }
 
 // One code of a 32-bit word of four 1-byte codes, byte j.
@@ -276,7 +381,24 @@ struct Mma<128> {
   }
 };
 
-// ---- host: the TMA tensor-map encoder ----
+// ---- host: the epilogue's arguments, the TMA tensor-map encoder ----
+
+inline Epilogue make_epilogue(const void* table, const void* residual, int stride, int kind) {
+  return {static_cast<const float*>(table), static_cast<const float*>(residual), stride, kind};
+}
+
+// What the kernels assume of an epilogue over n output channels: no table
+// and no residual for EPI_NONE; else a table (8-byte aligned, rows of a
+// multiple of 128 columns, at least n), and a residual only for
+// EPI_BIAS_RESIDUAL, 16-byte aligned.
+inline bool epilogue_ok(const Epilogue& e, int n) {
+  if (e.kind == EPI_NONE) return e.table == nullptr && e.residual == nullptr;
+  if (e.kind < EPI_NONE || e.kind > EPI_BIAS_RESIDUAL || e.table == nullptr) return false;
+  if (e.residual != nullptr && (e.kind != EPI_BIAS_RESIDUAL || reinterpret_cast<uintptr_t>(e.residual) % 16 != 0)) {
+    return false;
+  }
+  return reinterpret_cast<uintptr_t>(e.table) % 8 == 0 && e.stride % 128 == 0 && e.stride >= n;
+}
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,

@@ -52,9 +52,17 @@
 //   tensor cores fed while a step's wgmma wait for the one before. Splitting
 //   per chunk, not per tap, does the split's ALU work once instead of nine
 //   times.
-// * The epilogue scales the accumulators and stores them, masked at the
+// * The epilogue scales the accumulators, applies the fused epilogue
+//   (dequant_common.cuh: the bias and an eval BatchNorm, then a ReLU where
+//   the launch has one; the column block's vectors and scales staged in
+//   shared memory the launch adds past the plan's, conv_epilogue_smem,
+//   which every plan has room for) and stores them, masked at the
 //   image's edge and past F, while the producer fills the next unit's
-//   stages.
+//   stages. relu_input takes torch.relu of x as the halo is
+//   split into its planes (the ReLU before each decoder block's first conv,
+//   whose input the block's residual needs unclamped); the halo's zero fill
+//   stays +0.0, and a -0.0 input cannot reach an output bit, since every
+//   accumulator starts at +0.0.
 //
 // What holds it at ~30% of the bound: shared-memory traffic. With A in
 // registers, each k16 step reads three A fragments (ldmatrix) and the
@@ -79,6 +87,8 @@ namespace {
 using fc::b_desc;
 using fc::bf16x2_bits;
 using fc::byte_code;
+using fc::Epilogue;
+using fc::epilogue_pair;
 using fc::fence_acc;
 using fc::ldsm_x4;
 using fc::mbar_arrive;
@@ -86,6 +96,7 @@ using fc::mbar_arrive_expect_tx;
 using fc::mbar_init;
 using fc::mbar_wait;
 using fc::Mma;
+using fc::relu_torch;
 using fc::smem_u32;
 using fc::split3;
 using fc::swizzle64;
@@ -120,6 +131,10 @@ __host__ __device__ constexpr int codes_bytes(int bn) { return TAPS * tap_bytes(
 __host__ __device__ constexpr int conv_smem(int th, int tw, int bn, int stages) {
   return stages * (halo_bytes(th, tw) + codes_bytes(bn) + 16) + 3 * plane_bytes(th, tw) + HALO_ALIGN;
 }
+// What a launch with an epilogue adds past the plan's shared memory: the
+// column block's rows of the epilogue table and its scales. Mirrored by
+// dequant.py's conv_epilogue_smem.
+__host__ __device__ constexpr int conv_epilogue_smem(int bn) { return (fc::EPI_VECTORS + 1) * bn * 4; }
 
 static_assert(ROW_BYTES == fc::B_ROW_BYTES && ATOM_BYTES == fc::B_ATOM_BYTES, "the shared B layout");
 
@@ -224,11 +239,16 @@ __device__ __forceinline__ Unit unit_origin(int u, int H, int W, int N) {
   return {img, t / tiles_w * TH, t % tiles_w * TW, col * BN};
 }
 
-template <typename CodeT, int BN, int NC>
+// KIND: what follows the scale (dequant_common.cuh: EPI_NONE, or
+// EPI_AFFINE with the ReLU of EPI_AFFINE_RELU a select; no residual), an
+// instantiation of its own, so that the epilogue's code and registers are
+// only in the kernels that run it; epi: its vectors; relu_input:
+// torch.relu on x as the halo is split (the halo's zero fill stays +0.0).
+template <typename CodeT, int BN, int NC, int KIND>
 __global__ void __launch_bounds__((NC + 1) * WG, 1)
 dequant_conv3x3_kernel(const __grid_constant__ CUtensorMap x_map, const CodeT* __restrict__ q,
-                       const float* __restrict__ scale, float* __restrict__ y,
-                       int N, int H, int W, int C, int F, int stages, int vec) {
+                       const float* __restrict__ scale, float* __restrict__ y, const Epilogue epi,
+                       int relu_input, int N, int H, int W, int C, int F, int stages, int vec) {
   constexpr int TH = 8;
   constexpr int TW = 8 * NC;
   constexpr int HALO_W = TW + 2;
@@ -299,8 +319,12 @@ dequant_conv3x3_kernel(const __grid_constant__ CUtensorMap x_map, const CodeT* _
   }
   const int ld_half = lane >> 4;
   uint32_t frag[3][3][4];  // [buffer][lo, mid, hi][fragment register]
+  // The column block's epilogue vectors and scales ([EPI_VECTORS + 1][BN])
+  // past the barriers, in what the launch adds for an epilogue.
+  float* vectors = reinterpret_cast<float*>(smem + planes_off + 3 * PLANE + 16 * stages);
 
   int it = 0;
+  int resident = -1;  // the column block whose vectors are staged
   for (int u = blockIdx.x; u < units; u += gridDim.x) {
     const Unit un = unit_origin<TH, TW, BN>(u, H, W, N);
     float acc[ACC];
@@ -318,11 +342,17 @@ dequant_conv3x3_kernel(const __grid_constant__ CUtensorMap x_map, const CodeT* _
       // unit is 4 channels (16 bytes) of a pixel. The f32 tile is in TMA's
       // 128-byte swizzle; the planes are in the 64-byte one, which ldmatrix
       // reads free of bank conflicts for 8 neighbouring pixels.
-      fc::named_sync(1, NC * WG);  // every consumer warp is done with the last chunk's planes
+      fc::named_sync(1, NC * WG);  // every consumer warp is done with the last chunk's planes and epilogue
+      if (KIND != fc::EPI_NONE && un.n0 != resident) {
+        fc::stage_vectors(epi, vectors, BN, ct, un.n0);
+        if (ct < BN) vectors[fc::EPI_VECTORS * BN + ct] = un.n0 + ct < F ? __ldg(scale + un.n0 + ct) : 0.0f;
+        resident = un.n0;  // seen by the epilogue past the chunk's barriers
+      }
       for (int e = ct; e < HALO_PIXELS * (CHUNK / 4); e += NC * WG) {
         const int p = e >> 3;
         const int j = e & 7;
-        const float4 v = *reinterpret_cast<const float4*>(halo + p * PIXEL_BYTES + ((j ^ (p & 7)) << 4));
+        float4 v = *reinterpret_cast<const float4*>(halo + p * PIXEL_BYTES + ((j ^ (p & 7)) << 4));
+        if (relu_input) v = make_float4(relu_torch(v.x), relu_torch(v.y), relu_torch(v.z), relu_torch(v.w));
         uint32_t hi[2], mid[2], lo[2];
         split3(make_float2(v.x, v.y), hi[0], mid[0], lo[0]);
         split3(make_float2(v.z, v.w), hi[1], mid[1], lo[1]);
@@ -369,12 +399,19 @@ dequant_conv3x3_kernel(const __grid_constant__ CUtensorMap x_map, const CodeT* _
       mbar_arrive(empty0 + 8 * s);  // the halo tile and the codes of this stage are free
     }
 
-    // Epilogue: the scale multiplies the finished accumulator once.
+    // Epilogue: the scale multiplies the finished accumulator once, then
+    // the steps of epi's kind, per output; an epilogue's scales are staged
+    // beside its vectors.
+    const float* scales = vectors + fc::EPI_VECTORS * BN;
+    const bool relu = epi.kind == fc::EPI_AFFINE_RELU;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
-      const int n = un.n0 + 8 * j + 2 * t;
-      const float s0 = n < F ? scale[n] : 0.0f;
-      const float s1 = n + 1 < F ? scale[n + 1] : 0.0f;
+      const int c = 8 * j + 2 * t;
+      const int n = un.n0 + c;
+      const float2 sc = KIND != fc::EPI_NONE
+                            ? make_float2(scales[c], scales[c + 1])
+                            : make_float2(n < F ? scale[n] : 0.0f, n + 1 < F ? scale[n + 1] : 0.0f);
+      const fc::ChannelPair ch = fc::channel_pair<KIND>(vectors, BN, c);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int m = warp * 16 + g + 8 * i;
@@ -382,13 +419,13 @@ dequant_conv3x3_kernel(const __grid_constant__ CUtensorMap x_map, const CodeT* _
         const int w = un.w0 + m % TW;
         if (h >= H || w >= W || n >= F) continue;
         float* out = y + ((static_cast<long long>(un.img) * H + h) * W + w) * F + n;
-        const float v0 = acc[4 * j + 2 * i] * s0;
-        const float v1 = acc[4 * j + 2 * i + 1] * s1;
+        const float2 v =
+            epilogue_pair<KIND>(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1], sc, ch, make_float2(0.0f, 0.0f), relu);
         if (F % 2 == 0) {
-          *reinterpret_cast<float2*>(out) = make_float2(v0, v1);
+          *reinterpret_cast<float2*>(out) = v;
         } else {
-          out[0] = v0;
-          if (n + 1 < F) out[1] = v1;
+          out[0] = v.x;
+          if (n + 1 < F) out[1] = v.y;
         }
       }
     }
@@ -401,9 +438,10 @@ using fc::encode_tiled;
 
 constexpr int MAX_DEVICES = 64;
 
-template <typename CodeT, int BN, int NC>
-int launch_tile(const CUtensorMap& map, const void* q, const void* scale, void* y, int blocks, int N,
-                int H, int W, int C, int F, int stages, int smem, int vec, cudaStream_t stream) {
+template <typename CodeT, int BN, int NC, int KIND>
+int launch_tile(const CUtensorMap& map, const void* q, const void* scale, void* y, const Epilogue& epi,
+                int relu_input, int blocks, int N, int H, int W, int C, int F, int stages, int smem, int vec,
+                cudaStream_t stream) {
   // The shared-memory limit is raised once per device to the most a plan
   // may ask for; the launch is on the caller's current device.
   static std::atomic<bool> raised[MAX_DEVICES];
@@ -411,25 +449,40 @@ int launch_tile(const CUtensorMap& map, const void* q, const void* scale, void* 
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device >= MAX_DEVICES || !raised[device].load(std::memory_order_acquire)) {
-    err = cudaFuncSetAttribute(dequant_conv3x3_kernel<CodeT, BN, NC>,
+    err = cudaFuncSetAttribute(dequant_conv3x3_kernel<CodeT, BN, NC, KIND>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (device < MAX_DEVICES) raised[device].store(true, std::memory_order_release);
   }
-  dequant_conv3x3_kernel<CodeT, BN, NC><<<blocks, (NC + 1) * WG, smem, stream>>>(
-      map, static_cast<const CodeT*>(q), static_cast<const float*>(scale), static_cast<float*>(y),
-      N, H, W, C, F, stages, vec);
+  dequant_conv3x3_kernel<CodeT, BN, NC, KIND><<<blocks, (NC + 1) * WG, smem, stream>>>(
+      map, static_cast<const CodeT*>(q), static_cast<const float*>(scale), static_cast<float*>(y), epi,
+      relu_input, N, H, W, C, F, stages, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+// launch_tile of the kernel instantiation for epi's kind.
+template <typename CodeT, int BN, int NC>
+int launch_kind(const CUtensorMap& map, const void* q, const void* scale, void* y, const Epilogue& epi,
+                int relu_input, int blocks, int N, int H, int W, int C, int F, int stages, int smem, int vec,
+                cudaStream_t stream) {
+  if (epi.kind == fc::EPI_NONE) {
+    return launch_tile<CodeT, BN, NC, fc::EPI_NONE>(map, q, scale, y, epi, relu_input, blocks, N, H, W, C, F, stages,
+                                                      smem, vec, stream);
+  }
+  return launch_tile<CodeT, BN, NC, fc::EPI_AFFINE>(map, q, scale, y, epi, relu_input, blocks, N, H, W, C, F, stages,
+                                                      smem, vec, stream);
 }
 
 // Checks the tile plan (TH, TW, BN, stages, smem and blocks from
 // dequant.py's conv_tile_plan) against what this file launches, encodes
 // x's tensor map and launches.
 template <typename CodeT>
-int launch_conv3x3(const void* x, const void* q, const void* scale, void* y, int n_img, int H, int W,
-                   int C, int F, int TH, int TW, int BN, int stages, int smem, int blocks, void* stream) {
+int launch_conv3x3(const void* x, const void* q, const void* scale, void* y, const Epilogue& epi, int relu_input,
+                   int n_img, int H, int W, int C, int F, int TH, int TW, int BN, int stages, int smem, int blocks,
+                   void* stream) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (n_img < 1 || H < 1 || W < 1 || C < 1 || F < 1) return bad;
+  if (!fc::epilogue_ok(epi, F) || epi.kind == fc::EPI_BIAS_RESIDUAL) return bad;  // the forward's conv mixes
   if (C % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0) return bad;  // TMA's strides, address
   if (9LL * C * F >= (1LL << 31)) return bad;
   if (TH != 8 || (TW != 8 && TW != 16) || (BN != 16 && BN != 32 && BN != 64)) return bad;
@@ -454,10 +507,13 @@ int launch_conv3x3(const void* x, const void* q, const void* scale, void* y, int
     return bad;
   }
   const int vec = F % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 4 == 0;
+  const int launch_smem = smem + (epi.kind != fc::EPI_NONE ? conv_epilogue_smem(BN) : 0);
+  if (launch_smem > SMEM_LIMIT) return bad;  // every plan of conv_tile_plan has room
   const auto s = static_cast<cudaStream_t>(stream);
 #define FC_TILE(BN_, NC_)                                                                          \
   if (BN == BN_ && TW == 8 * NC_)                                                                  \
-    return launch_tile<CodeT, BN_, NC_>(map, q, scale, y, blocks, n_img, H, W, C, F, stages, smem, vec, s);
+    return launch_kind<CodeT, BN_, NC_>(map, q, scale, y, epi, relu_input, blocks, n_img, H, W, C, F, stages, \
+                                        launch_smem, vec, s);
   FC_TILE(16, 1) FC_TILE(32, 1) FC_TILE(64, 1) FC_TILE(16, 2) FC_TILE(32, 2) FC_TILE(64, 2)
 #undef FC_TILE
   return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -470,17 +526,22 @@ int launch_conv3x3(const void* x, const void* q, const void* scale, void* y, int
 // cudaGetLastError() (0 = launched) or the error that refused the launch.
 extern "C" {
 
-int fc_dequant_conv3x3_i8(const void* x, const void* q, const void* scale, void* y, int n_img, int H,
-                          int W, int C, int F, int TH, int TW, int BN, int stages, int smem, int blocks,
-                          void* stream) {
-  return launch_conv3x3<int8_t>(x, q, scale, y, n_img, H, W, C, F, TH, TW, BN, stages, smem, blocks, stream);
+// The epilogue's table, table_stride and kind as dequant.cu's
+// fc_dequant_matmul_* (EPI_NONE, EPI_AFFINE or EPI_AFFINE_RELU; no
+// residual); relu_input != 0 takes torch.relu of x as it is read.
+int fc_dequant_conv3x3_i8(const void* x, const void* q, const void* scale, void* y, const void* table,
+                          int table_stride, int kind, int relu_input, int n_img, int H, int W,
+                          int C, int F, int TH, int TW, int BN, int stages, int smem, int blocks, void* stream) {
+  return launch_conv3x3<int8_t>(x, q, scale, y, fc::make_epilogue(table, nullptr, table_stride, kind), relu_input,
+                                n_img, H, W, C, F, TH, TW, BN, stages, smem, blocks, stream);
 }
 
-int fc_dequant_conv3x3_e4m3(const void* x, const void* q, const void* scale, void* y, int n_img, int H,
+int fc_dequant_conv3x3_e4m3(const void* x, const void* q, const void* scale, void* y, const void* table,
+                            int table_stride, int kind, int relu_input, int n_img, int H,
                             int W, int C, int F, int TH, int TW, int BN, int stages, int smem, int blocks,
                             void* stream) {
-  return launch_conv3x3<__nv_fp8_e4m3>(x, q, scale, y, n_img, H, W, C, F, TH, TW, BN, stages, smem, blocks,
-                                       stream);
+  return launch_conv3x3<__nv_fp8_e4m3>(x, q, scale, y, fc::make_epilogue(table, nullptr, table_stride, kind),
+                                       relu_input, n_img, H, W, C, F, TH, TW, BN, stages, smem, blocks, stream);
 }
 
 }  // extern "C"

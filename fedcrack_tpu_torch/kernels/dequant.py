@@ -32,6 +32,19 @@ Pallas kernels of ``fedcrack_tpu.kernels.dequant``:
   depthwise stages run here, so on its path the codes are never expanded
   into device memory.
 
+Both contractions take a fused epilogue (:class:`Epilogue`): after the
+scale, each output gets its channel's bias, then, in the mixes the fused
+forward launches, an eval BatchNorm ``((v - mean) * inv) + beta`` and
+``torch.relu``, or a residual add (the GEMM only), each step one correctly
+rounded f32 operation, so a fused launch is bit for bit the launch without
+it followed by the same torch ops (:func:`_torch_epilogue`);
+``dequant_conv3x3`` can also take the ReLU of its input as it reads it
+(``relu_input``). On the card the vectors travel as one table
+(:func:`epilogue_table`, built once an :class:`Epilogue`), which the GEMM
+reads through L1 and the conv stages a column block at a time in shared
+memory past its plan's; each epilogue kind is a kernel instantiation of
+its own, and the tile plans are the same with an epilogue as without.
+
 The two contractions run on ``wgmma`` (bf16 operands, f32 accumulators).
 Codes are exact in bf16; the f32 activation is split into three bf16 terms
 (hi, mid, lo) that carry its whole significand, each term times a code is
@@ -85,19 +98,22 @@ from fedcrack_tpu_torch.ops.pooling import same_pads
 CODE_DTYPES = (torch.int8, torch.float8_e4m3fn)
 
 # Every entry point: operand pointers, sizes, then the CUDA stream. The
-# matmul's: x, q, scale, y; M, K, N; the tile plan's BM, BN, stages,
-# shared-memory bytes and blocks; the stream.
+# matmul's: x, q, scale, y; the epilogue's table and residual (each may be
+# null), the table's row stride and the epilogue's kind (_KIND_*); M, K, N;
+# the tile plan's BM, BN, stages, shared-memory bytes and blocks; the
+# stream.
 LIBRARY = KernelLibrary("dequant", {
-    "fc_dequant_matmul_i8": [PTR, PTR, PTR, PTR] + [I32] * 8 + [PTR],
-    "fc_dequant_matmul_e4m3": [PTR, PTR, PTR, PTR] + [I32] * 8 + [PTR],
+    "fc_dequant_matmul_i8": [PTR] * 6 + [I32] * 10 + [PTR],
+    "fc_dequant_matmul_e4m3": [PTR] * 6 + [I32] * 10 + [PTR],
     "fc_dequant_codes_i8": [PTR, PTR, PTR],
     "fc_dequant_codes_e4m3": [PTR, PTR, PTR],
 })
-# x, q, scale, y; N, H, W, C, F; the tile plan's TH, TW, BN, stages,
+# x, q, scale, y; the epilogue's table, its row stride and kind, then
+# relu_input; N, H, W, C, F; the tile plan's TH, TW, BN, stages,
 # shared-memory bytes and blocks; the stream.
 CONV_LIBRARY = KernelLibrary("dequant_conv", {
-    "fc_dequant_conv3x3_i8": [PTR, PTR, PTR, PTR] + [I32] * 11 + [PTR],
-    "fc_dequant_conv3x3_e4m3": [PTR, PTR, PTR, PTR] + [I32] * 11 + [PTR],
+    "fc_dequant_conv3x3_i8": [PTR] * 5 + [I32] * 14 + [PTR],
+    "fc_dequant_conv3x3_e4m3": [PTR] * 5 + [I32] * 14 + [PTR],
 })
 # x, q, scale, y; N, H, W, C; the tile plan's TH, TW, channels a unit,
 # stages, shared-memory bytes and blocks; the stream.
@@ -151,14 +167,134 @@ _SMS = 132  # H100 SXM
 _SMEM_PER_BLOCK = 232_448  # what one block may have (227 KB)
 
 
+# ---- the epilogue of the two contractions ----
+
+
+class Epilogue:
+    """What a :func:`dequant_matmul` or :func:`dequant_conv3x3` launch does
+    to each output ``v = acc * scale[n]`` of channel ``n`` before it is
+    stored, in this order: ``v + bias[n]``; where ``bn`` is given, the eval
+    BatchNorm ``((v - mean[n]) * inv[n]) + beta[n]``, then ``torch.relu``
+    where ``relu``. (A GEMM's ``residual=`` then adds ``r + v`` to an
+    epilogue without a BatchNorm.) Each step is one correctly rounded
+    float32 operation, so a fused launch equals bit for bit the launch
+    without an epilogue followed by the same torch ops
+    (:func:`_torch_epilogue`).
+
+    ``bias``: ``[N]`` float32; ``bn``: ``(mean, inv, beta)``, each ``[N]``
+    float32, ``inv = gamma * rsqrt(var + eps)`` as the caller computes it;
+    all contiguous, on one device. These are the mixes the fused forward
+    launches; a ReLU comes only after a BatchNorm. Validated once, here: a
+    launch checks only that ``N`` and the device match its own. On CUDA the
+    kernels read the vectors as one table (:func:`epilogue_table`), built
+    here once."""
+
+    __slots__ = ("bias", "bn", "relu", "n", "device", "table")
+
+    def __init__(self, *, bias: torch.Tensor,
+                 bn: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None, relu: bool = False):
+        if bn is not None and len(bn) != 3:
+            raise ValueError(f"bn wants (mean, inv, beta), got {len(bn)} tensors")
+        if relu and bn is None:
+            raise ValueError("the kernels' epilogues take a ReLU only after a BatchNorm")
+        vectors = [bias] + list(bn or ())
+        for v in vectors:
+            if not isinstance(v, torch.Tensor) or v.dtype != torch.float32 or v.ndim != 1:
+                raise TypeError(f"epilogue vectors are [N] float32 tensors, got {_describe(v)}")
+        if len({v.shape[0] for v in vectors}) > 1:
+            raise ValueError(f"epilogue vectors of different lengths: {[tuple(v.shape) for v in vectors]}")
+        _check_operands(*vectors)
+        self.bias, self.bn, self.relu = bias, None if bn is None else tuple(bn), bool(relu)
+        self.n, self.device = bias.shape[0], bias.device
+        self.table = epilogue_table(self.n, bias, self.bn) if self.device.type == "cuda" else None
+
+
+# The epilogue table's rows (csrc/dequant_common.cuh): bias, mean, inv,
+# beta, each padded to a multiple of this many columns (a column block's
+# widest), so a block's columns are always inside a row.
+EPILOGUE_TABLE_COLUMNS = 128
+
+
+def epilogue_table(n: int, bias: torch.Tensor,
+                   bn: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
+    """``[4, stride]`` float32 on ``bias``'s device: the rows bias, mean,
+    inv and beta of an epilogue of ``n`` channels (the last three zero
+    without a BatchNorm; the kernels then read none of them), ``stride``
+    ``n`` rounded up to :data:`EPILOGUE_TABLE_COLUMNS`."""
+    stride = -(-max(n, 1) // EPILOGUE_TABLE_COLUMNS) * EPILOGUE_TABLE_COLUMNS
+    table = torch.zeros((4, stride), dtype=torch.float32, device=bias.device)
+    for row, v in enumerate([bias] + list(bn or ())):
+        table[row, :n] = v
+    return table
+
+
+# The kernels' epilogue kinds (csrc/dequant_common.cuh's EPI_*): the bias
+# and the BatchNorm; the same then a ReLU; the bias then a residual where
+# there is one (the GEMM only).
+_KIND_NONE, _KIND_AFFINE, _KIND_AFFINE_RELU, _KIND_BIAS_RESIDUAL = 0, 1, 2, 3
+
+
+def _kind(epilogue: Epilogue | None) -> int:
+    if epilogue is None:
+        return _KIND_NONE
+    if epilogue.bn is None:
+        return _KIND_BIAS_RESIDUAL
+    return _KIND_AFFINE_RELU if epilogue.relu else _KIND_AFFINE
+
+
+def _describe(t) -> str:
+    return f"{t.dtype} of shape {tuple(t.shape)}" if isinstance(t, torch.Tensor) else type(t).__name__
+
+
+def _check_epilogue(epilogue: Epilogue | None, residual: torch.Tensor | None, y_shape: tuple,
+                    device: torch.device) -> None:
+    """An epilogue and a residual fit a launch whose output is ``y_shape``
+    on ``device``, in a mix the kernels run: a residual only after the
+    bias alone."""
+    if epilogue is None:
+        raise ValueError("a residual is added after the conv's bias: pass its Epilogue with it")
+    if not isinstance(epilogue, Epilogue):
+        raise TypeError(f"epilogue must be a dequant.Epilogue, got {type(epilogue).__name__}")
+    if epilogue.n != y_shape[-1] or epilogue.device != device:
+        raise ValueError(f"epilogue of {epilogue.n} channels on {epilogue.device} does not fit an output "
+                         f"{y_shape} on {device}")
+    if residual is None:
+        return
+    if epilogue.bn is not None:
+        raise ValueError("the kernels add a residual only after the bias alone, not after a BatchNorm")
+    if not isinstance(residual, torch.Tensor) or residual.dtype != torch.float32:
+        raise TypeError(f"residual must be a float32 tensor, got {_describe(residual)}")
+    if tuple(residual.shape) != tuple(y_shape):
+        raise ValueError(f"residual {tuple(residual.shape)} != output {tuple(y_shape)}")
+    if residual.device != device or not residual.is_contiguous():
+        raise ValueError(f"residual must be contiguous on {device}, got {residual.device}")
+    if device.type == "cuda" and residual.data_ptr() % 16:
+        raise ValueError("the kernel loads the residual by TMA: it must be 16-byte aligned")
+
+
+def _torch_epilogue(y: torch.Tensor, epilogue: Epilogue | None, residual: torch.Tensor | None) -> torch.Tensor:
+    # The torch ops the kernels' epilogue stands for, in its order.
+    if epilogue is not None:
+        y = y + epilogue.bias
+        if epilogue.bn is not None:
+            mean, inv, beta = epilogue.bn
+            y = (y - mean) * inv + beta
+        if epilogue.relu:
+            y = torch.relu(y)
+    if residual is not None:
+        y = residual + y
+    return y
+
+
 # ---- fused dequant-matmul ----
 
 
 def _dequant_matmul_plain(
-    x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor
+    x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *, epilogue: Epilogue | None = None,
+    residual: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    # Expand the f32 weights, then contract.
-    return x.float() @ (q.float() * scale)
+    # Expand the f32 weights, contract, then the epilogue's torch ops.
+    return _torch_epilogue(x.float() @ (q.float() * scale), epilogue, residual)
 
 
 # The matmul kernel's tiling (csrc/dequant.cu): K runs over chunks of
@@ -196,9 +332,17 @@ def matmul_smem_bytes(bm: int, bn: int, k: int, stages: int) -> int:
     per stage a chunk of ``bm`` rows of f32 and two barriers; two staged
     ``bm x bn`` f32 output tiles; the column block's codes in bf16 (a 64-byte
     row a column for each of ``ceil(k / 32)`` chunks) and its ``bn`` scales;
-    the base's alignment slack."""
+    the base's alignment slack. A launch with a residual adds
+    :data:`MATMUL_RESIDUAL_SMEM`."""
     codes = -(-k // MATMUL_CHUNK) * bn * _ROW_BYTES
     return stages * (bm * 4 * MATMUL_CHUNK + 16) + 2 * bm * bn * 4 + codes + bn * 4 + _HALO_ALIGN
+
+
+# What a matmul launch with a residual adds past its plan's shared memory:
+# a barrier for each of up to 4 consumer warpgroups (RESIDUAL_SMEM in
+# csrc/dequant.cu, which refuses a launch without that room; every plan
+# of the forward has it).
+MATMUL_RESIDUAL_SMEM = 32
 
 
 @functools.lru_cache(maxsize=256)
@@ -260,9 +404,13 @@ def matmul_unit_origin(plan: MatmulTilePlan, m: int, unit: int) -> tuple[int, in
     return tile * plan.bm, col * plan.bn
 
 
-def dequant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """``[M, K] f32 @ dequant([K, N] codes, [N] scales) -> [M, N]`` f32. On
-    CUDA, K is at most what a block's shared memory holds codes for (see
+def dequant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
+                   epilogue: Epilogue | None = None, residual: torch.Tensor | None = None) -> torch.Tensor:
+    """``[M, K] f32 @ dequant([K, N] codes, [N] scales) -> [M, N]`` f32,
+    then ``epilogue`` (an :class:`Epilogue` of N channels) and, after an
+    epilogue without a BatchNorm, ``residual + y`` (``[M, N]`` float32,
+    16-byte aligned on CUDA) where given, fused into the launch. On CUDA, K
+    is at most what a block's shared memory holds codes for (see
     :func:`matmul_tile_plan`)."""
     if x.ndim != 2 or q.ndim != 2 or x.shape[1] != q.shape[0]:
         raise ValueError(f"bad matmul shapes: x {tuple(x.shape)}, q {tuple(q.shape)}")
@@ -272,19 +420,24 @@ def dequant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> tor
     if x.dtype != torch.float32 or scale.dtype != torch.float32:
         raise TypeError(f"x and scale must be float32, got {x.dtype} and {scale.dtype}")
     _check_operands(x, q, scale)
-    if x.device.type == "cpu":
-        return _dequant_matmul_plain(x, q, scale)
     m, k = x.shape
     n = q.shape[1]
+    if epilogue is not None or residual is not None:
+        _check_epilogue(epilogue, residual, (m, n), x.device)
+    table = None if epilogue is None else epilogue.table
+    if x.device.type == "cpu":
+        return _dequant_matmul_plain(x, q, scale, epilogue=epilogue, residual=residual)
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return y
     if k == 0:
-        return y.zero_()
+        return _torch_epilogue(y.zero_(), epilogue, residual)
     plan = matmul_tile_plan(m, k, n)
     name = "fc_dequant_matmul_i8" if q.dtype == torch.int8 else "fc_dequant_matmul_e4m3"
-    LIBRARY.launch(name, x.device, x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(), m, k, n,
-                   plan.bm, plan.bn, plan.stages, plan.smem, plan.blocks)
+    LIBRARY.launch(name, x.device, x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
+                   None if table is None else table.data_ptr(), None if residual is None else residual.data_ptr(),
+                   0 if table is None else table.shape[1], _kind(epilogue), m, k, n, plan.bm, plan.bn,
+                   plan.stages, plan.smem, plan.blocks)
     _count(dequant_matmul)
     return y
 
@@ -310,14 +463,15 @@ def im2col3x3(x: torch.Tensor, stride: int) -> tuple[torch.Tensor, int, int]:
 
 
 def _dequant_conv3x3_plain(
-    x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor
+    x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *, epilogue: Epilogue | None = None,
+    relu_input: bool = False,
 ) -> torch.Tensor:
     # Patches in (C, kh, kw) order, so the HWIO codes permute to match.
     n, h, w, _ = x.shape
     c, f = q.shape[2], q.shape[3]
-    rows, _, _ = im2col3x3(x, 1)
+    rows, _, _ = im2col3x3(torch.relu(x) if relu_input else x, 1)
     q2 = q.permute(2, 0, 1, 3).reshape(c * 9, f)
-    return _dequant_matmul_plain(rows, q2, scale).reshape(n, h, w, f)
+    return _torch_epilogue(_dequant_matmul_plain(rows, q2, scale).reshape(n, h, w, f), epilogue, None)
 
 
 # The conv kernel's tiling (csrc/dequant_conv.cu): K runs over chunks of
@@ -356,6 +510,14 @@ def conv_smem_bytes(th: int, tw: int, bn: int, stages: int) -> int:
     plane = -(-pixels * _ROW_BYTES // _HALO_ALIGN) * _HALO_ALIGN
     codes = 9 * bn * _ROW_BYTES
     return stages * (halo + codes + 16) + 3 * plane + _HALO_ALIGN
+
+
+def conv_epilogue_smem(bn: int) -> int:
+    """What a conv launch with an epilogue adds past its plan's shared
+    memory (``conv_epilogue_smem`` in csrc/dequant_conv.cu): the column
+    block's rows of the epilogue table and its scales. Every plan
+    :func:`conv_tile_plan` makes has room for it."""
+    return (4 + 1) * bn * 4
 
 
 @functools.lru_cache(maxsize=256)
@@ -404,10 +566,15 @@ def conv_unit_origin(plan: ConvTilePlan, n: int, h: int, w: int, unit: int) -> t
     return img, t // tiles_w * plan.th, t % tiles_w * plan.tw, col * plan.bn
 
 
-def dequant_conv3x3(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def dequant_conv3x3(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
+                    epilogue: Epilogue | None = None, relu_input: bool = False) -> torch.Tensor:
     """``conv3x3_SAME_stride1(x [N, H, W, C] f32, dequant(q [3, 3, C, F]
-    codes, scale [F])) -> [N, H, W, F]`` f32. On CUDA, C must be a multiple
-    of 4 and x 16-byte aligned (what the kernel's TMA loads address)."""
+    codes, scale [F])) -> [N, H, W, F]`` f32, then ``epilogue`` (an
+    :class:`Epilogue` of F channels with a BatchNorm, as the forward's
+    decoder convs have) where given, fused into the launch; ``relu_input``
+    convolves ``torch.relu(x)`` instead, taken as the kernel reads x. On
+    CUDA, C must be a multiple of 4 and x 16-byte aligned (what the
+    kernel's TMA loads address)."""
     if x.ndim != 4 or q.ndim != 4 or tuple(q.shape[:2]) != (3, 3) or q.shape[2] != x.shape[3]:
         raise ValueError(f"bad conv shapes: x {tuple(x.shape)}, q {tuple(q.shape)}")
     if tuple(scale.shape) != (q.shape[3],):
@@ -419,9 +586,13 @@ def dequant_conv3x3(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> to
     if x.device.type != "cpu" and c % 4:
         raise ValueError(f"dequant_conv3x3 on {x.device} wants C a multiple of 4, got C={c}")
     _check_operands(x, q, scale)
-    if x.device.type == "cpu":
-        return _dequant_conv3x3_plain(x, q, scale)
     f = q.shape[3]
+    if epilogue is not None:
+        _check_epilogue(epilogue, None, (n, h, w, f), x.device)
+        if epilogue.bn is None:
+            raise ValueError("dequant_conv3x3's epilogue is the decoder convs': a bias and a BatchNorm")
+    if x.device.type == "cpu":
+        return _dequant_conv3x3_plain(x, q, scale, epilogue=epilogue, relu_input=relu_input)
     if x.data_ptr() % 16:
         raise ValueError("dequant_conv3x3 wants a 16-byte aligned activation")
     if 9 * c * f >= 2**31:
@@ -432,7 +603,9 @@ def dequant_conv3x3(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> to
     plan = conv_tile_plan(n, h, w, c, f)
     name = "fc_dequant_conv3x3_i8" if q.dtype == torch.int8 else "fc_dequant_conv3x3_e4m3"
     CONV_LIBRARY.launch(name, x.device, x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
-                        n, h, w, c, f, plan.th, plan.tw, plan.bn, plan.stages, plan.smem, plan.blocks)
+                        None if epilogue is None else epilogue.table.data_ptr(),
+                        0 if epilogue is None else epilogue.table.shape[1], _kind(epilogue), relu_input, n, h, w,
+                        c, f, plan.th, plan.tw, plan.bn, plan.stages, plan.smem, plan.blocks)
     _count(dequant_conv3x3)
     return y
 

@@ -155,8 +155,9 @@ class InferenceEngine:
 
     def prepare_quantized(self, quantized: Any) -> QuantizedVariables:
         """Place a quantized tree's codes and scales on the device as is.
-        For a fused plane, the depthwise codes' expansion group is built
-        and validated here, once per placed tree, and travels with it."""
+        For a fused plane, the depthwise codes' group and the launches'
+        epilogue plan are built and validated here, once per placed tree,
+        and travel with it."""
         if not isinstance(quantized, QuantizedVariables):
             raise TypeError(
                 f"prepare_quantized wants QuantizedVariables, got "
@@ -170,9 +171,10 @@ class InferenceEngine:
         tree = _tree_to(quantized.tree, self.device)
         if self.kernel_plane == "reference":
             return QuantizedVariables(tree)
-        from fedcrack_tpu_torch.kernels.forward import depthwise_group
+        from fedcrack_tpu_torch.kernels.forward import depthwise_group, epilogue_plan
 
-        return QuantizedVariables(tree, depthwise_group(tree, self.bucket_model_config))
+        cfg = self.bucket_model_config
+        return QuantizedVariables(tree, depthwise_group(tree, cfg), epilogue_plan(tree, cfg))
 
     # ---- bucket routing ----
 
@@ -204,7 +206,8 @@ class InferenceEngine:
             return torch.func.functional_call(self._template, state, (x,))
         from fedcrack_tpu_torch.kernels.forward import fused_predict_logits
 
-        return fused_predict_logits(variables.tree, x, self.bucket_model_config, variables.depthwise)
+        return fused_predict_logits(variables.tree, x, self.bucket_model_config, variables.depthwise,
+                                    variables.epilogues)
 
     @torch.inference_mode()
     def _forward_batch(self, variables: Any, images_u8: np.ndarray) -> np.ndarray:

@@ -39,13 +39,16 @@ class QuantizedVariables:
     """Marker wrapper around a quantized variables tree: the engine routes a
     weights snapshot on its type (quantized program vs reference program).
     ``depthwise``: the fused forward's depthwise codes as a prepared
-    ``kernels.dequant.CodeGroup`` (``InferenceEngine.prepare_quantized``
-    builds it beside the placed tree of a fused plane; the forward checks
-    that it holds this tree's own code tensors), else None."""
+    ``kernels.dequant.CodeGroup``, and ``epilogues``: its launches'
+    epilogues as a ``kernels.forward.EpiloguePlan``
+    (``InferenceEngine.prepare_quantized`` builds both beside the placed
+    tree of a fused plane; the forward checks that they hold this tree's
+    own tensors), else None."""
 
-    def __init__(self, tree: Any, depthwise: Any = None):
+    def __init__(self, tree: Any, depthwise: Any = None, epilogues: Any = None):
         self.tree = tree
         self.depthwise = depthwise
+        self.epilogues = epilogues
 
 
 def _is_qleaf(node: Any) -> bool:

@@ -9,11 +9,19 @@ parent sequence compares two versions within one call on one card. A run
 builds ``ModelConfig()`` on the fused int8 plane (the codes of seeded
 weights; their values do not change a time) and records the arguments of
 every ``dequant_conv3x3`` and ``dequant_matmul`` call of one bucket-256 x
-batch-8 forward. On those inputs it measures each kernel's device time
-(torch.profiler) per call and per forward, and its wrapper's host µs per
-call (the least of 5 runs of 200 back-to-back calls); and
+batch-8 forward, their epilogue keywords included (a tree whose wrappers
+take none records none). On those inputs it measures each kernel's device
+time (torch.profiler) per call and per forward, and its wrapper's host µs
+per call (the least of 5 runs of 200 back-to-back calls); and
 ``dequant_matmul``'s device time per forward again with the same codes as
-fp8 e4m3 (``dequant_matmul_e4m3``). The depthwise stage's device time per
+fp8 e4m3 (``dequant_matmul_e4m3``). In a tree with epilogues, per
+forward also: each kernel without its epilogue (``unfused_ms``, and per
+call), the same followed by the torch ops the epilogue stands for
+(``unfused_ops_ms``), and the library pair, ``torch.matmul`` or
+``F.conv2d`` (channels-last, weights expanded once) followed by those ops
+(``library_pair_ms``). Each tree's ``-Xptxas -v`` report of the two
+kernels' instantiations (registers, spill stores and loads), from the
+build's log. The depthwise stage's device time per
 forward: in a tree whose forward calls ``dequant_dwconv3x3``, its six
 launches on the recorded inputs; in a tree whose forward expands its
 depthwise codes with ``dequant_codes_group`` and runs ``torch.relu``,
@@ -114,9 +122,9 @@ def run_tree() -> dict:
     wrapped = {name: getattr(fused, name) for name in recorded}
 
     def recorder(name):
-        def record(*args):
-            calls[name].append(args)
-            return wrapped[name](*args)
+        def record(*args, **kwargs):
+            calls[name].append((args, kwargs))
+            return wrapped[name](*args, **kwargs)
         return record
 
     for name in recorded:
@@ -132,20 +140,23 @@ def run_tree() -> dict:
     for name in KERNELS:
         kernel = getattr(dequant, name)
         args = calls[name]
-        per_call = [_device_ms(torch, [lambda a=a: kernel(*a)], n=20) for a in args]
+        per_call = [_device_ms(torch, [lambda a=a, k=k: kernel(*a, **k)], n=20) for a, k in args]
         out[name] = {
             "calls": len(args),
-            "shapes": [[tuple(t.shape) for t in a[:2]] for a in args],
+            "shapes": [[tuple(t.shape) for t in a[:2]] for a, _ in args],
+            "epilogues": [_epilogue_text(k) for _, k in args],
             "device_ms_per_call": per_call,
-            "device_ms_per_forward": _device_ms(torch, [lambda a=a: kernel(*a) for a in args], n=10),
-            "host_us_per_call": [_host_us(torch, lambda a=a: kernel(*a)) for a in args],
+            "device_ms_per_forward": _device_ms(torch, [lambda a=a, k=k: kernel(*a, **k) for a, k in args], n=10),
+            "host_us_per_call": [_host_us(torch, lambda a=a, k=k: kernel(*a, **k)) for a, k in args],
         }
+        if hasattr(dequant, "Epilogue"):
+            out[name].update(_epilogue_times(torch, name, args))
 
     # The same GEMMs with e4m3 codes: every int8 code is exact in e4m3 but
     # +-127 (rounded to +-128), which changes no time.
-    e4m3 = [(x, q.float().to(torch.float8_e4m3fn), s) for x, q, s in calls["dequant_matmul"]]
+    e4m3 = [((x, q.float().to(torch.float8_e4m3fn), s), k) for (x, q, s), k in calls["dequant_matmul"]]
     out["dequant_matmul_e4m3"] = {"device_ms_per_forward": _device_ms(
-        torch, [lambda a=a: dequant.dequant_matmul(*a) for a in e4m3], n=10)}
+        torch, [lambda a=a, k=k: dequant.dequant_matmul(*a, **k) for a, k in e4m3], n=10)}
 
     out["depthwise_stage"] = _depthwise_stage(torch, stage, calls)
 
@@ -166,7 +177,81 @@ def run_tree() -> dict:
                            "device_busy_ms": busy_us / 5e3, "idle_share": 1 - busy_us / wall_us,
                            "launches_per_batch": sum(e.count for e in kernels) / 5}
     out["bce_sums"] = _bce_sums_run(torch)
+    out["ptxas"] = {lib.name: _ptxas_report(lib.build() + ".log")
+                    for lib in (dequant.LIBRARY, dequant.CONV_LIBRARY)}
     return out
+
+
+def _ptxas_report(path: str) -> list[dict]:
+    """Each kernel instantiation of a build's ``-Xptxas -v`` log: its
+    mangled name's template arguments, registers, spill stores and loads
+    (bytes)."""
+    import re
+
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    out = []
+    for block in re.split(r"ptxas info\s*: Compiling entry function ", text)[1:]:
+        name = re.match(r"'(\S+)'", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+        if name is None or regs is None or "kernel" not in name.group(1):
+            continue
+        args = re.search(r"kernelI(.*?)EEv", name.group(1))
+        out.append({"kernel": args.group(1) if args else name.group(1), "registers": int(regs.group(1)),
+                    "spill_stores": int(spill.group(1)) if spill else None,
+                    "spill_loads": int(spill.group(2)) if spill else None})
+    return out
+
+
+def _epilogue_text(kw: dict) -> str:
+    """The steps a launch's keywords fuse, as text."""
+    epi, parts = kw.get("epilogue"), []
+    if epi is not None:
+        parts += ["bias"] + ["bn"] * (epi.bn is not None) + ["relu"] * epi.relu
+    parts += ["residual"] * (kw.get("residual") is not None) + ["relu_input"] * bool(kw.get("relu_input"))
+    return "+".join(parts) or "none"
+
+
+def _epilogue_times(torch, name: str, args: list) -> dict:
+    """Per forward, on the recorded calls of ``name``: the kernel without
+    its epilogue, the same followed by the epilogue's torch ops, and the
+    library pair (see the module docstring)."""
+    import torch.nn.functional as F
+
+    from fedcrack_tpu_torch.kernels import dequant
+
+    kernel = getattr(dequant, name)
+
+    def bare(a, k):
+        return (torch.relu(a[0]),) + tuple(a[1:]) if k.get("relu_input") else tuple(a)
+
+    def ops(y, k):
+        return dequant._torch_epilogue(y, k.get("epilogue"), k.get("residual"))
+
+    if name == "dequant_matmul":
+        def library(x, w, k):
+            return ops(torch.matmul(x, w), k)
+
+        pairs = [(x, q.float() * s, k) for (x, q, s), k in args]
+    else:
+        def library(x_nchw, w_oihw, k):
+            xin = torch.relu(x_nchw) if k.get("relu_input") else x_nchw
+            return ops(F.conv2d(xin, w_oihw, padding=1).permute(0, 2, 3, 1), k)
+
+        pairs = [(x.permute(0, 3, 1, 2),
+                  (q.float() * s).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last), k)
+                 for (x, q, s), k in args]
+    unfused = [bare(a, k) for a, k in args]
+    unfused_ops = [lambda a=a, k=k: ops(kernel(*a), k) for a, (_, k) in zip(unfused, args)]
+    lib = [lambda p=p: library(*p) for p in pairs]
+    return {
+        "unfused_ms_per_call": [_device_ms(torch, [lambda a=a: kernel(*a)], n=20) for a in unfused],
+        "unfused_ms_per_forward": _device_ms(torch, [lambda a=a: kernel(*a) for a in unfused], n=10),
+        "unfused_ops_ms_per_forward": _device_ms(torch, unfused_ops, n=10,
+                                                 per_pass=_kernel_count(torch, unfused_ops)),
+        "library_pair_ms_per_forward": _device_ms(torch, lib, n=10, per_pass=_kernel_count(torch, lib)),
+    }
 
 
 def _depthwise_stage(torch, stage: str, calls: dict) -> dict:
@@ -177,7 +262,7 @@ def _depthwise_stage(torch, stage: str, calls: dict) -> dict:
     from fedcrack_tpu_torch.kernels import dequant
 
     if stage == DW_KERNEL:
-        fns = [lambda a=a: dequant.dequant_dwconv3x3(*a) for a in calls[stage]]
+        fns = [lambda a=a: dequant.dequant_dwconv3x3(*a) for a, _ in calls[stage]]
     else:
         # The parent's stage: torch.relu before each _sepconv (its x is the
         # ReLU's output, the same shape as its input), then F.pad and the
@@ -188,20 +273,23 @@ def _depthwise_stage(torch, stage: str, calls: dict) -> dict:
             xc = F.pad(relu.permute(0, 3, 1, 2), (1, 1, 1, 1))
             return F.conv2d(xc, kern, groups=xc.shape[1])
 
-        fns = [lambda x=x, k=k: parent_stage(x, k) for x, k, _ in calls[stage]]
-        fns += [lambda g=g: dequant.dequant_codes_group(g) for (g,) in calls["dequant_codes_group"]]
+        fns = [lambda x=x, k=k: parent_stage(x, k) for (x, k, _), _ in calls[stage]]
+        fns += [lambda g=g: dequant.dequant_codes_group(g) for (g,), _ in calls["dequant_codes_group"]]
     launches = _kernel_count(torch, fns)
     return {"kind": stage, "calls": len(calls[stage]),
-            "shapes": [tuple(a[0].shape) for a in calls[stage]],
+            "shapes": [tuple(a[0].shape) for a, _ in calls[stage]],
             "device_ms_per_forward": _device_ms(torch, fns, n=10, per_pass=launches),
             "launches_per_forward": launches}
 
 
 def _kernel_count(torch, fns) -> int:
-    """Kernel records of one pass over ``fns``: the most of 3 windows (a
-    window may lose records, never gain them)."""
+    """Kernel records of one pass over ``fns`` after a warm one: the most of
+    3 windows (a window may lose records, never gain them)."""
     from fedcrack_tpu_torch.obs.metrics import card_kernels, card_profile
 
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
     counts = []
     for _ in range(3):
         with card_profile() as prof:
@@ -260,6 +348,19 @@ def main(argv: list[str] | None = None) -> int:
               f"[{run['card']}]", flush=True)
         print(f"{tree}: matmul ms a call {[round(x, 5) for x in run['dequant_matmul']['device_ms_per_call']]}",
               flush=True)
+        for lib, kernels in run["ptxas"].items():
+            print(f"{tree}: ptxas {lib}: " + "; ".join(
+                f"{k['kernel']} {k['registers']} regs, spills {k['spill_stores']}/{k['spill_loads']} B"
+                for k in kernels), flush=True)
+        for name in KERNELS:
+            if "unfused_ms_per_forward" in run[name]:
+                k = run[name]
+                print(f"{tree}: {name} a forward: with epilogues {k['device_ms_per_forward']:.4f} ms, without "
+                      f"{k['unfused_ms_per_forward']:.4f} ms, without and the torch ops after "
+                      f"{k['unfused_ops_ms_per_forward']:.4f} ms, library and the torch ops "
+                      f"{k['library_pair_ms_per_forward']:.4f} ms [{run['card']}]", flush=True)
+                print(f"{tree}: {name} without its epilogue, ms a call "
+                      f"{[round(x, 5) for x in k['unfused_ms_per_call']]}", flush=True)
         dw, batch = run["depthwise_stage"], run["served_batch"]
         print(f"{tree}: depthwise stage ({dw['kind']}, {dw['calls']} calls) {dw['device_ms_per_forward']:.4f} ms "
               f"a forward in {dw['launches_per_forward']} kernels; served batch {batch['launches_per_batch']:.1f} "

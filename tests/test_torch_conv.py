@@ -388,9 +388,9 @@ def test_fused_forward_sends_stride1_convs_to_dequant_conv3x3(monkeypatch):
     def counting(name):
         inner = getattr(forward, name)
 
-        def wrapper(*args):
+        def wrapper(*args, **kwargs):
             calls[name] += 1
-            return inner(*args)
+            return inner(*args, **kwargs)
 
         return wrapper
 
@@ -398,7 +398,8 @@ def test_fused_forward_sends_stride1_convs_to_dequant_conv3x3(monkeypatch):
         monkeypatch.setattr(forward, name, counting(name))
     qtree = tq.quantize_variables(jax_variables(TWO_BLOCK_KW)).tree
     cfg = port_config(TWO_BLOCK_KW)
-    forward.fused_predict_logits(qtree, torch.zeros(1, 32, 32, 3), cfg, forward.depthwise_group(qtree, cfg))
+    forward.fused_predict_logits(qtree, torch.zeros(1, 32, 32, 3), cfg, forward.depthwise_group(qtree, cfg),
+                                 forward.epilogue_plan(qtree, cfg))
     enc, dec = len(cfg.encoder_features), len(cfg.decoder_features)
     assert calls == {"dequant_matmul": 1 + 3 * enc + dec + 1, "dequant_conv3x3": 2 * dec,
                      "dequant_dwconv3x3": 2 * enc}

@@ -125,3 +125,20 @@ def assert_trained_trees_close(got, want, start, steps, atol=1e-5):
             np.testing.assert_allclose(g[path], w[path], rtol=0, atol=1e-5 + 0.02 * steps * LR, err_msg=name)
         else:
             np.testing.assert_allclose(g[path], w[path], rtol=0, atol=atol, err_msg=name)
+
+
+def perturbed_variables(kw: dict, seed: int = 0, perturb_seed: int = 7) -> dict:
+    """``jax_variables(kw, seed)`` with every bias (conv and BatchNorm), BN
+    scale, running mean and running variance replaced by seeded numpy
+    values, so that no bias is 0, no mean 0, no variance or scale 1:
+    biases and means N(0, 0.3), scales N(1, 0.4), variances U(0.3, 2).
+    The kernels keep their seeded init."""
+    rng = np.random.default_rng(perturb_seed)
+    draw = {"bias": lambda n: rng.normal(0.0, 0.3, n), "mean": lambda n: rng.normal(0.0, 0.3, n),
+            "scale": lambda n: rng.normal(1.0, 0.4, n), "var": lambda n: rng.uniform(0.3, 2.0, n)}
+
+    def walk(node):
+        return {k: walk(v) if isinstance(v, dict) else
+                (draw[k](v.shape).astype(np.float32) if k in draw else v) for k, v in node.items()}
+
+    return walk(jax_variables(kw, seed))
