@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from fedcrack_tpu_torch.data.synthetic import synth_crack_batch
+from fedcrack_tpu_torch.obs import spans as tracing
 
 _INV255 = np.float32(1.0 / 255.0)
 
@@ -258,14 +259,21 @@ def _to_device_now(array: np.ndarray, device: torch.device) -> torch.Tensor:
     """A fresh device copy of ``array``, landed before this returns (the
     staging barrier). On CUDA the copy runs from pinned memory on a side
     stream, and the tensor is marked as used by the current stream, so
-    the caching allocator keeps it until that stream is done with it."""
+    the caching allocator keeps it until that stream is done with it.
+    Spans ``data.pin`` (the pinned copy on the host) and ``data.copy`` (the
+    host-to-device copy until it has landed; the whole copy on the CPU)."""
     t = torch.from_numpy(np.ascontiguousarray(array))
+    nbytes = t.nbytes
     if device.type != "cuda":
-        return t.clone()
+        with tracing.span("data.copy", bytes=nbytes):
+            return t.clone()
     side = torch.cuda.Stream(device=device)
     with torch.cuda.stream(side):
-        out = t.pin_memory().to(device, non_blocking=True)
-    side.synchronize()
+        with tracing.span("data.pin", bytes=nbytes):
+            pinned = t.pin_memory()
+        with tracing.span("data.copy", bytes=nbytes):
+            out = pinned.to(device, non_blocking=True)
+            side.synchronize()
     out.record_stream(torch.cuda.current_stream(device))
     return out
 

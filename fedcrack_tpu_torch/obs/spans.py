@@ -9,7 +9,16 @@ the monotonic clock; the wall clock is the display-only ``ts`` field.
 Record shape (one JSON object per line)::
 
     {"name": "fed.flush", "trace": "fedtr-v0", "span": 17, "parent": null,
-     "t": 3.104, "dur_s": 0.0021, "ts": 1789..., "version": 1}
+     "t": 3.104, "dur_s": 0.0021, "start_ns": 88312..., "end_ns": 88312...,
+     "ts": 1789..., "version": 1}
+
+``start_ns`` and ``end_ns`` are the span's bounds on ``time.monotonic_ns()``,
+absolute, so that spans line up with another trace taken in the process
+(a profiler's, once an offset between the two clocks is measured). A span
+opened without ``parent`` inside another span of the same thread takes
+the innermost one as its parent; an explicit ``parent`` wins. A recorder
+installed without a path keeps its records in memory (``records``), read
+after :func:`uninstall`.
 
 Across processes a span is referenced by a wire-safe
 :class:`TraceContext`, ``"<trace>#<key>"``: the sender records it as its
@@ -27,6 +36,7 @@ import contextlib
 import io
 import json
 import os
+import threading
 import time
 from dataclasses import dataclass
 from typing import Any, Iterator
@@ -100,26 +110,38 @@ class SpanHandle:
 
 
 class SpanRecorder:
-    """Append-only JSONL span sink (a path or an open text file);
-    thread-safe."""
+    """Span sink: append-only JSONL (a path or an open text file), or with
+    no path a list of records in memory (``records``); thread-safe."""
 
-    def __init__(self, path: str | os.PathLike | io.TextIOBase):
-        if isinstance(path, io.TextIOBase):
+    def __init__(self, path: str | os.PathLike | io.TextIOBase | None = None):
+        self.records: list[dict] | None = None
+        self._f = None
+        self._owns = False
+        if path is None:
+            self.records = []
+        elif isinstance(path, io.TextIOBase):
             self._f = path
-            self._owns = False
         else:
             p = os.fspath(path)
             os.makedirs(os.path.dirname(os.path.abspath(p)), exist_ok=True)
             self._f = open(p, "a", encoding="utf-8")
             self._owns = True
         self._lock = make_lock("obs.spans.sink")
-        self._t0 = time.monotonic()
+        self._t0_ns = time.monotonic_ns()
         self._seq = 0
+        # Each thread's open spans, innermost last: the default parent.
+        self._open = threading.local()
 
     def _next_id(self) -> int:
         with self._lock:
             self._seq += 1
             return self._seq
+
+    def _stack(self) -> list[int]:
+        stack = getattr(self._open, "stack", None)
+        if stack is None:
+            stack = self._open.stack = []
+        return stack
 
     @contextlib.contextmanager
     def span(
@@ -131,18 +153,28 @@ class SpanRecorder:
         **attrs: Any,
     ) -> Iterator[SpanHandle]:
         handle = SpanHandle(self._next_id(), trace)
-        t_start = time.monotonic()
+        stack = self._stack()
+        if parent is None and stack:
+            parent = stack[-1]
+        stack.append(handle.span_id)
+        start_ns = time.monotonic_ns()
         try:
             yield handle
         finally:
-            dur = time.monotonic() - t_start
+            end_ns = time.monotonic_ns()
+            if stack[-1] == handle.span_id:
+                stack.pop()
+            else:
+                stack.remove(handle.span_id)
             record: dict[str, Any] = {
                 "name": name,
                 "trace": trace,
                 "span": handle.span_id,
                 "parent": parent,
-                "t": round(t_start - self._t0, 6),
-                "dur_s": round(dur, 6),
+                "t": round((start_ns - self._t0_ns) * 1e-9, 6),
+                "dur_s": round((end_ns - start_ns) * 1e-9, 6),
+                "start_ns": start_ns,
+                "end_ns": end_ns,
                 # Interval math above is monotonic; the wall clock is the
                 # display-only "ts" field (obs JSONL convention).
                 # fedlint: disable=DET001 -- human-readable record timestamp
@@ -152,10 +184,14 @@ class SpanRecorder:
                 record[k] = v
             for k, v in handle.attrs.items():
                 record[k] = v
-            line = json.dumps(record, sort_keys=True, default=str)
-            with self._lock:
-                self._f.write(line + "\n")
-                self._f.flush()
+            if self.records is not None:
+                with self._lock:
+                    self.records.append(record)
+            else:
+                line = json.dumps(record, sort_keys=True, default=str)
+                with self._lock:
+                    self._f.write(line + "\n")
+                    self._f.flush()
             # Flight-recorder tee: a compact event per span (name, trace,
             # duration, context); one global read when no ring is installed.
             _flight.note(
@@ -184,9 +220,11 @@ _recorder: SpanRecorder | None = None
 _recorder_lock = make_lock("obs.spans.install")
 
 
-def install(path: str | os.PathLike | io.TextIOBase) -> SpanRecorder:
-    """Install the process span recorder; returns it. Replacing an existing
-    recorder closes the old one."""
+def install(path: str | os.PathLike | io.TextIOBase | None = None) -> SpanRecorder:
+    """Install the process span recorder; returns it. Without ``path`` it
+    keeps its records in memory (read them from the returned recorder's
+    ``records`` after :func:`uninstall`). Replacing an existing recorder
+    closes the old one."""
     global _recorder
     rec = SpanRecorder(path)
     with _recorder_lock:

@@ -34,6 +34,13 @@ copy rides under the round instead of adding to it.
 
 ``run_cohort_federation`` drives a ``CohortRound`` group by group, staging
 group g+1 while group g runs.
+
+Spans (``obs.spans``, while a recorder is installed): ``driver.round`` from
+a round's dispatch to its barrier, the interval of
+``RoundRecord.wall_clock_s``, with the record's timing as attributes;
+``driver.stage`` around each ``data_fn`` call and its staging (the copies
+inside are ``data.pin`` and ``data.copy``); ``driver.barrier`` while the
+host waits for the round's metrics.
 """
 
 from __future__ import annotations
@@ -68,7 +75,8 @@ def _single_process(mesh: SlotMesh) -> None:
 
 
 def _observe_round_record(record: "RoundRecord") -> None:
-    """One RoundRecord into the metric registry and a correlation span."""
+    """One RoundRecord into the metric registry (its ``driver.round`` span
+    is the round's own, opened at dispatch and closed at the barrier)."""
     REGISTRY.counter("driver_rounds_total", "mesh federated rounds driven to their barrier").inc()
     REGISTRY.histogram(
         "driver_round_seconds",
@@ -82,16 +90,15 @@ def _observe_round_record(record: "RoundRecord") -> None:
     if record.bytes_per_round:
         REGISTRY.counter("driver_wire_bytes_total", "modeled update wire bytes for driven rounds (codec-priced)").inc(
             record.bytes_per_round)
-    with tracing.span(
-        "driver.round",
-        trace=f"round-{record.round_idx}",
-        wall_s=round(record.wall_clock_s, 6),
-        staging_s=round(record.staging_s, 6),
-        staged_bytes=int(record.staged_bytes),
-        retries=int(record.retries),
-        data_placement=record.data_placement,
-    ):
-        pass
+
+
+def _round_span_attrs(handle, *, wall_s: float, staging_s: float, staged_bytes: int, retries: int,
+                      data_placement: str) -> None:
+    """The round's timing onto its ``driver.round`` span (None: tracing
+    off), as its RoundRecord will carry it."""
+    if handle is not None:
+        handle.set(wall_s=round(wall_s, 6), staging_s=round(staging_s, 6), staged_bytes=int(staged_bytes),
+                   retries=int(retries), data_placement=data_placement)
 
 
 @dataclasses.dataclass
@@ -244,16 +251,17 @@ def _run_segmented_round(seg, variables, si, sm, active, n_samples, *, data_fn, 
     def _pull_next_data():
         nonlocal pending, did_data
         did_data = True
-        tdd = time.perf_counter()
-        nxt = data_fn(round_idx + 1)
-        out["next_data_s"] = time.perf_counter() - tdd
-        if nxt is not None:
-            ni, nm, na, nn = nxt
-            out["next_cohort"] = (na, nn)
-            out["next_bytes"] = int(ni.nbytes + nm.nbytes)
-            nic, nmc = split_epoch_slab(ni, nm, n_chunks)
-            pending = list(zip(nic, nmc))
-            out["next_buffers"] = ([], [])
+        with tracing.span("driver.stage", round=round_idx + 1, bytes=0):
+            tdd = time.perf_counter()
+            nxt = data_fn(round_idx + 1)
+            out["next_data_s"] = time.perf_counter() - tdd
+            if nxt is not None:
+                ni, nm, na, nn = nxt
+                out["next_cohort"] = (na, nn)
+                out["next_bytes"] = int(ni.nbytes + nm.nbytes)
+                nic, nmc = split_epoch_slab(ni, nm, n_chunks)
+                pending = list(zip(nic, nmc))
+                out["next_buffers"] = ([], [])
 
     for k in range(start_k, seg.n_segments):
         td = time.perf_counter()
@@ -265,12 +273,12 @@ def _run_segmented_round(seg, variables, si, sm, active, n_samples, *, data_fn, 
             if pending:
                 take = len(pending) if n_chunks == 1 else 1
                 tss = time.perf_counter()
-                nb = 0
-                for ci, cm in pending[:take]:
-                    s_i, s_m = stage_round_data(ci, cm, mesh)
-                    out["next_buffers"][0].append(s_i)
-                    out["next_buffers"][1].append(s_m)
-                    nb += int(ci.nbytes + cm.nbytes)
+                nb = sum(int(ci.nbytes + cm.nbytes) for ci, cm in pending[:take])
+                with tracing.span("driver.stage", round=round_idx + 1, bytes=nb):
+                    for ci, cm in pending[:take]:
+                        s_i, s_m = stage_round_data(ci, cm, mesh)
+                        out["next_buffers"][0].append(s_i)
+                        out["next_buffers"][1].append(s_m)
                 del pending[:take]
                 acct["live"] += nb
                 acct["round_max"] = max(acct["round_max"], acct["live"])
@@ -282,7 +290,8 @@ def _run_segmented_round(seg, variables, si, sm, active, n_samples, *, data_fn, 
     while pending:
         ci, cm = pending.pop(0)
         tss = time.perf_counter()
-        s_i, s_m = stage_round_data(ci, cm, mesh)
+        with tracing.span("driver.stage", round=round_idx + 1, bytes=int(ci.nbytes + cm.nbytes)):
+            s_i, s_m = stage_round_data(ci, cm, mesh)
         out["next_buffers"][0].append(s_i)
         out["next_buffers"][1].append(s_m)
         acct["live"] += int(ci.nbytes + cm.nbytes)
@@ -317,22 +326,25 @@ def _run_segmented_round_resident(seg, variables, pool_dev, idx_parts, host_idx,
     def _pull_next_plan(entry=None):
         nonlocal did_data
         did_data = True
-        tdd = time.perf_counter()
-        nxt = data_fn(round_idx + 1)
-        out["next_data_s"] = time.perf_counter() - tdd
-        if nxt is not None:
-            nidx, na, nn = nxt
-            nidx = np.ascontiguousarray(np.asarray(nidx, np.int32))
-            out["next_cohort"] = (na, nn)
-            out["next_host_idx"] = nidx
-            out["next_bytes"] = int(nidx.nbytes)
-            tss = time.perf_counter()
-            out["next_buffers"] = stage_round_indices(nidx, mesh, seg)
-            acct["live"] += out["next_bytes"]
-            acct["round_max"] = max(acct["round_max"], acct["live"])
-            if entry is not None:
-                entry["staging_s"] = round(time.perf_counter() - tss, 4)
-                entry["staged_bytes"] = out["next_bytes"]
+        with tracing.span("driver.stage", round=round_idx + 1) as stage_span:
+            tdd = time.perf_counter()
+            nxt = data_fn(round_idx + 1)
+            out["next_data_s"] = time.perf_counter() - tdd
+            if nxt is not None:
+                nidx, na, nn = nxt
+                nidx = np.ascontiguousarray(np.asarray(nidx, np.int32))
+                out["next_cohort"] = (na, nn)
+                out["next_host_idx"] = nidx
+                out["next_bytes"] = int(nidx.nbytes)
+                tss = time.perf_counter()
+                out["next_buffers"] = stage_round_indices(nidx, mesh, seg)
+                acct["live"] += out["next_bytes"]
+                acct["round_max"] = max(acct["round_max"], acct["live"])
+                if entry is not None:
+                    entry["staging_s"] = round(time.perf_counter() - tss, 4)
+                    entry["staged_bytes"] = out["next_bytes"]
+            if stage_span is not None:
+                stage_span.set(bytes=out["next_bytes"])
 
     for k in range(start_k, seg.n_segments):
         td = time.perf_counter()
@@ -376,9 +388,43 @@ def _dispatch_pipelined_segment(seg, out_vars, resident, *, si, sm, active, n_sa
             "entry": {"segment": 0, "dispatch_s": round(time.perf_counter() - td, 4), "pipelined": True}}
 
 
+def _stage_next(data_fn: Callable, r: int, mesh, *, resident: bool, seg, n_chunks: int):
+    """Round r's data from ``data_fn``, staged on the device under a
+    ``driver.stage`` span: ``(data_s, staging_s, buffers, cohort, nbytes,
+    host_idx)``, ``buffers`` None where ``data_fn`` returned None."""
+    with tracing.span("driver.stage", round=r) as stage_span:
+        td = time.perf_counter()
+        nxt = data_fn(r)
+        data_s = time.perf_counter() - td
+        if nxt is None:
+            return data_s, 0.0, None, None, 0, None
+        ts = time.perf_counter()
+        host_idx = None
+        if resident:
+            nidx, na, nn = nxt
+            host_idx = np.ascontiguousarray(np.asarray(nidx, np.int32))
+            nbytes = int(host_idx.nbytes)
+            buffers = stage_round_indices(host_idx, mesh, seg)
+        else:
+            ni, nm, na, nn = nxt
+            nbytes = int(ni.nbytes + nm.nbytes)
+            if seg is not None:
+                nic, nmc = split_epoch_slab(ni, nm, n_chunks)
+                pairs = [stage_round_data(ci, cm, mesh) for ci, cm in zip(nic, nmc)]
+                buffers = ([p[0] for p in pairs], [p[1] for p in pairs])
+            else:
+                buffers = stage_round_data(ni, nm, mesh)
+        if stage_span is not None:
+            stage_span.set(bytes=nbytes)
+        return data_s, time.perf_counter() - ts, buffers, (na, nn), nbytes, host_idx
+
+
 def _metrics_to_host(metrics: dict) -> dict:
-    return {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
-            for k, v in metrics.items()}
+    """The round barrier: the host waits here until the card has run the
+    round, since the metrics depend on every step."""
+    with tracing.span("driver.barrier"):
+        return {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
+                for k, v in metrics.items()}
 
 
 def run_mesh_federation(
@@ -486,35 +532,38 @@ def run_mesh_federation(
             )
     hist = list(history)
 
-    t0 = time.perf_counter()
-    first = data_fn(start_round)
-    data_s = time.perf_counter() - t0
-    if first is None:
-        raise ValueError(f"data_fn({start_round}) returned None: the first round has no data")
     n_chunks = 1
     base_bytes = 0  # the resident pool: staged once, never rotating
     host_idx_cur = None
-    ts = time.perf_counter()
-    if resident:
-        idx0, active, n_samples = first
-        host_idx_cur = np.ascontiguousarray(np.asarray(idx0, np.int32))
-        si = sample_pool.stage(mesh)
-        sm = stage_round_indices(host_idx_cur, mesh, seg)
-        base_bytes = sample_pool.nbytes
-        staged_bytes = base_bytes + int(host_idx_cur.nbytes)
-        cur_bytes = int(host_idx_cur.nbytes)
-    else:
-        images, masks, active, n_samples = first
-        if seg is not None:
-            n_chunks = seg.n_segments if segment_overlap else 1
-            ic, mc = split_epoch_slab(images, masks, n_chunks)
-            pairs = [stage_round_data(i, m, mesh) for i, m in zip(ic, mc)]
-            si, sm = tuple(p[0] for p in pairs), tuple(p[1] for p in pairs)
+    with tracing.span("driver.stage", round=start_round) as stage_span:
+        t0 = time.perf_counter()
+        first = data_fn(start_round)
+        data_s = time.perf_counter() - t0
+        if first is None:
+            raise ValueError(f"data_fn({start_round}) returned None: the first round has no data")
+        ts = time.perf_counter()
+        if resident:
+            idx0, active, n_samples = first
+            host_idx_cur = np.ascontiguousarray(np.asarray(idx0, np.int32))
+            si = sample_pool.stage(mesh)
+            sm = stage_round_indices(host_idx_cur, mesh, seg)
+            base_bytes = sample_pool.nbytes
+            staged_bytes = base_bytes + int(host_idx_cur.nbytes)
+            cur_bytes = int(host_idx_cur.nbytes)
         else:
-            si, sm = stage_round_data(images, masks, mesh)
-        staged_bytes = int(images.nbytes + masks.nbytes)
-        cur_bytes = staged_bytes
-    pending_staging_s = time.perf_counter() - ts
+            images, masks, active, n_samples = first
+            if seg is not None:
+                n_chunks = seg.n_segments if segment_overlap else 1
+                ic, mc = split_epoch_slab(images, masks, n_chunks)
+                pairs = [stage_round_data(i, m, mesh) for i, m in zip(ic, mc)]
+                si, sm = tuple(p[0] for p in pairs), tuple(p[1] for p in pairs)
+            else:
+                si, sm = stage_round_data(images, masks, mesh)
+            staged_bytes = int(images.nbytes + masks.nbytes)
+            cur_bytes = staged_bytes
+        pending_staging_s = time.perf_counter() - ts
+        if stage_span is not None:
+            stage_span.set(bytes=staged_bytes)
     acct = {"live": base_bytes + cur_bytes, "round_max": base_bytes + cur_bytes}
 
     records: list[RoundRecord] = []
@@ -538,71 +587,63 @@ def run_mesh_federation(
             timeline: list[dict] = []
             segout = None
 
-            t0 = time.perf_counter()
             try:
-                post = None
-                if fault_injector is not None:
-                    post = fault_injector(r, attempt)
-                if seg is None:
-                    out_vars, metrics = round_fn(variables, si, sm, active, n_samples)
-                    if post is not None:
-                        out_vars, metrics = post(out_vars, metrics)
-                    if overlap_staging and r + 1 < n_rounds:
-                        # The round's kernels are queued; the next round's
-                        # data and its copy ride under them.
-                        td = time.perf_counter()
-                        nxt = data_fn(r + 1)
-                        next_data_s = time.perf_counter() - td
-                        if nxt is not None:
-                            if resident:
-                                nidx, na, nn = nxt
-                                next_host_idx = np.ascontiguousarray(np.asarray(nidx, np.int32))
-                                next_cohort = (na, nn)
-                                next_bytes = int(next_host_idx.nbytes)
-                                next_buffers = stage_round_indices(next_host_idx, mesh, None)
-                            else:
-                                ni, nm, na, nn = nxt
-                                next_cohort = (na, nn)
-                                next_bytes = int(ni.nbytes + nm.nbytes)
-                                next_buffers = stage_round_data(ni, nm, mesh)
-                            acct["live"] += next_bytes
-                            acct["round_max"] = max(acct["round_max"], acct["live"])
-                elif resident:
-                    out_vars, metrics, segout = _run_segmented_round_resident(
-                        seg, variables, si, sm, host_idx_cur, active, n_samples, data_fn=data_fn, round_idx=r,
-                        n_rounds=n_rounds, overlap_staging=overlap_staging, mesh=mesh, acct=acct,
-                        pipelined=pipelined_state)
-                    if post is not None:
-                        out_vars, metrics = post(out_vars, metrics)
-                    timeline = segout["timeline"]
-                    next_buffers, next_cohort = segout["next_buffers"], segout["next_cohort"]
-                    next_bytes, next_data_s = segout["next_bytes"], segout["next_data_s"]
-                    next_host_idx = segout["next_host_idx"]
-                    active, n_samples = segout["active"], segout["n_samples"]
-                else:
-                    out_vars, metrics, segout = _run_segmented_round(
-                        seg, variables, si, sm, active, n_samples, data_fn=data_fn, round_idx=r,
-                        n_rounds=n_rounds, overlap_staging=overlap_staging, n_chunks=n_chunks, mesh=mesh,
-                        acct=acct, pipelined=pipelined_state)
-                    if post is not None:
-                        out_vars, metrics = post(out_vars, metrics)
-                    timeline = segout["timeline"]
-                    next_buffers, next_cohort = segout["next_buffers"], segout["next_cohort"]
-                    next_bytes, next_data_s = segout["next_bytes"], segout["next_data_s"]
-                    active, n_samples = segout["active"], segout["n_samples"]
+                with tracing.span("driver.round", trace=f"round-{r}", round=r) as round_span:
+                    t0 = time.perf_counter()
+                    post = None
+                    if fault_injector is not None:
+                        post = fault_injector(r, attempt)
+                    if seg is None:
+                        out_vars, metrics = round_fn(variables, si, sm, active, n_samples)
+                        if post is not None:
+                            out_vars, metrics = post(out_vars, metrics)
+                        if overlap_staging and r + 1 < n_rounds:
+                            # The round's kernels are queued; the next round's
+                            # data and its copy ride under them.
+                            next_data_s, _, next_buffers, next_cohort, next_bytes, next_host_idx = _stage_next(
+                                data_fn, r + 1, mesh, resident=resident, seg=None, n_chunks=1)
+                            if next_buffers is not None:
+                                acct["live"] += next_bytes
+                                acct["round_max"] = max(acct["round_max"], acct["live"])
+                    elif resident:
+                        out_vars, metrics, segout = _run_segmented_round_resident(
+                            seg, variables, si, sm, host_idx_cur, active, n_samples, data_fn=data_fn, round_idx=r,
+                            n_rounds=n_rounds, overlap_staging=overlap_staging, mesh=mesh, acct=acct,
+                            pipelined=pipelined_state)
+                        if post is not None:
+                            out_vars, metrics = post(out_vars, metrics)
+                        timeline = segout["timeline"]
+                        next_buffers, next_cohort = segout["next_buffers"], segout["next_cohort"]
+                        next_bytes, next_data_s = segout["next_bytes"], segout["next_data_s"]
+                        next_host_idx = segout["next_host_idx"]
+                        active, n_samples = segout["active"], segout["n_samples"]
+                    else:
+                        out_vars, metrics, segout = _run_segmented_round(
+                            seg, variables, si, sm, active, n_samples, data_fn=data_fn, round_idx=r,
+                            n_rounds=n_rounds, overlap_staging=overlap_staging, n_chunks=n_chunks, mesh=mesh,
+                            acct=acct, pipelined=pipelined_state)
+                        if post is not None:
+                            out_vars, metrics = post(out_vars, metrics)
+                        timeline = segout["timeline"]
+                        next_buffers, next_cohort = segout["next_buffers"], segout["next_cohort"]
+                        next_bytes, next_data_s = segout["next_bytes"], segout["next_data_s"]
+                        active, n_samples = segout["active"], segout["n_samples"]
 
-                if max_round_retries > 0 and not (_tree_finite(metrics) and _tree_finite(out_vars)):
-                    raise NonFiniteRound(f"round {r} produced non-finite weights/metrics")
-                pipelined_state = None
-                if round_overlap and r + 1 < n_rounds:
-                    pipelined_state = _dispatch_pipelined_segment(
-                        seg, out_vars, resident, si=si, sm=sm, active=active, n_samples=n_samples,
-                        host_idx_cur=host_idx_cur, segout=segout, next_buffers=next_buffers,
-                        next_cohort=next_cohort)
-                # The round barrier: the metrics depend on every step.
-                metrics_host = _metrics_to_host(metrics)
-                variables = out_vars
-                wall = time.perf_counter() - t0
+                    if max_round_retries > 0 and not (_tree_finite(metrics) and _tree_finite(out_vars)):
+                        raise NonFiniteRound(f"round {r} produced non-finite weights/metrics")
+                    pipelined_state = None
+                    if round_overlap and r + 1 < n_rounds:
+                        pipelined_state = _dispatch_pipelined_segment(
+                            seg, out_vars, resident, si=si, sm=sm, active=active, n_samples=n_samples,
+                            host_idx_cur=host_idx_cur, segout=segout, next_buffers=next_buffers,
+                            next_cohort=next_cohort)
+                    # The round barrier: the metrics depend on every step.
+                    metrics_host = _metrics_to_host(metrics)
+                    variables = out_vars
+                    wall = time.perf_counter() - t0
+                    _round_span_attrs(round_span, wall_s=wall, staging_s=pending_staging_s,
+                                      staged_bytes=staged_bytes, retries=attempt,
+                                      data_placement="resident" if resident else "streamed")
                 break
             except Exception as e:
                 if attempt >= max_round_retries:
@@ -634,30 +675,9 @@ def run_mesh_federation(
         if not overlap_staging and r + 1 < n_rounds:
             # Sequential: the next round's data and staging after the
             # barrier, charged to the next round's record.
-            td = time.perf_counter()
-            nxt = data_fn(r + 1)
-            next_data_s = time.perf_counter() - td
-            if nxt is not None:
-                ts = time.perf_counter()
-                if resident:
-                    nidx, na, nn = nxt
-                    next_host_idx = np.ascontiguousarray(np.asarray(nidx, np.int32))
-                    next_cohort = (na, nn)
-                    next_bytes = int(next_host_idx.nbytes)
-                    next_buffers = stage_round_indices(next_host_idx, mesh, seg)
-                elif seg is not None:
-                    ni, nm, na, nn = nxt
-                    next_cohort = (na, nn)
-                    next_bytes = int(ni.nbytes + nm.nbytes)
-                    nic, nmc = split_epoch_slab(ni, nm, n_chunks)
-                    pairs = [stage_round_data(ci, cm, mesh) for ci, cm in zip(nic, nmc)]
-                    next_buffers = ([p[0] for p in pairs], [p[1] for p in pairs])
-                else:
-                    ni, nm, na, nn = nxt
-                    next_cohort = (na, nn)
-                    next_bytes = int(ni.nbytes + nm.nbytes)
-                    next_buffers = stage_round_data(ni, nm, mesh)
-                next_staging_s = time.perf_counter() - ts
+            next_data_s, next_staging_s, next_buffers, next_cohort, next_bytes, next_host_idx = _stage_next(
+                data_fn, r + 1, mesh, resident=resident, seg=seg, n_chunks=n_chunks)
+            if next_buffers is not None:
                 acct["live"] += next_bytes
                 acct["round_max"] = max(acct["round_max"], acct["live"])
 
@@ -750,7 +770,7 @@ def _prep_cohort_round(cohort_round: CohortRound, r: int, data, sample_pool: Sam
     c_pad = n_groups * g
     prep["active"] = pad_cohort_axis(active, c_pad)
     prep["n_samples"] = pad_cohort_axis(n_samples, c_pad)
-    prep["c"], prep["n_groups"] = c, n_groups
+    prep["c"], prep["n_groups"], prep["round"] = c, n_groups, r
     return prep
 
 
@@ -764,16 +784,19 @@ def _stage_cohort_group(prep: dict, gi: int, g: int, mesh, sample_pool, resident
         part = arr[lo:min(hi, c)]
         return part if part.shape[0] == hi - lo else pad_cohort_axis(part, hi - lo)
 
-    ts = time.perf_counter()
-    if resident:
-        pi, pm, ix = slice_pad(sample_pool.images), slice_pad(sample_pool.masks), slice_pad(prep["idx"])
-        bufs = _stage_group_resident(pi, pm, ix, mesh)
-        nbytes = int(pi.nbytes + pm.nbytes + ix.nbytes)
-    else:
-        gi_imgs, gi_msks = slice_pad(prep["images"]), slice_pad(prep["masks"])
-        bufs = stage_round_data(np.ascontiguousarray(gi_imgs), np.ascontiguousarray(gi_msks), mesh)
-        nbytes = int(gi_imgs.nbytes + gi_msks.nbytes)
-    return bufs, nbytes, time.perf_counter() - ts
+    with tracing.span("driver.stage", round=prep["round"]) as stage_span:
+        ts = time.perf_counter()
+        if resident:
+            pi, pm, ix = slice_pad(sample_pool.images), slice_pad(sample_pool.masks), slice_pad(prep["idx"])
+            bufs = _stage_group_resident(pi, pm, ix, mesh)
+            nbytes = int(pi.nbytes + pm.nbytes + ix.nbytes)
+        else:
+            gi_imgs, gi_msks = slice_pad(prep["images"]), slice_pad(prep["masks"])
+            bufs = stage_round_data(np.ascontiguousarray(gi_imgs), np.ascontiguousarray(gi_msks), mesh)
+            nbytes = int(gi_imgs.nbytes + gi_msks.nbytes)
+        if stage_span is not None:
+            stage_span.set(bytes=nbytes)
+        return bufs, nbytes, time.perf_counter() - ts
 
 
 def run_cohort_federation(
@@ -820,68 +843,76 @@ def run_cohort_federation(
 
     for r in range(n_rounds):
         if pipeline is None:
-            td = time.perf_counter()
-            data = data_fn(r)
-            data_s = time.perf_counter() - td
-            prep = _prep_cohort_round(cohort_round, r, data, sample_pool, resident)
-            t0 = time.perf_counter()
-            cur, cur_bytes, stage_s = _stage_cohort_group(prep, 0, g, mesh, sample_pool, resident)
-            sums = cohort_round.zeros(variables)
-            pre_raw = pre_entry = None
-        else:
-            prep, data_s, t0 = pipeline["prep"], pipeline["data_s"], pipeline["t0"]
-            cur, cur_bytes, stage_s = pipeline["staged"]
-            sums, pre_raw, pre_entry = pipeline["sums"], pipeline["raw"], pipeline["entry"]
-            pipeline = None
-        active, n_samples = prep["active"], prep["n_samples"]
-        n_groups = prep["n_groups"]
-        raw_lasts = []
-        timeline: list[dict] = []
-        staged_total = 0
-        staging_total = 0.0
-        live = cur_bytes
-        round_max = live
-        for gi in range(n_groups):
-            if gi == 0 and pre_raw is not None:
-                raw, entry = pre_raw, pre_entry
+            with tracing.span("driver.stage", round=r, bytes=0):
+                td = time.perf_counter()
+                data = data_fn(r)
+                data_s = time.perf_counter() - td
+                prep = _prep_cohort_round(cohort_round, r, data, sample_pool, resident)
+        # With round_overlap, round r's first group was dispatched inside
+        # round r-1's span, and its wall starts there.
+        with tracing.span("driver.round", trace=f"round-{r}", round=r) as round_span:
+            if pipeline is None:
+                t0 = time.perf_counter()
+                cur, cur_bytes, stage_s = _stage_cohort_group(prep, 0, g, mesh, sample_pool, resident)
+                sums = cohort_round.zeros(variables)
+                pre_raw = pre_entry = None
             else:
+                prep, data_s, t0 = pipeline["prep"], pipeline["data_s"], pipeline["t0"]
+                cur, cur_bytes, stage_s = pipeline["staged"]
+                sums, pre_raw, pre_entry = pipeline["sums"], pipeline["raw"], pipeline["entry"]
+                pipeline = None
+            active, n_samples = prep["active"], prep["n_samples"]
+            n_groups = prep["n_groups"]
+            raw_lasts = []
+            timeline: list[dict] = []
+            staged_total = 0
+            staging_total = 0.0
+            live = cur_bytes
+            round_max = live
+            for gi in range(n_groups):
+                if gi == 0 and pre_raw is not None:
+                    raw, entry = pre_raw, pre_entry
+                else:
+                    tdp = time.perf_counter()
+                    sums, raw = run_group(sums, variables, cur, active, n_samples, gi * g)
+                    entry = {"group": gi, "dispatch_s": round(time.perf_counter() - tdp, 4),
+                             "staging_s": round(stage_s, 4), "staged_bytes": cur_bytes}
+                staged_total += cur_bytes
+                staging_total += stage_s
+                nxt = None
+                if gi + 1 < n_groups:
+                    nxt, nxt_bytes, stage_s = _stage_cohort_group(prep, gi + 1, g, mesh, sample_pool, resident)
+                    live += nxt_bytes
+                    round_max = max(round_max, live)
+                # Group g's buffers go with this reference: the allocator
+                # keeps them until the queued steps that read them are done.
+                raw_lasts.append(raw)
+                live -= cur_bytes
+                timeline.append(entry)
+                if nxt is not None:
+                    cur, cur_bytes = nxt, nxt_bytes
+            out_vars, metrics = cohort_round.finish(sums, variables, raw_lasts, active, prep["c"])
+            if round_overlap and r + 1 < n_rounds:
+                with tracing.span("driver.stage", round=r + 1, bytes=0):
+                    td = time.perf_counter()
+                    data2 = data_fn(r + 1)
+                    data2_s = time.perf_counter() - td
+                    prep2 = _prep_cohort_round(cohort_round, r + 1, data2, sample_pool, resident)
+                t0n = time.perf_counter()
+                cur2, cur2_bytes, stage2_s = _stage_cohort_group(prep2, 0, g, mesh, sample_pool, resident)
+                sums2 = cohort_round.zeros(out_vars)
                 tdp = time.perf_counter()
-                sums, raw = run_group(sums, variables, cur, active, n_samples, gi * g)
-                entry = {"group": gi, "dispatch_s": round(time.perf_counter() - tdp, 4),
-                         "staging_s": round(stage_s, 4), "staged_bytes": cur_bytes}
-            staged_total += cur_bytes
-            staging_total += stage_s
-            nxt = None
-            if gi + 1 < n_groups:
-                nxt, nxt_bytes, stage_s = _stage_cohort_group(prep, gi + 1, g, mesh, sample_pool, resident)
-                live += nxt_bytes
-                round_max = max(round_max, live)
-            # Group g's buffers go with this reference: the allocator
-            # keeps them until the queued steps that read them are done.
-            raw_lasts.append(raw)
-            live -= cur_bytes
-            timeline.append(entry)
-            if nxt is not None:
-                cur, cur_bytes = nxt, nxt_bytes
-        out_vars, metrics = cohort_round.finish(sums, variables, raw_lasts, active, prep["c"])
-        if round_overlap and r + 1 < n_rounds:
-            td = time.perf_counter()
-            data2 = data_fn(r + 1)
-            data2_s = time.perf_counter() - td
-            prep2 = _prep_cohort_round(cohort_round, r + 1, data2, sample_pool, resident)
-            t0n = time.perf_counter()
-            cur2, cur2_bytes, stage2_s = _stage_cohort_group(prep2, 0, g, mesh, sample_pool, resident)
-            sums2 = cohort_round.zeros(out_vars)
-            tdp = time.perf_counter()
-            sums2, raw2 = run_group(sums2, out_vars, cur2, prep2["active"], prep2["n_samples"], 0)
-            pipeline = {"prep": prep2, "data_s": data2_s, "t0": t0n, "staged": (cur2, cur2_bytes, stage2_s),
-                        "sums": sums2, "raw": raw2,
-                        "entry": {"group": 0, "dispatch_s": round(time.perf_counter() - tdp, 4),
-                                  "staging_s": round(stage2_s, 4), "staged_bytes": cur2_bytes,
-                                  "pipelined": True}}
-        metrics_host = _metrics_to_host(metrics)
-        variables = out_vars
-        wall = time.perf_counter() - t0
+                sums2, raw2 = run_group(sums2, out_vars, cur2, prep2["active"], prep2["n_samples"], 0)
+                pipeline = {"prep": prep2, "data_s": data2_s, "t0": t0n, "staged": (cur2, cur2_bytes, stage2_s),
+                            "sums": sums2, "raw": raw2,
+                            "entry": {"group": 0, "dispatch_s": round(time.perf_counter() - tdp, 4),
+                                      "staging_s": round(stage2_s, 4), "staged_bytes": cur2_bytes,
+                                      "pipelined": True}}
+            metrics_host = _metrics_to_host(metrics)
+            variables = out_vars
+            wall = time.perf_counter() - t0
+            _round_span_attrs(round_span, wall_s=wall, staging_s=staging_total, staged_bytes=staged_total,
+                              retries=0, data_placement="resident" if resident else "streamed")
         record = RoundRecord(
             round_idx=r, metrics=metrics_host, wall_clock_s=wall, data_fn_s=data_s, staging_s=staging_total,
             staged_bytes=staged_total, overlapped=n_groups > 1 or pre_raw is not None,

@@ -32,6 +32,11 @@ that ``codec_state`` restores on a replay.
 Running the slots one after another is the first form, not the fast one:
 batching them into one launch per operation waits in ROADMAP Queue 2.
 
+Spans (``obs.spans``, while a recorder is installed): each client slot is
+a ``mesh.slot`` holding its ``mesh.slot_init`` (weights loaded, Adam made),
+its steps' ``train.*`` spans and its ``mesh.fold`` (the codec, if any, and
+the fold into the carry); the round's mean and metrics are ``mesh.finish``.
+
 A mesh that spans processes (``make_mesh(..., group=)``) splits the
 ``clients`` axis into one contiguous block per rank. ``round_fn`` then
 takes this rank's clients' data only (leading dimension the block's
@@ -83,6 +88,7 @@ from fedcrack_tpu_torch.fed.aggregation import (
 from fedcrack_tpu_torch.fed.pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 from fedcrack_tpu_torch.models.convert import flax_to_state_dict, from_flax_variables
 from fedcrack_tpu_torch.models.resunet import ResUNet
+from fedcrack_tpu_torch.obs import spans as tracing
 from fedcrack_tpu_torch.ops.losses import iou_from_counts
 from fedcrack_tpu_torch.parallel.multihost import ProcessSpan
 from fedcrack_tpu_torch.parallel.slots import BATCH, CLIENTS, SlotMesh
@@ -294,11 +300,14 @@ class _SlotFit:
 
     def init(self, i: int, gvars: dict) -> _Slot:
         """Slot ``i`` from the round's global: weights loaded, Adam fresh."""
-        state = self.worker(i)
-        from_flax_variables(gvars, state.model)
-        state.optimizer = make_optimizer(state.model.parameters(), self.learning_rate)
-        state.step = 0
-        return _Slot(state)
+        with tracing.span("mesh.slot_init") as init_span:
+            if init_span is not None:
+                init_span.set(leaves=len(tree_leaves(gvars)))
+            state = self.worker(i)
+            from_flax_variables(gvars, state.model)
+            state.optimizer = make_optimizer(state.model.parameters(), self.learning_rate)
+            state.step = 0
+            return _Slot(state)
 
     def _after_backward(self, slot: _Slot, client: int, round_seed: int | None):
         if self.dp is None:
@@ -507,35 +516,46 @@ def _build_round(
         sums = mesh_zero_sums(gvars)
         lasts, flats = [], []
         for i, c in enumerate(local):
-            slot = fit.init(0, gvars)
-            chunks, idx = slot_data(i)
-            per_epoch = fit.run_epochs(slot, chunks, epochs, anchor, client=c, idx=idx, round_seed=seed_in)
-            lasts.append(per_epoch[-1])
-            update = _model_variables(slot.state.model)
-            if round_fn.slot_hook is not None:
-                round_fn.slot_hook(c, tree_map(lambda t: t.detach().clone(), update))
-            if codec == "int8":
-                update = _tree_add_cast(gvars, int8_roundtrip(_tree_sub(update, gvars), (seed_in, c)))
-            elif topk:
-                kept, residual = topk_roundtrip(_tree_sub(update, gvars), ef_state["ef"][i], topk_fraction)
-                update = _tree_add_cast(gvars, kept)
-                # The residual advances only for an active client: on the
-                # wire an inactive client never encodes.
-                if float(active[c]) > 0.0:
-                    ef_new[i] = residual
-            if span is None:
-                sums = _fold_slot(update, active[c], n_samples[c], sums)
-            else:
-                flats.append(_flat_update(update))
-        last = _stack_slots(lasts)
+            with tracing.span("mesh.slot", client=c) as slot_span:
+                slot = fit.init(0, gvars)
+                chunks, idx = slot_data(i)
+                per_epoch = fit.run_epochs(slot, chunks, epochs, anchor, client=c, idx=idx, round_seed=seed_in)
+                lasts.append(per_epoch[-1])
+                with tracing.span("mesh.fold") as fold_span:
+                    update = _model_variables(slot.state.model)
+                    if fold_span is not None:
+                        fold_span.set(leaves=len(tree_leaves(update)))
+                    if round_fn.slot_hook is not None:
+                        round_fn.slot_hook(c, tree_map(lambda t: t.detach().clone(), update))
+                    if codec == "int8":
+                        update = _tree_add_cast(gvars, int8_roundtrip(_tree_sub(update, gvars), (seed_in, c)))
+                    elif topk:
+                        kept, residual = topk_roundtrip(_tree_sub(update, gvars), ef_state["ef"][i], topk_fraction)
+                        update = _tree_add_cast(gvars, kept)
+                        # The residual advances only for an active client: on
+                        # the wire an inactive client never encodes.
+                        if float(active[c]) > 0.0:
+                            ef_new[i] = residual
+                    if span is None:
+                        sums = _fold_slot(update, active[c], n_samples[c], sums)
+                    else:
+                        flats.append(_flat_update(update))
+                if slot_span is not None:
+                    slot_span.set(steps=slot.state.step)
         if span is not None:
             before = dict(span.stats)
-            for c, update in enumerate(_gather_slots(span, flats, gvars)):
-                sums = _fold_slot(update, active[c], n_samples[c], sums)
-            last = _gather_metrics(span, last)
-            round_fn.last_gather = {k: span.stats[k] - before[k] for k in ("seconds", "bytes")}
-        new_vars = mesh_finish_cohort_mean(sums[0], sums[1], gvars)
-        metrics = _round_metrics(last, active, device)
+            with tracing.span("mesh.fold") as fold_span:
+                if fold_span is not None:
+                    fold_span.set(leaves=len(tree_leaves(gvars)))
+                for c, update in enumerate(_gather_slots(span, flats, gvars)):
+                    sums = _fold_slot(update, active[c], n_samples[c], sums)
+        with tracing.span("mesh.finish"):
+            last = _stack_slots(lasts)
+            if span is not None:
+                last = _gather_metrics(span, last)
+                round_fn.last_gather = {k: span.stats[k] - before[k] for k in ("seconds", "bytes")}
+            new_vars = mesh_finish_cohort_mean(sums[0], sums[1], gvars)
+            metrics = _round_metrics(last, active, device)
         if needs_seed:
             ef_state["calls"] += 1
         if topk:
@@ -728,37 +748,44 @@ class SegmentedRound:
             pool_i, pool_m = (_as_device(p, self.device) for p in img_chunks)
             plan = _plan_tensor(msk_chunks, self.device)
             for c, slot in enumerate(carry):
-                per_epoch = self.fit.run_epochs(slot, [(pool_i[c], pool_m[c])], self.segment_epochs, anchor,
-                                                client=self.client_offset + c, idx=plan[c])
+                with tracing.span("mesh.slot", client=self.client_offset + c, steps=int(plan.shape[1] * plan.shape[2])):
+                    per_epoch = self.fit.run_epochs(slot, [(pool_i[c], pool_m[c])], self.segment_epochs, anchor,
+                                                    client=self.client_offset + c, idx=plan[c])
                 lasts.append(per_epoch[-1])
         else:
             chunks = [(_as_device(i, self.device), _as_device(m, self.device))
                       for i, m in zip(_as_chunks(img_chunks), _as_chunks(msk_chunks))]
+            steps = self.segment_epochs * sum(int(i.shape[1]) for i, _ in chunks)
             for c, slot in enumerate(carry):
-                per_epoch = self.fit.run_epochs(slot, [(i[c], m[c]) for i, m in chunks], self.segment_epochs,
-                                                anchor, client=self.client_offset + c)
+                with tracing.span("mesh.slot", client=self.client_offset + c, steps=steps):
+                    per_epoch = self.fit.run_epochs(slot, [(i[c], m[c]) for i, m in chunks], self.segment_epochs,
+                                                    anchor, client=self.client_offset + c)
                 lasts.append(per_epoch[-1])
         return carry, _stack_slots(lasts)
 
     def fold(self, carry: list, active, n_samples, sums: tuple) -> tuple:
         """Fold every slot's weights into ``sums`` in client order (every
         rank's slots, across processes)."""
-        updates = [_model_variables(slot.state.model) for slot in carry]
-        if self.span is not None:
-            updates = _gather_slots(self.span, [_flat_update(u) for u in updates], updates[0])
-        for c, update in enumerate(updates):
-            sums = _fold_slot(update, active[c], n_samples[c], sums)
-        return sums
+        with tracing.span("mesh.fold") as fold_span:
+            updates = [_model_variables(slot.state.model) for slot in carry]
+            if fold_span is not None:
+                fold_span.set(leaves=len(updates) * len(tree_leaves(updates[0])))
+            if self.span is not None:
+                updates = _gather_slots(self.span, [_flat_update(u) for u in updates], updates[0])
+            for c, update in enumerate(updates):
+                sums = _fold_slot(update, active[c], n_samples[c], sums)
+            return sums
 
     def finalize(self, carry: list, variables, active, n_samples, raw_last):
         """The fold, the guard and the metrics dict."""
         gvars = _device_tree(variables, self.device)
         active32, n32 = np.asarray(active, np.float32), np.asarray(n_samples, np.float32)
         num, den = self.fold(carry, active32, n32, mesh_zero_sums(gvars))
-        new_variables = mesh_finish_cohort_mean(num, den, gvars)
-        if self.span is not None:
-            raw_last = _gather_metrics(self.span, raw_last)
-        return new_variables, _round_metrics(raw_last, active32, self.device)
+        with tracing.span("mesh.finish"):
+            new_variables = mesh_finish_cohort_mean(num, den, gvars)
+            if self.span is not None:
+                raw_last = _gather_metrics(self.span, raw_last)
+            return new_variables, _round_metrics(raw_last, active32, self.device)
 
     def __call__(self, variables, images, masks, active, n_samples):
         if self.data_placement == "resident":
@@ -917,9 +944,11 @@ class CohortRound:
         """The new global from the cross-group sums, and the per-client
         metrics from the concatenated group counts (padding sliced off)."""
         gvars = _device_tree(variables, self.seg.device)
-        new_variables = mesh_finish_cohort_mean(sums[0], sums[1], gvars)
-        last = {k: torch.cat([r[k] for r in raw_lasts])[:cohort_size] for k in raw_lasts[0]}
-        return new_variables, _round_metrics(last, np.asarray(active, np.float32)[:cohort_size], self.seg.device)
+        with tracing.span("mesh.finish"):
+            new_variables = mesh_finish_cohort_mean(sums[0], sums[1], gvars)
+            last = {k: torch.cat([r[k] for r in raw_lasts])[:cohort_size] for k in raw_lasts[0]}
+            return new_variables, _round_metrics(last, np.asarray(active, np.float32)[:cohort_size],
+                                                 self.seg.device)
 
     def _padded_cohort(self, active, n_samples):
         active = np.asarray(active, np.float32)

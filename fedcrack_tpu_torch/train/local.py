@@ -32,6 +32,7 @@ from fedcrack_tpu_torch.data.pipeline import as_model_batch, device_prefetch, no
 from fedcrack_tpu_torch.fed.algorithms import fedprox_penalty
 from fedcrack_tpu_torch.models.convert import from_flax_variables, to_flax_variables
 from fedcrack_tpu_torch.models.resunet import BatchNorm, ResUNet
+from fedcrack_tpu_torch.obs import spans as tracing
 from fedcrack_tpu_torch.ops.bce import fused_segmentation_metrics
 
 
@@ -125,20 +126,28 @@ def train_step(
     noise). Both None (the default) run none of their code.
     ``metrics_fn(logits, masks, pos_weight=)`` replaces
     ``fused_segmentation_metrics`` (the spatial plane across processes
-    sums the five sums over the ranks there)."""
-    images, masks = as_model_batch(*_device_batch(batch, state.device))
-    model = state.model
-    model.train()
-    logits = model(images) if forward is None else forward(model, images)
-    metrics = (metrics_fn or fused_segmentation_metrics)(logits, masks, pos_weight=pos_weight)
-    loss = metrics["loss"]
-    if mu != 0.0:
-        loss = loss + fedprox_penalty(dict(model.named_parameters()), anchor_params, mu)
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    if after_backward is not None:
-        after_backward(model)
-    state.optimizer.step()
+    sums the five sums over the ranks there).
+
+    Spans (while a recorder is installed): ``train.forward`` (the batch to
+    the device, the model call, the metrics and the FedProx term),
+    ``train.backward`` (``zero_grad``, the backward pass and
+    ``after_backward``) and ``train.optimizer`` (the Adam step)."""
+    with tracing.span("train.forward", step=state.step):
+        images, masks = as_model_batch(*_device_batch(batch, state.device))
+        model = state.model
+        model.train()
+        logits = model(images) if forward is None else forward(model, images)
+        metrics = (metrics_fn or fused_segmentation_metrics)(logits, masks, pos_weight=pos_weight)
+        loss = metrics["loss"]
+        if mu != 0.0:
+            loss = loss + fedprox_penalty(dict(model.named_parameters()), anchor_params, mu)
+    with tracing.span("train.backward"):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        if after_backward is not None:
+            after_backward(model)
+    with tracing.span("train.optimizer"):
+        state.optimizer.step()
     state.step += 1
     out = {k: v.detach() for k, v in metrics.items()}
     out["loss"] = loss.detach()
