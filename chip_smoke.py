@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --serve-ticks 0.05,1.0   # phase 14 alone, per tick
+    python3 chip_smoke.py --step-graph             # phase 25 alone
 
 Runs from the root of a checkout on a machine with one NVIDIA H100 and
 ``nvcc``; it imports neither JAX nor ``fedcrack_tpu``. Phases (each raises
@@ -394,6 +395,22 @@ on failure, so any failure exits non-zero and prints no result):
     the first step's logits within phase 6's tolerance, count lanes exact.
     Logged: the FLOPs, the peak, the category split, both arms'
     ``per_step_ms`` and MFU, the speedup.
+
+25. the train step's CUDA graph (``train.local.StepGraphs``) at the
+    benchmark cell's round shape: 8 slots x 2 steps x batch 16 at 256 px,
+    float32. From one start, two rounds through the slot plane on the graph
+    path and two with ``forward`` set (eager, the same arithmetic): each
+    slot's weights and statistics, every step's Adam moments, the globals
+    and the metrics bit-equal; ``bce_sums`` launches 32 on each; the
+    counter's paths 1 eager, 1 capture, 30 replays against 32 eager. A
+    third graphed round under ``torch.cuda.set_sync_debug_mode("warn")``
+    makes no synchronizing call (two synchronizing copies as the
+    control); a profiled graphed round holds a ``bce_sums_kernel`` record
+    for each of its 16 steps; the released rounds leave at most 64 MB
+    allocated. Logged: both rounds' walls in turns, the peak memory.
+
+``python3 chip_smoke.py --step-graph`` builds ``bce_sums.cu`` and runs
+only phase 25.
 
 ``python3 chip_smoke.py --serve-ticks 0.05,1.0,1.0,0.05`` builds
 ``dequant.cu`` and runs only phase 14, once per autoscaler tick given, and
@@ -7359,6 +7376,235 @@ def profile_steps(torch, step, card: str, flops: float, n: int = 3) -> None:
             f"{e.count // n:4d} calls/step  {e.key[:110]}")
 
 
+# Phase 25: the benchmark cell's round shape (c3: 8 clients x 2 steps x
+# batch 16 at 256 px), float32, two rounds a run.
+GRAPH_CLIENTS, GRAPH_STEPS, GRAPH_ROUNDS, GRAPH_SIZE = 8, 2, 2, 256
+GRAPH_SEED = 25
+GRAPH_TIMED = 4  # rounds a side timed in turns, after the checked runs
+GRAPH_LEFT_BYTES = 64 << 20  # what released rounds may leave allocated (library and bce_sums workspaces)
+
+
+def _graph_counts() -> dict:
+    from fedcrack_tpu_torch.obs.registry import REGISTRY
+
+    fam = REGISTRY.get("train_step_graph_total")
+    return {p: (0.0 if fam is None else fam.labels(path=p).value) for p in ("eager", "capture", "replay")}
+
+
+def _same_bits(torch, a, b) -> bool:
+    a, b = a.detach().contiguous(), b.detach().contiguous()
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def step_graph_phase(torch, card: str) -> dict:
+    """Phase 25, the train step's CUDA graph in the slot plane, at the
+    benchmark cell's round shape: from one start, the graphed round
+    (``round_from_config``'s path) and the eager one (``forward`` set, the
+    same arithmetic) over the same two rounds, bit for bit (each slot's
+    weights and BatchNorm statistics, every step's Adam moments, the
+    globals and metrics), ``bce_sums`` launches equal to the steps on
+    both; a third graphed round under ``torch.cuda.set_sync_debug_mode``
+    with no synchronizing call between ``round_fn``'s entry and its return
+    (two synchronizing copies as the control); one graphed round profiled,
+    a ``bce_sums_kernel`` record for every step; the round walls of both,
+    in turns; once released, the rounds' memory freed, the graph's pool
+    with it. Logged: the counter's paths, the walls, the peak memory."""
+    import gc
+    import warnings
+
+    import numpy as np
+    from torch.optim.optimizer import register_optimizer_step_post_hook
+
+    from fedcrack_tpu_torch.configs import ModelConfig
+    from fedcrack_tpu_torch.data.pipeline import to_uint8_transport
+    from fedcrack_tpu_torch.data.synthetic import synth_crack_batch
+    from fedcrack_tpu_torch.fed.pytree import tree_leaves, tree_map
+    from fedcrack_tpu_torch.models.resunet import init_variables
+    from fedcrack_tpu_torch.obs.metrics import card_kernels, card_profile
+    from fedcrack_tpu_torch.ops import bce
+    from fedcrack_tpu_torch.parallel import make_mesh, stack_client_data
+    from fedcrack_tpu_torch.parallel.driver import stage_round_data
+    from fedcrack_tpu_torch.parallel.fedavg_mesh import _build_round
+
+    t_phase = time.monotonic()
+    cfg = ModelConfig(img_size=GRAPH_SIZE)
+    mesh = make_mesh(GRAPH_CLIENTS)
+    device = mesh.device
+    start = tree_map(lambda a: torch.as_tensor(a).to(device),
+                     init_variables(torch.Generator().manual_seed(GRAPH_SEED), cfg))
+    staged = []
+    for r in range(GRAPH_ROUNDS + 1):
+        per = [to_uint8_transport(*synth_crack_batch(GRAPH_STEPS * TRAIN_BATCH, img_size=GRAPH_SIZE,
+                                                     seed=GRAPH_SEED * 1000 + 100 * r + c))
+               for c in range(GRAPH_CLIENTS)]
+        staged.append(stage_round_data(*stack_client_data(per, GRAPH_STEPS, TRAIN_BATCH), mesh))
+    active = np.ones(GRAPH_CLIENTS, np.float32)
+    n_samples = np.full(GRAPH_CLIENTS, float(GRAPH_STEPS * TRAIN_BATCH), np.float32)
+    steps = GRAPH_CLIENTS * GRAPH_STEPS * GRAPH_ROUNDS
+    torch.cuda.synchronize()
+    held_before = torch.cuda.memory_allocated()
+    graph_fn = _build_round(mesh, cfg, 1e-3, 1, 0.0)
+    eager_fn = _build_round(mesh, cfg, 1e-3, 1, 0.0, forward=lambda m, x: m(x))
+
+    def run(round_fn) -> dict:
+        moments, slots = [], []
+
+        def keep(opt, args, kwargs):
+            params = [p for g in opt.param_groups for p in g["params"]]
+            moments.append(torch.cat([t.reshape(-1) for p in params
+                                      for t in (opt.state[p]["exp_avg"], opt.state[p]["exp_avg_sq"])]))
+
+        handle = register_optimizer_step_post_hook(keep)
+        round_fn.slot_hook = lambda c, v: slots.append(tree_leaves(v))
+        before, launches = _graph_counts(), bce.bce_sums.launches
+        variables, metrics = start, []
+        try:
+            for r in range(GRAPH_ROUNDS):
+                variables, m = round_fn(variables, *staged[r], active, n_samples)
+                metrics.append(m)
+            torch.cuda.synchronize()
+        finally:
+            handle.remove()
+            round_fn.slot_hook = None
+        after = _graph_counts()
+        return {"variables": variables, "metrics": metrics, "moments": moments, "slots": slots,
+                "launches": bce.bce_sums.launches - launches, "paths": {k: after[k] - before[k] for k in after}}
+
+    graphed = run(graph_fn)
+    eager = run(eager_fn)
+    for name, launched in (("graphed", graphed["launches"]), ("eager", eager["launches"])):
+        if launched != steps:
+            raise AssertionError(f"[graph] the {name} rounds counted {launched} bce_sums launches, "
+                                 f"not their {steps} steps")
+    if graphed["paths"] != {"eager": 1.0, "capture": 1.0, "replay": float(steps - 2)}:
+        raise AssertionError(f"[graph] the graphed rounds took the paths {graphed['paths']}")
+    if eager["paths"] != {"eager": float(steps), "capture": 0.0, "replay": 0.0}:
+        raise AssertionError(f"[graph] the eager rounds took the paths {eager['paths']}")
+    if len(graphed["moments"]) != steps or len(eager["moments"]) != steps:
+        raise AssertionError(f"[graph] {len(graphed['moments'])} / {len(eager['moments'])} Adam steps, not {steps}")
+    pairs = [("global", a, b) for a, b in zip(tree_leaves(graphed["variables"]), tree_leaves(eager["variables"]))]
+    pairs += [(f"slot {i} leaf {j}", a, b) for i, (sa, sb) in enumerate(zip(graphed["slots"], eager["slots"]))
+              for j, (a, b) in enumerate(zip(sa, sb))]
+    pairs += [(f"Adam moments, step {i}", a, b) for i, (a, b) in enumerate(zip(graphed["moments"], eager["moments"]))]
+    pairs += [(f"round {r} {k}", graphed["metrics"][r][k], eager["metrics"][r][k])
+              for r in range(GRAPH_ROUNDS) for k in eager["metrics"][r]]
+    if len(graphed["slots"]) != GRAPH_CLIENTS * GRAPH_ROUNDS or len(graphed["slots"]) != len(eager["slots"]):
+        raise AssertionError(f"[graph] {len(graphed['slots'])} / {len(eager['slots'])} slots kept")
+    differ = [name for name, a, b in pairs if not _same_bits(torch, a, b)]
+    n_pairs = len(pairs)
+    del pairs
+    if differ:
+        raise AssertionError(f"[graph] the graphed rounds differ from the eager ones in {len(differ)} of "
+                             f"{n_pairs} tensors, first {differ[:5]}")
+    log(f"[graph] graphed against eager, 2 rounds x 8 slots x 2 steps at 256 px: {n_pairs} tensors bit-equal "
+        f"(globals, {len(graphed['slots'])} slots' weights and statistics, {steps} steps' Adam moments, metrics); "
+        f"bce_sums launches {graphed['launches']} / {eager['launches']}; paths graphed {graphed['paths']}, "
+        f"eager {eager['paths']}")
+    del eager
+    launches_graphed, paths_graphed = graphed["launches"], graphed["paths"]
+
+    def caught_syncs(fn) -> list:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+
+    control = caught_syncs(lambda: (torch.as_tensor(np.float32(2.0)).to(device),
+                                    torch.as_tensor(np.ones(GRAPH_CLIENTS, np.float32)).to(device)))
+    if len(control) < 2:
+        raise AssertionError(f"[graph] sync debug mode caught {len(control)} of 2 synchronizing copies")
+    out_sync = {}
+    before = _graph_counts()
+    syncs = caught_syncs(lambda: out_sync.update(out=graph_fn(graphed["variables"], *staged[GRAPH_ROUNDS], active,
+                                                              n_samples)))
+    torch.cuda.synchronize()
+    sync_paths = {k: v - before[k] for k, v in _graph_counts().items()}
+    if syncs:
+        raise AssertionError(f"[graph] {len(syncs)} synchronizing calls inside round_fn: {syncs[:3]}")
+    log(f"[graph] a graphed round under set_sync_debug_mode('warn'): 0 synchronizing calls (the control's two "
+        f"copies caught {len(control)}); paths {sync_paths}")
+
+    profiled = None
+    for _ in range(PROFILE_TRIES):
+        launches = bce.bce_sums.launches
+        with card_profile(cpu=False) as prof:
+            graph_fn(graphed["variables"], *staged[0], active, n_samples)
+        launched = bce.bce_sums.launches - launches
+        kernels = card_kernels(prof)
+        records = sum(e.count for e in kernels if "bce_sums_kernel" in e.key)
+        if records == launched == GRAPH_CLIENTS * GRAPH_STEPS:
+            profiled = {"bce_sums_records": records, "kernel_records": sum(e.count for e in kernels),
+                        "busy_ms": sum(e.self_device_time_total for e in kernels) / 1e3}
+            break
+        log(f"[graph] profiled round kept {records} bce_sums_kernel records of {launched} launches; retaking it")
+    if profiled is None:
+        raise AssertionError("[graph] the profiler lost bce_sums_kernel records of a graphed round in every take")
+    log(f"[graph] a graphed round profiled: {profiled['bce_sums_records']} bce_sums_kernel records for "
+        f"{GRAPH_CLIENTS * GRAPH_STEPS} steps, {profiled['kernel_records'] / (GRAPH_CLIENTS * GRAPH_STEPS):.1f} "
+        f"kernel records a step, device busy {profiled['busy_ms']:.2f} ms a round [{card}]")
+
+    walls = {"graphed": [], "eager": []}
+    order = ["graphed", "eager", "eager", "graphed"] * (GRAPH_TIMED // 2)
+    for label in order:
+        fn = graph_fn if label == "graphed" else eager_fn
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(graphed["variables"], *staged[1], active, n_samples)
+        torch.cuda.synchronize()
+        walls[label].append((time.perf_counter() - t0) * 1e3)
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    # Released, the rounds free their slot states and with them the graph
+    # and its memory pool.
+    held_graphed = torch.cuda.memory_allocated()
+    del graph_fn, eager_fn, fn, graphed, out_sync
+    gc.collect()
+    torch.cuda.synchronize()
+    held_after = torch.cuda.memory_allocated()
+    if held_after > held_before + GRAPH_LEFT_BYTES:
+        raise AssertionError(f"[graph] {(held_after - held_before) / 1e6:.1f} MB still held once the rounds are "
+                             f"released ({held_graphed / 1e9:.2f} GB before)")
+    out = {"tensors_equal": n_pairs, "launches": launches_graphed, "paths": paths_graphed,
+           "sync_calls": len(syncs), "sync_control": len(control), "profiled": profiled,
+           "round_ms": walls, "round_ms_median": med,
+           "images_per_s": {k: GRAPH_CLIENTS * GRAPH_STEPS * TRAIN_BATCH / (v / 1e3) for k, v in med.items()},
+           "memory_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "held_gb": {"graphed": held_graphed / 1e9, "released": held_after / 1e9, "before": held_before / 1e9},
+           "phase_s": time.monotonic() - t_phase}
+    log(f"[graph] round walls in turns (ms): graphed {[round(w, 1) for w in walls['graphed']]}, eager "
+        f"{[round(w, 1) for w in walls['eager']]}; {json.dumps(out)} [{card}]")
+    return out
+
+
+def step_graph_only() -> int:
+    """Phases 1, 2 (``bce_sums.cu`` alone) and 25, in one process."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke runs on the GPU only", file=sys.stderr)
+        return 2
+    for m in REFERENCE_STACK:
+        if m not in PORT_NEEDS:
+            sys.modules.setdefault(m, None)
+    from fedcrack_tpu_torch.kernels import build
+    from fedcrack_tpu_torch.ops import bce
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log(f"phase 1 device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, cuda {torch.version.cuda}, "
+        f"card: {card}")
+    build.build_all([bce.LIBRARY])
+    out = step_graph_phase(torch, card)
+    log("phase 25 the train step's CUDA graph in the slot plane: ok")
+    print(json.dumps({"step_graph": out}), flush=True)
+    print(card, flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -7447,6 +7693,8 @@ def main() -> int:
     flops_ab = flops_profile_ab_phase(torch, card)
     log("phase 24 the FLOPs model and the card's peak, a profiled round at 256 px bf16 (tools.profile_step) and the "
         "bce_sums A/B inside the train step (tools.ab_bce): ok")
+    step_graph = step_graph_phase(torch, card)
+    log("phase 25 the train step's CUDA graph in the slot plane: ok")
 
     kernels = []
     replaces = {"dequant_matmul": "fedcrack_tpu/kernels/dequant.py:88",
@@ -7512,6 +7760,7 @@ def main() -> int:
         "launches_phase23": soak["launches"]["bce_sums"],
         "launches_phase24": flops_ab["launches"]["ab_bce"],
         "launches_phase24_profile": flops_ab["launches"]["profile_step"],
+        "launches_phase25": step_graph["launches"],
         **bce_row,
     })
     log(f"profiler: {lead_kept()} at {time.monotonic() - t_start:.1f} s [{card}]")
@@ -7558,6 +7807,8 @@ if __name__ == "__main__":
         sys.exit(multihost_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--serve-ticks"] and len(sys.argv) == 3:
         sys.exit(serve_tick_sweep([float(t) for t in sys.argv[2].split(",")]))
+    if sys.argv[1:] == ["--step-graph"]:
+        sys.exit(step_graph_only())
     if sys.argv[1:]:
-        sys.exit(f"usage: {sys.argv[0]} [--serve-ticks T1,T2,...]")
+        sys.exit(f"usage: {sys.argv[0]} [--serve-ticks T1,T2,... | --step-graph]")
     sys.exit(main())

@@ -257,14 +257,17 @@ def mesh_ordered_fold(tree: Any, weight: Any, init: tuple) -> tuple:
     """Continue the carry ``init = (num_tree, den)`` with weighted updates
     in client order. ``tree`` is one slot's tree with a 0-d ``weight``, or
     a stacked tree (leaves ``[C, ...]``) with a ``[C]`` weight vector.
-    Float32 tensors on the carry's device throughout."""
+    Float32 tensors on the carry's device throughout. The weights live on
+    the host (numbers, numpy, a CPU tensor) and enter the products as
+    Python floats holding their float32 values exactly: nothing is copied
+    to the device, so the fold waits for nothing there, and each product
+    and sum is the same float32 operation as with a 0-d float32 tensor."""
     num, den = init
-    w = torch.as_tensor(weight, dtype=torch.float32).to(den.device)
+    w = torch.as_tensor(weight, dtype=torch.float32)
     if w.ndim == 0:
-        num = tree_map(lambda a, x: a + w * x.to(torch.float32), num, tree)
-        return num, den + w
-    for i in range(w.shape[0]):
-        wi = w[i]
+        w0 = w.item()
+        return tree_map(lambda a, x: a + w0 * x.to(torch.float32), num, tree), den + w0
+    for i, wi in enumerate(w.tolist()):
         num = tree_map(lambda a, x: a + wi * x[i].to(torch.float32), num, tree)
         den = den + wi
     return num, den

@@ -14,7 +14,11 @@ PyTorch version :func:`_bce_sums_plain` (the counterpart of the JAX
 package's ``_sums_jnp``, what the CPU tests hold against JAX), a CUDA
 tensor launches the kernel or raises. Unlike the JAX package, where the
 kernel is opt-in, on the card every call goes through the kernel.
-:func:`bce_sums` counts its kernel launches in ``bce_sums.launches``.
+:func:`bce_sums` counts its kernel launches in ``bce_sums.launches`` as
+they run. A launch recorded into a CUDA graph's capture runs only when the
+graph does: the capturing thread takes its count
+(:func:`take_captured_launches`) and adds it at each run of the graph
+(:func:`count_launches`).
 
 The gradient is elementwise torch, exactly the JAX package's: only the two
 BCE lanes (0 and 4) carry one; the counts are piecewise constant.
@@ -79,6 +83,9 @@ def check_bce_plan(n: int, plan: BcePlan) -> None:
 
 
 _count_lock = threading.Lock()
+# Launches recorded into a CUDA graph by this thread's capture, not yet
+# taken by it.
+_captured = threading.local()
 # (device index, stream) -> (partials [MAX_GRID, LANES] int32, ticket [1]
 # int32): the scratch of a grid of several blocks, allocated once
 # per stream with the ticket zeroed on that stream. Calls on one stream run
@@ -138,9 +145,18 @@ def _bce_sums_kernel(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     out = torch.empty((LANES,), dtype=torch.float32, device=x.device)
     LIBRARY.launch("fc_bce_sums", x.device, x.data_ptr(), y.data_ptr(), partials.data_ptr(),
                    ticket.data_ptr(), out.data_ptr(), n, *bce_plan(n))
+    _count_launch()
+    return out
+
+
+def _count_launch() -> None:
+    """One launch: counted as it runs, or, recorded into a graph's
+    capture, kept for the capturing thread."""
+    if torch.cuda.is_current_stream_capturing():
+        _captured.launches = getattr(_captured, "launches", 0) + 1
+        return
     with _count_lock:
         bce_sums.launches += 1
-    return out
 
 
 class BceSums(torch.autograd.Function):
@@ -182,6 +198,21 @@ def bce_sums(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 bce_sums.launches = 0
+
+
+def take_captured_launches() -> int:
+    """The launches this thread recorded into CUDA graph captures since it
+    last took them."""
+    n = getattr(_captured, "launches", 0)
+    _captured.launches = 0
+    return n
+
+
+def count_launches(n: int) -> None:
+    """Add ``n`` launches that ran with no call to :func:`bce_sums`: a CUDA
+    graph's, each time it runs."""
+    with _count_lock:
+        bce_sums.launches += n
 
 
 def reset_launch_counts() -> None:

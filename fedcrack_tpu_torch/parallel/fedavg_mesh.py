@@ -190,9 +190,9 @@ def _stack_slots(per_slot: list[dict]) -> dict:
 
 
 def _fold_slot(variables: dict, active_c, n_c, sums: tuple) -> tuple:
-    """One slot into the fold carry with weight ``active · n_samples``."""
-    w = torch.tensor(np.float32(active_c) * np.float32(n_c), dtype=torch.float32)
-    return mesh_ordered_fold(variables, w, sums)
+    """One slot into the fold carry with weight ``active · n_samples``, a
+    float32 product on the host."""
+    return mesh_ordered_fold(variables, np.float32(active_c) * np.float32(n_c), sums)
 
 
 def _flat_update(tree) -> torch.Tensor:
@@ -228,7 +228,8 @@ def _round_metrics(last: dict, active, device: torch.device) -> dict:
         "loss": last["loss"],
         "pixel_acc": last["pixel_acc"],
         "iou": iou_from_counts(last["iou_inter"], last["iou_union"]),
-        "active": torch.as_tensor(np.asarray(active, np.float32)).to(device),
+        # A pageable copy with no wait: CUDA stages the bytes before it returns.
+        "active": torch.as_tensor(np.asarray(active, np.float32)).to(device, non_blocking=True),
     }
 
 

@@ -14,6 +14,10 @@ same). Convolutions and their gradients are cuDNN's; :func:`create_train_state`
 turns TF32 off and asks cuDNN for deterministic algorithms, so two fits
 from the same start give bitwise-equal weights on one card.
 
+On the card a step with none of the hooks replays its forward and
+backward as one CUDA graph (:class:`StepGraphs`): the same kernels as the
+eager step, launched by one call, so the host runs ahead of the card.
+
 Metrics stay on the device during an epoch and cross to the host once at
 its end; they are then summed in float64 in step order, as the JAX
 package's per-step ``float()`` accumulation sums them.
@@ -22,7 +26,8 @@ package's per-step ``float()`` accumulation sums them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, Mapping
+import threading
+from typing import Any, Callable, Iterable, Mapping
 
 import numpy as np
 import torch
@@ -33,17 +38,22 @@ from fedcrack_tpu_torch.fed.algorithms import fedprox_penalty
 from fedcrack_tpu_torch.models.convert import from_flax_variables, to_flax_variables
 from fedcrack_tpu_torch.models.resunet import BatchNorm, ResUNet
 from fedcrack_tpu_torch.obs import spans as tracing
+from fedcrack_tpu_torch.obs.registry import REGISTRY
+from fedcrack_tpu_torch.ops import bce
 from fedcrack_tpu_torch.ops.bce import fused_segmentation_metrics
 
 
 @dataclasses.dataclass
 class TrainState:
-    """The model, its Adam optimizer, and the count of steps taken."""
+    """The model, its Adam optimizer, the count of steps taken, and the
+    step's CUDA graphs (built at the first step on the card; None
+    elsewhere)."""
 
     model: ResUNet
     optimizer: torch.optim.Optimizer
     learning_rate: float
     step: int = 0
+    graphs: "StepGraphs | None" = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -101,6 +111,147 @@ def _device_batch(batch, device: torch.device) -> tuple[torch.Tensor, torch.Tens
     return tuple(torch.as_tensor(a, device=device) for a in batch)
 
 
+# Steps by path: "eager" (a hook, FedProx, no graph backend, or a key's
+# first step), "capture" (a key's second step), "replay" (every later one).
+STEP_GRAPH_TOTAL = REGISTRY.counter(
+    "train_step_graph_total", "train steps by path: eager, capture (a key's second step) or replay",
+    labels=("path",))
+
+
+# Held through every warm-up and capture in the process. A capture starts
+# by synchronizing the device, which another thread's capture in progress
+# would not survive, and two states may draw the same side stream from
+# PyTorch's pool, whose capture would take in the other's warm-up.
+_SIDE_STREAM_LOCK = threading.Lock()
+
+
+class CudaGraphs:
+    """The capture/replay interface on the card: warm-up and capture on
+    one side stream, one thread at a time in the process, every graph of
+    one state in one memory pool, freed with the state."""
+
+    def __init__(self, device: torch.device):
+        self.stream = torch.cuda.Stream(device)
+        self.pool = torch.cuda.graph_pool_handle()
+
+    def warm_up(self, fn: Callable[[], list]) -> list:
+        """``fn()`` run eagerly on the side stream, ordered after the
+        work already queued and before the work queued next."""
+        current = torch.cuda.current_stream(self.stream.device)
+        with _SIDE_STREAM_LOCK:
+            self.stream.wait_stream(current)
+            with torch.cuda.stream(self.stream):
+                out = fn()
+            current.wait_stream(self.stream)
+        return out
+
+    def capture(self, fn: Callable[[], list]) -> tuple[Any, list]:
+        """``fn`` captured into a graph and the graph run once: ``(graph,
+        outputs)``, the outputs tensors that each ``graph.replay()``
+        writes again."""
+        graph = torch.cuda.CUDAGraph()
+        with _SIDE_STREAM_LOCK, torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                                                 capture_error_mode="thread_local"):
+            out = fn()
+        graph.replay()
+        return graph, out
+
+
+@dataclasses.dataclass
+class _Captured:
+    """One key's graph: the static inputs it reads, the metrics and
+    gradients it writes, and the ``bce_sums`` launches it holds."""
+
+    images: torch.Tensor
+    masks: torch.Tensor
+    graph: Any = None
+    metrics: dict | None = None
+    grads: list | None = None
+    launches: int = 0
+
+
+class StepGraphs:
+    """A state's train steps as graphs, one a key: the batch's shapes and
+    dtypes, ``pos_weight`` and the addresses of the model's parameters and
+    statistics. A key's first step runs eagerly on the backend's side
+    stream (the warm-up), its second is captured and run, and every later
+    one replays. The graph holds the forward (BatchNorm's moments and
+    running statistics included), the metrics through ``bce_sums`` and
+    the backward from gradients of None, so it writes the gradients and
+    never adds to them; Adam stays outside it."""
+
+    def __init__(self, backend):
+        self.backend = backend
+        self._steps: dict[tuple, _Captured] = {}
+
+    def path(self, key: tuple) -> str:
+        entry = self._steps.get(key)
+        return "eager" if entry is None else "capture" if entry.graph is None else "replay"
+
+    def run(self, key: tuple, model: ResUNet, params: list, images: torch.Tensor, masks: torch.Tensor,
+            pos_weight: float) -> dict:
+        """The step's forward and backward for ``key`` by :meth:`path`,
+        into the static inputs copied from ``images`` and ``masks``: the
+        metrics (the graph's copied out)."""
+        model.train()
+        entry = self._steps.get(key)
+        first = entry is None
+        if first:
+            # The static inputs, on the current stream, outlive every replay.
+            device = params[0].device
+            entry = self._steps[key] = _Captured(torch.empty_like(images, device=device),
+                                                 torch.empty_like(masks, device=device))
+        entry.images.copy_(images)
+        entry.masks.copy_(masks)
+
+        def body():
+            return _forward_backward(model, params, entry.images, entry.masks, pos_weight)
+
+        if first:
+            return self.backend.warm_up(body)[0]
+        if entry.graph is None:
+            bce.take_captured_launches()
+            entry.graph, (entry.metrics, entry.grads) = self.backend.capture(body)
+            entry.launches = bce.take_captured_launches()
+        else:
+            entry.graph.replay()
+        bce.count_launches(entry.launches)
+        return {k: v.clone() for k, v in entry.metrics.items()}
+
+    def point_grads(self, key: tuple, params: list) -> None:
+        """Each parameter's ``.grad`` at the gradient ``key``'s graph
+        writes (a caller may have set it to None since), once the key has
+        one."""
+        grads = self._steps[key].grads
+        if grads is not None:
+            for p, g in zip(params, grads):
+                p.grad = g
+
+
+def _forward_backward(model: ResUNet, params: list, images: torch.Tensor, masks: torch.Tensor,
+                      pos_weight: float) -> tuple[dict, list]:
+    """The graph's body: ``(metrics, gradients)`` of one step, the
+    gradients computed from None."""
+    images, masks = as_model_batch(images, masks)
+    metrics = fused_segmentation_metrics(model(images), masks, pos_weight=pos_weight)
+    for p in params:
+        p.grad = None
+    metrics["loss"].backward()
+    return {k: v.detach() for k, v in metrics.items()}, [p.grad for p in params]
+
+
+def _graph_key(model: ResUNet, params: list, images: torch.Tensor, masks: torch.Tensor, pos_weight: float) -> tuple:
+    return (tuple(images.shape), images.dtype, tuple(masks.shape), masks.dtype, float(pos_weight),
+            tuple(t.data_ptr() for t in params), tuple(t.data_ptr() for t in model.buffers()))
+
+
+def _step_graphs(state: TrainState) -> StepGraphs | None:
+    """The state's graphs, made at its first step on the card."""
+    if state.graphs is None and state.device.type == "cuda":
+        state.graphs = StepGraphs(CudaGraphs(state.device))
+    return state.graphs
+
+
 def train_step(
     state: TrainState,
     batch,
@@ -128,24 +279,50 @@ def train_step(
     ``fused_segmentation_metrics`` (the spatial plane across processes
     sums the five sums over the ranks there).
 
+    With no hook and ``mu`` 0, on the card, the forward and backward run
+    through the state's :class:`StepGraphs` (the same arithmetic, bit for
+    bit): the batch is copied into the graph's inputs, the graph replayed,
+    each parameter's ``.grad`` pointed at the graph's gradient and the
+    metrics copied out; Adam then steps eagerly. Everything else, and the
+    CPU, runs eagerly.
+
     Spans (while a recorder is installed): ``train.forward`` (the batch to
-    the device, the model call, the metrics and the FedProx term),
-    ``train.backward`` (``zero_grad``, the backward pass and
-    ``after_backward``) and ``train.optimizer`` (the Adam step)."""
-    with tracing.span("train.forward", step=state.step):
-        images, masks = as_model_batch(*_device_batch(batch, state.device))
-        model = state.model
-        model.train()
-        logits = model(images) if forward is None else forward(model, images)
-        metrics = (metrics_fn or fused_segmentation_metrics)(logits, masks, pos_weight=pos_weight)
+    the device, the model call, the metrics and the FedProx term; on the
+    graph path the copies and the replay, which runs the backward too;
+    ``graph`` is ``eager``, ``capture`` or ``replay``), ``train.backward``
+    (``zero_grad``, the backward pass and ``after_backward``; on the graph
+    path the gradients pointed at) and ``train.optimizer`` (the Adam
+    step). ``train_step_graph_total{path}`` counts the steps by path."""
+    model = state.model
+    graphs = None
+    if forward is None and after_backward is None and metrics_fn is None and mu == 0.0:
+        graphs = _step_graphs(state)
+    if graphs is not None:
+        images, masks = (torch.as_tensor(a) for a in batch)
+        params = list(model.parameters())
+        key = _graph_key(model, params, images, masks, pos_weight)
+        path = graphs.path(key)
+        with tracing.span("train.forward", step=state.step, graph=path):
+            metrics = graphs.run(key, model, params, images, masks, pos_weight)
+        with tracing.span("train.backward"):
+            graphs.point_grads(key, params)
         loss = metrics["loss"]
-        if mu != 0.0:
-            loss = loss + fedprox_penalty(dict(model.named_parameters()), anchor_params, mu)
-    with tracing.span("train.backward"):
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if after_backward is not None:
-            after_backward(model)
+    else:
+        path = "eager"
+        with tracing.span("train.forward", step=state.step, graph=path):
+            images, masks = as_model_batch(*_device_batch(batch, state.device))
+            model.train()
+            logits = model(images) if forward is None else forward(model, images)
+            metrics = (metrics_fn or fused_segmentation_metrics)(logits, masks, pos_weight=pos_weight)
+            loss = metrics["loss"]
+            if mu != 0.0:
+                loss = loss + fedprox_penalty(dict(model.named_parameters()), anchor_params, mu)
+        with tracing.span("train.backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            if after_backward is not None:
+                after_backward(model)
+    STEP_GRAPH_TOTAL.labels(path=path).inc()
     with tracing.span("train.optimizer"):
         state.optimizer.step()
     state.step += 1
