@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --serve-ticks 0.05,1.0   # phase 14 alone, per tick
     python3 chip_smoke.py --step-graph             # phase 25 alone
+    python3 chip_smoke.py --segformer              # phase 26 alone
 
 Runs from the root of a checkout on a machine with one NVIDIA H100 and
 ``nvcc``; it imports neither JAX nor ``fedcrack_tpu``. Phases (each raises
@@ -409,8 +410,18 @@ on failure, so any failure exits non-zero and prints no result):
     for each of its 16 steps; the released rounds leave at most 64 MB
     allocated. Logged: both rounds' walls in turns, the peak memory.
 
+26. SegFormer-B5 (``configs.SegFormerConfig()``, every published width,
+    all 52 blocks) on the slot plane at 1024 x 1024: 2 slots x 2 steps x
+    batch 2, float32. From one start, a round with ``forward`` set (eager)
+    and two rounds on the graph path (the first warms up, captures and
+    replays, the second replays only): the globals, each slot's trained
+    weights and statistics and the metrics of all three bit-equal;
+    ``train_attention_total`` counts 3 / 6 / 40 / 3 ``composed`` calls by
+    stage on every step of each round; ``bce_sums`` launches equal to the
+    steps. Logged: the step paths, the rounds' walls, the peak memory.
+
 ``python3 chip_smoke.py --step-graph`` builds ``bce_sums.cu`` and runs
-only phase 25.
+only phase 25; ``--segformer`` builds it and runs only phase 26.
 
 ``python3 chip_smoke.py --serve-ticks 0.05,1.0,1.0,0.05`` builds
 ``dequant.cu`` and runs only phase 14, once per autoscaler tick given, and
@@ -7579,8 +7590,125 @@ def step_graph_phase(torch, card: str) -> dict:
     return out
 
 
-def step_graph_only() -> int:
-    """Phases 1, 2 (``bce_sums.cu`` alone) and 25, in one process."""
+# Phase 26: SegFormer-B5 at 1024 x 1024 on the slot plane.
+SEG_CLIENTS, SEG_STEPS, SEG_BATCH, SEG_SIZE, SEG_SEED = 2, 2, 2, 1024, 26
+
+
+def _attention_counts() -> dict:
+    from fedcrack_tpu_torch.obs.registry import REGISTRY
+
+    fam = REGISTRY.get("train_attention_total")
+    return {} if fam is None else {key: child.value for key, child in fam._series()}
+
+
+def segformer_phase(torch, card: str) -> dict:
+    """Phase 26, SegFormer-B5 trained on the slot plane at 1024 x 1024
+    (module docstring): an eager round and two graphed rounds from one
+    start, bit for bit; the attention counter and the ``bce_sums``
+    launches on every step; walls and the peak memory logged."""
+    import gc
+
+    import numpy as np
+
+    from fedcrack_tpu_torch.configs import SegFormerConfig
+    from fedcrack_tpu_torch.data.pipeline import to_uint8_transport
+    from fedcrack_tpu_torch.data.synthetic import synth_crack_batch
+    from fedcrack_tpu_torch.fed.pytree import tree_leaves, tree_map
+    from fedcrack_tpu_torch.models.segformer import init_variables
+    from fedcrack_tpu_torch.ops import bce
+    from fedcrack_tpu_torch.parallel import make_mesh, stack_client_data
+    from fedcrack_tpu_torch.parallel.driver import stage_round_data
+    from fedcrack_tpu_torch.parallel.fedavg_mesh import _build_round
+
+    t_phase = time.monotonic()
+    cfg = SegFormerConfig(img_size=SEG_SIZE)
+    mesh = make_mesh(SEG_CLIENTS)
+    device = mesh.device
+    start = tree_map(lambda a: torch.as_tensor(a).to(device),
+                     init_variables(torch.Generator().manual_seed(SEG_SEED), cfg))
+    per = [to_uint8_transport(*synth_crack_batch(SEG_STEPS * SEG_BATCH, img_size=SEG_SIZE,
+                                                 seed=SEG_SEED * 1000 + c)) for c in range(SEG_CLIENTS)]
+    staged = stage_round_data(*stack_client_data(per, SEG_STEPS, SEG_BATCH), mesh)
+    active = np.ones(SEG_CLIENTS, np.float32)
+    n_samples = np.full(SEG_CLIENTS, float(SEG_STEPS * SEG_BATCH), np.float32)
+    steps = SEG_CLIENTS * SEG_STEPS
+    want_calls = {(str(i + 1), "composed"): float(steps * d) for i, d in enumerate(cfg.depths)}
+    torch.cuda.reset_peak_memory_stats()
+
+    def run(round_fn) -> dict:
+        slots = []
+        round_fn.slot_hook = lambda c, v: slots.append([t.cpu() for t in tree_leaves(v)])
+        before, calls, launches = _graph_counts(), _attention_counts(), bce.bce_sums.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            variables, metrics = round_fn(start, *staged, active, n_samples)
+            torch.cuda.synchronize()
+        finally:
+            round_fn.slot_hook = None
+        wall = time.perf_counter() - t0
+        after, calls_after = _graph_counts(), _attention_counts()
+        return {"globals": [t.cpu() for t in tree_leaves(variables)],
+                "metrics": {k: v.cpu() for k, v in metrics.items()}, "slots": slots, "wall_s": wall,
+                "launches": bce.bce_sums.launches - launches,
+                "paths": {k: after[k] - before[k] for k in after},
+                "calls": {k: v - calls.get(k, 0.0) for k, v in calls_after.items() if v - calls.get(k, 0.0)}}
+
+    eager_fn = _build_round(mesh, cfg, 6e-5, 1, 0.0, forward=lambda m, x: m(x))
+    eager = run(eager_fn)
+    del eager_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    graph_fn = _build_round(mesh, cfg, 6e-5, 1, 0.0)
+    first = run(graph_fn)
+    second = run(graph_fn)
+    runs = {"eager": eager, "graphed": first, "replayed": second}
+    for name, r in runs.items():
+        if r["launches"] != steps:
+            raise AssertionError(f"[segformer] the {name} round counted {r['launches']} bce_sums launches, "
+                                 f"not {steps}")
+        if r["calls"] != want_calls:
+            raise AssertionError(f"[segformer] the {name} round counted attention calls {r['calls']}, "
+                                 f"not {want_calls}")
+    if eager["paths"] != {"eager": float(steps), "capture": 0.0, "replay": 0.0}:
+        raise AssertionError(f"[segformer] the eager round took the paths {eager['paths']}")
+    if first["paths"] != {"eager": 1.0, "capture": 1.0, "replay": float(steps - 2)}:
+        raise AssertionError(f"[segformer] the graphed round took the paths {first['paths']}")
+    if second["paths"] != {"eager": 0.0, "capture": 0.0, "replay": float(steps)}:
+        raise AssertionError(f"[segformer] the replayed round took the paths {second['paths']}")
+    n_tensors = 0
+    for name in ("graphed", "replayed"):
+        other = runs[name]
+        pairs = [("global", a, b) for a, b in zip(eager["globals"], other["globals"])]
+        pairs += [(f"slot {i} leaf {j}", a, b) for i, (sa, sb) in enumerate(zip(eager["slots"], other["slots"]))
+                  for j, (a, b) in enumerate(zip(sa, sb))]
+        pairs += [(f"metric {k}", eager["metrics"][k], other["metrics"][k]) for k in eager["metrics"]]
+        if len(other["slots"]) != SEG_CLIENTS or len(eager["slots"]) != SEG_CLIENTS:
+            raise AssertionError(f"[segformer] {len(eager['slots'])} / {len(other['slots'])} slots kept")
+        differ = [label for label, a, b in pairs if not _same_bits(torch, a, b)]
+        if differ:
+            raise AssertionError(f"[segformer] the {name} round differs from the eager one in {len(differ)} of "
+                                 f"{len(pairs)} tensors, first {differ[:5]}")
+        n_tensors = len(pairs)
+    loss = [float(v) for v in eager["metrics"]["loss"]]
+    if not all(np.isfinite(loss)):
+        raise AssertionError(f"[segformer] non-finite client losses {loss}")
+    out = {"tensors_equal": n_tensors, "steps": steps, "losses": loss,
+           "paths": {k: r["paths"] for k, r in runs.items()},
+           "attention_calls": {"/".join(k): v for k, v in first["calls"].items()},
+           "round_s": {k: r["wall_s"] for k, r in runs.items()},
+           "memory_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "phase_s": time.monotonic() - t_phase}
+    del graph_fn, runs, eager, first, second
+    gc.collect()
+    log(f"[segformer] B5 at {SEG_SIZE} px, {SEG_CLIENTS} slots x {SEG_STEPS} steps x batch {SEG_BATCH}: eager, "
+        f"graphed and replayed rounds bit-equal in {out['tensors_equal']} tensors each; {json.dumps(out)} [{card}]")
+    return out
+
+
+def step_graph_only(phase: str = "step_graph") -> int:
+    """Phases 1, 2 (``bce_sums.cu`` alone) and 25 (``step_graph``) or 26
+    (``segformer``), in one process."""
     import torch
 
     if not torch.cuda.is_available():
@@ -7598,9 +7726,13 @@ def step_graph_only() -> int:
     log(f"phase 1 device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, cuda {torch.version.cuda}, "
         f"card: {card}")
     build.build_all([bce.LIBRARY])
-    out = step_graph_phase(torch, card)
-    log("phase 25 the train step's CUDA graph in the slot plane: ok")
-    print(json.dumps({"step_graph": out}), flush=True)
+    if phase == "segformer":
+        out = segformer_phase(torch, card)
+        log("phase 26 SegFormer-B5 on the slot plane at 1024 px: ok")
+    else:
+        out = step_graph_phase(torch, card)
+        log("phase 25 the train step's CUDA graph in the slot plane: ok")
+    print(json.dumps({phase: out}), flush=True)
     print(card, flush=True)
     return 0
 
@@ -7695,6 +7827,8 @@ def main() -> int:
         "bce_sums A/B inside the train step (tools.ab_bce): ok")
     step_graph = step_graph_phase(torch, card)
     log("phase 25 the train step's CUDA graph in the slot plane: ok")
+    segformer_phase(torch, card)
+    log("phase 26 SegFormer-B5 on the slot plane at 1024 px: ok")
 
     kernels = []
     replaces = {"dequant_matmul": "fedcrack_tpu/kernels/dequant.py:88",
@@ -7809,6 +7943,8 @@ if __name__ == "__main__":
         sys.exit(serve_tick_sweep([float(t) for t in sys.argv[2].split(",")]))
     if sys.argv[1:] == ["--step-graph"]:
         sys.exit(step_graph_only())
+    if sys.argv[1:] == ["--segformer"]:
+        sys.exit(step_graph_only("segformer"))
     if sys.argv[1:]:
-        sys.exit(f"usage: {sys.argv[0]} [--serve-ticks T1,T2,... | --step-graph]")
+        sys.exit(f"usage: {sys.argv[0]} [--serve-ticks T1,T2,... | --step-graph | --segformer]")
     sys.exit(main())

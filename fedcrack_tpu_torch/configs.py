@@ -60,6 +60,59 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SegFormerConfig:
+    """SegFormer hyperparameters (Xie et al., NeurIPS 2021,
+    arXiv:2105.15203; NVlabs/SegFormer ``mit_b5`` and ``SegFormerHead``),
+    B5 by default: a Mix Transformer of four stages (``embed_dims``,
+    ``num_heads``, ``depths``, spatial-reduction ratios ``sr_ratios``, MLP
+    ratio ``mlp_ratio``) and the All-MLP head of width ``decoder_dim``.
+    ``img_size`` and ``num_classes`` play their ``ModelConfig`` roles: the
+    square crop the data path stages, and the head's logits (one for the
+    crack mask). Trains in float32 only, on the slot plane
+    (``parallel.fedavg_mesh``)."""
+
+    img_size: int = 1024
+    in_channels: int = 3
+    num_classes: int = 1
+    embed_dims: tuple[int, ...] = (64, 128, 320, 512)
+    num_heads: tuple[int, ...] = (1, 2, 5, 8)
+    depths: tuple[int, ...] = (3, 6, 40, 3)
+    sr_ratios: tuple[int, ...] = (8, 4, 2, 1)
+    mlp_ratio: int = 4
+    decoder_dim: int = 768
+    compute_dtype: str = "float32"
+    param_dtype: str = "float32"
+
+    def __post_init__(self) -> None:
+        stages = (self.embed_dims, self.num_heads, self.depths, self.sr_ratios)
+        if any(len(s) != 4 for s in stages):
+            raise ValueError(f"segformer has four stages; got embed_dims, num_heads, depths, sr_ratios {stages}")
+        # Patch embeddings of stride 4, 2, 2, 2: the last stage is at 1/32.
+        if self.img_size % 32 != 0 or self.img_size <= 0:
+            raise ValueError(f"segformer img_size must be a positive multiple of 32, got {self.img_size}")
+        for i, (dim, heads, sr) in enumerate(zip(self.embed_dims, self.num_heads, self.sr_ratios)):
+            if heads < 1 or dim % heads:
+                raise ValueError(f"stage {i + 1}: {heads} heads do not divide width {dim}")
+            if sr < 1 or (self.img_size >> (2 + i)) % sr:
+                raise ValueError(f"stage {i + 1}: sr_ratio {sr} does not divide its grid of "
+                                 f"{self.img_size >> (2 + i)}")
+        if min(self.depths) < 1 or self.mlp_ratio < 1 or self.decoder_dim < 1:
+            raise ValueError(f"segformer depths, mlp_ratio and decoder_dim must be positive; got {self.depths}, "
+                             f"{self.mlp_ratio}, {self.decoder_dim}")
+        if self.compute_dtype != "float32" or self.param_dtype != "float32":
+            raise ValueError("segformer trains in float32 only; got "
+                             f"compute_dtype={self.compute_dtype!r} param_dtype={self.param_dtype!r}")
+
+    @property
+    def input_shape(self) -> tuple[int, int, int]:
+        return (self.img_size, self.img_size, self.in_channels)
+
+
+SLOT_PLANE_ONLY = ("model_type 'segformer' trains on the slot plane only (parallel.round_from_config); "
+                   "{what} runs the residual U-Net")
+
+
+@dataclasses.dataclass(frozen=True)
 class DataConfig:
     """Dataset layout + split semantics (reference: client_fit_model.py:54-90)."""
 
@@ -382,7 +435,8 @@ class FedConfig:
     tls_key: str = ""
     tls_ca: str = ""
     max_message_mb: int = 512     # reference: fl_server.py:215
-    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    # ModelConfig, or SegFormerConfig under model_type "segformer".
+    model: ModelConfig | SegFormerConfig = dataclasses.field(default_factory=ModelConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
     mesh_clients: int = 8
@@ -392,6 +446,11 @@ class FedConfig:
     data_placement: str = "streamed"
 
     def __post_init__(self) -> None:
+        if (self.model_type == "segformer") != isinstance(self.model, SegFormerConfig):
+            raise ValueError(
+                f"model_type={self.model_type!r} does not match its {type(self.model).__name__} model block: "
+                "model_type 'segformer' takes a SegFormerConfig, every other model type a ModelConfig"
+            )
         if self.data.img_size != self.model.img_size:
             raise ValueError(
                 "data.img_size and model.img_size must match; got "
@@ -572,10 +631,20 @@ class FedConfig:
         serve = raw.pop("serve", {})
         known = {f.name for f in dataclasses.fields(cls)}
         raw = {k: v for k, v in raw.items() if k in known}
-        mknown = {f.name for f in dataclasses.fields(ModelConfig)}
+        # model_type "segformer" takes a SegFormerConfig block, every other a ModelConfig.
+        mcls = ModelConfig
+        if raw.get("model_type") == "segformer":
+            mcls = SegFormerConfig
+            layouts = {k: model[k] for k in ("stem_layout", "res_layout") if model.get(k, "reference") != "reference"}
+            if layouts:
+                raise ValueError(
+                    f"{layouts} re-express the residual U-Net's stem and residual convs; model_type 'segformer' "
+                    "has neither and runs the reference layout only"
+                )
+        mknown = {f.name for f in dataclasses.fields(mcls)}
         dknown = {f.name for f in dataclasses.fields(DataConfig)}
         sknown = {f.name for f in dataclasses.fields(ServeConfig)}
-        mc = ModelConfig(**{k: _detuple(k, v) for k, v in model.items() if k in mknown})
+        mc = mcls(**{k: _detuple(k, v) for k, v in model.items() if k in mknown})
         dc = DataConfig(**{k: v for k, v in data.items() if k in dknown})
         sc = ServeConfig(
             **{k: _detuple(k, v) for k, v in serve.items() if k in sknown}
@@ -584,7 +653,8 @@ class FedConfig:
 
 
 def _detuple(key: str, value: Any) -> Any:
-    if key in ("encoder_features", "decoder_features", "bucket_sizes") and isinstance(
+    if key in ("encoder_features", "decoder_features", "bucket_sizes", "embed_dims", "num_heads", "depths",
+               "sr_ratios") and isinstance(
         value, list
     ):
         return tuple(value)

@@ -1,13 +1,16 @@
-"""Weights carried between the flax variables tree and the port's ResUNet.
+"""Weights carried between the flax variables tree and the port's models.
 
 The JAX package's ``{'params', 'batch_stats'}`` tree is nested dicts keyed
-by flax module names; the port's ``ResUNet`` uses the same names as module
-attributes, so a leaf path maps to a state-dict key directly:
+by flax module names; the port's ``ResUNet`` and ``SegFormer`` use the
+same names as module attributes, so a leaf path maps to a state-dict key
+directly:
 
-- ``params/<module...>/kernel`` -> ``<module...>.weight``, HWIO -> OIHW
-  (a depthwise ``(3, 3, 1, C)`` kernel becomes ``(C, 1, 3, 3)`` by the same
-  permutation);
-- ``params/<module...>/{bias,scale}`` -> ``<module...>.{bias,scale}``;
+- ``params/<module...>/kernel`` -> ``<module...>.weight``: a conv's HWIO
+  -> OIHW (a depthwise ``(3, 3, 1, C)`` kernel becomes ``(C, 1, 3, 3)`` by
+  the same permutation), a Dense ``[in, out]`` -> a Linear's ``[out,
+  in]``;
+- ``params/<module...>/{bias,scale}`` -> ``<module...>.{bias,scale}``
+  (BatchNorm's and LayerNorm's scale);
 - ``batch_stats/<bn>/{mean,var}`` -> ``<bn>.{mean,var}``.
 
 Values are carried bit for bit in both directions.
@@ -20,10 +23,20 @@ from typing import Any
 import numpy as np
 import torch
 
-from fedcrack_tpu_torch.models.resunet import ResUNet
+from torch import nn
 
 _HWIO_TO_OIHW = (3, 2, 0, 1)
 _OIHW_TO_HWIO = (2, 3, 1, 0)
+
+
+def kernel_to_weight(kernel: torch.Tensor) -> torch.Tensor:
+    """A flax kernel as the torch weight it maps to (a permuted view)."""
+    return kernel.permute(*_HWIO_TO_OIHW) if kernel.ndim == 4 else kernel.t()
+
+
+def weight_to_kernel(weight: torch.Tensor) -> torch.Tensor:
+    """A torch conv or Linear weight as its flax kernel (a permuted view)."""
+    return weight.permute(*_OIHW_TO_HWIO) if weight.ndim == 4 else weight.t()
 
 
 def _as_tensor(leaf: Any) -> torch.Tensor:
@@ -44,7 +57,7 @@ def flax_to_state_dict(tree: dict) -> dict[str, torch.Tensor]:
                 continue
             t = _as_tensor(child)
             if name == "kernel":
-                out[".".join(path + ("weight",))] = t.permute(*_HWIO_TO_OIHW)
+                out[".".join(path + ("weight",))] = kernel_to_weight(t)
             else:
                 out[".".join(path + (name,))] = t
 
@@ -53,7 +66,7 @@ def flax_to_state_dict(tree: dict) -> dict[str, torch.Tensor]:
     return out
 
 
-def from_flax_variables(tree: dict, model: ResUNet) -> ResUNet:
+def from_flax_variables(tree: dict, model: nn.Module) -> nn.Module:
     """Load a flax ``{'params', 'batch_stats'}`` tree into ``model`` (every
     parameter and statistic must be present, with matching shapes)."""
     state = flax_to_state_dict(tree)
@@ -61,7 +74,7 @@ def from_flax_variables(tree: dict, model: ResUNet) -> ResUNet:
     return model
 
 
-def to_flax_variables(model: ResUNet) -> dict:
+def to_flax_variables(model: nn.Module) -> dict:
     """The flax ``{'params', 'batch_stats'}`` tree (numpy, HWIO kernels) of
     ``model``'s weights."""
     params: dict = {}
@@ -70,7 +83,7 @@ def to_flax_variables(model: ResUNet) -> dict:
         *path, leaf = key.split(".")
         arr = value.detach().cpu()
         if leaf == "weight":
-            leaf, arr = "kernel", arr.permute(*_OIHW_TO_HWIO)
+            leaf, arr = "kernel", weight_to_kernel(arr)
         root = stats if leaf in ("mean", "var") else params
         for name in path:
             root = root.setdefault(name, {})

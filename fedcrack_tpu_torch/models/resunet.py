@@ -69,7 +69,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fedcrack_tpu_torch.configs import ModelConfig
+from fedcrack_tpu_torch.configs import SLOT_PLANE_ONLY, ModelConfig, SegFormerConfig
 from fedcrack_tpu_torch.ops.pooling import max_pool_auto, same_pads
 
 # Keras BatchNormalization defaults (the reference relies on them).
@@ -368,6 +368,8 @@ class ResUNet(nn.Module):
     ):
         super().__init__()
         cfg = config or ModelConfig()
+        if isinstance(cfg, SegFormerConfig):
+            raise TypeError(SLOT_PLANE_ONLY.format(what="ResUNet"))
         if cfg.compute_dtype not in COMPUTE_DTYPES or cfg.param_dtype != "float32":
             raise ValueError(
                 "the port computes in float32 or bfloat16 with float32 parameters; got "

@@ -1,4 +1,4 @@
-"""Analytic FLOPs model of the crack U-Net, MFU against the H100's peak,
+"""Analytic FLOPs models of the crack U-Net and SegFormer, MFU against the H100's peak,
 and which kernel plane answers quantized traffic, as a scrapeable gauge.
 
 The counterpart of ``fedcrack_tpu.obs.flops``. The model walks the
@@ -30,7 +30,7 @@ from __future__ import annotations
 import os
 from typing import TYPE_CHECKING
 
-from fedcrack_tpu_torch.configs import ModelConfig
+from fedcrack_tpu_torch.configs import ModelConfig, SegFormerConfig
 
 if TYPE_CHECKING:
     import torch
@@ -102,6 +102,50 @@ def resunet_forward_flops(config: ModelConfig | None = None, batch_size: int = 1
 def train_step_flops(config: ModelConfig | None = None, batch_size: int = 1) -> float:
     """FLOPs for one training step (forward + backward) at the given batch size."""
     return TRAIN_STEP_FLOPS_MULTIPLIER * resunet_forward_flops(config, batch_size)
+
+
+def segformer_forward_flops(config: SegFormerConfig | None = None, batch_size: int = 1) -> float:
+    """Forward-pass FLOPs for one batch through SegFormer
+    (``models/segformer.py``): matmul-equivalent FLOPs of the convolutions
+    (the patch embeddings, the spatial reductions, the depthwise 3x3s of
+    the Mix-FFNs, the head's fuse and prediction), the Linear layers (q,
+    kv, proj, fc1, fc2, the head's four) and the attention's two batched
+    products, 2 per multiply-accumulate. LayerNorm, GELU, softmax, the
+    resizes and the loss are left out."""
+    cfg = config or SegFormerConfig()
+    total = 0.0
+    s, cin = cfg.img_size, cfg.in_channels
+    grids = []
+    for i, dim in enumerate(cfg.embed_dims):
+        s //= (4, 2, 2, 2)[i]
+        n = s * s
+        total += _conv_flops(s, cin, dim, (7, 3, 3, 3)[i])
+        sr = cfg.sr_ratios[i]
+        m = n // (sr * sr)
+        hidden = dim * cfg.mlp_ratio
+        block = 2.0 * n * dim * dim                      # q
+        if sr > 1:
+            block += _conv_flops(s // sr, dim, dim, sr)  # the spatial reduction
+        block += 2.0 * m * dim * 2 * dim                 # kv
+        block += 2.0 * 2.0 * n * m * dim                 # q k^T and the weights times v, over the heads
+        block += 2.0 * n * dim * dim                     # proj
+        block += 2.0 * 2.0 * n * dim * hidden            # fc1 and fc2
+        block += 2.0 * n * hidden * 9                    # the depthwise 3x3
+        total += cfg.depths[i] * block
+        grids.append((n, dim))
+        cin = dim
+    d = cfg.decoder_dim
+    total += sum(2.0 * n * dim * d for n, dim in grids)  # linear_c1..c4
+    n1 = grids[0][0]
+    total += 2.0 * n1 * 4 * d * d                        # linear_fuse
+    total += 2.0 * n1 * d * cfg.num_classes              # linear_pred
+    return total * float(batch_size)
+
+
+def segformer_train_step_flops(config: SegFormerConfig | None = None, batch_size: int = 1) -> float:
+    """FLOPs for one SegFormer training step (forward + backward), counted
+    as three forwards."""
+    return TRAIN_STEP_FLOPS_MULTIPLIER * segformer_forward_flops(config, batch_size)
 
 
 def device_peak_flops(device: torch.device | str | None = None) -> float | None:

@@ -79,23 +79,28 @@ import torch
 
 from fedcrack_tpu_torch.compress.codecs import encoded_bytes_model
 from fedcrack_tpu_torch.compress.mesh import int8_roundtrip, topk_roundtrip, validate_mesh_codec, zero_residual_like
-from fedcrack_tpu_torch.configs import ModelConfig
+from fedcrack_tpu_torch.configs import ModelConfig, SegFormerConfig
 from fedcrack_tpu_torch.fed.aggregation import (
     mesh_finish_cohort_mean,
     mesh_ordered_fold,
     mesh_zero_sums,
 )
 from fedcrack_tpu_torch.fed.pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
-from fedcrack_tpu_torch.models.convert import flax_to_state_dict, from_flax_variables
-from fedcrack_tpu_torch.models.resunet import ResUNet
+from fedcrack_tpu_torch.models import build_model
+from fedcrack_tpu_torch.models.convert import flax_to_state_dict, from_flax_variables, weight_to_kernel
 from fedcrack_tpu_torch.obs import spans as tracing
 from fedcrack_tpu_torch.ops.losses import iou_from_counts
 from fedcrack_tpu_torch.parallel.multihost import ProcessSpan
 from fedcrack_tpu_torch.parallel.slots import BATCH, CLIENTS, SlotMesh
 from fedcrack_tpu_torch.parallel.spatial import SPACE, check_layout, spatial_forward, validate_shape
-from fedcrack_tpu_torch.train.local import TrainState, configure_backends, make_optimizer, train_step
-
-_OIHW_TO_HWIO = (2, 3, 1, 0)
+from fedcrack_tpu_torch.train.local import (
+    StepGraphs,
+    TrainState,
+    configure_backends,
+    graph_backend,
+    make_optimizer,
+    train_step,
+)
 
 
 def _host_view(x) -> np.ndarray | None:
@@ -140,16 +145,16 @@ def _device_tree(variables, device: torch.device) -> dict:
     return tree_map(lambda leaf: _as_device(leaf, device), tree)
 
 
-def _model_variables(model: ResUNet) -> dict:
+def _model_variables(model: torch.nn.Module) -> dict:
     """The model's weights as a flax-layout tree of tensors on its device:
-    views of its storage (HWIO kernels are permuted views), valid until
-    the model changes."""
+    views of its storage (kernels are permuted views), valid until the
+    model changes."""
     params: dict = {}
     stats: dict = {}
     for key, value in model.state_dict().items():
         *path, leaf = key.split(".")
         if leaf == "weight":
-            leaf, value = "kernel", value.permute(*_OIHW_TO_HWIO)
+            leaf, value = "kernel", weight_to_kernel(value)
         root = stats if leaf in ("mean", "var") else params
         for name in path:
             root = root.setdefault(name, {})
@@ -157,7 +162,7 @@ def _model_variables(model: ResUNet) -> dict:
     return {"params": params, "batch_stats": stats}
 
 
-def _flax_param_order(model: ResUNet) -> list[str]:
+def _flax_param_order(model: torch.nn.Module) -> list[str]:
     """The model's parameter names in the JAX package's flatten order of
     the params tree (sorted paths, ``weight`` named ``kernel``)."""
     def path(name: str) -> tuple:
@@ -242,14 +247,27 @@ class _Slot:
     dp_step: int = 0
 
 
+def _refuse_segformer(model_config, *features: tuple[str, bool]) -> None:
+    """SegFormer trains on the slot plane's plain step only: a twin or
+    plane it does not have is refused by name."""
+    on = [name for name, used in features if used]
+    if isinstance(model_config, SegFormerConfig) and on:
+        raise ValueError(f"model_type 'segformer' trains on the slot plane's plain step only; "
+                         f"{', '.join(on)} is the residual U-Net's")
+
+
 class _SlotFit:
     """The per-client local-fit core, shared by the monolithic, segmented
     and cohort rounds (the JAX package's ``_epoch_runner``): sharing it is
-    what makes them equal by construction."""
+    what makes them equal by construction. Its slot states' step graphs
+    share one capture backend, so one memory pool: the slots replay in
+    turn on one stream."""
 
-    def __init__(self, model_config: ModelConfig, learning_rate: float, fedprox_mu: float,
+    def __init__(self, model_config: ModelConfig | SegFormerConfig, learning_rate: float, fedprox_mu: float,
                  pos_weight: float, remat: bool, device: torch.device, lowp: str | None = None,
                  dp: dict | None = None, forward: Callable | None = None):
+        _refuse_segformer(model_config, ("FedProx", fedprox_mu != 0.0), ("remat", remat),
+                          ("lowp", lowp not in (None, "null")), ("DP-SGD", dp is not None))
         configure_backends()
         self.model_config = model_config
         self.learning_rate = float(learning_rate)
@@ -258,6 +276,7 @@ class _SlotFit:
         self.device = device
         self.dp = dp
         self._workers: list[TrainState] = []
+        self._graphs = graph_backend(device)
         # ``forward(model, images)``: the spatial plane's fold forward, or
         # None for the model's own.
         fwd = forward
@@ -294,9 +313,10 @@ class _SlotFit:
     def worker(self, i: int) -> TrainState:
         """Slot state ``i`` (built at first use, reused across rounds)."""
         while len(self._workers) <= i:
-            model = ResUNet(self.model_config, device=self.device)
+            model = build_model(self.model_config, device=self.device)
+            graphs = None if self._graphs is None else StepGraphs(self._graphs)
             self._workers.append(TrainState(model, make_optimizer(model.parameters(), self.learning_rate),
-                                            self.learning_rate))
+                                            self.learning_rate, graphs=graphs))
         return self._workers[i]
 
     def init(self, i: int, gvars: dict) -> _Slot:
@@ -368,24 +388,25 @@ class _SlotFit:
         return metrics
 
 
-def _anchor(gvars: dict, model: ResUNet) -> dict:
+def _anchor(gvars: dict, model: torch.nn.Module) -> dict:
     """The FedProx anchor (the round's global params) by parameter name."""
     sd = flax_to_state_dict({"params": gvars["params"]})
     return {n: sd[n] for n, _ in model.named_parameters()}
 
 
-def _validate_channels(model_config: ModelConfig):
+def _validate_channels(model_config: ModelConfig | SegFormerConfig):
     """The staging-layout check: ``C`` channels, or ``4C`` (images packed
     by ``data.pipeline.space_to_depth_images``) under a space-to-depth
-    ``stem_layout``."""
+    ``stem_layout`` (the U-Net's; SegFormer has none)."""
     in_ch = model_config.in_channels
-    allowed = (in_ch, 4 * in_ch) if model_config.stem_layout != "reference" else (in_ch,)
+    layout = getattr(model_config, "stem_layout", "reference")
+    allowed = (in_ch, 4 * in_ch) if layout != "reference" else (in_ch,)
 
     def validate(images) -> None:
         ch = images.shape[-1]
         if ch not in allowed:
             raise ValueError(
-                f"images carry {ch} channels; stem_layout={model_config.stem_layout!r} accepts {allowed} "
+                f"images carry {ch} channels; stem_layout={layout!r} accepts {allowed} "
                 "(4x = space_to_depth-packed staging)"
             )
 
@@ -1049,6 +1070,7 @@ def build_spatial_federated_round(
     :func:`build_federated_round`'s call contract (streamed data), with H
     a multiple of 16 x ``S``. A transformed layout is refused."""
     model_config = model_config or ModelConfig()
+    _refuse_segformer(model_config, ("the spatial plane", True))
     check_layout(model_config, "spatial sharding")
     _require_axes(mesh, CLIENTS, SPACE)
     n_space = mesh.shape[SPACE]
@@ -1116,7 +1138,8 @@ def round_from_config(cfg, device=None):
     ``mesh_batch`` above 1, as ``configs/c5_bf16_batch_dp.json`` sets,
     splits each step's batch with sync-BN), and the
     monolithic round (``cfg.segments == 0``) or the segmented one, with
-    the config's model, learning rate, local epochs, FedProx mu, pos_weight
+    the config's model (the U-Net, or SegFormer under ``model_type``
+    ``"segformer"``), learning rate, local epochs, FedProx mu, pos_weight
     and ``data_placement``. Drive it with
     ``run_mesh_federation(..., segment_overlap=cfg.segment_overlap,
     data_placement=cfg.data_placement)``.

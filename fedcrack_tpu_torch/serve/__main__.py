@@ -113,13 +113,15 @@ _OVERRIDES = (
 
 def resolve_config(args):
     """``(ModelConfig, ServeConfig)`` from ``--config`` and the flags."""
-    from fedcrack_tpu_torch.configs import FedConfig
+    from fedcrack_tpu_torch.configs import SLOT_PLANE_ONLY, FedConfig, SegFormerConfig
 
     if args.config:
         with open(args.config) as f:
             fed = FedConfig.from_json(f.read())
     else:
         fed = FedConfig()
+    if isinstance(fed.model, SegFormerConfig):
+        raise ValueError(SLOT_PLANE_ONLY.format(what="serving"))
     overrides = {name: getattr(args, name) for name in _OVERRIDES if getattr(args, name) is not None}
     if args.buckets:
         overrides["bucket_sizes"] = tuple(int(s) for s in args.buckets.split(",") if s.strip())

@@ -44,7 +44,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from fedcrack_tpu_torch.configs import ModelConfig, ServeConfig
+from fedcrack_tpu_torch.configs import SLOT_PLANE_ONLY, ModelConfig, SegFormerConfig, ServeConfig
 from fedcrack_tpu_torch.data.pipeline import normalize_images
 from fedcrack_tpu_torch.models.convert import flax_to_state_dict, from_flax_variables
 from fedcrack_tpu_torch.models.resunet import ResUNet
@@ -99,6 +99,8 @@ class InferenceEngine:
         *,
         device: torch.device | str | None = None,
     ):
+        if isinstance(model_config, SegFormerConfig):
+            raise ValueError(SLOT_PLANE_ONLY.format(what="serving"))
         self.model_config = model_config or ModelConfig()
         self.serve_config = serve_config or ServeConfig()
         if self.model_config.in_channels != 3:

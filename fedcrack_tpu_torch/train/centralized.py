@@ -18,7 +18,7 @@ from typing import Iterable
 
 import torch
 
-from fedcrack_tpu_torch.configs import ModelConfig
+from fedcrack_tpu_torch.configs import SLOT_PLANE_ONLY, ModelConfig, SegFormerConfig
 from fedcrack_tpu_torch.fed.serialization import tree_to_bytes
 from fedcrack_tpu_torch.ioutils import atomic_write_bytes
 from fedcrack_tpu_torch.train.local import (
@@ -54,6 +54,8 @@ def train_centralized(
     carries on from its own running statistics, as in the JAX package,
     and the checkpoints and the returned state hold the calibrated ones.
     """
+    if isinstance(model_config, SegFormerConfig):
+        raise ValueError(SLOT_PLANE_ONLY.format(what="centralized training"))
     state = create_train_state(torch.Generator().manual_seed(seed), model_config, learning_rate, device)
     history: list[dict] = []
     best_loss = float("inf")

@@ -25,7 +25,7 @@ from typing import Iterable
 
 import torch
 
-from fedcrack_tpu_torch.configs import FedConfig
+from fedcrack_tpu_torch.configs import SLOT_PLANE_ONLY, FedConfig, SegFormerConfig
 from fedcrack_tpu_torch.fed.serialization import tree_from_bytes, tree_to_bytes
 from fedcrack_tpu_torch.obs.metrics import profiler_trace, stopwatch
 from fedcrack_tpu_torch.train.local import (
@@ -63,6 +63,8 @@ def make_train_fn(
     ``hparams`` (the server's in-band config map) override the config's
     ``local_epochs``, ``fedprox_mu``, ``pos_weight``, ``learning_rate``
     and ``wire_dtype``."""
+    if isinstance(config.model, SegFormerConfig):
+        raise ValueError(SLOT_PLANE_ONLY.format(what="the client's fit"))
     state = create_train_state(
         torch.Generator().manual_seed(seed), config.model, config.learning_rate, device
     )

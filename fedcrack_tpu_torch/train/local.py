@@ -1,9 +1,10 @@
 """Local training engine: train/eval steps and the per-round fit loop.
 
 The counterpart of ``fedcrack_tpu.train.local``. One train step runs the
-train-mode ResUNet (batch-moment BatchNorm, running statistics updated in
-place), reduces logits and mask through ``ops.bce.fused_segmentation_metrics``
-(the hand-written CUDA kernel on the card), adds the FedProx term
+train-mode model (the ResUNet, or SegFormer under a ``SegFormerConfig``;
+batch-moment BatchNorm, running statistics updated in place), reduces
+logits and mask through ``ops.bce.fused_segmentation_metrics`` (the
+hand-written CUDA kernel on the card), adds the FedProx term
 ``mu/2·||params − anchor||²`` when ``mu`` is not 0, and takes one Adam step
 with optax's Keras-default hyperparameters.
 
@@ -32,14 +33,16 @@ from typing import Any, Callable, Iterable, Mapping
 import numpy as np
 import torch
 
-from fedcrack_tpu_torch.configs import ModelConfig
+from fedcrack_tpu_torch.configs import ModelConfig, SegFormerConfig
 from fedcrack_tpu_torch.data.pipeline import as_model_batch, device_prefetch, normalize_images
 from fedcrack_tpu_torch.fed.algorithms import fedprox_penalty
+from fedcrack_tpu_torch.models import build_model
 from fedcrack_tpu_torch.models.convert import from_flax_variables, to_flax_variables
 from fedcrack_tpu_torch.models.resunet import BatchNorm, ResUNet
+from fedcrack_tpu_torch.models.segformer import SegFormer
 from fedcrack_tpu_torch.obs import spans as tracing
 from fedcrack_tpu_torch.obs.registry import REGISTRY
-from fedcrack_tpu_torch.ops import bce
+from fedcrack_tpu_torch.ops import attention, bce
 from fedcrack_tpu_torch.ops.bce import fused_segmentation_metrics
 
 
@@ -49,7 +52,7 @@ class TrainState:
     step's CUDA graphs (built at the first step on the card; None
     elsewhere)."""
 
-    model: ResUNet
+    model: ResUNet | SegFormer
     optimizer: torch.optim.Optimizer
     learning_rate: float
     step: int = 0
@@ -90,15 +93,16 @@ def configure_backends() -> None:
 
 def create_train_state(
     generator: torch.Generator,
-    model_config: ModelConfig | None = None,
+    model_config: ModelConfig | SegFormerConfig | None = None,
     learning_rate: float = 1e-3,
     device: torch.device | str | None = None,
 ) -> TrainState:
-    """A model with flax-style initial weights drawn from ``generator``,
-    and its optimizer, on ``device`` (CUDA unless the caller names another;
-    raises where CUDA is asked for and absent)."""
+    """A model with its initial weights drawn from ``generator`` (the U-Net
+    flax-style, SegFormer as published), and its optimizer, on ``device``
+    (CUDA unless the caller names another; raises where CUDA is asked for
+    and absent)."""
     configure_backends()
-    model = ResUNet(model_config or ModelConfig(), generator=generator, device=device)
+    model = build_model(model_config or ModelConfig(), generator=generator, device=device)
     return TrainState(model, make_optimizer(model.parameters(), learning_rate), learning_rate)
 
 
@@ -127,8 +131,11 @@ _SIDE_STREAM_LOCK = threading.Lock()
 
 class CudaGraphs:
     """The capture/replay interface on the card: warm-up and capture on
-    one side stream, one thread at a time in the process, every graph of
-    one state in one memory pool, freed with the state."""
+    one side stream, one thread at a time in the process, every graph
+    captured through it in one memory pool, freed with the last state that
+    holds it. A state's graphs take one; the slot plane's states, which
+    replay in turn on one stream, share one (``parallel.fedavg_mesh``), so
+    a round holds one step's activations, not one a slot."""
 
     def __init__(self, device: torch.device):
         self.stream = torch.cuda.Stream(device)
@@ -157,10 +164,17 @@ class CudaGraphs:
         return graph, out
 
 
+def graph_backend(device: torch.device) -> CudaGraphs | None:
+    """A capture/replay backend for states on ``device``: a new
+    :class:`CudaGraphs` (its own pool) on the card, None elsewhere."""
+    return CudaGraphs(device) if device.type == "cuda" else None
+
+
 @dataclasses.dataclass
 class _Captured:
     """One key's graph: the static inputs it reads, the metrics and
-    gradients it writes, and the ``bce_sums`` launches it holds."""
+    gradients it writes, the ``bce_sums`` launches and the attention
+    calls it holds."""
 
     images: torch.Tensor
     masks: torch.Tensor
@@ -168,6 +182,7 @@ class _Captured:
     metrics: dict | None = None
     grads: list | None = None
     launches: int = 0
+    attention_calls: dict = dataclasses.field(default_factory=dict)
 
 
 class StepGraphs:
@@ -188,7 +203,7 @@ class StepGraphs:
         entry = self._steps.get(key)
         return "eager" if entry is None else "capture" if entry.graph is None else "replay"
 
-    def run(self, key: tuple, model: ResUNet, params: list, images: torch.Tensor, masks: torch.Tensor,
+    def run(self, key: tuple, model: ResUNet | SegFormer, params: list, images: torch.Tensor, masks: torch.Tensor,
             pos_weight: float) -> dict:
         """The step's forward and backward for ``key`` by :meth:`path`,
         into the static inputs copied from ``images`` and ``masks``: the
@@ -211,11 +226,14 @@ class StepGraphs:
             return self.backend.warm_up(body)[0]
         if entry.graph is None:
             bce.take_captured_launches()
+            attention.take_captured_calls()
             entry.graph, (entry.metrics, entry.grads) = self.backend.capture(body)
             entry.launches = bce.take_captured_launches()
+            entry.attention_calls = attention.take_captured_calls()
         else:
             entry.graph.replay()
         bce.count_launches(entry.launches)
+        attention.count_calls(entry.attention_calls)
         return {k: v.clone() for k, v in entry.metrics.items()}
 
     def point_grads(self, key: tuple, params: list) -> None:
@@ -228,7 +246,7 @@ class StepGraphs:
                 p.grad = g
 
 
-def _forward_backward(model: ResUNet, params: list, images: torch.Tensor, masks: torch.Tensor,
+def _forward_backward(model: ResUNet | SegFormer, params: list, images: torch.Tensor, masks: torch.Tensor,
                       pos_weight: float) -> tuple[dict, list]:
     """The graph's body: ``(metrics, gradients)`` of one step, the
     gradients computed from None."""
@@ -240,15 +258,17 @@ def _forward_backward(model: ResUNet, params: list, images: torch.Tensor, masks:
     return {k: v.detach() for k, v in metrics.items()}, [p.grad for p in params]
 
 
-def _graph_key(model: ResUNet, params: list, images: torch.Tensor, masks: torch.Tensor, pos_weight: float) -> tuple:
+def _graph_key(model: ResUNet | SegFormer, params: list, images: torch.Tensor, masks: torch.Tensor,
+               pos_weight: float) -> tuple:
     return (tuple(images.shape), images.dtype, tuple(masks.shape), masks.dtype, float(pos_weight),
             tuple(t.data_ptr() for t in params), tuple(t.data_ptr() for t in model.buffers()))
 
 
 def _step_graphs(state: TrainState) -> StepGraphs | None:
-    """The state's graphs, made at its first step on the card."""
+    """The state's graphs, made at its first step on the card with a
+    backend of their own unless the state was given graphs."""
     if state.graphs is None and state.device.type == "cuda":
-        state.graphs = StepGraphs(CudaGraphs(state.device))
+        state.graphs = StepGraphs(graph_backend(state.device))
     return state.graphs
 
 
@@ -292,8 +312,11 @@ def train_step(
     ``graph`` is ``eager``, ``capture`` or ``replay``), ``train.backward``
     (``zero_grad``, the backward pass and ``after_backward``; on the graph
     path the gradients pointed at) and ``train.optimizer`` (the Adam
-    step). ``train_step_graph_total{path}`` counts the steps by path."""
+    step). ``train_step_graph_total{path}`` counts the steps by path.
+    ``model`` on ``train.forward`` names the model (``resunet`` or
+    ``segformer``)."""
     model = state.model
+    name = "segformer" if isinstance(model, SegFormer) else "resunet"
     graphs = None
     if forward is None and after_backward is None and metrics_fn is None and mu == 0.0:
         graphs = _step_graphs(state)
@@ -302,14 +325,14 @@ def train_step(
         params = list(model.parameters())
         key = _graph_key(model, params, images, masks, pos_weight)
         path = graphs.path(key)
-        with tracing.span("train.forward", step=state.step, graph=path):
+        with tracing.span("train.forward", step=state.step, graph=path, model=name):
             metrics = graphs.run(key, model, params, images, masks, pos_weight)
         with tracing.span("train.backward"):
             graphs.point_grads(key, params)
         loss = metrics["loss"]
     else:
         path = "eager"
-        with tracing.span("train.forward", step=state.step, graph=path):
+        with tracing.span("train.forward", step=state.step, graph=path, model=name):
             images, masks = as_model_batch(*_device_batch(batch, state.device))
             model.train()
             logits = model(images) if forward is None else forward(model, images)

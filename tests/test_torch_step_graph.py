@@ -518,3 +518,91 @@ def test_captured_launches_are_the_capturing_threads(monkeypatch):
     assert not any(t.is_alive() for t in threads)
     assert took == {"capturing": 1, "eager": 0}
     assert bce.bce_sums.launches - start == 2
+
+
+def _shared_backend(monkeypatch) -> list:
+    """``fedavg_mesh.graph_backend`` replaced by one that makes a fake a
+    call and keeps them."""
+    from fedcrack_tpu_torch.parallel import fedavg_mesh
+
+    made: list = []
+
+    def backend(device):
+        made.append(FakeGraphs())
+        return made[-1]
+
+    monkeypatch.setattr(fedavg_mesh, "graph_backend", backend)
+    return made
+
+
+def test_slot_states_share_one_graph_backend(monkeypatch):
+    """The segmented round keeps a state a slot; their step graphs share
+    the round's one capture backend (on the card one memory pool, since
+    the slots replay in turn on one stream), each state with its own
+    graphs: a warm-up and a capture a state, through the one backend."""
+    from fedcrack_tpu_torch.models.resunet import init_variables
+    from fedcrack_tpu_torch.parallel import make_mesh
+    from fedcrack_tpu_torch.parallel.fedavg_mesh import build_federated_round_segments
+
+    made = _shared_backend(monkeypatch)
+    seg = build_federated_round_segments(make_mesh(3, 1, device="cpu"), _cfg(), local_epochs=1)
+    images, masks = _round_inputs(3, 2, 1)[0]
+    seg(init_variables(torch.Generator().manual_seed(0), _cfg()), images, masks, np.ones(3, np.float32),
+        np.full(3, 4.0, np.float32))
+    workers = seg.fit._workers
+    assert len(made) == 1 and len(workers) == 3
+    assert all(w.graphs.backend is made[0] for w in workers)
+    assert len({id(w.graphs) for w in workers}) == 3
+    assert made[0].warm_ups == 3 and len(made[0].graphs) == 3
+
+
+def test_a_state_outside_the_plane_keeps_a_backend_of_its_own(monkeypatch):
+    """``train_step`` gives a state with no graphs a backend of its own
+    (``graph_backend``): ``local_fit``'s client state on the card."""
+    from fedcrack_tpu_torch.train import local
+
+    made = []
+    monkeypatch.setattr(local, "graph_backend", lambda device: made.append(FakeGraphs()) or made[-1])
+    states = [_state(graphed=False) for _ in range(2)]
+    for state in states:
+        monkeypatch.setattr(type(state), "device", property(lambda self: torch.device("cuda")))
+        local._step_graphs(state)
+    assert len(made) == 2 and [s.graphs.backend for s in states] == made
+
+
+@pytest.mark.parametrize("form", ["segmented", "cohort"])
+def test_shared_backend_rounds_bitwise_equal_eager_rounds(monkeypatch, form):
+    """The U-Net's segmented round (a state a slot) and cohort round (five
+    clients in groups of three) over two rounds, every slot's steps on the
+    round's one shared fake backend, against the same rounds eager (no
+    backend on the CPU): the globals and metrics bit for bit."""
+    from fedcrack_tpu_torch.fed.pytree import tree_leaves
+    from fedcrack_tpu_torch.models.resunet import init_variables
+    from fedcrack_tpu_torch.parallel import make_mesh
+    from fedcrack_tpu_torch.parallel.fedavg_mesh import build_federated_cohort_round, build_federated_round_segments
+
+    clients = 3 if form == "segmented" else 5
+    build = build_federated_round_segments if form == "segmented" else build_federated_cohort_round
+    start = init_variables(torch.Generator().manual_seed(0), _cfg())
+    inputs = _round_inputs(clients, 2, 2)
+    active = np.array([1, 0, 1, 1, 1][:clients], np.float32)
+    n = np.array([4, 4, 3, 4, 2][:clients], np.float32)
+
+    def run():
+        round_fn = build(make_mesh(3, 1, device="cpu"), _cfg(), local_epochs=1)
+        variables, metrics = start, []
+        for images, masks in inputs:
+            variables, m = round_fn(variables, images, masks, active, n)
+            metrics.append(m)
+        return variables, metrics
+
+    eager_vars, eager_metrics = run()
+    before = _counts()
+    made = _shared_backend(monkeypatch)
+    graph_vars, graph_metrics = run()
+    assert len(made) == 1 and made[0].warm_ups == 3 and len(made[0].graphs) == 3
+    steps = 2 * 2 * (3 if form == "segmented" else 6)
+    assert _delta(before) == {"eager": 3, "capture": 3, "replay": steps - 6}
+    assert [_bits(t) for t in tree_leaves(graph_vars)] == [_bits(t) for t in tree_leaves(eager_vars)]
+    for g, w in zip(graph_metrics, eager_metrics):
+        assert all(_bits(g[k]) == _bits(w[k]) for k in w)
